@@ -3,9 +3,13 @@
 Phases, each of which raises on failure:
 
 1. build the CUDA kernels from ``pygsp_tpu_torch/csrc`` (one nvcc each, in
-   parallel) into ``pygsp_tpu_torch/_build``;
+   parallel, printing registers and spills) into ``pygsp_tpu_torch/_build``,
+   then launch ``double`` (TPU kernel #4, the toolchain canary) against
+   ``x * 2``;
 2. hold each kernel against its plain PyTorch version on the card, in f32
-   (and once in f64);
+   (and once in f64): CSR, banded, the windowed fold and strip (including
+   ``window_rows=256`` and a span-4 matrix), and the one-hot fold at TPU
+   kernel #3's shape;
 3. path A, the README path at the bench size: Barabási–Albert N=2^20
    (m0 = m = 8, about 16.8M stored edges) → ``Graph`` → ``estimate_lmax`` →
    ``Heat(scale=[5, 10, 25, 50]).filter(x, order=30)`` with x (N, 128) f32,
@@ -13,7 +17,12 @@ Phases, each of which raises on failure:
 4. path B, the banded path: ``Grid2d(512, 512)`` → ``L.to_banded()`` →
    ``cheby_op`` through the banded SpMM kernel, checked against the CSR
    path and the SciPy f64 recurrence;
-5. one JSON line of per-kernel numbers (times from CUDA events, bounds
+5. path C, the bench path of the JAX package (``bench.py:162-185``): the
+   same graph as path A with ``compute_laplacian(fmt='windowed')``, λmax
+   and the heat bank through the windowed fold and strip kernels, checked
+   against the SciPy f64 recurrence; then the one-hot fold at TPU kernel
+   #2's probe shape, with row ids from this matrix;
+6. one JSON line of per-kernel numbers (times from CUDA events, bounds
    from the H100 SXM data sheet), the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
@@ -32,6 +41,9 @@ import torch
 
 import pygsp_tpu_torch as gsp
 from pygsp_tpu_torch.core import _cuda, banded_kernel, csr_kernel
+from pygsp_tpu_torch.core import chunked
+from pygsp_tpu_torch.core import windowed as wd
+from pygsp_tpu_torch.core import windowed_kernel as wk
 from pygsp_tpu_torch.ops.chebyshev import cheby_coeff, cheby_op
 
 # H100 SXM data sheet: HBM rate and FP32 rate outside the tensor cores.
@@ -50,10 +62,16 @@ N_CHECK_COLS = 8
 # another order than the plain version; the recurrence is held against f64.
 TOL_CSR = 1e-5
 TOL_BANDED = 1e-4
+TOL_WINDOWED = 1e-5
+TOL_FOLD = 1e-6         # f32 sums of bf16 products, another order
 TOL_PATH = 1e-4
 TOL_F64 = 1e-12
 
-KERNELS = (csr_kernel.csr_spmm, banded_kernel.banded_spmm)
+# TPU kernel #2's probe shape (PALLAS_FOLD_r5.json, p=4) and #3's shape
+FOLD2_NW, FOLD2_LT, FOLD2_KP = 1024, 1152, 256
+FOLD3_LT, FOLD3_KP = 512, 256
+
+KERNELS = (csr_kernel.csr_spmm, banded_kernel.banded_spmm) + wk.KERNELS
 
 
 def log(*args):
@@ -63,6 +81,22 @@ def log(*args):
 def reset_counts():
     for k in KERNELS:
         k.launches = 0
+
+
+def counts():
+    """Every kernel's launch count, by name."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def run_bank(bank):
+    """One bank, with every kernel's launches on the path so far and in
+    the bank alone, both read just after it: ``(out, launches,
+    per_bank)``."""
+    before = counts()
+    out = bank()
+    torch.cuda.synchronize()
+    launches = counts()
+    return out, launches, {k: launches[k] - before[k] for k in launches}
 
 
 def time_ms(fn, iters):
@@ -141,15 +175,27 @@ def symmetric_from_edges(src, tgt, n, weights=None):
 # ---------------------------------------------------------------------------
 
 def phase_build():
-    log('phase 1: build')
+    log('phase 1: build, then the canary kernel #4')
     t0 = time.time()
-    outputs = _cuda.build(['csr_spmm', 'banded_spmm'],
+    outputs = _cuda.build(['csr_spmm', 'banded_spmm', 'windowed_fold'],
                           extra_flags=('-Xptxas', '-v'))
     log(f'  built in {time.time() - t0:.1f} s')
     for name, out in outputs.items():
         for line in out.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if ('Compiling entry' in line or 'registers' in line
+                    or 'spill' in line):
                 log(f'  {name}: {line.strip()}')
+    x = torch.arange(8 * 128, dtype=torch.float32, device='cuda').reshape(
+        8, 128)
+    y = wk.double(x)
+    check('double (#4) vs x * 2', y, wk.double_plain(x), 0.0)
+    max_abs_err = float((y - wk.double_plain(x)).abs().max())
+    ms = time_ms(lambda: wk.double(x), 100)
+    return {'max_abs_err': max_abs_err, 'ms': ms,
+            'plain_ms': time_ms(lambda: wk.double_plain(x), 100),
+            'library_ms': time_ms(lambda: torch.mul(x, 2), 100),
+            'library': 'torch.mul(x, 2)',
+            **bound(2 * x.numel() * 4, x.numel()), 'shape': list(x.shape)}
 
 
 def phase_kernels():
@@ -181,6 +227,73 @@ def phase_kernels():
                 check(f'banded b={b} S={s} {dtype}',
                       banded_kernel.banded_spmm(B.tiles, x, n),
                       banded_kernel.banded_spmm_plain(B.tiles, x, n), tol)
+    return phase_windowed_kernels(W)
+
+
+def check_windowed(name, M, s, dtype, tol):
+    """Fold and strip kernels of the windowed matrix M against their plain
+    versions at width s."""
+    kp = M.borrow_span * M.window_rows
+    x = seeded_normal((M.n_cols, s), s, dtype=dtype)
+    t = wk.windowed_fold(M.cols, M.vals, M.rowid, x, M.chunk_rows, kp)
+    t_plain = wk.windowed_fold_plain(M.cols, M.vals, M.rowid, x,
+                                     M.chunk_rows, kp)
+    check(f'windowed_fold {name} S={s} {dtype}', t, t_plain, tol)
+    check(f'window_strip {name} S={s} {dtype}',
+          wk.window_strip(t, M.n_rows, M.window_rows),
+          wk.window_strip_plain(t_plain, M.n_rows, M.window_rows), tol)
+
+
+def phase_windowed_kernels(W):
+    """The windowed kernels on the phase's BA 2^16 graph (default packing,
+    ``window_rows=256`` for an S tile of 64 and int32 row ids, span 4), and
+    the one-hot fold at #3's shape."""
+    for dtype, widths, tol in ((torch.float32, (128, 5, 1), TOL_WINDOWED),
+                               (torch.float64, (5,), TOL_F64)):
+        M = wd.windowed_from_scipy(W, dtype=dtype, device='cuda')
+        log(f'  windowed N=2^16 {dtype}: slabs {tuple(M.cols.shape)}, '
+            f'span {M.borrow_span}, {len(M.levels)} level tiers')
+        for s in widths:
+            check_windowed('N=2^16', M, s, dtype, tol)
+    for name, kw in (('P=256', dict(window_rows=256)),
+                     ('span 4', dict(borrow_span=4))):
+        M = wd.windowed_from_scipy(W, dtype=torch.float32, device='cuda',
+                                   **kw)
+        log(f'  windowed {name}: slabs {tuple(M.cols.shape)}, row ids '
+            f'{M.rowid.dtype}, S tile '
+            f'{wk.fold_tile(M.borrow_span * M.window_rows, 128, 4)}')
+        check_windowed(name, M, 128, torch.float32, TOL_WINDOWED)
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    rid = torch.randint(0, FOLD3_KP, (1, FOLD3_LT), dtype=torch.int32,
+                        device='cuda', generator=gen)
+    p = seeded_normal((1, FOLD3_LT, 128), 4).to(torch.bfloat16)
+    return measure_fold(rid, p, FOLD3_KP, 100)
+
+
+def measure_fold(rid, p, kp, iters):
+    """``fold_products`` against its plain version, and its times beside
+    the library yardstick: one ``index_add_`` of the products, cast to f32
+    beforehand (the cast is not timed)."""
+    nw, lt, s = p.shape
+    out = wk.fold_products(rid, p, kp)
+    out_plain = wk.fold_products_plain(rid, p, kp)
+    max_abs_err = float((out - out_plain).abs().max())
+    check(f'fold_products NW={nw} Lt={lt} KP={kp} {p.dtype}', out, out_plain,
+          TOL_FOLD)
+    del out_plain
+    p32 = p.float().reshape(-1, s)
+    dst = (torch.arange(nw, device=p.device)[:, None] * kp
+           + rid).reshape(-1).long()
+    acc = torch.zeros(nw * kp, s, device=p.device)
+    return {'max_abs_err': max_abs_err,
+            'ms': time_ms(lambda: wk.fold_products(rid, p, kp), iters),
+            'plain_ms': time_ms(lambda: wk.fold_products_plain(rid, p, kp),
+                                max(iters // 10, 2)),
+            'library_ms': time_ms(lambda: acc.index_add_(0, dst, p32), iters),
+            'library': 'index_add_ of the products cast to f32 beforehand',
+            **bound(rid.numel() * 4 + p.numel() * p.element_size()
+                    + out.numel() * 4, p.numel()),
+            'shape': {'NW': nw, 'Lt': lt, 'KP': kp, 'S': s}}
 
 
 def measure_csr(A, x):
@@ -242,26 +355,28 @@ def measure_banded(B, x):
     }
 
 
-def validate_path(name, L, lmax, evaluate, x, out):
-    """8 columns of ``out`` (Nf, N, S) against the SciPy f64 recurrence."""
+def validate_path(name, L_host, lmax, evaluate, x, out):
+    """8 columns of ``out`` (Nf, N, S) against the SciPy f64 recurrence on
+    the scipy Laplacian ``L_host``."""
     c64 = cheby_coeff(evaluate, lmax, m=ORDER, dtype=torch.float64,
                       device='cpu').numpy()
     x8 = x[:, :N_CHECK_COLS].double().cpu().numpy()
     t0 = time.time()
-    ref = scipy_recurrence(L.to_scipy(), lmax, c64, x8)
+    ref = scipy_recurrence(L_host, lmax, c64, x8)
     log(f'  scipy f64 reference: {time.time() - t0:.1f} s')
     return check(f'path {name} vs scipy f64', out[:, :, :N_CHECK_COLS].cpu(),
                  torch.from_numpy(ref), TOL_PATH)
 
 
 # ---------------------------------------------------------------------------
-# the two paths, set up through the entry points a user calls (also used by
-# tools/profile_torch_port.py, so both measure the same work)
+# the three paths, set up through the entry points a user calls (also used
+# by tools/profile_torch_port.py, so both measure the same work)
 # ---------------------------------------------------------------------------
 
-def path_a():
-    """Path A: the BA graph of bench.py, its λmax and the heat bank.
-    Returns ``(G, g, x, bank)``, ``bank()`` filtering x (N, 128) f32."""
+def bench_graph(fmt):
+    """The BA graph of bench.py:53-58 with its Laplacian in ``fmt``, its
+    λmax and the heat bank. Returns ``(G, g, x, bank)``, ``bank()``
+    filtering x (N, 128) f32."""
     t0 = time.time()
     src, tgt = gsp.graphs.ba_edges_fast(N_BA, m0=M_ATTACH, m=M_ATTACH, seed=42)
     W = symmetric_from_edges(src, tgt, N_BA)
@@ -271,11 +386,27 @@ def path_a():
     G = gsp.graphs.Graph(W)
     torch.cuda.synchronize()
     log(f'  Graph(W) in {time.time() - t0:.1f} s')
+    if fmt != 'coo':
+        t0 = time.time()
+        G.compute_laplacian(fmt=fmt)
+        torch.cuda.synchronize()
+        log(f'  compute_laplacian(fmt={fmt!r}) in {time.time() - t0:.1f} s')
     t0 = time.time()
     G.estimate_lmax()
     log(f'  estimate_lmax: {G.lmax:.6f} in {time.time() - t0:.1f} s')
     g = gsp.filters.Heat(G, scale=SCALES)
     return G, g, x, lambda: g.filter(x, method='chebyshev', order=ORDER)
+
+
+def path_a():
+    """Path A: the bench graph in the CSR format (the default)."""
+    return bench_graph('coo')
+
+
+def path_c():
+    """Path C: the bench graph in the windowed-compact format, as the JAX
+    package's bench.py:162-185 runs it."""
+    return bench_graph('windowed')
 
 
 def path_b():
@@ -307,18 +438,14 @@ def phase_path_a():
     log(f'  row degrees: mean {degree.mean():.2f}, max {degree.max()}; '
         f'{hubs.sum()} rows above 1024 hold '
         f'{degree[hubs].sum() / degree.sum():.2%} of the edges')
-    before = csr_kernel.csr_spmm.launches
-    out = bank()
-    torch.cuda.synchronize()
-    per_bank = csr_kernel.csr_spmm.launches - before
-    launches = csr_kernel.csr_spmm.launches
-    log(f'  csr_spmm launches: {launches} on the path, {per_bank} per bank')
-    if per_bank < ORDER:
-        raise AssertionError(f'CSR kernel launched {per_bank} < {ORDER} '
-                             f'times in one bank')
+    out, launches, per_bank = run_bank(bank)
+    log(f'  launches on the path {launches}, per bank {per_bank}')
+    if per_bank['csr_spmm'] < ORDER:
+        raise AssertionError(f'CSR kernel launched {per_bank["csr_spmm"]} < '
+                             f'{ORDER} times in one bank')
     if tuple(out.shape) != (N_BA, N_SIGNALS, len(SCALES)):
         raise AssertionError(f'path A output shape {tuple(out.shape)}')
-    rel_err = validate_path('A', G.L, G.lmax, g.evaluate, x,
+    rel_err = validate_path('A', G.L.to_scipy(), G.lmax, g.evaluate, x,
                             out.permute(2, 0, 1))
     del out
 
@@ -327,41 +454,160 @@ def phase_path_a():
     log(f'  {ms_bank:.3f} ms per bank, '
         f'{ORDER * nnz * N_SIGNALS / (ms_bank / 1e3):.4e} edge-ops/s')
     kernel = measure_csr(G.L.offdiag, x)
-    kernel.update(launches=launches, launches_per_bank=per_bank,
-                  max_row_nnz=int(degree.max()))
+    kernel.update(max_row_nnz=int(degree.max()))
     path = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'nnz': nnz,
             'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
             'lmax': G.lmax}
-    return kernel, path
+    return kernel, path, (launches, per_bank)
 
 
 def phase_path_b():
     log(f'phase 4: path B, Grid2d({GRID_SIDE}, {GRID_SIDE}), banded kernel')
     reset_counts()
     G, Lb, g, c, x, bank = path_b()
-    before = banded_kernel.banded_spmm.launches
-    out = bank()
-    torch.cuda.synchronize()
-    per_bank = banded_kernel.banded_spmm.launches - before
-    launches = banded_kernel.banded_spmm.launches
-    log(f'  banded_spmm launches: {launches} on the path, {per_bank} per bank')
-    if per_bank < ORDER:
-        raise AssertionError(f'banded kernel launched {per_bank} < {ORDER} '
-                             f'times in one bank')
+    out, launches, per_bank = run_bank(bank)
+    log(f'  launches on the path {launches}, per bank {per_bank}')
+    if per_bank['banded_spmm'] < ORDER:
+        raise AssertionError(f'banded kernel launched '
+                             f'{per_bank["banded_spmm"]} < {ORDER} times in '
+                             f'one bank')
     if tuple(out.shape) != (len(SCALES), G.N, N_SIGNALS):
         raise AssertionError(f'path B output shape {tuple(out.shape)}')
     check('path B banded vs CSR path', out, cheby_op(G.L, G.lmax, c, x),
           TOL_PATH)
-    rel_err = validate_path('B', G.L, G.lmax, g.evaluate, x, out)
+    rel_err = validate_path('B', G.L.to_scipy(), G.lmax, g.evaluate, x,
+                            out)
     del out
 
     ms_bank = time_ms(bank, 3)
     log(f'  {ms_bank:.3f} ms per bank')
     kernel = measure_banded(Lb.offdiag, x)
-    kernel.update(launches=launches, launches_per_bank=per_bank)
     path = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'n': G.N,
             'lmax': G.lmax}
-    return kernel, path
+    return kernel, path, (launches, per_bank)
+
+
+def measure_windowed(G, x):
+    """Fold, strip and whole-SpMM times at path C's shape (x in the matrix's
+    internal order, as the bank runs them), against their plain versions,
+    and the yardsticks on the same shuffled matrix in CSR:
+    ``torch.sparse.mm`` and the port's CSR kernel."""
+    M = G.L.offdiag
+    R, P, K = M.chunk_rows, M.window_rows, M.borrow_span
+    n, s = M.n_rows, x.shape[1]
+    xp = chunked.permute_in(M, x)
+    args = (M.cols, M.vals, M.rowid, xp, R, K * P)
+    t = wk.windowed_fold(*args)
+    t_plain = wk.windowed_fold_plain(*args)
+    fold_err = float((t - t_plain).abs().max())
+    check('windowed_fold at path C shape', t, t_plain, TOL_WINDOWED)
+    del t_plain
+    y_plain = wk.window_strip_plain(t, n, P)
+    y = wk.window_strip(t, n, P)
+    strip_err = float((y - y_plain).abs().max())
+    check('window_strip at path C shape', y, y_plain, TOL_WINDOWED)
+    del y, y_plain
+    fold_ms = time_ms(lambda: wk.windowed_fold(*args), 10)
+    fold_plain_ms = time_ms(lambda: wk.windowed_fold_plain(*args), 2)
+    strip_ms = time_ms(lambda: wk.window_strip(t, n, P), 20)
+    strip_plain_ms = time_ms(lambda: wk.window_strip_plain(t, n, P), 5)
+    spmm_ms = time_ms(lambda: wd.spmm_internal(M, xp), 10)
+
+    # the same matrix in CSR, in the same shuffled order
+    coo = G.W.tocoo()
+    iperm = M.iperm.cpu().numpy()
+    A = gsp.core.from_coo(iperm[coo.row], iperm[coo.col], -coo.data, n,
+                          device='cuda')
+    lib = torch.sparse_csr_tensor(A.rowptr, A.cols[:A.nnz], A.vals[:A.nnz],
+                                  size=A.shape)
+    check('torch.sparse.mm on the shuffled CSR vs the windowed SpMM',
+          torch.sparse.mm(lib, xp), wd.spmm_internal(M, xp), TOL_WINDOWED)
+    library_ms = time_ms(lambda: torch.sparse.mm(lib, xp), 10)
+    csr_ms = time_ms(
+        lambda: csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals, xp), 10)
+    del lib, A
+
+    item = x.element_size()
+    live = int((M.cols < R).sum())
+    slot_bytes = M.n_slots * (4 + item + M.rowid.element_size())
+    level_slots = sum(lev.cols.numel() for lev in M.levels)
+    level_bytes = (level_slots * (4 + item)
+                   + M.level_rows.numel() * M.level_rows.element_size())
+    spmm_bytes = 2 * n * s * item + slot_bytes + level_bytes
+    spmm = {'ms': spmm_ms, **bound(spmm_bytes, 2 * M.nnz * s),
+            'bound_gather_ms': ((live + level_slots) * s * item + n * s * item
+                                + slot_bytes + level_bytes)
+            / HBM_BYTES_PER_S * 1e3,
+            'library_ms': library_ms,
+            'csr_spmm_same_matrix_ms': csr_ms}
+    fold = {'max_abs_err': fold_err, 'ms': fold_ms, 'plain_ms': fold_plain_ms,
+            'library_ms': library_ms,
+            'library': 'torch.sparse.mm on the CSR of the same shuffled '
+                       'matrix (the whole SpMM: fold + strip + levels)',
+            **bound(n * s * item + slot_bytes + t.numel() * item,
+                    2 * live * s),
+            'bound_gather_ms': (live * s * item + slot_bytes
+                                + t.numel() * item) / HBM_BYTES_PER_S * 1e3,
+            'live_slots': live, 'slots': M.n_slots, 's': s}
+    strip = {'max_abs_err': strip_err, 'ms': strip_ms,
+             'plain_ms': strip_plain_ms, 'library_ms': None,
+             **bound(t.numel() * item + n * s * item, (K - 1) * n * s),
+             'window_tensor_bytes': t.numel() * item}
+    return fold, strip, spmm
+
+
+def measure_fold_products(M):
+    """The one-hot fold at TPU kernel #2's probe shape: row ids of path C's
+    first out chunk, bf16 products from a seed, f32 out."""
+    nw, n_src, L = M.cols.shape[1:]
+    lt = n_src * L
+    if (nw, lt) != (FOLD2_NW, FOLD2_LT):
+        raise AssertionError(f'path C windows are ({nw}, {lt}), not '
+                             f'#2\'s ({FOLD2_NW}, {FOLD2_LT})')
+    rid = M.rowid[0].reshape(nw, lt).to(torch.int32).contiguous()
+    p = seeded_normal((nw, lt, 128), 5).to(torch.bfloat16)
+    return measure_fold(rid, p, FOLD2_KP, 20)
+
+
+def phase_path_c():
+    log(f'phase 5: path C, BarabasiAlbert N={N_BA}, windowed kernels')
+    reset_counts()
+    G, g, x, bank = path_c()
+    M = G.L.offdiag
+    level_slots = sum(lev.cols.numel() for lev in M.levels)
+    layout = {'slabs': list(M.cols.shape), 'slots': M.n_slots,
+              'padding': M.n_slots / M.nnz, 'level_slots': level_slots,
+              'level_tiers': len(M.levels),
+              'level_rows': M.level_rows.numel(),
+              'chunk_rows': M.chunk_rows, 'window_rows': M.window_rows,
+              'borrow_span': M.borrow_span, 'rowid': str(M.rowid.dtype)}
+    log(f'  layout: {json.dumps(layout)}')
+    out, launches, per_bank = run_bank(bank)
+    log(f'  launches on the path {launches}, per bank {per_bank}')
+    for name in ('windowed_fold', 'window_strip'):
+        if per_bank[name] < ORDER:
+            raise AssertionError(f'{name} launched {per_bank[name]} < {ORDER} '
+                                 f'times in one bank')
+    if per_bank['csr_spmm']:
+        raise AssertionError('the CSR kernel ran inside the windowed bank')
+    if tuple(out.shape) != (N_BA, N_SIGNALS, len(SCALES)):
+        raise AssertionError(f'path C output shape {tuple(out.shape)}')
+    L_host = sps.diags(G.dw) - G.W         # independent of the windowed format
+    rel_err = validate_path('C', L_host, G.lmax, g.evaluate, x,
+                            out.permute(2, 0, 1))
+    del out
+
+    ms_bank = time_ms(bank, 3)
+    nnz = M.nnz
+    log(f'  {ms_bank:.3f} ms per bank, '
+        f'{ORDER * nnz * N_SIGNALS / (ms_bank / 1e3):.4e} edge-ops/s')
+    fold, strip, spmm = measure_windowed(G, x)
+    log(f'  SpMM at path C: {json.dumps(spmm)}')
+    fold2 = measure_fold_products(M)
+    path = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'nnz': nnz,
+            'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
+            'lmax': G.lmax, 'layout': layout, 'spmm': spmm}
+    return fold, strip, fold2, path, (launches, per_bank)
 
 
 def main():
@@ -374,12 +620,14 @@ def main():
         f'{torch.cuda.get_device_name(0)}')
     t_start = time.time()
 
-    phase_build()
-    phase_kernels()
-    csr, path_a = phase_path_a()
+    double = phase_build()
+    fold3 = phase_kernels()
+    csr, path_a, counts_a = phase_path_a()
     torch.cuda.empty_cache()
-    banded, path_b = phase_path_b()
-    log(f'paths: {json.dumps({"A": path_a, "B": path_b})}')
+    banded, path_b, counts_b = phase_path_b()
+    torch.cuda.empty_cache()
+    fold, strip, fold2, path_c, counts_c = phase_path_c()
+    log(f'paths: {json.dumps({"A": path_a, "B": path_b, "C": path_c})}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')
 
@@ -390,12 +638,39 @@ def main():
     banded.update(name='banded_spmm', route='cuda',
                   source='pygsp_tpu_torch/csrc/banded_spmm.cu',
                   replaces='pygsp_tpu/ops/pallas_banded.py:69')
+    source = 'pygsp_tpu_torch/csrc/windowed_fold.cu'
+    fold.update(name='windowed_fold', route='cuda', source=source,
+                replaces='benchmarks/pallas_fold_probe.py:103 (#2, the '
+                         'one-hot fold) with the gather of '
+                         'pygsp_tpu/core/windowed.py:298-303')
+    strip.update(name='window_strip', route='cuda', source=source,
+                 replaces='pygsp_tpu/core/windowed.py:336-345 (XLA '
+                          'overlap-add, no Pallas kernel)')
+    fold2.update(name='fold_products', route='cuda', source=source,
+                 at_shape_of_3=fold3,
+                 replaces='benchmarks/pallas_fold_probe.py:103 (#2); at '
+                          'NW=1 benchmarks/pallas_smoke.py:52 (#3)')
+    double.update(name='double', route='cuda', source=source,
+                  replaces='benchmarks/pallas_smoke.py:28 (#4)')
+    # launches as counted in each path's own run; a kernel's `launches` is
+    # that of the path it serves, or the sum over the three paths for the
+    # kernels that serve none (fold_products, double)
+    by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c}
+    for kernel, path in ((csr, 'A'), (banded, 'B'), (fold, 'C'),
+                         (strip, 'C'), (fold2, None), (double, None)):
+        name = kernel['name']
+        paths = [path] if path else list(by_path)
+        kernel.update(
+            launches=sum(by_path[p][0][name] for p in paths),
+            launches_per_bank=sum(by_path[p][1][name] for p in paths),
+            launches_by_path={p: by_path[p][0][name] for p in by_path})
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    print(json.dumps({'kernels': [csr, banded]}), flush=True)
+    print(json.dumps({'kernels': [csr, banded, fold, strip, fold2, double]}),
+          flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -7,9 +7,10 @@ follow the JAX package: ``pygsp_tpu_torch.graphs``, ``.filters``, ``.ops``,
 caller asks for the CPU; the SpMMs run hand-written CUDA kernels
 (``csrc/``) on the card and their plain PyTorch versions on the CPU.
 
-This first slice covers the Chebyshev heat-filtering path: ``Graph`` with
-its Laplacian and λmax, ``Grid2d``, ``BarabasiAlbert``, ``Logo``, ``Filter``
-and ``Heat``.
+The first two slices cover the Chebyshev heat-filtering path: ``Graph``
+with its Laplacian and λmax, ``Grid2d``, ``BarabasiAlbert``, ``Logo``,
+``Filter`` and ``Heat``, on the CSR, block-banded and windowed-compact
+storage formats.
 """
 
 from pygsp_tpu_torch import core

@@ -3,8 +3,10 @@
 The operators are this system's state: a graph's Laplacian, held by the
 JAX package as pytrees of arrays plus static ints. These functions take
 those leaves as numpy arrays (``np.asarray`` of each JAX leaf) and the
-ints, and build the port's :class:`CSRMatrix`, :class:`BandedMatrix` and
-:class:`LaplacianOp` on ``device``. Nothing here imports JAX.
+ints, and build the port's :class:`CSRMatrix`, :class:`BandedMatrix`,
+:class:`WindowedELLMatrix` and :class:`LaplacianOp` on ``device``. Nothing
+here imports JAX. The kernels read without bounds checks, so leaves from
+outside are checked first.
 
 Example::
 
@@ -19,8 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pygsp_tpu_torch.core import windowed
+from pygsp_tpu_torch.core.chunked import ChunkLevel
 from pygsp_tpu_torch.core.operators import LaplacianOp
 from pygsp_tpu_torch.core.sparse import BandedMatrix, CSRMatrix
+from pygsp_tpu_torch.core.windowed import WindowedELLMatrix
 
 
 def _tensor(a, device, dtype=None):
@@ -64,12 +69,93 @@ def banded_from_numpy(leaves: dict, device='cuda') -> BandedMatrix:
         nnz=int(leaves['nnz']), half_bw=int(leaves['half_bw']))
 
 
+_WINDOWED_INTS = ('n_rows', 'n_cols', 'nnz', 'chunk_rows', 'window_rows',
+                  'borrow_span')
+
+
+def _check_local_cols(cols, src_chunk, R, n_cols, what):
+    """Slot columns local to a source chunk: the sentinel ``R`` or a row of
+    the chunk (``c·R + col < n_cols``); ``src_chunk`` broadcasts to cols."""
+    if cols.size and (cols.min() < 0 or cols.max() > R):
+        raise ValueError(f'{what} cols must lie in [0, chunk_rows = {R}]')
+    if np.any((cols < R) & (src_chunk * R + cols >= n_cols)):
+        raise ValueError(f'{what} cols out of range for {n_cols} columns')
+
+
+def _check_windowed(leaves: dict, levels):
+    n_rows, n_cols, _, R, P, K = (int(leaves[k]) for k in _WINDOWED_INTS)
+    cols = np.asarray(leaves['cols'])
+    if (cols.ndim != 4 or np.shape(leaves['vals']) != cols.shape
+            or np.shape(leaves['rowid']) != cols.shape):
+        raise ValueError('cols, vals and rowid must be (n_out, NW, n_src, L) '
+                         'slabs of one shape')
+    n_out, nw, n_src = cols.shape[:3]
+    if P < 1 or K < 2 or R != nw * P:
+        raise ValueError(f'chunk_rows = {R} must be NW·window_rows = '
+                         f'{nw}·{P}, with borrow_span = {K} >= 2')
+    if (n_out, n_src) != (max(-(-n_rows // R), 1), max(-(-n_cols // R), 1)):
+        raise ValueError(f'{n_out} out and {n_src} source chunks of {R} rows '
+                         f'do not cover a ({n_rows}, {n_cols}) matrix')
+    _check_local_cols(cols, np.arange(n_src)[:, None], R, n_cols, 'slab')
+    rowid = np.asarray(leaves['rowid'])
+    if rowid.size and (rowid.min() < 0 or rowid.max() >= K * P):
+        raise ValueError(f'rowid must lie in [0, borrow_span·window_rows = '
+                         f'{K * P})')
+    level_rows = np.asarray(leaves['level_rows'])
+    if level_rows.shape != (sum(lev.cols.shape[0] for lev in levels),):
+        raise ValueError('level_rows must hold one row per tier entry')
+    if level_rows.size and (level_rows.min() < 0
+                            or level_rows.max() >= n_rows):
+        raise ValueError(f'level_rows out of range for {n_rows} rows')
+    for lev in levels:
+        if (lev.cols.ndim != 2 or lev.vals.shape != lev.cols.shape
+                or not 0 <= lev.src_chunk < n_src):
+            raise ValueError('each level needs 2-D cols and vals of one shape '
+                             'and a src_chunk among the source chunks')
+        _check_local_cols(lev.cols, lev.src_chunk, R, n_cols, 'level')
+    if np.shape(leaves['rowptr']) != (n_rows + 1,):
+        raise ValueError(f'rowptr must have {n_rows + 1} entries')
+    perm, iperm = leaves.get('perm'), leaves.get('iperm')
+    if (perm is None) != (iperm is None):
+        raise ValueError('perm and iperm come together')
+    if perm is not None:
+        perm, iperm = np.asarray(perm), np.asarray(iperm)
+        if (n_rows != n_cols or perm.shape != (n_rows,)
+                or iperm.shape != (n_rows,)
+                or not np.array_equal(np.sort(perm), np.arange(n_rows))
+                or not np.array_equal(iperm[perm], np.arange(n_rows))):
+            raise ValueError('perm must be a permutation of the vertices of '
+                             'a square matrix and iperm its inverse')
+
+
+def windowed_from_numpy(leaves: dict, device='cuda') -> WindowedELLMatrix:
+    """Windowed leaves ``cols, vals, rowid`` (the slabs), ``levels`` (a list
+    of ``{cols, vals, src_chunk}``), ``level_rows, rowptr, perm, iperm``
+    (``perm``/``iperm`` may be None) and the ints ``n_rows, n_cols, nnz,
+    chunk_rows, window_rows, borrow_span``. ``uint8`` row ids stay so,
+    wider ones become ``int32``."""
+    levels = [ChunkLevel(cols=np.asarray(lev['cols']),
+                         vals=np.asarray(lev['vals']),
+                         src_chunk=int(lev['src_chunk']))
+              for lev in leaves['levels']]
+    _check_windowed(leaves, levels)
+    host = {k: leaves.get(k) for k in ('cols', 'vals', 'rowid', 'level_rows',
+                                       'rowptr', 'perm', 'iperm')}
+    host.update({k: leaves[k] for k in _WINDOWED_INTS}, levels=levels)
+    return windowed.upload(host, device)
+
+
 def laplacian_from_numpy(leaves: dict, device='cuda') -> LaplacianOp:
-    """``{'offdiag': <CSR or banded leaves>, 'diag': array,
+    """``{'offdiag': <CSR, banded or windowed leaves>, 'diag': array,
     'lap_type': str}`` → :class:`LaplacianOp`. The off-diagonal format is
-    told by its leaves: banded ones have ``tiles``."""
+    told by its leaves: banded ones have ``tiles``, windowed ones
+    ``rowid``."""
     off = leaves['offdiag']
-    offdiag = (banded_from_numpy(off, device) if 'tiles' in off
-               else csr_from_numpy(off, device))
+    if 'tiles' in off:
+        offdiag = banded_from_numpy(off, device)
+    elif 'rowid' in off:
+        offdiag = windowed_from_numpy(off, device)
+    else:
+        offdiag = csr_from_numpy(off, device)
     return LaplacianOp(offdiag=offdiag, diag=_tensor(leaves['diag'], device),
                        lap_type=str(leaves['lap_type']))

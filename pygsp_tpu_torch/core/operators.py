@@ -8,27 +8,44 @@ diagonal vector plus an off-diagonal sparse matrix holding **negated**
 
 so the SpMM kernel stays Laplacian-agnostic and the Chebyshev operator
 ``(2/a1)(L - a2 I)`` is one scale of the same two terms.
+
+What the iterative drivers (``cheby_op``, Lanczos) need to know about a
+format sits here, behind :meth:`LaplacianOp.hoisted`,
+:meth:`LaplacianOp.shifted_step` and :meth:`LaplacianOp.refuse_bf16_mode`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import scipy.sparse as sps
 import torch
 
 from pygsp_tpu_torch.core import sparse as sp
+from pygsp_tpu_torch.core.chunked import permute_in, permute_out
 from pygsp_tpu_torch.core.sparse import CSRMatrix
+from pygsp_tpu_torch.core.windowed import (BF16_MODES_NOT_PORTED,
+                                           WindowedELLMatrix,
+                                           windowed_from_host_coo)
 
 _NOT_PORTED = ('LaplacianOp.{}() is not ported yet: see ROADMAP.md, '
-               '"Modules to port", item 4 (the remaining storage formats)')
+               '"Modules to port", item 4 (the ELL/hybrid and chunked '
+               'formats)')
+_FORMAT_ONLY = ('{} is only supported on chunked/windowed operator formats '
+                '(the hot path)')
+
+
+def _identity(x, axis=0):
+    return x
 
 
 @dataclasses.dataclass(frozen=True)
 class LaplacianOp:
     """Sparse symmetric Laplacian ``L = diag(diag) + offdiag``.
 
-    ``offdiag`` (a :class:`CSRMatrix` or :class:`BandedMatrix`) stores
+    ``offdiag`` (a :class:`CSRMatrix`, :class:`BandedMatrix` or
+    :class:`~pygsp_tpu_torch.core.windowed.WindowedELLMatrix`) stores
     ``-w`` or ``-w/sqrt(dw_i dw_j)``, so one SpMM plus the diagonal term
     applies L exactly.
     """
@@ -68,14 +85,79 @@ class LaplacianOp:
             lap_type=self.lap_type,
         )
 
+    def hoisted(self):
+        """``(op, pin, pout)`` for an iterative driver: this operator in its
+        off-diagonal's internal vertex order, the permute of a signal into
+        that order, and ``pout(y, axis=0)`` out of it. A windowed
+        off-diagonal stores its vertices relabeled; the driver permutes once
+        in and once out instead of at every product. Without a relabeling
+        ``op`` is this operator and both permutes are the identity."""
+        off = self.offdiag
+        if not isinstance(off, WindowedELLMatrix) or off.perm is None:
+            return self, _identity, _identity
+        op = LaplacianOp(
+            offdiag=dataclasses.replace(off, perm=None, iperm=None),
+            diag=permute_in(off, self.diag), lap_type=self.lap_type)
+        return (op, functools.partial(permute_in, off),
+                functools.partial(permute_out, off))
+
+    def shifted_step(self, scale, shift):
+        """The Chebyshev recurrence step ``step(t, t_old) = scale·(L −
+        shift·I)·t − t_old`` for t (N, ...), in the JAX package's arithmetic
+        for each format: the CSR and banded formats fold the scale into a
+        scaled copy of the off-diagonal (:meth:`shifted`); the windowed
+        format applies it to the SpMM output, in place, with no scaled copy
+        of its slabs."""
+        if not isinstance(self.offdiag, WindowedELLMatrix):
+            factor = self.shifted(scale, shift)
+            return lambda t, t_old: matvec(factor, t) - t_old
+        fdiag = (self.diag - shift) * scale
+
+        def step(t, t_old):
+            fd = fdiag.reshape((-1,) + (1,) * (t.ndim - 1))
+            return (sp.spmm(self.offdiag, t).mul_(scale).addcmul_(fd, t)
+                    .sub_(t_old))
+
+        return step
+
+    def refuse_bf16_mode(self, name: str):
+        """Raise for a bf16 mode of the recurrence (``carry_dtype``,
+        ``vals_dtype``): the JAX package's ``ValueError`` on the CSR and
+        banded formats, which have none, and ``NotImplementedError`` on the
+        windowed format, where they are not ported yet."""
+        if isinstance(self.offdiag, WindowedELLMatrix):
+            raise NotImplementedError(BF16_MODES_NOT_PORTED.format(name))
+        raise ValueError(_FORMAT_ONLY.format(name))
+
     def to_hybrid(self, width=None):
         raise NotImplementedError(_NOT_PORTED.format('to_hybrid'))
 
     def to_chunked(self, chunk_rows=None, permute=None):
         raise NotImplementedError(_NOT_PORTED.format('to_chunked'))
 
-    def to_windowed(self, chunk_rows=None, window_rows=None, slab_width=None):
-        raise NotImplementedError(_NOT_PORTED.format('to_windowed'))
+    def to_windowed(self, chunk_rows: int | None = None,
+                    window_rows: int | None = None,
+                    slab_width: int | None = None) -> 'LaplacianOp':
+        """Convert the off-diagonal block to the windowed-compact format
+        (:mod:`pygsp_tpu_torch.core.windowed`): exact-packed slots folded to
+        rows per output window, the JAX package's large-graph default. The
+        builder's defaults pick the chunk and slab sizes and shuffle the
+        vertex order; the operator keeps the original order."""
+        if isinstance(self.offdiag, WindowedELLMatrix):
+            return self
+        off = self.offdiag
+        rows, cols, vals = (t[:off.nnz].cpu().numpy()
+                            for t in (off.rows, off.cols, off.vals))
+        kw = {}
+        if chunk_rows is not None:
+            kw['chunk_rows'] = chunk_rows
+        if window_rows is not None:
+            kw['window_rows'] = window_rows
+        return LaplacianOp(
+            offdiag=windowed_from_host_coo(
+                rows, cols, vals, off.n_rows, off.n_cols,
+                slab_width=slab_width, device=self.device, **kw),
+            diag=self.diag, lap_type=self.lap_type)
 
     def to_banded(self, max_half_bw: int = 16) -> 'LaplacianOp | None':
         """Convert the off-diagonal block to the block-banded format; None

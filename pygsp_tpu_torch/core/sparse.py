@@ -9,6 +9,8 @@ them.
 
 The builders run on the host (NumPy in, tensors on ``device`` out). Entry
 points default to ``device='cuda'``; the CPU is used only when asked for.
+The windowed-compact format lives in :mod:`.windowed`; :func:`spmm`,
+:func:`to_scipy` and :func:`to_dense` dispatch to it too.
 """
 
 from __future__ import annotations
@@ -19,15 +21,16 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from pygsp_tpu_torch.core import banded_kernel, csr_kernel
+from pygsp_tpu_torch.core import banded_kernel, csr_kernel, windowed
 # Rows and columns of one dense tile of the block-banded format.
 from pygsp_tpu_torch.core.banded_kernel import BAND_TILE
+from pygsp_tpu_torch.core.windowed import WindowedELLMatrix
 
 # Edge arrays are padded to a multiple of this (the JAX package's layout).
 EDGE_BLOCK = 1024
 
 _NOT_PORTED = ('{} storage is not ported yet: see ROADMAP.md, "Modules to '
-               'port", item 4 (the remaining storage formats)')
+               'port", item 4 (the ELL/hybrid and chunked formats)')
 
 
 def _round_up(x: int, m: int) -> int:
@@ -171,9 +174,12 @@ def from_dense(arr, *, dtype=None, device='cuda') -> CSRMatrix:
 
 
 def to_scipy(mat):
-    """Export a CSR or banded matrix back to scipy CSR (padding dropped)."""
+    """Export a CSR, banded or windowed matrix back to scipy CSR (padding
+    dropped, original vertex order)."""
     if isinstance(mat, BandedMatrix):
         return _banded_to_scipy(mat)
+    if isinstance(mat, WindowedELLMatrix):
+        return windowed.windowed_to_scipy(mat)
     if not isinstance(mat, CSRMatrix):
         raise NotImplementedError(_NOT_PORTED.format(type(mat).__name__))
     nnz = mat.nnz
@@ -197,7 +203,7 @@ def _banded_to_scipy(mat: 'BandedMatrix'):
 
 def to_dense(mat) -> torch.Tensor:
     """Densify on the matrix's device (small matrices only)."""
-    if isinstance(mat, BandedMatrix):
+    if isinstance(mat, (BandedMatrix, WindowedELLMatrix)):
         return torch.from_numpy(to_scipy(mat).toarray()).to(mat.device)
     if not isinstance(mat, CSRMatrix):
         raise NotImplementedError(_NOT_PORTED.format(type(mat).__name__))
@@ -215,11 +221,14 @@ def to_dense(mat) -> torch.Tensor:
 def spmm(mat, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` for x of shape (n_cols,) or (n_cols, ...).
 
-    CSR goes to the CSR SpMM kernel, banded to the banded SpMM kernel. Each
-    wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
-    PyTorch version for a CPU tensor. Operands of mixed dtypes are
-    promoted, as in the JAX package.
+    CSR goes to the CSR SpMM kernel, banded to the banded SpMM kernel,
+    windowed to the windowed fold and strip kernels. Each wrapper launches
+    its CUDA kernel for a CUDA tensor and runs its plain PyTorch version for
+    a CPU tensor. Operands of mixed dtypes are promoted, as in the JAX
+    package.
     """
+    if isinstance(mat, WindowedELLMatrix):
+        return windowed.windowed_spmm(mat, x)
     if not isinstance(mat, (CSRMatrix, BandedMatrix)):
         raise NotImplementedError(_NOT_PORTED.format(type(mat).__name__))
     x = torch.as_tensor(x)

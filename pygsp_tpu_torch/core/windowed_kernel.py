@@ -1,0 +1,277 @@
+"""The windowed-compact SpMM kernels and the one-hot fold, with their plain
+versions.
+
+Four CUDA kernels live in ``csrc/windowed_fold.cu`` (see its note for the
+design):
+
+- :func:`windowed_fold`: gather, product and one-hot fold of every window
+  of a :class:`~pygsp_tpu_torch.core.windowed.WindowedELLMatrix` into the
+  window tensor ``t (n_out, NW, K·P, S)``: the fold of TPU kernel #2
+  (``benchmarks/pallas_fold_probe.py:make_pallas_fold``) fused with the
+  slot gather of ``pygsp_tpu/core/windowed.py:298-303``;
+- :func:`window_strip`: the overlap-add of ``t`` into ``y (n_rows, S)``
+  (``pygsp_tpu/core/windowed.py:336-345``);
+- :func:`fold_products`: #2's function as it stands, ``rid (NW, Lt)`` and
+  products ``p (NW, Lt, S)`` in, ``(NW, KP, S)`` float32 out; at NW = 1 it
+  is TPU kernel #3 (``benchmarks/pallas_smoke.py`` ``fold_kernel``);
+- :func:`double`: ``y = 2·x``, TPU kernel #4 (``pallas_smoke.py``
+  ``dbl_kernel``), the toolchain canary.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version beside it for CPU tensors; there is no fallback from one to the
+other. Each counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pygsp_tpu_torch.core import _cuda
+
+_SOURCE = 'windowed_fold'
+_DTYPES = {torch.float32: 'f32', torch.float64: 'f64'}
+_ROWIDS = {torch.uint8: 'u8', torch.int32: 'i32'}
+_PRODUCTS = {torch.bfloat16: 'bf16', torch.float32: 'f32'}
+
+# Bytes of shared memory the fold's (K·P, S_tile) accumulator may take:
+# S_tile is the largest power of two up to 128 that fits, so K·P = 512 in
+# float32 folds 64 columns at a time and float64 halves that again. A block
+# may hold 227 KB; the rest is the staged slot batch.
+ACC_BYTES = 128 * 1024
+_MAX_TILE = 128
+
+
+def fold_tile(kp: int, s: int, itemsize: int) -> int:
+    """The S tile of a fold with ``kp`` accumulator rows; raises if not even
+    one column of the accumulator fits in shared memory."""
+    tile = _MAX_TILE
+    while tile > 1 and kp * tile * itemsize > ACC_BYTES:
+        tile //= 2
+    if kp * tile * itemsize > ACC_BYTES:
+        raise ValueError(f'a fold over {kp} rows does not fit the '
+                         f'{ACC_BYTES}-byte shared accumulator')
+    # no wider than S rounded up to a warp
+    return min(tile, max(32, -(-s // 32) * 32))
+
+
+def _check_operands(name, tensors, x):
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError(f'{name}: all operands must be on one device')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: all operands must be contiguous')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name} runs on cuda or cpu, not {x.device}')
+
+
+def _launch(symbol, n_pointers, n_ints, *args):
+    fn = _cuda.function(_SOURCE, symbol, n_pointers, n_ints)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f'{symbol} launch failed with CUDA error {err}')
+
+
+# ---------------------------------------------------------------------------
+# (a) windowed_fold
+# ---------------------------------------------------------------------------
+
+def windowed_fold_plain(cols, vals, rowid, x, chunk_rows: int, kp: int):
+    """Plain PyTorch version of :func:`windowed_fold`: per out chunk, the
+    slot products ``vals · x[c·R + cols]`` and an ``index_add_`` onto their
+    window rows. Dead slots (sentinel column, row id out of range) add
+    nothing and x is not read for them."""
+    n_out, nw, n_src, _ = cols.shape
+    n_cols, s = x.shape
+    dev = x.device
+    base = (torch.arange(n_src, device=dev) * chunk_rows)[:, None]
+    win = (torch.arange(nw, device=dev) * kp)[:, None, None]
+    t = torch.zeros((n_out, nw * kp, s), dtype=x.dtype, device=dev)
+    for i in range(n_out):
+        rid = rowid[i].long()
+        row = base + cols[i].long()                         # (nw, n_src, L)
+        live = (cols[i] < chunk_rows) & (row < n_cols) & (rid < kp)
+        p = vals[i][..., None] * x[torch.where(live, row, 0)]
+        p = torch.where(live[..., None], p, torch.zeros((), dtype=p.dtype,
+                                                        device=dev))
+        t[i].index_add_(0, (win + torch.where(live, rid, 0)).reshape(-1),
+                        p.reshape(-1, s))
+    return t.reshape(n_out, nw, kp, s)
+
+
+def _check_fold(cols, vals, rowid, x, chunk_rows, kp):
+    if x.ndim != 2 or cols.ndim != 4:
+        raise ValueError(f'windowed_fold takes 4-D slabs and a 2-D x, got '
+                         f'{tuple(cols.shape)} and {tuple(x.shape)}')
+    if x.dtype not in _DTYPES or vals.dtype != x.dtype:
+        raise ValueError(f'windowed_fold takes float32 or float64 vals and x '
+                         f'of one dtype, got {vals.dtype} and {x.dtype}')
+    if cols.dtype != torch.int32 or rowid.dtype not in _ROWIDS:
+        raise ValueError(f'windowed_fold takes int32 cols and uint8 or int32 '
+                         f'row ids, got {cols.dtype} and {rowid.dtype}')
+    if vals.shape != cols.shape or rowid.shape != cols.shape:
+        raise ValueError('cols, vals and rowid must have one shape')
+    n_src = cols.shape[2]
+    if not (n_src - 1) * chunk_rows < max(x.shape[0], 1) <= n_src * chunk_rows:
+        raise ValueError(f'{n_src} source chunks of {chunk_rows} rows do not '
+                         f'cover x of {x.shape[0]} rows')
+    if kp < 1:
+        raise ValueError(f'kp must be positive, got {kp}')
+    _check_operands('windowed_fold', (cols, vals, rowid, x), x)
+
+
+def windowed_fold(cols, vals, rowid, x, chunk_rows: int, kp: int):
+    """The window tensor ``t (n_out, NW, kp, S)`` of the slabs ``cols``,
+    ``vals``, ``rowid`` (n_out, NW, n_src, L) and x (n_cols, S)::
+
+        t[i, w, r, :] = Σ_{c, l: rowid[i,w,c,l] = r} vals[i,w,c,l]
+                                                  · x[c·R + cols[i,w,c,l], :]
+
+    with ``R = chunk_rows``; slots whose column is the sentinel ``R`` (or
+    lies past x) are skipped."""
+    _check_fold(cols, vals, rowid, x, chunk_rows, kp)
+    if x.device.type == 'cpu':
+        return windowed_fold_plain(cols, vals, rowid, x, chunk_rows, kp)
+    n_out, nw, n_src, L = cols.shape
+    s = x.shape[1]
+    t = torch.empty((n_out, nw, kp, s), dtype=x.dtype, device=x.device)
+    if t.numel() == 0:
+        return t
+    tile = fold_tile(kp, s, x.element_size())
+    symbol = f'windowed_fold_{_DTYPES[x.dtype]}_{_ROWIDS[rowid.dtype]}'
+    with torch.cuda.device(x.device):
+        _launch(symbol, 5, 8, cols.data_ptr(), vals.data_ptr(),
+                rowid.data_ptr(), x.data_ptr(), t.data_ptr(), n_out * nw,
+                n_src, L, chunk_rows, kp, x.shape[0], s, tile)
+    windowed_fold.launches += 1
+    return t
+
+
+windowed_fold.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# (b) window_strip
+# ---------------------------------------------------------------------------
+
+def window_strip_plain(t, n_rows: int, window_rows: int):
+    """Plain PyTorch version of :func:`window_strip`: part 0 of every
+    window, plus part d shifted d windows forward inside its out chunk."""
+    n_out, nw, kp, s = t.shape
+    P = window_rows
+    y = t[:, :, :P].reshape(n_out, nw * P, s).clone()
+    for d in range(1, kp // P):
+        if nw <= d:
+            break                 # borrowing never crosses an out chunk
+        a = t[:, :, d * P:(d + 1) * P].reshape(n_out, nw * P, s)
+        y[:, d * P:] += a[:, :-d * P]
+    return y.reshape(n_out * nw * P, s)[:n_rows]
+
+
+def window_strip(t, n_rows: int, window_rows: int):
+    """``y (n_rows, S)`` from the window tensor ``t (n_out, NW, K·P, S)``::
+
+        y[i·R + w·P + r, :] = Σ_{d < K, d <= w} t[i, w − d, d·P + r, :]
+
+    with ``P = window_rows`` and ``R = NW·P``; rows past ``n_rows`` (the
+    ragged last chunk) are dropped."""
+    if t.ndim != 4 or t.dtype not in _DTYPES:
+        raise ValueError(f'window_strip takes a 4-D float32 or float64 '
+                         f'window tensor, got {tuple(t.shape)} {t.dtype}')
+    n_out, nw, kp, s = t.shape
+    if kp % window_rows or not 0 <= n_rows <= n_out * nw * window_rows:
+        raise ValueError(f'window tensor {tuple(t.shape)} does not hold '
+                         f'{n_rows} rows in windows of {window_rows}')
+    _check_operands('window_strip', (t,), t)
+    if t.device.type == 'cpu':
+        return window_strip_plain(t, n_rows, window_rows)
+    y = torch.empty((n_rows, s), dtype=t.dtype, device=t.device)
+    if y.numel() == 0:
+        return y
+    with torch.cuda.device(t.device):
+        _launch(f'window_strip_{_DTYPES[t.dtype]}', 2, 5, t.data_ptr(),
+                y.data_ptr(), n_rows, s, nw, window_rows, kp // window_rows)
+    window_strip.launches += 1
+    return y
+
+
+window_strip.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# (c) fold_products
+# ---------------------------------------------------------------------------
+
+def fold_products_plain(rid, p, kp: int):
+    """Plain PyTorch version of :func:`fold_products`: one ``index_add_`` of
+    the float32 products onto their window rows."""
+    nw, _, s = p.shape
+    live = (rid >= 0) & (rid < kp)
+    dst = (torch.arange(nw, device=p.device)[:, None] * kp
+           + torch.where(live, rid, 0).long())
+    src = torch.where(live[..., None], p.float(),
+                      torch.zeros((), dtype=torch.float32, device=p.device))
+    out = torch.zeros((nw * kp, s), dtype=torch.float32, device=p.device)
+    out.index_add_(0, dst.reshape(-1), src.reshape(-1, s))
+    return out.reshape(nw, kp, s)
+
+
+def fold_products(rid, p, kp: int):
+    """``out[w, k, :] = Σ_{l: rid[w, l] = k} p[w, l, :]``, float32, for
+    ``rid (NW, Lt)`` int32 and bfloat16 or float32 products
+    ``p (NW, Lt, S)``: the one-hot ``(kp, Lt)`` times ``p[w]`` of TPU
+    kernel #2, with float32 accumulation. Row ids outside ``[0, kp)`` match
+    no one-hot row and add nothing. Returns (NW, kp, S)."""
+    if rid.ndim != 2 or p.ndim != 3 or p.shape[:2] != rid.shape:
+        raise ValueError(f'fold_products takes rid (NW, Lt) and p '
+                         f'(NW, Lt, S), got {tuple(rid.shape)} and '
+                         f'{tuple(p.shape)}')
+    if rid.dtype != torch.int32 or p.dtype not in _PRODUCTS:
+        raise ValueError(f'fold_products takes int32 row ids and bfloat16 or '
+                         f'float32 products, got {rid.dtype} and {p.dtype}')
+    _check_operands('fold_products', (rid, p), p)
+    if p.device.type == 'cpu':
+        return fold_products_plain(rid, p, kp)
+    nw, lt, s = p.shape
+    out = torch.empty((nw, kp, s), dtype=torch.float32, device=p.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(p.device):
+        _launch(f'fold_products_{_PRODUCTS[p.dtype]}', 3, 5, rid.data_ptr(),
+                p.data_ptr(), out.data_ptr(), nw, lt, kp, s,
+                fold_tile(kp, s, 4))
+    fold_products.launches += 1
+    return out
+
+
+fold_products.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# (d) double
+# ---------------------------------------------------------------------------
+
+def double_plain(x):
+    """Plain PyTorch version of :func:`double`."""
+    return x * 2
+
+
+def double(x):
+    """``y = 2·x`` for a float32 tensor."""
+    if x.dtype != torch.float32:
+        raise ValueError(f'double takes float32, got {x.dtype}')
+    _check_operands('double', (x,), x)
+    if x.device.type == 'cpu':
+        return double_plain(x)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        _launch('double_f32', 2, 1, x.data_ptr(), y.data_ptr(), x.numel())
+    double.launches += 1
+    return y
+
+
+double.launches = 0
+
+
+KERNELS = (windowed_fold, window_strip, fold_products, double)

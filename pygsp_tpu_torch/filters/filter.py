@@ -100,7 +100,9 @@ class Filter:
 
         ``s`` (numpy or tensor) is moved to the graph's device; the result
         is a squeezed tensor there. ``carry_dtype`` and ``vals_dtype``
-        raise ``ValueError`` as on the JAX package's non-chunked formats.
+        raise ``ValueError`` on the CSR and banded formats, as in the JAX
+        package, and ``NotImplementedError`` on the windowed format (the
+        bf16 modes are ROADMAP.md item 3).
         """
         if fixed_graph:
             raise NotImplementedError(_NOT_PORTED.format(

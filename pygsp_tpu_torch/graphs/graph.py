@@ -21,12 +21,13 @@ import torch
 
 from pygsp_tpu_torch import utils
 from pygsp_tpu_torch.core import sparse as core_sparse
+from pygsp_tpu_torch.core.chunked import CHUNK_ROWS
 from pygsp_tpu_torch.core.operators import LaplacianOp, laplacian_op, matvec
 from pygsp_tpu_torch.ops import eigen as ops_eigen
 
 _NOT_PORTED_FMT = ('compute_laplacian(fmt={!r}) is not ported yet: see '
-                   'ROADMAP.md, "Modules to port", item 4 (the remaining '
-                   'storage formats)')
+                   'ROADMAP.md, "Modules to port", item 4 (the ELL/hybrid '
+                   'and chunked formats)')
 
 
 class Graph:
@@ -221,8 +222,14 @@ class Graph:
         """(Re)build the Laplacian operator on ``device``.
 
         Directed graphs are average-symmetrized first; a change of
-        Laplacian type drops the cached λmax. Only ``fmt='coo'`` (padded
-        CSR) is ported; use ``G.L.to_banded()`` for the banded format.
+        Laplacian type drops the cached λmax. ``fmt='coo'`` stores the
+        off-diagonal block as padded CSR, ``fmt='windowed'`` in the
+        windowed-compact format (:mod:`pygsp_tpu_torch.core.windowed`), and
+        ``fmt='auto'`` picks ``'windowed'`` above
+        :data:`~pygsp_tpu_torch.core.chunked.CHUNK_ROWS` vertices and
+        ``'hybrid'`` below, as the JAX package does. ``'hybrid'`` and
+        ``'chunked'`` are not ported yet and raise. Use ``G.L.to_banded()``
+        for the banded format.
         """
         if getattr(self, 'lap_type', None) != lap_type:
             self._lmax = None
@@ -231,9 +238,11 @@ class Graph:
 
         if lap_type not in ('combinatorial', 'normalized'):
             raise ValueError(f'Unknown Laplacian type {lap_type!r}')
-        if fmt in ('auto', 'hybrid', 'chunked', 'windowed'):
+        if fmt == 'auto':
+            fmt = 'windowed' if self.n_vertices > CHUNK_ROWS else 'hybrid'
+        if fmt in ('hybrid', 'chunked'):
             raise NotImplementedError(_NOT_PORTED_FMT.format(fmt))
-        if fmt != 'coo':
+        if fmt not in ('coo', 'windowed'):
             raise ValueError(f'Unknown Laplacian format {fmt!r}')
 
         W = self._adjacency
@@ -244,12 +253,15 @@ class Graph:
         # diagonal COO entries, L_ii = dw_i - w_ii.
         Wsym = core_sparse.from_scipy(W, dtype=self.dtype, device=self.device)
         self._L = laplacian_op(Wsym, lap_type)
+        if fmt == 'windowed':
+            self._L = self._L.to_windowed()
         self._Wsym_host = W
 
     @property
     def L(self) -> LaplacianOp:
         """Laplacian operator. Supports ``L @ x``, ``L.dot(x)``,
-        ``L.to_scipy()``, ``L.to_dense()``, ``L.to_banded()``."""
+        ``L.to_scipy()``, ``L.to_dense()``, ``L.to_banded()``,
+        ``L.to_windowed()``."""
         return self._L
 
     def dirichlet_energy(self, x):

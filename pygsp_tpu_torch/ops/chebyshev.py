@@ -1,9 +1,13 @@
 """Chebyshev polynomial filtering, the hot path.
 
-Counterpart of :mod:`pygsp_tpu.ops.chebyshev` on the non-chunked formats.
-The three-term recurrence runs as a Python loop whose state is
-``(T_{k-1} s, T_k s, accumulators for all Nf filters)``, so the K SpMMs are
-shared by the whole filter bank.
+Counterpart of :mod:`pygsp_tpu.ops.chebyshev` on the CSR, banded and
+windowed formats. The three-term recurrence runs as a Python loop whose
+state is ``(T_{k-1} s, T_k s, accumulators for all Nf filters)``, so the K
+SpMMs are shared by the whole filter bank. On a windowed operator the whole
+recurrence runs in the matrix's internal vertex order, as the JAX
+package's ``_cheby_op_chunked`` does; the operator says how
+(:meth:`~pygsp_tpu_torch.core.operators.LaplacianOp.hoisted`,
+:meth:`~pygsp_tpu_torch.core.operators.LaplacianOp.shifted_step`).
 
 Signal convention: ``x`` has shape ``(N, ...)``; ``cheby_op`` returns
 ``(Nf, N, ...)``.
@@ -15,9 +19,6 @@ import torch
 
 from pygsp_tpu_torch.core.operators import LaplacianOp, matvec
 from pygsp_tpu_torch.utils import check_device
-
-_FORMAT_ONLY = ('{} is only supported on chunked/windowed operator formats '
-                '(the hot path)')
 
 
 def cheby_coeff(evaluate, lmax, m: int = 30, grid_n: int | None = None,
@@ -61,10 +62,11 @@ def cheby_coeff(evaluate, lmax, m: int = 30, grid_n: int | None = None,
 def _prepare(L: LaplacianOp, c, x, carry_dtype=None, vals_dtype=None):
     """Shared set-up: the format checks of the JAX package, one promoted
     dtype for the signal, the operator and the coefficients."""
-    if carry_dtype is not None and carry_dtype != x.dtype:
-        raise ValueError(_FORMAT_ONLY.format('carry_dtype'))
-    if vals_dtype is not None:
-        raise ValueError(_FORMAT_ONLY.format('vals_dtype'))
+    for name, value in (('carry_dtype', carry_dtype),
+                        ('vals_dtype', vals_dtype)):
+        if value is None or (name == 'carry_dtype' and value == x.dtype):
+            continue
+        L.refuse_bf16_mode(name)
     c = torch.atleast_2d(torch.as_tensor(c))
     if c.shape[1] < 2:
         raise ValueError('Chebyshev coefficients need order >= 1')
@@ -82,10 +84,10 @@ def _recurrence(L: LaplacianOp, lmax: float, x, m1: int):
     yield t_old
     t_cur = (matvec(L, x) - a2 * x) / a1
     yield t_cur
-    # 2/a1 * (L - a2 I), shift and scale fused into the operator
-    factor = L.shifted(2.0 / a1, a2)
+    # 2/a1 * (L - a2 I) t - t_old, in the format's own arithmetic
+    step = L.shifted_step(2.0 / a1, a2)
     for _ in range(2, m1):
-        t_old, t_cur = t_cur, matvec(factor, t_cur) - t_old
+        t_old, t_cur = t_cur, step(t_cur, t_old)
         yield t_cur
 
 
@@ -95,27 +97,32 @@ def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
     """Apply a Chebyshev-approximated filter bank: ``(Nf, m+1), (N, ...) -> (Nf, N, ...)``.
 
     Shifted recurrence on [0, lmax] with the 0.5·c0 convention, all Nf
-    filters accumulated from the shared recurrence terms. ``carry_dtype``
-    and ``vals_dtype`` belong to the chunked/windowed formats, which are not
-    ported; as in the JAX package they raise ``ValueError`` here.
-    The accumulator is updated in place, which saves one (Nf, N, ...)
-    temporary per step.
+    filters accumulated from the shared recurrence terms, in the
+    operator's internal vertex order (:meth:`LaplacianOp.hoisted`).
+    ``carry_dtype`` and ``vals_dtype`` (the bf16 modes) raise
+    ``ValueError`` on the CSR and banded formats, as in the JAX package,
+    and ``NotImplementedError`` on the windowed one, where they are not
+    ported yet. The accumulator is updated in place, which saves one
+    (Nf, N, ...) temporary per step.
     """
     L, c, x = _prepare(L, c, x, carry_dtype, vals_dtype)
+    op, pin, pout = L.hoisted()
     bshape = (c.shape[0],) + (1,) * x.ndim
-    terms = _recurrence(L, float(lmax), x, c.shape[1])
+    terms = _recurrence(op, float(lmax), pin(x), c.shape[1])
     acc = 0.5 * c[:, 0].reshape(bshape) * next(terms)[None]
     for k, t in enumerate(terms, start=1):
         acc.addcmul_(c[:, k].reshape(bshape), t[None])
-    return acc
+    return pout(acc, axis=1)
 
 
 def cheby_op_intermediates(L: LaplacianOp, lmax, c, x: torch.Tensor):
     """Like :func:`cheby_op` but also returns every recurrence term
     ``T̃_k s`` for k = 0..m, stacked: ``(acc, terms)``."""
     L, c, x = _prepare(L, c, x)
-    terms = torch.stack(list(_recurrence(L, float(lmax), x, c.shape[1])))
+    op, pin, pout = L.hoisted()
+    terms = torch.stack(list(_recurrence(op, float(lmax), pin(x),
+                                         c.shape[1])))
     c = c.clone()
     c[:, 0] *= 0.5
     acc = (c.reshape(c.shape + (1,) * x.ndim) * terms[None]).sum(dim=1)
-    return acc, terms
+    return pout(acc, axis=1), pout(terms, axis=1)

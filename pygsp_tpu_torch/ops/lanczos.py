@@ -2,8 +2,10 @@
 
 Counterpart of :mod:`pygsp_tpu.ops.lanczos`: one Krylov recursion advances
 every column of an (N, S) block at once, each step one SpMM plus
-per-column reductions. Lanczos filtering (``lanczos_op``) is not ported
-yet.
+per-column reductions. On a windowed operator the whole recursion runs in
+the matrix's internal (relabeled) order (``LaplacianOp.hoisted``): dot
+products and norms do not see the permutation, so the permutes apply once
+per solve. Lanczos filtering (``lanczos_op``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -11,14 +13,6 @@ from __future__ import annotations
 import torch
 
 from pygsp_tpu_torch.core.operators import LaplacianOp, matvec
-
-
-def _hoisted_matvec(L: LaplacianOp):
-    """``(mv, pin, pout)``: a matvec on (N, S) tensors plus entry/exit
-    permutes, which are the identity for the ported (CSR, banded) formats."""
-    return (lambda x: matvec(L, x),
-            lambda x: x,
-            lambda y, axis=0: y)
 
 
 def _lanczos_block(mv, x: torch.Tensor, order: int):
@@ -73,6 +67,6 @@ def _lanczos_block(mv, x: torch.Tensor, order: int):
 
 def _lanczos_single(L: LaplacianOp, x: torch.Tensor, order: int):
     """Lanczos basis for one vector: returns V (N, order), H (order, order)."""
-    mv, pin, pout = _hoisted_matvec(L)
-    V, H = _lanczos_block(mv, pin(x)[:, None], order)
+    op, pin, pout = L.hoisted()
+    V, H = _lanczos_block(lambda v: matvec(op, v), pin(x)[:, None], order)
     return pout(torch.movedim(V[:, :, 0], 0, 1)), H[0]

@@ -1,12 +1,14 @@
 """SpMM dispatch, the primitive the Chebyshev recurrence reduces to.
 
-Two storage formats, dispatched by operand type in
+Three storage formats, dispatched by operand type in
 :func:`pygsp_tpu_torch.core.sparse.spmm`:
 
 - :class:`~pygsp_tpu_torch.core.sparse.CSRMatrix` → the CSR SpMM kernel
   (:mod:`pygsp_tpu_torch.core.csr_kernel`);
 - :class:`~pygsp_tpu_torch.core.sparse.BandedMatrix` → the banded SpMM
-  kernel (:mod:`pygsp_tpu_torch.core.banded_kernel`).
+  kernel (:mod:`pygsp_tpu_torch.core.banded_kernel`);
+- :class:`~pygsp_tpu_torch.core.windowed.WindowedELLMatrix` → the windowed
+  fold and strip kernels (:mod:`pygsp_tpu_torch.core.windowed_kernel`).
 """
 
 from __future__ import annotations

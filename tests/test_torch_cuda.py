@@ -8,7 +8,10 @@ without the suite's conftest:
 
 They cover what ``chip_smoke.py`` does not: empty rows, rectangular CSR,
 S above one 128-column tile, a band of width 0, and the wrappers' checks on
-CUDA tensors.
+CUDA tensors; and, for the windowed-compact kernels, the cases of
+``chip_smoke.py``'s phase 2 at a smaller size (S of 1, 5, 128, 129 and 300,
+``window_rows=256`` for an S tile under 128 and int32 row ids, span 4), the
+one-hot fold at TPU kernel #2's and #3's shapes, and #4's ``y = 2x``.
 """
 
 import numpy as np
@@ -19,6 +22,8 @@ import torch
 import pygsp_tpu_torch as tgsp
 from pygsp_tpu_torch.core import sparse as tsp
 from pygsp_tpu_torch.core import banded_kernel, csr_kernel
+from pygsp_tpu_torch.core import windowed as twd
+from pygsp_tpu_torch.core import windowed_kernel as wk
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +126,97 @@ def test_filter_on_the_card_matches_the_cpu(cuda):
     (csr_gpu, band_gpu), (csr_cpu, band_cpu) = out
     assert torch.allclose(csr_gpu, csr_cpu, rtol=0, atol=1e-10)
     assert torch.allclose(band_gpu, band_cpu, rtol=0, atol=1e-10)
+
+
+def _ba_windowed(dtype, device, **kw):
+    """A weighted Barabási–Albert graph of 2^13 vertices, windowed."""
+    n = 1 << 13
+    src, tgt = tgsp.graphs.ba_edges_fast(n, m0=4, m=4, seed=3)
+    w = np.random.default_rng(3).uniform(0.5, 1.5, len(src))
+    W = sps.csr_matrix((np.concatenate([w, w]), (np.concatenate([src, tgt]),
+                                                 np.concatenate([tgt, src]))),
+                       shape=(n, n))
+    return W, twd.windowed_from_scipy(W, dtype=dtype, device=device, **kw)
+
+
+WINDOWED_CASES = {
+    'default': dict(),
+    'P256': dict(window_rows=256),               # S tile 64, int32 row ids
+    'span4': dict(chunk_rows=2048, borrow_span=4, slab_width=120),
+}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('s', [1, 5, 128, 129, 300])
+@pytest.mark.parametrize('case', list(WINDOWED_CASES))
+def test_windowed_kernels_match_plain(cuda, dtype, s, case):
+    _, M = _ba_windowed(dtype, cuda, **WINDOWED_CASES[case])
+    kp = M.borrow_span * M.window_rows
+    x = _signal((M.n_cols, s), dtype, s, cuda)
+    before = (wk.windowed_fold.launches, wk.window_strip.launches)
+    t = wk.windowed_fold(M.cols, M.vals, M.rowid, x, M.chunk_rows, kp)
+    y = wk.window_strip(t, M.n_rows, M.window_rows)
+    assert (wk.windowed_fold.launches, wk.window_strip.launches) == (
+        before[0] + 1, before[1] + 1)
+    t_plain = wk.windowed_fold_plain(M.cols, M.vals, M.rowid, x,
+                                     M.chunk_rows, kp)
+    assert t.shape == t_plain.shape and y.shape == (M.n_rows, s)
+    assert _rel_err(t, t_plain) <= TOL[dtype]
+    assert _rel_err(y, wk.window_strip_plain(t_plain, M.n_rows,
+                                             M.window_rows)) <= TOL[dtype]
+    assert _rel_err(wk.window_strip_plain(t, M.n_rows, M.window_rows),
+                    y) == 0.0                    # same sums, same order
+
+
+def test_windowed_spmm_and_bank_on_the_card_match_the_cpu(cuda):
+    """The whole SpMM (levels included) and a Chebyshev bank in f64."""
+    W, M = _ba_windowed(torch.float64, cuda)
+    assert M.levels, 'no residue tiers on this graph'
+    x = np.random.default_rng(4).normal(size=(W.shape[0], 7))
+    y = (M @ torch.from_numpy(x).to(cuda)).cpu().numpy()
+    assert np.abs(y - W @ x).max() <= 1e-11 * np.abs(W @ x).max()
+    out = []
+    for device in (cuda, 'cpu'):
+        G = tgsp.graphs.Graph(W, device=device, dtype=torch.float64)
+        G.compute_laplacian(fmt='windowed')
+        G.estimate_lmax(method='bounds')
+        out.append(tgsp.filters.Heat(G, [5.0, 50.0]).filter(x, order=30).cpu())
+    assert torch.allclose(out[0], out[1], rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('nw,lt,kp', [(1, 512, 256), (64, 1152, 256),
+                                      (3, 100, 40)], ids=['3', '2', 'ragged'])
+def test_fold_products_matches_plain(cuda, dtype, nw, lt, kp):
+    rng = np.random.default_rng(lt)
+    rid = torch.from_numpy(rng.integers(-1, kp + 1, size=(nw, lt))
+                           .astype(np.int32)).to(cuda)   # some dead ids
+    p = _signal((nw, lt, 128), torch.float32, 5, cuda).to(dtype)
+    before = wk.fold_products.launches
+    out = wk.fold_products(rid, p, kp)
+    assert wk.fold_products.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (nw, kp, 128)
+    assert _rel_err(out, wk.fold_products_plain(rid, p, kp)) <= 1e-6
+
+
+@pytest.mark.parametrize('shape', [(8, 128), (1000, 3)])
+def test_double_matches_plain(cuda, shape):
+    x = _signal(shape, torch.float32, 6, cuda)
+    before = wk.double.launches
+    assert torch.equal(wk.double(x), wk.double_plain(x))
+    assert wk.double.launches == before + 1
+
+
+def test_windowed_wrappers_refuse_bad_cuda_operands(cuda):
+    _, M = _ba_windowed(torch.float32, cuda)
+    x = torch.zeros(M.n_cols, 3, device=cuda)
+    with pytest.raises(ValueError, match='one device'):
+        wk.windowed_fold(M.cols.cpu(), M.vals, M.rowid, x, M.chunk_rows, 128)
+    with pytest.raises(ValueError, match='one dtype'):
+        wk.windowed_fold(M.cols, M.vals, M.rowid, x.double(), M.chunk_rows,
+                         128)
+    with pytest.raises(ValueError, match='does not fit'):
+        wk.windowed_fold(M.cols, M.vals, M.rowid, x, M.chunk_rows, 1 << 16)
+    with pytest.raises(ValueError, match='contiguous'):
+        wk.fold_products(torch.zeros(4, 2, dtype=torch.int32, device=cuda).T,
+                         torch.zeros(2, 4, 8, device=cuda), 4)

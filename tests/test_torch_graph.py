@@ -121,8 +121,9 @@ def test_graph_api_details():
     assert torch.equal(T.L.dot(x.numpy()), T.L @ x)
     with pytest.raises(ValueError, match='Unknown Laplacian type'):
         T.compute_laplacian('bogus')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        T.compute_laplacian(fmt='windowed')
+    for fmt in ('chunked', 'hybrid', 'auto'):      # 'auto' is 'hybrid' here
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            T.compute_laplacian(fmt=fmt)
     with pytest.raises(ValueError, match='Unknown method'):
         T.estimate_lmax(method='bogus')
     assert repr(tgsp.graphs.Grid2d(3, 2, device='cpu')) == (

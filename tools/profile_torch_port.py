@@ -1,15 +1,17 @@
 """Where one filter bank's time goes on the card, for the PyTorch port.
 
-Runs the port's two paths as ``chip_smoke.py`` sets them up (its
-``path_a`` and ``path_b``, imported from there): path A, the
+Runs the port's three paths as ``chip_smoke.py`` sets them up (its
+``path_a``, ``path_b`` and ``path_c``, imported from there): path A, the
 Barabási–Albert graph of ``bench.py`` (N = 2^20, m0 = m = 8) through the
-CSR SpMM kernel, and path B, ``Grid2d(512, 512)`` through the banded SpMM
-kernel, each a 4-scale heat bank at order 30 on 128 float32 signals.
-For each path it runs one bank as a warm-up, then one bank under
-``torch.profiler`` and prints one JSON line: the bank's host time, the sum
-of kernel times on the card (busy), the idle share, and kernel time by
-group (the port's SpMM kernel, the other kernels by name). It also times a
-1 GiB device-to-device copy, the memory rate the card reaches.
+CSR SpMM kernel; path B, ``Grid2d(512, 512)`` through the banded SpMM
+kernel; path C, the same BA graph in the windowed-compact format through
+the windowed fold and strip kernels; each a 4-scale heat bank at order 30
+on 128 float32 signals. For each path it runs one bank as a warm-up, then
+one bank under ``torch.profiler`` and prints one JSON line: the bank's
+host time, the sum of kernel times on the card (busy), the idle share, and
+kernel time by group (the port's SpMM kernels, the other kernels by name).
+It also times a 1 GiB device-to-device copy, the memory rate the card
+reaches.
 
 Run: ``python3 tools/profile_torch_port.py [--out DIR]`` on a machine with
 one CUDA device; ``--out`` also writes each path's profiler table there.
@@ -48,7 +50,7 @@ def copy_rate():
     return 2 * src.numel() * 4 / (ms / 1e3)
 
 
-def profile_bank(name, kernel, bank, out_dir):
+def profile_bank(name, kernels, bank, out_dir):
     bank()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -61,12 +63,12 @@ def profile_bank(name, kernel, bank, out_dir):
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
-        key = kernel if kernel in ev.name else ev.name[:90]
+        key = next((k for k in kernels if k in ev.name), ev.name[:90])
         ms, count = groups.get(key, (0.0, 0))
         groups[key] = (ms + (ev.time_range.end - ev.time_range.start) / 1e3,
                        count + 1)
     busy_ms = sum(ms for ms, _ in groups.values())
-    top = sorted(groups.items(), key=lambda kv: -kv[1][0])[:8]
+    top = sorted(groups.items(), key=lambda kv: -kv[1][0])[:12]
     if out_dir:
         with open(os.path.join(out_dir, f'profile_{name}.txt'), 'w') as f:
             f.write(prof.key_averages().table(
@@ -94,10 +96,12 @@ def main():
                          timeout=60).stdout.strip()
     print(json.dumps({'card': smi, 'copy_bytes_per_s': copy_rate()}),
           flush=True)
-    for name, kernel, make in (('A', 'csr_spmm', chip_smoke.path_a),
-                               ('B', 'banded_spmm', chip_smoke.path_b)):
+    for name, kernels, make in (
+            ('A', ('csr_spmm',), chip_smoke.path_a),
+            ('B', ('banded_spmm',), chip_smoke.path_b),
+            ('C', ('windowed_fold', 'window_strip'), chip_smoke.path_c)):
         bank = make()[-1]
-        print(json.dumps(profile_bank(name, kernel, bank, args.out)),
+        print(json.dumps(profile_bank(name, kernels, bank, args.out)),
               flush=True)
         del bank
         torch.cuda.empty_cache()
