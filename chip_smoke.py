@@ -7,9 +7,10 @@ Phases, each of which raises on failure:
    then launch ``double`` (TPU kernel #4, the toolchain canary) against
    ``x * 2``;
 2. hold each kernel against its plain PyTorch version on the card, in f32
-   (and once in f64): CSR, banded, the windowed fold and strip (including
-   ``window_rows=256`` and a span-4 matrix), and the one-hot fold at TPU
-   kernel #3's shape;
+   (and once in f64): CSR, banded (f32 on the tensor cores, 3×TF32, also
+   on Grid2d tiles that TF32 does not hold exactly), the
+   windowed fold and strip (including ``window_rows=256`` and a span-4
+   matrix), and the one-hot fold at TPU kernel #3's shape;
 3. path A, the README path at the bench size: Barabási–Albert N=2^20
    (m0 = m = 8, about 16.8M stored edges) → ``Graph`` → ``estimate_lmax`` →
    ``Heat(scale=[5, 10, 25, 50]).filter(x, order=30)`` with x (N, 128) f32,
@@ -20,11 +21,14 @@ Phases, each of which raises on failure:
 5. path C, the bench path of the JAX package (``bench.py:162-185``): the
    same graph as path A with ``compute_laplacian(fmt='windowed')``, λmax
    and the heat bank through the windowed fold and strip kernels, checked
-   against the SciPy f64 recurrence; then the one-hot fold at TPU kernel
-   #2's probe shape, with row ids from this matrix;
+   against the SciPy f64 recurrence; the fold's two launches bit-equal at
+   this shape; ``torch.nn.functional.fold`` as the strip's yardstick; then
+   the one-hot fold at TPU kernel #2's probe shape, with row ids from this
+   matrix;
 6. one JSON line of per-kernel numbers (times from CUDA events, bounds
-   from the H100 SXM data sheet), the card's name and power limit, and the
-   final ``{"ok": true, ...}`` line.
+   from the H100 SXM data sheet: HBM, FP32, and TF32 for the banded
+   kernel's f32 products), the card's name and power limit, and the final
+   ``{"ok": true, ...}`` line.
 
 Run: ``python3 chip_smoke.py``. It needs one CUDA device and exits
 non-zero without one.
@@ -46,9 +50,12 @@ from pygsp_tpu_torch.core import windowed as wd
 from pygsp_tpu_torch.core import windowed_kernel as wk
 from pygsp_tpu_torch.ops.chebyshev import cheby_coeff, cheby_op
 
-# H100 SXM data sheet: HBM rate and FP32 rate outside the tensor cores.
+# H100 SXM data sheet: HBM rate, FP32 rate outside the tensor cores, and
+# the dense TF32 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+TF32_PRODUCTS = 3       # the banded f32 kernel's TF32 products per product
 
 N_BA = 1 << 20          # bench.py:53-58
 M_ATTACH = 8
@@ -61,7 +68,10 @@ N_CHECK_COLS = 8
 # Tolerances (relative to the largest reference magnitude): f32 sums in
 # another order than the plain version; the recurrence is held against f64.
 TOL_CSR = 1e-5
-TOL_BANDED = 1e-4
+# the banded f32 kernel's three TF32 products err near 5e-7; one TF32 pass,
+# or a split that drops either cross term, misses by 3.7e-5 or more on
+# these inputs (tests/test_torch_kernel_budget.py emulates each)
+TOL_BANDED = 1e-5
 TOL_WINDOWED = 1e-5
 TOL_FOLD = 1e-6         # f32 sums of bf16 products, another order
 TOL_PATH = 1e-4
@@ -146,11 +156,12 @@ def scipy_recurrence(L, lmax, c, x):
     return np.stack(r)
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, flops_per_s=FP32_FLOPS):
     """The least time for the work: the larger of bytes over the memory
-    rate and FP32 operations over the FP32 rate."""
+    rate and operations over the rate of the unit that does them (FP32
+    outside the tensor cores unless ``flops_per_s`` says otherwise)."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / FP32_FLOPS * 1e3
+    flops_ms = flops / flops_per_s * 1e3
     return {'bound_ms': max(bytes_ms, flops_ms),
             'bound_by': 'bytes' if bytes_ms >= flops_ms else 'operations'}
 
@@ -227,6 +238,15 @@ def phase_kernels():
                 check(f'banded b={b} S={s} {dtype}',
                       banded_kernel.banded_spmm(B.tiles, x, n),
                       banded_kernel.banded_spmm_plain(B.tiles, x, n), tol)
+    # Grid2d tiles scaled by 2/7.93: not exact in TF32 (unlike path B's
+    # integer tiles), so both operands' small terms count
+    G = gsp.graphs.Grid2d(64, 61)
+    tiles = G.L.to_banded().offdiag.tiles * (2.0 / 7.93)
+    for s in (128, 5):
+        x = seeded_normal((G.N, s), s)
+        check(f'banded Grid2d(64, 61) tiles * 2/7.93 S={s}',
+              banded_kernel.banded_spmm(tiles, x, G.N),
+              banded_kernel.banded_spmm_plain(tiles, x, G.N), TOL_BANDED)
     return phase_windowed_kernels(W)
 
 
@@ -261,7 +281,7 @@ def phase_windowed_kernels(W):
                                    **kw)
         log(f'  windowed {name}: slabs {tuple(M.cols.shape)}, row ids '
             f'{M.rowid.dtype}, S tile '
-            f'{wk.fold_tile(M.borrow_span * M.window_rows, 128, 4)}')
+            f'{wk.fold_layout(M.borrow_span * M.window_rows, 128, 4).s_tile}')
         check_windowed(name, M, 128, torch.float32, TOL_WINDOWED)
     gen = torch.Generator(device='cuda').manual_seed(3)
     rid = torch.randint(0, FOLD3_KP, (1, FOLD3_LT), dtype=torch.int32,
@@ -326,7 +346,11 @@ def measure_csr(A, x):
 def measure_banded(B, x):
     """Kernel, plain and library times of one banded SpMM at the path's
     shape. The library yardstick is torch.bmm over band windows gathered
-    beforehand (the gather is not timed)."""
+    beforehand (the gather is not timed). The bound counts the function's
+    own products at the card's fastest rate for f32 operands (TF32, dense),
+    beside the bytes. Two diagnostics stand beside it: the FP32 FFMA bound
+    (``bound_fp32_ms``) and the time of the three TF32 products per product
+    that the f32 kernel issues (``bound_tf32x3_ms``)."""
     tiles, n = B.tiles, B.n_rows
     y = banded_kernel.banded_spmm(tiles, x, n)
     y_plain = banded_kernel.banded_spmm_plain(tiles, x, n)
@@ -350,8 +374,11 @@ def measure_banded(B, x):
         'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
         'library_ms': library_ms,
         'library': 'torch.bmm over pre-gathered band windows',
-        **bound(bytes_min, flops),
-        'gflop': flops / 1e9, 'n': n, 's': s, 'half_bw': b,
+        **bound(bytes_min, flops, TF32_FLOPS),
+        'bound_fp32_ms': flops / FP32_FLOPS * 1e3,
+        'bound_tf32x3_ms': TF32_PRODUCTS * flops / TF32_FLOPS * 1e3,
+        'gflop': flops / 1e9, 'tf32_gflop': TF32_PRODUCTS * flops / 1e9,
+        'n': n, 's': s, 'half_bw': b,
     }
 
 
@@ -489,9 +516,10 @@ def phase_path_b():
 
 def measure_windowed(G, x):
     """Fold, strip and whole-SpMM times at path C's shape (x in the matrix's
-    internal order, as the bank runs them), against their plain versions,
-    and the yardsticks on the same shuffled matrix in CSR:
-    ``torch.sparse.mm`` and the port's CSR kernel."""
+    internal order, as the bank runs them), against their plain versions;
+    the fold's determinism (two launches bit-equal); the yardsticks on the
+    same shuffled matrix in CSR, ``torch.sparse.mm`` and the port's CSR
+    kernel; and the strip's, ``torch.nn.functional.fold``."""
     M = G.L.offdiag
     R, P, K = M.chunk_rows, M.window_rows, M.borrow_span
     n, s = M.n_rows, x.shape[1]
@@ -502,11 +530,16 @@ def measure_windowed(G, x):
     fold_err = float((t - t_plain).abs().max())
     check('windowed_fold at path C shape', t, t_plain, TOL_WINDOWED)
     del t_plain
+    if not torch.equal(t, wk.windowed_fold(*args)):
+        raise AssertionError('windowed_fold: two launches differ at path C')
+    log('  windowed_fold at path C shape: two launches bit-equal')
     y_plain = wk.window_strip_plain(t, n, P)
     y = wk.window_strip(t, n, P)
     strip_err = float((y - y_plain).abs().max())
     check('window_strip at path C shape', y, y_plain, TOL_WINDOWED)
-    del y, y_plain
+    del y_plain
+    strip_lib, strip_lib_ms = measure_strip_library(t, y, n, P)
+    del y
     fold_ms = time_ms(lambda: wk.windowed_fold(*args), 10)
     fold_plain_ms = time_ms(lambda: wk.windowed_fold_plain(*args), 2)
     strip_ms = time_ms(lambda: wk.window_strip(t, n, P), 20)
@@ -550,10 +583,34 @@ def measure_windowed(G, x):
                                 + t.numel() * item) / HBM_BYTES_PER_S * 1e3,
             'live_slots': live, 'slots': M.n_slots, 's': s}
     strip = {'max_abs_err': strip_err, 'ms': strip_ms,
-             'plain_ms': strip_plain_ms, 'library_ms': None,
+             'plain_ms': strip_plain_ms, 'library_ms': strip_lib_ms,
+             'library': strip_lib,
              **bound(t.numel() * item + n * s * item, (K - 1) * n * s),
              'window_tensor_bytes': t.numel() * item}
     return fold, strip, spmm
+
+
+def measure_strip_library(t, y, n, P):
+    """``torch.nn.functional.fold`` as the overlap-add's yardstick: the
+    window tensor permuted beforehand (not timed) to (n_out, S·K·P, NW),
+    window w a (K·P, 1) block at row w·P of each out chunk; rows below NW·P
+    are y's. Checked once against the kernel's ``y``."""
+    n_out, nw, kp, s = t.shape
+    cols = t.permute(0, 3, 2, 1).reshape(n_out, s * kp, nw)
+
+    def fold():
+        return torch.nn.functional.fold(
+            cols, output_size=((nw - 1) * P + kp, 1), kernel_size=(kp, 1),
+            stride=(P, 1))
+
+    y_lib = fold()[:, :, :nw * P, 0].permute(0, 2, 1).reshape(-1, s)[:n]
+    check('torch.nn.functional.fold vs window_strip at path C', y_lib, y,
+          TOL_WINDOWED)
+    del y_lib
+    ms = time_ms(fold, 20)
+    del cols
+    return ('torch.nn.functional.fold, kernel (K*P, 1), stride (P, 1), on '
+            'the window tensor permuted beforehand'), ms
 
 
 def measure_fold_products(M):

@@ -1,10 +1,11 @@
 """Block-banded SpMM, the port of ``pygsp_tpu/ops/pallas_banded.py``.
 
 ``y[i·128+a, :] = Σ_{d=0}^{2b} Σ_c tiles[i, d, a, c] · x[(i+d−b)·128+c, :]``,
-with blocks ``i+d−b`` outside the matrix skipped. The CUDA kernel
-(``csrc/banded_spmm.cu``) needs neither the padding of S to 128 nor the
-zero-padded copy of x that the Pallas kernel makes: it masks the ragged
-edges itself. :func:`banded_spmm` launches it for CUDA tensors and runs
+with blocks ``i+d−b`` outside the matrix skipped. The CUDA kernels
+(``csrc/banded_spmm.cu``: float32 on the tensor cores, three TF32 products
+per product; float64 in FFMA) need neither the padding of S to 128 nor the
+zero-padded copy of x that the Pallas kernel makes: they mask the ragged
+edges themselves. :func:`banded_spmm` launches it for CUDA tensors and runs
 :func:`banded_spmm_plain` (the einsum twin of
 ``pygsp_tpu/core/sparse.py:banded_spmm``) for CPU tensors.
 """

@@ -24,6 +24,8 @@ other. Each counts its launches in ``.launches``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from pygsp_tpu_torch.core import _cuda
@@ -33,25 +35,71 @@ _DTYPES = {torch.float32: 'f32', torch.float64: 'f64'}
 _ROWIDS = {torch.uint8: 'u8', torch.int32: 'i32'}
 _PRODUCTS = {torch.bfloat16: 'bf16', torch.float32: 'f32'}
 
-# Bytes of shared memory the fold's (K·P, S_tile) accumulator may take:
-# S_tile is the largest power of two up to 128 that fits, so K·P = 512 in
-# float32 folds 64 columns at a time and float64 halves that again. A block
-# may hold 227 KB; the rest is the staged slot batch.
+# Shared memory on an SM (228 KiB), the most one block may ask for, and
+# the bytes the fold's (K·P, S_tile) accumulator may take: S_tile is the
+# largest power of two up to 128 that fits, so K·P = 512 in float32 folds
+# 64 columns at a time and float64 halves that again.
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK = 232_448
 ACC_BYTES = 128 * 1024
 _MAX_TILE = 128
+# The fold kernel's ring of x rows is cut into this many parts, and its
+# producer warp stages this many raw slots at a time (kGroups and kRound in
+# csrc/windowed_fold.cu); x rows in flight per SM it aims for.
+RING_GROUPS = 8
+STAGE_ROUND = 128
+_RING_BYTES_PER_SM = 64 * 1024
+_RING_ROWS = (16, 256)
+# Shared bytes that the kernel's fold_smem_bytes counts beside the
+# accumulator and the ring: two 8-byte mbarriers and a 4-byte count per
+# ring part; per queue entry, a slot (offset and value, padded to two
+# values) and its 4-byte x row (tests/test_torch_cuda.py holds the sum to
+# the kernel's)
+_PART_BYTES = 2 * 8 + 4
 
 
-def fold_tile(kp: int, s: int, itemsize: int) -> int:
-    """The S tile of a fold with ``kp`` accumulator rows; raises if not even
-    one column of the accumulator fits in shared memory."""
+class FoldLayout(NamedTuple):
+    """Shared-memory layout of one :func:`windowed_fold` block."""
+    s_tile: int      # columns of S per block, one folding thread each
+    ring: int        # x rows in the ring (a multiple of RING_GROUPS)
+    queue: int       # live-slot queue entries (a power of two)
+    smem_bytes: int  # mbarriers + part counts + accumulator + ring + queue
+
+
+def _s_tile(kp: int, s: int, itemsize: int) -> int:
+    """The S tile of a fold with ``kp`` accumulator rows of
+    ``itemsize``-byte sums, one folding thread per column: the widest power
+    of two up to 128 whose accumulator fits ``ACC_BYTES``, no wider than S
+    rounded up to a warp. Raises if not even one column fits."""
     tile = _MAX_TILE
     while tile > 1 and kp * tile * itemsize > ACC_BYTES:
         tile //= 2
     if kp * tile * itemsize > ACC_BYTES:
         raise ValueError(f'a fold over {kp} rows does not fit the '
                          f'{ACC_BYTES}-byte shared accumulator')
-    # no wider than S rounded up to a warp
     return min(tile, max(32, -(-s // 32) * 32))
+
+
+def fold_layout(kp: int, s: int, itemsize: int) -> FoldLayout:
+    """The :func:`windowed_fold` block layout for ``kp`` accumulator rows,
+    S = ``s`` and ``itemsize``-byte values: the accumulator, a ring deep
+    enough to keep 64 KB of x rows in flight per SM (two blocks share an SM
+    when the accumulator takes at most half of ``ACC_BYTES``), and a queue
+    of live slots that outlasts the ring plus one staging round. Raises if
+    not even one column of the accumulator fits."""
+    tile = _s_tile(kp, s, itemsize)
+    acc = kp * tile * itemsize
+    blocks_per_sm = 2 if 2 * acc <= ACC_BYTES else 1
+    want = _RING_BYTES_PER_SM // blocks_per_sm // (tile * itemsize)
+    ring = min(max(1 << max(want, 1).bit_length() - 1, _RING_ROWS[0]),
+               _RING_ROWS[1])
+    queue = 1 << (ring + STAGE_ROUND - 1).bit_length()
+    smem = (_PART_BYTES * RING_GROUPS + acc + ring * tile * itemsize
+            + queue * (2 * itemsize + 4))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f'a fold over {kp} rows needs {smem} bytes of '
+                         f'shared memory, more than {SMEM_PER_BLOCK}')
+    return FoldLayout(tile, ring, queue, smem)
 
 
 def _check_operands(name, tensors, x):
@@ -136,12 +184,13 @@ def windowed_fold(cols, vals, rowid, x, chunk_rows: int, kp: int):
     t = torch.empty((n_out, nw, kp, s), dtype=x.dtype, device=x.device)
     if t.numel() == 0:
         return t
-    tile = fold_tile(kp, s, x.element_size())
+    lay = fold_layout(kp, s, x.element_size())
     symbol = f'windowed_fold_{_DTYPES[x.dtype]}_{_ROWIDS[rowid.dtype]}'
     with torch.cuda.device(x.device):
-        _launch(symbol, 5, 8, cols.data_ptr(), vals.data_ptr(),
+        _launch(symbol, 5, 10, cols.data_ptr(), vals.data_ptr(),
                 rowid.data_ptr(), x.data_ptr(), t.data_ptr(), n_out * nw,
-                n_src, L, chunk_rows, kp, x.shape[0], s, tile)
+                n_src, L, chunk_rows, kp, x.shape[0], s, lay.s_tile,
+                lay.ring, lay.queue)
     windowed_fold.launches += 1
     return t
 
@@ -238,7 +287,7 @@ def fold_products(rid, p, kp: int):
     with torch.cuda.device(p.device):
         _launch(f'fold_products_{_PRODUCTS[p.dtype]}', 3, 5, rid.data_ptr(),
                 p.data_ptr(), out.data_ptr(), nw, lt, kp, s,
-                fold_tile(kp, s, 4))
+                _s_tile(kp, s, 4))
     fold_products.launches += 1
     return out
 

@@ -149,20 +149,6 @@ def test_fold_and_strip_match_fold_products_and_jax_overlap_add():
     assert _rel_err(got.numpy(), want) <= TOL_FOLD
 
 
-@pytest.mark.parametrize('kp,s,itemsize,tile', [
-    (128, 128, 4, 128), (128, 128, 8, 128), (512, 128, 4, 64),
-    (512, 128, 8, 32), (256, 5, 4, 32), (128, 300, 4, 128),
-    (16384, 128, 8, 1)])
-def test_fold_tile_fits_shared_memory(kp, s, itemsize, tile):
-    assert wk.fold_tile(kp, s, itemsize) == tile
-    assert kp * tile * itemsize <= wk.ACC_BYTES
-
-
-def test_fold_tile_refuses_what_cannot_fit():
-    with pytest.raises(ValueError, match='does not fit'):
-        wk.fold_tile(wk.ACC_BYTES, 1, 8)
-
-
 def test_wrappers_validate_arguments():
     W = _random_powerlaw(100, np.random.default_rng(1))
     T = twd.windowed_from_scipy(W, chunk_rows=64, window_rows=16,
