@@ -5,16 +5,20 @@ Phases, each of which raises on failure:
 1. build the CUDA kernels from ``pygsp_tpu_torch/csrc`` (one nvcc each, in
    parallel, printing registers and spills) into ``pygsp_tpu_torch/_build``,
    then launch ``double`` (TPU kernel #4, the toolchain canary) against
-   ``x * 2``;
+   ``x * 2``, its call time beside its device time (torch.profiler);
 2. hold each kernel against its plain PyTorch version on the card, in f32
-   (and once in f64): CSR, banded (f32 on the tensor cores, 3×TF32, also
+   (and once in f64): CSR (also a star row of 20,000 edges across many of
+   the kernel's segments), banded (f32 on the tensor cores, 3×TF32, also
    on Grid2d tiles that TF32 does not hold exactly), the
    windowed fold and strip (including ``window_rows=256`` and a span-4
-   matrix), and the one-hot fold at TPU kernel #3's shape;
+   matrix), and the one-hot fold at TPU kernel #3's shape (call and device
+   time), and with dead slots holding ``inf``, which must add nothing;
 3. path A, the README path at the bench size: Barabási–Albert N=2^20
    (m0 = m = 8, about 16.8M stored edges) → ``Graph`` → ``estimate_lmax`` →
    ``Heat(scale=[5, 10, 25, 50]).filter(x, order=30)`` with x (N, 128) f32,
    through the CSR SpMM kernel, checked against the SciPy f64 recurrence;
+   the kernel's two launches bit-equal at this shape, and its time with the
+   hub rows (above 1024 edges) emptied and on those rows alone;
 4. path B, the banded path: ``Grid2d(512, 512)`` → ``L.to_banded()`` →
    ``cheby_op`` through the banded SpMM kernel, checked against the CSR
    path and the SciPy f64 recurrence;
@@ -42,6 +46,8 @@ import time
 import numpy as np
 import scipy.sparse as sps
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 import pygsp_tpu_torch as gsp
 from pygsp_tpu_torch.core import _cuda, banded_kernel, csr_kernel
@@ -51,15 +57,17 @@ from pygsp_tpu_torch.core import windowed_kernel as wk
 from pygsp_tpu_torch.ops.chebyshev import cheby_coeff, cheby_op
 
 # H100 SXM data sheet: HBM rate, FP32 rate outside the tensor cores, and
-# the dense TF32 tensor-core rate.
+# the dense TF32 and bf16 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 TF32_PRODUCTS = 3       # the banded f32 kernel's TF32 products per product
 
 N_BA = 1 << 20          # bench.py:53-58
 M_ATTACH = 8
 GRID_SIDE = 512         # 262,144 vertices, half bandwidth 4 tiles
+HUB_DEGREE = 1024       # path A's hub rows: more edges than this
 ORDER = 30
 N_SIGNALS = 128
 SCALES = [5.0, 10.0, 25.0, 50.0]
@@ -121,6 +129,25 @@ def time_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """Device time of one launch of ``fn``, which launches one kernel per
+    call: the mean time on the card of the kernels that torch.profiler
+    records over ``iters`` calls (after one warm-up call). The mean is
+    taken over the kernels recorded, so a record the profiler drops does
+    not count as a launch that took no time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+          if ev.device_type == DeviceType.CUDA]
+    if not us or sum(us) <= 0:
+        raise AssertionError('torch.profiler saw no device time')
+    return sum(us) / len(us) / 1e3
 
 
 def check(name, got, want, tol):
@@ -203,6 +230,8 @@ def phase_build():
     max_abs_err = float((y - wk.double_plain(x)).abs().max())
     ms = time_ms(lambda: wk.double(x), 100)
     return {'max_abs_err': max_abs_err, 'ms': ms,
+            'device_ms': device_ms(lambda: wk.double(x), 100),
+            'library_device_ms': device_ms(lambda: torch.mul(x, 2), 100),
             'plain_ms': time_ms(lambda: wk.double_plain(x), 100),
             'library_ms': time_ms(lambda: torch.mul(x, 2), 100),
             'library': 'torch.mul(x, 2)',
@@ -223,6 +252,19 @@ def phase_kernels():
             check(f'csr N=2^16 S={s} {dtype}',
                   csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals, x),
                   csr_kernel.csr_spmm_plain(A.rowptr, A.cols, A.vals, x), tol)
+    # a star row of 20,000 edges spans about 80 of the CSR kernel's
+    # segments of 256 steps; held against the plain version in f64, whose
+    # f32 index_add_ would sum the long row in no fixed order
+    star = sps.random(64, 20_000, density=1e-3, random_state=rng,
+                      format='lil')
+    star[3] = rng.normal(size=20_000)
+    A = gsp.core.from_scipy(star.tocsr(), dtype=torch.float32,
+                            device='cuda')
+    x = seeded_normal((20_000, 128), 9)
+    check('csr star row of 20,000 edges S=128',
+          csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals, x),
+          csr_kernel.csr_spmm_plain(A.rowptr, A.cols, A.vals.double(),
+                                    x.double()), TOL_CSR)
 
     n = 128 * 64 + 37        # ragged last tile
     for offsets, b in (((1, 7, 100), 1), ((1, 128, 300, 500), 4)):
@@ -287,7 +329,18 @@ def phase_windowed_kernels(W):
     rid = torch.randint(0, FOLD3_KP, (1, FOLD3_LT), dtype=torch.int32,
                         device='cuda', generator=gen)
     p = seeded_normal((1, FOLD3_LT, 128), 4).to(torch.bfloat16)
-    return measure_fold(rid, p, FOLD3_KP, 100)
+    fold3 = measure_fold(rid, p, FOLD3_KP, 100)
+    # dead slots (ids on both sides of [0, KP)) holding inf add nothing
+    dead = torch.rand(1, FOLD3_LT, device='cuda', generator=gen) < 0.2
+    rid = torch.where(dead, torch.where(rid % 2 == 0, -1, FOLD3_KP + rid),
+                      rid)
+    for dtype in (torch.bfloat16, torch.float32):
+        p_inf = torch.where(dead[..., None], float('inf'),
+                            p.float()).to(dtype)
+        check(f'fold_products with inf in dead slots {dtype}',
+              wk.fold_products(rid, p_inf, FOLD3_KP),
+              wk.fold_products_plain(rid, p_inf, FOLD3_KP), TOL_FOLD)
+    return fold3
 
 
 def measure_fold(rid, p, kp, iters):
@@ -305,14 +358,20 @@ def measure_fold(rid, p, kp, iters):
     dst = (torch.arange(nw, device=p.device)[:, None] * kp
            + rid).reshape(-1).long()
     acc = torch.zeros(nw * kp, s, device=p.device)
+    # the dense one-hot product the kernel does, at the bf16 rate
+    dense_flops = 2 * nw * kp * lt * s
     return {'max_abs_err': max_abs_err,
             'ms': time_ms(lambda: wk.fold_products(rid, p, kp), iters),
+            'device_ms': device_ms(lambda: wk.fold_products(rid, p, kp),
+                                   iters),
             'plain_ms': time_ms(lambda: wk.fold_products_plain(rid, p, kp),
                                 max(iters // 10, 2)),
             'library_ms': time_ms(lambda: acc.index_add_(0, dst, p32), iters),
             'library': 'index_add_ of the products cast to f32 beforehand',
             **bound(rid.numel() * 4 + p.numel() * p.element_size()
                     + out.numel() * 4, p.numel()),
+            'bound_tensor_ms': dense_flops / BF16_FLOPS * 1e3,
+            'blocks': wk.products_layout(nw, kp, s, p.element_size()).blocks,
             'shape': {'NW': nw, 'Lt': lt, 'KP': kp, 'S': s}}
 
 
@@ -323,7 +382,11 @@ def measure_csr(A, x):
     y_plain = csr_kernel.csr_spmm_plain(*args)
     max_abs_err = float((y - y_plain).abs().max())
     check('csr kernel at path A shape', y, y_plain, TOL_CSR)
-    del y, y_plain
+    del y_plain
+    if not torch.equal(y, csr_kernel.csr_spmm(*args)):
+        raise AssertionError('csr_spmm: two launches differ at path A')
+    log('  csr kernel at path A shape: two launches bit-equal')
+    del y
     nnz, n, s = A.nnz, A.n_rows, x.shape[1]
     lib = torch.sparse_csr_tensor(A.rowptr, A.cols[:nnz], A.vals[:nnz],
                                   size=A.shape)
@@ -341,6 +404,36 @@ def measure_csr(A, x):
         'bound_gather_ms': bytes_gather / HBM_BYTES_PER_S * 1e3,
         'nnz': nnz, 'n': n, 's': s,
     }
+
+
+def measure_hub_tail(A, x):
+    """How much of the CSR kernel's time the hub rows (above HUB_DEGREE
+    edges) take: its ms per launch on ``A`` as it is, on ``A`` with those
+    rows emptied, and on those rows alone (both made on the card from
+    ``A``'s arrays)."""
+    counts = A.rowptr[1:] - A.rowptr[:-1]
+    hub = counts > HUB_DEGREE
+    edge_hub = torch.repeat_interleave(hub, counts.long(),
+                                       output_size=A.nnz)
+    zero = torch.zeros(1, dtype=torch.int32, device=x.device)
+
+    def rows(keep_hubs):
+        kept = torch.where(hub == keep_hubs, counts, 0)
+        mask = edge_hub == keep_hubs
+        return (torch.cat([zero, kept.cumsum(0, dtype=torch.int32)]),
+                A.cols[:A.nnz][mask].contiguous(),
+                A.vals[:A.nnz][mask].contiguous(), x)
+
+    out = {'hub_rows': int(hub.sum()),
+           'hub_edges': int(edge_hub.sum()), 'nnz': A.nnz,
+           'ms': time_ms(lambda: csr_kernel.csr_spmm(
+               A.rowptr, A.cols, A.vals, x), 20)}
+    for name, keep in (('ms_without_hubs', False), ('ms_hubs_only', True)):
+        args = rows(keep)
+        out[name] = time_ms(lambda: csr_kernel.csr_spmm(*args), 20)
+        del args
+    out['hub_tail_ms'] = out['ms'] - out['ms_without_hubs']
+    return out
 
 
 def measure_banded(B, x):
@@ -459,11 +552,10 @@ def phase_path_a():
     log(f'phase 3: path A, BarabasiAlbert N={N_BA}, CSR kernel')
     reset_counts()
     G, g, x, bank = path_a()
-    # one warp per row in the CSR kernel: the hub rows set its tail
     degree = G.d
-    hubs = degree > 1024
+    hubs = degree > HUB_DEGREE
     log(f'  row degrees: mean {degree.mean():.2f}, max {degree.max()}; '
-        f'{hubs.sum()} rows above 1024 hold '
+        f'{hubs.sum()} rows above {HUB_DEGREE} hold '
         f'{degree[hubs].sum() / degree.sum():.2%} of the edges')
     out, launches, per_bank = run_bank(bank)
     log(f'  launches on the path {launches}, per bank {per_bank}')
@@ -482,6 +574,9 @@ def phase_path_a():
         f'{ORDER * nnz * N_SIGNALS / (ms_bank / 1e3):.4e} edge-ops/s')
     kernel = measure_csr(G.L.offdiag, x)
     kernel.update(max_row_nnz=int(degree.max()))
+    hub_tail = measure_hub_tail(G.L.offdiag, x)
+    log(f'  hub tail: {json.dumps(hub_tail)}')
+    kernel.update(hub_tail=hub_tail)
     path = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'nnz': nnz,
             'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
             'lmax': G.lmax}

@@ -5,6 +5,12 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 use and loaded with ``ctypes``. The library's file name carries a hash of
 the source text, so an edited source is rebuilt and an unchanged one reused.
 Nothing here runs at import time.
+
+:func:`launch` is every wrapper's way to its kernel, and keeps the host's
+cost per call near PyTorch's own dispatch: the configured ctypes function
+is looked up once per (source, symbol), the device is switched only when
+the tensors lie on another than the current one, and the current stream
+is read once, as a raw handle.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD = os.path.join(_PKG, '_build')
@@ -22,6 +30,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 
 _libraries: dict = {}
+_functions: dict = {}
 
 
 def _nvcc() -> str:
@@ -83,9 +92,27 @@ def library(name: str) -> ctypes.CDLL:
 
 def function(name: str, symbol: str, n_pointers: int, n_ints: int):
     """A C function ``int symbol(void*..., int..., void* stream)`` of the
-    library ``name``, with its ctypes signature declared."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    library ``name``, with its ctypes signature declared once."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers
+                       + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
     return fn
+
+
+def launch(name: str, symbol: str, n_pointers: int, n_ints: int,
+           device: int, *args):
+    """Call ``symbol`` of ``csrc/<name>.cu`` with ``args`` (pointers, then
+    ints) and the current stream of CUDA device ``device`` (an index), on
+    that device. Raises if the C function returns a CUDA error."""
+    fn = function(name, symbol, n_pointers, n_ints)
+    if device == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    if err:
+        raise RuntimeError(f'{symbol} launch failed with CUDA error {err}')

@@ -76,13 +76,9 @@ def banded_spmm(tiles, x, n_rows: int):
     y = torch.empty((n_rows, s), dtype=x.dtype, device=x.device)
     if n_rows == 0 or s == 0:
         return y
-    fn = _cuda.function('banded_spmm', _SYMBOLS[x.dtype], 3, 5)
-    with torch.cuda.device(x.device):
-        err = fn(tiles.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 nb, (n_diag - 1) // 2, n_rows, x.shape[0], s,
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f'banded_spmm launch failed with CUDA error {err}')
+    _cuda.launch('banded_spmm', _SYMBOLS[x.dtype], 3, 5, x.get_device(),
+                 tiles.data_ptr(), x.data_ptr(), y.data_ptr(), nb,
+                 (n_diag - 1) // 2, n_rows, x.shape[0], s)
     banded_spmm.launches += 1
     return y
 

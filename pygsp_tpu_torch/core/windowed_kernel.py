@@ -56,6 +56,17 @@ _RING_ROWS = (16, 256)
 # values) and its 4-byte x row (tests/test_torch_cuda.py holds the sum to
 # the kernel's)
 _PART_BYTES = 2 * 8 + 4
+# fold_products' block: slots per stage, columns of S, stages in its ring,
+# and the bf16 pitch of a split plane's row (kProdK, kProdN, kProdStages
+# and kProdPitch in csrc/windowed_fold.cu); the card's SMs; the grid's
+# limits in x and y
+PRODUCTS_K = 32
+PRODUCTS_N = 128
+PRODUCTS_STAGES = 4
+PRODUCTS_PITCH = PRODUCTS_N + 8
+SMS = 132
+_GRID_X = 2**31 - 1
+_GRID_Y = 65_535
 
 
 class FoldLayout(NamedTuple):
@@ -110,13 +121,6 @@ def _check_operands(name, tensors, x):
             raise ValueError(f'{name}: all operands must be contiguous')
     if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'{name} runs on cuda or cpu, not {x.device}')
-
-
-def _launch(symbol, n_pointers, n_ints, *args):
-    fn = _cuda.function(_SOURCE, symbol, n_pointers, n_ints)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f'{symbol} launch failed with CUDA error {err}')
 
 
 # ---------------------------------------------------------------------------
@@ -186,11 +190,10 @@ def windowed_fold(cols, vals, rowid, x, chunk_rows: int, kp: int):
         return t
     lay = fold_layout(kp, s, x.element_size())
     symbol = f'windowed_fold_{_DTYPES[x.dtype]}_{_ROWIDS[rowid.dtype]}'
-    with torch.cuda.device(x.device):
-        _launch(symbol, 5, 10, cols.data_ptr(), vals.data_ptr(),
-                rowid.data_ptr(), x.data_ptr(), t.data_ptr(), n_out * nw,
-                n_src, L, chunk_rows, kp, x.shape[0], s, lay.s_tile,
-                lay.ring, lay.queue)
+    _cuda.launch(_SOURCE, symbol, 5, 10, x.get_device(), cols.data_ptr(),
+                 vals.data_ptr(), rowid.data_ptr(), x.data_ptr(),
+                 t.data_ptr(), n_out * nw, n_src, L, chunk_rows, kp,
+                 x.shape[0], s, lay.s_tile, lay.ring, lay.queue)
     windowed_fold.launches += 1
     return t
 
@@ -236,9 +239,9 @@ def window_strip(t, n_rows: int, window_rows: int):
     y = torch.empty((n_rows, s), dtype=t.dtype, device=t.device)
     if y.numel() == 0:
         return y
-    with torch.cuda.device(t.device):
-        _launch(f'window_strip_{_DTYPES[t.dtype]}', 2, 5, t.data_ptr(),
-                y.data_ptr(), n_rows, s, nw, window_rows, kp // window_rows)
+    _cuda.launch(_SOURCE, f'window_strip_{_DTYPES[t.dtype]}', 2, 5,
+                 t.get_device(), t.data_ptr(), y.data_ptr(), n_rows, s, nw,
+                 window_rows, kp // window_rows)
     window_strip.launches += 1
     return y
 
@@ -264,12 +267,54 @@ def fold_products_plain(rid, p, kp: int):
     return out.reshape(nw, kp, s)
 
 
+class ProductsLayout(NamedTuple):
+    """Grid and shared memory of one :func:`fold_products` launch."""
+    block_m: int     # KP rows per block (64, 128, 256: 4, 8, 16 warps)
+    m_tiles: int     # blocks along KP per window
+    n_tiles: int     # blocks along S (PRODUCTS_N columns each)
+    blocks: int      # NW * m_tiles * n_tiles
+    smem_bytes: int  # the ring of stages, their row ids, f32's planes
+
+
+def products_layout(nw: int, kp: int, s: int, itemsize: int
+                    ) -> ProductsLayout:
+    """The :func:`fold_products` launch for ``nw`` windows of ``kp`` output
+    rows, S = ``s`` and ``itemsize``-byte products (2: bf16, multiplied as
+    loaded; 4: f32, split into three bf16 planes first). A block takes the
+    most rows of KP, 256 or 128, that still leave two blocks for each SM
+    (every block reads its window's p, so fewer KP tiles read less), else
+    64, so that one window of 256 rows (TPU kernel #3) runs 4 blocks.
+    Raises where the grid cannot hold the launch."""
+    if itemsize not in (2, 4) or kp < 1 or nw < 0 or s < 0:
+        raise ValueError(f'no fold_products layout for NW={nw}, KP={kp}, '
+                         f'S={s} and {itemsize}-byte products')
+    n_tiles = -(-s // PRODUCTS_N)
+    block_m = next((bm for bm in (256, 128) if kp > bm // 2
+                    and nw * -(-kp // bm) * n_tiles >= 2 * SMS), 64)
+    m_tiles = -(-kp // block_m)
+    if n_tiles > _GRID_Y or nw * m_tiles > _GRID_X:
+        raise ValueError(f'a fold over NW={nw}, KP={kp}, S={s} does not fit '
+                         f'the grid ({nw * m_tiles} x {n_tiles} blocks)')
+    # per stage, its products as loaded (rows padded by 16 bytes) and row
+    # ids; f32 products are split into three bf16 planes before the product
+    stage = PRODUCTS_K * (PRODUCTS_N * itemsize + 16) + PRODUCTS_K * 4
+    planes = 0 if itemsize == 2 else 3 * PRODUCTS_K * PRODUCTS_PITCH * 2
+    smem = PRODUCTS_STAGES * stage + planes
+    return ProductsLayout(block_m, m_tiles, n_tiles, nw * m_tiles * n_tiles,
+                          smem)
+
+
 def fold_products(rid, p, kp: int):
     """``out[w, k, :] = Σ_{l: rid[w, l] = k} p[w, l, :]``, float32, for
     ``rid (NW, Lt)`` int32 and bfloat16 or float32 products
     ``p (NW, Lt, S)``: the one-hot ``(kp, Lt)`` times ``p[w]`` of TPU
-    kernel #2, with float32 accumulation. Row ids outside ``[0, kp)`` match
-    no one-hot row and add nothing. Returns (NW, kp, S)."""
+    kernel #2, with float32 accumulation, on the tensor cores (float32
+    products as three exact bfloat16 terms). Row ids outside ``[0, kp)``
+    match no one-hot row and add nothing, even where their product is not
+    finite. A live product that is not finite spreads NaN over its
+    window's column, as in the dense one-hot product of TPU kernel #2 and
+    of the JAX package's einsum; the plain version (``index_add_``) keeps
+    it to its own row. Returns (NW, kp, S)."""
     if rid.ndim != 2 or p.ndim != 3 or p.shape[:2] != rid.shape:
         raise ValueError(f'fold_products takes rid (NW, Lt) and p '
                          f'(NW, Lt, S), got {tuple(rid.shape)} and '
@@ -284,10 +329,10 @@ def fold_products(rid, p, kp: int):
     out = torch.empty((nw, kp, s), dtype=torch.float32, device=p.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(p.device):
-        _launch(f'fold_products_{_PRODUCTS[p.dtype]}', 3, 5, rid.data_ptr(),
-                p.data_ptr(), out.data_ptr(), nw, lt, kp, s,
-                _s_tile(kp, s, 4))
+    lay = products_layout(nw, kp, s, p.element_size())
+    _cuda.launch(_SOURCE, f'fold_products_{_PRODUCTS[p.dtype]}', 3, 5,
+                 p.get_device(), rid.data_ptr(), p.data_ptr(),
+                 out.data_ptr(), nw, lt, kp, s, lay.block_m)
     fold_products.launches += 1
     return out
 
@@ -314,8 +359,8 @@ def double(x):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
-        _launch('double_f32', 2, 1, x.data_ptr(), y.data_ptr(), x.numel())
+    _cuda.launch(_SOURCE, 'double_f32', 2, 1, x.get_device(), x.data_ptr(),
+                 y.data_ptr(), x.numel())
     double.launches += 1
     return y
 

@@ -7,80 +7,260 @@
 // Laplacian format. Eager PyTorch would materialise that as an (E, S)
 // product: 8.6 GB at the bench graph's 16.8M edges and S = 128.
 //
-// What bounds it on this card: device-memory bytes. Each stored edge pulls
-// one row of x (S values) and does 2S flops, far below the FP32 peak. The
-// least traffic is x read once plus y written once plus cols and vals; the
-// gathers re-read rows of x that the 50 MB L2 cache only partly holds.
+// What bounds it on this card: device-memory bytes, and of those the
+// gathers. Each stored edge pulls one row of x (S values, 512 bytes at
+// S = 128 in f32) from anywhere in x, and x (0.5 GB at the bench graph)
+// does not stay in the 50 MB L2 cache, so the least time is one row per
+// edge at the memory rate (the gather model), far above x read once. The
+// 2S flops per edge are far below the FP32 peak. So the kernel has to keep
+// many rows in flight, on every SM, to the end of the launch.
 //
-// Design: one warp per output row, eight rows per block. Lanes own
-// neighbouring columns of S, so each gathered row of x is read as coalesced
-// 128-byte segments (512 bytes per row at S = 128). The warp fetches 32
-// (col, val) pairs at once, one per lane, and broadcasts them with
-// __shfl_sync. The row sum stays in registers in the operand type and each
-// row is written once by one warp: no atomics, no shared memory. S is
-// walked in 128-column passes with the ragged edge masked, so S = 1 and
-// S = 5 work. Power-law hub rows (degrees in the thousands) keep their warp
-// far longer than the rest: splitting them is later work.
+// Design (merge path: balanced by edges and rows, not by rows alone). The
+// walk over the matrix is the merge of its row ends and its edges, one
+// step each, n_rows + nnz steps in all; it is cut into segments of
+// kSegSteps steps, one warp each. The wrapper (core/csr_kernel.py:
+// csr_segments) gives each segment's start, the row in progress and the
+// edge, with one torch.searchsorted on rowptr[1:] + row index, so neither
+// a host sync nor a per-matrix cache is needed. Counting row ends as steps
+// keeps a run of empty rows (a million of them, in a matrix of hub rows
+// alone) from falling to one warp, as it would with segments of edges
+// alone. A warp walks its edges in order, 32 (col, val) pairs
+// loaded at once and broadcast with __shfl_sync; row changes are
+// warp-uniform, so nothing diverges. In f32 a lane owns 4 neighbouring
+// columns and reads them as one 16-byte load (one warp instruction reads a
+// whole 512-byte row of x at S = 128), and the loads of kInFlight edges are
+// issued before their FMAs. S is walked in passes of 32 lanes * 16 bytes
+// (128 columns in f32, 64 in f64) with the ragged edge masked; S that is
+// not a whole number of 16-byte units takes scalar loads. A row that
+// begins and ends inside its segment is written once, by that warp, rows
+// with no edges as 0. A row that crosses segment boundaries, every hub row
+// among them (path A's Barabasi-Albert graph has rows of up to 6616 edges),
+// leaves one partial sum per segment in a scratch buffer that the wrapper
+// allocates, and a second kernel adds them in segment order. So every row
+// sums in a fixed order, no atomics, and two launches are bit-equal. At
+// path A (S = 128): 2.89 ms on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py), 1.05x the gather model, against 4.01 ms for the
+// one-warp-per-row kernel before it, 1.18 ms of which was the tail of the
+// 54 hub rows. Registers (nvcc -Xptxas -v, sm_90a): 80 in f32 with 12
+// bytes of spill, 91 in f64 with none.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kColsPerLane = 4;
-constexpr int kTileS = 32 * kColsPerLane;
+constexpr int kSegSteps = 256;  // walk steps (row ends and edges) per warp
+constexpr int kInFlight = 8;    // edges whose x rows are loaded at once
+constexpr unsigned kFull = 0xffffffffu;
+
+// A lane's share of one pass: 16 bytes of a row, kVec values.
+template <typename T>
+struct Lane16;
+
+template <>
+struct Lane16<float> {
+  static constexpr int kVec = 4;
+  __device__ static void load(const float* p, float (&v)[4]) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  }
+  __device__ static void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Lane16<double> {
+  static constexpr int kVec = 2;
+  __device__ static void load(const double* p, double (&v)[2]) {
+    const double2 u = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = u.x, v[1] = u.y;
+  }
+  __device__ static void store(double* p, const double (&v)[2]) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  }
+};
+
+// Load the lane's columns c0 .. c0 + kVec - 1 of row p (masked at s): one
+// 16-byte load where rows are whole 16-byte units (vec), else scalars.
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* p, int c0, int s,
+                                          bool vec,
+                                          T (&v)[Lane16<T>::kVec]) {
+  constexpr int V = Lane16<T>::kVec;
+  if (vec && c0 < s) {
+    Lane16<T>::load(p + c0, v);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i] = c0 + i < s ? p[c0 + i] : T(0);
+}
 
 template <typename T>
+__device__ __forceinline__ void store_cols(T* p, int c0, int s, bool vec,
+                                           const T (&v)[Lane16<T>::kVec]) {
+  constexpr int V = Lane16<T>::kVec;
+  if (vec) {
+    if (c0 < s) Lane16<T>::store(p + c0, v);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    if (c0 + i < s) p[c0 + i] = v[i];
+}
+
+// One warp per segment w. It starts with row r_begin in progress at edge
+// e0 (seg[w], seg[n_seg + w]) and ends where segment w + 1 starts, with row
+// r_stop in progress at edge e1 (the last segment: n_rows, nnz): it ends
+// the rows r_begin .. r_stop - 1 and adds the edges [e0, e1). A row is
+// flushed to
+//   partials[w]               if it began before e0 (its first row),
+//   y[r]                      else, if it ends here (empty rows too),
+//   partials[n_seg + w]       else: r_stop, begun here, goes on past e1.
+template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-csr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
-                const T* __restrict__ vals, const T* __restrict__ x,
-                T* __restrict__ y, int n_rows, int s) {
+csr_segment_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
+                   const T* __restrict__ vals, const T* __restrict__ x,
+                   T* __restrict__ y, const int* __restrict__ seg,
+                   T* __restrict__ partials, int n_rows, int s, int n_seg,
+                   bool vec) {
+  constexpr int V = Lane16<T>::kVec;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // uniform across the warp
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
-  for (int s0 = 0; s0 < s; s0 += kTileS) {
-    T acc[kColsPerLane];
-#pragma unroll
-    for (int i = 0; i < kColsPerLane; ++i) acc[i] = T(0);
-    for (int e0 = start; e0 < end; e0 += 32) {
-      int c = 0;
-      T v = T(0);
-      if (e0 + lane < end) {
-        c = cols[e0 + lane];
-        v = vals[e0 + lane];
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (w >= n_seg) return;  // uniform across the warp
+  const int r_begin = seg[w];
+  if (r_begin >= n_rows) return;  // past the end of the walk
+  const int nnz = rowptr[n_rows];
+  const int e0 = min(seg[n_seg + w], nnz);
+  const bool last = w + 1 == n_seg;
+  const int r_stop = last ? n_rows : seg[w + 1];
+  const int e1 = last ? nnz : min(seg[n_seg + w + 1], nnz);
+
+  for (int s0 = 0; s0 < s; s0 += 32 * V) {
+    const int c0 = s0 + lane * V;
+    // rowptr[rb + lane], 32 entries at a time, read by __shfl_sync
+    int rb = r_begin;
+    int rp = rb + lane <= n_rows ? rowptr[rb + lane] : nnz;
+    auto row_ptr = [&](int i) {  // rowptr[i] for a warp-uniform i >= rb
+      if (i - rb >= 32) {
+        rb = i;
+        rp = rb + lane <= n_rows ? rowptr[rb + lane] : nnz;
       }
-      const int n = min(32, end - e0);
-      for (int j = 0; j < n; ++j) {
-        const int cj = __shfl_sync(0xffffffffu, c, j);
-        const T vj = __shfl_sync(0xffffffffu, v, j);
-        const T* xr = x + static_cast<size_t>(cj) * s + s0;
+      return __shfl_sync(kFull, rp, i - rb);
+    };
+    int r = r_begin;
+    int rs = row_ptr(r), re = row_ptr(r + 1);  // row r's edges [rs, re)
+    T acc[V];
 #pragma unroll
-        for (int i = 0; i < kColsPerLane; ++i) {
-          const int col = lane + 32 * i;
-          if (s0 + col < s) acc[i] += vj * xr[col];
+    for (int i = 0; i < V; ++i) acc[i] = T(0);
+    auto flush = [&]() {
+      T* dst = rs < e0    ? partials + static_cast<size_t>(w) * s
+               : r < r_stop ? y + static_cast<size_t>(r) * s
+                            : partials + static_cast<size_t>(n_seg + w) * s;
+      store_cols(dst, c0, s, vec, acc);
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = T(0);
+      ++r;
+      rs = re;
+      re = r < n_rows ? row_ptr(r + 1) : nnz;
+    };
+
+    for (int c = e0; c < e1; c += 32) {
+      const int n = min(32, e1 - c);
+      int col = 0;
+      T val = T(0);
+      if (lane < n) {
+        col = cols[c + lane];
+        val = vals[c + lane];
+      }
+      for (int j = 0; j < n; j += kInFlight) {
+        T xv[kInFlight][V], v[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          const int cj = __shfl_sync(kFull, col, (j + u) & 31);
+          v[u] = __shfl_sync(kFull, val, (j + u) & 31);
+          if (j + u < n) {
+            load_cols(x + static_cast<size_t>(cj) * s, c0, s, vec, xv[u]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < V; ++i) xv[u][i] = T(0);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          if (j + u < n) {
+            while (c + j + u >= re) flush();  // rows that end before it
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[i] += v[u] * xv[u][i];
+          }
         }
       }
     }
-    T* yr = y + static_cast<size_t>(row) * s + s0;
+    // the rows that end in this segment, then r_stop if it has edges here
+    // or began before
+    while (r < n_rows && (r < r_stop || rs < e1)) flush();
+  }
+}
+
+// One warp per segment boundary b (1 <= b < n_seg): the row rc in progress
+// there, if it began in segment b - 1 (at or after its first edge, before
+// edge seg[n_seg + b]), is the sum of that segment's last-row partial and
+// the first-row partials of segments b, b + 1, ... that it spans, in that
+// order.
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+csr_join_kernel(const int* __restrict__ rowptr, T* __restrict__ y,
+                const int* __restrict__ seg, const T* __restrict__ partials,
+                int n_rows, int s, int n_seg, bool vec) {
+  constexpr int V = Lane16<T>::kVec;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5) + 1;
+  if (b >= n_seg) return;
+  const int rc = seg[b];
+  if (rc >= n_rows) return;
+  const int rs = rowptr[rc];
+  // no crossing, or not its first
+  if (rs >= seg[n_seg + b] || rs < seg[n_seg + b - 1]) return;
+  int b_end = b + 1;
+  while (b_end < n_seg && seg[b_end] == rc) ++b_end;
+  for (int s0 = 0; s0 < s; s0 += 32 * V) {
+    const int c0 = s0 + lane * V;
+    T acc[V], part[V];
+    load_cols(partials + static_cast<size_t>(n_seg + b - 1) * s, c0, s, vec,
+              acc);
+    for (int k = b; k < b_end; ++k) {
+      load_cols(partials + static_cast<size_t>(k) * s, c0, s, vec, part);
 #pragma unroll
-    for (int i = 0; i < kColsPerLane; ++i) {
-      const int col = lane + 32 * i;
-      if (s0 + col < s) yr[col] = acc[i];
+      for (int i = 0; i < V; ++i) acc[i] += part[i];
     }
+    store_cols(y + static_cast<size_t>(rc) * s, c0, s, vec, acc);
   }
 }
 
 template <typename T>
 int launch(const void* rowptr, const void* cols, const void* vals,
-           const void* x, void* y, int n_rows, int s, void* stream) {
+           const void* x, void* y, const void* seg, void* partials,
+           int n_rows, int s, int n_seg, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  // 16-byte loads need 16-byte-aligned rows of whole 16-byte units
+  const bool vec = reinterpret_cast<size_t>(x) % 16 == 0 &&
+                   reinterpret_cast<size_t>(y) % 16 == 0 &&
+                   reinterpret_cast<size_t>(partials) % 16 == 0 &&
+                   s * sizeof(T) % 16 == 0;
   const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  csr_spmm_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  csr_segment_kernel<T><<<(n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                          block, 0, st>>>(
       static_cast<const int*>(rowptr), static_cast<const int*>(cols),
       static_cast<const T*>(vals), static_cast<const T*>(x),
-      static_cast<T*>(y), n_rows, s);
+      static_cast<T*>(y), static_cast<const int*>(seg),
+      static_cast<T*>(partials), n_rows, s, n_seg, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_seg < 2) return static_cast<int>(err);
+  csr_join_kernel<T><<<(n_seg - 1 + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                       block, 0, st>>>(
+      static_cast<const int*>(rowptr), static_cast<T*>(y),
+      static_cast<const int*>(seg), static_cast<const T*>(partials),
+      n_rows, s, n_seg, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -88,12 +268,16 @@ int launch(const void* rowptr, const void* cols, const void* vals,
 
 extern "C" int csr_spmm_f32(const void* rowptr, const void* cols,
                             const void* vals, const void* x, void* y,
-                            int n_rows, int s, void* stream) {
-  return launch<float>(rowptr, cols, vals, x, y, n_rows, s, stream);
+                            const void* seg, void* partials, int n_rows,
+                            int s, int n_seg, void* stream) {
+  return launch<float>(rowptr, cols, vals, x, y, seg, partials, n_rows,
+                       s, n_seg, stream);
 }
 
 extern "C" int csr_spmm_f64(const void* rowptr, const void* cols,
                             const void* vals, const void* x, void* y,
-                            int n_rows, int s, void* stream) {
-  return launch<double>(rowptr, cols, vals, x, y, n_rows, s, stream);
+                            const void* seg, void* partials, int n_rows,
+                            int s, int n_seg, void* stream) {
+  return launch<double>(rowptr, cols, vals, x, y, seg, partials, n_rows,
+                        s, n_seg, stream);
 }

@@ -72,12 +72,40 @@
 // first port. Registers (nvcc -Xptxas -v, sm_90a): 56 in f32 with 8 bytes
 // of spill, 80 in f64 with none.
 //
-// (c) keeps the design of the first port: the same accumulator, slots
-// staged 512 at a time with dead ones marked, and kUnroll plain gathers in
-// flight per thread; its bf16 products are 2 bytes, below the smallest
-// copy. (b) and (c) stream their input and output once. The accumulators
-// sum in the input type (f32 or f64; f32 for the products), as the JAX fold
-// does for those inputs.
+// (c) is TPU kernel #2's own design carried to this card's tensor cores:
+// per window, the one-hot (KP, Lt) times the products (Lt, S), bf16
+// operands with f32 sums (the TPU kernel's MXU product,
+// pallas_fold_probe.py:94-100). What bounds it: bytes (at #2's probe shape
+// p is 302 MB of bf16 and the output 134 MB of f32; 0.132 ms at the memory
+// rate), since the product's 77 GFLOP take 0.078 ms at the dense bf16
+// rate. The route is mma.sync m16n8k16 (bf16, f32 accumulators) with the
+// one-hot built in registers from the staged row ids, never stored, and the
+// products read from shared memory with ldmatrix.trans (p is N-contiguous,
+// so its K x N slice is the transposed B that ldmatrix.trans gives). It is
+// chosen over wgmma because the one-hot is made per lane in exactly
+// mma.sync's A-fragment layout, and because the time goes to moving p, not
+// to the products. A block owns a KP tile of 64, 128 or 256 rows and 128
+// columns of S (grid: windows x KP tiles x S tiles, so #3's single window
+// runs 4 blocks). Each block reads its window's p, so at #2's probe shape,
+// where the time follows the bytes the SMs read from L2, one 256-row tile
+// per window is fastest (tools/profile_torch_port.py times each tile);
+// experiment builds with a deeper ring, or that skipped the mma of
+// all-zero one-hot tiles, were no faster there. A block walks the window's
+// slots 32 at a time through a ring of 4 shared stages that cp.async fills
+// 3 stages ahead (a first build that loaded one stage ahead through
+// registers took twice as long at #3's single window, where no other
+// block hides the memory's latency), and masks ragged KP, Lt and S. A dead
+// slot (row id outside [0, KP)) or one past Lt is zero-filled in the ring,
+// its products never read, and its row id staged as -1, so that even a
+// non-finite product in it adds nothing. f32 products are split exactly
+// into three bf16 terms (hi, mid, lo) and multiplied three times against
+// the exact one-hot, which keeps f32 accuracy. Every output element sums
+// in a fixed order: two launches are bit-equal. At #2's probe shape:
+// 0.297 ms on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), against
+// 2.27 ms for the shared-memory scatter it replaces; 122 to 168
+// registers, no spills. (b) streams its input and output once. The sums
+// are taken in the input type (f32 or f64; f32 for the products), as the
+// JAX fold does for those inputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -322,101 +350,267 @@ windowed_fold_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
 // (c) fold_products
 // ---------------------------------------------------------------------------
 
-constexpr int kBatch = 512;  // slot triples staged in shared memory at once
-constexpr int kUnroll = 8;   // gathers in flight per thread
+// D[w] = OH[w] . P[w] on the tensor cores: the one-hot (KP, Lt) times the
+// window's products (Lt, S), bf16 operands, f32 sums. A block owns a
+// (32 * WM, kProdN) tile of one window's output with WM * 2 warps, each
+// warp a 32 x 64 tile (2 x 8 mma tiles of 16 x 8). The K loop walks the
+// window's slots kProdK at a time through a ring of kProdStages stages,
+// filled by cp.async kProdStages - 1 stages ahead of the warps that
+// multiply: a stage whose loads wait behind the memory's latency while the
+// block multiplies is what keeps the memory busy.
+constexpr int kProdK = 32;               // slots per stage
+constexpr int kProdN = 128;              // columns of S per block
+constexpr int kProdStages = 4;           // ring depth
+constexpr int kProdPitch = kProdN + 8;   // bf16 per plane row: the 16-byte
+                                         // pad puts the 8 rows of an
+                                         // ldmatrix on 8 distinct bank groups
+constexpr int kWarpN = 64;               // columns per warp
 
-// Shared-memory bytes of a products block: the accumulator plus the staged
-// batch (value, source row, row id).
-template <typename TAcc>
-size_t products_smem_bytes(int kp, int s_tile) {
-  return static_cast<size_t>(kp) * s_tile * sizeof(TAcc) +
-         kBatch * (sizeof(TAcc) + 2 * sizeof(int));
+// A stage of the ring holds its slots' products as loaded (a row of
+// kProdN values and a 16-byte pad) and their row ids.
+template <typename P>
+constexpr int kRawPitch = kProdN * sizeof(P) + 16;  // bytes
+template <typename P>
+constexpr int kRawStage = kProdK * kRawPitch<P>;    // bytes
+
+// Shared-memory bytes of a products block: the ring and its row ids, and
+// for f32 products the three bf16 planes (hi, mid, lo) that a stage is
+// split into before its products; bf16 products are multiplied from the
+// ring as they are. products_layout in the wrapper budgets the same sum.
+template <typename P>
+constexpr size_t products_smem_bytes() {
+  return kProdStages * (kRawStage<P> + kProdK * sizeof(int)) +
+         (sizeof(P) == 2 ? 0 : 3 * kProdK * kProdPitch * 2);
 }
 
-// Fold the n_slots slots of one window into out (kp rows of stride s):
-//   acc[rid(j), col] += val(j) * src.load(row(j), col)
-// Src::stage(j, row, val, rid) gives slot j's source row (-1: dead), value
-// and row id; Src::load(row, col) reads one source value.
-template <typename TAcc, typename Src>
-__device__ void fold_window(const Src& src, int n_slots, int kp, int s_tile,
-                            int col, bool active, TAcc* __restrict__ out,
-                            int s) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  TAcc* acc = reinterpret_cast<TAcc*>(smem);  // (kp, s_tile)
-  TAcc* s_val = acc + static_cast<size_t>(kp) * s_tile;
-  int* s_row = reinterpret_cast<int*>(s_val + kBatch);
-  int* s_rid = s_row + kBatch;
-  const int tid = threadIdx.x;
-
-  if (active)
-    for (int r = 0; r < kp; ++r) acc[r * s_tile + tid] = TAcc(0);
-
-  for (int j0 = 0; j0 < n_slots; j0 += kBatch) {
-    const int nb = min(kBatch, n_slots - j0);
-    __syncthreads();  // the previous batch is consumed
-    for (int j = tid; j < nb; j += blockDim.x) {
-      int row, rid;
-      TAcc val;
-      src.stage(j0 + j, row, val, rid);
-      const bool live = row >= 0 && rid >= 0 && rid < kp;
-      s_row[j] = live ? row : -1;
-      s_rid[j] = rid;
-      s_val[j] = val;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < nb; j += kUnroll) {
-      TAcc v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int row = j + u < nb ? s_row[j + u] : -1;
-        v[u] = row >= 0 ? src.load(row, col) : TAcc(0);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (j + u < nb && s_row[j + u] >= 0)
-          acc[s_rid[j + u] * s_tile + tid] += s_val[j + u] * v[u];
-      }
-    }
-  }
-  if (!active) return;
-  for (int r = 0; r < kp; ++r)
-    out[static_cast<size_t>(r) * s + col] = acc[r * s_tile + tid];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           unsigned src_bytes) {
+  // copies src_bytes (16 or 0) and fills the rest of the 16 with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
 }
 
-// (c) products of one window, read as they are; f32 accumulation.
-template <typename P>
-struct ProductSource {
-  const int* rid;
-  const P* p;
-  size_t base;  // first slot of the window
-  int s;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  __device__ void stage(int j, int& row, float& val, int& r) const {
-    row = j;
-    val = 1.0f;  // 1 * p is exact: the fold sums the products as they are
-    r = rid[base + j];
-  }
-  __device__ float load(int row, int col) const {
-    return to_float(p[(base + row) * s + col]);
-  }
-  __device__ static float to_float(float v) { return v; }
-  __device__ static float to_float(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-};
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
 
-template <typename P>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ unsigned short bf16_bits(float v, float& rest) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  rest = v - __bfloat162float(h);
+  return __bfloat16_as_ushort(h);
+}
+
+// A-fragment register of the one-hot: the bf16 pair (row m, slots k, k+1)
+// is 1 where the slot's row id is m (dead slots hold -1).
+__device__ __forceinline__ unsigned one_hot(int rid_k, int rid_k1, int m) {
+  return (rid_k == m ? 0x3F80u : 0u) | (rid_k1 == m ? 0x3F800000u : 0u);
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(const void* p,
+                                                  unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid: x = window * m_tiles + the block's KP tile (a window's tiles run
+// side by side and share its p in L2), y = the S tile.
+template <typename P, int WM>
+__global__ void __launch_bounds__(64 * WM)
 fold_products_kernel(const int* __restrict__ rid, const P* __restrict__ p,
                      float* __restrict__ out, int lt, int kp, int s,
-                     int s_tile) {
-  const size_t window = blockIdx.x;
-  const int col = blockIdx.y * s_tile + threadIdx.x;
-  const bool active = threadIdx.x < s_tile && col < s;
-  const ProductSource<P> src{rid, p, window * lt, s};
-  fold_window<float>(src, lt, kp, s_tile, col, active,
-                     out + window * kp * s, s);
+                     int m_tiles, bool vec) {
+  constexpr int kThreads = 64 * WM;
+  constexpr int kVec = 16 / sizeof(P);                  // values per chunk
+  constexpr int kPerRow = kProdN / kVec;                // chunks per slot
+  constexpr int kChunks = kProdK * kPerRow / kThreads;  // chunks per thread
+  constexpr bool kSplit = sizeof(P) == 4;               // f32: three planes
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;                           // kProdStages stages
+  int* rid_ring = reinterpret_cast<int*>(ring + kProdStages * kRawStage<P>);
+  auto* planes = reinterpret_cast<unsigned short*>(rid_ring +
+                                                   kProdStages * kProdK);
+
+  const int w = blockIdx.x / m_tiles;
+  const int m0 = (blockIdx.x % m_tiles) * 32 * WM;
+  const int n0 = blockIdx.y * kProdN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int warp_m = warp % WM, warp_n = warp / WM;
+  const int g = lane >> 2, q = lane & 3;
+  const int row0 = m0 + warp_m * 32 + g;  // the lane's first A/D row
+  const int* rid_w = rid + static_cast<size_t>(w) * lt;
+  const P* p_w = p + static_cast<size_t>(w) * lt * s;
+  const int n_stages = (lt + kProdK - 1) / kProdK;
+
+  // The row ids of the chunks this thread copies for a stage, loaded one
+  // stage before its copies are issued and first read then, so that no
+  // thread waits for them (slots past Lt: -1). Dead slots (outside
+  // [0, kp)) and slots past Lt are staged as -1 and their products are not
+  // read but zero-filled, so that even a non-finite one adds nothing.
+  int rid_next[kChunks];
+  auto fetch_rids = [&](int stage) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int slot = stage * kProdK + (tid + c * kThreads) / kPerRow;
+      rid_next[c] = slot < lt ? __ldg(rid_w + slot) : -1;
+    }
+  };
+  auto issue = [&](int stage) {
+    if (stage < n_stages) {
+      const int buf = stage % kProdStages;
+      unsigned char* raw = ring + buf * kRawStage<P>;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int idx = tid + c * kThreads;
+        const int k = idx / kPerRow, nl = (idx % kPerRow) * kVec;
+        const int slot = stage * kProdK + k, n = n0 + nl;
+        const int r = rid_next[c] >= 0 && rid_next[c] < kp ? rid_next[c] : -1;
+        if (nl == 0) rid_ring[buf * kProdK + k] = r;
+        unsigned char* dst = raw + k * kRawPitch<P> + nl * sizeof(P);
+        const P* src = p_w + static_cast<size_t>(slot) * s + n;
+        if (vec) {
+          const bool read = r >= 0 && n < s;
+          cp_async16(dst, read ? src : p_w, read ? 16u : 0u);
+          continue;
+        }
+        // rows that are not whole 16-byte units: plain loads
+        alignas(16) P v[kVec];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i)
+          v[i] = r >= 0 && n + i < s ? src[i] : P(0.0f);
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+      }
+    }
+    cp_async_commit();  // an empty group past the last stage keeps the count
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[t][j][i] = 0.0f;
+
+  for (int st = 0; st < kProdStages - 1; ++st) {
+    fetch_rids(st);
+    issue(st);
+  }
+  fetch_rids(kProdStages - 1);
+  // the lane's ldmatrix row: matrices 0-3 are (slots 0-7 | 8-15) x
+  // (columns 0-7 | 8-15) of a 16 x 16 block
+  const int ld_k = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int ld_n = warp_n * kWarpN + 8 * (lane >> 4);
+  for (int st = 0; st < n_stages; ++st) {
+    const int buf = st % kProdStages;
+    cp_async_wait<kProdStages - 2>();  // this thread's copies of stage st
+    __syncthreads();  // everyone's; and stage st - 1 is multiplied
+    issue(st + kProdStages - 1);       // into the buffer of stage st - 1
+    fetch_rids(st + kProdStages);
+    const int* rids = rid_ring + buf * kProdK;
+    const unsigned char* raw = ring + buf * kRawStage<P>;
+    const unsigned char* b_base = raw;
+    int b_pitch = kRawPitch<P>;
+    if constexpr (kSplit) {
+      // split the stage's f32 products into the hi, mid and lo planes
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int idx = tid + c * kThreads;
+        const int k = idx / kPerRow, nl = (idx % kPerRow) * kVec;
+        const float4 v = *reinterpret_cast<const float4*>(
+            raw + k * kRawPitch<P> + nl * sizeof(P));
+        const float f[4] = {v.x, v.y, v.z, v.w};
+        unsigned short h[4], m[4], l[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float rest, rest2;
+          h[i] = bf16_bits(f[i], rest);
+          m[i] = bf16_bits(rest, rest2);
+          l[i] = bf16_bits(rest2, rest);
+        }
+        unsigned short* dst = planes + k * kProdPitch + nl;
+        constexpr int plane = kProdK * kProdPitch;
+        *reinterpret_cast<uint2*>(dst) = make_uint2(
+            h[0] | unsigned(h[1]) << 16, h[2] | unsigned(h[3]) << 16);
+        *reinterpret_cast<uint2*>(dst + plane) = make_uint2(
+            m[0] | unsigned(m[1]) << 16, m[2] | unsigned(m[3]) << 16);
+        *reinterpret_cast<uint2*>(dst + 2 * plane) = make_uint2(
+            l[0] | unsigned(l[1]) << 16, l[2] | unsigned(l[3]) << 16);
+      }
+      __syncthreads();
+      b_base = reinterpret_cast<const unsigned char*>(planes);
+      b_pitch = kProdPitch * 2;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kProdK; kk += 16) {
+      const int r0 = rids[kk + 2 * q], r1 = rids[kk + 2 * q + 1];
+      const int r8 = rids[kk + 2 * q + 8], r9 = rids[kk + 2 * q + 9];
+      unsigned a[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int m = row0 + 16 * t;
+        a[t][0] = one_hot(r0, r1, m);
+        a[t][1] = one_hot(r0, r1, m + 8);
+        a[t][2] = one_hot(r8, r9, m);
+        a[t][3] = one_hot(r8, r9, m + 8);
+      }
+#pragma unroll
+      for (int pl = 0; pl < (kSplit ? 3 : 1); ++pl) {
+        const unsigned char* tile = b_base + pl * kProdK * kProdPitch * 2 +
+                                    (kk + ld_k) * b_pitch + ld_n * 2;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // n8 tiles 2j and 2j + 1
+          unsigned b[4];
+          ldmatrix_x4_trans(tile + 32 * j, b);
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            mma_bf16(acc[t][2 * j], a[t], b[0], b[1]);
+            mma_bf16(acc[t][2 * j + 1], a[t], b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // D fragment: (row0 + 16t [+ 8], column 8j + 2q [+ 1]) of the warp's tile
+  float* out_w = out + static_cast<size_t>(w) * kp * s;
+  const bool pairs = s % 2 == 0;
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row0 + 16 * t + 8 * h;
+      if (m >= kp) continue;
+      float* dst = out_w + static_cast<size_t>(m) * s;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + warp_n * kWarpN + 8 * j + 2 * q;
+        const float v0 = acc[t][j][2 * h], v1 = acc[t][j][2 * h + 1];
+        if (pairs && n + 1 < s) {
+          *reinterpret_cast<float2*>(dst + n) = make_float2(v0, v1);
+        } else {
+          if (n < s) dst[n] = v0;
+          if (n + 1 < s) dst[n + 1] = v1;
+        }
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -496,16 +690,25 @@ int launch_fold(const void* cols, const void* vals, const void* rowid,
 
 template <typename P>
 int launch_products(const void* rid, const void* p, void* out, int nw,
-                    int lt, int kp, int s, int s_tile, void* stream) {
-  const size_t smem = products_smem_bytes<float>(kp, s_tile);
-  auto kernel = fold_products_kernel<P>;
+                    int lt, int kp, int s, int block_m, void* stream) {
+  // the kernel's contract with products_layout: a KP tile of 64, 128 or
+  // 256 rows
+  if (block_m != 64 && block_m != 128 && block_m != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int m_tiles = (kp + block_m - 1) / block_m;
+  const dim3 grid(nw * m_tiles, (s + kProdN - 1) / kProdN);
+  // 16-byte loads need 16-byte-aligned rows of whole 16-byte units
+  const bool vec = reinterpret_cast<size_t>(p) % 16 == 0 &&
+                   s * sizeof(P) % 16 == 0;
+  constexpr size_t smem = products_smem_bytes<P>();
+  auto kernel = block_m == 64    ? fold_products_kernel<P, 2>
+                : block_m == 128 ? fold_products_kernel<P, 4>
+                                 : fold_products_kernel<P, 8>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(nw, (s + s_tile - 1) / s_tile);
-  kernel<<<grid, threads_for(s_tile), smem,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, 2 * block_m, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(rid), static_cast<const P*>(p),
-      static_cast<float*>(out), lt, kp, s, s_tile);
+      static_cast<float*>(out), lt, kp, s, m_tiles, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -548,16 +751,24 @@ extern "C" int windowed_fold_smem_bytes_f64(int kp, int s_tile, int ring,
 }
 
 extern "C" int fold_products_bf16(const void* rid, const void* p, void* out,
-                                  int nw, int lt, int kp, int s, int s_tile,
+                                  int nw, int lt, int kp, int s, int block_m,
                                   void* stream) {
-  return launch_products<__nv_bfloat16>(rid, p, out, nw, lt, kp, s, s_tile,
+  return launch_products<__nv_bfloat16>(rid, p, out, nw, lt, kp, s, block_m,
                                         stream);
 }
 
 extern "C" int fold_products_f32(const void* rid, const void* p, void* out,
-                                 int nw, int lt, int kp, int s, int s_tile,
+                                 int nw, int lt, int kp, int s, int block_m,
                                  void* stream) {
-  return launch_products<float>(rid, p, out, nw, lt, kp, s, s_tile, stream);
+  return launch_products<float>(rid, p, out, nw, lt, kp, s, block_m, stream);
+}
+
+extern "C" int fold_products_smem_bytes_bf16() {
+  return static_cast<int>(products_smem_bytes<__nv_bfloat16>());
+}
+
+extern "C" int fold_products_smem_bytes_f32() {
+  return static_cast<int>(products_smem_bytes<float>());
 }
 
 extern "C" int window_strip_f32(const void* t, void* y, int n_rows, int s,

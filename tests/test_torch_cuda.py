@@ -15,7 +15,11 @@ at a smaller size (S of 1, 5, 128, 129 and 300, ``window_rows=256`` for an
 S tile under 128 and int32 row ids, span 4, both at once), the fold's
 shared-memory budget against the kernel's own count, its determinism,
 slabs that are mostly dead slots, the one-hot fold at TPU
-kernel #2's and #3's shapes, and #4's ``y = 2x``.
+kernel #2's and #3's shapes and at ragged ones (dead ids on both sides of
+the range, dead slots holding ``inf``, f32 products, its shared-memory
+count against the kernel's, two launches bit-equal), the CSR kernel on a
+star row that spans many segments and on hub rows among many empty ones,
+and #4's ``y = 2x``.
 """
 
 import ctypes
@@ -75,6 +79,47 @@ def test_csr_kernel_matches_plain(cuda, dtype, s):
     assert y.shape == (3000, s) and y.dtype == dtype
     assert _rel_err(y, want) <= TOL[dtype]
     assert float(y[5].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('s', [1, 5, 127, 128, 129, 300])
+def test_csr_kernel_star_row_spans_segments(cuda, dtype, s):
+    """A row of 20,000 edges (about 80 of the kernel's segments of 256
+    steps) among short rows, empty first and last rows; two launches
+    bit-equal. Held against the plain version in float64: in float32 the
+    plain version's ``index_add_`` sums the long row in no fixed order."""
+    rng = np.random.default_rng(s + 1)
+    A = sps.random(400, 20_000, density=0.001, random_state=rng,
+                   format='lil')
+    A[0] = A[399] = 0
+    A[3] = rng.normal(size=20_000)
+    A = A.tocsr()
+    M = tsp.from_scipy(A, dtype=dtype, device=cuda)
+    x = _signal((20_000, s), dtype, 7, cuda)
+    args = (M.rowptr, M.cols, M.vals, x)
+    y = csr_kernel.csr_spmm(*args)
+    want = csr_kernel.csr_spmm_plain(M.rowptr, M.cols, M.vals.double(),
+                                     x.double())
+    assert _rel_err(y.double(), want) <= TOL[dtype]
+    assert float(y[0].abs().max()) == float(y[399].abs().max()) == 0.0
+    assert torch.equal(y, csr_kernel.csr_spmm(*args))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_csr_kernel_hub_rows_among_empty_rows(cuda, dtype):
+    """Three rows of 3,000 edges among 200,000 empty rows: the kernel's
+    walk counts row ends as steps, so the empty rows are spread over its
+    warps too."""
+    A = sps.lil_matrix((200_000, 3000))
+    rng = np.random.default_rng(13)
+    for r in (0, 77_777, 199_999):
+        A[r] = rng.normal(size=3000)
+    M = tsp.from_scipy(A.tocsr(), dtype=dtype, device=cuda)
+    x = _signal((3000, 128), dtype, 14, cuda)
+    y = csr_kernel.csr_spmm(M.rowptr, M.cols, M.vals, x)
+    want = csr_kernel.csr_spmm_plain(M.rowptr, M.cols, M.vals, x)
+    assert _rel_err(y, want) <= TOL[dtype]
+    assert int((y.abs().sum(1) > 0).sum()) == 3
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -259,7 +304,8 @@ def test_windowed_spmm_and_bank_on_the_card_match_the_cpu(cuda):
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('nw,lt,kp', [(1, 512, 256), (64, 1152, 256),
-                                      (3, 100, 40)], ids=['3', '2', 'ragged'])
+                                      (3, 100, 40), (300, 100, 256)],
+                         ids=['3', '2', 'ragged', 'rows256'])
 def test_fold_products_matches_plain(cuda, dtype, nw, lt, kp):
     rng = np.random.default_rng(lt)
     rid = torch.from_numpy(rng.integers(-1, kp + 1, size=(nw, lt))
@@ -270,6 +316,41 @@ def test_fold_products_matches_plain(cuda, dtype, nw, lt, kp):
     assert wk.fold_products.launches == before + 1
     assert out.dtype == torch.float32 and out.shape == (nw, kp, 128)
     assert _rel_err(out, wk.fold_products_plain(rid, p, kp)) <= 1e-6
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('s', [1, 5, 128, 129])
+@pytest.mark.parametrize('nw', [1, 64, 3])
+def test_fold_products_ragged_with_dead_inf_slots(cuda, nw, s, dtype):
+    """KP = 40 and Lt = 100 (neither a whole tile), dead ids below 0 and
+    at or past KP, and dead slots whose product is inf: they add nothing.
+    Two launches bit-equal."""
+    kp, lt = 40, 100
+    rng = np.random.default_rng(nw * 1000 + s)
+    rid = rng.integers(0, kp, size=(nw, lt))
+    dead = rng.random((nw, lt)) < 0.2
+    rid[dead] = rng.choice([-7, -1, kp, kp + 5], size=int(dead.sum()))
+    p = _signal((nw, lt, s), torch.float32, 12, cuda)
+    p[torch.from_numpy(dead).to(cuda) & (torch.rand(nw, lt, device=cuda)
+                                         < 0.5)] = float('inf')
+    rid = torch.from_numpy(rid.astype(np.int32)).to(cuda)
+    p = p.to(dtype)
+    out = wk.fold_products(rid, p, kp)
+    want = wk.fold_products_plain(rid, p, kp)
+    assert out.shape == (nw, kp, s) and bool(torch.isfinite(out).all())
+    assert _rel_err(out, want) <= 1e-6
+    assert torch.equal(out, wk.fold_products(rid, p, kp))
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_products_layout_bytes_are_the_kernels(cuda, dtype):
+    lay = wk.products_layout(1, 256, 128, torch.empty(
+        0, dtype=dtype).element_size())
+    fn = getattr(_cuda.library('windowed_fold'),
+                 f'fold_products_smem_bytes_{wk._PRODUCTS[dtype]}')
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    assert fn() == lay.smem_bytes
 
 
 @pytest.mark.parametrize('shape', [(8, 128), (1000, 3)])

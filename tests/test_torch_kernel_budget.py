@@ -13,14 +13,28 @@
   as the recurrence scales them, that product is within 1e-6 of the float64
   product, where a single TF32 pass, or a split without either cross term,
   misses by more than 1e-5 (the card tests' limit).
+- The launch that ``fold_products``' wrapper computes (KP tile, blocks,
+  shared memory): at least 4 blocks for TPU kernel #3's single window,
+  within one block's shared memory, refused where the grid cannot hold it.
+  And its split of float32 products into three bfloat16 terms, emulated
+  with torch's round-to-nearest-even casts: ``hi + mid + lo`` holds each
+  product to 2^-24 of itself, where a fold that drops ``lo`` misses by more
+  than 1e-6 (the card's limit).
+- The CSR kernel's merge-path segment table from ``torch.searchsorted``
+  on star, empty row, rectangular and empty matrices, and the kernel's
+  walk and join emulated warp by warp, with segments of a few steps,
+  against the plain SpMM: every row written once, every partial read after
+  it was written.
 """
 
 import numpy as np
 import pytest
+import scipy.sparse as sps
 import torch
 
 import pygsp_tpu_torch as tgsp
-from pygsp_tpu_torch.core import banded_kernel
+from pygsp_tpu_torch.core import banded_kernel, csr_kernel
+from pygsp_tpu_torch.core import sparse as tsp
 from pygsp_tpu_torch.core import windowed_kernel as wk
 
 
@@ -129,3 +143,208 @@ def test_three_tf32_products_hold_f32_accuracy(lap_type):
                   product(a_big, x_small) + product(a_big, x_big),
                   product(a_small, x_big) + product(a_big, x_big)):
         assert np.abs(fault - want).max() > 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# fold_products: layout and the three-bf16 split
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('itemsize', [2, 4])
+@pytest.mark.parametrize('s', [1, 5, 128, 129, 300])
+@pytest.mark.parametrize('kp', [40, 256, 512])
+@pytest.mark.parametrize('nw', [1, 3, 1024])
+def test_products_layout_covers_the_output_in_one_block_budget(nw, kp, s,
+                                                               itemsize):
+    lay = wk.products_layout(nw, kp, s, itemsize)
+    assert lay.block_m in (64, 128, 256)
+    assert (lay.m_tiles - 1) * lay.block_m < kp <= lay.m_tiles * lay.block_m
+    assert ((lay.n_tiles - 1) * wk.PRODUCTS_N < s
+            <= lay.n_tiles * wk.PRODUCTS_N)
+    assert lay.blocks == nw * lay.m_tiles * lay.n_tiles
+    stage = wk.PRODUCTS_K * (wk.PRODUCTS_N * itemsize + 16 + 4)
+    planes = 0 if itemsize == 2 else 3 * wk.PRODUCTS_K * wk.PRODUCTS_PITCH * 2
+    assert lay.smem_bytes == wk.PRODUCTS_STAGES * stage + planes
+    assert lay.smem_bytes <= wk.SMEM_PER_BLOCK
+    if nw == 1 and kp >= 256:
+        assert lay.blocks >= 4
+
+
+def test_products_layout_at_the_tpu_kernels_shapes():
+    """#3 (NW 1, KP 256, S 128): four 64-row blocks, not one; #2's probe
+    shape (NW 1024): one 256-row block per window, which reads its p once;
+    128-row blocks where 256 rows would leave SMs idle."""
+    assert wk.products_layout(1, 256, 128, 2)[:4] == (64, 4, 1, 4)
+    assert wk.products_layout(1024, 256, 128, 2)[:4] == (256, 1, 1, 1024)
+    assert wk.products_layout(200, 256, 128, 2)[:4] == (128, 2, 1, 400)
+    assert wk.products_layout(1024, 40, 128, 4)[:4] == (64, 1, 1, 1024)
+
+
+@pytest.mark.parametrize('nw,kp,s,itemsize', [
+    (1, 256, 70_000 * 128, 2), (2**31, 256, 128, 2), (1, 0, 128, 2),
+    (1, 256, 128, 8)])
+def test_products_layout_refuses_what_cannot_fit(nw, kp, s, itemsize):
+    with pytest.raises(ValueError, match='does not fit|no fold_products'):
+        wk.products_layout(nw, kp, s, itemsize)
+
+
+def _bf16_terms(p):
+    """hi, mid, lo of float32 products as the kernel's staging splits
+    them: each the round-to-nearest-even bfloat16 of what is left."""
+    hi = p.to(torch.bfloat16).float()
+    mid = (p - hi).to(torch.bfloat16).float()
+    lo = (p - hi - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def test_three_bf16_terms_hold_f32_products():
+    gen = torch.Generator().manual_seed(0)
+    p = torch.randn(4, 300, 129, generator=gen) * torch.logspace(
+        -3, 3, 129)
+    hi, mid, lo = _bf16_terms(p)
+    exact = p.double()
+    three = hi.double() + mid.double() + lo.double()
+    assert float(((three - exact).abs() / exact.abs()).max()) <= 2.0**-24
+    # the fault the card's 1e-6 limit must catch: a fold that drops lo
+    rid = torch.randint(-2, 42, (4, 300), generator=gen, dtype=torch.int32)
+    want = wk.fold_products_plain(rid, exact, 40)
+    got = wk.fold_products_plain(rid, hi.double() + mid.double(), 40)
+    assert float((got - want).abs().max() / want.abs().max()) > 1e-6
+    got = wk.fold_products_plain(rid, three, 40)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-7
+
+
+# ---------------------------------------------------------------------------
+# csr_spmm: segment table and the kernel's walk
+# ---------------------------------------------------------------------------
+
+def _star(n_cols=5000):
+    """Row 2 holds n_cols edges; rows 0 and 5 are empty, the rest few."""
+    A = sps.lil_matrix((7, n_cols))
+    A[2, :] = np.arange(1, n_cols + 1)
+    A[1, [3, 9]] = 1.5
+    A[3, 4] = A[4, 0] = A[6, 7] = -2.0
+    return A.tocsr()
+
+
+def _empty_rows():
+    rng = np.random.default_rng(3)
+    A = sps.random(60, 60, density=0.2, random_state=rng, format='lil')
+    A[0] = A[29] = A[30] = A[59] = 0            # first, middle, last
+    return A.tocsr()
+
+
+CSR_CASES = {
+    'star': _star,
+    'empty_rows': _empty_rows,
+    'rectangular': lambda: sps.random(
+        90, 37, density=0.3, random_state=np.random.default_rng(4),
+        format='csr'),
+    'nnz0': lambda: sps.csr_matrix((12, 9)),
+}
+
+
+@pytest.mark.parametrize('case', list(CSR_CASES))
+def test_csr_segment_table(case):
+    """Each segment starts after w·SEGMENT_STEPS steps of the walk: the rows
+    before its row have ended (their ends are steps before it), its row has
+    not, and its edge is the steps less the rows; every edge lies in
+    exactly one segment."""
+    M = tsp.from_scipy(CSR_CASES[case](), dtype=torch.float64, device='cpu')
+    seg = csr_kernel.csr_segments(M.rowptr, M.cols.shape[0])
+    assert seg.dtype == torch.int32 and seg.shape[0] == 2
+    n_seg, E = seg.shape[1], csr_kernel.SEGMENT_STEPS
+    n_steps = M.n_rows + M.cols.shape[0]
+    assert n_seg == csr_kernel.n_segments(n_steps)
+    assert (n_seg - 1) * E < max(n_steps, 1) <= n_seg * E
+    rowptr = M.rowptr.tolist()
+    rows, edges = seg.tolist()
+    for w, (r, e) in enumerate(zip(rows, edges)):
+        d = w * E
+        assert r + e == d
+        assert all(rowptr[i + 1] + i < d for i in range(r))
+        if r < M.n_rows:
+            assert rowptr[r + 1] + r >= d
+            assert rowptr[r] <= e <= rowptr[r + 1]   # the row of edge e, or
+        else:                                        # one that ends at it
+            assert e >= M.nnz
+    starts = [min(e, M.nnz) for e in edges] + [M.nnz]
+    assert starts == sorted(starts) and starts[0] == 0
+    covered = [k for a, b in zip(starts, starts[1:]) for k in range(a, b)]
+    assert covered == list(range(M.nnz))
+
+
+def _emulate_csr_kernel(rowptr, cols, vals, x):
+    """csrc/csr_spmm.cu's segment and join kernels, warp by warp, in
+    float64. Returns y and how many times each row was written; partials
+    start as NaN, so one read before it was written shows in y."""
+    rp, cols, vals = rowptr.tolist(), cols.tolist(), vals.numpy()
+    n_rows, nnz = len(rp) - 1, rp[-1]
+    rows, edges = csr_kernel.csr_segments(rowptr, len(cols)).tolist()
+    n_seg = len(rows)
+    y = np.full((n_rows, x.shape[1]), np.nan)
+    partials = np.full((2 * n_seg, x.shape[1]), np.nan)
+    writes = np.zeros(n_rows, int)
+    for w in range(n_seg):
+        if rows[w] >= n_rows:
+            continue
+        e0 = min(edges[w], nnz)
+        last = w + 1 == n_seg
+        r_stop = n_rows if last else rows[w + 1]
+        e1 = nnz if last else min(edges[w + 1], nnz)
+        state = {'r': rows[w], 'rs': rp[rows[w]], 're': rp[rows[w] + 1],
+                 'acc': np.zeros(x.shape[1])}
+
+        def flush():
+            r, rs, re = state['r'], state['rs'], state['re']
+            if rs < e0:
+                partials[w] = state['acc']
+            elif r < r_stop:
+                y[r] = state['acc']
+                writes[r] += 1
+            else:
+                partials[n_seg + w] = state['acc']
+            state.update(r=r + 1, rs=re, acc=np.zeros(x.shape[1]),
+                         re=rp[r + 2] if r + 1 < n_rows else nnz)
+
+        for e in range(e0, e1):
+            while e >= state['re']:
+                flush()
+            state['acc'] = state['acc'] + vals[e] * x[cols[e]]
+        while state['r'] < n_rows and (state['r'] < r_stop
+                                       or state['rs'] < e1):
+            flush()
+    for b in range(1, n_seg):
+        rc = rows[b]
+        if rc >= n_rows or not edges[b - 1] <= rp[rc] < edges[b]:
+            continue
+        b_end = b + 1
+        while b_end < n_seg and rows[b_end] == rc:
+            b_end += 1
+        acc = partials[n_seg + b - 1].copy()
+        for k in range(b, b_end):
+            acc = acc + partials[k]
+        y[rc] = acc
+        writes[rc] += 1
+    return y, writes
+
+
+def _hubs_alone():
+    """Two rows of 900 edges among 3,000 empty rows: most of the walk is
+    row ends, which segments of edges alone would give to one warp."""
+    A = sps.lil_matrix((3000, 900))
+    A[17] = A[2500] = np.arange(1, 901)
+    return A.tocsr()
+
+
+@pytest.mark.parametrize('seg_steps', [3, 16, 256])
+@pytest.mark.parametrize('case', list(CSR_CASES) + ['hubs_alone'])
+def test_csr_kernel_walk_writes_every_row_once(monkeypatch, case, seg_steps):
+    monkeypatch.setattr(csr_kernel, 'SEGMENT_STEPS', seg_steps)
+    A = _hubs_alone() if case == 'hubs_alone' else CSR_CASES[case]()
+    M = tsp.from_scipy(A, dtype=torch.float64, device='cpu')
+    x = np.random.default_rng(5).normal(size=(A.shape[1], 3))
+    y, writes = _emulate_csr_kernel(M.rowptr, M.cols, M.vals, x)
+    assert np.all(writes == 1)
+    want = A @ x
+    assert np.allclose(y, want, rtol=0,
+                       atol=1e-12 * max(1.0, np.abs(want).max()))

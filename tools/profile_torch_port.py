@@ -11,13 +11,19 @@ one bank under ``torch.profiler`` and prints one JSON line: the bank's
 host time, the sum of kernel times on the card (busy), the idle share, and
 kernel time by group (the port's SpMM kernels, the other kernels by name).
 It also times a 1 GiB device-to-device copy, the memory rate the card
-reaches.
+reaches, and, first, the host's cost of each step on a kernel's launch path
+(``double`` at (8, 128), TPU kernel #4, beside ``torch.mul``): microseconds
+per call of the wrapper and of each step it takes, and of the steps that
+the launch path took before it was cut to PyTorch's own dispatch; and
+``fold_products``' device time at TPU kernel #2's probe shape with each of
+the KP tiles its kernel takes.
 
 Run: ``python3 tools/profile_torch_port.py [--out DIR]`` on a machine with
 one CUDA device; ``--out`` also writes each path's profiler table there.
 """
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -31,6 +37,84 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402  (the paths' one definition)
+from pygsp_tpu_torch.core import _cuda  # noqa: E402
+from pygsp_tpu_torch.core import windowed_kernel as wk  # noqa: E402
+
+
+def products_tiles(iters=20):
+    """Device ms per launch of ``fold_products`` at TPU kernel #2's probe
+    shape (NW 1024, Lt 1152, KP 256, S 128, bf16 products, row ids from a
+    seed) with each KP tile the kernel takes, 64, 128 and 256 rows: every
+    block reads its window's products, so fewer tiles read fewer bytes."""
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    nw, lt, kp = chip_smoke.FOLD2_NW, chip_smoke.FOLD2_LT, chip_smoke.FOLD2_KP
+    rid = torch.randint(0, kp, (nw, lt), dtype=torch.int32, device='cuda',
+                        generator=gen)
+    p = chip_smoke.seeded_normal((nw, lt, 128), 6).to(torch.bfloat16)
+    out = torch.empty(nw, kp, 128, device='cuda')
+    times = {}
+    for block_m in (64, 128, 256):
+        times[block_m] = chip_smoke.device_ms(lambda: _cuda.launch(
+            'windowed_fold', 'fold_products_bf16', 3, 5, out.get_device(),
+            rid.data_ptr(), p.data_ptr(), out.data_ptr(), nw, lt, kp, 128,
+            block_m), iters)
+    return times
+
+
+def launch_path(iters=20_000):
+    """Microseconds of host time per call of ``double`` at (8, 128), of
+    ``torch.mul(x, 2)``, and of each step of the wrapper's launch path;
+    the steps marked ``old`` are those the path took before (a ctypes
+    lookup with its signature declared on every call, the device entered
+    on every call, the stream read as a Stream object)."""
+    x = torch.arange(8 * 128, dtype=torch.float32, device='cuda').reshape(
+        8, 128)
+    y = torch.empty_like(x)
+    dev = x.get_device()
+    fn = _cuda.function('windowed_fold', 'double_f32', 2, 1)
+    raw = torch._C._cuda_getCurrentRawStream(dev)
+    lib = _cuda.library('windowed_fold')
+
+    def old_lookup():
+        f = getattr(lib, 'double_f32')
+        f.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+
+    def old_device():
+        with torch.cuda.device(x.device):
+            pass
+
+    steps = {
+        'double (the wrapper)': lambda: wk.double(x),
+        'torch.mul(x, 2)': lambda: torch.mul(x, 2),
+        'dtype and operand checks': lambda: (
+            x.dtype != torch.float32,
+            wk._check_operands('double', (x,), x), x.device.type == 'cpu'),
+        'torch.empty_like': lambda: torch.empty_like(x),
+        'data_ptr x2 and numel': lambda: (x.data_ptr(), y.data_ptr(),
+                                          x.numel()),
+        'cached ctypes function': lambda: _cuda.function(
+            'windowed_fold', 'double_f32', 2, 1),
+        'torch.cuda.current_device': torch.cuda.current_device,
+        'raw current stream': lambda: torch._C._cuda_getCurrentRawStream(
+            dev),
+        'ctypes call (kernel launch)': lambda: fn(x.data_ptr(), y.data_ptr(),
+                                                  x.numel(), raw),
+        'old: getattr + argtypes': old_lookup,
+        'old: with torch.cuda.device': old_device,
+        'old: current_stream().cuda_stream':
+            lambda: torch.cuda.current_stream().cuda_stream,
+    }
+    out = {}
+    for name, step in steps.items():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / iters * 1e6
+    return out
 
 
 def copy_rate():
@@ -94,8 +178,9 @@ def main():
                           '--format=csv,noheader'],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip()
-    print(json.dumps({'card': smi, 'copy_bytes_per_s': copy_rate()}),
-          flush=True)
+    print(json.dumps({'card': smi, 'launch_path_us': launch_path(),
+                      'products_tile_ms': products_tiles(),
+                      'copy_bytes_per_s': copy_rate()}), flush=True)
     for name, kernels, make in (
             ('A', ('csr_spmm',), chip_smoke.path_a),
             ('B', ('banded_spmm',), chip_smoke.path_b),
