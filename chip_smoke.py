@@ -11,25 +11,43 @@ Phases, each of which raises on failure:
    the kernel's segments), banded (f32 on the tensor cores, 3×TF32, also
    on Grid2d tiles that TF32 does not hold exactly), the
    windowed fold and strip (including ``window_rows=256`` and a span-4
-   matrix), and the one-hot fold at TPU kernel #3's shape (call and device
-   time), and with dead slots holding ``inf``, which must add nothing;
+   matrix, and the bf16 instances: a bf16 carry, bf16 values, both), the
+   one-hot fold at TPU kernel #3's shape (call and device time), and with
+   dead slots holding ``inf``, which must add nothing; then the fused
+   Chebyshev step (kernel B: step, grouped accumulation, synthesis
+   contraction) in f32, f64 and with a bf16 carry, bit for bit;
 3. path A, the README path at the bench size: Barabási–Albert N=2^20
    (m0 = m = 8, about 16.8M stored edges) → ``Graph`` → ``estimate_lmax`` →
    ``Heat(scale=[5, 10, 25, 50]).filter(x, order=30)`` with x (N, 128) f32,
-   through the CSR SpMM kernel, checked against the SciPy f64 recurrence;
-   the kernel's two launches bit-equal at this shape, and its time with the
-   hub rows (above 1024 edges) emptied and on those rows alone;
+   through the CSR SpMM kernel and kernel B (step and grouped
+   accumulation, as on every path), checked against the SciPy f64
+   recurrence; the kernel's two launches bit-equal at this shape, and its
+   time with the hub rows (above 1024 edges) emptied and on those rows
+   alone;
 4. path B, the banded path: ``Grid2d(512, 512)`` → ``L.to_banded()`` →
-   ``cheby_op`` through the banded SpMM kernel, checked against the CSR
-   path and the SciPy f64 recurrence;
+   ``cheby_op`` through the banded SpMM kernel and kernel B, checked
+   against the CSR path and the SciPy f64 recurrence;
 5. path C, the bench path of the JAX package (``bench.py:162-185``): the
    same graph as path A with ``compute_laplacian(fmt='windowed')``, λmax
-   and the heat bank through the windowed fold and strip kernels, checked
-   against the SciPy f64 recurrence; the fold's two launches bit-equal at
-   this shape; ``torch.nn.functional.fold`` as the strip's yardstick; then
-   the one-hot fold at TPU kernel #2's probe shape, with row ids from this
-   matrix;
-6. one JSON line of per-kernel numbers (times from CUDA events, bounds
+   and the heat bank through the windowed fold and strip kernels and
+   kernel B's step and grouped accumulation, checked against the SciPy f64
+   recurrence; the fold's two launches bit-equal at this shape;
+   ``torch.nn.functional.fold`` as the strip's yardstick; then the one-hot
+   fold at TPU kernel #2's probe shape, with row ids from this matrix;
+6. path D, the JAX package's headline fast mode (``bench.py:332-334``):
+   path C's graph, signal and SciPy reference, ``filter(x, order=30,
+   carry_dtype=torch.bfloat16, vals_dtype=torch.bfloat16)``, through the
+   bf16 fold and strip instances (checked by the symbols launched) and
+   kernel B with a bf16 carry, its first filter held within 1.5e-2 (the
+   gate ``bench.py:345-351`` puts on the fast mode) and all four within
+   twice ``carry_error_estimate`` (the carried term and the SpMM's narrow
+   output are each rounded once per step);
+7. kernel B's entry points at each path's shape, held bit for bit against
+   their plain versions, then timed beside them, the eager passes they
+   replace and the one library call where there is one (``addmm_`` for the
+   grouped accumulation of f32 terms, ``addmv_`` for the synthesis
+   contraction);
+8. one JSON line of per-kernel numbers (times from CUDA events, bounds
    from the H100 SXM data sheet: HBM, FP32, and TF32 for the banded
    kernel's f32 products), the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
@@ -50,11 +68,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import pygsp_tpu_torch as gsp
-from pygsp_tpu_torch.core import _cuda, banded_kernel, csr_kernel
-from pygsp_tpu_torch.core import chunked
+from pygsp_tpu_torch.core import _cuda, banded_kernel, cheby_kernel
+from pygsp_tpu_torch.core import chunked, csr_kernel
 from pygsp_tpu_torch.core import windowed as wd
 from pygsp_tpu_torch.core import windowed_kernel as wk
-from pygsp_tpu_torch.ops.chebyshev import cheby_coeff, cheby_op
+from pygsp_tpu_torch.ops.chebyshev import (_operator_bytes, acc_group,
+                                           carry_error_estimate, cheby_coeff,
+                                           cheby_op)
 
 # H100 SXM data sheet: HBM rate, FP32 rate outside the tensor cores, and
 # the dense TF32 and bf16 tensor-core rates.
@@ -84,12 +104,28 @@ TOL_WINDOWED = 1e-5
 TOL_FOLD = 1e-6         # f32 sums of bf16 products, another order
 TOL_PATH = 1e-4
 TOL_F64 = 1e-12
+# path D, the bf16 fast mode: bench.py's gate for it, on the first filter
+# (bench.py:345-351)
+TOL_PATH_BF16 = 1.5e-2
+# a bf16 window tensor: kernel and plain version round the same f32 sum,
+# taken in two orders, once each
+TOL_BF16_ULPS = 1.0
+
+# the bf16 instances of the fold, (x dtype, values dtype): a bf16 carry
+# alone, both (the fast mode), bf16 values alone
+BF16_FOLDS = {'carry': (torch.bfloat16, torch.float32),
+              'both': (torch.bfloat16, torch.bfloat16),
+              'vals': (torch.float32, torch.bfloat16)}
+# kernel B's instances, (arithmetic dtype, carry dtype)
+CHEBY_TYPES = ((torch.float32, torch.float32), (torch.float64, torch.float64),
+               (torch.float32, torch.bfloat16))
 
 # TPU kernel #2's probe shape (PALLAS_FOLD_r5.json, p=4) and #3's shape
 FOLD2_NW, FOLD2_LT, FOLD2_KP = 1024, 1152, 256
 FOLD3_LT, FOLD3_KP = 512, 256
 
-KERNELS = (csr_kernel.csr_spmm, banded_kernel.banded_spmm) + wk.KERNELS
+KERNELS = ((csr_kernel.csr_spmm, banded_kernel.banded_spmm) + wk.KERNELS
+           + cheby_kernel.KERNELS)
 
 
 def log(*args):
@@ -104,6 +140,15 @@ def reset_counts():
 def counts():
     """Every kernel's launch count, by name."""
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def require_launches(path, per_bank, **least):
+    """Raise unless each named kernel launched at least its count in the
+    path's bank."""
+    for name, n in least.items():
+        if per_bank[name] < n:
+            raise AssertionError(f'path {path}: {name} launched '
+                                 f'{per_bank[name]} < {n} times in one bank')
 
 
 def run_bank(bank):
@@ -161,7 +206,7 @@ def check(name, got, want, tol):
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f'{name}: non-finite values')
     err = float((got - want).abs().max() / want.abs().max())
-    log(f'  {name}: rel err {err:.3e} (tol {tol:.0e})')
+    log(f'  {name}: rel err {err:.3e} (tol {tol:.3g})')
     if not err <= tol:
         raise AssertionError(f'{name}: rel err {err} > {tol}')
     return err
@@ -215,8 +260,8 @@ def symmetric_from_edges(src, tgt, n, weights=None):
 def phase_build():
     log('phase 1: build, then the canary kernel #4')
     t0 = time.time()
-    outputs = _cuda.build(['csr_spmm', 'banded_spmm', 'windowed_fold'],
-                          extra_flags=('-Xptxas', '-v'))
+    outputs = _cuda.build(['csr_spmm', 'banded_spmm', 'windowed_fold',
+                           'cheby_step'], extra_flags=('-Xptxas', '-v'))
     log(f'  built in {time.time() - t0:.1f} s')
     for name, out in outputs.items():
         for line in out.splitlines():
@@ -306,6 +351,270 @@ def check_windowed(name, M, s, dtype, tol):
           wk.window_strip_plain(t_plain, M.n_rows, M.window_rows), tol)
 
 
+def ulps(got, want):
+    """The largest |got - want| in bf16 ulps of the larger magnitude at each
+    element, counted at 2^-8 of the largest |want| at least: a sum that
+    cancels to near zero carries the f32 rounding of its addends, which two
+    summation orders do not share."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(
+        min=float(want.abs().max()) * 2.0**-8 + 1e-30)
+    return float(((got - want).abs()
+                  / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def check_windowed_bf16(combo, M, s, xd):
+    """The bf16 instances of the fold and strip against their plain
+    versions. Both sum the fold in f32 (in another order), so a bf16 window
+    tensor may differ by the one rounding of each sum: at most 1 ulp. The
+    strip adds the same bf16 addends in the same order in f32 and rounds
+    once: bit-equal."""
+    kp = M.borrow_span * M.window_rows
+    x = seeded_normal((M.n_cols, s), s).to(xd)
+    args = (M.cols, M.vals, M.rowid, x, M.chunk_rows, kp)
+    t, t_plain = wk.windowed_fold(*args), wk.windowed_fold_plain(*args)
+    name = f'windowed_fold bf16 {combo} S={s} (x {xd}, vals {M.vals.dtype})'
+    if xd == torch.bfloat16:
+        err = ulps(t, t_plain)
+        log(f'  {name}: {err:.2f} bf16 ulps (tol {TOL_BF16_ULPS})')
+        if not err <= TOL_BF16_ULPS:
+            raise AssertionError(f'{name}: {err} ulps > {TOL_BF16_ULPS}')
+    else:
+        check(name, t, t_plain, TOL_WINDOWED)
+    check(f'window_strip bf16 {combo} S={s} {xd}',
+          wk.window_strip(t, M.n_rows, M.window_rows),
+          wk.window_strip_plain(t, M.n_rows, M.window_rows), 0.0)
+
+
+def phase_kernel_b():
+    """Kernel B's three entry points against their plain versions, each
+    instance (f32, f64, f32 with a bf16 carry) at a ragged and a full
+    width: bit for bit (both round every operation once, in one order)."""
+    log('phase 2b: kernel B (the fused Chebyshev step) against its plain '
+        'versions')
+    n, nf, g = (1 << 16) + 3, 4, 14
+    def equal(name, got, want):
+        if not torch.equal(got, want):
+            err = float((got.double() - want.double()).abs().max())
+            raise AssertionError(f'{name}: kernel and plain differ by {err}')
+
+    for md, cd in CHEBY_TYPES:
+        for s in (128, 5):
+            y, t, t_old = (seeded_normal((n, s), 40 + k).to(cd)
+                           for k in range(3))
+            fd = seeded_normal((n,), 43, dtype=md)
+            sc = torch.tensor(0.731, dtype=md, device='cuda')
+            acc = seeded_normal((nf, n, s), 44, dtype=md)
+            ck = seeded_normal((nf,), 45, dtype=md)
+            out = cheby_kernel.cheby_step(y, t, t_old, fd, sc)
+            want = cheby_kernel.cheby_step_plain(y, t, t_old, fd, sc,
+                                                 torch.empty_like(t))
+            equal('cheby_step', out, want)
+            ring = seeded_normal((g + 2, n, s), 46).to(cd)
+            cg = seeded_normal((g, nf), 47, dtype=md)
+            acc_plain = acc.clone()
+            cheby_kernel.cheby_acc_group(acc, ring, cg, 9)     # wraps
+            cheby_kernel.cheby_acc_group_plain(acc_plain, ring, cg, 9)
+            equal('cheby_acc_group', acc, acc_plain)
+            del ring
+            tf = seeded_normal((n, s, nf), 48).to(cd)
+            a, a_plain = acc[0].clone(), acc[0].clone()
+            cheby_kernel.cheby_acc_contract(a, tf, ck)
+            cheby_kernel.cheby_acc_contract_plain(a_plain, tf, ck)
+            equal('cheby_acc_contract', a, a_plain)
+            log(f'  kernel B {md} arithmetic, {cd} carry, S={s}: step, '
+                f'group (g={g}) and contraction bit-equal')
+
+
+def kernel_b_operands(n, s, md, cd, slots=0):
+    """Seeded operands of kernel B at (n, s) with a ring of ``slots``
+    terms."""
+    ops = {name: seeded_normal((n, s), 50 + k).to(cd)
+           for k, name in enumerate(('y', 't', 't_old'))}
+    ops.update(fd=seeded_normal((n,), 53, dtype=md),
+               sc=torch.tensor(0.731, dtype=md, device='cuda'),
+               out=torch.empty((n, s), dtype=cd, device='cuda'))
+    if slots:
+        ops['ring'] = seeded_normal((slots, n, s), 56).to(cd)
+    return ops
+
+
+def require_equal(name, got, want):
+    """Raise unless kernel and plain version agree bit for bit; returns
+    their largest |difference| (0)."""
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f'{name}: kernel and plain differ by {err}')
+    log(f'  {name}: kernel and plain version bit-equal')
+    return err
+
+
+def measure_step(n, s, md, cd, windowed):
+    """``cheby_step`` at a path's shape, held bit for bit against its plain
+    version on the same operands, then timed. ``unfused_eager_ms``: the
+    eager passes it replaces, the port's step before kernel B
+    (``matvec(factor, t) - t_old`` on CSR and banded;
+    ``spmm.mul_(sc).addcmul_(fd, t).sub_(t_old)`` on the windowed format, in
+    f32 arithmetic with the carry cast around it for a bf16 carry)."""
+    o = kernel_b_operands(n, s, md, cd)
+    fd2 = o['fd'][:, None]
+    args = (o['y'], o['t'], o['t_old'], o['fd'], o['sc'])
+    out_plain = torch.empty_like(o['out'])
+    cheby_kernel.cheby_step(*args, o['out'])
+    cheby_kernel.cheby_step_plain(*args, out_plain)
+    err = require_equal(f'cheby_step at ({n}, {s}) {md}, {cd} carry',
+                        o['out'], out_plain)
+    del out_plain
+    if not windowed:
+        def eager():
+            return (fd2 * o['t'] + o['y']) - o['t_old']
+    elif cd == md:
+        y = o['y'].clone()
+
+        def eager():
+            y.mul_(o['sc']).addcmul_(fd2, o['t']).sub_(o['t_old'])
+    else:
+        def eager():
+            o['out'].copy_(o['y'].to(md).mul_(o['sc'])
+                           .addcmul_(fd2, o['t'].to(md))
+                           .sub_(o['t_old'].to(md)))
+
+    ci, mi = torch.finfo(cd).bits // 8, torch.finfo(md).bits // 8
+    return {'max_abs_err': err,
+            'ms': time_ms(lambda: cheby_kernel.cheby_step(*args, o['out']),
+                          20),
+            'plain_ms': time_ms(lambda: cheby_kernel.cheby_step_plain(
+                *args, o['out']), 3),
+            'unfused_eager_ms': time_ms(eager, 10), 'library_ms': None,
+            'library': 'none: no one PyTorch call computes the step',
+            **bound(4 * n * s * ci + n * mi, 4 * n * s), 'shape': [n, s],
+            'dtypes': [str(md), str(cd)]}
+
+
+def measure_group(n, s, nf, md, cd, g):
+    """``cheby_acc_group`` at a path's shape: g terms from a ring of g + 2,
+    wrapping, into nf accumulators, held bit for bit against its plain
+    version, then timed. ``unfused_eager_ms``: the g per-step
+    ``acc.addcmul_`` passes it replaces. ``library_ms``: one ``addmm_`` of
+    a contiguous group into the accumulators, where the terms are in the
+    accumulators' dtype (no PyTorch call mixes a bf16 ring into f32
+    accumulators)."""
+    o = kernel_b_operands(n, s, md, cd, slots=g + 2)
+    ring = o['ring']
+    acc = seeded_normal((nf, n, s), 54, dtype=md)
+    cg = seeded_normal((g, nf), 57, dtype=md)
+    acc_plain = acc.clone()
+    cheby_kernel.cheby_acc_group(acc, ring, cg, 9)
+    cheby_kernel.cheby_acc_group_plain(acc_plain, ring, cg, 9)
+    err = require_equal(f'cheby_acc_group at ({n}, {s}) g={g} {md}, {cd} '
+                        f'terms', acc, acc_plain)
+    del acc_plain
+    ckb = [cg[j].reshape(nf, 1, 1) for j in range(g)]
+
+    def eager():
+        for j in range(g):
+            acc.addcmul_(ckb[j], ring[j].to(md)[None])
+
+    library_ms, library = None, ('none: no PyTorch call mixes bf16 terms '
+                                 'into f32 accumulators')
+    if md == cd:
+        acc2, terms2, cgT = acc.view(nf, -1), ring[:g].view(g, -1), cg.T
+        want = acc2.clone()
+        cheby_kernel.cheby_acc_group(want.view(acc.shape), ring, cg, 0)
+        check(f'addmm_ vs cheby_acc_group at ({n}, {s}) g={g}',
+              acc2.clone().addmm_(cgT, terms2), want, TOL_CSR)
+        del want
+        library_ms = time_ms(lambda: acc2.addmm_(cgT, terms2), 20)
+        library = 'addmm_(cg.T, terms) on the accumulators, (Nf, N*S)'
+    ci, mi = torch.finfo(cd).bits // 8, torch.finfo(md).bits // 8
+    return {'max_abs_err': err,
+            'ms': time_ms(lambda: cheby_kernel.cheby_acc_group(
+                acc, ring, cg, 9), 20),
+            'plain_ms': time_ms(lambda: cheby_kernel.cheby_acc_group_plain(
+                acc, ring, cg, 9), 2),
+            'unfused_eager_ms': time_ms(eager, 5), 'library_ms': library_ms,
+            'library': library,
+            **bound(g * n * s * ci + 2 * nf * n * s * mi, 2 * g * nf * n * s),
+            'shape': [n, s], 'nf': nf, 'g': g,
+            'dtypes': [str(md), str(cd)]}
+
+
+def measure_contract(n, s, nf):
+    """``cheby_acc_contract`` at synthesis of nf filters on (n, s) f32, held
+    bit for bit against its plain version, then timed. ``unfused_eager_ms``:
+    ``acc += (ck * t).sum(-1)``; ``library_ms``: one ``addmv_``."""
+    t = seeded_normal((n, s, nf), 58)
+    acc = seeded_normal((n, s), 59)
+    ck = seeded_normal((nf,), 60)
+    acc_plain = acc.clone()
+    cheby_kernel.cheby_acc_contract(acc, t, ck)
+    cheby_kernel.cheby_acc_contract_plain(acc_plain, t, ck)
+    err = require_equal(f'cheby_acc_contract at ({n}, {s}) Nf={nf}', acc,
+                        acc_plain)
+    check('addmv_ vs cheby_acc_contract', acc_plain.view(-1).addmv_(
+        t.view(-1, nf), ck), cheby_kernel.cheby_acc_contract(acc, t, ck)
+        .view(-1), TOL_CSR)
+    del acc_plain
+    flat, tf = acc.view(-1), t.view(-1, nf)
+    return {'max_abs_err': err,
+            'ms': time_ms(lambda: cheby_kernel.cheby_acc_contract(acc, t, ck),
+                          20),
+            'plain_ms': time_ms(lambda: cheby_kernel.cheby_acc_contract_plain(
+                acc, t, ck), 3),
+            'unfused_eager_ms': time_ms(lambda: acc.add_((ck * t).sum(-1)),
+                                        10),
+            'library_ms': time_ms(lambda: flat.addmv_(tf, ck), 20),
+            'library': 'addmv_(t as (N*S, Nf), ck) on the accumulator',
+            **bound(n * s * nf * 4 + 2 * n * s * 4, 2 * nf * n * s),
+            'shape': [n, s], 'nf': nf, 'dtypes': ['torch.float32'] * 2}
+
+
+def phase_kernel_b_times(groups):
+    """Kernel B's entry points at each path's shape (the f32 bank of 4
+    filters on 128 signals; path D with a bf16 carry), each held bit for
+    bit against its plain version and timed beside it, the eager passes it
+    replaces and the library call where there is one; and each path's
+    kernel-B time per bank: 29 steps, and the groups of g (one for T_1,
+    the head one step at a time, then groups of g). ``groups``: each
+    path's g. Path A's shape and types are path C's, so A reuses C's
+    numbers."""
+    log('phase 7: kernel B at the paths\' shapes, against its plain versions')
+    nf, s, f32, bf16 = len(SCALES), N_SIGNALS, torch.float32, torch.bfloat16
+    shape = {'A': (N_BA, f32), 'B': (GRID_SIDE * GRID_SIDE, f32),
+             'C': (N_BA, f32), 'D': (N_BA, bf16)}
+    steps = ORDER - 1
+    step, group, one = {}, {}, {}
+    for p in 'BCD':
+        n, cd = shape[p]
+        step[p] = measure_step(n, s, f32, cd, windowed=p in 'CD')
+        torch.cuda.empty_cache()
+    step['A'] = measure_step(N_BA, s, f32, f32, windowed=False)
+    torch.cuda.empty_cache()
+    for p in 'BCD':
+        n, cd = shape[p]
+        group[p] = measure_group(n, s, nf, f32, cd, groups[p])
+        torch.cuda.empty_cache()
+        one[p] = measure_group(n, s, nf, f32, cd, 1)
+        torch.cuda.empty_cache()
+    if groups['A'] != groups['C']:
+        raise AssertionError(f'path A groups {groups["A"]} terms, path C '
+                             f'{groups["C"]}: A cannot take C\'s numbers')
+    group['A'], one['A'] = group['C'], one['C']
+    per_bank = {}
+    for p in 'ABCD':
+        head, full = steps % groups[p], steps // groups[p]
+        per_bank[p] = {
+            'g': groups[p],
+            'kernel_ms': (steps * step[p]['ms'] + (1 + head) * one[p]['ms']
+                          + full * group[p]['ms']),
+            'unfused_eager_ms': (steps * step[p]['unfused_eager_ms']
+                                 + (1 + steps) * one[p]['unfused_eager_ms'])}
+    log(f'  kernel B per bank: {json.dumps(per_bank)}')
+    contract = measure_contract(N_BA, 32, nf)
+    return step, group, one, contract, per_bank
+
+
 def phase_windowed_kernels(W):
     """The windowed kernels on the phase's BA 2^16 graph (default packing,
     ``window_rows=256`` for an S tile of 64 and int32 row ids, span 4), and
@@ -325,6 +634,10 @@ def phase_windowed_kernels(W):
             f'{M.rowid.dtype}, S tile '
             f'{wk.fold_layout(M.borrow_span * M.window_rows, 128, 4).s_tile}')
         check_windowed(name, M, 128, torch.float32, TOL_WINDOWED)
+    M = wd.windowed_from_scipy(W, dtype=torch.float32, device='cuda')
+    for combo, (xd, vd) in BF16_FOLDS.items():
+        for s in (128, 5):
+            check_windowed_bf16(combo, M.astype(vd), s, xd)
     gen = torch.Generator(device='cuda').manual_seed(3)
     rid = torch.randint(0, FOLD3_KP, (1, FOLD3_LT), dtype=torch.int32,
                         device='cuda', generator=gen)
@@ -475,21 +788,26 @@ def measure_banded(B, x):
     }
 
 
-def validate_path(name, L_host, lmax, evaluate, x, out):
-    """8 columns of ``out`` (Nf, N, S) against the SciPy f64 recurrence on
-    the scipy Laplacian ``L_host``."""
+def reference(L_host, lmax, evaluate, x):
+    """The SciPy f64 recurrence on the scipy Laplacian ``L_host`` for 8
+    columns of x: (Nf, N, 8)."""
     c64 = cheby_coeff(evaluate, lmax, m=ORDER, dtype=torch.float64,
                       device='cpu').numpy()
     x8 = x[:, :N_CHECK_COLS].double().cpu().numpy()
     t0 = time.time()
     ref = scipy_recurrence(L_host, lmax, c64, x8)
     log(f'  scipy f64 reference: {time.time() - t0:.1f} s')
+    return torch.from_numpy(ref)
+
+
+def validate_path(name, ref, out, tol=TOL_PATH):
+    """8 columns of ``out`` (Nf, N, S) against the reference."""
     return check(f'path {name} vs scipy f64', out[:, :, :N_CHECK_COLS].cpu(),
-                 torch.from_numpy(ref), TOL_PATH)
+                 ref, tol)
 
 
 # ---------------------------------------------------------------------------
-# the three paths, set up through the entry points a user calls (also used
+# the paths, set up through the entry points a user calls (also used
 # by tools/profile_torch_port.py, so both measure the same work)
 # ---------------------------------------------------------------------------
 
@@ -557,14 +875,17 @@ def phase_path_a():
     log(f'  row degrees: mean {degree.mean():.2f}, max {degree.max()}; '
         f'{hubs.sum()} rows above {HUB_DEGREE} hold '
         f'{degree[hubs].sum() / degree.sum():.2%} of the edges')
+    torch.cuda.reset_peak_memory_stats()
     out, launches, per_bank = run_bank(bank)
-    log(f'  launches on the path {launches}, per bank {per_bank}')
-    if per_bank['csr_spmm'] < ORDER:
-        raise AssertionError(f'CSR kernel launched {per_bank["csr_spmm"]} < '
-                             f'{ORDER} times in one bank')
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'  launches on the path {launches}, per bank {per_bank}; peak '
+        f'device memory {peak:.2f} GiB')
+    require_launches('A', per_bank, csr_spmm=ORDER, cheby_step=ORDER - 1,
+                     cheby_acc_group=1)
     if tuple(out.shape) != (N_BA, N_SIGNALS, len(SCALES)):
         raise AssertionError(f'path A output shape {tuple(out.shape)}')
-    rel_err = validate_path('A', G.L.to_scipy(), G.lmax, g.evaluate, x,
+    rel_err = validate_path('A', reference(G.L.to_scipy(), G.lmax,
+                                           g.evaluate, x),
                             out.permute(2, 0, 1))
     del out
 
@@ -579,7 +900,8 @@ def phase_path_a():
     kernel.update(hub_tail=hub_tail)
     path = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'nnz': nnz,
             'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
-            'lmax': G.lmax}
+            'lmax': G.lmax, 'acc_group': group_of(G.L, x),
+            'peak_bank_gib': peak}
     return kernel, path, (launches, per_bank)
 
 
@@ -589,23 +911,21 @@ def phase_path_b():
     G, Lb, g, c, x, bank = path_b()
     out, launches, per_bank = run_bank(bank)
     log(f'  launches on the path {launches}, per bank {per_bank}')
-    if per_bank['banded_spmm'] < ORDER:
-        raise AssertionError(f'banded kernel launched '
-                             f'{per_bank["banded_spmm"]} < {ORDER} times in '
-                             f'one bank')
+    require_launches('B', per_bank, banded_spmm=ORDER, cheby_step=ORDER - 1,
+                     cheby_acc_group=1)
     if tuple(out.shape) != (len(SCALES), G.N, N_SIGNALS):
         raise AssertionError(f'path B output shape {tuple(out.shape)}')
     check('path B banded vs CSR path', out, cheby_op(G.L, G.lmax, c, x),
           TOL_PATH)
-    rel_err = validate_path('B', G.L.to_scipy(), G.lmax, g.evaluate, x,
-                            out)
+    rel_err = validate_path('B', reference(G.L.to_scipy(), G.lmax,
+                                           g.evaluate, x), out)
     del out
 
     ms_bank = time_ms(bank, 3)
     log(f'  {ms_bank:.3f} ms per bank')
     kernel = measure_banded(Lb.offdiag, x)
     path = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'n': G.N,
-            'lmax': G.lmax}
+            'lmax': G.lmax, 'acc_group': group_of(Lb, x)}
     return kernel, path, (launches, per_bank)
 
 
@@ -734,19 +1054,20 @@ def phase_path_c():
               'chunk_rows': M.chunk_rows, 'window_rows': M.window_rows,
               'borrow_span': M.borrow_span, 'rowid': str(M.rowid.dtype)}
     log(f'  layout: {json.dumps(layout)}')
+    torch.cuda.reset_peak_memory_stats()
     out, launches, per_bank = run_bank(bank)
-    log(f'  launches on the path {launches}, per bank {per_bank}')
-    for name in ('windowed_fold', 'window_strip'):
-        if per_bank[name] < ORDER:
-            raise AssertionError(f'{name} launched {per_bank[name]} < {ORDER} '
-                                 f'times in one bank')
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'  launches on the path {launches}, per bank {per_bank}; peak '
+        f'device memory {peak:.2f} GiB')
+    require_launches('C', per_bank, windowed_fold=ORDER, window_strip=ORDER,
+                     cheby_step=ORDER - 1, cheby_acc_group=1)
     if per_bank['csr_spmm']:
         raise AssertionError('the CSR kernel ran inside the windowed bank')
     if tuple(out.shape) != (N_BA, N_SIGNALS, len(SCALES)):
         raise AssertionError(f'path C output shape {tuple(out.shape)}')
     L_host = sps.diags(G.dw) - G.W         # independent of the windowed format
-    rel_err = validate_path('C', L_host, G.lmax, g.evaluate, x,
-                            out.permute(2, 0, 1))
+    ref = reference(L_host, G.lmax, g.evaluate, x)
+    rel_err = validate_path('C', ref, out.permute(2, 0, 1))
     del out
 
     ms_bank = time_ms(bank, 3)
@@ -758,8 +1079,132 @@ def phase_path_c():
     fold2 = measure_fold_products(M)
     path = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'nnz': nnz,
             'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
-            'lmax': G.lmax, 'layout': layout, 'spmm': spmm}
-    return fold, strip, fold2, path, (launches, per_bank)
+            'lmax': G.lmax, 'layout': layout, 'spmm': spmm,
+            'peak_bank_gib': peak, 'acc_group': group_of(G.L, x)}
+    return fold, strip, fold2, path, (launches, per_bank), (G, g, x, ref)
+
+
+def group_of(L, x, carry=torch.float32):
+    """The accumulator group the bank takes on the Laplacian ``L``."""
+    return acc_group(ORDER - 1, x.numel(), x.dtype, carry,
+                     _operator_bytes(L.offdiag), len(SCALES))
+
+
+def fast_bank(g, x):
+    """The JAX package's headline fast mode (bench.py:332-334): the terms
+    carried in bf16 and the edge values stored in bf16."""
+    return lambda: g.filter(x, method='chebyshev', order=ORDER,
+                            carry_dtype=torch.bfloat16,
+                            vals_dtype=torch.bfloat16)
+
+
+def phase_path_d(G, g, x, ref):
+    """Path D on path C's graph, signal and SciPy reference: the bf16 fold
+    and strip instances (the symbols launched are counted, so that a bf16
+    request that ran in f32 would fail) and kernel B with a bf16 carry."""
+    log(f'phase 6: path D, path C\'s graph in the bf16 fast mode')
+    bank = fast_bank(g, x)
+    c = cheby_coeff(g.evaluate, G.lmax, m=ORDER, device='cpu')
+    est = carry_error_estimate(c, torch.bfloat16)
+    symbols = {}
+    launch = _cuda.launch
+
+    def spy(name, symbol, *args):
+        symbols[symbol] = symbols.get(symbol, 0) + 1
+        return launch(name, symbol, *args)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.launch = spy
+    try:
+        out, launches, per_bank = run_bank(bank)
+    finally:
+        _cuda.launch = launch
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'  launches on the path {launches}, per bank {per_bank}; symbols '
+        f'{symbols}; peak device memory {peak:.2f} GiB')
+    require_launches('D', per_bank, windowed_fold=ORDER, window_strip=ORDER,
+                     cheby_step=ORDER - 1, cheby_acc_group=1)
+    if per_bank['csr_spmm']:
+        raise AssertionError('the CSR kernel ran inside the windowed bank')
+    rowid = wk._ROWIDS[G.L.offdiag.rowid.dtype]
+    for symbol, least in ((f'windowed_fold_bf16_{rowid}', ORDER),
+                          ('window_strip_bf16', ORDER),
+                          ('cheby_step_f32_bf16', ORDER - 1)):
+        if symbols.get(symbol, 0) < least:
+            raise AssertionError(f'path D: {symbol} launched '
+                                 f'{symbols.get(symbol, 0)} < {least} times')
+    if any(s.startswith('windowed_fold_f32') for s in symbols):
+        raise AssertionError('path D: an f32 fold ran in the fast mode')
+    if out.dtype != torch.float32 or tuple(out.shape) != (
+            N_BA, N_SIGNALS, len(SCALES)):
+        raise AssertionError(f'path D output {out.dtype} '
+                             f'{tuple(out.shape)}')
+    log(f'  carry_error_estimate of the bank in bf16: {est:.4e}')
+    out = out.permute(2, 0, 1)
+    rel_err = validate_path('D (first filter, bench.py\'s gate)', ref[:1],
+                            out[:1], TOL_PATH_BF16)
+    rel_err_all = validate_path('D (all filters, 2 x the estimate)', ref,
+                                out, 2 * est)
+    del out
+    ms_bank = time_ms(bank, 3)
+    nnz = G.L.offdiag.nnz
+    log(f'  {ms_bank:.3f} ms per bank, '
+        f'{ORDER * nnz * N_SIGNALS / (ms_bank / 1e3):.4e} edge-ops/s')
+    fold = measure_fast_fold(G, x)
+    path = {'ms_per_bank': ms_bank, 'rel_err': rel_err,
+            'rel_err_all_filters': rel_err_all,
+            'carry_error_estimate': est, 'nnz': nnz,
+            'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
+            'symbols': symbols, 'peak_bank_gib': peak,
+            'acc_group': group_of(G.L, x, torch.bfloat16)}
+    return fold, path, (launches, per_bank)
+
+
+def measure_fast_fold(G, x):
+    """The bf16 fold and strip instances at path D's shape (x and values in
+    bf16, the matrix's internal order), against their plain versions, with
+    their bounds: the same slots as the f32 fold, at 2 bytes a value."""
+    M = G.L.offdiag.astype(torch.bfloat16)
+    R, P, K = M.chunk_rows, M.window_rows, M.borrow_span
+    n, s = M.n_rows, x.shape[1]
+    xp = chunked.permute_in(M, x).to(torch.bfloat16)
+    args = (M.cols, M.vals, M.rowid, xp, R, K * P)
+    t = wk.windowed_fold(*args)
+    t_plain = wk.windowed_fold_plain(*args)
+    err = ulps(t, t_plain)
+    max_abs_err = float((t.float() - t_plain.float()).abs().max())
+    log(f'  bf16 windowed_fold at path D shape: {err:.2f} bf16 ulps from '
+        f'the plain version (tol {TOL_BF16_ULPS})')
+    if not err <= TOL_BF16_ULPS:
+        raise AssertionError(f'bf16 windowed_fold: {err} ulps')
+    del t_plain
+    y = wk.window_strip(t, n, P)
+    if not torch.equal(y, wk.window_strip_plain(t, n, P)):
+        raise AssertionError('bf16 window_strip differs from its plain '
+                             'version at path D')
+    del y
+    live = int((M.cols < R).sum())
+    slot_bytes = M.n_slots * (4 + 2 + M.rowid.element_size())
+    fold = {'max_abs_err': max_abs_err, 'ulps': err,
+            'ms': time_ms(lambda: wk.windowed_fold(*args), 10),
+            'plain_ms': time_ms(lambda: wk.windowed_fold_plain(*args), 2),
+            **bound(n * s * 2 + slot_bytes + t.numel() * 2, 2 * live * s),
+            'bound_gather_ms': (live * s * 2 + slot_bytes + t.numel() * 2)
+            / HBM_BYTES_PER_S * 1e3}
+    strip = {'max_abs_err': 0.0,
+             'ms': time_ms(lambda: wk.window_strip(t, n, P), 20),
+             'plain_ms': time_ms(lambda: wk.window_strip_plain(t, n, P), 5),
+             **bound(t.numel() * 2 + n * s * 2, (K - 1) * n * s)}
+    del t
+    # the other two instances at this shape: a bf16 x with f32 values (no
+    # product rounding) and f32 x with bf16 values
+    M32 = G.L.offdiag
+    for combo, (xd, vd) in BF16_FOLDS.items():
+        if combo != 'both':
+            a = (M32.cols, M32.vals.to(vd), M32.rowid, xp.to(xd), R, K * P)
+            fold[f'ms_{combo}'] = time_ms(lambda: wk.windowed_fold(*a), 10)
+    return {'fold': fold, 'strip': strip}
 
 
 def main():
@@ -774,12 +1219,21 @@ def main():
 
     double = phase_build()
     fold3 = phase_kernels()
+    phase_kernel_b()
     csr, path_a, counts_a = phase_path_a()
     torch.cuda.empty_cache()
     banded, path_b, counts_b = phase_path_b()
     torch.cuda.empty_cache()
-    fold, strip, fold2, path_c, counts_c = phase_path_c()
-    log(f'paths: {json.dumps({"A": path_a, "B": path_b, "C": path_c})}')
+    fold, strip, fold2, path_c, counts_c, shared = phase_path_c()
+    fast, path_d, counts_d = phase_path_d(*shared)
+    del shared
+    torch.cuda.empty_cache()
+    paths = {'A': path_a, 'B': path_b, 'C': path_c, 'D': path_d}
+    step, group, one, contract, kb_bank = phase_kernel_b_times(
+        {p: path['acc_group'] for p, path in paths.items()})
+    for p, path in paths.items():
+        path['kernel_b_per_bank'] = kb_bank[p]
+    log(f'paths: {json.dumps(paths)}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')
 
@@ -804,24 +1258,49 @@ def main():
                           'NW=1 benchmarks/pallas_smoke.py:52 (#3)')
     double.update(name='double', route='cuda', source=source,
                   replaces='benchmarks/pallas_smoke.py:28 (#4)')
+    fold.update(bf16_at_path_d=fast['fold'])
+    strip.update(bf16_at_path_d=fast['strip'])
+    # kernel B: each entry point's headline numbers at path A's shape (the
+    # group's are path C's, the same shape and types), the others under
+    # at_paths; max_abs_err from the bit-equality check at that shape
+    source = 'pygsp_tpu_torch/csrc/cheby_step.cu'
+    kb_step = dict(step['A'], name='cheby_step', route='cuda', source=source,
+                   at_paths=step,
+                   replaces='pygsp_tpu/ops/chebyshev.py:186-190 and '
+                            ':264-268 (XLA fusions of the lax.scan bodies, '
+                            'no Pallas kernel)')
+    kb_group = dict(group['C'], name='cheby_acc_group', route='cuda',
+                    source=source,
+                    at_paths={**{p: group[p] for p in 'BCD'},
+                              **{f'g1_{p}': one[p] for p in 'BCD'}},
+                    replaces='pygsp_tpu/ops/chebyshev.py:189 and :323-334 '
+                             '(XLA fusions, no Pallas kernel)')
+    kb_contract = dict(contract, name='cheby_acc_contract', route='cuda',
+                       source=source,
+                       replaces='pygsp_tpu/ops/chebyshev.py:621 and :697 '
+                                '(XLA fusions, no Pallas kernel; synthesis, '
+                                'not on the bench path)')
     # launches as counted in each path's own run; a kernel's `launches` is
-    # that of the path it serves, or the sum over the three paths for the
-    # kernels that serve none (fold_products, double)
-    by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c}
-    for kernel, path in ((csr, 'A'), (banded, 'B'), (fold, 'C'),
-                         (strip, 'C'), (fold2, None), (double, None)):
+    # that of the paths it serves, or the sum over the four paths for the
+    # kernels that serve none (fold_products, double, cheby_acc_contract)
+    by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d}
+    for kernel, served in ((csr, 'A'), (banded, 'B'), (fold, 'CD'),
+                           (strip, 'CD'), (fold2, None), (double, None),
+                           (kb_step, 'ABCD'), (kb_group, 'ABCD'),
+                           (kb_contract, None)):
         name = kernel['name']
-        paths = [path] if path else list(by_path)
+        served = list(served or by_path)
         kernel.update(
-            launches=sum(by_path[p][0][name] for p in paths),
-            launches_per_bank=sum(by_path[p][1][name] for p in paths),
+            launches=sum(by_path[p][0][name] for p in served),
+            launches_per_bank=sum(by_path[p][1][name] for p in served),
             launches_by_path={p: by_path[p][0][name] for p in by_path})
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    print(json.dumps({'kernels': [csr, banded, fold, strip, fold2, double]}),
+    print(json.dumps({'kernels': [csr, banded, fold, strip, fold2, double,
+                                  kb_step, kb_group, kb_contract]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -58,9 +58,12 @@ def permute_out(mat, y: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return torch.index_select(y, axis, mat.iperm)
 
 
-def _slot_block_sum(cols, vals, x) -> torch.Tensor:
+def _slot_block_sum(cols, vals, x, out_dtype=None) -> torch.Tensor:
     """``Σ_d vals[:, d] · x[cols[:, d]]`` for (m, w) slot arrays over x
-    (n, S), one source chunk: (m, S) rows.
+    (n, S), one source chunk: (m, S) rows. Each product is formed in the
+    promotion of the two dtypes; ``out_dtype`` (default: that promotion)
+    upcasts it before the sum, as the JAX package's does, so that the bf16
+    modes read narrow operands and still sum in float32.
 
     The JAX package scans over 8-wide width chunks to bound XLA's
     temporaries; the windowed format's tiers are at most 8 wide, so here
@@ -73,5 +76,7 @@ def _slot_block_sum(cols, vals, x) -> torch.Tensor:
     live = (cols < n)[..., None]
     idx = torch.clamp(cols, max=n - 1).to(torch.long)
     p = vals[..., None] * x[idx]                             # (m, w, S)
+    if out_dtype is not None:
+        p = p.to(out_dtype)
     return torch.where(live, p, torch.zeros((), dtype=p.dtype,
                                             device=p.device)).sum(dim=1)

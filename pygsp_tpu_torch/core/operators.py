@@ -11,7 +11,7 @@ so the SpMM kernel stays Laplacian-agnostic and the Chebyshev operator
 
 What the iterative drivers (``cheby_op``, Lanczos) need to know about a
 format sits here, behind :meth:`LaplacianOp.hoisted`,
-:meth:`LaplacianOp.shifted_step` and :meth:`LaplacianOp.refuse_bf16_mode`.
+:meth:`LaplacianOp.shifted_step`.
 """
 
 from __future__ import annotations
@@ -22,18 +22,16 @@ import functools
 import scipy.sparse as sps
 import torch
 
+from pygsp_tpu_torch.core import cheby_kernel
 from pygsp_tpu_torch.core import sparse as sp
 from pygsp_tpu_torch.core.chunked import permute_in, permute_out
 from pygsp_tpu_torch.core.sparse import CSRMatrix
-from pygsp_tpu_torch.core.windowed import (BF16_MODES_NOT_PORTED,
-                                           WindowedELLMatrix,
+from pygsp_tpu_torch.core.windowed import (WindowedELLMatrix,
                                            windowed_from_host_coo)
 
 _NOT_PORTED = ('LaplacianOp.{}() is not ported yet: see ROADMAP.md, '
                '"Modules to port", item 4 (the ELL/hybrid and chunked '
                'formats)')
-_FORMAT_ONLY = ('{} is only supported on chunked/windowed operator formats '
-                '(the hot path)')
 
 
 def _identity(x, axis=0):
@@ -102,32 +100,35 @@ class LaplacianOp:
                 functools.partial(permute_out, off))
 
     def shifted_step(self, scale, shift):
-        """The Chebyshev recurrence step ``step(t, t_old) = scale·(L −
-        shift·I)·t − t_old`` for t (N, ...), in the JAX package's arithmetic
-        for each format: the CSR and banded formats fold the scale into a
-        scaled copy of the off-diagonal (:meth:`shifted`); the windowed
-        format applies it to the SpMM output, in place, with no scaled copy
-        of its slabs."""
+        """The Chebyshev recurrence step ``step(t, t_old, out=None)``:
+        ``scale·(L − shift·I)·t − t_old`` for t (N, ...) in the carry dtype,
+        on the fused step kernel
+        (:func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_step`), in the JAX
+        package's arithmetic for each format. The CSR and banded formats fold the
+        scale into a scaled copy of the off-diagonal (:meth:`shifted`) and
+        step with ``sc = 1``; the windowed format emits its SpMM in the
+        carry dtype and applies the scale to it inside the step, with no
+        scaled copy of its slabs. The arithmetic is in the diagonal's
+        dtype."""
         if not isinstance(self.offdiag, WindowedELLMatrix):
             factor = self.shifted(scale, shift)
-            return lambda t, t_old: matvec(factor, t) - t_old
-        fdiag = (self.diag - shift) * scale
+            one = torch.ones((), dtype=factor.diag.dtype, device=self.device)
 
-        def step(t, t_old):
-            fd = fdiag.reshape((-1,) + (1,) * (t.ndim - 1))
-            return (sp.spmm(self.offdiag, t).mul_(scale).addcmul_(fd, t)
-                    .sub_(t_old))
+            def step(t, t_old, out=None):
+                return cheby_kernel.cheby_step(
+                    sp.spmm(factor.offdiag, t), t, t_old, factor.diag, one,
+                    out)
+
+            return step
+        fdiag = (self.diag - shift) * scale
+        sc = torch.tensor(scale, dtype=fdiag.dtype, device=self.device)
+
+        def step(t, t_old, out=None):
+            return cheby_kernel.cheby_step(
+                sp.spmm(self.offdiag, t, out_dtype=t.dtype), t, t_old, fdiag,
+                sc, out)
 
         return step
-
-    def refuse_bf16_mode(self, name: str):
-        """Raise for a bf16 mode of the recurrence (``carry_dtype``,
-        ``vals_dtype``): the JAX package's ``ValueError`` on the CSR and
-        banded formats, which have none, and ``NotImplementedError`` on the
-        windowed format, where they are not ported yet."""
-        if isinstance(self.offdiag, WindowedELLMatrix):
-            raise NotImplementedError(BF16_MODES_NOT_PORTED.format(name))
-        raise ValueError(_FORMAT_ONLY.format(name))
 
     def to_hybrid(self, width=None):
         raise NotImplementedError(_NOT_PORTED.format('to_hybrid'))

@@ -218,17 +218,18 @@ def to_dense(mat) -> torch.Tensor:
 # SpMM dispatch
 # ---------------------------------------------------------------------------
 
-def spmm(mat, x: torch.Tensor) -> torch.Tensor:
+def spmm(mat, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` for x of shape (n_cols,) or (n_cols, ...).
 
     CSR goes to the CSR SpMM kernel, banded to the banded SpMM kernel,
     windowed to the windowed fold and strip kernels. Each wrapper launches
     its CUDA kernel for a CUDA tensor and runs its plain PyTorch version for
     a CPU tensor. Operands of mixed dtypes are promoted, as in the JAX
-    package.
+    package. ``out_dtype``: the dtype of ``y`` (the windowed format's bf16
+    modes emit the product narrow; the others cast it).
     """
     if isinstance(mat, WindowedELLMatrix):
-        return windowed.windowed_spmm(mat, x)
+        return windowed.windowed_spmm(mat, x, out_dtype=out_dtype)
     if not isinstance(mat, (CSRMatrix, BandedMatrix)):
         raise NotImplementedError(_NOT_PORTED.format(type(mat).__name__))
     x = torch.as_tensor(x)
@@ -242,7 +243,7 @@ def spmm(mat, x: torch.Tensor) -> torch.Tensor:
         y = csr_kernel.csr_spmm(mat.rowptr, mat.cols, mat.vals.to(dtype), x2)
     else:
         y = banded_kernel.banded_spmm(mat.tiles.to(dtype), x2, mat.n_rows)
-    return y.reshape((mat.n_rows,) + lead)
+    return y.reshape((mat.n_rows,) + lead).to(out_dtype or dtype)
 
 
 # ---------------------------------------------------------------------------

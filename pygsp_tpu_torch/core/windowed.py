@@ -31,8 +31,9 @@ carries it as a tuple of chunks only to stay under a TPU gather cliff, so
 ported, because they only steer the TPU: ``FOLD_PRECISION`` and
 ``_FOLD_SPLIT2`` (how the MXU runs the fold) and the sub-chunking knobs
 ``PYGSP_WINDOW_STEP`` and ``PYGSP_WINDOWED_BODY_MB`` (which bound XLA
-temporaries that the kernel never makes). The bf16 ``out_dtype`` mode is
-ROADMAP.md item 3.
+temporaries that the kernel never makes). The bf16 modes of the recurrence
+run here too: a bf16 signal, bf16 values, and a narrow ``out_dtype``, with
+the JAX package's dtype rules (:func:`spmm_internal`).
 
 Same contract as every sparse format here: ``y = A @ x`` in the original
 vertex order.
@@ -54,10 +55,6 @@ from pygsp_tpu_torch.core.chunked import (CHUNK_ROWS, ChunkLevel,
 
 # Output rows per window (the JAX package's default).
 WINDOW_ROWS = 64
-
-BF16_MODES_NOT_PORTED = ('{} is not ported yet for the windowed format: see '
-                         'ROADMAP.md, "Modules to port", item 3 (the bf16 '
-                         'modes of the recurrence)')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +136,22 @@ class WindowedELLMatrix:
     def spmm_chunks(self, x_chunks, out_dtype=None) -> tuple:
         return windowed_spmm_chunks(self, x_chunks, out_dtype=out_dtype)
 
+    def stored_bytes(self) -> int:
+        """The bytes of the matrix's arrays as the JAX package stores them
+        (its index vectors int32, wide row ids uint16, where the port keeps
+        int64 and int32), which the recurrence's accumulator-group rule
+        counts, so that both packages pick the same group."""
+        def nbytes(t, itemsize=None):
+            return t.numel() * (itemsize or t.element_size())
+        rowid = 1 if self.rowid.dtype == torch.uint8 else 2
+        return (nbytes(self.cols) + nbytes(self.vals)
+                + nbytes(self.rowid, rowid) + nbytes(self.rowptr)
+                + nbytes(self.level_rows, 4)
+                + sum(nbytes(lev.cols) + nbytes(lev.vals)
+                      for lev in self.levels)
+                + sum(nbytes(p, 4) for p in (self.perm, self.iperm)
+                      if p is not None))
+
     def __matmul__(self, x):
         return windowed_spmm(self, x)
 
@@ -147,25 +160,39 @@ class WindowedELLMatrix:
 # SpMM
 # ---------------------------------------------------------------------------
 
-def spmm_internal(mat: WindowedELLMatrix, x: torch.Tensor) -> torch.Tensor:
+def spmm_internal(mat: WindowedELLMatrix, x: torch.Tensor,
+                  out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` in the matrix's internal (relabeled) order, for x
     (n_cols, S): the fold and strip kernels, then the residue tiers with one
-    ``index_add_`` (their rows repeat across tier entries). Operands of
-    mixed dtypes are promoted, as in the JAX package."""
-    dtype = torch.promote_types(x.dtype, mat.dtype)
-    if mat.dtype != dtype:
-        mat = mat.astype(dtype)
-    x = x.to(dtype).contiguous()
+    ``index_add_`` (their rows repeat across tier entries).
+
+    The JAX package's dtype rules (``pygsp_tpu/core/windowed.py:234-249``):
+    products in ``pdt``, the promotion of x's and the values' dtypes (so a
+    bf16·bf16 product rounds to bf16); row sums in float32 or wider; ``y``
+    in ``out_dtype``, by default ``pdt``. The operand pairs of the fold
+    kernel (:data:`~.windowed_kernel.FOLD_OPERANDS`: the exact modes and the
+    three bf16 ones, with ``y`` in x's dtype) run as they are, with no wider
+    copy of the slabs; any other pair is promoted to ``pdt`` first."""
+    pdt = torch.promote_types(x.dtype, mat.dtype)
+    dt = out_dtype or pdt
+    acc_dt = torch.promote_types(dt, torch.float32)
+    x = x.contiguous()
+    if (x.dtype, mat.dtype) not in windowed_kernel.FOLD_OPERANDS or (
+            dt != x.dtype):
+        if mat.dtype != pdt:
+            mat = mat.astype(pdt)
+        x = x.to(pdt)
     R, P = mat.chunk_rows, mat.window_rows
     t = windowed_kernel.windowed_fold(mat.cols, mat.vals, mat.rowid, x, R,
                                       mat.borrow_span * P)
-    y = windowed_kernel.window_strip(t, mat.n_rows, P)
+    y = windowed_kernel.window_strip(t, mat.n_rows, P).to(dt)
     if mat.levels:
         ps = torch.cat([_slot_block_sum(lev.cols, lev.vals,
                                         x[lev.src_chunk * R:
-                                          (lev.src_chunk + 1) * R])
+                                          (lev.src_chunk + 1) * R],
+                                        out_dtype=acc_dt)
                         for lev in mat.levels])
-        y.index_add_(0, mat.level_rows, ps)
+        y.index_add_(0, mat.level_rows, ps.to(dt))
     return y
 
 
@@ -173,26 +200,25 @@ def windowed_spmm_chunks(mat: WindowedELLMatrix, x_chunks,
                          out_dtype=None) -> tuple:
     """``y_chunks = A @ x_chunks`` with tuple-of-chunk input and output, in
     the internal order (API parity with the JAX package; the chunks are
-    joined into one tensor for the kernels)."""
+    joined into one tensor for the kernels). ``out_dtype``: see
+    :func:`spmm_internal`."""
     x = unchunk_signal(tuple(torch.as_tensor(xk) for xk in x_chunks))
-    dtype = torch.promote_types(x.dtype, mat.dtype)
-    if out_dtype is not None and out_dtype != dtype:
-        raise NotImplementedError(BF16_MODES_NOT_PORTED.format('out_dtype'))
-    y = spmm_internal(mat, x.reshape(x.shape[0], -1))
+    y = spmm_internal(mat, x.reshape(x.shape[0], -1), out_dtype=out_dtype)
     return chunk_signal(y.reshape((mat.n_rows,) + x.shape[1:]),
                         mat.chunk_rows)
 
 
-def windowed_spmm(mat: WindowedELLMatrix, x) -> torch.Tensor:
+def windowed_spmm(mat: WindowedELLMatrix, x, out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` for x of shape (n_cols,) or (n_cols, ...), in the
-    original vertex order. Iterative drivers (``cheby_op``, Lanczos) hoist
-    the two permutes out of their loops and call :func:`spmm_internal`."""
+    original vertex order (``out_dtype``: see :func:`spmm_internal`).
+    Iterative callers (``cheby_op``, Lanczos) hoist the two permutes out of
+    their loops, so that here they are the identity."""
     x = torch.as_tensor(x)
     if x.ndim == 0 or x.shape[0] != mat.n_cols:
         raise ValueError(f'x must have {mat.n_cols} rows, got shape '
                          f'{tuple(x.shape)}')
     xp = permute_in(mat, x)
-    y = spmm_internal(mat, xp.reshape(mat.n_cols, -1))
+    y = spmm_internal(mat, xp.reshape(mat.n_cols, -1), out_dtype=out_dtype)
     return permute_out(mat, y.reshape((mat.n_rows,) + x.shape[1:]))
 
 
@@ -572,7 +598,14 @@ def _numpy_dtype(dtype):
 
 
 def _tensor(a, device, dtype=None):
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+    """A host array on ``device``. A bfloat16 array (the ``ml_dtypes`` type
+    of the JAX package's arrays, which torch cannot read) goes across as
+    its bits, viewed as int16 and back as ``torch.bfloat16``."""
+    a = np.ascontiguousarray(a, dtype=dtype)
+    if a.dtype.name == 'bfloat16':
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def upload(host: dict, device) -> WindowedELLMatrix:

@@ -8,9 +8,11 @@ design):
   of a :class:`~pygsp_tpu_torch.core.windowed.WindowedELLMatrix` into the
   window tensor ``t (n_out, NW, K·P, S)``: the fold of TPU kernel #2
   (``benchmarks/pallas_fold_probe.py:make_pallas_fold``) fused with the
-  slot gather of ``pygsp_tpu/core/windowed.py:298-303``;
+  slot gather of ``pygsp_tpu/core/windowed.py:298-303``. Besides float32
+  and float64 it takes the bf16 operands of the recurrence's fast modes
+  (:data:`FOLD_OPERANDS`), with float32 sums: #2's own regime;
 - :func:`window_strip`: the overlap-add of ``t`` into ``y (n_rows, S)``
-  (``pygsp_tpu/core/windowed.py:336-345``);
+  (``pygsp_tpu/core/windowed.py:336-345``), bf16 included;
 - :func:`fold_products`: #2's function as it stands, ``rid (NW, Lt)`` and
   products ``p (NW, Lt, S)`` in, ``(NW, KP, S)`` float32 out; at NW = 1 it
   is TPU kernel #3 (``benchmarks/pallas_smoke.py`` ``fold_kernel``);
@@ -31,7 +33,19 @@ import torch
 from pygsp_tpu_torch.core import _cuda
 
 _SOURCE = 'windowed_fold'
-_DTYPES = {torch.float32: 'f32', torch.float64: 'f64'}
+_DTYPES = {torch.float32: 'f32', torch.float64: 'f64',
+           torch.bfloat16: 'bf16'}
+# windowed_fold's (x dtype, vals dtype) pairs, by their kernels' suffix: the
+# exact modes, then a bf16 carry (x) alone, both, and bf16 values alone. The
+# window tensor is written in x's dtype; products are formed in the two
+# dtypes' promotion (bf16·bf16 rounds to bf16) and summed in float32 (in
+# float64 for float64 x).
+_FOLD_TYPES = {(torch.float32, torch.float32): 'f32',
+               (torch.float64, torch.float64): 'f64',
+               (torch.bfloat16, torch.float32): 'bf16_f32',
+               (torch.bfloat16, torch.bfloat16): 'bf16',
+               (torch.float32, torch.bfloat16): 'f32_bf16'}
+FOLD_OPERANDS = frozenset(_FOLD_TYPES)
 _ROWIDS = {torch.uint8: 'u8', torch.int32: 'i32'}
 _PRODUCTS = {torch.bfloat16: 'bf16', torch.float32: 'f32'}
 
@@ -91,21 +105,26 @@ def _s_tile(kp: int, s: int, itemsize: int) -> int:
     return min(tile, max(32, -(-s // 32) * 32))
 
 
-def fold_layout(kp: int, s: int, itemsize: int) -> FoldLayout:
-    """The :func:`windowed_fold` block layout for ``kp`` accumulator rows,
-    S = ``s`` and ``itemsize``-byte values: the accumulator, a ring deep
-    enough to keep 64 KB of x rows in flight per SM (two blocks share an SM
-    when the accumulator takes at most half of ``ACC_BYTES``), and a queue
-    of live slots that outlasts the ring plus one staging round. Raises if
-    not even one column of the accumulator fits."""
+def fold_layout(kp: int, s: int, itemsize: int,
+                ring_itemsize: int | None = None) -> FoldLayout:
+    """The :func:`windowed_fold` block layout for ``kp`` accumulator rows
+    of ``itemsize``-byte sums, S = ``s`` and x rows of
+    ``ring_itemsize``-byte values (by default ``itemsize``; 2 for a bf16 x
+    folded into float32 sums): the accumulator, a ring deep enough to keep
+    64 KB of x rows in flight per SM (two blocks share an SM when the
+    accumulator takes at most half of ``ACC_BYTES``), and a queue of live
+    slots, whose values are held in the sums' type, that outlasts the ring
+    plus one staging round. Raises if not even one column of the
+    accumulator fits."""
+    ring_itemsize = ring_itemsize or itemsize
     tile = _s_tile(kp, s, itemsize)
     acc = kp * tile * itemsize
     blocks_per_sm = 2 if 2 * acc <= ACC_BYTES else 1
-    want = _RING_BYTES_PER_SM // blocks_per_sm // (tile * itemsize)
+    want = _RING_BYTES_PER_SM // blocks_per_sm // (tile * ring_itemsize)
     ring = min(max(1 << max(want, 1).bit_length() - 1, _RING_ROWS[0]),
                _RING_ROWS[1])
     queue = 1 << (ring + STAGE_ROUND - 1).bit_length()
-    smem = (_PART_BYTES * RING_GROUPS + acc + ring * tile * itemsize
+    smem = (_PART_BYTES * RING_GROUPS + acc + ring * tile * ring_itemsize
             + queue * (2 * itemsize + 4))
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f'a fold over {kp} rows needs {smem} bytes of '
@@ -127,36 +146,44 @@ def _check_operands(name, tensors, x):
 # (a) windowed_fold
 # ---------------------------------------------------------------------------
 
+def _sum_dtype(dtype):
+    """The dtype sums of ``dtype`` values are taken in: float32 at least."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def windowed_fold_plain(cols, vals, rowid, x, chunk_rows: int, kp: int):
     """Plain PyTorch version of :func:`windowed_fold`: per out chunk, the
-    slot products ``vals · x[c·R + cols]`` and an ``index_add_`` onto their
-    window rows. Dead slots (sentinel column, row id out of range) add
-    nothing and x is not read for them."""
+    slot products ``vals · x[c·R + cols]`` (in the two dtypes' promotion)
+    and an ``index_add_`` of them, in float32 or wider, onto their window
+    rows. Dead slots (sentinel column, row id out of range) add nothing and
+    x is not read for them."""
     n_out, nw, n_src, _ = cols.shape
     n_cols, s = x.shape
     dev = x.device
+    sdt = _sum_dtype(x.dtype)
     base = (torch.arange(n_src, device=dev) * chunk_rows)[:, None]
     win = (torch.arange(nw, device=dev) * kp)[:, None, None]
-    t = torch.zeros((n_out, nw * kp, s), dtype=x.dtype, device=dev)
+    t = torch.zeros((n_out, nw * kp, s), dtype=sdt, device=dev)
     for i in range(n_out):
         rid = rowid[i].long()
         row = base + cols[i].long()                         # (nw, n_src, L)
         live = (cols[i] < chunk_rows) & (row < n_cols) & (rid < kp)
-        p = vals[i][..., None] * x[torch.where(live, row, 0)]
-        p = torch.where(live[..., None], p, torch.zeros((), dtype=p.dtype,
+        p = (vals[i][..., None] * x[torch.where(live, row, 0)]).to(sdt)
+        p = torch.where(live[..., None], p, torch.zeros((), dtype=sdt,
                                                         device=dev))
         t[i].index_add_(0, (win + torch.where(live, rid, 0)).reshape(-1),
                         p.reshape(-1, s))
-    return t.reshape(n_out, nw, kp, s)
+    return t.reshape(n_out, nw, kp, s).to(x.dtype)
 
 
 def _check_fold(cols, vals, rowid, x, chunk_rows, kp):
     if x.ndim != 2 or cols.ndim != 4:
         raise ValueError(f'windowed_fold takes 4-D slabs and a 2-D x, got '
                          f'{tuple(cols.shape)} and {tuple(x.shape)}')
-    if x.dtype not in _DTYPES or vals.dtype != x.dtype:
+    if (x.dtype, vals.dtype) not in _FOLD_TYPES:
         raise ValueError(f'windowed_fold takes float32 or float64 vals and x '
-                         f'of one dtype, got {vals.dtype} and {x.dtype}')
+                         f'of one dtype, or bfloat16 for either beside '
+                         f'float32 ones, got {vals.dtype} and {x.dtype}')
     if cols.dtype != torch.int32 or rowid.dtype not in _ROWIDS:
         raise ValueError(f'windowed_fold takes int32 cols and uint8 or int32 '
                          f'row ids, got {cols.dtype} and {rowid.dtype}')
@@ -179,7 +206,10 @@ def windowed_fold(cols, vals, rowid, x, chunk_rows: int, kp: int):
                                                   · x[c·R + cols[i,w,c,l], :]
 
     with ``R = chunk_rows``; slots whose column is the sentinel ``R`` (or
-    lies past x) are skipped."""
+    lies past x) are skipped. ``t`` has x's dtype; each product is formed
+    in the promotion of the two dtypes (a bfloat16·bfloat16 product rounds
+    to bfloat16, as in the JAX package's fold) and the sums are taken in
+    float32, or float64 for float64 operands."""
     _check_fold(cols, vals, rowid, x, chunk_rows, kp)
     if x.device.type == 'cpu':
         return windowed_fold_plain(cols, vals, rowid, x, chunk_rows, kp)
@@ -188,8 +218,10 @@ def windowed_fold(cols, vals, rowid, x, chunk_rows: int, kp: int):
     t = torch.empty((n_out, nw, kp, s), dtype=x.dtype, device=x.device)
     if t.numel() == 0:
         return t
-    lay = fold_layout(kp, s, x.element_size())
-    symbol = f'windowed_fold_{_DTYPES[x.dtype]}_{_ROWIDS[rowid.dtype]}'
+    lay = fold_layout(kp, s, torch.finfo(_sum_dtype(x.dtype)).bits // 8,
+                      x.element_size())
+    symbol = (f'windowed_fold_{_FOLD_TYPES[x.dtype, vals.dtype]}_'
+              f'{_ROWIDS[rowid.dtype]}')
     _cuda.launch(_SOURCE, symbol, 5, 10, x.get_device(), cols.data_ptr(),
                  vals.data_ptr(), rowid.data_ptr(), x.data_ptr(),
                  t.data_ptr(), n_out * nw, n_src, L, chunk_rows, kp,
@@ -207,16 +239,18 @@ windowed_fold.launches = 0
 
 def window_strip_plain(t, n_rows: int, window_rows: int):
     """Plain PyTorch version of :func:`window_strip`: part 0 of every
-    window, plus part d shifted d windows forward inside its out chunk."""
+    window, plus part d shifted d windows forward inside its out chunk,
+    summed in float32 or wider and rounded once to t's dtype."""
     n_out, nw, kp, s = t.shape
     P = window_rows
-    y = t[:, :, :P].reshape(n_out, nw * P, s).clone()
+    y = t[:, :, :P].reshape(n_out, nw * P, s).to(_sum_dtype(t.dtype),
+                                                 copy=True)
     for d in range(1, kp // P):
         if nw <= d:
             break                 # borrowing never crosses an out chunk
         a = t[:, :, d * P:(d + 1) * P].reshape(n_out, nw * P, s)
         y[:, d * P:] += a[:, :-d * P]
-    return y.reshape(n_out * nw * P, s)[:n_rows]
+    return y.reshape(n_out * nw * P, s)[:n_rows].to(t.dtype)
 
 
 def window_strip(t, n_rows: int, window_rows: int):
@@ -225,10 +259,14 @@ def window_strip(t, n_rows: int, window_rows: int):
         y[i·R + w·P + r, :] = Σ_{d < K, d <= w} t[i, w − d, d·P + r, :]
 
     with ``P = window_rows`` and ``R = NW·P``; rows past ``n_rows`` (the
-    ragged last chunk) are dropped."""
+    ragged last chunk) are dropped. A bfloat16 ``t`` is summed in float32
+    and rounded once: at K = 2 that is the JAX package's bfloat16 add of
+    two addends bit for bit; for K > 2 the JAX package rounds after each
+    add, the kernel only at the end."""
     if t.ndim != 4 or t.dtype not in _DTYPES:
-        raise ValueError(f'window_strip takes a 4-D float32 or float64 '
-                         f'window tensor, got {tuple(t.shape)} {t.dtype}')
+        raise ValueError(f'window_strip takes a 4-D float32, float64 or '
+                         f'bfloat16 window tensor, got {tuple(t.shape)} '
+                         f'{t.dtype}')
     n_out, nw, kp, s = t.shape
     if kp % window_rows or not 0 <= n_rows <= n_out * nw * window_rows:
         raise ValueError(f'window tensor {tuple(t.shape)} does not hold '

@@ -1,0 +1,289 @@
+// The fused Chebyshev step for Hopper (sm_90a): the elementwise work of one
+// step of the three-term recurrence, and the accumulation of its terms into
+// the filter bank, each in one pass over memory.
+//   (a) cheby_step:        out = carry((fd . t + sc * y) - t_old)
+//   (b) cheby_acc_group:   acc[f] = acc[f] + sum_j cg[j, f] * terms[j]
+//   (c) cheby_acc_contract: acc = acc + sum_f ck[f] * t[..., f]
+// t, t_old, y and out are (N, S) row-major in the carry type C; fd (N,), sc,
+// ck and cg, and the accumulators (Nf, N, S) are in the signal's type M, in
+// which all arithmetic is done. y is the SpMM's output: A t on the windowed
+// format (which applies the scale sc to it), or (scaled A) t with sc = 1 on
+// the CSR and banded formats (whose step scales a copy of the values).
+//
+// Replaces: the XLA fusions that the JAX package gets for free inside its
+// lax.scan bodies, which eager PyTorch runs as one pass over memory per
+// operator: the step of cheby_op (pygsp_tpu/ops/chebyshev.py:186-190:
+// matvec(factor, t) - t_old) on the CSR and banded formats; the windowed
+// recur (:264-268, the carry cast of :223-236); the accumulation of the terms
+// into the bank, per step on CSR and banded (:189) and grouped on the
+// windowed format (:323-334), which the port groups on every format; and the
+// synthesis accumulation acc + sum(ck * t_new, axis=-1) (:621, :697). No
+// Pallas kernel.
+//
+// What bounds it on this card: device-memory bytes. Every value is read or
+// written once per step and used for a handful of operations, two orders of
+// magnitude under the card's ratio of FP32 rate to memory rate. (a) at the
+// bench path (f32, N = 2^20, S = 128) reads y, t, t_old and writes out: 4 x
+// 0.537 GB per step. (b) reads the g terms once for all Nf accumulators,
+// which are read and written once per g steps instead of once per step: at
+// g = 14 and Nf = 4, (14 + 8) x 0.537 GB per 14 steps, where a per-step
+// update would move 8 x 0.537 GB per step.
+//
+// Design: one thread per pack of 16 bytes of the carry type (4 f32, 2 f64,
+// 8 bf16 values), grid-stride, where S is a multiple of the pack and every
+// pointer is aligned to it; one value per thread otherwise. A pack lies in
+// one row, so it reads one value of fd. The arithmetic is __fmul_rn,
+// __fadd_rn and __fsub_rn (__d*_rn in f64): no contraction to FMA, each
+// operation rounded as the plain PyTorch version's single operations round,
+// so kernel and plain version are bit-equal; a bf16 carry is stored by
+// round-to-nearest-even, as .to(torch.bfloat16) does. (b) keeps up to
+// kFilters sums per value in registers and walks the g terms once, in
+// order, so that each filter's sum runs j = 0..g-1 left to right and the
+// accumulator is added last, as in pygsp_tpu/ops/chebyshev.py:331-334. The
+// terms are a ring of (N, S) buffers (core/cheby_kernel.py): the group is g
+// consecutive entries from `start`, wrapping, so the recurrence writes each
+// term where it will be accumulated from and never copies one.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kFilters = 4;  // accumulators a pass of (b) keeps in registers
+
+template <typename M>
+struct Arith;
+
+template <>
+struct Arith<float> {
+  static __device__ __forceinline__ float mul(float a, float b) {
+    return __fmul_rn(a, b);
+  }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+  static __device__ __forceinline__ float sub(float a, float b) {
+    return __fsub_rn(a, b);
+  }
+};
+
+template <>
+struct Arith<double> {
+  static __device__ __forceinline__ double mul(double a, double b) {
+    return __dmul_rn(a, b);
+  }
+  static __device__ __forceinline__ double add(double a, double b) {
+    return __dadd_rn(a, b);
+  }
+  static __device__ __forceinline__ double sub(double a, double b) {
+    return __dsub_rn(a, b);
+  }
+};
+
+// carry -> signal type (exact) and back (round to nearest even)
+template <typename M>
+__device__ __forceinline__ M widen(M v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename C, typename M>
+__device__ __forceinline__ C narrow(M v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// V values of T in one aligned access.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> load(const T* base, long long i) {
+  return reinterpret_cast<const Pack<T, V>*>(base)[i];
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store(T* base, long long i,
+                                      const Pack<T, V>& p) {
+  reinterpret_cast<Pack<T, V>*>(base)[i] = p;
+}
+
+// (a) one pack of V values per thread; the row of pack i is i / (s / V).
+template <typename M, typename C, int V>
+__global__ void __launch_bounds__(kThreads)
+cheby_step_kernel(const C* __restrict__ y, const C* __restrict__ t,
+                  const C* __restrict__ t_old, const M* __restrict__ fdiag,
+                  const M* __restrict__ sc, C* __restrict__ out, long long n,
+                  int s) {
+  using A = Arith<M>;
+  const long long packs = n / V, per_row = s / V;
+  const M scale = *sc;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < packs; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const M fd = fdiag[i / per_row];
+    const Pack<C, V> py = load<C, V>(y, i), pt = load<C, V>(t, i),
+                     po = load<C, V>(t_old, i);
+    Pack<C, V> pn;
+#pragma unroll
+    for (int u = 0; u < V; ++u)
+      pn.v[u] = narrow<C, M>(A::sub(A::add(A::mul(fd, widen(pt.v[u])),
+                                           A::mul(scale, widen(py.v[u]))),
+                                    widen(po.v[u])));
+    store<C, V>(out, i, pn);
+  }
+}
+
+// (b) the g terms of a group, entries start .. start + g - 1 (mod slots) of
+// the ring, read once per pass of up to kFilters accumulators.
+template <typename M, typename C, int V>
+__global__ void __launch_bounds__(kThreads)
+cheby_acc_group_kernel(M* __restrict__ acc, const C* __restrict__ ring,
+                       const M* __restrict__ cg, long long n, int slots,
+                       int start, int g, int nf) {
+  using A = Arith<M>;
+  const long long packs = n / V;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < packs; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    for (int f0 = 0; f0 < nf; f0 += kFilters) {
+      const int nff = min(kFilters, nf - f0);
+      M sum[kFilters][V];
+      for (int j = 0; j < g; ++j) {
+        const C* term = ring + static_cast<long long>((start + j) % slots) * n;
+        const Pack<C, V> pt = load<C, V>(term, i);
+#pragma unroll
+        for (int ff = 0; ff < kFilters; ++ff) {
+          if (ff >= nff) break;
+          const M c = cg[j * nf + f0 + ff];
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+            const M p = A::mul(c, widen(pt.v[u]));
+            sum[ff][u] = j == 0 ? p : A::add(sum[ff][u], p);
+          }
+        }
+      }
+#pragma unroll
+      for (int ff = 0; ff < kFilters; ++ff) {
+        if (ff >= nff) break;
+        M* acc_f = acc + (f0 + ff) * n;
+        Pack<M, V> pa = load<M, V>(acc_f, i);
+#pragma unroll
+        for (int u = 0; u < V; ++u) pa.v[u] = A::add(pa.v[u], sum[ff][u]);
+        store<M, V>(acc_f, i, pa);
+      }
+    }
+  }
+}
+
+// (c) one accumulator value per thread, its nf terms in filter order.
+template <typename M, typename C>
+__global__ void __launch_bounds__(kThreads)
+cheby_acc_contract_kernel(M* __restrict__ acc, const C* __restrict__ t,
+                          const M* __restrict__ ck, long long n, int nf) {
+  using A = Arith<M>;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const C* ti = t + i * nf;
+    M sum = A::mul(ck[0], widen(ti[0]));
+    for (int f = 1; f < nf; ++f) sum = A::add(sum, A::mul(ck[f], widen(ti[f])));
+    acc[i] = A::add(acc[i], sum);
+  }
+}
+
+unsigned blocks_for(long long items) {
+  const long long b = (items + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(b < 1 ? 1 : (b > 1048576 ? 1048576 : b));
+}
+
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<size_t>(p) % bytes == 0;
+}
+
+template <typename M, typename C>
+int launch_step(const void* y, const void* t, const void* t_old,
+                const void* fdiag, const void* sc, void* out, int n_rows,
+                int s, void* stream) {
+  constexpr int V = 16 / sizeof(C);
+  const long long n = static_cast<long long>(n_rows) * s;
+  if (n == 0) return 0;
+  const bool vec = s % V == 0 && aligned(y, 16) && aligned(t, 16) &&
+                   aligned(t_old, 16) && aligned(out, 16);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto args = [&](auto kernel, long long packs) {
+    kernel<<<blocks_for(packs), kThreads, 0, st>>>(
+        static_cast<const C*>(y), static_cast<const C*>(t),
+        static_cast<const C*>(t_old), static_cast<const M*>(fdiag),
+        static_cast<const M*>(sc), static_cast<C*>(out), n, s);
+  };
+  if (vec)
+    args(cheby_step_kernel<M, C, V>, n / V);
+  else
+    args(cheby_step_kernel<M, C, 1>, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename M, typename C>
+int launch_group(void* acc, const void* ring, const void* cg, int n_rows,
+                 int s, int slots, int start, int g, int nf, void* stream) {
+  constexpr int V = 16 / sizeof(C);
+  const long long n = static_cast<long long>(n_rows) * s;
+  if (n == 0 || g == 0 || nf == 0) return 0;
+  if (slots < g || start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = n % V == 0 && aligned(ring, 16) &&
+                   aligned(acc, V * sizeof(M));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (vec)
+    cheby_acc_group_kernel<M, C, V><<<blocks_for(n / V), kThreads, 0, st>>>(
+        static_cast<M*>(acc), static_cast<const C*>(ring),
+        static_cast<const M*>(cg), n, slots, start, g, nf);
+  else
+    cheby_acc_group_kernel<M, C, 1><<<blocks_for(n), kThreads, 0, st>>>(
+        static_cast<M*>(acc), static_cast<const C*>(ring),
+        static_cast<const M*>(cg), n, slots, start, g, nf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename M, typename C>
+int launch_contract(void* acc, const void* t, const void* ck, int n_rows,
+                    int s, int nf, void* stream) {
+  const long long n = static_cast<long long>(n_rows) * s;
+  if (n == 0 || nf == 0) return 0;
+  cheby_acc_contract_kernel<M, C><<<blocks_for(n), kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<M*>(acc), static_cast<const C*>(t),
+      static_cast<const M*>(ck), n, nf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One instance per (signal type, carry type): f32, f64, and f32 with a bf16
+// carry.
+#define CHEBY_STEP(SUFFIX, M, C)                                              \
+  extern "C" int cheby_step_##SUFFIX(                                         \
+      const void* y, const void* t, const void* t_old, const void* fdiag,     \
+      const void* sc, void* out, int n_rows, int s, void* stream) {           \
+    return launch_step<M, C>(y, t, t_old, fdiag, sc, out, n_rows, s, stream); \
+  }                                                                           \
+  extern "C" int cheby_acc_group_##SUFFIX(void* acc, const void* ring,        \
+                                          const void* cg, int n_rows, int s,  \
+                                          int slots, int start, int g,        \
+                                          int nf, void* stream) {             \
+    return launch_group<M, C>(acc, ring, cg, n_rows, s, slots, start, g, nf,  \
+                              stream);                                        \
+  }                                                                           \
+  extern "C" int cheby_acc_contract_##SUFFIX(void* acc, const void* t,        \
+                                             const void* ck, int n_rows,      \
+                                             int s, int nf, void* stream) {   \
+    return launch_contract<M, C>(acc, t, ck, n_rows, s, nf, stream);          \
+  }
+
+CHEBY_STEP(f32, float, float)
+CHEBY_STEP(f64, double, double)
+CHEBY_STEP(f32_bf16, float, __nv_bfloat16)

@@ -106,6 +106,23 @@
 // registers, no spills. (b) streams its input and output once. The sums
 // are taken in the input type (f32 or f64; f32 for the products), as the
 // JAX fold does for those inputs.
+//
+// The bf16 instances of (a) and (b), for the recurrence's fast modes
+// (pygsp_tpu/ops/chebyshev.py:102-121, :223-236): x (the carried term) in
+// bf16 with f32 values, x and values both in bf16, and f32 x with bf16
+// values. This is TPU kernel #2's own regime: bf16 operands, f32 sums
+// (pallas_fold_probe.py:86-100). Each product is formed in the promotion of
+// the two types, so a bf16 * bf16 product is rounded to bf16 as the JAX
+// fold's einsum operand is (pygsp_tpu/core/windowed.py:298), and summed in
+// f32 in shared memory; the window tensor is written in x's type, bf16 in
+// the carry mode (the JAX package narrows the fold's output for the traffic
+// of t and of the strip, :241-248). The queue holds each value in the sums'
+// type, the ring x's rows as they are: a bf16 row is half the bytes, so the
+// ring holds twice the rows for the same 64 KB per SM, but it is still one
+// TMA request per live slot, so the producers' issue rate, one of the two
+// limits above, does not halve. (b) sums a bf16 t in f32 and rounds once:
+// at K = 2 (two addends) that is the JAX package's bf16 add bit for bit;
+// for K > 2 the JAX package rounds after every add.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,12 +141,58 @@ constexpr int kRound = 32 * kStageK;  // raw slots per staging round
 constexpr int kFoldUnroll = 8;
 
 // A queued live slot: the offset of its accumulator row (row id * S_tile)
-// and its value, read by a consumer in one 8- or 16-byte access.
-template <typename T>
-struct alignas(2 * sizeof(T)) Slot {
+// and its value in the sums' type, read by a consumer in one 8- or 16-byte
+// access.
+template <typename A>
+struct alignas(2 * sizeof(A)) Slot {
   int off;
-  T val;
+  A val;
 };
+
+// The type sums are taken in: float, or double for double operands.
+template <typename T>
+struct SumOf {
+  using type = float;
+};
+template <>
+struct SumOf<double> {
+  using type = double;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T narrow(typename SumOf<T>::type v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The bf16 value that a float widened from bf16 holds (its upper 16 bits).
+__device__ __forceinline__ __nv_bfloat16 as_bf16(float v) {
+  return __ushort_as_bfloat16(
+      static_cast<unsigned short>(__float_as_uint(v) >> 16));
+}
+
+// A slot's product in the promotion of the operand types: rounded to bf16
+// when both are bf16, as the JAX fold forms it. The bf16 multiply rounds
+// once to nearest even, as rounding the float product does (the product
+// of two bf16 values is exact in float), and costs the folding threads
+// less than __float2bfloat16_rn of the float product
+// (tools/fold_instances.py).
+template <bool kBf16Product, typename A>
+__device__ __forceinline__ A product(A v, A x) {
+  if constexpr (kBf16Product)
+    return __bfloat162float(__hmul(as_bf16(v), as_bf16(x)));
+  else
+    return v * x;
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -182,30 +245,36 @@ __device__ __forceinline__ void producers_sync() {
 }
 
 // Shared-memory bytes of a fold block: the full and empty mbarriers and the
-// count of each ring part (20 bytes a part), the accumulator, the ring and
-// the queue (a Slot of 2 * sizeof(T) and its x row, an int, per entry).
-// fold_layout in the wrapper budgets the same sum.
-template <typename T>
+// count of each ring part (20 bytes a part), the accumulator of sums A, the
+// ring of x rows X and the queue (a Slot of 2 * sizeof(A) and its x row, an
+// int, per entry). fold_layout in the wrapper budgets the same sum.
+template <typename X>
 size_t fold_smem_bytes(int kp, int s_tile, int ring, int queue) {
+  using A = typename SumOf<X>::type;
   return 2 * kGroups * sizeof(unsigned long long) + kGroups * sizeof(int) +
-         (static_cast<size_t>(kp) + ring) * s_tile * sizeof(T) +
-         static_cast<size_t>(queue) * (sizeof(Slot<T>) + sizeof(int));
+         static_cast<size_t>(kp) * s_tile * sizeof(A) +
+         static_cast<size_t>(ring) * s_tile * sizeof(X) +
+         static_cast<size_t>(queue) * (sizeof(Slot<A>) + sizeof(int));
 }
 
-template <typename T, typename RowId>
+// X: x's type (and t's); V: the values' type.
+template <typename X, typename V, typename RowId>
 __global__ void __launch_bounds__(128 + 32 * kProducers)
-windowed_fold_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
-                     const RowId* __restrict__ rowid, const T* __restrict__ x,
-                     T* __restrict__ t, int n_src, int L, int R, int kp,
+windowed_fold_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
+                     const RowId* __restrict__ rowid, const X* __restrict__ x,
+                     X* __restrict__ t, int n_src, int L, int R, int kp,
                      int n_cols, int s, int s_tile, int ring, int queue,
                      int bulk) {
+  using A = typename SumOf<X>::type;
+  constexpr bool kBf16Product = sizeof(X) == 2 && sizeof(V) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   auto* full = reinterpret_cast<unsigned long long*>(smem);   // kGroups
   unsigned long long* empty = full + kGroups;                 // kGroups
   int* count = reinterpret_cast<int*>(empty + kGroups);       // kGroups
-  T* acc = reinterpret_cast<T*>(count + kGroups);             // (kp, s_tile)
-  T* rows = acc + static_cast<size_t>(kp) * s_tile;           // (ring, s_tile)
-  auto* q_slot = reinterpret_cast<Slot<T>*>(rows + static_cast<size_t>(ring) *
+  A* acc = reinterpret_cast<A*>(count + kGroups);             // (kp, s_tile)
+  X* rows = reinterpret_cast<X*>(acc + static_cast<size_t>(kp) *
+                                           s_tile);           // (ring, s_tile)
+  auto* q_slot = reinterpret_cast<Slot<A>*>(rows + static_cast<size_t>(ring) *
                                                        s_tile);
   int* q_row = reinterpret_cast<int*>(q_slot + queue);  // x row of the slot
 
@@ -225,7 +294,7 @@ windowed_fold_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
   const int col = s0 + tid;
   const bool active = tid < consumers && tid < s_tile && col < s;
   if (active)
-    for (int r = 0; r < kp; ++r) acc[r * s_tile + tid] = T(0);
+    for (int r = 0; r < kp; ++r) acc[r * s_tile + tid] = A(0);
   __syncthreads();
 
   if (tid >= consumers) {
@@ -234,11 +303,11 @@ windowed_fold_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
     // of the fold: the part's slot count, and on the bulk route its x rows,
     // which both producer warps copy into the ring, alternating rows.
     const int w = (tid - consumers) >> 5;
-    const unsigned row_bytes = min(s_tile, s - s0) * sizeof(T);
+    const unsigned row_bytes = min(s_tile, s - s0) * sizeof(X);
     const int n_slots = n_src * L;
     const size_t base = static_cast<size_t>(blockIdx.x) * n_slots;
     int pre_col[kStageK], pre_rid[kStageK];
-    T pre_val[kStageK];
+    V pre_val[kStageK];
     auto load_round = [&](int j0) {  // raw slots of a round, one round ahead
 #pragma unroll
       for (int k = 0; k < kStageK; ++k) {
@@ -256,7 +325,7 @@ windowed_fold_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
     // the queue (a warp ballot compacts them), and load the next round.
     auto stage = [&]() {
       int c_[kStageK], r_[kStageK];
-      T v_[kStageK];
+      V v_[kStageK];
 #pragma unroll
       for (int k = 0; k < kStageK; ++k) {
         c_[k] = pre_col[k];
@@ -274,7 +343,7 @@ windowed_fold_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
         const unsigned m = __ballot_sync(0xffffffffu, live);
         if (live) {
           const int e = (queued + __popc(m & ((1u << lane) - 1u))) & q_mask;
-          q_slot[e] = Slot<T>{r_[k] * s_tile, v_[k]};
+          q_slot[e] = Slot<A>{r_[k] * s_tile, widen(v_[k])};
           q_row[e] = g;
         }
         queued += __popc(m);
@@ -317,33 +386,33 @@ windowed_fold_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
     if (n < 0) break;
     if (active) {
       const int lo = q * part;
-      const T* src = rows + static_cast<size_t>(k) * part * s_tile + tid;
+      const X* src = rows + static_cast<size_t>(k) * part * s_tile + tid;
       for (int g = 0; g < n; g += kFoldUnroll) {
-        T v[kFoldUnroll], p[kFoldUnroll];
+        A v[kFoldUnroll], p[kFoldUnroll];
         int off[kFoldUnroll];
 #pragma unroll
         for (int u = 0; u < kFoldUnroll; ++u) {
           if (g + u < n) {
             const int e = (lo + g + u) & q_mask;
-            const Slot<T> slot = q_slot[e];
+            const Slot<A> slot = q_slot[e];
             off[u] = slot.off;
             v[u] = slot.val;
-            p[u] = bulk ? src[(g + u) * s_tile]
-                        : x[static_cast<size_t>(q_row[e]) * s + col];
+            p[u] = widen(bulk ? src[(g + u) * s_tile]
+                              : x[static_cast<size_t>(q_row[e]) * s + col]);
           }
         }
 #pragma unroll
         for (int u = 0; u < kFoldUnroll; ++u)
-          if (g + u < n) acc[off[u] + tid] += v[u] * p[u];
+          if (g + u < n) acc[off[u] + tid] += product<kBf16Product>(v[u], p[u]);
       }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[k]);
   }
   if (!active) return;
-  T* out = t + static_cast<size_t>(blockIdx.x) * kp * s + col;
+  X* out = t + static_cast<size_t>(blockIdx.x) * kp * s + col;
   for (int r = 0; r < kp; ++r)
-    out[static_cast<size_t>(r) * s] = acc[r * s_tile + tid];
+    out[static_cast<size_t>(r) * s] = narrow<X>(acc[r * s_tile + tid]);
 }
 
 // ---------------------------------------------------------------------------
@@ -618,8 +687,8 @@ fold_products_kernel(const int* __restrict__ rid, const P* __restrict__ p,
 // ---------------------------------------------------------------------------
 
 // (b) overlap-add: one warp per output row, lanes over the columns of S,
-// the K addends summed in order d = 0..K-1. Rows at or past n_rows (the
-// ragged last chunk) are not written.
+// the K addends summed in order d = 0..K-1 (in f32 for a bf16 t, rounded
+// once). Rows at or past n_rows (the ragged last chunk) are not written.
 constexpr int kStripRows = 8;
 
 template <typename T>
@@ -633,12 +702,12 @@ window_strip_kernel(const T* __restrict__ t, T* __restrict__ y, int n_rows,
   const int w = (row - i * r_chunk) / p;
   const int r = row - i * r_chunk - w * p;
   for (int col = threadIdx.x; col < s; col += 32) {
-    T sum = T(0);
+    typename SumOf<T>::type sum = 0;
     for (int d = 0; d < k && d <= w; ++d) {
       const size_t win = static_cast<size_t>(i) * nw + (w - d);
-      sum += t[(win * k * p + d * p + r) * s + col];
+      sum += widen(t[(win * k * p + d * p + r) * s + col]);
     }
-    y[static_cast<size_t>(row) * s + col] = sum;
+    y[static_cast<size_t>(row) * s + col] = narrow<T>(sum);
   }
 }
 
@@ -659,7 +728,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 int threads_for(int s_tile) { return 32 * ((s_tile + 31) / 32); }
 
-template <typename T, typename RowId>
+template <typename X, typename V, typename RowId>
 int launch_fold(const void* cols, const void* vals, const void* rowid,
                 const void* x, void* t, int n_windows, int n_src, int L,
                 int R, int kp, int n_cols, int s, int s_tile, int ring,
@@ -671,19 +740,19 @@ int launch_fold(const void* cols, const void* vals, const void* rowid,
   if (s_tile < 1 || s_tile > 128 || ring < kGroups || ring % kGroups ||
       queue < ring + kRound || (queue & (queue - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fold_smem_bytes<T>(kp, s_tile, ring, queue);
+  const size_t smem = fold_smem_bytes<X>(kp, s_tile, ring, queue);
   // bulk copies need 16-byte-aligned rows of whole 16-byte units
   const int bulk = reinterpret_cast<size_t>(x) % 16 == 0 &&
-                   s * sizeof(T) % 16 == 0 && s_tile * sizeof(T) % 16 == 0;
-  auto kernel = windowed_fold_kernel<T, RowId>;
+                   s * sizeof(X) % 16 == 0 && s_tile * sizeof(X) % 16 == 0;
+  auto kernel = windowed_fold_kernel<X, V, RowId>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n_windows, (s + s_tile - 1) / s_tile);
   kernel<<<grid, threads_for(s_tile) + 32 * kProducers, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cols), static_cast<const T*>(vals),
-      static_cast<const RowId*>(rowid), static_cast<const T*>(x),
-      static_cast<T*>(t), n_src, L, R, kp, n_cols, s, s_tile, ring, queue,
+      static_cast<const int*>(cols), static_cast<const V*>(vals),
+      static_cast<const RowId*>(rowid), static_cast<const X*>(x),
+      static_cast<X*>(t), n_src, L, R, kp, n_cols, s, s_tile, ring, queue,
       bulk);
   return static_cast<int>(cudaGetLastError());
 }
@@ -725,30 +794,38 @@ int launch_strip(const void* t, void* y, int n_rows, int s, int nw, int p,
 
 }  // namespace
 
-#define WINDOWED_FOLD(NAME, T, ROWID)                                        \
+// One instance per (x type, values type) that the wrapper's _FOLD_TYPES
+// names, each for uint8 and int32 row ids, and the shared-memory count of
+// each x type (the values' type does not change it).
+#define WINDOWED_FOLD(NAME, X, V, ROWID)                                     \
   extern "C" int NAME(const void* cols, const void* vals, const void* rowid, \
                       const void* x, void* t, int n_windows, int n_src,      \
                       int L, int R, int kp, int n_cols, int s, int s_tile,   \
                       int ring, int queue, void* stream) {                   \
-    return launch_fold<T, ROWID>(cols, vals, rowid, x, t, n_windows, n_src,  \
-                                 L, R, kp, n_cols, s, s_tile, ring, queue,   \
-                                 stream);                                    \
+    return launch_fold<X, V, ROWID>(cols, vals, rowid, x, t, n_windows,      \
+                                    n_src, L, R, kp, n_cols, s, s_tile,      \
+                                    ring, queue, stream);                    \
+  }
+#define FOLD_SMEM_BYTES(NAME, X)                                             \
+  extern "C" int NAME(int kp, int s_tile, int ring, int queue) {             \
+    return static_cast<int>(fold_smem_bytes<X>(kp, s_tile, ring, queue));   \
   }
 
-WINDOWED_FOLD(windowed_fold_f32_u8, float, unsigned char)
-WINDOWED_FOLD(windowed_fold_f32_i32, float, int)
-WINDOWED_FOLD(windowed_fold_f64_u8, double, unsigned char)
-WINDOWED_FOLD(windowed_fold_f64_i32, double, int)
+WINDOWED_FOLD(windowed_fold_f32_u8, float, float, unsigned char)
+WINDOWED_FOLD(windowed_fold_f32_i32, float, float, int)
+WINDOWED_FOLD(windowed_fold_f64_u8, double, double, unsigned char)
+WINDOWED_FOLD(windowed_fold_f64_i32, double, double, int)
+WINDOWED_FOLD(windowed_fold_bf16_f32_u8, __nv_bfloat16, float, unsigned char)
+WINDOWED_FOLD(windowed_fold_bf16_f32_i32, __nv_bfloat16, float, int)
+WINDOWED_FOLD(windowed_fold_bf16_u8, __nv_bfloat16, __nv_bfloat16,
+              unsigned char)
+WINDOWED_FOLD(windowed_fold_bf16_i32, __nv_bfloat16, __nv_bfloat16, int)
+WINDOWED_FOLD(windowed_fold_f32_bf16_u8, float, __nv_bfloat16, unsigned char)
+WINDOWED_FOLD(windowed_fold_f32_bf16_i32, float, __nv_bfloat16, int)
 
-extern "C" int windowed_fold_smem_bytes_f32(int kp, int s_tile, int ring,
-                                            int queue) {
-  return static_cast<int>(fold_smem_bytes<float>(kp, s_tile, ring, queue));
-}
-
-extern "C" int windowed_fold_smem_bytes_f64(int kp, int s_tile, int ring,
-                                            int queue) {
-  return static_cast<int>(fold_smem_bytes<double>(kp, s_tile, ring, queue));
-}
+FOLD_SMEM_BYTES(windowed_fold_smem_bytes_f32, float)
+FOLD_SMEM_BYTES(windowed_fold_smem_bytes_f64, double)
+FOLD_SMEM_BYTES(windowed_fold_smem_bytes_bf16, __nv_bfloat16)
 
 extern "C" int fold_products_bf16(const void* rid, const void* p, void* out,
                                   int nw, int lt, int kp, int s, int block_m,
@@ -779,6 +856,11 @@ extern "C" int window_strip_f32(const void* t, void* y, int n_rows, int s,
 extern "C" int window_strip_f64(const void* t, void* y, int n_rows, int s,
                                 int nw, int p, int k, void* stream) {
   return launch_strip<double>(t, y, n_rows, s, nw, p, k, stream);
+}
+
+extern "C" int window_strip_bf16(const void* t, void* y, int n_rows, int s,
+                                 int nw, int p, int k, void* stream) {
+  return launch_strip<__nv_bfloat16>(t, y, n_rows, s, nw, p, k, stream);
 }
 
 extern "C" int double_f32(const void* x, void* y, int n, void* stream) {

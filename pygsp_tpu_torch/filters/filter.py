@@ -96,14 +96,25 @@ class Filter:
     def filter(self, s, method: str = 'chebyshev', order: int = 30,
                carry_dtype=None, carry_tol=None, vals_dtype=None,
                fixed_graph: bool = False):
-        """Analysis (1 → Nf features) with the Chebyshev recurrence.
+        """Analysis (1 → Nf features) or synthesis (Nf → 1) with the
+        Chebyshev recurrence.
 
         ``s`` (numpy or tensor) is moved to the graph's device; the result
-        is a squeezed tensor there. ``carry_dtype`` and ``vals_dtype``
-        raise ``ValueError`` on the CSR and banded formats, as in the JAX
-        package, and ``NotImplementedError`` on the windowed format (the
-        bf16 modes are ROADMAP.md item 3).
+        is a squeezed tensor there. ``carry_dtype`` (windowed format): the
+        dtype the recurrence terms are carried in, e.g. ``torch.bfloat16``;
+        it is gated by the a-priori error bound
+        (:func:`~pygsp_tpu_torch.ops.chebyshev.carry_error_estimate`) of
+        the bank's coefficients against ``carry_tol``. ``vals_dtype``
+        (windowed format): the dtype of the stored edge values; with both
+        in bf16 the fold multiplies bf16 by bf16 (the fast mode of the JAX
+        package's bench). On the CSR and banded formats both raise the JAX
+        package's ``ValueError``.
         """
+        if fixed_graph and (carry_dtype is not None
+                            or vals_dtype is not None):
+            raise ValueError('fixed_graph does not combine with '
+                             'carry_dtype/vals_dtype yet — the exact '
+                             'path is the training configuration')
         if fixed_graph:
             raise NotImplementedError(_NOT_PORTED.format(
                 'fixed_graph=True', _ITEM_RECURRENCE))
@@ -126,18 +137,23 @@ class Filter:
                 f'method={method!r}', _ITEM_SPECTRAL))
         if method != 'chebyshev':
             raise ValueError(f'Unknown method {method}.')
-        if n_features_in != 1:
-            raise NotImplementedError(_NOT_PORTED.format(
-                'Synthesis (Nf -> 1 features)', _ITEM_RECURRENCE))
 
         s = torch.as_tensor(s, device=self.G.device)
         lmax = float(self.G.lmax)
+        if carry_dtype is not None:
+            # the gate of the JAX package's program build: coefficients in
+            # the default dtype, whatever the signal's
+            cheby._check_carry_budget(
+                cheby.cheby_coeff(self.evaluate, lmax, m=order,
+                                  device=s.device), carry_dtype, carry_tol)
         c = cheby.cheby_coeff(self.evaluate, lmax, m=order, dtype=s.dtype,
                               device=s.device)
-        r = cheby.cheby_op(self.G.L, lmax, c, s[..., 0],
-                           carry_dtype=carry_dtype, carry_tol=carry_tol,
-                           vals_dtype=vals_dtype)
-        return torch.movedim(r, 0, -1).squeeze()      # (N, S, Nf) squeezed
+        kw = dict(carry_dtype=carry_dtype, carry_tol=carry_tol,
+                  vals_dtype=vals_dtype)
+        if n_features_in == 1:                           # analysis
+            r = cheby.cheby_op(self.G.L, lmax, c, s[..., 0], **kw)
+            return torch.movedim(r, 0, -1).squeeze()     # (N, S, Nf) squeezed
+        return cheby.cheby_synthesis(self.G.L, lmax, c, s, **kw).squeeze()
 
     def analyze(self, s, method='chebyshev', order=30):
         if not isinstance(s, torch.Tensor):
@@ -145,4 +161,13 @@ class Filter:
         if s.ndim == 3 and s.shape[-1] != 1:
             raise ValueError(f'Last dimension (#features) should be 1, '
                              f'got {tuple(s.shape)}.')
+        return self.filter(s, method, order)
+
+    def synthesize(self, s, method='chebyshev', order=30):
+        if not isinstance(s, torch.Tensor):
+            s = np.asanyarray(s)
+        if s.shape[-1] != self.Nf:
+            raise ValueError(f'Last dimension (#features) should be the '
+                             f'number of filters Nf = {self.Nf}, got '
+                             f'{tuple(s.shape)}.')
         return self.filter(s, method, order)

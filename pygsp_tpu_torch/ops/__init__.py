@@ -1,13 +1,17 @@
 """Compute paths: SpMM, Chebyshev recurrence, Lanczos."""
 
 from pygsp_tpu_torch.ops.spmm import spmm
-from pygsp_tpu_torch.ops.chebyshev import (cheby_coeff, cheby_op,
-                                           cheby_op_intermediates)
+from pygsp_tpu_torch.ops.chebyshev import (carry_error_estimate, cheby_coeff,
+                                           cheby_op, cheby_op_intermediates,
+                                           cheby_rect, cheby_synthesis,
+                                           jackson_cheby_coeff)
 from pygsp_tpu_torch.ops.eigen import (estimate_lmax_bounds,
                                        estimate_lmax_lanczos)
 
 __all__ = [
     'spmm',
-    'cheby_coeff', 'cheby_op', 'cheby_op_intermediates',
+    'carry_error_estimate',
+    'cheby_coeff', 'cheby_op', 'cheby_op_intermediates', 'cheby_rect',
+    'cheby_synthesis', 'jackson_cheby_coeff',
     'estimate_lmax_lanczos', 'estimate_lmax_bounds',
 ]

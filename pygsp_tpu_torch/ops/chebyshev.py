@@ -3,11 +3,28 @@
 Counterpart of :mod:`pygsp_tpu.ops.chebyshev` on the CSR, banded and
 windowed formats. The three-term recurrence runs as a Python loop whose
 state is ``(T_{k-1} s, T_k s, accumulators for all Nf filters)``, so the K
-SpMMs are shared by the whole filter bank. On a windowed operator the whole
-recurrence runs in the matrix's internal vertex order, as the JAX
-package's ``_cheby_op_chunked`` does; the operator says how
+SpMMs are shared by the whole filter bank. The whole recurrence runs in the
+operator's internal vertex order, as the JAX package's
+``_cheby_op_chunked`` does for the windowed format; the operator says how
 (:meth:`~pygsp_tpu_torch.core.operators.LaplacianOp.hoisted`,
 :meth:`~pygsp_tpu_torch.core.operators.LaplacianOp.shifted_step`).
+
+Each step after the SpMM is one launch of the fused step kernel
+(:mod:`pygsp_tpu_torch.core.cheby_kernel`), where the JAX package has the
+XLA fusions of its ``lax.scan`` bodies. The step writes into a ring of
+``g + 2`` terms, and the accumulators are updated once per ``g`` steps: the
+JAX package's accumulator grouping of the windowed format, with its
+environment settings ``PYGSP_CHEBY_ACC_GROUP`` and ``PYGSP_CHEBY_DEVICE_MB``,
+so that both packages pick the same ``g`` there. The port groups on the CSR
+and banded formats too, where the JAX package adds each term as it comes:
+the bank's accumulators are then read and written once per group instead of
+once per step, the same sums in another order. ``PYGSP_CHEBY_GROUP_UNROLL``
+is not ported: it only chooses how XLA compiles the group's body.
+
+The bf16 modes of the windowed format (``carry_dtype``, ``vals_dtype``)
+follow the JAX package: the carried terms are stored narrow, every row sum,
+diagonal term and accumulator stays in the signal's dtype, and the mode is
+gated by :func:`carry_error_estimate`.
 
 Signal convention: ``x`` has shape ``(N, ...)``; ``cheby_op`` returns
 ``(Nf, N, ...)``.
@@ -15,10 +32,23 @@ Signal convention: ``x`` has shape ``(N, ...)``; ``cheby_op`` returns
 
 from __future__ import annotations
 
+import dataclasses
+import os
+
+import numpy as np
 import torch
 
+from pygsp_tpu_torch.core import cheby_kernel
 from pygsp_tpu_torch.core.operators import LaplacianOp, matvec
+from pygsp_tpu_torch.core.sparse import spmm
+from pygsp_tpu_torch.core.windowed import WindowedELLMatrix
 from pygsp_tpu_torch.utils import check_device
+
+_FORMAT_ONLY = ('{} is only supported on chunked/windowed operator formats '
+                '(the hot path)')
+# The JAX package's largest accumulator group (its measured optimum on the
+# bench graph; the group rule's cap).
+_MAX_GROUP = 14
 
 
 def cheby_coeff(evaluate, lmax, m: int = 30, grid_n: int | None = None,
@@ -59,36 +89,182 @@ def cheby_coeff(evaluate, lmax, m: int = 30, grid_n: int | None = None,
     return (2.0 / n) * kvals @ cosmat.T                        # (Nf, m+1)
 
 
-def _prepare(L: LaplacianOp, c, x, carry_dtype=None, vals_dtype=None):
-    """Shared set-up: the format checks of the JAX package, one promoted
-    dtype for the signal, the operator and the coefficients."""
-    for name, value in (('carry_dtype', carry_dtype),
-                        ('vals_dtype', vals_dtype)):
-        if value is None or (name == 'carry_dtype' and value == x.dtype):
-            continue
-        L.refuse_bf16_mode(name)
+# ---------------------------------------------------------------------------
+# the bf16 modes: the carry gate and the values' cast
+# ---------------------------------------------------------------------------
+
+def carry_error_estimate(c, carry_dtype) -> float:
+    """A-priori relative-error bound of the reduced-precision carry mode.
+
+    Each recurrence step rounds the carried term to ``carry_dtype`` (unit
+    roundoff u); the three-term recurrence propagates a step-k perturbation
+    with factor ≤ (k' − k + 1) into later terms, so the output error is
+    bounded by ``u · Σ_k (k + 1)·|c_k|``, normalized by the series' own peak
+    magnitude ``max_λ |Σ' c_k T_k|`` (evaluated on a dense Chebyshev grid).
+    The JAX package's function, with ``torch.finfo(carry_dtype).eps``.
+    """
+    c = np.atleast_2d(torch.as_tensor(c).detach().to('cpu', torch.float64)
+                      .numpy())
+    u = float(torch.finfo(carry_dtype).eps) / 2
+    k = np.arange(c.shape[1])
+    amp = np.sum((k[None, :] + 1) * np.abs(c), axis=1)        # per filter
+    theta = np.linspace(0.0, np.pi, 512)
+    T = np.cos(k[:, None] * theta[None, :])                   # (m+1, grid)
+    g = c @ T - 0.5 * c[:, :1] * T[:1]                        # 0.5·c0 conv
+    gmax = np.abs(g).max(axis=1)
+    return float((u * amp / np.maximum(gmax, 1e-300)).max())
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix('torch.')
+
+
+def _check_carry_budget(c, carry_dtype, carry_tol):
+    """Refuse a carry whose :func:`carry_error_estimate` exceeds
+    ``carry_tol`` (default 0.05, environment ``PYGSP_CARRY_TOL``), with the
+    JAX package's message."""
+    if carry_tol is None:
+        carry_tol = float(os.environ.get('PYGSP_CARRY_TOL', 0.05))
+    est = carry_error_estimate(c, carry_dtype)
+    if est > carry_tol:
+        raise ValueError(
+            f'carry_dtype={_dtype_name(carry_dtype)} refused: the '
+            f'a-priori relative error bound {est:.2e} exceeds carry_tol='
+            f'{carry_tol:.0e} — this filter bank\'s Chebyshev '
+            f'coefficients decay too slowly to absorb the carry '
+            f'rounding. Pass carry_tol={est * 1.1:.1e} to override, or '
+            f'drop carry_dtype for the exact path.')
+
+
+def _cast_vals(L: LaplacianOp, vals_dtype) -> LaplacianOp:
+    """Opt-in reduced-precision edge values (the windowed format): the
+    fold's products are then formed in ``promote(carry, vals)``, bf16·bf16
+    with a bf16 carry. Costs one rounding of each edge weight: exact for
+    unit and power-of-two weights. The diagonal stays as it is."""
+    if vals_dtype is None:
+        return L
+    if not isinstance(L.offdiag, WindowedELLMatrix):
+        raise ValueError(_FORMAT_ONLY.format('vals_dtype'))
+    return LaplacianOp(offdiag=L.offdiag.astype(vals_dtype), diag=L.diag,
+                       lap_type=L.lap_type)
+
+
+def _promote(L: LaplacianOp, x, promote_x: bool = True):
+    """The operator and signal in one arithmetic: the signal promoted with
+    the off-diagonal's dtype (unless it is carried narrow), and the operator
+    made to fit it. The CSR and banded kernels take one dtype, so their
+    operator is cast; the windowed SpMM mixes dtypes itself, so only its
+    diagonal is cast to the signal's dtype."""
+    pdt = torch.promote_types(x.dtype, L.offdiag.dtype)
+    if promote_x:
+        x = x.to(pdt)
+    if isinstance(L.offdiag, WindowedELLMatrix):
+        if L.diag.dtype != x.dtype:
+            L = LaplacianOp(offdiag=L.offdiag, diag=L.diag.to(x.dtype),
+                            lap_type=L.lap_type)
+    elif L.dtype != pdt:
+        L = L.astype(pdt)
+    return L, x
+
+
+def _prepare(L: LaplacianOp, c, x, carry_dtype=None, carry_tol=None,
+             vals_dtype=None):
+    """The JAX package's checks and dtype rules
+    (``pygsp_tpu/ops/chebyshev.py:144-166``): ``(L, c, x, carry_dtype)``.
+    A carry in the signal's own dtype is the exact path (``carry_dtype``
+    comes back None); a narrower one runs on the windowed format only,
+    under the carry gate; without one the signal is promoted once."""
     c = torch.atleast_2d(torch.as_tensor(c))
     if c.shape[1] < 2:
         raise ValueError('Chebyshev coefficients need order >= 1')
-    dtype = torch.promote_types(x.dtype, L.dtype)
-    if L.dtype != dtype:
-        L = L.astype(dtype)
-    return L, c.to(dtype=dtype, device=x.device), x.to(dtype)
+    if carry_dtype is not None and carry_dtype == x.dtype:
+        carry_dtype = None
+    if carry_dtype is not None:
+        if not isinstance(L.offdiag, WindowedELLMatrix):
+            raise ValueError(_FORMAT_ONLY.format('carry_dtype'))
+        _check_carry_budget(c, carry_dtype, carry_tol)
+    L = _cast_vals(L, vals_dtype)
+    L, x = _promote(L, x, promote_x=carry_dtype is None)
+    return L, c.to(dtype=x.dtype, device=x.device), x.contiguous(), carry_dtype
 
 
-def _recurrence(L: LaplacianOp, lmax: float, x, m1: int):
-    """Yields the recurrence terms ``T̃_k x`` for k = 0..m1-1 on [0, lmax],
-    holding only the last two."""
+# ---------------------------------------------------------------------------
+# the recurrence
+# ---------------------------------------------------------------------------
+
+def _start(op: LaplacianOp, lmax: float, x, carry_dtype=None):
+    """``(t_old, t_cur, step)``: the terms ``T̃_0 x`` and ``T̃_1 x`` on
+    [0, lmax], stored in the carry dtype, and the step that makes the
+    next (:meth:`LaplacianOp.shifted_step`), for ``op`` in its internal
+    order. The first SpMM reads the carried ``x`` and its diagonal term the
+    signal itself, as in the JAX package."""
     a1 = a2 = lmax / 2
-    t_old = x
-    yield t_old
-    t_cur = (matvec(L, x) - a2 * x) / a1
-    yield t_cur
+    t_old = x if carry_dtype is None else x.to(carry_dtype)
+    diag = op.diag.reshape((-1,) + (1,) * (x.ndim - 1))
+    y0 = spmm(op.offdiag, t_old, out_dtype=t_old.dtype)
+    t_cur = ((diag * x + y0) - a2 * x) / a1
     # 2/a1 * (L - a2 I) t - t_old, in the format's own arithmetic
-    step = L.shifted_step(2.0 / a1, a2)
+    return t_old, t_cur.to(t_old.dtype), op.shifted_step(2.0 / a1, a2)
+
+
+def _terms(op: LaplacianOp, lmax: float, x, m1: int, carry_dtype=None):
+    """Yields the recurrence terms ``T̃_k x`` for k = 0..m1-1, holding
+    only the last two."""
+    t_old, t_cur, step = _start(op, lmax, x, carry_dtype)
+    yield t_old
+    yield t_cur
     for _ in range(2, m1):
         t_old, t_cur = t_cur, step(t_cur, t_old)
         yield t_cur
+
+
+def acc_group(rem: int, n_values: int, signal_dtype, carry_dtype,
+              slab_bytes: int, nf: int) -> int:
+    """The JAX package's accumulator group ``g`` (steps whose terms are
+    added to the accumulators in one pass) for ``rem`` steps of a signal of
+    ``n_values`` values: ``PYGSP_CHEBY_ACC_GROUP`` if set, else the largest
+    ``g`` up to 14 whose terms fit the budget ``PYGSP_CHEBY_DEVICE_MB``
+    (12288) after the operator's ``slab_bytes`` (:func:`_operator_bytes`),
+    the Nf accumulators and four terms."""
+    if os.environ.get('PYGSP_CHEBY_ACC_GROUP'):
+        return min(int(os.environ['PYGSP_CHEBY_ACC_GROUP']), max(rem, 1))
+    term_bytes = max(n_values * carry_dtype.itemsize, 1)
+    acc_bytes = max(n_values * signal_dtype.itemsize, 1)
+    budget = float(os.environ.get('PYGSP_CHEBY_DEVICE_MB', 12288)) * 2**20
+    avail = (budget - slab_bytes - nf * acc_bytes
+             - 4 * max(term_bytes, acc_bytes))
+    return max(1, min(rem, _MAX_GROUP, int(avail // term_bytes)))
+
+
+def _operator_bytes(off) -> int:
+    """The operator bytes the group rule counts: on the windowed format the
+    JAX package's own count (:meth:`WindowedELLMatrix.stored_bytes`); on
+    the CSR and banded formats, which the JAX package does not group, the
+    port's tensors twice over (the step keeps a scaled copy)."""
+    if isinstance(off, WindowedELLMatrix):
+        return off.stored_bytes()
+    return 2 * sum(getattr(off, f.name).nbytes
+                   for f in dataclasses.fields(off)
+                   if isinstance(getattr(off, f.name), torch.Tensor))
+
+
+def _grouped_steps(step, cT, t_old, t_cur, acc, g):
+    """Steps 2..m of the recurrence: the terms go into a ring of ``g + 2``
+    buffers and are added to ``acc`` ``g`` steps at a time (the first
+    ``(m - 1) mod g`` one at a time), as the JAX package's grouped
+    accumulation does. A group's terms and the two terms before it, which
+    its first steps read, are distinct slots."""
+    slots = g + 2
+    ring = torch.empty((slots,) + t_cur.shape, dtype=t_cur.dtype,
+                       device=t_cur.device)
+    m1 = cT.shape[0]
+    head = 2 + (m1 - 2) % g
+    for k in range(2, m1):                 # term k goes to slot k - 2
+        t_old, t_cur = t_cur, step(t_cur, t_old, ring[(k - 2) % slots])
+        size = 1 if k < head else g
+        if size == 1 or (k - head) % g == g - 1:
+            cheby_kernel.cheby_acc_group(acc, ring, cT[k + 1 - size:k + 1],
+                                         (k - 1 - size) % slots)
 
 
 def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
@@ -99,30 +275,137 @@ def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
     Shifted recurrence on [0, lmax] with the 0.5·c0 convention, all Nf
     filters accumulated from the shared recurrence terms, in the
     operator's internal vertex order (:meth:`LaplacianOp.hoisted`).
-    ``carry_dtype`` and ``vals_dtype`` (the bf16 modes) raise
-    ``ValueError`` on the CSR and banded formats, as in the JAX package,
-    and ``NotImplementedError`` on the windowed one, where they are not
-    ported yet. The accumulator is updated in place, which saves one
-    (Nf, N, ...) temporary per step.
+
+    ``carry_dtype`` (windowed format only): the dtype the recurrence terms
+    are carried in; ``torch.bfloat16`` halves the bytes of every SpMM's
+    operand and of the window tensor, while row sums, diagonal terms and
+    accumulators stay in the signal's dtype, so each step rounds once. It
+    is gated by :func:`carry_error_estimate` against ``carry_tol`` (default
+    0.05, environment ``PYGSP_CARRY_TOL``). ``vals_dtype`` (windowed only)
+    casts the stored edge values. On the CSR and banded formats both raise
+    the JAX package's ``ValueError``.
     """
-    L, c, x = _prepare(L, c, x, carry_dtype, vals_dtype)
+    L, c, x, cdt = _prepare(L, c, x, carry_dtype, carry_tol, vals_dtype)
     op, pin, pout = L.hoisted()
-    bshape = (c.shape[0],) + (1,) * x.ndim
-    terms = _recurrence(op, float(lmax), pin(x), c.shape[1])
-    acc = 0.5 * c[:, 0].reshape(bshape) * next(terms)[None]
-    for k, t in enumerate(terms, start=1):
-        acc.addcmul_(c[:, k].reshape(bshape), t[None])
+    xin = pin(x)
+    nf, m1 = c.shape
+    t_old, t_cur, step = _start(op, float(lmax), xin, cdt)
+    cT = c.T.contiguous()                       # row k: c[:, k]
+    acc = (0.5 * c[:, 0]).reshape((nf,) + (1,) * x.ndim) * xin[None]
+    cheby_kernel.cheby_acc_group(acc, t_cur[None], cT[1:2])
+    if m1 > 2:
+        g = acc_group(m1 - 2, xin.numel(), xin.dtype, t_cur.dtype,
+                      _operator_bytes(L.offdiag), nf)
+        _grouped_steps(step, cT, t_old, t_cur, acc, g)
     return pout(acc, axis=1)
 
 
 def cheby_op_intermediates(L: LaplacianOp, lmax, c, x: torch.Tensor):
     """Like :func:`cheby_op` but also returns every recurrence term
     ``T̃_k s`` for k = 0..m, stacked: ``(acc, terms)``."""
-    L, c, x = _prepare(L, c, x)
+    L, c, x, _ = _prepare(L, c, x)
     op, pin, pout = L.hoisted()
-    terms = torch.stack(list(_recurrence(op, float(lmax), pin(x),
-                                         c.shape[1])))
+    terms = torch.stack(list(_terms(op, float(lmax), pin(x), c.shape[1])))
     c = c.clone()
     c[:, 0] *= 0.5
     acc = (c.reshape(c.shape + (1,) * x.ndim) * terms[None]).sum(dim=1)
     return pout(acc, axis=1), pout(terms, axis=1)
+
+
+def cheby_synthesis(L: LaplacianOp, lmax, c, x: torch.Tensor,
+                    carry_dtype=None, carry_tol: float | None = None,
+                    vals_dtype=None) -> torch.Tensor:
+    """Synthesis: per-filter coefficients applied to per-filter signals,
+    summed. ``c`` (Nf, m+1), ``x`` (N, ..., Nf), feature axis last; returns
+    (N, ...). One recurrence over the whole (N, ..., Nf) block, each step's
+    term contracted over the filter axis into the accumulator in one pass
+    (:func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_acc_contract`).
+    ``carry_dtype``, ``carry_tol``, ``vals_dtype``: as in
+    :func:`cheby_op`."""
+    c = torch.atleast_2d(torch.as_tensor(c))
+    nf = c.shape[0]
+    if x.shape[-1] != nf:
+        raise ValueError(f'last axis of x ({x.shape[-1]}) must equal the '
+                         f'number of filters ({nf})')
+    L, c, x, cdt = _prepare(L, c, x, carry_dtype, carry_tol, vals_dtype)
+    op, pin, pout = L.hoisted()
+    t_old, t_cur, step = _start(op, float(lmax), pin(x), cdt)
+    odt = x.dtype
+    acc = (0.5 * c[:, 0] * t_old.to(odt) + c[:, 1] * t_cur.to(odt)).sum(-1)
+    cT = c.T.contiguous()
+    free = None
+    for k in range(2, c.shape[1]):
+        out = torch.empty_like(t_cur) if free is None else free
+        t_new = step(t_cur, t_old, out)
+        cheby_kernel.cheby_acc_contract(acc, t_new, cT[k])
+        free = t_old if k > 2 else None
+        t_old, t_cur = t_cur, t_new
+    return pout(acc)
+
+
+def cheby_rect(L: LaplacianOp, lmax, bounds, x: torch.Tensor,
+               order: int = 30) -> torch.Tensor:
+    """Ideal band-pass filtering with closed-form Chebyshev coefficients:
+    the analytic Chebyshev series of the indicator of ``bounds = [b1, b2]``
+    ⊂ [0, lmax]. On the windowed format the recurrence is the hot path's
+    (internal order, scale on the SpMM output); on the others the
+    reference's arithmetic order, ``sc·(L t − a2·t) − t_old``."""
+    L, x = _promote(L, torch.as_tensor(x))
+    lmax_t = torch.as_tensor(lmax, dtype=x.dtype, device=x.device)
+    bounds = torch.as_tensor(bounds, dtype=x.dtype, device=x.device)
+    b1, b2 = torch.arccos(2.0 * bounds / lmax_t - 1.0)
+    c0 = (b1 - b2) / torch.pi
+    c1 = 2.0 / torch.pi * (torch.sin(b1) - torch.sin(b2))
+    ks = torch.arange(2, order + 1, dtype=x.dtype, device=x.device)
+    coeffs = 2.0 / (ks * torch.pi) * (torch.sin(ks * b1) - torch.sin(ks * b2))
+
+    if isinstance(L.offdiag, WindowedELLMatrix):
+        op, pin, pout = L.hoisted()
+        terms = _terms(op, float(lmax), pin(x), order + 1)
+        acc = c0 * next(terms) + c1 * next(terms)
+        for ck, t in zip(coeffs, terms):
+            acc = acc + ck * t
+        return pout(acc)
+
+    a1 = a2 = float(lmax) / 2
+    sc = 2.0 / a1
+    t_old = x
+    t_cur = (matvec(L, x) - a2 * x) / a1
+    acc = c0 * x + c1 * t_cur
+    for ck in coeffs:
+        t_new = sc * (matvec(L, t_cur) - a2 * t_cur) - t_old
+        acc = acc + ck * t_new
+        t_old, t_cur = t_cur, t_new
+    return acc
+
+
+def jackson_cheby_coeff(filter_bounds, delta_lambda, m: int, dtype=None,
+                        device='cuda'):
+    """Jackson-damped Chebyshev coefficients of an ideal band-pass between
+    the two ``filter_bounds`` within the spectrum ``delta_lambda = [λmin,
+    λmax]``. Returns ``(ch, jch)``, the raw and damped coefficient vectors
+    of length m + 1 (``dtype``: default the default float dtype)."""
+    device = check_device(device, 'jackson_cheby_coeff')
+    dtype = torch.get_default_dtype() if dtype is None else dtype
+    a, b = (torch.as_tensor(v, dtype=dtype, device=device)
+            for v in delta_lambda)
+    fa, fb = (torch.as_tensor(v, dtype=dtype, device=device)
+              for v in filter_bounds)
+    # affine map of the band onto [-1, 1]
+    fa = (2.0 * fa - a - b) / (b - a)
+    fb = (2.0 * fb - a - b) / (b - a)
+
+    ks = torch.arange(1, m + 1, dtype=dtype, device=device)
+    ch0 = 2.0 * (torch.arccos(fa) - torch.arccos(fb)) / torch.pi
+    chk = (2.0 / (torch.pi * ks)) * (torch.sin(ks * torch.arccos(fa))
+                                      - torch.sin(ks * torch.arccos(fb)))
+    ch = torch.cat([ch0[None], chk])
+
+    # Jackson damping factors (gamma_JACK in the reference)
+    alpha = torch.pi / (m + 2.0)
+    kk = torch.arange(0, m + 1, dtype=dtype, device=device)
+    sin_a = torch.sin(torch.as_tensor(alpha, dtype=dtype))
+    cos_a = torch.cos(torch.as_tensor(alpha, dtype=dtype))
+    gamma = ((1.0 - kk / (m + 2.0)) * sin_a * torch.cos(kk * alpha)
+             + (1.0 / (m + 2.0)) * cos_a * torch.sin(kk * alpha)) / sin_a
+    return ch, ch * gamma

@@ -171,8 +171,8 @@ def test_errors_match_jax():
         g.analyze(np.zeros((T.N, 1, 2)))
 
 
-@pytest.mark.parametrize('call', ['exact', 'lanczos', 'synthesis',
-                                  'fixed_graph', 'normalize'])
+@pytest.mark.parametrize('call', ['exact', 'lanczos', 'fixed_graph',
+                                  'normalize'])
 def test_unported_options_name_their_roadmap_item(call):
     T = tgsp.graphs.Grid2d(4, 4, **CPU64)
     T.estimate_lmax(method='bounds')
@@ -181,8 +181,6 @@ def test_unported_options_name_their_roadmap_item(call):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         if call in ('exact', 'lanczos'):
             g.filter(s, method=call)
-        elif call == 'synthesis':
-            g.filter(np.zeros((T.N, 1, 2)))
         elif call == 'fixed_graph':
             g.filter(s, fixed_graph=True)
         else:

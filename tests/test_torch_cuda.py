@@ -19,7 +19,10 @@ kernel #2's and #3's shapes and at ragged ones (dead ids on both sides of
 the range, dead slots holding ``inf``, f32 products, its shared-memory
 count against the kernel's, two launches bit-equal), the CSR kernel on a
 star row that spans many segments and on hub rows among many empty ones,
-and #4's ``y = 2x``.
+and #4's ``y = 2x``; the bf16 instances of the fold and the strip (a bf16
+carry, bf16 values, both) and a fast-mode bank against the CPU; and the
+fused Chebyshev step's three entry points against their plain versions, bit
+for bit, in f32, f64 and with a bf16 carry.
 """
 
 import ctypes
@@ -31,9 +34,10 @@ import torch
 
 import pygsp_tpu_torch as tgsp
 from pygsp_tpu_torch.core import sparse as tsp
-from pygsp_tpu_torch.core import _cuda, banded_kernel, csr_kernel
+from pygsp_tpu_torch.core import _cuda, banded_kernel, cheby_kernel, csr_kernel
 from pygsp_tpu_torch.core import windowed as twd
 from pygsp_tpu_torch.core import windowed_kernel as wk
+from pygsp_tpu_torch.ops.chebyshev import carry_error_estimate, cheby_coeff
 
 pytestmark = pytest.mark.cuda
 
@@ -374,3 +378,171 @@ def test_windowed_wrappers_refuse_bad_cuda_operands(cuda):
     with pytest.raises(ValueError, match='contiguous'):
         wk.fold_products(torch.zeros(4, 2, dtype=torch.int32, device=cuda).T,
                          torch.zeros(2, 4, 8, device=cuda), 4)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instances of the windowed kernels (the recurrence's fast modes)
+# ---------------------------------------------------------------------------
+
+# (x dtype, values dtype): a bf16 carry alone, both, bf16 values alone
+BF16_FOLDS = {'carry': (torch.bfloat16, torch.float32),
+              'both': (torch.bfloat16, torch.bfloat16),
+              'vals': (torch.float32, torch.bfloat16)}
+
+
+def _ulps(got, want):
+    """The largest |got - want| in bf16 ulps of the larger of the two at
+    each element, counted at 2^-8 of the largest |want| at least: a sum
+    that cancels to near zero carries the f32 rounding of its addends,
+    which two summation orders do not share."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(
+        min=float(want.abs().max()) * 2.0**-8 + 1e-30)
+    return float(((got - want).abs()
+                  / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+@pytest.mark.parametrize('combo', list(BF16_FOLDS))
+@pytest.mark.parametrize('s', [1, 8, 128, 136])
+@pytest.mark.parametrize('case', list(WINDOWED_CASES))
+def test_bf16_windowed_kernels_match_plain(cuda, combo, s, case):
+    """The fold's sums are float32 in both: the kernel's t and the plain
+    version's differ by at most the one rounding of each sum (1 ulp where
+    bf16 is written). The strip sums the same addends in the same order:
+    bit-equal."""
+    xd, vd = BF16_FOLDS[combo]
+    _, M = _ba_windowed(torch.float32, cuda, **WINDOWED_CASES[case])
+    M = M.astype(vd)
+    kp = M.borrow_span * M.window_rows
+    x = _signal((M.n_cols, s), torch.float32, s, cuda).to(xd)
+    args = (M.cols, M.vals, M.rowid, x, M.chunk_rows, kp)
+    before = wk.windowed_fold.launches
+    t = wk.windowed_fold(*args)
+    assert wk.windowed_fold.launches == before + 1 and t.dtype == xd
+    t_plain = wk.windowed_fold_plain(*args)
+    if xd == torch.bfloat16:
+        assert _ulps(t, t_plain) <= 1.0
+    else:
+        assert _rel_err(t, t_plain) <= TOL[torch.float32]
+    assert torch.equal(t, wk.windowed_fold(*args))
+    y = wk.window_strip(t, M.n_rows, M.window_rows)
+    assert y.dtype == xd
+    assert torch.equal(y, wk.window_strip_plain(t, M.n_rows, M.window_rows))
+
+
+@pytest.mark.parametrize('kp,s', [(64, 1), (128, 128), (256, 5), (512, 300),
+                                  (1024, 128)])
+def test_bf16_fold_layout_bytes_are_the_kernels(cuda, kp, s):
+    lay = wk.fold_layout(kp, s, 4, 2)
+    fn = getattr(_cuda.library('windowed_fold'),
+                 'windowed_fold_smem_bytes_bf16')
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    assert fn(kp, lay.s_tile, lay.ring, lay.queue) == lay.smem_bytes
+
+
+def test_bf16_bank_on_the_card_matches_the_cpu(cuda):
+    """The fast mode (bf16 carry and values) on the card against the same
+    bank on the CPU, within the carry bound of each other."""
+    W, _ = _ba_windowed(torch.float32, 'cpu')
+    out = []
+    for device in (cuda, 'cpu'):
+        G = tgsp.graphs.Graph(W, device=device)
+        G.compute_laplacian(fmt='windowed')
+        G.estimate_lmax(method='bounds')
+        g = tgsp.filters.Heat(G, [5.0, 50.0])
+        x = np.random.default_rng(5).normal(size=(G.N, 16)).astype(np.float32)
+        out.append(g.filter(x, order=30, carry_dtype=torch.bfloat16,
+                            vals_dtype=torch.bfloat16).cpu())
+        c = cheby_coeff(g.evaluate, G.lmax, m=30, device='cpu')
+    est = carry_error_estimate(c, torch.bfloat16)
+    assert _rel_err(out[0], out[1]) <= 2 * est
+
+
+# ---------------------------------------------------------------------------
+# kernel B, the fused Chebyshev step
+# ---------------------------------------------------------------------------
+
+# (signal dtype, carry dtype) of its three instances
+CHEBY_TYPES = [(torch.float32, torch.float32), (torch.float64, torch.float64),
+               (torch.float32, torch.bfloat16)]
+CHEBY_SHAPES = [(1000, 128, 4), (333, 5, 1), (77, 3, 6)]
+
+
+@pytest.mark.parametrize('md,cd', CHEBY_TYPES)
+@pytest.mark.parametrize('n,s,nf', CHEBY_SHAPES)
+def test_cheby_step_is_bit_equal_to_plain(cuda, md, cd, n, s, nf):
+    """Each operation rounded once, in the plain version's order (no FMA):
+    bit-equal, also into a given ``out`` and on a misaligned view (the
+    one-value route)."""
+    y, t, t_old = (_signal((n, s), torch.float32, k, cuda).to(cd)
+                   for k in range(3))
+    fd = _signal((n,), md, 3, cuda)
+    sc = torch.tensor(0.731, dtype=md, device=cuda)
+    before = cheby_kernel.cheby_step.launches
+    out = cheby_kernel.cheby_step(y, t, t_old, fd, sc)
+    assert cheby_kernel.cheby_step.launches == before + 1
+    want = cheby_kernel.cheby_step_plain(y, t, t_old, fd, sc,
+                                         torch.empty_like(t))
+    assert out.dtype == cd and torch.equal(out, want)
+    given = torch.empty_like(t)
+    assert cheby_kernel.cheby_step(y, t, t_old, fd, sc, given) is given
+    assert torch.equal(given, want)
+    # one value past a 16-byte boundary: the kernel's one-value route
+    flat = torch.empty(n * s + 1, dtype=cd, device=cuda)
+    view = flat[1:].view(n, s)
+    cheby_kernel.cheby_step(y, t, t_old, fd, sc, view)
+    assert torch.equal(view, want)
+
+
+@pytest.mark.parametrize('md,cd', CHEBY_TYPES)
+@pytest.mark.parametrize('n,s,nf', CHEBY_SHAPES)
+@pytest.mark.parametrize('g,start', [(1, 0), (3, 4), (14, 9)])
+def test_cheby_acc_group_is_bit_equal_to_plain(cuda, md, cd, n, s, nf, g,
+                                               start):
+    """A group of g terms from a ring of g + 2, wrapping past its end."""
+    ring = _signal((g + 2, n, s), torch.float32, 20, cuda).to(cd)
+    acc = _signal((nf, n, s), md, 21, cuda)
+    cg = _signal((g, nf), md, 22, cuda)
+    acc_plain = acc.clone()
+    before = cheby_kernel.cheby_acc_group.launches
+    cheby_kernel.cheby_acc_group(acc, ring, cg, start)
+    assert cheby_kernel.cheby_acc_group.launches == before + 1
+    cheby_kernel.cheby_acc_group_plain(acc_plain, ring, cg, start)
+    assert torch.equal(acc, acc_plain)
+
+
+@pytest.mark.parametrize('md,cd', CHEBY_TYPES)
+@pytest.mark.parametrize('n,s,nf', CHEBY_SHAPES)
+def test_cheby_acc_contract_is_bit_equal_to_plain(cuda, md, cd, n, s, nf):
+    t = _signal((n, s, nf), torch.float32, 30, cuda).to(cd)
+    acc = _signal((n, s), md, 31, cuda)
+    ck = _signal((nf,), md, 32, cuda)
+    acc_plain = acc.clone()
+    before = cheby_kernel.cheby_acc_contract.launches
+    cheby_kernel.cheby_acc_contract(acc, t, ck)
+    assert cheby_kernel.cheby_acc_contract.launches == before + 1
+    cheby_kernel.cheby_acc_contract_plain(acc_plain, t, ck)
+    assert torch.equal(acc, acc_plain)
+
+
+def test_cheby_kernels_refuse_a_pair_they_lack(cuda):
+    t = torch.zeros(8, 4, dtype=torch.float32, device=cuda)
+    fd = torch.zeros(8, dtype=torch.float64, device=cuda)
+    sc = torch.ones((), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match='has no kernel'):
+        cheby_kernel.cheby_step(t, t, t, fd, sc)
+
+
+def test_synthesis_on_the_card_matches_the_cpu(cuda):
+    """cheby_synthesis through kernel B's step and contraction, in f64."""
+    W, _ = _ba_windowed(torch.float64, 'cpu')
+    out = []
+    for device in (cuda, 'cpu'):
+        G = tgsp.graphs.Graph(W, device=device, dtype=torch.float64)
+        G.compute_laplacian(fmt='windowed')
+        G.estimate_lmax(method='bounds')
+        g = tgsp.filters.Heat(G, [5.0, 20.0, 50.0])
+        s = np.random.default_rng(7).normal(size=(G.N, 2, 3))
+        out.append(g.synthesize(s, order=20).cpu())
+    assert torch.allclose(out[0], out[1], rtol=0, atol=1e-10)

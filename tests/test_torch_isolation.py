@@ -51,6 +51,10 @@ load('chip_smoke', 'chip_smoke.py')
 report('chip_smoke')
 load('profile_torch_port', 'tools/profile_torch_port.py')
 report('profile_tool')
+load('bench_torch', 'bench_torch.py')
+report('bench_torch')
+load('fold_instances', 'tools/fold_instances.py')
+report('fold_tool')
 try:
     import pygsp_tpu
 except ImportError as err:
@@ -69,7 +73,8 @@ def isolated_run():
     return parts, proc.stderr
 
 
-@pytest.mark.parametrize('part', ['package', 'chip_smoke', 'profile_tool'])
+@pytest.mark.parametrize('part', ['package', 'chip_smoke', 'profile_tool',
+                                  'bench_torch', 'fold_tool'])
 def test_imports_neither_jax_nor_pygsp_tpu(isolated_run, part):
     parts, stderr = isolated_run
     assert part in parts, stderr
@@ -80,6 +85,17 @@ def test_the_hook_does_refuse(isolated_run):
     """The hook of the test above would catch an import of the JAX package."""
     parts, stderr = isolated_run
     assert 'refused import of pygsp_tpu' in parts.get('hook', ''), stderr
+
+
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'bench_torch.py'])
+def test_scripts_fail_without_a_card(script):
+    """Without a CUDA device each script exits non-zero and prints no
+    result."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES='')
+    proc = subprocess.run([sys.executable, script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and proc.stdout == ''
+    assert 'no CUDA device' in proc.stderr
 
 
 def test_graph_without_device_refuses_to_run_on_cpu(monkeypatch):

@@ -74,6 +74,33 @@ def test_fold_layout_at_the_bench_path_fits_two_blocks_per_sm():
     assert 2 * (lay.smem_bytes + 1024) <= wk.SMEM_PER_SM
 
 
+@pytest.mark.parametrize('kp,s', [(kp, s) for kp in (64, 128, 256, 512, 1024)
+                                  for s in (1, 5, 128, 300)])
+def test_fold_layout_of_a_bf16_x(kp, s):
+    """A bf16 x folded into float32 sums: the accumulator and the queue's
+    values at 4 bytes, the ring's rows at 2, so the ring holds up to twice
+    the rows of the float32 fold for the same bytes, and the S tile is the
+    float32 fold's."""
+    lay, f32 = wk.fold_layout(kp, s, 4, 2), wk.fold_layout(kp, s, 4)
+    assert lay.s_tile == f32.s_tile
+    assert lay.ring == min(2 * f32.ring, 256)
+    assert lay.queue >= lay.ring + wk.STAGE_ROUND
+    acc = kp * lay.s_tile * 4
+    assert lay.smem_bytes == (20 * wk.RING_GROUPS + acc
+                              + lay.ring * lay.s_tile * 2
+                              + lay.queue * (2 * 4 + 4))
+    assert lay.smem_bytes <= wk.SMEM_PER_BLOCK
+
+
+def test_bf16_fold_at_the_bench_path_fits_two_blocks_per_sm():
+    """The fast mode's fold at the bench path: a 128-row ring of bf16 rows
+    takes the bytes of the float32 fold's 64 rows."""
+    lay = wk.fold_layout(128, 128, 4, 2)
+    assert lay == wk.FoldLayout(s_tile=128, ring=128, queue=256,
+                                smem_bytes=101_536)
+    assert 2 * (lay.smem_bytes + 1024) <= wk.SMEM_PER_SM
+
+
 @pytest.mark.parametrize('kp,s,itemsize', [(1 << 16, 128, 4), (1 << 15, 1, 8),
                                            (wk.ACC_BYTES, 1, 8)])
 def test_fold_layout_refuses_what_cannot_fit(kp, s, itemsize):

@@ -327,19 +327,27 @@ def test_convert_refuses_bad_leaves(what):
 
 
 def test_bf16_modes_name_their_roadmap_item():
+    """The narrow modes run on the windowed format, as in the JAX package
+    (their parity is tests/test_torch_carry.py), and raise its ValueError
+    on the CSR format."""
     J, T, Tc, lmax = _laplacians('combinatorial')
-    x = torch.zeros(500, 2, dtype=torch.float64)
-    c = torch.ones(1, 5, dtype=torch.float64)
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(500, 2)))
+    c = torch.ones(1, 5, dtype=torch.float64) * 0.5 ** torch.arange(5)
+    exact = tcheby.cheby_op(T, lmax, c, x)
     for kw in (dict(carry_dtype=torch.float32),
                dict(vals_dtype=torch.float32)):
-        with pytest.raises(NotImplementedError, match='item 3'):
-            tcheby.cheby_op(T, lmax, c, x, **kw)
+        out = tcheby.cheby_op(T, lmax, c, x, **kw)
+        assert out.dtype == torch.float64
+        assert torch.allclose(out, exact, rtol=0, atol=1e-5)
         with pytest.raises(ValueError, match='chunked/windowed'):
             tcheby.cheby_op(Tc, lmax, c, x, **kw)
-    with pytest.raises(NotImplementedError, match='item 3'):
-        T.offdiag.spmm_chunks((x,), out_dtype=torch.float32)
+    y = torch.cat(T.offdiag.spmm_chunks((x,), out_dtype=torch.float32))
+    assert y.dtype == torch.float32
+    assert torch.allclose(y.double(), torch.cat(T.offdiag.spmm_chunks((x,))),
+                          rtol=0, atol=1e-5)
     # a carry in the signal's own dtype is the exact path, as in JAX
-    tcheby.cheby_op(T, lmax, c, x, carry_dtype=torch.float64)
+    assert torch.equal(tcheby.cheby_op(T, lmax, c, x,
+                                       carry_dtype=torch.float64), exact)
     with pytest.raises(ValueError, match='must have 500 rows'):
         T.offdiag @ torch.zeros(499)
 

@@ -1,13 +1,16 @@
 """Where one filter bank's time goes on the card, for the PyTorch port.
 
-Runs the port's three paths as ``chip_smoke.py`` sets them up (its
-``path_a``, ``path_b`` and ``path_c``, imported from there): path A, the
-Barabási–Albert graph of ``bench.py`` (N = 2^20, m0 = m = 8) through the
-CSR SpMM kernel; path B, ``Grid2d(512, 512)`` through the banded SpMM
-kernel; path C, the same BA graph in the windowed-compact format through
-the windowed fold and strip kernels; each a 4-scale heat bank at order 30
-on 128 float32 signals. For each path it runs one bank as a warm-up, then
-one bank under ``torch.profiler`` and prints one JSON line: the bank's
+Runs the port's four paths as ``chip_smoke.py`` sets them up (its
+``path_a``, ``path_b``, ``path_c`` and ``fast_bank``, imported from
+there): path A, the Barabási–Albert graph of ``bench.py`` (N = 2^20, m0 =
+m = 8) through the CSR SpMM kernel; path B, ``Grid2d(512, 512)`` through
+the banded SpMM kernel; path C, the same BA graph in the windowed-compact
+format through the windowed fold and strip kernels; path D, path C in the
+bf16 fast mode (``carry_dtype`` and ``vals_dtype`` bfloat16) through their
+bf16 instances; each a 4-scale heat bank at order 30 on 128 float32
+signals, with the fused Chebyshev step (kernel B) on every path. For
+each path it runs one bank as a warm-up, then one bank under
+``torch.profiler`` and prints one JSON line: the bank's
 host time, the sum of kernel times on the card (busy), the idle share, and
 kernel time by group (the port's SpMM kernels, the other kernels by name).
 It also times a 1 GiB device-to-device copy, the memory rate the card
@@ -181,15 +184,21 @@ def main():
     print(json.dumps({'card': smi, 'launch_path_us': launch_path(),
                       'products_tile_ms': products_tiles(),
                       'copy_bytes_per_s': copy_rate()}), flush=True)
+    step = ('cheby_step', 'cheby_acc_group')
+    windowed = ('windowed_fold', 'window_strip') + step
     for name, kernels, make in (
-            ('A', ('csr_spmm',), chip_smoke.path_a),
-            ('B', ('banded_spmm',), chip_smoke.path_b),
-            ('C', ('windowed_fold', 'window_strip'), chip_smoke.path_c)):
+            ('A', ('csr_spmm',) + step, chip_smoke.path_a),
+            ('B', ('banded_spmm',) + step, chip_smoke.path_b)):
         bank = make()[-1]
         print(json.dumps(profile_bank(name, kernels, bank, args.out)),
               flush=True)
         del bank
         torch.cuda.empty_cache()
+    # path D is path C's graph and signal in the bf16 fast mode
+    _, g, x, bank = chip_smoke.path_c()
+    for name, bank in (('C', bank), ('D', chip_smoke.fast_bank(g, x))):
+        print(json.dumps(profile_bank(name, windowed, bank, args.out)),
+              flush=True)
 
 
 if __name__ == '__main__':
