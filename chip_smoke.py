@@ -10,8 +10,9 @@ Phases, each of which raises on failure:
    (and once in f64): CSR (also a star row of 20,000 edges across many of
    the kernel's segments), banded (f32 on the tensor cores, 3×TF32, also
    on Grid2d tiles that TF32 does not hold exactly), the
-   windowed fold and strip (including ``window_rows=256`` and a span-4
-   matrix, and the bf16 instances: a bf16 carry, bf16 values, both), the
+   windowed fold and the tail, the strip with the residue list (including
+   ``window_rows=256`` and a span-4 matrix, and the bf16 instances: a bf16
+   carry, bf16 values, both), the
    one-hot fold at TPU kernel #3's shape (call and device time), and with
    dead slots holding ``inf``, which must add nothing; then the fused
    Chebyshev step (kernel B: step, grouped accumulation, synthesis
@@ -29,15 +30,21 @@ Phases, each of which raises on failure:
    against the CSR path and the SciPy f64 recurrence;
 5. path C, the bench path of the JAX package (``bench.py:162-185``): the
    same graph as path A with ``compute_laplacian(fmt='windowed')``, λmax
-   and the heat bank through the windowed fold and strip kernels and
+   and the heat bank through the windowed fold and tail kernels and
    kernel B's step and grouped accumulation, checked against the SciPy f64
-   recurrence; the fold's two launches bit-equal at this shape;
-   ``torch.nn.functional.fold`` as the strip's yardstick; then the one-hot
-   fold at TPU kernel #2's probe shape, with row ids from this matrix;
+   recurrence; one tail launch per SpMM and no plain residue sum in the
+   bank; the fold's and the tail's two launches bit-equal at this shape,
+   the tail held against its plain version and timed beside the strip
+   alone and the residue tiers' former plain path;
+   ``torch.nn.functional.fold`` as the strip part's yardstick; then the
+   one-hot fold at TPU kernel #2's probe shape, with row ids from this
+   matrix;
 6. path D, the JAX package's headline fast mode (``bench.py:332-334``):
    path C's graph, signal and SciPy reference, ``filter(x, order=30,
    carry_dtype=torch.bfloat16, vals_dtype=torch.bfloat16)``, through the
-   bf16 fold and strip instances (checked by the symbols launched) and
+   bf16 fold and tail instances (checked by the symbols launched; one
+   tail per SpMM, no plain residue sum; the tail at this shape against its
+   plain version and timed as on path C) and
    kernel B with a bf16 carry, its first filter held within 1.5e-2 (the
    gate ``bench.py:345-351`` puts on the fast mode) and all four within
    twice ``carry_error_estimate`` (the carried term and the SpMM's narrow
@@ -135,11 +142,26 @@ def log(*args):
 def reset_counts():
     for k in KERNELS:
         k.launches = 0
+    wk.tail_plain.calls = 0
 
 
 def counts():
-    """Every kernel's launch count, by name."""
-    return {k.__name__: k.launches for k in KERNELS}
+    """Every kernel's launch count and the calls of the tail's plain
+    version (the residue sum that the windowed bank must not call), by
+    name."""
+    return {**{k.__name__: k.launches for k in KERNELS},
+            'tail_plain': wk.tail_plain.calls}
+
+
+def require_tail(path, per_bank):
+    """Raise unless the bank ran one tail launch per SpMM and no plain
+    residue sum."""
+    if per_bank['window_strip'] != ORDER:
+        raise AssertionError(f'path {path}: {per_bank["window_strip"]} tail '
+                             f'launches in one bank, not {ORDER}')
+    if per_bank['tail_plain']:
+        raise AssertionError(f'path {path}: tail_plain ran '
+                             f'{per_bank["tail_plain"]} times in the bank')
 
 
 def require_launches(path, per_bank, **least):
@@ -338,17 +360,18 @@ def phase_kernels():
 
 
 def check_windowed(name, M, s, dtype, tol):
-    """Fold and strip kernels of the windowed matrix M against their plain
-    versions at width s."""
+    """Fold and tail kernels of the windowed matrix M against their plain
+    versions at width s (the tail with the residue list)."""
     kp = M.borrow_span * M.window_rows
     x = seeded_normal((M.n_cols, s), s, dtype=dtype)
     t = wk.windowed_fold(M.cols, M.vals, M.rowid, x, M.chunk_rows, kp)
     t_plain = wk.windowed_fold_plain(M.cols, M.vals, M.rowid, x,
                                      M.chunk_rows, kp)
     check(f'windowed_fold {name} S={s} {dtype}', t, t_plain, tol)
-    check(f'window_strip {name} S={s} {dtype}',
-          wk.window_strip(t, M.n_rows, M.window_rows),
-          wk.window_strip_plain(t_plain, M.n_rows, M.window_rows), tol)
+    check(f'window_strip (tail) {name} S={s} {dtype}',
+          wk.window_strip(t, M.n_rows, M.window_rows, M.residue, x),
+          wk.window_strip_plain(t_plain, M.n_rows, M.window_rows, M.residue,
+                                x), tol)
 
 
 def ulps(got, want):
@@ -364,11 +387,11 @@ def ulps(got, want):
 
 
 def check_windowed_bf16(combo, M, s, xd):
-    """The bf16 instances of the fold and strip against their plain
+    """The bf16 instances of the fold and the tail against their plain
     versions. Both sum the fold in f32 (in another order), so a bf16 window
     tensor may differ by the one rounding of each sum: at most 1 ulp. The
-    strip adds the same bf16 addends in the same order in f32 and rounds
-    once: bit-equal."""
+    tail adds the same addends in the same order, with the same roundings:
+    bit-equal."""
     kp = M.borrow_span * M.window_rows
     x = seeded_normal((M.n_cols, s), s).to(xd)
     args = (M.cols, M.vals, M.rowid, x, M.chunk_rows, kp)
@@ -381,9 +404,10 @@ def check_windowed_bf16(combo, M, s, xd):
             raise AssertionError(f'{name}: {err} ulps > {TOL_BF16_ULPS}')
     else:
         check(name, t, t_plain, TOL_WINDOWED)
-    check(f'window_strip bf16 {combo} S={s} {xd}',
-          wk.window_strip(t, M.n_rows, M.window_rows),
-          wk.window_strip_plain(t, M.n_rows, M.window_rows), 0.0)
+    check(f'window_strip (tail) bf16 {combo} S={s} {xd}',
+          wk.window_strip(t, M.n_rows, M.window_rows, M.residue, x),
+          wk.window_strip_plain(t, M.n_rows, M.window_rows, M.residue, x),
+          0.0)
 
 
 def phase_kernel_b():
@@ -930,11 +954,12 @@ def phase_path_b():
 
 
 def measure_windowed(G, x):
-    """Fold, strip and whole-SpMM times at path C's shape (x in the matrix's
+    """Fold, tail and whole-SpMM times at path C's shape (x in the matrix's
     internal order, as the bank runs them), against their plain versions;
-    the fold's determinism (two launches bit-equal); the yardsticks on the
-    same shuffled matrix in CSR, ``torch.sparse.mm`` and the port's CSR
-    kernel; and the strip's, ``torch.nn.functional.fold``."""
+    the fold's and the tail's determinism (two launches bit-equal); the
+    yardsticks on the same shuffled matrix in CSR, ``torch.sparse.mm`` and
+    the port's CSR kernel; and the strip part's,
+    ``torch.nn.functional.fold``."""
     M = G.L.offdiag
     R, P, K = M.chunk_rows, M.window_rows, M.borrow_span
     n, s = M.n_rows, x.shape[1]
@@ -948,17 +973,14 @@ def measure_windowed(G, x):
     if not torch.equal(t, wk.windowed_fold(*args)):
         raise AssertionError('windowed_fold: two launches differ at path C')
     log('  windowed_fold at path C shape: two launches bit-equal')
-    y_plain = wk.window_strip_plain(t, n, P)
-    y = wk.window_strip(t, n, P)
-    strip_err = float((y - y_plain).abs().max())
-    check('window_strip at path C shape', y, y_plain, TOL_WINDOWED)
-    del y_plain
-    strip_lib, strip_lib_ms = measure_strip_library(t, y, n, P)
-    del y
+    y_strip = wk.window_strip(t, n, P)
+    strip_lib, strip_lib_ms = measure_strip_library(t, y_strip, n, P)
+    del y_strip
+    strip = measure_tail('path C', M, xp, t)
+    strip.update(library_ms=strip_lib_ms,
+                 library=strip_lib + ' (the strip part alone)')
     fold_ms = time_ms(lambda: wk.windowed_fold(*args), 10)
     fold_plain_ms = time_ms(lambda: wk.windowed_fold_plain(*args), 2)
-    strip_ms = time_ms(lambda: wk.window_strip(t, n, P), 20)
-    strip_plain_ms = time_ms(lambda: wk.window_strip_plain(t, n, P), 5)
     spmm_ms = time_ms(lambda: wd.spmm_internal(M, xp), 10)
 
     # the same matrix in CSR, in the same shuffled order
@@ -997,12 +1019,94 @@ def measure_windowed(G, x):
             'bound_gather_ms': (live * s * item + slot_bytes
                                 + t.numel() * item) / HBM_BYTES_PER_S * 1e3,
             'live_slots': live, 'slots': M.n_slots, 's': s}
-    strip = {'max_abs_err': strip_err, 'ms': strip_ms,
-             'plain_ms': strip_plain_ms, 'library_ms': strip_lib_ms,
-             'library': strip_lib,
-             **bound(t.numel() * item + n * s * item, (K - 1) * n * s),
-             'window_tensor_bytes': t.numel() * item}
     return fold, strip, spmm
+
+
+def former_tiers(M, x, y):
+    """The residue tiers as the SpMM added them before the tail took them:
+    per tier a ``_slot_block_sum`` in float32 or wider, the cat, the cast
+    and one ``index_add_`` into y, in place."""
+    R = M.chunk_rows
+    acc = torch.promote_types(y.dtype, torch.float32)
+    ps = torch.cat([chunked._slot_block_sum(lev.cols, lev.vals,
+                                            x[lev.src_chunk * R:
+                                              (lev.src_chunk + 1) * R],
+                                            out_dtype=acc)
+                    for lev in M.levels])
+    return y.index_add_(0, M.level_rows, ps.to(y.dtype))
+
+
+def tail_work(M, t, s):
+    """What the tail must move and compute on these inputs: each row's
+    addends of t (rows below n_rows, min(K, w + 1) each), y once, one x
+    row per live residue slot and the list once; the strip's adds and
+    each slot's product and sum."""
+    R, P, K, n = M.chunk_rows, M.window_rows, M.borrow_span, M.n_rows
+    item = t.element_size()
+    w = (torch.arange(n, device=t.device) % R) // P
+    addends = int(torch.clamp(w + 1, max=K).sum())
+    res = M.residue
+    live = res.cols.numel()
+    list_bytes = sum(a.numel() * a.element_size() for a in (
+        res.rowptr, res.entptr, res.cols, res.vals, res.heavy))
+    return ((addends + n + live) * s * item + list_bytes,
+            (addends - n + 2 * live + res.entptr.numel() - 1) * s)
+
+
+def measure_tail(name, M, x, t):
+    """The tail (``window_strip`` with the residue list) at a path's shape
+    bit-equal to its plain version (the same order and roundings: tol 0.0,
+    as in phase 2) and across two launches, then timed beside its plain
+    version, the strip alone, and the path it replaces
+    (``replaced_eager_ms``: the strip, then the tiers as the SpMM added
+    them before, ``former_tiers``; ``tiers_eager_ms``: those tiers
+    alone)."""
+    n, P, s = M.n_rows, M.window_rows, x.shape[1]
+    res = M.residue
+    args = (t, n, P, res, x)
+    y = wk.window_strip(*args)
+    want = wk.window_strip_plain(*args)
+    bf16 = t.dtype == torch.bfloat16
+    check(f'window_strip (tail) at {name} shape', y, want, 0.0)
+    max_abs_err = float((y.float() - want.float()).abs().max())
+    bit_equal = torch.equal(y, want)
+    del want
+    if not bit_equal:
+        raise AssertionError(f'window_strip: the tail and its plain version '
+                             f'differ at {name}')
+    if not torch.equal(y, wk.window_strip(*args)):
+        raise AssertionError(f'window_strip: two launches differ at {name}')
+    log(f'  window_strip (tail) at {name} shape: bit-equal to the plain '
+        f'version and across two launches')
+    # the tiers' former path sums each entry in another order; in bf16 a
+    # hub row's hundreds of entries each round once more, so it is shown,
+    # not held
+    former = former_tiers(M, x, wk.window_strip(t, n, P))
+    former_err = float((former.double() - y.double()).abs().max()
+                       / y.double().abs().max())
+    log(f'  {name}: the tiers\' former path differs from the tail by '
+        f'{former_err:.3e} (relative)')
+    if not bf16 and not former_err <= TOL_WINDOWED:
+        raise AssertionError(f'{name}: former tiers differ by {former_err}')
+    del former, y
+    y_pre = wk.window_strip(t, n, P)
+    bytes_moved, flops = tail_work(M, t, s)
+    out = {'max_abs_err': max_abs_err, 'bit_equal_to_plain': bit_equal,
+           'ms': time_ms(lambda: wk.window_strip(*args), 20),
+           'strip_only_ms': time_ms(lambda: wk.window_strip(t, n, P), 20),
+           'plain_ms': time_ms(lambda: wk.window_strip_plain(*args), 3),
+           'replaced_eager_ms': time_ms(lambda: former_tiers(
+               M, x, wk.window_strip(t, n, P)), 5),
+           'tiers_eager_ms': time_ms(lambda: former_tiers(M, x, y_pre), 5),
+           'former_tiers_rel_diff': former_err,
+           **bound(bytes_moved, flops), 'bytes': bytes_moved,
+           'window_tensor_bytes': t.numel() * t.element_size(),
+           'live_residue_slots': res.cols.numel(),
+           'residue_entries': res.entptr.numel() - 1,
+           'heavy_rows': res.heavy.numel(), 'dtype': str(t.dtype),
+           'values_dtype': str(res.vals.dtype)}
+    log(f'  tail at {name}: {json.dumps(out)}')
+    return out
 
 
 def measure_strip_library(t, y, n, P):
@@ -1061,6 +1165,7 @@ def phase_path_c():
         f'device memory {peak:.2f} GiB')
     require_launches('C', per_bank, windowed_fold=ORDER, window_strip=ORDER,
                      cheby_step=ORDER - 1, cheby_acc_group=1)
+    require_tail('C', per_bank)
     if per_bank['csr_spmm']:
         raise AssertionError('the CSR kernel ran inside the windowed bank')
     if tuple(out.shape) != (N_BA, N_SIGNALS, len(SCALES)):
@@ -1125,6 +1230,7 @@ def phase_path_d(G, g, x, ref):
         f'{symbols}; peak device memory {peak:.2f} GiB')
     require_launches('D', per_bank, windowed_fold=ORDER, window_strip=ORDER,
                      cheby_step=ORDER - 1, cheby_acc_group=1)
+    require_tail('D', per_bank)
     if per_bank['csr_spmm']:
         raise AssertionError('the CSR kernel ran inside the windowed bank')
     rowid = wk._ROWIDS[G.L.offdiag.rowid.dtype]
@@ -1179,11 +1285,9 @@ def measure_fast_fold(G, x):
     if not err <= TOL_BF16_ULPS:
         raise AssertionError(f'bf16 windowed_fold: {err} ulps')
     del t_plain
-    y = wk.window_strip(t, n, P)
-    if not torch.equal(y, wk.window_strip_plain(t, n, P)):
-        raise AssertionError('bf16 window_strip differs from its plain '
-                             'version at path D')
-    del y
+    strip = measure_tail('path D', M, xp, t)
+    strip.update(library_ms=None, library='none: no PyTorch call sums a '
+                                          'bf16 window tensor in f32')
     live = int((M.cols < R).sum())
     slot_bytes = M.n_slots * (4 + 2 + M.rowid.element_size())
     fold = {'max_abs_err': max_abs_err, 'ulps': err,
@@ -1192,10 +1296,6 @@ def measure_fast_fold(G, x):
             **bound(n * s * 2 + slot_bytes + t.numel() * 2, 2 * live * s),
             'bound_gather_ms': (live * s * 2 + slot_bytes + t.numel() * 2)
             / HBM_BYTES_PER_S * 1e3}
-    strip = {'max_abs_err': 0.0,
-             'ms': time_ms(lambda: wk.window_strip(t, n, P), 20),
-             'plain_ms': time_ms(lambda: wk.window_strip_plain(t, n, P), 5),
-             **bound(t.numel() * 2 + n * s * 2, (K - 1) * n * s)}
     del t
     # the other two instances at this shape: a bf16 x with f32 values (no
     # product rounding) and f32 x with bf16 values
@@ -1251,7 +1351,9 @@ def main():
                          'pygsp_tpu/core/windowed.py:298-303')
     strip.update(name='window_strip', route='cuda', source=source,
                  replaces='pygsp_tpu/core/windowed.py:336-345 (XLA '
-                          'overlap-add, no Pallas kernel)')
+                          'overlap-add) and :406-414 (the residue tiers, '
+                          'core/sparse.py:363 _slot_block_sum, and their '
+                          'scatter-add); no Pallas kernel')
     fold2.update(name='fold_products', route='cuda', source=source,
                  at_shape_of_3=fold3,
                  replaces='benchmarks/pallas_fold_probe.py:103 (#2); at '

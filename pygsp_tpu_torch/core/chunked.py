@@ -2,12 +2,14 @@
 
 Counterpart of the parts of :mod:`pygsp_tpu.core.chunked` that
 :mod:`pygsp_tpu_torch.core.windowed` uses: the default chunk size, the
-residue tiers (:class:`ChunkLevel`), the signal chunking helpers, the
-vertex-relabeling permutes, and the per-tier gather-sum
+residue tiers (:class:`ChunkLevel`), the signal chunking helpers and the
+vertex-relabeling permutes; and the per-tier gather-sum
 (:func:`_slot_block_sum`, the counterpart of
-``pygsp_tpu/core/sparse.py:_slot_block_sum``). The chunked format itself
-(``ChunkedELLMatrix``) is not ported yet: see ROADMAP.md, "Modules to
-port", item 4.
+``pygsp_tpu/core/sparse.py:_slot_block_sum``), a plain version kept for
+the ELL and chunked formats to come (the windowed SpMM adds its tiers in
+its tail kernel, ``windowed_kernel.window_strip``). The chunked format
+itself (``ChunkedELLMatrix``) is not ported yet: see ROADMAP.md, "Modules
+to port", item 4.
 """
 
 from __future__ import annotations

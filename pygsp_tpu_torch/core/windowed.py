@@ -13,8 +13,9 @@ valves:
   addresses forward into its own rows;
 - **residue levels**: whatever still spills (hub rows, the deep tail)
   goes to per-source-chunk tiers of width 1 and 8
-  (:class:`~pygsp_tpu_torch.core.chunked.ChunkLevel`), folded with one
-  ``index_add_``.
+  (:class:`~pygsp_tpu_torch.core.chunked.ChunkLevel`). The upload also
+  lays them out as one list sorted by output row
+  (:class:`~.windowed_kernel.Residue`), which the SpMM's tail adds in.
 
 The host builder is the JAX package's, copied as NumPy, so the same input
 packs to the same arrays; only the upload differs (tensors on ``device``,
@@ -23,8 +24,9 @@ torch has few ``uint16`` operations).
 
 On the card the SpMM is two CUDA kernels (:mod:`.windowed_kernel`):
 ``windowed_fold`` gathers, multiplies and folds every window into the
-``(n_out, NW, K·P, S)`` window tensor in one pass, and ``window_strip``
-overlap-adds it into ``y``. The signal stays one contiguous ``(N, S)``
+``(n_out, NW, K·P, S)`` window tensor in one pass, and ``window_strip``,
+the tail, overlap-adds it into ``y`` and adds the residue list, writing
+each row of ``y`` once. The signal stays one contiguous ``(N, S)``
 tensor: the kernel adds ``c·R`` to a slot's local column. The JAX package
 carries it as a tuple of chunks only to stay under a TPU gather cliff, so
 :func:`windowed_spmm_chunks` is a thin wrapper kept for API parity. Not
@@ -49,9 +51,8 @@ import torch
 
 from pygsp_tpu_torch.core import windowed_kernel
 from pygsp_tpu_torch.core.chunked import (CHUNK_ROWS, ChunkLevel,
-                                          _slot_block_sum, chunk_signal,
-                                          permute_in, permute_out,
-                                          unchunk_signal)
+                                          chunk_signal, permute_in,
+                                          permute_out, unchunk_signal)
 
 # Output rows per window (the JAX package's default).
 WINDOW_ROWS = 64
@@ -70,7 +71,9 @@ class WindowedELLMatrix:
     entry (rows repeat across entries), int64. ``rowptr``: the global CSR
     row pointer. ``perm``/``iperm``: the optional vertex relabeling, int64
     (``perm[i']`` is the original id of stored row ``i'``); the contract
-    stays in the original order.
+    stays in the original order. ``residue``: the same tiers as the tail
+    kernel's one row-sorted list (:class:`~.windowed_kernel.Residue`, made
+    by :func:`upload`; None without tiers).
     """
 
     cols: torch.Tensor
@@ -87,6 +90,7 @@ class WindowedELLMatrix:
     borrow_span: int = 2
     perm: torch.Tensor | None = None
     iperm: torch.Tensor | None = None
+    residue: windowed_kernel.Residue | None = None
 
     @property
     def shape(self):
@@ -119,10 +123,14 @@ class WindowedELLMatrix:
         return min(self.chunk_rows, self.n_cols - c * self.chunk_rows)
 
     def _map_vals(self, fn) -> 'WindowedELLMatrix':
+        """The matrix with ``fn`` applied to every value: the slabs', the
+        tiers' and the residue list's, so that the three stay in step."""
         return dataclasses.replace(
             self, vals=fn(self.vals),
             levels=tuple(dataclasses.replace(lev, vals=fn(lev.vals))
-                         for lev in self.levels))
+                         for lev in self.levels),
+            residue=None if self.residue is None else self.residue._replace(
+                vals=fn(self.residue.vals)))
 
     def astype(self, dtype) -> 'WindowedELLMatrix':
         return self._map_vals(lambda v: v.to(dtype))
@@ -140,7 +148,8 @@ class WindowedELLMatrix:
         """The bytes of the matrix's arrays as the JAX package stores them
         (its index vectors int32, wide row ids uint16, where the port keeps
         int64 and int32), which the recurrence's accumulator-group rule
-        counts, so that both packages pick the same group."""
+        counts, so that both packages pick the same group. The residue
+        list, the port's own copy of the tiers, is not counted."""
         def nbytes(t, itemsize=None):
             return t.numel() * (itemsize or t.element_size())
         rowid = 1 if self.rowid.dtype == torch.uint8 else 2
@@ -163,8 +172,8 @@ class WindowedELLMatrix:
 def spmm_internal(mat: WindowedELLMatrix, x: torch.Tensor,
                   out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` in the matrix's internal (relabeled) order, for x
-    (n_cols, S): the fold and strip kernels, then the residue tiers with one
-    ``index_add_`` (their rows repeat across tier entries).
+    (n_cols, S): the fold kernel, then the tail kernel (the overlap-add
+    with the residue list added in, each row written once).
 
     The JAX package's dtype rules (``pygsp_tpu/core/windowed.py:234-249``):
     products in ``pdt``, the promotion of x's and the values' dtypes (so a
@@ -172,10 +181,12 @@ def spmm_internal(mat: WindowedELLMatrix, x: torch.Tensor,
     in ``out_dtype``, by default ``pdt``. The operand pairs of the fold
     kernel (:data:`~.windowed_kernel.FOLD_OPERANDS`: the exact modes and the
     three bf16 ones, with ``y`` in x's dtype) run as they are, with no wider
-    copy of the slabs; any other pair is promoted to ``pdt`` first."""
+    copy of the slabs; any other pair is promoted to ``pdt`` first. There
+    the tail adds the residue in ``pdt`` and ``y`` is rounded to
+    ``out_dtype`` once, after it (the JAX package rounds each tier's sum to
+    ``out_dtype`` first)."""
     pdt = torch.promote_types(x.dtype, mat.dtype)
     dt = out_dtype or pdt
-    acc_dt = torch.promote_types(dt, torch.float32)
     x = x.contiguous()
     if (x.dtype, mat.dtype) not in windowed_kernel.FOLD_OPERANDS or (
             dt != x.dtype):
@@ -185,15 +196,8 @@ def spmm_internal(mat: WindowedELLMatrix, x: torch.Tensor,
     R, P = mat.chunk_rows, mat.window_rows
     t = windowed_kernel.windowed_fold(mat.cols, mat.vals, mat.rowid, x, R,
                                       mat.borrow_span * P)
-    y = windowed_kernel.window_strip(t, mat.n_rows, P).to(dt)
-    if mat.levels:
-        ps = torch.cat([_slot_block_sum(lev.cols, lev.vals,
-                                        x[lev.src_chunk * R:
-                                          (lev.src_chunk + 1) * R],
-                                        out_dtype=acc_dt)
-                        for lev in mat.levels])
-        y.index_add_(0, mat.level_rows, ps.to(dt))
-    return y
+    return windowed_kernel.window_strip(t, mat.n_rows, P, mat.residue,
+                                        x).to(dt)
 
 
 def windowed_spmm_chunks(mat: WindowedELLMatrix, x_chunks,
@@ -612,8 +616,17 @@ def upload(host: dict, device) -> WindowedELLMatrix:
     """The matrix on ``device`` from host arrays with the field names of
     :class:`WindowedELLMatrix` (levels as :class:`ChunkLevel` of arrays).
     Row ids stay ``uint8``; wider ones become ``int32``. ``level_rows``,
-    ``perm`` and ``iperm`` become ``int64``."""
+    ``perm`` and ``iperm`` become ``int64``. The residue list is made here
+    from the tiers (:func:`_flat_residue`)."""
     rowid = np.asarray(host['rowid'])
+    residue = _flat_residue(host['levels'], host['level_rows'],
+                            int(host['n_rows']), int(host['n_cols']),
+                            int(host['chunk_rows']))
+    if residue is not None:
+        residue = windowed_kernel.Residue(
+            **{k: _tensor(residue[k], device, np.int32)
+               for k in ('rowptr', 'entptr', 'cols', 'heavy')},
+            vals=_tensor(residue['vals'], device))
     rid_dt = np.uint8 if rowid.dtype == np.uint8 else np.int32
     # the index vectors of index_add_ and index_select, int64 once here
     # rather than at every product
@@ -628,9 +641,48 @@ def upload(host: dict, device) -> WindowedELLMatrix:
                                 vals=_tensor(lev.vals, device),
                                 src_chunk=int(lev.src_chunk))
                      for lev in host['levels']),
-        **vec,
+        residue=residue, **vec,
         **{k: int(host[k]) for k in ('n_rows', 'n_cols', 'nnz', 'chunk_rows',
                                      'window_rows', 'borrow_span')})
+
+
+def _flat_residue(levels, level_rows, n_rows, n_cols, R):
+    """The residue tiers as one list sorted by output row, host arrays with
+    the fields of :class:`~.windowed_kernel.Residue`, or None without
+    tiers. The entries are sorted stably by row, so a row's entries keep
+    their order in ``level_rows``, which is the order the tiers'
+    ``index_add`` adds them in. A slot is live iff its column lies inside
+    its source chunk (``src_chunk_size``); dead ones, the tiers' padding,
+    are dropped, and an entry keeps its live slots in slot order. The
+    heavy rows (:data:`~.windowed_kernel.TAIL_HEAVY_ENTRIES` entries or
+    more) come longest first, so that their blocks start first."""
+    if not len(levels):
+        return None
+    counts, cols, vals = [], [], []
+    for lev in levels:
+        c = int(lev.src_chunk)
+        lc, lv = np.asarray(lev.cols), np.asarray(lev.vals)
+        live = lc < min(R, n_cols - c * R)
+        counts.append(live.sum(axis=1))
+        cols.append(lc[live].astype(np.int64) + c * R)
+        vals.append(lv[live])
+    counts = np.concatenate(counts)
+    rows = np.asarray(level_rows, dtype=np.int64)
+    order = np.argsort(rows, kind='stable')
+    start = np.zeros(counts.size + 1, np.int64)
+    np.cumsum(counts, out=start[1:])
+    entptr = np.zeros(counts.size + 1, np.int64)
+    np.cumsum(counts[order], out=entptr[1:])
+    slot = (np.repeat(start[:-1][order] - entptr[:-1], counts[order])
+            + np.arange(entptr[-1]))
+    per_row = np.bincount(rows, minlength=n_rows)
+    rowptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(per_row, out=rowptr[1:])
+    heavy = np.flatnonzero(per_row >= windowed_kernel.TAIL_HEAVY_ENTRIES)
+    return dict(rowptr=rowptr, entptr=entptr,
+                cols=np.concatenate(cols)[slot],
+                vals=np.concatenate(vals)[slot],
+                heavy=heavy[np.argsort(-per_row[heavy], kind='stable')])
 
 
 def _pack_residue_levels(rrows, rcols, rvals, rchunk, R, vdtype):

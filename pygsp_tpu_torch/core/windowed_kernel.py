@@ -11,8 +11,10 @@ design):
   slot gather of ``pygsp_tpu/core/windowed.py:298-303``. Besides float32
   and float64 it takes the bf16 operands of the recurrence's fast modes
   (:data:`FOLD_OPERANDS`), with float32 sums: #2's own regime;
-- :func:`window_strip`: the overlap-add of ``t`` into ``y (n_rows, S)``
-  (``pygsp_tpu/core/windowed.py:336-345``), bf16 included;
+- :func:`window_strip`: the windowed SpMM's tail, the overlap-add of ``t``
+  into ``y (n_rows, S)`` (``pygsp_tpu/core/windowed.py:336-345``) with the
+  residue tiers folded in (``:406-414``: one row-sorted list,
+  :class:`Residue`), bf16 included;
 - :func:`fold_products`: #2's function as it stands, ``rid (NW, Lt)`` and
   products ``p (NW, Lt, S)`` in, ``(NW, KP, S)`` float32 out; at NW = 1 it
   is TPU kernel #3 (``benchmarks/pallas_smoke.py`` ``fold_kernel``);
@@ -234,13 +236,42 @@ windowed_fold.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# (b) window_strip
+# (b) window_strip: the windowed SpMM's tail
 # ---------------------------------------------------------------------------
 
-def window_strip_plain(t, n_rows: int, window_rows: int):
-    """Plain PyTorch version of :func:`window_strip`: part 0 of every
-    window, plus part d shifted d windows forward inside its out chunk,
-    summed in float32 or wider and rounded once to t's dtype."""
+# Rows with at least this many residue entries are each taken by a block of
+# their own in window_strip's kernel, whose warps sum the row's entries in
+# parallel (kHeavyRound at a time) before adding them in order; other rows
+# are taken by a group of lanes that adds its row's entries one after
+# another. The kernel's kHeavyMin (csrc/windowed_fold.cu) is the same
+# number: its row blocks skip the rows that the upload lists as heavy.
+TAIL_HEAVY_ENTRIES = 8
+
+
+class Residue(NamedTuple):
+    """The residue tiers of a windowed matrix as one list sorted by output
+    row, the operand of :func:`window_strip`'s tail::
+
+        entries of row i:   [rowptr[i], rowptr[i + 1])
+        live slots of e:    [entptr[e], entptr[e + 1])
+        slot q:             x row cols[q] (source chunk · R + column), vals[q]
+
+    A row's entries stand in the order of the matrix's ``level_rows``
+    (source chunk, then the width-1 tier before the width-8 one); dead
+    slots are dropped. ``heavy``: every row with at least
+    :data:`TAIL_HEAVY_ENTRIES` entries, the most entries first (ties by
+    row)."""
+    rowptr: torch.Tensor    # (n_rows + 1,) int32
+    entptr: torch.Tensor    # (n_entries + 1,) int32
+    cols: torch.Tensor      # (n_live,) int32
+    vals: torch.Tensor      # (n_live,) the matrix's value dtype
+    heavy: torch.Tensor     # (n_heavy,) int32
+
+
+def _strip_plain(t, n_rows: int, window_rows: int):
+    """Part 0 of every window, plus part d shifted d windows forward inside
+    its out chunk, summed in float32 or wider and rounded once to t's
+    dtype."""
     n_out, nw, kp, s = t.shape
     P = window_rows
     y = t[:, :, :P].reshape(n_out, nw * P, s).to(_sum_dtype(t.dtype),
@@ -253,16 +284,99 @@ def window_strip_plain(t, n_rows: int, window_rows: int):
     return y.reshape(n_out * nw * P, s)[:n_rows].to(t.dtype)
 
 
-def window_strip(t, n_rows: int, window_rows: int):
-    """``y (n_rows, S)`` from the window tensor ``t (n_out, NW, K·P, S)``::
+def _by_rank(ptr):
+    """For the CSR pointer ``ptr`` over items: each item's segment, and the
+    items grouped by their rank inside their segment (a list, rank 0
+    first; each group holds at most one item of a segment, in segment
+    order)."""
+    counts = ptr[1:] - ptr[:-1]
+    n = int(ptr[-1])
+    seg = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=ptr.device), counts.long(),
+        output_size=n)
+    rank = torch.arange(n, device=ptr.device) - ptr[:-1].long()[seg]
+    order = torch.argsort(rank, stable=True)
+    sizes = torch.bincount(rank, minlength=1).tolist() if n else []
+    return seg, list(torch.split(order, sizes))
+
+
+def tail_plain(y, residue: Residue, x):
+    """Plain PyTorch version of the tail of :func:`window_strip`, in place
+    on ``y``, in the order and the roundings the kernel keeps: each entry's
+    sum ``s_e`` of its slots' products (formed in the promotion of x's and
+    the values' dtypes, widened to float32 or wider), slot by slot; then,
+    row by row, ``y = y + s_e`` in y's dtype, entry by entry. No index is
+    repeated inside one step, so the result does not depend on the device.
+    Counts its calls in ``.calls``."""
+    tail_plain.calls += 1
+    acc = _sum_dtype(y.dtype)
+    n_ent = residue.entptr.numel() - 1
+    if n_ent == 0 or y.numel() == 0:
+        return y
+    p = (residue.vals[:, None] * x[residue.cols.long()]).to(acc)
+    ent, slot_ranks = _by_rank(residue.entptr)
+    sums = torch.zeros((n_ent, y.shape[1]), dtype=acc, device=y.device)
+    for q in slot_ranks:
+        sums[ent[q]] += p[q]
+    sums = sums.to(y.dtype)
+    row, ent_ranks = _by_rank(residue.rowptr)
+    for e in ent_ranks:
+        y[row[e]] += sums[e]
+    return y
+
+
+tail_plain.calls = 0
+
+
+def window_strip_plain(t, n_rows: int, window_rows: int,
+                       residue: Residue | None = None, x=None):
+    """Plain PyTorch version of :func:`window_strip`: the overlap-add
+    summed in float32 or wider and rounded once to t's dtype, then the
+    residue entries (:func:`tail_plain`)."""
+    y = _strip_plain(t, n_rows, window_rows)
+    if residue is not None:
+        tail_plain(y, residue, x)
+    return y
+
+
+def _check_residue(residue, x, t, n_rows):
+    if x is None or x.ndim != 2 or x.shape[1] != t.shape[3]:
+        raise ValueError(f'window_strip takes the residue with x (n_cols, '
+                         f'{t.shape[3]}), got '
+                         f'{None if x is None else tuple(x.shape)}')
+    if x.dtype != t.dtype or (x.dtype, residue.vals.dtype) not in _FOLD_TYPES:
+        raise ValueError(f'window_strip takes x in the window tensor\'s '
+                         f'dtype {t.dtype} and residue values that the fold '
+                         f'pairs with it, got {x.dtype} and '
+                         f'{residue.vals.dtype}')
+    index = (residue.rowptr, residue.entptr, residue.cols, residue.heavy)
+    if any(a.dtype != torch.int32 or a.ndim != 1 for a in index):
+        raise ValueError('the residue list takes 1-D int32 index vectors')
+    if (residue.rowptr.numel() != n_rows + 1
+            or residue.vals.shape != residue.cols.shape):
+        raise ValueError(f'the residue list does not fit {n_rows} rows')
+    _check_operands('window_strip', index + (residue.vals, t, x), x)
+
+
+def window_strip(t, n_rows: int, window_rows: int,
+                 residue: Residue | None = None, x=None):
+    """``y (n_rows, S)`` from the window tensor ``t (n_out, NW, K·P, S)``,
+    the windowed SpMM's whole tail::
 
         y[i·R + w·P + r, :] = Σ_{d < K, d <= w} t[i, w − d, d·P + r, :]
 
-    with ``P = window_rows`` and ``R = NW·P``; rows past ``n_rows`` (the
-    ragged last chunk) are dropped. A bfloat16 ``t`` is summed in float32
-    and rounded once: at K = 2 that is the JAX package's bfloat16 add of
-    two addends bit for bit; for K > 2 the JAX package rounds after each
-    add, the kernel only at the end."""
+    with ``P = window_rows`` and ``R = NW·P``, summed in float32 (float64
+    for float64) and rounded once to t's dtype; rows past ``n_rows`` (the
+    ragged last chunk) are dropped. With the residue list (:class:`Residue`)
+    and x (n_cols, S) in t's dtype, each row then adds its residue entries
+    in order, each entry's sum of ``vals[q] · x[cols[q]]`` taken in float32
+    or wider and rounded to t's dtype, and every add rounded to it: the
+    order of the JAX package's ``index_add`` of the tiers
+    (``pygsp_tpu/core/windowed.py:406-414``). Each row of y is written
+    once, by one owner: two launches are bit-equal. A bfloat16 ``t`` with
+    K = 2 sums as the JAX package's bfloat16 add of the two addends; for
+    K > 2 the JAX package rounds after each add, the kernel only at the
+    end."""
     if t.ndim != 4 or t.dtype not in _DTYPES:
         raise ValueError(f'window_strip takes a 4-D float32, float64 or '
                          f'bfloat16 window tensor, got {tuple(t.shape)} '
@@ -272,14 +386,25 @@ def window_strip(t, n_rows: int, window_rows: int):
         raise ValueError(f'window tensor {tuple(t.shape)} does not hold '
                          f'{n_rows} rows in windows of {window_rows}')
     _check_operands('window_strip', (t,), t)
+    if residue is not None:
+        _check_residue(residue, x, t, n_rows)
     if t.device.type == 'cpu':
-        return window_strip_plain(t, n_rows, window_rows)
+        return window_strip_plain(t, n_rows, window_rows, residue, x)
     y = torch.empty((n_rows, s), dtype=t.dtype, device=t.device)
     if y.numel() == 0:
         return y
-    _cuda.launch(_SOURCE, f'window_strip_{_DTYPES[t.dtype]}', 2, 5,
-                 t.get_device(), t.data_ptr(), y.data_ptr(), n_rows, s, nw,
-                 window_rows, kp // window_rows)
+    if residue is None:
+        symbol = f'window_strip_{_DTYPES[t.dtype]}'
+        lists, n_heavy = (0,) * 6, 0
+    else:
+        symbol = f'window_strip_{_FOLD_TYPES[x.dtype, residue.vals.dtype]}'
+        lists = (residue.rowptr.data_ptr(), residue.entptr.data_ptr(),
+                 residue.cols.data_ptr(), residue.vals.data_ptr(),
+                 x.data_ptr(), residue.heavy.data_ptr())
+        n_heavy = residue.heavy.numel()
+    _cuda.launch(_SOURCE, symbol, 8, 6, t.get_device(), t.data_ptr(),
+                 y.data_ptr(), *lists, n_rows, s, nw, window_rows,
+                 kp // window_rows, n_heavy)
     window_strip.launches += 1
     return y
 

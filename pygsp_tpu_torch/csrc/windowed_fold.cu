@@ -10,16 +10,22 @@
 //   (a) windowed_fold:
 //       t[i, w, r, :] = sum_{c, l : rowid[i,w,c,l] = r}
 //                       vals[i,w,c,l] * x[c*R + cols[i,w,c,l], :]
-//   (b) window_strip, the overlap-add of the window tensor t:
-//       y[i*R + w*P + r, :] = sum_{d < K, d <= w} t[i, w-d, d*P + r, :]
-// plus the residue tiers, which stay in plain PyTorch.
+//   (b) window_strip, the SpMM's tail: the overlap-add of the window
+//       tensor t,
+//       y[i*R + w*P + r, :] = sum_{d < K, d <= w} t[i, w-d, d*P + r, :],
+//       then each row's residue entries (the slots that spilled from the
+//       slabs, one row-sorted list: core/windowed_kernel.py Residue),
+//       y[row, :] += sum_{slots q of entry e} vals[q] * x[cols[q], :]
+//       entry by entry, in the order of the JAX package's index_add.
 //
 // Replaces: (a) TPU kernel #2, benchmarks/pallas_fold_probe.py
 // make_pallas_fold (the pl.pallas_call at line 103), the one-hot fold
 // out[w, k, :] = sum_{l : rid[w,l] = k} p[w, l, :], fused with the slot
 // gather and product that pygsp_tpu/core/windowed.py:298-303 makes before
 // its one-hot einsum (:320); (b) the XLA overlap-add of
-// pygsp_tpu/core/windowed.py:336-345; (c) fold_products is #2's function as
+// pygsp_tpu/core/windowed.py:336-345 with the residue tiers' gather-sums
+// and scatter-add that follow it (:406-414, core/sparse.py
+// _slot_block_sum :363); (c) fold_products is #2's function as
 // it stands, and at NW = 1 TPU kernel #3 (benchmarks/pallas_smoke.py
 // fold_kernel, pallas_call at line 52); (d) double is TPU kernel #4
 // (pallas_smoke.py dbl_kernel, line 28), the toolchain canary.
@@ -103,9 +109,57 @@
 // in a fixed order: two launches are bit-equal. At #2's probe shape:
 // 0.297 ms on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), against
 // 2.27 ms for the shared-memory scatter it replaces; 122 to 168
-// registers, no spills. (b) streams its input and output once. The sums
-// are taken in the input type (f32 or f64; f32 for the products), as the
-// JAX fold does for those inputs.
+// registers, no spills.
+//
+// What bounds (b): bytes. It reads t once (1.07 GB in f32 at the bench
+// path, K = 2), writes y once (0.54 GB) and gathers one x row per live
+// residue slot (654,596 rows, 0.34 GB), about 0.58 ms at the memory rate
+// (0.29 ms in bf16). Before, it was a warp per row with one value a lane
+// (64 bytes a load in bf16) and the residue tiers were 32 gathers, sums
+// and casts and an index_add_ in plain PyTorch, that wrote every residue
+// row of y a second time and, on the card, summed repeated rows in no
+// fixed order. Design of (b): each row has one owner, which writes it
+// once; so there are no atomics, and two launches are bit-equal.
+//   - Row blocks: a group of lanes per row (32 for an f32 row of 128,
+//     16 for a bf16 one, so a warp takes two rows), each lane owning a
+//     16-byte piece of it (float4, double2, eight bf16); a block of 8
+//     warps takes 4 such row groups a warp. The first two addends of all
+//     4 are loaded at once with evict-first loads (ld.global.cs: t is read
+//     once, and L2 keeps x for the gathers), 8 pieces a lane in flight,
+//     with each row's residue pointers and its first entry's slot range
+//     beside them; then row by row the addends are summed in order
+//     d = 0..K-1 in f32 (f64 for f64) and rounded once to t's type, and y
+//     is stored with st.global.cs. A row's residue entries (most rows have
+//     none) are added in order before the store: per entry its slots'
+//     (x row, value) pairs and then up to 4 x rows are loaded together
+//     through the read-only path, the products formed in the promotion of
+//     x's and the values' types (bf16 * bf16 rounds to bf16, as in (a))
+//     and summed in slot order in f32 or f64, the sum rounded to t's type
+//     and added to the row, rounded again: the order and the roundings of
+//     the plain version (the JAX package's tiers, each summed and cast,
+//     then index_add in the output's type).
+//   - Heavy rows: a row with kHeavyMin (8) entries or more (2965
+//     rows at the bench graph; the 233 hub rows have up to about 860
+//     entries of 8 slots) is left by the row blocks to a block of its own,
+//     placed first in the grid, the longest rows first. Its warps sum 32
+//     entries a round, 4 each: the round's slot ranges come in one load
+//     (an entry a lane), an entry's (x row, value) pairs in one load (a
+//     slot a lane) handed round by shuffles, and 8 x rows at a time are
+//     loaded; each sum goes to shared memory, and after a barrier the
+//     thread that owns a column adds them to the row in entry order.
+//     Still, the heavy rows cost about 0.1 ms of the launch on an NVIDIA
+//     H100 80GB HBM3 at 700 W: a heavy block waits on dependent loads
+//     while it holds one of its SM's two block slots
+//     (tools/tail_variants.py; PERF.md, Findings).
+//   - Rows whose pieces are not whole 16-byte units (S * itemsize not a
+//     multiple of 16, or t, y or x not 16-byte aligned) take the same code
+//     with one value a lane, in the same kernel.
+// Each sum and product rounds once (__fadd_rn, __fmul_rn), as PyTorch's
+// single operations do. At the bench path: 0.766 ms in f32 and 0.492 in
+// bf16 on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), against byte
+// bounds of 0.545 and 0.273. Registers (nvcc -Xptxas -v, sm_90a): 128 in
+// every instance, 12 to 68 bytes of spill; a build held to 64 registers
+// spilled up to 964 bytes and took twice as long.
 //
 // The bf16 instances of (a) and (b), for the recurrence's fast modes
 // (pygsp_tpu/ops/chebyshev.py:102-121, :223-236): x (the carried term) in
@@ -120,9 +174,10 @@
 // type, the ring x's rows as they are: a bf16 row is half the bytes, so the
 // ring holds twice the rows for the same 64 KB per SM, but it is still one
 // TMA request per live slot, so the producers' issue rate, one of the two
-// limits above, does not halve. (b) sums a bf16 t in f32 and rounds once:
-// at K = 2 (two addends) that is the JAX package's bf16 add bit for bit;
-// for K > 2 the JAX package rounds after every add.
+// limits above, does not halve. (b) has an instance for each of (a)'s
+// pairs; it sums a bf16 t in f32 and rounds once: at K = 2 (two addends)
+// that is the JAX package's bf16 add bit for bit; for K > 2 the JAX package
+// rounds after every add.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -683,31 +738,428 @@ fold_products_kernel(const int* __restrict__ rid, const P* __restrict__ p,
 }
 
 // ---------------------------------------------------------------------------
-// (b) window_strip, (d) double
+// (b) window_strip, the tail; (d) double
 // ---------------------------------------------------------------------------
 
-// (b) overlap-add: one warp per output row, lanes over the columns of S,
-// the K addends summed in order d = 0..K-1 (in f32 for a bf16 t, rounded
-// once). Rows at or past n_rows (the ragged last chunk) are not written.
-constexpr int kStripRows = 8;
+// (b) the tail: see the note at the head of this file.
+constexpr int kTailWarps = 8;     // warps per block
+constexpr int kTailIters = 4;     // row groups a warp takes in a row block
+constexpr int kTailSlots = 4;     // residue slots whose x rows load together
+constexpr int kHeavyMin = 8;      // entries that make a row heavy: the
+                                  // wrapper's TAIL_HEAVY_ENTRIES, by which
+                                  // the upload lists the heavy rows
+constexpr int kHeavyRound = 32;   // a heavy row's entries summed per round
+constexpr int kHeavySlots = 8;    // slots whose x rows a heavy warp loads together
+constexpr int kTailTile = 128;    // columns per pass of a heavy row's block
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kStripRows)
-window_strip_kernel(const T* __restrict__ t, T* __restrict__ y, int n_rows,
-                    int s, int nw, int p, int k) {
-  const int row = blockIdx.x * kStripRows + threadIdx.y;
-  if (row >= n_rows) return;
-  const int r_chunk = nw * p;
-  const int i = row / r_chunk;
-  const int w = (row - i * r_chunk) / p;
-  const int r = row - i * r_chunk - w * p;
-  for (int col = threadIdx.x; col < s; col += 32) {
-    typename SumOf<T>::type sum = 0;
-    for (int d = 0; d < k && d <= w; ++d) {
-      const size_t win = static_cast<size_t>(i) * nw + (w - d);
-      sum += widen(t[(win * k * p + d * p + r) * s + col]);
+// The bits of E values of T taken in one access: 16 bytes, or one value.
+template <typename T, int E>
+struct Bits {
+  using type = uint4;
+};
+template <>
+struct Bits<float, 1> {
+  using type = unsigned;
+};
+template <>
+struct Bits<double, 1> {
+  using type = unsigned long long;
+};
+template <>
+struct Bits<__nv_bfloat16, 1> {
+  using type = unsigned short;
+};
+
+// A load that streams (evict-first: t, read once) or one through the
+// read-only path (x rows and the residue list, which L2 may keep).
+template <bool kStream, typename B>
+__device__ __forceinline__ B load_bits(const void* p) {
+  if constexpr (kStream)
+    return __ldcs(static_cast<const B*>(p));
+  else
+    return __ldg(static_cast<const B*>(p));
+}
+
+// The E values of T in `b`, widened to the sums' type A.
+template <typename T, int E, typename A>
+__device__ __forceinline__ void unpack(const typename Bits<T, E>::type& b,
+                                       A (&a)[E]) {
+  if constexpr (E == 1) {
+    if constexpr (sizeof(T) == 2)
+      a[0] = __uint_as_float(static_cast<unsigned>(b) << 16);
+    else if constexpr (sizeof(T) == 4)
+      a[0] = __uint_as_float(b);
+    else
+      a[0] = __longlong_as_double(static_cast<long long>(b));
+  } else {
+    const unsigned w[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if constexpr (sizeof(T) == 2) {
+        a[2 * m] = __uint_as_float(w[m] << 16);
+        a[2 * m + 1] = __uint_as_float(w[m] & 0xffff0000u);
+      } else if constexpr (sizeof(T) == 4) {
+        a[m] = __uint_as_float(w[m]);
+      } else if (m < 2) {
+        a[m] = __hiloint2double(static_cast<int>(w[2 * m + 1]),
+                                static_cast<int>(w[2 * m]));
+      }
     }
-    y[static_cast<size_t>(row) * s + col] = narrow<T>(sum);
+  }
+}
+
+__device__ __forceinline__ unsigned bf16_word(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// The bits of E values that hold values of T (widened to A).
+template <typename T, int E, typename A>
+__device__ __forceinline__ typename Bits<T, E>::type pack(const A (&a)[E]) {
+  if constexpr (E == 1) {
+    if constexpr (sizeof(T) == 2)
+      return static_cast<unsigned short>(bf16_word(a[0]));
+    else if constexpr (sizeof(T) == 4)
+      return __float_as_uint(a[0]);
+    else
+      return static_cast<unsigned long long>(__double_as_longlong(a[0]));
+  } else {
+    unsigned w[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if constexpr (sizeof(T) == 2)
+        w[m] = bf16_word(a[2 * m]) | bf16_word(a[2 * m + 1]) << 16;
+      else if constexpr (sizeof(T) == 4)
+        w[m] = __float_as_uint(a[m]);
+      else
+        w[m] = static_cast<unsigned>(m % 2 ? __double2hiint(a[m / 2])
+                                           : __double2loint(a[m / 2]));
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Each sum and product rounds once, as PyTorch's single operations do
+// (no contraction into an FMA).
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// v rounded to T, held in the sums' type.
+template <typename T>
+__device__ __forceinline__ typename SumOf<T>::type round_to(
+    typename SumOf<T>::type v) {
+  return widen(narrow<T>(v));
+}
+
+// A residue slot's product in the promotion of x's type X and the values'
+// type V (bf16 when both are, as windowed_fold forms it).
+template <typename X, typename V, typename A>
+__device__ __forceinline__ A tail_product(A xv, A vv) {
+  if constexpr (sizeof(X) == 2 && sizeof(V) == 2)
+    return __bfloat162float(__hmul(as_bf16(xv), as_bf16(vv)));
+  else if constexpr (sizeof(A) == 8)
+    return __dmul_rn(xv, vv);
+  else
+    return __fmul_rn(xv, vv);
+}
+
+template <typename V, typename A>
+__device__ __forceinline__ A load_val(const V* p) {
+  if constexpr (sizeof(V) == 2)
+    return __uint_as_float(
+        static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+        << 16);
+  else
+    return static_cast<A>(__ldg(p));
+}
+
+template <typename T, typename V>
+struct TailArgs {
+  const T* t;          // (n_out, nw, k * p, s)
+  T* y;                // (n_rows, s)
+  const int* rowptr;   // (n_rows + 1): each row's residue entries; or null
+  const int* entptr;   // (entries + 1): each entry's slots
+  const int* cols;     // per slot: its row of x
+  const V* vals;       // per slot: its value
+  const T* x;          // (n_cols, s)
+  const int* heavy;    // the rows with at least kHeavyMin entries
+  int n_rows, s, nw, p, k, n_heavy;
+  int group;           // lanes per row (a power of two up to 32)
+  int tile;            // columns per pass of a heavy row's block
+};
+
+// The sum over an entry's live slots [q0, q1), in slot order, of the E
+// columns of piece v (columns v * E ..) of their x rows: kTailSlots rows in
+// flight.
+template <typename T, typename V, int E, typename A>
+__device__ __forceinline__ void entry_sum(const TailArgs<T, V>& a, int q0,
+                                          int q1, int v, A (&sum)[E]) {
+  using B = typename Bits<T, E>::type;
+#pragma unroll
+  for (int m = 0; m < E; ++m) sum[m] = A(0);
+  for (int q = q0; q < q1; q += kTailSlots) {
+    int c[kTailSlots];
+    A val[kTailSlots];
+    B xb[kTailSlots];
+#pragma unroll
+    for (int j = 0; j < kTailSlots; ++j)
+      if (q + j < q1) {
+        c[j] = __ldg(a.cols + q + j);
+        val[j] = load_val<V, A>(a.vals + q + j);
+      }
+#pragma unroll
+    for (int j = 0; j < kTailSlots; ++j)
+      if (q + j < q1)
+        xb[j] = load_bits<false, B>(a.x + static_cast<size_t>(c[j]) * a.s +
+                                    static_cast<size_t>(v) * E);
+#pragma unroll
+    for (int j = 0; j < kTailSlots; ++j) {
+      if (q + j >= q1) break;
+      A xv[E];
+      unpack<T, E>(xb[j], xv);
+#pragma unroll
+      for (int m = 0; m < E; ++m)
+        sum[m] = add_rn(sum[m], tail_product<T, V>(xv[m], val[j]));
+    }
+  }
+}
+
+// Where row `row`'s window part 0 lies in t; part d lies `step` values
+// further back for each d (window w - d, rows d * p ..).
+template <typename T, typename V>
+__device__ __forceinline__ const T* strip_base(const TailArgs<T, V>& a,
+                                               long long row, int& nd,
+                                               size_t& step) {
+  const int r_chunk = a.nw * a.p;
+  const int i = static_cast<int>(row / r_chunk);
+  const int rem = static_cast<int>(row - static_cast<long long>(i) * r_chunk);
+  const int w = rem / a.p, r = rem - w * a.p;
+  const size_t kp = static_cast<size_t>(a.k) * a.p;
+  nd = min(a.k, w + 1);
+  step = (kp - a.p) * a.s;
+  return a.t + ((static_cast<size_t>(i) * a.nw + w) * kp + r) * a.s;
+}
+
+// The rows of row block `block`: a group of a.group lanes per row, each
+// lane owning E contiguous columns (16 bytes when E > 1) of every piece it
+// covers, kTailIters rows a group. The first two addends of all of them are
+// loaded together, and each row's residue pointers and the slot range of
+// its first entry beside them; then row by row the addends are summed in
+// order d = 0..K-1 and rounded once to T, the row's residue entries added
+// in order (each sum rounded to T, and each add too), and the row stored
+// once. Rows with kHeavyMin entries or more are left to the heavy blocks.
+template <typename T, typename V, int E>
+__device__ __forceinline__ void tail_rows(const TailArgs<T, V>& a,
+                                          int block) {
+  using A = typename SumOf<T>::type;
+  using B = typename Bits<T, E>::type;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rows_per_warp = 32 / a.group;
+  const int sub = lane / a.group, gl = lane - sub * a.group;
+  const int nvec = a.s / E;
+  long long row[kTailIters];
+  int e0[kTailIters], e1[kTailIters], nd[kTailIters];
+  const T* t0[kTailIters];
+  size_t step = 0;
+#pragma unroll
+  for (int it = 0; it < kTailIters; ++it) {
+    row[it] = (static_cast<long long>(block) * kTailIters * kTailWarps +
+               it * kTailWarps + warp) * rows_per_warp + sub;
+    e0[it] = e1[it] = nd[it] = 0;
+    t0[it] = a.t;
+    if (row[it] < a.n_rows) {
+      t0[it] = strip_base(a, row[it], nd[it], step);
+      if (a.rowptr != nullptr) {
+        e0[it] = __ldg(a.rowptr + row[it]);
+        e1[it] = __ldg(a.rowptr + row[it] + 1);
+      }
+    }
+  }
+  for (int v = gl; v < nvec; v += a.group) {
+    const size_t off = static_cast<size_t>(v) * E;
+    B part[kTailIters][2];
+    int q0[kTailIters], q1[kTailIters];
+#pragma unroll
+    for (int it = 0; it < kTailIters; ++it) {
+      if (nd[it] > 0) part[it][0] = load_bits<true, B>(t0[it] + off);
+      if (nd[it] > 1) part[it][1] = load_bits<true, B>(t0[it] - step + off);
+    }
+#pragma unroll
+    for (int it = 0; it < kTailIters; ++it)
+      if (e1[it] > e0[it]) {
+        q0[it] = __ldg(a.entptr + e0[it]);
+        q1[it] = __ldg(a.entptr + e0[it] + 1);
+      }
+#pragma unroll
+    for (int it = 0; it < kTailIters; ++it) {
+      // past n_rows, or a heavy block's row
+      if (nd[it] == 0 || e1[it] - e0[it] >= kHeavyMin) continue;
+      A acc[E];
+      unpack<T, E>(part[it][0], acc);
+      for (int d = 1; d < nd[it]; ++d) {
+        A add[E];
+        unpack<T, E>(d == 1 ? part[it][1]
+                            : load_bits<true, B>(t0[it] - d * step + off),
+                     add);
+#pragma unroll
+        for (int m = 0; m < E; ++m) acc[m] = add_rn(acc[m], add[m]);
+      }
+#pragma unroll
+      for (int m = 0; m < E; ++m) acc[m] = round_to<T>(acc[m]);
+      for (int e = e0[it]; e < e1[it]; ++e) {
+        A sum[E];
+        if (e == e0[it])
+          entry_sum<T, V, E>(a, q0[it], q1[it], v, sum);
+        else
+          entry_sum<T, V, E>(a, __ldg(a.entptr + e), __ldg(a.entptr + e + 1),
+                             v, sum);
+#pragma unroll
+        for (int m = 0; m < E; ++m)
+          acc[m] = round_to<T>(add_rn(acc[m], round_to<T>(sum[m])));
+      }
+      __stcs(reinterpret_cast<B*>(a.y + row[it] * a.s + off),
+             pack<T, E>(acc));
+    }
+  }
+}
+
+// An entry's sum as entry_sum forms it, by a whole warp for the pieces
+// vb + lane of its row (lanes past nv idle but shuffle): the entry's slots
+// read once, one (x row, value) a lane, and handed round by shuffles, so
+// that only the x rows are loaded per slot, kHeavySlots at a time.
+template <typename T, typename V, int E, typename A>
+__device__ __forceinline__ void warp_entry_sum(const TailArgs<T, V>& a,
+                                               int q0, int q1, int v,
+                                               bool active, int lane,
+                                               A (&sum)[E]) {
+  using B = typename Bits<T, E>::type;
+#pragma unroll
+  for (int m = 0; m < E; ++m) sum[m] = A(0);
+  for (int qb = q0; qb < q1; qb += 32) {
+    const int nq = min(32, q1 - qb);
+    int col = 0;
+    A val = A(0);
+    if (lane < nq) {
+      col = __ldg(a.cols + qb + lane);
+      val = load_val<V, A>(a.vals + qb + lane);
+    }
+    for (int j0 = 0; j0 < nq; j0 += kHeavySlots) {
+      B xb[kHeavySlots];
+      A vv[kHeavySlots];
+#pragma unroll
+      for (int j = 0; j < kHeavySlots; ++j) {
+        const int c = __shfl_sync(0xffffffffu, col, (j0 + j) & 31);
+        vv[j] = __shfl_sync(0xffffffffu, val, (j0 + j) & 31);
+        if (active && j0 + j < nq)
+          xb[j] = load_bits<false, B>(a.x + static_cast<size_t>(c) * a.s +
+                                      static_cast<size_t>(v) * E);
+      }
+      if (!active) continue;
+#pragma unroll
+      for (int j = 0; j < kHeavySlots; ++j) {
+        if (j0 + j >= nq) break;
+        A xv[E];
+        unpack<T, E>(xb[j], xv);
+#pragma unroll
+        for (int m = 0; m < E; ++m)
+          sum[m] = add_rn(sum[m], tail_product<T, V>(xv[m], vv[j]));
+      }
+    }
+  }
+}
+
+// One row with kHeavyMin residue entries or more, by a whole block, a.tile
+// columns at a time: the strip (one thread per column), then the entries
+// kHeavyRound at a time (their slot ranges read in one load, one entry a
+// lane), kHeavyRound / kTailWarps a warp, each entry's sum put in shared
+// memory; after a barrier the thread that owns a column adds them to the
+// row in entry order.
+template <typename T, typename V, int E>
+__device__ __forceinline__ void tail_heavy(const TailArgs<T, V>& a,
+                                           int row) {
+  using A = typename SumOf<T>::type;
+  using B1 = typename Bits<T, 1>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  A* part = reinterpret_cast<A*>(smem);   // (kHeavyRound, tile)
+  A* yt = part + kHeavyRound * a.tile;    // (tile): the row, in T's values
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e0 = __ldg(a.rowptr + row), e1 = __ldg(a.rowptr + row + 1);
+  int nd;
+  size_t step;
+  const T* t0 = strip_base(a, row, nd, step);
+  for (int c0 = 0; c0 < a.s; c0 += a.tile) {
+    const int width = min(a.tile, a.s - c0);
+    const int nv = width / E;
+    for (int c = threadIdx.x; c < width; c += blockDim.x) {
+      A sum[1];
+      unpack<T, 1>(load_bits<true, B1>(t0 + c0 + c), sum);
+      for (int d = 1; d < nd; ++d) {
+        A add[1];
+        unpack<T, 1>(load_bits<true, B1>(t0 - d * step + c0 + c), add);
+        sum[0] = add_rn(sum[0], add[0]);
+      }
+      yt[c] = round_to<T>(sum[0]);
+    }
+    for (int eb = e0; eb < e1; eb += kHeavyRound) {
+      const int n = min(kHeavyRound, e1 - eb);
+      int lo = 0, hi = 0;   // entry eb + lane's slots
+      if (lane < n) {
+        lo = __ldg(a.entptr + eb + lane);
+        hi = __ldg(a.entptr + eb + lane + 1);
+      }
+      for (int j = warp; j < n; j += kTailWarps) {
+        const int q0 = __shfl_sync(0xffffffffu, lo, j);
+        const int q1 = __shfl_sync(0xffffffffu, hi, j);
+        for (int vb = 0; vb < nv; vb += 32) {
+          const int v = vb + lane;
+          A sum[E];
+          warp_entry_sum<T, V, E>(a, q0, q1, c0 / E + v, v < nv, lane, sum);
+          if (v < nv) {
+#pragma unroll
+            for (int m = 0; m < E; ++m) part[j * a.tile + v * E + m] = sum[m];
+          }
+        }
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < width; c += blockDim.x) {
+        A yv = yt[c];
+        for (int j = 0; j < n; ++j)
+          yv = round_to<T>(add_rn(yv, round_to<T>(part[j * a.tile + c])));
+        yt[c] = yv;
+      }
+      __syncthreads();
+    }
+    for (int c = threadIdx.x; c < width; c += blockDim.x) {
+      const A v[1] = {yt[c]};
+      __stcs(reinterpret_cast<B1*>(a.y + static_cast<size_t>(row) * a.s +
+                                   c0 + c),
+             pack<T, 1>(v));
+    }
+  }
+}
+
+// Blocks [0, n_heavy) take one heavy row each, the longest rows first, so
+// that they start first; the others kTailIters * kTailWarps row groups
+// each; `vec`: 16-byte pieces (every row of t, y and x 16-byte aligned),
+// else one value a lane.
+template <typename T, typename V>
+__global__ void __launch_bounds__(32 * kTailWarps, 2)
+window_strip_kernel(const TailArgs<T, V> a, int vec) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int b = static_cast<int>(blockIdx.x);
+  if (b < a.n_heavy) {
+    const int row = __ldg(a.heavy + b);
+    if (vec)
+      tail_heavy<T, V, kVec>(a, row);
+    else
+      tail_heavy<T, V, 1>(a, row);
+  } else if (vec) {
+    tail_rows<T, V, kVec>(a, b - a.n_heavy);
+  } else {
+    tail_rows<T, V, 1>(a, b - a.n_heavy);
   }
 }
 
@@ -781,14 +1233,43 @@ int launch_products(const void* rid, const void* p, void* out, int nw,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_strip(const void* t, void* y, int n_rows, int s, int nw, int p,
-                 int k, void* stream) {
-  const dim3 block(32, kStripRows);
-  const dim3 grid((n_rows + kStripRows - 1) / kStripRows);
-  window_strip_kernel<T><<<grid, block, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(t), static_cast<T*>(y), n_rows, s, nw, p, k);
+template <typename T, typename V>
+int launch_strip(const void* t, void* y, const void* rowptr,
+                 const void* entptr, const void* cols, const void* vals,
+                 const void* x, const void* heavy, int n_rows, int s, int nw,
+                 int p, int k, int n_heavy, void* stream) {
+  using A = typename SumOf<T>::type;
+  constexpr int kVec = 16 / sizeof(T);
+  if (n_rows < 1 || s < 1 || n_heavy < 0 ||
+      (n_heavy > 0 && rowptr == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto aligned = [](const void* q) {
+    return reinterpret_cast<size_t>(q) % 16 == 0;
+  };
+  const int vec = s % kVec == 0 && aligned(t) && aligned(y) &&
+                  (x == nullptr || aligned(x));
+  const int nvec = vec ? s / kVec : s;
+  int group = 1;
+  while (group < 32 && group < nvec) group *= 2;
+  const long long rows_per_block =
+      static_cast<long long>(kTailWarps) * kTailIters * (32 / group);
+  const long long blocks =
+      n_heavy + (n_rows + rows_per_block - 1) / rows_per_block;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  // a heavy row's pass: a multiple of the piece, since s is one where
+  // vec holds and kTailTile is one of every piece
+  const int tile = s < kTailTile ? s : kTailTile;
+  const size_t smem =
+      n_heavy ? (kHeavyRound + 1) * static_cast<size_t>(tile) * sizeof(A) : 0;
+  const TailArgs<T, V> a{
+      static_cast<const T*>(t),      static_cast<T*>(y),
+      static_cast<const int*>(rowptr), static_cast<const int*>(entptr),
+      static_cast<const int*>(cols), static_cast<const V*>(vals),
+      static_cast<const T*>(x),      static_cast<const int*>(heavy),
+      n_rows, s, nw, p, k, n_heavy, group, tile};
+  window_strip_kernel<T, V><<<static_cast<unsigned>(blocks), 32 * kTailWarps,
+                              smem, static_cast<cudaStream_t>(stream)>>>(
+      a, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -848,20 +1329,24 @@ extern "C" int fold_products_smem_bytes_f32() {
   return static_cast<int>(products_smem_bytes<float>());
 }
 
-extern "C" int window_strip_f32(const void* t, void* y, int n_rows, int s,
-                                int nw, int p, int k, void* stream) {
-  return launch_strip<float>(t, y, n_rows, s, nw, p, k, stream);
-}
+// One instance per (x type, values type) that the wrapper's _FOLD_TYPES
+// names: without the residue list the values' type is not read, and the
+// wrapper takes the one named by t's type alone (f32, f64, bf16).
+#define WINDOW_STRIP(NAME, T, V)                                             \
+  extern "C" int NAME(const void* t, void* y, const void* rowptr,            \
+                      const void* entptr, const void* cols,                  \
+                      const void* vals, const void* x, const void* heavy,    \
+                      int n_rows, int s, int nw, int p, int k, int n_heavy,  \
+                      void* stream) {                                        \
+    return launch_strip<T, V>(t, y, rowptr, entptr, cols, vals, x, heavy,    \
+                              n_rows, s, nw, p, k, n_heavy, stream);         \
+  }
 
-extern "C" int window_strip_f64(const void* t, void* y, int n_rows, int s,
-                                int nw, int p, int k, void* stream) {
-  return launch_strip<double>(t, y, n_rows, s, nw, p, k, stream);
-}
-
-extern "C" int window_strip_bf16(const void* t, void* y, int n_rows, int s,
-                                 int nw, int p, int k, void* stream) {
-  return launch_strip<__nv_bfloat16>(t, y, n_rows, s, nw, p, k, stream);
-}
+WINDOW_STRIP(window_strip_f32, float, float)
+WINDOW_STRIP(window_strip_f64, double, double)
+WINDOW_STRIP(window_strip_bf16, __nv_bfloat16, __nv_bfloat16)
+WINDOW_STRIP(window_strip_bf16_f32, __nv_bfloat16, float)
+WINDOW_STRIP(window_strip_f32_bf16, float, __nv_bfloat16)
 
 extern "C" int double_f32(const void* x, void* y, int n, void* stream) {
   double_kernel<<<(n + 255) / 256, 256, 0,

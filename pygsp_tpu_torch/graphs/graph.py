@@ -238,23 +238,25 @@ class Graph:
 
         if lap_type not in ('combinatorial', 'normalized'):
             raise ValueError(f'Unknown Laplacian type {lap_type!r}')
-        if fmt == 'auto':
-            fmt = 'windowed' if self.n_vertices > CHUNK_ROWS else 'hybrid'
-        if fmt in ('hybrid', 'chunked'):
-            raise NotImplementedError(_NOT_PORTED_FMT.format(fmt))
-        if fmt not in ('coo', 'windowed'):
-            raise ValueError(f'Unknown Laplacian format {fmt!r}')
 
         W = self._adjacency
         if self.is_directed():
             W = utils.symmetrize(W, method='average')
         # Self-loop entries stay in the edge set: with diag = dw (which
         # includes loop weights) and off-diagonal values -w including the
-        # diagonal COO entries, L_ii = dw_i - w_ii.
+        # diagonal COO entries, L_ii = dw_i - w_ii. The operator of the
+        # requested type is built before the format is looked at, as in the
+        # JAX package, so that a refused format leaves L of lap_type.
         Wsym = core_sparse.from_scipy(W, dtype=self.dtype, device=self.device)
         self._L = laplacian_op(Wsym, lap_type)
+        if fmt == 'auto':
+            fmt = 'windowed' if self.n_vertices > CHUNK_ROWS else 'hybrid'
+        if fmt in ('hybrid', 'chunked'):
+            raise NotImplementedError(_NOT_PORTED_FMT.format(fmt))
         if fmt == 'windowed':
             self._L = self._L.to_windowed()
+        elif fmt != 'coo':
+            raise ValueError(f'Unknown Laplacian format {fmt!r}')
         self._Wsym_host = W
 
     @property

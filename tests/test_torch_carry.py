@@ -513,5 +513,9 @@ def test_kernel_b_source_names_its_entry_points():
         for rowid in windowed_kernel._ROWIDS.values():
             assert f'(windowed_fold_{suffix}_{rowid},' in text
     for suffix in windowed_kernel._DTYPES.values():
-        assert f'extern "C" int window_strip_{suffix}(' in text
         assert f'(windowed_fold_smem_bytes_{suffix},' in text
+    # the tail has an instance for each of the fold's pairs; without the
+    # residue list the wrapper takes the one named by t's dtype alone
+    for suffix in (set(windowed_kernel._FOLD_TYPES.values())
+                   | set(windowed_kernel._DTYPES.values())):
+        assert f'WINDOW_STRIP(window_strip_{suffix},' in text

@@ -19,7 +19,10 @@ kernel #2's and #3's shapes and at ragged ones (dead ids on both sides of
 the range, dead slots holding ``inf``, f32 products, its shared-memory
 count against the kernel's, two launches bit-equal), the CSR kernel on a
 star row that spans many segments and on hub rows among many empty ones,
-and #4's ``y = 2x``; the bf16 instances of the fold and the strip (a bf16
+and #4's ``y = 2x``; the tail (``window_strip`` with the residue list) in
+every instance against its plain version, with heavy rows, K = 2 and 4, S
+of 3 (one value a lane), 128 and 600, unaligned rows, and inf where only
+dead slots point; the bf16 instances of the fold and the strip (a bf16
 carry, bf16 values, both) and a fast-mode bank against the CPU; and the
 fused Chebyshev step's three entry points against their plain versions, bit
 for bit, in f32, f64 and with a bf16 carry.
@@ -228,7 +231,7 @@ def test_windowed_kernels_match_plain(cuda, dtype, s, case):
     x = _signal((M.n_cols, s), dtype, s, cuda)
     before = (wk.windowed_fold.launches, wk.window_strip.launches)
     t = wk.windowed_fold(M.cols, M.vals, M.rowid, x, M.chunk_rows, kp)
-    y = wk.window_strip(t, M.n_rows, M.window_rows)
+    y = wk.window_strip(t, M.n_rows, M.window_rows, M.residue, x)
     assert (wk.windowed_fold.launches, wk.window_strip.launches) == (
         before[0] + 1, before[1] + 1)
     t_plain = wk.windowed_fold_plain(M.cols, M.vals, M.rowid, x,
@@ -236,9 +239,144 @@ def test_windowed_kernels_match_plain(cuda, dtype, s, case):
     assert t.shape == t_plain.shape and y.shape == (M.n_rows, s)
     assert _rel_err(t, t_plain) <= TOL[dtype]
     assert _rel_err(y, wk.window_strip_plain(t_plain, M.n_rows,
-                                             M.window_rows)) <= TOL[dtype]
-    assert _rel_err(wk.window_strip_plain(t, M.n_rows, M.window_rows),
+                                             M.window_rows, M.residue,
+                                             x)) <= TOL[dtype]
+    assert _rel_err(wk.window_strip_plain(t, M.n_rows, M.window_rows,
+                                          M.residue, x),
                     y) == 0.0                    # same sums, same order
+
+
+# ---------------------------------------------------------------------------
+# the tail: window_strip with the residue list
+# ---------------------------------------------------------------------------
+
+# (x dtype, values dtype): the fold's pairs, each an instance of the tail
+TAIL_PAIRS = {'f32': (torch.float32, torch.float32),
+              'f64': (torch.float64, torch.float64),
+              'bf16': (torch.bfloat16, torch.bfloat16),
+              'bf16-f32': (torch.bfloat16, torch.float32),
+              'f32-bf16': (torch.float32, torch.bfloat16)}
+TAIL_CASES = {'K2': dict(chunk_rows=1024),
+              'K4': dict(chunk_rows=2048, borrow_span=4, slab_width=120),
+              'P256': dict(chunk_rows=1024, window_rows=256)}
+
+
+def _hub_graph(n=(1 << 13) + 77, hubs=(7, 8, (1 << 13) + 70), seed=3,
+               empty_cols=()):
+    """A weighted Barabási–Albert graph with a ragged last chunk and three
+    hub rows (two in one window, one in the last chunk) whose residue
+    entries repeat across the tiers of every source chunk: heavy rows.
+    ``empty_cols``: vertices left without edges."""
+    src, tgt = tgsp.graphs.ba_edges_fast(n, m0=4, m=4, seed=seed)
+    rng = np.random.default_rng(seed)
+    for h in hubs:
+        nb = np.flatnonzero(rng.random(n) < 0.3)
+        src = np.concatenate([src, np.full(nb.size, h)])
+        tgt = np.concatenate([tgt, nb])
+    keep = (src != tgt) & ~np.isin(src, empty_cols) & ~np.isin(tgt,
+                                                               empty_cols)
+    src, tgt = src[keep], tgt[keep]
+    w = rng.uniform(0.5, 1.5, len(src))
+    W = sps.csr_matrix((np.concatenate([w, w]), (np.concatenate([src, tgt]),
+                                                 np.concatenate([tgt, src]))),
+                       shape=(n, n))
+    W.sum_duplicates()
+    return W
+
+
+def _tail_check(y, want, dtype):
+    """The kernel's y against the plain version's: float32/float64 within
+    TOL (relative), bf16 within one ulp (both sum in one order and round
+    alike, so they are expected to agree bit for bit)."""
+    if dtype == torch.bfloat16:
+        return _ulps(y, want) <= 1.0
+    return _rel_err(y, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize('levels', [True, False], ids=['levels', 'strip'])
+@pytest.mark.parametrize('s', [3, 128, 600])
+@pytest.mark.parametrize('case', list(TAIL_CASES))
+@pytest.mark.parametrize('pair', list(TAIL_PAIRS))
+def test_window_tail_matches_plain(cuda, pair, case, s, levels):
+    """The tail against its plain version, K = 2 and 4, P = 64 and 256,
+    S = 3 (one value a lane), 128 and 600 (a heavy row's two column
+    passes), heavy rows among ordinary ones, the ragged last chunk; two
+    launches bit-equal."""
+    xd, vd = TAIL_PAIRS[pair]
+    W = _hub_graph()
+    wide = torch.float64 if xd == torch.float64 else torch.float32
+    M = twd.windowed_from_scipy(W, dtype=wide, device=cuda,
+                                **TAIL_CASES[case]).astype(vd)
+    assert M.n_cols % M.chunk_rows and M.residue.heavy.numel() >= 3
+    kp = M.borrow_span * M.window_rows
+    x = _signal((M.n_cols, s), wide, s, cuda).to(xd)
+    t = wk.windowed_fold(M.cols, M.vals, M.rowid, x, M.chunk_rows, kp)
+    residue = M.residue if levels else None
+    before = wk.window_strip.launches
+    y = wk.window_strip(t, M.n_rows, M.window_rows, residue, x)
+    assert wk.window_strip.launches == before + 1
+    assert y.dtype == xd and y.shape == (M.n_rows, s)
+    want = wk.window_strip_plain(t, M.n_rows, M.window_rows, residue, x)
+    assert _tail_check(y, want, xd)
+    assert torch.equal(y, wk.window_strip(t, M.n_rows, M.window_rows,
+                                          residue, x))
+
+
+@pytest.mark.parametrize('pair', list(TAIL_PAIRS))
+def test_window_tail_unaligned_rows_take_the_scalar_path(cuda, pair):
+    """x and t one value off a 16-byte boundary: the same kernel with one
+    value a lane, which sums alike, so y is bit-equal to the aligned
+    launch's."""
+    xd, vd = TAIL_PAIRS[pair]
+    W = _hub_graph()
+    wide = torch.float64 if xd == torch.float64 else torch.float32
+    M = twd.windowed_from_scipy(W, dtype=wide, device=cuda,
+                                chunk_rows=1024).astype(vd)
+    kp = M.borrow_span * M.window_rows
+    x = _signal((M.n_cols, 128), wide, 4, cuda).to(xd)
+    t = wk.windowed_fold(M.cols, M.vals, M.rowid, x, M.chunk_rows, kp)
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)
+        out = buf[1:].view(a.shape)
+        out.copy_(a)
+        assert out.data_ptr() % 16
+        return out
+
+    y = wk.window_strip(t, M.n_rows, M.window_rows, M.residue, x)
+    y_off = wk.window_strip(shifted(t), M.n_rows, M.window_rows, M.residue,
+                            shifted(x))
+    assert torch.equal(y, y_off)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_window_tail_keeps_inf_of_dead_slots_out(cuda, dtype):
+    """The last x row of each source chunk (where the JAX package's gather
+    clamps a dead tier slot) holds inf and no live slot points at it: y
+    stays finite and matches the plain version; in float32 the SpMM
+    matches SciPy. (In bf16 a hub row adds hundreds of entries in bf16,
+    as the JAX package's index_add does, so only the plain version is its
+    reference.)"""
+    R, n = 1024, (1 << 13) + 77
+    clamp = [min((c + 1) * R, n) - 1 for c in range(-(-n // R))]
+    W = _hub_graph(empty_cols=clamp)
+    M = twd.windowed_from_scipy(W, dtype=torch.float32, device=cuda,
+                                chunk_rows=R, permute=None)
+    assert sum(lev.cols.numel() for lev in M.levels) > M.residue.cols.numel()
+    x = _signal((n, 128), torch.float32, 5, cuda)
+    x[clamp] = float('inf')
+    M, x = M.astype(dtype), x.to(dtype)
+    t = wk.windowed_fold(M.cols, M.vals, M.rowid, x, R,
+                         M.borrow_span * M.window_rows)
+    y = wk.window_strip(t, M.n_rows, M.window_rows, M.residue, x)
+    assert bool(torch.isfinite(y).all())
+    want = wk.window_strip_plain(t, M.n_rows, M.window_rows, M.residue, x)
+    assert _tail_check(y, want, dtype)
+    if dtype == torch.float32:
+        ref = W @ np.where(np.isfinite(x.cpu().numpy()), x.cpu().numpy(),
+                           0.0)
+        got = (M @ x).cpu().numpy()
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -425,9 +563,10 @@ def test_bf16_windowed_kernels_match_plain(cuda, combo, s, case):
     else:
         assert _rel_err(t, t_plain) <= TOL[torch.float32]
     assert torch.equal(t, wk.windowed_fold(*args))
-    y = wk.window_strip(t, M.n_rows, M.window_rows)
+    y = wk.window_strip(t, M.n_rows, M.window_rows, M.residue, x)
     assert y.dtype == xd
-    assert torch.equal(y, wk.window_strip_plain(t, M.n_rows, M.window_rows))
+    assert torch.equal(y, wk.window_strip_plain(t, M.n_rows, M.window_rows,
+                                                M.residue, x))
 
 
 @pytest.mark.parametrize('kp,s', [(64, 1), (128, 128), (256, 5), (512, 300),

@@ -121,9 +121,30 @@ def test_graph_api_details():
     assert torch.equal(T.L.dot(x.numpy()), T.L @ x)
     with pytest.raises(ValueError, match='Unknown Laplacian type'):
         T.compute_laplacian('bogus')
-    for fmt in ('chunked', 'hybrid', 'auto'):      # 'auto' is 'hybrid' here
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            T.compute_laplacian(fmt=fmt)
+    # a refused format leaves the operator of the requested type, as the
+    # JAX package builds it before it looks at the format ('auto' is
+    # 'hybrid' here; the JAX package has both, and no 'bogus')
+    J = jgsp.graphs.Graph(W)
+    for fmt, lap_type, error, match in (
+            ('chunked', 'normalized', NotImplementedError, 'ROADMAP'),
+            ('hybrid', 'combinatorial', NotImplementedError, 'ROADMAP'),
+            ('auto', 'normalized', NotImplementedError, 'ROADMAP'),
+            ('bogus', 'combinatorial', ValueError, 'Unknown Laplacian format'),
+            ('bogus', 'normalized', ValueError, 'Unknown Laplacian format')):
+        with pytest.raises(error, match=match):
+            T.compute_laplacian(lap_type, fmt=fmt)
+        if fmt == 'bogus':
+            with pytest.raises(ValueError, match='Unknown Laplacian format'):
+                J.compute_laplacian(lap_type, fmt=fmt)
+        else:
+            J.compute_laplacian(lap_type, fmt=fmt)
+        assert T.L.lap_type == T.lap_type == J.L.lap_type == lap_type
+        assert abs(T.L.to_scipy() - J.L.to_scipy()).max() <= 1e-14
+        T.estimate_lmax(method='bounds')
+        J.estimate_lmax(method='bounds')
+        assert T.lmax == pytest.approx(J.lmax, rel=1e-14)
+        exact = float(np.linalg.eigvalsh(T.L.to_dense().numpy()).max())
+        assert exact <= T.lmax
     with pytest.raises(ValueError, match='Unknown method'):
         T.estimate_lmax(method='bogus')
     assert repr(tgsp.graphs.Grid2d(3, 2, device='cpu')) == (

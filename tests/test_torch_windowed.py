@@ -47,6 +47,19 @@ def _with_hub(n=300, seed=9):
     return sps.csr_matrix(W)
 
 
+def _with_hubs(n=333, seed=4, hubs=(5, 6, 330)):
+    """Hub rows next to each other and in the ragged last chunk: their
+    residue entries repeat across the tiers of every source chunk, the
+    ragged last one among them."""
+    rng = np.random.default_rng(seed)
+    W = _random_powerlaw(n, rng).tolil()
+    for h in hubs:
+        W[h, :] = rng.random(n) + 0.5
+        W[:, h] = W[h, :].T
+        W[h, h] = 0
+    return sps.csr_matrix(W)
+
+
 def _rectangular():
     """tests/test_windowed.py::test_borrow_span_packing's matrix."""
     A = sps.random(3000, 5000, density=2e-3, random_state=7, format='csr')
@@ -69,6 +82,8 @@ CASES = {
     'span3': (_powerlaw, dict(chunk_rows=128, window_rows=32, slab_width=6,
                               borrow_span=3)),
     'hub-rows': (_with_hub, dict(chunk_rows=64, window_rows=16)),
+    'hubs-ragged-span4': (_with_hubs, dict(chunk_rows=64, window_rows=16,
+                                           borrow_span=4)),
     'ragged': (lambda: _powerlaw(333, 23), dict(chunk_rows=128,
                                                 window_rows=64)),
     'auto': (lambda: _powerlaw(2000, 5), {}),
@@ -128,7 +143,8 @@ def test_builder_packs_the_same_arrays_as_jax(case):
 
 @pytest.mark.parametrize('s', [1, 5, 129])
 @pytest.mark.parametrize('case', ['P16', 'span4-borrow-and-levels',
-                                  'P256-int32-rowid', 'rectangular-span4'])
+                                  'P256-int32-rowid', 'rectangular-span4',
+                                  'hubs-ragged-span4'])
 def test_spmm_matches_jax_and_scipy(case, s):
     W, J, T = _build(case)
     x = np.random.default_rng(s).normal(size=(W.shape[1], s))

@@ -5,14 +5,17 @@ Runs the port's four paths as ``chip_smoke.py`` sets them up (its
 there): path A, the Barabási–Albert graph of ``bench.py`` (N = 2^20, m0 =
 m = 8) through the CSR SpMM kernel; path B, ``Grid2d(512, 512)`` through
 the banded SpMM kernel; path C, the same BA graph in the windowed-compact
-format through the windowed fold and strip kernels; path D, path C in the
+format through the windowed fold and tail kernels; path D, path C in the
 bf16 fast mode (``carry_dtype`` and ``vals_dtype`` bfloat16) through their
 bf16 instances; each a 4-scale heat bank at order 30 on 128 float32
 signals, with the fused Chebyshev step (kernel B) on every path. For
 each path it runs one bank as a warm-up, then one bank under
 ``torch.profiler`` and prints one JSON line: the bank's
 host time, the sum of kernel times on the card (busy), the idle share, and
-kernel time by group (the port's SpMM kernels, the other kernels by name).
+kernel time by group (the port's SpMM kernels, the other kernels by name),
+and "everything else", PyTorch's own kernels in the bank, counted and timed
+by class (``index_add_``, ``index_select`` (the hoisted permutes),
+gathers, reductions, elementwise and casts).
 It also times a 1 GiB device-to-device copy, the memory rate the card
 reaches, and, first, the host's cost of each step on a kernel's launch path
 (``double`` at (8, 128), TPU kernel #4, beside ``torch.mul``): microseconds
@@ -137,6 +140,22 @@ def copy_rate():
     return 2 * src.numel() * 4 / (ms / 1e3)
 
 
+# PyTorch's own kernels in a bank, by what they do (a substring of the
+# kernel's name): the residue tiers' former plain path was made of these
+LAUNCH_CLASSES = (('index_add', ('indexFuncLargeIndex', 'indexFuncSmallIndex',
+                                 'index_add')),
+                  ('index_select', ('indexSelect',)),
+                  ('gather', ('index_elementwise', 'gather')),
+                  ('reduction', ('reduce_kernel',)),
+                  ('elementwise', ('elementwise',)))
+
+
+def launch_class(name):
+    """The class of a PyTorch kernel by its name, else 'other'."""
+    return next((cls for cls, keys in LAUNCH_CLASSES
+                 if any(k in name for k in keys)), 'other')
+
+
 def profile_bank(name, kernels, bank, out_dir):
     bank()
     torch.cuda.synchronize()
@@ -147,13 +166,19 @@ def profile_bank(name, kernels, bank, out_dir):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
     groups = {}
+    others = {}     # PyTorch's kernels outside the port's, by class
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
-        key = next((k for k in kernels if k in ev.name), ev.name[:90])
+        ms_ev = (ev.time_range.end - ev.time_range.start) / 1e3
+        key = next((k for k in kernels if k in ev.name), None)
+        if key is None:
+            cls = launch_class(ev.name)
+            ms, count = others.get(cls, (0.0, 0))
+            others[cls] = (ms + ms_ev, count + 1)
+            key = ev.name[:90]
         ms, count = groups.get(key, (0.0, 0))
-        groups[key] = (ms + (ev.time_range.end - ev.time_range.start) / 1e3,
-                       count + 1)
+        groups[key] = (ms + ms_ev, count + 1)
     busy_ms = sum(ms for ms, _ in groups.values())
     top = sorted(groups.items(), key=lambda kv: -kv[1][0])[:12]
     if out_dir:
@@ -165,6 +190,9 @@ def profile_bank(name, kernels, bank, out_dir):
         'idle_share': 1.0 - busy_ms / host_ms,
         'kernels': [{'name': k, 'ms': ms, 'count': count}
                     for k, (ms, count) in top],
+        'everything_else_ms': sum(ms for ms, _ in others.values()),
+        'everything_else': {cls: {'ms': ms, 'count': count}
+                            for cls, (ms, count) in sorted(others.items())},
     }
 
 
@@ -187,7 +215,7 @@ def main():
     step = ('cheby_step', 'cheby_acc_group')
     windowed = ('windowed_fold', 'window_strip') + step
     for name, kernels, make in (
-            ('A', ('csr_spmm',) + step, chip_smoke.path_a),
+            ('A', ('csr_segment', 'csr_join') + step, chip_smoke.path_a),
             ('B', ('banded_spmm',) + step, chip_smoke.path_b)):
         bank = make()[-1]
         print(json.dumps(profile_bank(name, kernels, bank, args.out)),
