@@ -16,7 +16,10 @@ Phases, each of which raises on failure:
    one-hot fold at TPU kernel #3's shape (call and device time), and with
    dead slots holding ``inf``, which must add nothing; then the fused
    Chebyshev step (kernel B: step, grouped accumulation, synthesis
-   contraction) in f32, f64 and with a bf16 carry, bit for bit;
+   contraction) in f32, f64 and with a bf16 carry, bit for bit, and its
+   fourth entry point, the coefficient gradient ``cheby_dot_group``, in
+   f32 and f64 within its summation bound against a float64 reference,
+   two launches bit-equal;
 3. path A, the README path at the bench size: Barabási–Albert N=2^20
    (m0 = m = 8, about 16.8M stored edges) → ``Graph`` → ``estimate_lmax`` →
    ``Heat(scale=[5, 10, 25, 50]).filter(x, order=30)`` with x (N, 128) f32,
@@ -24,7 +27,8 @@ Phases, each of which raises on failure:
    accumulation, as on every path), checked against the SciPy f64
    recurrence; the kernel's two launches bit-equal at this shape, and its
    time with the hub rows (above 1024 edges) emptied and on those rows
-   alone;
+   alone; each SpMM kernel (here and in phases 4 and 5) also at the x̄
+   synthesis's width, S·Nf = 512 columns, against its plain version;
 4. path B, the banded path: ``Grid2d(512, 512)`` → ``L.to_banded()`` →
    ``cheby_op`` through the banded SpMM kernel and kernel B, checked
    against the CSR path and the SciPy f64 recurrence;
@@ -49,11 +53,37 @@ Phases, each of which raises on failure:
    gate ``bench.py:345-351`` puts on the fast mode) and all four within
    twice ``carry_error_estimate`` (the carried term and the SpMM's narrow
    output are each rounded once per step);
-7. kernel B's entry points at each path's shape, held bit for bit against
-   their plain versions, then timed beside them, the eager passes they
-   replace and the one library call where there is one (``addmm_`` for the
-   grouped accumulation of f32 terms, ``addmv_`` for the synthesis
-   contraction);
+E. path E, training through the fixed-graph VJP
+   (``cheby_op_fixed_graph``, ``Filter.filter(fixed_graph=True)``) on path
+   A's graph and signal after path A, on path B's banded operator after
+   path B (one step) and on path C's windowed one after path D: one
+   forward and backward of the bench bank with a seeded ḡ (the adjoint
+   identities ⟨ḡ, out⟩ = Σ c̄ ⊙ c and ⟨x̄, x⟩ = ⟨ḡ, out⟩, each relative to
+   its own terms' magnitude; the backward's launches, 5
+   ``cheby_dot_group`` at g = 14; its peak memory above what is held, at
+   most 2× the forward's, beside the 3K terms plain autograd would keep;
+   c̄ and x̄ for a ḡ nonzero on 8 columns against the SciPy f64
+   recurrence and x̄ exactly 0 elsewhere; the forward, the x̄ synthesis
+   and the c̄ pass timed apart), then Adam steps (lr 0.2) of
+   examples/filter_learning.py's model, softplus heat scales from [1, 5,
+   10, 20] and a softmax mix against a teacher at the bench bank's
+   scales: the loss must fall;
+F. path F, the other filter methods: ``method='lanczos'`` (order 30) of
+   the bench bank on path A's graph and signal (S = 128, halved while the
+   basis does not fit), and its synthesis direction at 32 signals × 4
+   filters, against a host f64 Lanczos (beside it, the error of the same
+   recurrence without reorthogonalization, shown); ``method='exact'`` on
+   ``Grid2d(64, 64)`` in f32 against host f64 ``numpy.linalg.eigh``
+   filtering; and ``g.filter(x)`` with x requiring grad must raise on the
+   card, naming ``cheby_op_fixed_graph``;
+7. kernel B's entry points at each path's shape and at path E's (the step
+   at 512 columns, the contraction at (N, 128, 4), ``cheby_dot_group`` at
+   paths A's and B's N), held bit for bit against
+   their plain versions (``cheby_dot_group`` within its summation bound),
+   then timed beside them, the eager passes they replace and the one
+   library call where there is one (``addmm_`` for the grouped
+   accumulation of f32 terms, ``addmv_`` for the synthesis contraction,
+   ``torch.mm`` for the coefficient gradient);
 8. one JSON line of per-kernel numbers (times from CUDA events, bounds
    from the H100 SXM data sheet: HBM, FP32, and TF32 for the banded
    kernel's f32 products), the card's name and power limit, and the final
@@ -67,6 +97,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy.sparse as sps
@@ -79,9 +110,11 @@ from pygsp_tpu_torch.core import _cuda, banded_kernel, cheby_kernel
 from pygsp_tpu_torch.core import chunked, csr_kernel
 from pygsp_tpu_torch.core import windowed as wd
 from pygsp_tpu_torch.core import windowed_kernel as wk
-from pygsp_tpu_torch.ops.chebyshev import (_operator_bytes, acc_group,
+from pygsp_tpu_torch.ops import lanczos as lz
+from pygsp_tpu_torch.ops.chebyshev import (_fixed_graph_grads,
+                                           _operator_bytes, acc_group,
                                            carry_error_estimate, cheby_coeff,
-                                           cheby_op)
+                                           cheby_op, cheby_op_fixed_graph)
 
 # H100 SXM data sheet: HBM rate, FP32 rate outside the tensor cores, and
 # the dense TF32 and bf16 tensor-core rates.
@@ -99,6 +132,19 @@ ORDER = 30
 N_SIGNALS = 128
 SCALES = [5.0, 10.0, 25.0, 50.0]
 N_CHECK_COLS = 8
+# x̄'s host reference: its first 2 columns (each the synthesis of Nf)
+N_CHECK_XBAR = 2
+HOST_THREADS = 8        # the host references' SpMMs, split by rows
+N_CHECK_LANCZOS = 4     # path F's signals in the host Lanczos
+# path E: the student's scales start at __graft_entry__.py:84's, the
+# teacher's are the bench bank's (SCALES)
+STUDENT_SCALES = [1.0, 5.0, 10.0, 20.0]
+TEACHER_MIX = [0.4, 0.3, 0.2, 0.1]
+TRAIN_STEPS = 5
+TRAIN_LR = 0.2
+EXACT_SIDE = 64         # Grid2d(64, 64), __graft_entry__.entry's graph
+# the backward's x̄ synthesis runs every SpMM and the step at S·Nf columns
+WIDE = N_SIGNALS * len(SCALES)
 
 # Tolerances (relative to the largest reference magnitude): f32 sums in
 # another order than the plain version; the recurrence is held against f64.
@@ -111,6 +157,16 @@ TOL_WINDOWED = 1e-5
 TOL_FOLD = 1e-6         # f32 sums of bf16 products, another order
 TOL_PATH = 1e-4
 TOL_F64 = 1e-12
+# the fixed-graph VJP's adjoint identities at full width, each relative to
+# the magnitude of its own terms (f32 terms summed in f64): ⟨ḡ, out⟩ =
+# Σ c̄ ⊙ c to Σ |c̄ ⊙ c|, read 6.0e-9 to 4.2e-8 on paths A-C on an H100;
+# ⟨x̄, x⟩ = ⟨ḡ, out⟩ to Σ |x̄ ⊙ x|, read 2.9e-11 to 1.1e-10 (an x̄ scaled
+# by 1 + 2e-4 fails it on B, by 1 + 7.5e-6 on A)
+TOL_ADJOINT_C = 5e-7
+TOL_ADJOINT_X = 1e-9
+# Lanczos in f32 against the same algorithm in f64 on the host: read
+# 1.3e-5 and 1.9e-5 on an H100; without the reorthogonalization 1.1e-2
+TOL_LANCZOS = 1e-4
 # path D, the bf16 fast mode: bench.py's gate for it, on the first filter
 # (bench.py:345-351)
 TOL_PATH_BF16 = 1.5e-2
@@ -234,20 +290,43 @@ def check(name, got, want, tol):
     return err
 
 
+def host_blocks(L):
+    """L in f64 CSR, cut into HOST_THREADS blocks of rows."""
+    L = L.astype(np.float64).tocsr()
+    cuts = np.linspace(0, L.shape[0], HOST_THREADS + 1).astype(int)
+    return [L[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def host_product(pool, blocks, v):
+    """``L @ v`` from L's row blocks, one thread each (SciPy's product
+    releases the interpreter lock; every row's sum is SciPy's own)."""
+    return np.concatenate(list(pool.map(lambda block: block @ v, blocks)))
+
+
+def host_terms(L, lmax, x, m1):
+    """Yields the recurrence terms T̃_k x, k < m1, in SciPy f64 on the
+    host."""
+    blocks = host_blocks(L)
+    a1 = a2 = lmax / 2
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        t_old = x
+        t_cur = (host_product(pool, blocks, x) - a2 * x) / a1
+        yield t_old
+        yield t_cur
+        for _ in range(2, m1):
+            t_old, t_cur = t_cur, ((2.0 / a1) * (host_product(
+                pool, blocks, t_cur) - a2 * t_cur) - t_old)
+            yield t_cur
+
+
 def scipy_recurrence(L, lmax, c, x):
     """The Chebyshev recurrence in SciPy f64 on the host: (Nf, N, S)."""
-    L = L.astype(np.float64).tocsr()
-    a1 = a2 = lmax / 2
     nf, m1 = c.shape
-    t_old = x
-    t_cur = (L @ x - a2 * x) / a1
-    r = [0.5 * c[i, 0] * t_old + c[i, 1] * t_cur for i in range(nf)]
-    for k in range(2, m1):
-        t_new = (2.0 / a1) * (L @ t_cur - a2 * t_cur) - t_old
+    r = np.zeros((nf,) + x.shape)
+    for k, t in enumerate(host_terms(L, lmax, x, m1)):
         for i in range(nf):
-            r[i] += c[i, k] * t_new
-        t_old, t_cur = t_cur, t_new
-    return np.stack(r)
+            r[i] += (0.5 if k == 0 else 1.0) * c[i, k] * t
+    return r
 
 
 def bound(bytes_moved, flops, flops_per_s=FP32_FLOPS):
@@ -448,6 +527,41 @@ def phase_kernel_b():
             equal('cheby_acc_contract', a, a_plain)
             log(f'  kernel B {md} arithmetic, {cd} carry, S={s}: step, '
                 f'group (g={g}) and contraction bit-equal')
+    for dt in (torch.float32, torch.float64):
+        for s in (128, 5):
+            ring = seeded_normal((g + 2, n, s), 61, dtype=dt)
+            gbar = seeded_normal((n, s, nf), 62, dtype=dt)
+            for size, start in ((g, 9), (1, 0)):
+                check_dot(f'cheby_dot_group {dt} S={s} g={size}', gbar, ring,
+                          start, size)
+
+
+def check_dot(name, gbar, ring, start, g):
+    """``cheby_dot_group`` against its plain version run on float64
+    copies of the operands, within its summation bound
+    (``cheby_kernel.cheby_dot_group_bound``: both sums' worst case
+    ``(2n + 2)·2^-53·Σ|ḡ_f||t_j|`` plus the output's one rounding), and two
+    launches bit-equal. Returns the largest |error| and its largest share
+    of the bound."""
+    nf = gbar.shape[-1]
+    out = torch.empty((g, nf), dtype=gbar.dtype, device='cuda')
+    cheby_kernel.cheby_dot_group(out, gbar, ring, start)
+    again = cheby_kernel.cheby_dot_group(torch.empty_like(out), gbar, ring,
+                                         start)
+    if not torch.equal(out, again):
+        raise AssertionError(f'{name}: two launches differ')
+    want = cheby_kernel.cheby_dot_group_plain(
+        torch.empty((g, nf), dtype=torch.float64, device='cuda'),
+        gbar.double(), ring.double(), start)
+    err = (out.double() - want).abs()
+    del want
+    share = float((err / cheby_kernel.cheby_dot_group_bound(
+        gbar, ring, start, g, gbar.dtype)).max())
+    log(f'  {name}: max |err| {float(err.max()):.3e}, {share:.3e} of the '
+        f'summation bound; two launches bit-equal')
+    if not share <= 1.0:
+        raise AssertionError(f'{name}: error {share} x the summation bound')
+    return float(err.max()), share
 
 
 def kernel_b_operands(n, s, md, cd, slots=0):
@@ -594,6 +708,38 @@ def measure_contract(n, s, nf):
             'shape': [n, s], 'nf': nf, 'dtypes': ['torch.float32'] * 2}
 
 
+def measure_dot(n, s, nf, g):
+    """``cheby_dot_group`` at a path's shape (f32, a group of g wrapping
+    around a ring of g + 2 terms), held against its float64 reference
+    within the summation bound, then timed beside its plain version and
+    the one library call, ``torch.mm`` of a group that does not wrap."""
+    ring = seeded_normal((g + 2, n, s), 63)
+    gbar = seeded_normal((n, s, nf), 64)
+    err, share = check_dot(f'cheby_dot_group at ({n}, {s}) Nf={nf} g={g}',
+                           gbar, ring, 9, g)
+    out = torch.empty((g, nf), device='cuda')
+    terms, gb = ring[:g].view(g, -1), gbar.view(-1, nf)
+    lib = torch.mm(terms, gb)
+    want = cheby_kernel.cheby_dot_group(torch.empty_like(out), gbar, ring, 0)
+    lib_err = float(((lib.double() - want.double()).abs()
+                     / cheby_kernel.cheby_dot_group_bound(
+                         gbar, ring, 0, g, torch.float32)).max())
+    log(f'  torch.mm vs cheby_dot_group: {lib_err:.3e} of the summation '
+        f'bound')
+    del lib, want
+    return {'max_abs_err': err, 'bound_share': share,
+            'ms': time_ms(lambda: cheby_kernel.cheby_dot_group(
+                out, gbar, ring, 9), 20),
+            'plain_ms': time_ms(lambda: cheby_kernel.cheby_dot_group_plain(
+                out, gbar, ring, 9), 3),
+            'library_ms': time_ms(lambda: torch.mm(terms, gb), 20),
+            'library': 'torch.mm(terms of the group as (g, N*S), gbar as '
+                       '(N*S, Nf)), a group that does not wrap',
+            'library_bound_share': lib_err,
+            **bound((g + nf) * n * s * 4 + g * nf * 4, 2 * g * nf * n * s),
+            'shape': [n, s], 'nf': nf, 'g': g, 'dtypes': ['torch.float32']}
+
+
 def phase_kernel_b_times(groups):
     """Kernel B's entry points at each path's shape (the f32 bank of 4
     filters on 128 signals; path D with a bf16 carry), each held bit for
@@ -602,7 +748,10 @@ def phase_kernel_b_times(groups):
     kernel-B time per bank: 29 steps, and the groups of g (one for T_1,
     the head one step at a time, then groups of g). ``groups``: each
     path's g. Path A's shape and types are path C's, so A reuses C's
-    numbers."""
+    numbers. Path E's shapes beside them: the step at the x̄ synthesis's
+    width (``A_synthesis``, ``B_synthesis``), the synthesis contraction at
+    (N, S, Nf) and the coefficient gradient, each at paths A's (and C's)
+    and B's N."""
     log('phase 7: kernel B at the paths\' shapes, against its plain versions')
     nf, s, f32, bf16 = len(SCALES), N_SIGNALS, torch.float32, torch.bfloat16
     shape = {'A': (N_BA, f32), 'B': (GRID_SIDE * GRID_SIDE, f32),
@@ -615,6 +764,10 @@ def phase_kernel_b_times(groups):
         torch.cuda.empty_cache()
     step['A'] = measure_step(N_BA, s, f32, f32, windowed=False)
     torch.cuda.empty_cache()
+    for p in 'AB':
+        step[f'{p}_synthesis'] = measure_step(shape[p][0], WIDE, f32, f32,
+                                              windowed=False)
+        torch.cuda.empty_cache()
     for p in 'BCD':
         n, cd = shape[p]
         group[p] = measure_group(n, s, nf, f32, cd, groups[p])
@@ -635,8 +788,22 @@ def phase_kernel_b_times(groups):
             'unfused_eager_ms': (steps * step[p]['unfused_eager_ms']
                                  + (1 + steps) * one[p]['unfused_eager_ms'])}
     log(f'  kernel B per bank: {json.dumps(per_bank)}')
-    contract = measure_contract(N_BA, 32, nf)
-    return step, group, one, contract, per_bank
+    contract, dot = {}, {}
+    for p in 'AB':
+        contract[p] = measure_contract(shape[p][0], s, nf)
+        torch.cuda.empty_cache()
+        # the c̄ pass (A's shape and types are C's): groups of g, and the
+        # groups of one (T_0, T_1 and the head)
+        g = groups[p]
+        dot[p] = {f'g{size}': measure_dot(shape[p][0], s, nf, size)
+                  for size in (g, 1)}
+        torch.cuda.empty_cache()
+        dot[p]['per_backward_ms'] = (steps // g * dot[p][f'g{g}']['ms']
+                                     + (dot_groups(g) - steps // g)
+                                     * dot[p]['g1']['ms'])
+        log(f'  cheby_dot_group per backward at {p}: '
+            f'{dot[p]["per_backward_ms"]:.3f} ms')
+    return step, group, one, contract, per_bank, dot
 
 
 def phase_windowed_kernels(W):
@@ -712,8 +879,31 @@ def measure_fold(rid, p, kp, iters):
             'shape': {'NW': nw, 'Lt': lt, 'KP': kp, 'S': s}}
 
 
+def measure_wide(name, kernel, plain, tol, work):
+    """A kernel at the x̄ synthesis's width (WIDE columns, as the backward
+    runs it) against its plain version on the same inputs, run on blocks
+    of N_SIGNALS columns (an output column reads its own input column
+    alone; the CSR plain version would gather 69 GB at once) and joined
+    along the last axis; two launches bit-equal; then timed. ``kernel()``
+    returns the output, ``plain(cols)`` that of a column slice; ``tol`` is
+    ``check``'s (0.0: bit for bit); ``work`` the bound dict at WIDE."""
+    y = kernel()
+    want = torch.cat([plain(slice(i, i + N_SIGNALS))
+                      for i in range(0, WIDE, N_SIGNALS)], dim=-1)
+    rel_err = check(f'{name} at {WIDE} columns', y, want, tol)
+    max_abs_err = float((y.float() - want.float()).abs().max())
+    del want
+    if not torch.equal(y, kernel()):
+        raise AssertionError(f'{name}: two launches differ at {WIDE} columns')
+    log(f'  {name} at {WIDE} columns: two launches bit-equal')
+    del y
+    return {'max_abs_err': max_abs_err, 'rel_err': rel_err,
+            'ms': time_ms(kernel, 10), 's': WIDE, **work}
+
+
 def measure_csr(A, x):
-    """Kernel, plain and library times of one CSR SpMM at the path's shape."""
+    """Kernel, plain and library times of one CSR SpMM at the path's shape,
+    and the kernel at the x̄ synthesis's width (``at_backward_width``)."""
     args = (A.rowptr, A.cols, A.vals, x)
     y = csr_kernel.csr_spmm(*args)
     y_plain = csr_kernel.csr_spmm_plain(*args)
@@ -730,16 +920,28 @@ def measure_csr(A, x):
     ms = time_ms(lambda: csr_kernel.csr_spmm(*args), 20)
     plain_ms = time_ms(lambda: csr_kernel.csr_spmm_plain(*args), 3)
     library_ms = time_ms(lambda: torch.sparse.mm(lib, x), 20)
+    del lib
     item = x.element_size()
-    bytes_min = 2 * n * s * item + nnz * (4 + item) + (n + 1) * 4
+
+    def work(s):
+        return bound(2 * n * s * item + nnz * (4 + item) + (n + 1) * 4,
+                     2 * nnz * s)
+
     bytes_gather = nnz * s * item + n * s * item + nnz * (4 + item)
+    x_wide = seeded_normal((n, WIDE), 80)
+    wide = measure_wide(
+        'csr_spmm', lambda: csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals,
+                                                x_wide),
+        lambda c: csr_kernel.csr_spmm_plain(A.rowptr, A.cols, A.vals,
+                                            x_wide[:, c]), TOL_CSR, work(WIDE))
+    del x_wide
     return {
         'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
         'library_ms': library_ms,
         'library': 'torch.sparse.mm on a sparse CSR tensor',
-        **bound(bytes_min, 2 * nnz * s),
+        **work(s),
         'bound_gather_ms': bytes_gather / HBM_BYTES_PER_S * 1e3,
-        'nnz': nnz, 'n': n, 's': s,
+        'nnz': nnz, 'n': n, 's': s, 'at_backward_width': wide,
     }
 
 
@@ -775,7 +977,8 @@ def measure_hub_tail(A, x):
 
 def measure_banded(B, x):
     """Kernel, plain and library times of one banded SpMM at the path's
-    shape. The library yardstick is torch.bmm over band windows gathered
+    shape, and the kernel at the x̄ synthesis's width
+    (``at_backward_width``). The library yardstick is torch.bmm over band windows gathered
     beforehand (the gather is not timed). The bound counts the function's
     own products at the card's fastest rate for f32 operands (TF32, dense),
     beside the bytes. Two diagnostics stand beside it: the FP32 FFMA bound
@@ -798,13 +1001,23 @@ def measure_banded(B, x):
     # tile pairs (i, d) whose x block lies inside the matrix
     pairs = nb * n_diag - b * (b + 1)
     item = x.element_size()
-    bytes_min = tiles.numel() * item + 2 * n * s * item
+
+    def work(s):
+        return bound(tiles.numel() * item + 2 * n * s * item,
+                     2 * pairs * 128 * 128 * s, TF32_FLOPS)
+
     flops = 2 * pairs * 128 * 128 * s
+    x_wide = seeded_normal((n, WIDE), 81)
+    wide = measure_wide(
+        'banded_spmm', lambda: banded_kernel.banded_spmm(tiles, x_wide, n),
+        lambda c: banded_kernel.banded_spmm_plain(
+            tiles, x_wide[:, c].contiguous(), n), TOL_BANDED, work(WIDE))
+    del x_wide
     return {
         'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
         'library_ms': library_ms,
         'library': 'torch.bmm over pre-gathered band windows',
-        **bound(bytes_min, flops, TF32_FLOPS),
+        **work(s), 'at_backward_width': wide,
         'bound_fp32_ms': flops / FP32_FLOPS * 1e3,
         'bound_tf32x3_ms': TF32_PRODUCTS * flops / TF32_FLOPS * 1e3,
         'gflop': flops / 1e9, 'tf32_gflop': TF32_PRODUCTS * flops / 1e9,
@@ -926,7 +1139,7 @@ def phase_path_a():
             'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
             'lmax': G.lmax, 'acc_group': group_of(G.L, x),
             'peak_bank_gib': peak}
-    return kernel, path, (launches, per_bank)
+    return kernel, path, (launches, per_bank), (G, x)
 
 
 def phase_path_b():
@@ -950,7 +1163,7 @@ def phase_path_b():
     kernel = measure_banded(Lb.offdiag, x)
     path = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'n': G.N,
             'lmax': G.lmax, 'acc_group': group_of(Lb, x)}
-    return kernel, path, (launches, per_bank)
+    return kernel, path, (launches, per_bank), (G, Lb, x)
 
 
 def measure_windowed(G, x):
@@ -959,7 +1172,8 @@ def measure_windowed(G, x):
     the fold's and the tail's determinism (two launches bit-equal); the
     yardsticks on the same shuffled matrix in CSR, ``torch.sparse.mm`` and
     the port's CSR kernel; and the strip part's,
-    ``torch.nn.functional.fold``."""
+    ``torch.nn.functional.fold``; and the fold and the tail at the x̄
+    synthesis's width (``at_backward_width``: the fold's S tile is 64)."""
     M = G.L.offdiag
     R, P, K = M.chunk_rows, M.window_rows, M.borrow_span
     n, s = M.n_rows, x.shape[1]
@@ -1010,15 +1224,35 @@ def measure_windowed(G, x):
             / HBM_BYTES_PER_S * 1e3,
             'library_ms': library_ms,
             'csr_spmm_same_matrix_ms': csr_ms}
+    t_rows = t.numel() // s               # the window tensor's rows
+
+    def fold_work(s):
+        return bound(n * s * item + slot_bytes + t_rows * s * item,
+                     2 * live * s)
+
     fold = {'max_abs_err': fold_err, 'ms': fold_ms, 'plain_ms': fold_plain_ms,
             'library_ms': library_ms,
             'library': 'torch.sparse.mm on the CSR of the same shuffled '
                        'matrix (the whole SpMM: fold + strip + levels)',
-            **bound(n * s * item + slot_bytes + t.numel() * item,
-                    2 * live * s),
+            **fold_work(s),
             'bound_gather_ms': (live * s * item + slot_bytes
                                 + t.numel() * item) / HBM_BYTES_PER_S * 1e3,
             'live_slots': live, 'slots': M.n_slots, 's': s}
+    del t
+    xw = chunked.permute_in(M, seeded_normal((n, WIDE), 82))
+    args = (M.cols, M.vals, M.rowid, xw, R, K * P)
+    fold['at_backward_width'] = measure_wide(
+        'windowed_fold', lambda: wk.windowed_fold(*args),
+        lambda c: wk.windowed_fold_plain(*args[:3], xw[:, c].contiguous(),
+                                         R, K * P), TOL_WINDOWED,
+        fold_work(WIDE))
+    tw = wk.windowed_fold(*args)
+    strip['at_backward_width'] = measure_wide(
+        'window_strip (tail)', lambda: wk.window_strip(tw, n, P, M.residue,
+                                                       xw),
+        lambda c: wk.window_strip_plain(tw[..., c].contiguous(), n, P,
+                                        M.residue, xw[:, c].contiguous()),
+        0.0, bound(*tail_work(M, tw, WIDE)))
     return fold, strip, spmm
 
 
@@ -1307,6 +1541,431 @@ def measure_fast_fold(G, x):
     return {'fold': fold, 'strip': strip}
 
 
+# ---------------------------------------------------------------------------
+# path E: training through the fixed-graph VJP (examples/filter_learning.py's
+# model at the bench width); path F: Lanczos and exact filtering
+# ---------------------------------------------------------------------------
+
+def inv_softplus(v):
+    return np.log(np.expm1(np.asarray(v, dtype=np.float64)))
+
+
+def heat_coeff(scales, lmax):
+    """The heat bank's coefficients for a tensor of ``scales``, as a
+    differentiable function of them."""
+    return cheby_coeff(lambda lam: torch.exp(-scales[:, None] * lam[None, :]
+                                             / lmax), lmax, m=ORDER)
+
+
+def model(G, L, x, raw, logits):
+    """``mix · bank(x)`` (N, S) through the fixed-graph VJP, the bank's
+    scales ``softplus(raw)`` and the mix ``softmax(logits)`` (weights that
+    one Adam step of 0.2 moves by a few hundredths, where a raw mix would
+    move by 0.2 and overshoot): on G's own Laplacian through
+    ``Filter.filter(fixed_graph=True)``, a Filter whose kernels close over
+    the scales; on another operator ``L`` (path B's banded one) through
+    ``cheby_op_fixed_graph``, as examples/filter_learning.py does."""
+    mix = torch.softmax(logits, 0)
+    if L is None:
+        g = gsp.filters.Filter(G, [
+            lambda lam, i=i: torch.exp(-torch.nn.functional.softplus(raw)[i]
+                                       * lam / G.lmax)
+            for i in range(len(SCALES))])
+        return g.filter(x, order=ORDER, fixed_graph=True) @ mix
+    c = heat_coeff(torch.nn.functional.softplus(raw), G.lmax)
+    return torch.einsum('f,fns->ns', mix, cheby_op_fixed_graph(L, G.lmax, c,
+                                                               x))
+
+
+def dot_groups(g):
+    """cheby_dot_group launches per backward at group size g: the
+    forward's accumulator groups (T_1, the head one step at a time, then
+    groups of g) and one for T_0."""
+    steps = ORDER - 1
+    return 2 + steps % g + steps // g
+
+
+def train(name, G, L, x, steps):
+    """Adam (lr 0.2) over the scales (from __graft_entry__.py:84's
+    [1, 5, 10, 20]) and the mix (from equal weights), against a teacher at
+    the bench bank's scales and TEACHER_MIX. The signal requires grad too,
+    as in
+    __graft_entry__.py's fixed-graph gate, so each backward runs both
+    passes. Returns the losses, ms per step and launches per step."""
+    dev = x.device
+    with torch.no_grad():
+        y = model(G, L, x, torch.tensor(inv_softplus(SCALES), device=dev,
+                                        dtype=torch.float32),
+                  torch.log(torch.tensor(TEACHER_MIX, device=dev)))
+    raw = torch.tensor(inv_softplus(STUDENT_SCALES), device=dev,
+                       dtype=torch.float32, requires_grad=True)
+    logits = torch.zeros(len(SCALES), device=dev, requires_grad=True)
+    xg = x.detach().requires_grad_()
+    opt = torch.optim.Adam([raw, logits], lr=TRAIN_LR)
+    losses = []
+    torch.cuda.synchronize()
+    reset_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        xg.grad = None
+        loss = torch.mean((model(G, L, xg, raw, logits) - y) ** 2)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss))
+    end.record()
+    end.synchronize()
+    launches = counts()
+    out = {'losses': losses, 'ms_per_step': start.elapsed_time(end) / steps,
+           'peak_step_gib': (torch.cuda.max_memory_allocated() - held) / 2**30,
+           'launches': launches,
+           'scales': torch.nn.functional.softplus(raw).tolist(),
+           'mix': torch.softmax(logits, 0).tolist(), 'x_grad_finite': bool(
+               torch.isfinite(xg.grad).all())}
+    log(f'  path E on {name}, {steps} Adam steps: {json.dumps(out)}')
+    if not all(np.isfinite(losses)) or not (steps == 1
+                                            or losses[-1] < losses[0]):
+        raise AssertionError(f'path E on {name}: losses {losses}')
+    if not out['x_grad_finite']:
+        raise AssertionError(f'path E on {name}: x.grad is not finite')
+    g = group_of(G.L if L is None else L, x)
+    if launches['cheby_dot_group'] != steps * dot_groups(g):
+        raise AssertionError(f'path E on {name}: {launches["cheby_dot_group"]}'
+                             f' cheby_dot_group launches in {steps} steps, '
+                             f'not {steps * dot_groups(g)}')
+    return out
+
+
+def scipy_vjp(L, lmax, c, x, gbar, cols):
+    """c̄ (Nf, m+1) and the first ``cols`` columns of x̄ of the bank on the
+    host in SciPy f64, for the cotangent ``gbar`` (Nf, N, S): c̄ from the
+    recurrence on x, each term dotted with every ḡ_f (0.5 at k = 0); x̄
+    from the recurrence on the ḡ_f, each term contracted with the
+    coefficients (0.5·c0)."""
+    nf, m1 = c.shape
+    n = x.shape[0]
+    cbar = np.empty((nf, m1))
+    for k, t in enumerate(host_terms(L, lmax, x, m1)):
+        cbar[:, k] = np.einsum('fns,ns->f', gbar, t)
+    cbar[:, 0] *= 0.5
+    x_bar = np.zeros((n, cols))
+    g = np.moveaxis(gbar[:, :, :cols], 0, -1).reshape(n, cols * nf)
+    for k, u in enumerate(host_terms(L, lmax, g, m1)):
+        x_bar += ((0.5 if k == 0 else 1.0)
+                  * (u.reshape(n, cols, nf) * c[:, k]).sum(-1))
+    return cbar, x_bar
+
+
+def dot64(a, b, absolute=False):
+    """⟨a, b⟩ (with ``absolute``, Σ |a ⊙ b|) in float64 on the card, a
+    filter at a time."""
+    return sum(float((a[i].double() * b[i].double()).abs().sum() if absolute
+                     else (a[i].double() * b[i].double()).sum())
+               for i in range(a.shape[0]))
+
+
+def check_vjp(name, L, lmax, x, L_host=None):
+    """One forward and backward of ``cheby_op_fixed_graph`` at the path's
+    width, for the bench bank and a seeded ḡ: the two adjoint identities,
+    each to its limit relative to its own terms' magnitude, the launches of the backward, its peak memory above what
+    is held when it starts against the forward's (and what plain autograd
+    would keep, 3K (N, S) terms), nothing of the recurrence saved, and the
+    forward, x̄ synthesis and c̄ pass timed apart. With ``L_host``, c̄ and x̄
+    for a ḡ nonzero on 8 columns against the SciPy f64 recurrence (x̄ on
+    its first N_CHECK_XBAR columns, and exactly 0 beyond the 8)."""
+    n, s = x.shape
+    nf = len(SCALES)
+    c = heat_coeff(torch.tensor(SCALES, device='cuda'), lmax)
+    c.requires_grad_()
+    xg = x.detach().requires_grad_()
+    gbar = seeded_normal((nf, n, s), 70)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = cheby_op_fixed_graph(L, lmax, c, xg)
+    torch.cuda.synchronize()
+    fwd_peak = torch.cuda.max_memory_allocated() - held
+    saved = out.grad_fn.saved_tensors
+    if [t.data_ptr() for t in saved] != [c.data_ptr(), xg.data_ptr()]:
+        raise AssertionError(f'{name}: the VJP saved more than c and x')
+    reset_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c_bar, x_bar = torch.autograd.grad(out, (c, xg), gbar, retain_graph=True)
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - held
+    launches = counts()
+    g = group_of(L, x)
+    if (launches['cheby_dot_group'] != dot_groups(g)
+            or launches['cheby_acc_contract'] != ORDER - 1):
+        raise AssertionError(f'{name}: the backward launched {launches}')
+    unit = n * s * x.element_size()
+    mem = {'forward_peak_gib': fwd_peak / 2**30,
+           'backward_peak_gib': bwd_peak / 2**30,
+           'forward_units': fwd_peak / unit, 'backward_units': bwd_peak / unit,
+           'autograd_3k_terms_gib': 3 * ORDER * unit / 2**30}
+    log(f'  {name}: VJP memory {json.dumps(mem)}')
+    if not bwd_peak <= 2 * fwd_peak:
+        raise AssertionError(f'{name}: backward peak {bwd_peak} > 2 x the '
+                             f'forward\'s {fwd_peak}')
+    # c̄ carries the 0.5 of k = 0, so Σ c̄ ⊙ c is Σ_k ⟨ḡ_f, T̃_k x⟩ c'_k.
+    # Each identity is held relative to the magnitude of its own terms
+    # (Σ |c̄ ⊙ c|, Σ |x̄ ⊙ x|), which a bank that damps x strongly (path
+    # B's) cancels far below |⟨ḡ, out⟩|
+    prod = c_bar.detach().double() * c.detach().double()
+    g_out = dot64(gbar, out.detach())
+    ident = {'<gbar, out>': g_out, 'sum c_bar c': float(prod.sum()),
+             '<x_bar, x>': dot64(x_bar[None], x[None]),
+             'sum |c_bar c|': float(prod.abs().sum()),
+             'sum |x_bar x|': dot64(x_bar[None], x[None], absolute=True)}
+    diff = {'c_bar': abs(ident['sum c_bar c'] - g_out),
+            'x_bar': abs(ident['<x_bar, x>'] - g_out)}
+    errs = {'c_bar': diff['c_bar'] / ident['sum |c_bar c|'],
+            'x_bar': diff['x_bar'] / ident['sum |x_bar x|']}
+    tols = {'c_bar': TOL_ADJOINT_C, 'x_bar': TOL_ADJOINT_X}
+    log(f'  {name}: adjoint identities {json.dumps(ident)}, rel err '
+        f'{json.dumps(errs)} (tol {json.dumps(tols)}); relative to '
+        f'|<gbar, out>| instead: '
+        f'{json.dumps({k: v / abs(g_out) for k, v in diff.items()})}')
+    if not all(errs[k] <= tols[k] for k in tols):
+        raise AssertionError(f'{name}: adjoint identities off by {errs}')
+    del x_bar
+    result = {'memory': mem, 'adjoint_rel_err': errs,
+              'adjoint_rel_err_to_g_out': {k: v / abs(g_out)
+                                           for k, v in diff.items()},
+              'acc_group': g,
+              'backward_launches': launches}
+    if L_host is not None:
+        g8 = torch.zeros_like(gbar)
+        g8[:, :, :N_CHECK_COLS] = gbar[:, :, :N_CHECK_COLS]
+        c_bar8, x_bar8 = torch.autograd.grad(out, (c, xg), g8,
+                                             retain_graph=True)
+        if bool((x_bar8[:, N_CHECK_COLS:] != 0).any()):
+            raise AssertionError(f'{name}: x_bar is not 0 where gbar is')
+        t0 = time.time()
+        cbar_ref, xbar_ref = scipy_vjp(
+            L_host, lmax, c.detach().double().cpu().numpy(),
+            x[:, :N_CHECK_COLS].double().cpu().numpy(),
+            gbar[:, :, :N_CHECK_COLS].double().cpu().numpy(), N_CHECK_XBAR)
+        log(f'  scipy f64 VJP (c_bar on {N_CHECK_COLS} columns, x_bar on '
+            f'{N_CHECK_XBAR}): {time.time() - t0:.1f} s')
+        result['scipy_rel_err'] = {
+            'c_bar': check(f'{name} c_bar vs scipy f64', c_bar8.cpu(),
+                           torch.from_numpy(cbar_ref), TOL_PATH),
+            'x_bar': check(f'{name} x_bar vs scipy f64',
+                           x_bar8[:, :N_CHECK_XBAR].cpu(),
+                           torch.from_numpy(xbar_ref), TOL_PATH)}
+        del c_bar8, x_bar8, g8
+    cd = c.detach()
+    result['ms'] = {
+        'forward': time_ms(lambda: cheby_op(L, lmax, cd, x), 3),
+        'backward': time_ms(lambda: torch.autograd.grad(
+            out, (c, xg), gbar, retain_graph=True), 3),
+        'x_bar_synthesis': time_ms(lambda: _fixed_graph_grads(
+            L, lmax, cd, x, gbar, False, True), 3),
+        'c_bar_pass': time_ms(lambda: _fixed_graph_grads(
+            L, lmax, cd, x, gbar, True, False), 3)}
+    log(f'  {name}: ms {json.dumps(result["ms"])}')
+    return result
+
+
+def train_kernels(steps):
+    """Kernel B's launches that ``steps`` training steps need at least: in
+    each, three recurrences' steps (forward, x̄ synthesis, c̄ pass), one
+    accumulator group, the synthesis contractions and one coefficient
+    group."""
+    return {'cheby_step': 3 * (ORDER - 1) * steps, 'cheby_acc_group': steps,
+            'cheby_acc_contract': (ORDER - 1) * steps,
+            'cheby_dot_group': steps}
+
+
+def phase_path_e(name, G, L, x, steps, L_host=None):
+    """Path E on one path's graph and signal: the VJP's checks, then
+    ``steps`` Adam steps of the filter-learning model."""
+    log(f'phase E: path E (training) on {name}')
+    vjp = check_vjp(f'path E on {name}', G.L if L is None else L, G.lmax, x,
+                    L_host)
+    torch.cuda.empty_cache()
+    trained = train(name, G, L, x, steps)
+    torch.cuda.empty_cache()
+    return {'vjp': vjp, 'train': trained}, trained['launches']
+
+
+def host_lanczos(L, x, order, kernels):
+    """Lanczos filtering of each column of ``x`` (N, C) on the host in f64,
+    the port's algorithm (full reorthogonalization, Ritz values clamped at
+    0), through each of ``kernels`` (NumPy functions of λ): (N, C, Nf)."""
+    blocks = host_blocks(L)
+    n, cols = x.shape
+    norm = np.linalg.norm(x, axis=0)
+    V = np.zeros((cols, order, n))
+    alphas, betas = np.zeros((order, cols)), np.zeros((order, cols))
+    q = x / norm
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        r = host_product(pool, blocks, q)
+        alphas[0] = (q * r).sum(0)
+        r -= alphas[0] * q
+        V[:, 0] = q.T
+        for k in range(1, order):
+            betas[k] = np.linalg.norm(r, axis=0)
+            q_new = r / betas[k]
+            V[:, k] = q_new.T
+            r = host_product(pool, blocks, q_new) - betas[k] * q
+            alphas[k] = (q_new * r).sum(0)
+            r -= alphas[k] * q_new
+            for col in range(cols):
+                basis = V[col, :k + 1]
+                r[:, col] -= basis.T @ (basis @ r[:, col])
+            q = q_new
+    out = np.empty((n, cols, len(kernels)))
+    for col in range(cols):
+        H = (np.diag(alphas[:, col]) + np.diag(betas[1:, col], 1)
+             + np.diag(betas[1:, col], -1))
+        e, U = np.linalg.eigh(H)
+        e = np.maximum(e, 0.0)
+        w = np.stack([U @ (kernel(e) * U[0]) for kernel in kernels], axis=1)
+        out[:, col] = V[col].T @ (w * norm[col])
+    return out
+
+
+def phase_path_f_lanczos(G, x):
+    """Lanczos filtering on path A's graph: the bench bank on x (N, S), S
+    the widest power of two up to 128 whose basis fits the card, and the
+    synthesis direction at 32 signals x 4 filters, checked against a host
+    f64 Lanczos of the same order on N_CHECK_LANCZOS signals and on one
+    signal's 4 filter columns."""
+    log('phase F: path F (Lanczos) on path A\'s graph')
+    g = gsp.filters.Heat(G, scale=SCALES)
+    lmax = G.lmax
+    nf = len(SCALES)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    s = N_SIGNALS
+    while True:
+        try:
+            xs = x[:, :s]
+            t0 = time.time()
+            out = g.filter(xs, method='lanczos', order=ORDER)
+            torch.cuda.synchronize()
+            first_s = time.time() - t0
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            log(f'  Lanczos at S={s} does not fit the card; halving S')
+            s //= 2
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = counts()
+    log(f'  Lanczos at S={s}: {first_s:.2f} s, peak {peak:.2f} GiB, '
+        f'launches {launches}')
+    bank = seeded_normal((G.N, 32, nf), 71)
+    syn = g.filter(bank, method='lanczos', order=ORDER)
+    if tuple(out.shape) != (G.N, s, nf) or tuple(syn.shape) != (G.N, 32):
+        raise AssertionError(f'path F shapes {tuple(out.shape)}, '
+                             f'{tuple(syn.shape)}')
+    cols = np.concatenate([x[:, :N_CHECK_LANCZOS].double().cpu().numpy(),
+                           bank[:, 0].double().cpu().numpy()], axis=1)
+    t0 = time.time()
+    ref = host_lanczos(G.L.to_scipy(), cols, ORDER,
+                       [heat_np(sc, lmax) for sc in SCALES])
+    log(f'  host f64 Lanczos on {cols.shape[1]} columns: '
+        f'{time.time() - t0:.1f} s')
+    err = check(f'path F Lanczos ({N_CHECK_LANCZOS} signals) vs host f64',
+                out[:, :N_CHECK_LANCZOS].cpu(),
+                torch.from_numpy(ref[:, :N_CHECK_LANCZOS]), TOL_LANCZOS)
+    syn_ref = sum(ref[:, N_CHECK_LANCZOS + f, f] for f in range(nf))
+    err_syn = check('path F Lanczos synthesis (signal 0) vs host f64',
+                    syn[:, 0].cpu(), torch.from_numpy(syn_ref), TOL_LANCZOS)
+    del out, syn
+    bare = lanczos_without_reorth(G.L, g.evaluate, x[:, :N_CHECK_LANCZOS],
+                                  ORDER).permute(1, 2, 0).cpu().double()
+    want = torch.from_numpy(ref[:, :N_CHECK_LANCZOS])
+    err_bare = float((bare - want).abs().max() / want.abs().max())
+    log(f'  the same Lanczos without reorthogonalization (f32, on the card) '
+        f'vs host f64: rel err {err_bare:.3e} (shown, not held)')
+    del bare
+    ms = time_ms(lambda: g.filter(xs, method='lanczos', order=ORDER), 1)
+    ms_syn = time_ms(lambda: g.filter(bank, method='lanczos', order=ORDER), 1)
+    return {'s': s, 'first_call_s': first_s, 'ms': ms, 'synthesis_ms': ms_syn,
+            'peak_gib': peak, 'rel_err': err, 'synthesis_rel_err': err_syn,
+            'without_reorth_rel_err': err_bare,
+            'launches': launches}, launches
+
+
+def lanczos_without_reorth(L, evaluate, x, order):
+    """``lanczos_op`` (Nf, N, S) with the reorthogonalization left out:
+    the three-term recurrence alone, whose f32 basis loses orthogonality,
+    and the same Ritz filter. A reading of what the check of path F would
+    see from such a basis (logged, not held)."""
+    mv, xp, pout = lz._hoisted(L, x)
+    n, s = xp.shape
+    V = torch.zeros((order, n, s), dtype=xp.dtype, device=xp.device)
+    alphas = torch.zeros((order, s), dtype=xp.dtype, device=xp.device)
+    betas = torch.zeros_like(alphas)
+    q, q_old = xp / torch.linalg.norm(xp, dim=0), torch.zeros_like(xp)
+    for k in range(order):
+        V[k] = q
+        r = mv(q) - betas[k] * q_old
+        alphas[k] = (q * r).sum(0)
+        r -= alphas[k] * q
+        if k + 1 < order:
+            betas[k + 1] = torch.linalg.norm(r, dim=0)
+            q_old, q = q, r / betas[k + 1]
+    H = (torch.diag_embed(alphas.T) + torch.diag_embed(betas.T[:, 1:], 1)
+         + torch.diag_embed(betas.T[:, 1:], -1))
+    uh, fe = lz._ritz(H, evaluate)
+    proj = torch.einsum('soj,os->sj', uh, lz._dots(V, xp, order))
+    w = torch.einsum('soj,fsj->fos', uh, fe * proj[None])
+    return pout(torch.stack([lz._combine(V, w[f]) for f in range(len(w))]),
+                axis=1)
+
+
+def heat_np(scale, lmax):
+    return lambda lam: np.exp(-scale * lam / lmax)
+
+
+def phase_path_f_exact():
+    """``method='exact'`` on Grid2d(64, 64), the graph of
+    __graft_entry__.entry, in f32 on the card against host f64
+    numpy.linalg.eigh filtering; and the guard: ``g.filter(x)`` with x
+    requiring grad raises on the card."""
+    log('phase F: path F (exact) on Grid2d(64, 64)')
+    G = gsp.graphs.Grid2d(EXACT_SIDE, EXACT_SIDE)
+    reset_counts()
+    t0 = time.time()
+    G.compute_fourier_basis()
+    torch.cuda.synchronize()
+    basis_s = time.time() - t0
+    g = gsp.filters.Heat(G, scale=SCALES)
+    x = seeded_normal((G.N, N_SIGNALS), 72)
+    out = g.filter(x, method='exact')
+    t0 = time.time()
+    e, U = np.linalg.eigh(G.L.to_scipy().toarray())
+    x8 = x[:, :N_CHECK_COLS].double().cpu().numpy()
+    ref = np.stack([U @ (np.exp(-sc * np.maximum(e, 0) / G.lmax)[:, None]
+                         * (U.T @ x8)) for sc in SCALES], axis=-1)
+    log(f'  host f64 eigh filtering: {time.time() - t0:.1f} s')
+    err = check('path F exact vs host f64 eigh', out[:, :N_CHECK_COLS].cpu(),
+                torch.from_numpy(ref), TOL_PATH)
+    ms = time_ms(lambda: g.filter(x, method='exact'), 3)
+    launches = counts()
+    xr = x.clone().requires_grad_()
+    try:
+        g.filter(xr, order=ORDER)
+    except RuntimeError as exc:
+        if 'cheby_op_fixed_graph' not in str(exc):
+            raise
+        log(f'  a grad-requiring g.filter(x) on the card raises: {exc}')
+    else:
+        raise AssertionError('g.filter(x) with x requiring grad ran on the '
+                             'card')
+    return {'basis_s': basis_s, 'ms': ms, 'rel_err': err,
+            'lmax': G.lmax}, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1320,19 +1979,47 @@ def main():
     double = phase_build()
     fold3 = phase_kernels()
     phase_kernel_b()
-    csr, path_a, counts_a = phase_path_a()
+    path_e, path_f, other = {}, {}, {}
+    csr, path_a, counts_a, (G, x) = phase_path_a()
+    path_e['A'], other['E_A'] = phase_path_e('A', G, None, x, TRAIN_STEPS,
+                                             G.L.to_scipy())
+    require_launches('E on A', other['E_A'], csr_spmm=3 * ORDER * TRAIN_STEPS,
+                     **train_kernels(TRAIN_STEPS))
+    path_f['lanczos'], other['F_lanczos'] = phase_path_f_lanczos(G, x)
+    require_launches('F (Lanczos)', other['F_lanczos'], csr_spmm=ORDER)
+    del G, x
     torch.cuda.empty_cache()
-    banded, path_b, counts_b = phase_path_b()
+    banded, path_b, counts_b, (G, Lb, x) = phase_path_b()
+    path_e['B'], other['E_B'] = phase_path_e('B', G, Lb, x, 1,
+                                             G.L.to_scipy())
+    require_launches('E on B', other['E_B'], banded_spmm=3 * ORDER,
+                     **train_kernels(1))
+    del G, Lb, x
     torch.cuda.empty_cache()
     fold, strip, fold2, path_c, counts_c, shared = phase_path_c()
     fast, path_d, counts_d = phase_path_d(*shared)
+    G, _, x, _ = shared
     del shared
     torch.cuda.empty_cache()
+    # the host's Laplacian from the adjacency, as path C's reference
+    path_e['C'], other['E_C'] = phase_path_e('C', G, None, x, TRAIN_STEPS,
+                                             sps.diags(G.dw) - G.W)
+    require_launches('E on C', other['E_C'],
+                     windowed_fold=3 * ORDER * TRAIN_STEPS,
+                     window_strip=3 * ORDER * TRAIN_STEPS,
+                     **train_kernels(TRAIN_STEPS))
+    if other['E_C']['csr_spmm']:
+        raise AssertionError('the CSR kernel ran in path E on C')
+    del G, x
+    torch.cuda.empty_cache()
+    path_f['exact'], other['F_exact'] = phase_path_f_exact()
+    torch.cuda.empty_cache()
     paths = {'A': path_a, 'B': path_b, 'C': path_c, 'D': path_d}
-    step, group, one, contract, kb_bank = phase_kernel_b_times(
+    step, group, one, contract, kb_bank, dot = phase_kernel_b_times(
         {p: path['acc_group'] for p, path in paths.items()})
     for p, path in paths.items():
         path['kernel_b_per_bank'] = kb_bank[p]
+    paths.update(E=path_e, F=path_f)
     log(f'paths: {json.dumps(paths)}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')
@@ -1377,32 +2064,43 @@ def main():
                               **{f'g1_{p}': one[p] for p in 'BCD'}},
                     replaces='pygsp_tpu/ops/chebyshev.py:189 and :323-334 '
                              '(XLA fusions, no Pallas kernel)')
-    kb_contract = dict(contract, name='cheby_acc_contract', route='cuda',
-                       source=source,
+    g = path_a['acc_group']
+    kb_dot = dict(dot['A'][f'g{g}'], name='cheby_dot_group', route='cuda',
+                  source=source, at_paths={'A and C': dot['A'], 'B': dot['B']},
+                  launches_per_backward=dot_groups(g),
+                  replaces='pygsp_tpu/ops/chebyshev.py:431-433 (dot_all of '
+                           'the fixed-graph VJP) and :707-723 (its chunked '
+                           'form); XLA dot_general, no Pallas kernel')
+    kb_contract = dict(contract['A'], name='cheby_acc_contract',
+                       route='cuda', source=source, at_paths=contract,
                        replaces='pygsp_tpu/ops/chebyshev.py:621 and :697 '
                                 '(XLA fusions, no Pallas kernel; synthesis, '
                                 'not on the bench path)')
-    # launches as counted in each path's own run; a kernel's `launches` is
-    # that of the paths it serves, or the sum over the four paths for the
-    # kernels that serve none (fold_products, double, cheby_acc_contract)
+    # launches as counted in each path's own run, its counts set to 0 just
+    # before it and read just after: `launches` sums them over every path
+    # (A-D, the banks; E, training on A, B and C; F, Lanczos and exact);
+    # `launches_per_bank` sums a bank path's bank over the paths the kernel
+    # serves (all four for the kernels that serve none)
     by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d}
     for kernel, served in ((csr, 'A'), (banded, 'B'), (fold, 'CD'),
                            (strip, 'CD'), (fold2, None), (double, None),
                            (kb_step, 'ABCD'), (kb_group, 'ABCD'),
-                           (kb_contract, None)):
+                           (kb_dot, None), (kb_contract, None)):
         name = kernel['name']
         served = list(served or by_path)
+        launches = {**{p: by_path[p][0][name] for p in by_path},
+                    **{p: other[p][name] for p in other}}
         kernel.update(
-            launches=sum(by_path[p][0][name] for p in served),
+            launches=sum(launches.values()),
             launches_per_bank=sum(by_path[p][1][name] for p in served),
-            launches_by_path={p: by_path[p][0][name] for p in by_path})
+            launches_by_path=launches)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     print(json.dumps({'kernels': [csr, banded, fold, strip, fold2, double,
-                                  kb_step, kb_group, kb_contract]}),
+                                  kb_step, kb_group, kb_contract, kb_dot]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

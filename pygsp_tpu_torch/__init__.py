@@ -7,10 +7,11 @@ follow the JAX package: ``pygsp_tpu_torch.graphs``, ``.filters``, ``.ops``,
 caller asks for the CPU; the SpMMs run hand-written CUDA kernels
 (``csrc/``) on the card and their plain PyTorch versions on the CPU.
 
-The first two slices cover the Chebyshev heat-filtering path: ``Graph``
-with its Laplacian and λmax, ``Grid2d``, ``BarabasiAlbert``, ``Logo``,
+The slices so far cover the Chebyshev heat-filtering path (``Graph`` with
+its Laplacian and λmax, ``Grid2d``, ``BarabasiAlbert``, ``Logo``,
 ``Filter`` and ``Heat``, on the CSR, block-banded and windowed-compact
-storage formats.
+storage formats), training through the constant-memory fixed-graph VJP
+(``Filter.filter(fixed_graph=True)``), and exact and Lanczos filtering.
 """
 
 from pygsp_tpu_torch import core

@@ -103,6 +103,21 @@ def function(name: str, symbol: str, n_pointers: int, n_ints: int):
     return fn
 
 
+def refuse_autograd(name: str, *tensors):
+    """Raise where autograd would record the kernel's call: grad mode is on
+    and an operand requires grad. A kernel reads and writes raw pointers,
+    so autograd sees none of its work; a gradient taken through it would
+    come back wrong, with no error. Inside a ``torch.autograd.Function``'s
+    forward and backward grad mode is off, so the kernels run there."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f'{name}: an operand requires grad, and the CUDA kernel is '
+            f'invisible to autograd. Differentiate the Chebyshev filter '
+            f'through pygsp_tpu_torch.ops.cheby_op_fixed_graph or '
+            f'Filter.filter(fixed_graph=True), or run the call under '
+            f'torch.no_grad()')
+
+
 def launch(name: str, symbol: str, n_pointers: int, n_ints: int,
            device: int, *args):
     """Call ``symbol`` of ``csrc/<name>.cu`` with ``args`` (pointers, then

@@ -71,6 +71,7 @@ def banded_spmm(tiles, x, n_rows: int):
         return banded_spmm_plain(tiles, x, n_rows)
     if x.device.type != 'cuda':
         raise ValueError(f'banded_spmm runs on cuda or cpu, not {x.device}')
+    _cuda.refuse_autograd('banded_spmm', tiles, x)
     nb, n_diag = tiles.shape[:2]
     s = x.shape[1]
     y = torch.empty((n_rows, s), dtype=x.dtype, device=x.device)

@@ -1,6 +1,6 @@
 """The fused Chebyshev step (kernel B), with its plain versions.
 
-Three CUDA kernels live in ``csrc/cheby_step.cu`` (see its note for the
+Four CUDA kernels live in ``csrc/cheby_step.cu`` (see its note for the
 design); they take the place of the XLA fusions inside the JAX package's
 ``lax.scan`` bodies (``pygsp_tpu/ops/chebyshev.py:186-190``, ``:264-272``,
 ``:323-334``, ``:621``), which eager PyTorch would run as one pass over
@@ -9,12 +9,16 @@ memory per operator:
 - :func:`cheby_step`: ``out = carry((fd ⊙ t + sc·y) − t_old)``;
 - :func:`cheby_acc_group`: ``acc[f] += Σ_j cg[j, f]·terms[j]``, the
   accumulation of g steps at once;
-- :func:`cheby_acc_contract`: ``acc += Σ_f ck[f]·t[..., f]``, synthesis.
+- :func:`cheby_acc_contract`: ``acc += Σ_f ck[f]·t[..., f]``, synthesis;
+- :func:`cheby_dot_group`: ``out[j, f] = ⟨ḡ_f, terms[j]⟩``, the coefficient
+  gradient of the fixed-graph VJP, a group of terms at a time (the JAX
+  package's ``dot_all``, ``pygsp_tpu/ops/chebyshev.py:431-433``).
 
 The arithmetic is in the signal's dtype (``fdiag``'s, float32 or float64);
 the terms may be carried narrower (bfloat16 beside float32). Each plain
-version is the same single operations in the same order, so on the card a
-kernel and its plain version agree bit for bit. Each wrapper launches its
+version of the first three is the same single operations in the same
+order, so on the card a kernel and its plain version agree bit for bit; the
+fourth sums in float64 in its own order. Each wrapper launches its
 kernel for CUDA tensors, runs the plain version for CPU tensors, and counts
 its launches in ``.launches``. The accumulators are updated in place.
 """
@@ -93,6 +97,7 @@ def cheby_step(y, t, t_old, fdiag, sc, out=None):
                          f'{tuple(sc.shape)}')
     if t.device.type == 'cpu':
         return cheby_step_plain(y, t, t_old, fdiag, sc, out)
+    _cuda.refuse_autograd('cheby_step', y, t, t_old, fdiag, sc, out)
     n_rows = t.shape[0]
     _cuda.launch(_SOURCE, 'cheby_step_' + _suffix('cheby_step', md, cd), 6, 2,
                  t.get_device(), y.data_ptr(), t.data_ptr(), t_old.data_ptr(),
@@ -140,6 +145,7 @@ def cheby_acc_group(acc, terms, cg, start: int = 0):
     _check('cheby_acc_group', md, [acc, terms, cg], [md, cd, md])
     if acc.device.type == 'cpu':
         return cheby_acc_group_plain(acc, terms, cg, start)
+    _cuda.refuse_autograd('cheby_acc_group', acc, terms, cg)
     n_rows = acc.shape[1]
     _cuda.launch(_SOURCE, 'cheby_acc_group_' + _suffix('cheby_acc_group', md,
                                                        cd),
@@ -181,6 +187,7 @@ def cheby_acc_contract(acc, t, ck):
     _check('cheby_acc_contract', md, [acc, t, ck], [md, cd, md])
     if acc.device.type == 'cpu':
         return cheby_acc_contract_plain(acc, t, ck)
+    _cuda.refuse_autograd('cheby_acc_contract', acc, t, ck)
     n_rows = acc.shape[0]
     _cuda.launch(_SOURCE, 'cheby_acc_contract_'
                  + _suffix('cheby_acc_contract', md, cd),
@@ -194,4 +201,77 @@ def cheby_acc_contract(acc, t, ck):
 cheby_acc_contract.launches = 0
 
 
-KERNELS = (cheby_step, cheby_acc_group, cheby_acc_contract)
+# ---------------------------------------------------------------------------
+# (d) cheby_dot_group
+# ---------------------------------------------------------------------------
+
+# Rows of the float64 partials a cheby_dot_group launch may fill: pass 1
+# runs as many blocks as fit the card at once (for a group of more than one
+# term, 3 blocks of 128 threads on each of an H100's 132 SMs), at most this
+# many.
+DOT_MAX_BLOCKS = 1024
+_DOT_TYPES = {torch.float32: 'f32', torch.float64: 'f64'}
+
+
+def cheby_dot_group_plain(out, gbar, terms, start: int = 0):
+    """Plain PyTorch version of :func:`cheby_dot_group`: one einsum per
+    term of the group, in the operands' dtype."""
+    slots, nf = terms.shape[0], gbar.shape[-1]
+    gb = gbar.reshape(-1, nf)
+    for j in range(out.shape[0]):
+        out[j] = torch.einsum('nf,n->f', gb,
+                              terms[(start + j) % slots].reshape(-1))
+    return out
+
+
+def cheby_dot_group_bound(gbar, terms, start: int, g: int, out_dtype):
+    """``(g, Nf)`` float64: how far :func:`cheby_dot_group` may lie from a
+    float64 reference, ``((2n + 2)·2^-53 + u)·Σ|ḡ_f||t_j|`` over the n
+    values, u the unit roundoff of ``out_dtype``: the summation bounds of
+    the kernel and of the reference, whatever their orders, and the
+    output's one rounding."""
+    slots, nf = terms.shape[0], gbar.shape[-1]
+    gb = gbar.reshape(-1, nf).abs().double()
+    n = gb.shape[0]
+    mass = torch.stack([terms[(start + j) % slots].reshape(-1).abs().double()
+                        @ gb for j in range(g)])
+    return ((2 * n + 2) * 2.0**-53 + torch.finfo(out_dtype).eps / 2) * mass
+
+
+def cheby_dot_group(out, gbar, terms, start: int = 0):
+    """``out[j, f] = ⟨gbar[..., f], terms[(start + j) % R]⟩`` over all
+    values, for the ``g`` rows of ``out (g, Nf)``: the coefficient gradient
+    of :func:`~pygsp_tpu_torch.ops.chebyshev.cheby_op_fixed_graph`, one
+    group of recurrence terms at a time. ``gbar (N, ..., Nf)`` is the
+    cotangent bank with the filter axis last, ``terms (R, N, ...)`` a ring
+    of ``R >= g`` terms; all in one dtype, float32 or float64. The kernel
+    sums in float64 and rounds once to ``out``'s dtype; two launches are
+    bit-equal. Returns ``out``."""
+    g, nf = out.shape if out.ndim == 2 else (0, 0)
+    if (gbar.shape != terms.shape[1:] + (nf,) or not 0 < g <= terms.shape[0]
+            or start < 0):
+        raise ValueError(f'cheby_dot_group: out (g, Nf), gbar (N, ..., Nf) '
+                         f'and a ring of terms (R >= g, N, ...), got '
+                         f'{tuple(out.shape)}, {tuple(gbar.shape)}, '
+                         f'{tuple(terms.shape)}')
+    md = gbar.dtype
+    _check('cheby_dot_group', md, [out, gbar, terms], [md, md, md])
+    if out.device.type == 'cpu':
+        return cheby_dot_group_plain(out, gbar, terms, start)
+    _cuda.refuse_autograd('cheby_dot_group', out, gbar, terms)
+    n_rows = terms.shape[1]
+    partials = torch.empty((DOT_MAX_BLOCKS, g, nf), dtype=torch.float64,
+                           device=out.device)
+    _cuda.launch(_SOURCE, 'cheby_dot_group_' + _DOT_TYPES[md], 4, 7,
+                 out.get_device(), out.data_ptr(), partials.data_ptr(),
+                 gbar.data_ptr(), terms.data_ptr(), n_rows,
+                 terms[0].numel() // max(n_rows, 1), terms.shape[0],
+                 start % terms.shape[0], g, nf, DOT_MAX_BLOCKS)
+    cheby_dot_group.launches += 1
+    return out
+
+
+cheby_dot_group.launches = 0
+
+
+KERNELS = (cheby_step, cheby_acc_group, cheby_acc_contract, cheby_dot_group)

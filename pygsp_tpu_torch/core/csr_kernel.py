@@ -92,6 +92,7 @@ def csr_spmm(rowptr, cols, vals, x):
         return csr_spmm_plain(rowptr, cols, vals, x)
     if x.device.type != 'cuda':
         raise ValueError(f'csr_spmm runs on cuda or cpu, not {x.device}')
+    _cuda.refuse_autograd('csr_spmm', rowptr, cols, vals, x)
     n_rows, s = rowptr.shape[0] - 1, x.shape[1]
     y = torch.empty((n_rows, s), dtype=x.dtype, device=x.device)
     if n_rows == 0 or s == 0:

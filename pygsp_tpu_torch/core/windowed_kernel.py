@@ -215,6 +215,7 @@ def windowed_fold(cols, vals, rowid, x, chunk_rows: int, kp: int):
     _check_fold(cols, vals, rowid, x, chunk_rows, kp)
     if x.device.type == 'cpu':
         return windowed_fold_plain(cols, vals, rowid, x, chunk_rows, kp)
+    _cuda.refuse_autograd('windowed_fold', cols, vals, rowid, x)
     n_out, nw, n_src, L = cols.shape
     s = x.shape[1]
     t = torch.empty((n_out, nw, kp, s), dtype=x.dtype, device=x.device)
@@ -390,6 +391,8 @@ def window_strip(t, n_rows: int, window_rows: int,
         _check_residue(residue, x, t, n_rows)
     if t.device.type == 'cpu':
         return window_strip_plain(t, n_rows, window_rows, residue, x)
+    _cuda.refuse_autograd('window_strip', t, *(
+        () if residue is None else (residue.vals, x)))
     y = torch.empty((n_rows, s), dtype=t.dtype, device=t.device)
     if y.numel() == 0:
         return y
@@ -488,6 +491,7 @@ def fold_products(rid, p, kp: int):
     _check_operands('fold_products', (rid, p), p)
     if p.device.type == 'cpu':
         return fold_products_plain(rid, p, kp)
+    _cuda.refuse_autograd('fold_products', rid, p)
     nw, lt, s = p.shape
     out = torch.empty((nw, kp, s), dtype=torch.float32, device=p.device)
     if out.numel() == 0:
@@ -519,6 +523,7 @@ def double(x):
     _check_operands('double', (x,), x)
     if x.device.type == 'cpu':
         return double_plain(x)
+    _cuda.refuse_autograd('double', x)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y

@@ -4,6 +4,8 @@
 //   (a) cheby_step:        out = carry((fd . t + sc * y) - t_old)
 //   (b) cheby_acc_group:   acc[f] = acc[f] + sum_j cg[j, f] * terms[j]
 //   (c) cheby_acc_contract: acc = acc + sum_f ck[f] * t[..., f]
+//   (d) cheby_dot_group:    out[j, f] = <gbar[..., f], terms[j]>, the
+//                           coefficient gradient of the fixed-graph VJP
 // t, t_old, y and out are (N, S) row-major in the carry type C; fd (N,), sc,
 // ck and cg, and the accumulators (Nf, N, S) are in the signal's type M, in
 // which all arithmetic is done. y is the SpMM's output: A t on the windowed
@@ -43,6 +45,31 @@
 // terms are a ring of (N, S) buffers (core/cheby_kernel.py): the group is g
 // consecutive entries from `start`, wrapping, so the recurrence writes each
 // term where it will be accumulated from and never copies one.
+//
+// (d) replaces dot_all of the JAX package's fixed-graph VJP
+// (pygsp_tpu/ops/chebyshev.py:431-433; its chunked form :707-723, an XLA
+// dot_general per step, no Pallas kernel): c_bar[f, k] = <T_k x, gbar_f>
+// over all N*S values. The cotangent bank gbar is (N, ..., Nf), the filter
+// axis last, as the VJP's synthesis reads it. Bound: bytes, like (b): a
+// group reads its g terms and gbar once, (g + Nf) * N * S values, where a
+// dot per step would read gbar again at every step. Design: two passes and
+// no atomics. Pass 1 walks packs of 16 bytes of the terms, grid-stride over
+// a grid of exactly the blocks that fit the card at once; a thread loads
+// the Nf gbar values of its pack's elements (Nf packs of 16 bytes, the
+// filter axis being contiguous) and the pack of each of the g terms, and
+// keeps the g x Nf sums in registers, in float64 for both instances: a
+// product of two floats is exact there, so the f32 instance rounds only
+// its output (the f64 units are idle at this byte count). The g loads are
+// issued together, before the first product: they are predicated on the
+// group's size, where a loop that broke out at g would wait for each term
+// in turn. The sums take most of the registers, so the instance for a
+// group of up to 14 is held to 3 blocks an SM (a few registers spill; at
+// 2 blocks it is slower, PERF.md) and a group of one, the recurrence's
+// first terms, runs an instance that keeps one term's sums. Each block
+// sums its threads in a fixed order (warp shuffles, then the warps in
+// order) into its row of partials (blocks, g, Nf), float64. Pass 2, one
+// block, sums each (j, f) over the blocks in a fixed order and rounds once
+// to the output's type. Two launches are bit-equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +78,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kFilters = 4;  // accumulators a pass of (b) keeps in registers
+constexpr int kDotThreads = 128;
+constexpr int kDotTerms = 14;  // terms a pass of (d) keeps sums for
+constexpr int kDotBlocksPerSM = 3;  // (d)'s blocks an SM holds, at most
+                                    // 168 registers a thread
 
 template <typename M>
 struct Arith;
@@ -196,6 +227,101 @@ cheby_acc_contract_kernel(M* __restrict__ acc, const C* __restrict__ t,
   }
 }
 
+// (d) pass 1: the sums of one block's packs for terms j0 .. j0 + nj - 1 of
+// the group and filters f0 .. f0 + nff - 1. With V > 1 (16-byte packs) NF
+// is nf and f0 is 0: element u of a pack has its NF gbar values at
+// gb[u * NF + f]. With V = 1, NF is kFilters and nff <= NF of the nf
+// filters are summed. NT: the terms a thread keeps sums for (nj <= NT).
+template <typename T, int V, int NF, int NT>
+__global__ void __launch_bounds__(kDotThreads, kDotBlocksPerSM)
+cheby_dot_partial_kernel(double* __restrict__ partials,
+                         const T* __restrict__ gbar,
+                         const T* __restrict__ ring, long long n, int slots,
+                         int start, int g, int j0, int nj, int nf, int f0,
+                         int nff) {
+  double sum[NT][NF];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int f = 0; f < NF; ++f) sum[j][f] = 0.0;
+  const long long packs = n / V;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < packs; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    T gb[V * NF];
+    if (V > 1) {
+#pragma unroll
+      for (int q = 0; q < NF; ++q) {
+        const Pack<T, V> p = load<T, V>(gbar, i * NF + q);
+#pragma unroll
+        for (int u = 0; u < V; ++u) gb[q * V + u] = p.v[u];
+      }
+    } else {
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        gb[f] = f < nff ? gbar[i * nf + f0 + f] : T(0);
+    }
+    // every term's load is issued before the first product: predicated,
+    // not broken out of, so that the group's loads are in flight together
+    Pack<T, V> pt[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (j < nj)
+        pt[j] = load<T, V>(
+            ring + static_cast<long long>((start + j0 + j) % slots) * n, i);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (j < nj)
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+#pragma unroll
+          for (int u = 0; u < V; ++u)
+            sum[j][f] = fma(static_cast<double>(gb[u * NF + f]),
+                            static_cast<double>(pt[j].v[u]), sum[j][f]);
+  }
+  __shared__ double red[kDotThreads / 32][NT * NF];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nj) break;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      double v = sum[j][f];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) red[warp][j * NF + f] = v;
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < nj * NF; o += blockDim.x) {
+    const int j = o / NF, f = o % NF;
+    if (f >= nff) continue;
+    double v = red[0][o];
+    for (int w = 1; w < kDotThreads / 32; ++w) v += red[w][o];
+    partials[(static_cast<long long>(blockIdx.x) * g + j0 + j) * nf + f0 +
+             f] = v;
+  }
+}
+
+// (d) pass 2: out[o] = sum over the blocks of partials[b, o], one warp per
+// output, the lanes' strided sums then a shuffle tree: a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kDotThreads)
+cheby_dot_sum_kernel(T* __restrict__ out, const double* __restrict__ partials,
+                     int blocks, int outputs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = warp; o < outputs; o += kDotThreads / 32) {
+    double v = 0.0;
+    for (int b = lane; b < blocks; b += 32)
+      v += partials[static_cast<long long>(b) * outputs + o];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) out[o] = static_cast<T>(v);
+  }
+}
+
 unsigned blocks_for(long long items) {
   const long long b = (items + kThreads - 1) / kThreads;
   return static_cast<unsigned>(b < 1 ? 1 : (b > 1048576 ? 1048576 : b));
@@ -261,7 +387,101 @@ int launch_contract(void* acc, const void* t, const void* ck, int n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The blocks of pass 1 that fit the card at once, at most max_blocks (the
+// rows of the caller's partials) and no more than the packs need.
+template <typename K>
+int dot_grid(K kernel, long long packs, int max_blocks) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDotThreads,
+                                                0);
+  const long long need = (packs + kDotThreads - 1) / kDotThreads;
+  long long b = static_cast<long long>(sms) * (per_sm < 1 ? 1 : per_sm);
+  if (b > need) b = need;
+  if (b > max_blocks) b = max_blocks;
+  return static_cast<int>(b < 1 ? 1 : b);
+}
+
+template <typename T, int V, int NF, int NT>
+int dot_pass_terms(void* partials, const void* gbar, const void* ring,
+                   long long n, int slots, int start, int g, int nf,
+                   int max_blocks, cudaStream_t st) {
+  const auto kernel = cheby_dot_partial_kernel<T, V, NF, NT>;
+  const int blocks = dot_grid(kernel, n / V, max_blocks);
+  for (int f0 = 0; f0 < nf; f0 += NF)
+    for (int j0 = 0; j0 < g; j0 += NT)
+      kernel<<<blocks, kDotThreads, 0, st>>>(
+          static_cast<double*>(partials), static_cast<const T*>(gbar),
+          static_cast<const T*>(ring), n, slots, start, g, j0,
+          g - j0 < NT ? g - j0 : NT, nf, f0, nf - f0 < NF ? nf - f0 : NF);
+  return blocks;
+}
+
+// A group of one term runs an instance that keeps one term's sums, so that
+// more blocks fit an SM; larger groups keep kDotTerms.
+template <typename T, int V, int NF>
+int dot_pass(void* partials, const void* gbar, const void* ring, long long n,
+             int slots, int start, int g, int nf, int max_blocks,
+             cudaStream_t st) {
+  return g == 1 ? dot_pass_terms<T, V, NF, 1>(partials, gbar, ring, n,
+                                              slots, start, g, nf,
+                                              max_blocks, st)
+                : dot_pass_terms<T, V, NF, kDotTerms>(partials, gbar, ring, n,
+                                                      slots, start, g, nf,
+                                                      max_blocks, st);
+}
+
+template <typename T>
+int launch_dot(void* out, void* partials, const void* gbar, const void* ring,
+               int n_rows, int s, int slots, int start, int g, int nf,
+               int max_blocks, void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  const long long n = static_cast<long long>(n_rows) * s;
+  if (g == 0 || nf == 0) return 0;
+  if (slots < g || start < 0 || max_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (n == 0)
+    return static_cast<int>(cudaMemsetAsync(out, 0, sizeof(T) * g * nf, st));
+  const bool vec = nf <= kFilters && n % V == 0 && aligned(gbar, 16) &&
+                   aligned(ring, 16);
+  int blocks;
+  if (!vec)
+    blocks = dot_pass<T, 1, kFilters>(partials, gbar, ring, n, slots, start,
+                                      g, nf, max_blocks, st);
+  else if (nf == 1)
+    blocks = dot_pass<T, V, 1>(partials, gbar, ring, n, slots, start, g, nf,
+                               max_blocks, st);
+  else if (nf == 2)
+    blocks = dot_pass<T, V, 2>(partials, gbar, ring, n, slots, start, g, nf,
+                               max_blocks, st);
+  else if (nf == 3)
+    blocks = dot_pass<T, V, 3>(partials, gbar, ring, n, slots, start, g, nf,
+                               max_blocks, st);
+  else
+    blocks = dot_pass<T, V, 4>(partials, gbar, ring, n, slots, start, g, nf,
+                               max_blocks, st);
+  cheby_dot_sum_kernel<T><<<1, kDotThreads, 0, st>>>(
+      static_cast<T*>(out), static_cast<const double*>(partials), blocks,
+      g * nf);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// (d) one instance per type: the VJP carries its terms in the signal's type.
+#define CHEBY_DOT(SUFFIX, T)                                                  \
+  extern "C" int cheby_dot_group_##SUFFIX(                                    \
+      void* out, void* partials, const void* gbar, const void* ring,         \
+      int n_rows, int s, int slots, int start, int g, int nf, int max_blocks, \
+      void* stream) {                                                         \
+    return launch_dot<T>(out, partials, gbar, ring, n_rows, s, slots, start,  \
+                         g, nf, max_blocks, stream);                          \
+  }
+
+CHEBY_DOT(f32, float)
+CHEBY_DOT(f64, double)
 
 // One instance per (signal type, carry type): f32, f64, and f32 with a bf16
 // carry.

@@ -1,9 +1,11 @@
 """Filter banks over graph spectra.
 
-Counterpart of :mod:`pygsp_tpu.filters.filter` for the Chebyshev analysis
-path: a bank is a list of scalar kernels λ → g(λ) attached to a graph.
-``method='chebyshev'`` runs the recurrence of
-:mod:`pygsp_tpu_torch.ops.chebyshev` eagerly (there is no jit cache).
+Counterpart of :mod:`pygsp_tpu.filters.filter`: a bank is a list of scalar
+kernels λ → g(λ) attached to a graph. ``method='chebyshev'`` runs the
+recurrence of :mod:`pygsp_tpu_torch.ops.chebyshev` eagerly (there is no jit
+cache), and with ``fixed_graph=True`` its constant-memory backward;
+``'lanczos'`` the Krylov approximation of :mod:`pygsp_tpu_torch.ops.lanczos`;
+``'exact'`` the graph's Fourier basis.
 
 Signal convention is the rank-3 ``(N_NODES, N_SIGNALS, N_FEATURES)`` with
 the same squeeze/expand ergonomics as the JAX package.
@@ -15,10 +17,7 @@ import numpy as np
 import torch
 
 from pygsp_tpu_torch.ops import chebyshev as cheby
-
-_NOT_PORTED = '{} is not ported yet: see ROADMAP.md, "Modules to port", {}'
-_ITEM_RECURRENCE = 'item 3 (the rest of the recurrence)'
-_ITEM_SPECTRAL = 'item 5 (the spectral side)'
+from pygsp_tpu_torch.ops import lanczos as lanczos_mod
 
 
 class Filter:
@@ -96,28 +95,41 @@ class Filter:
     def filter(self, s, method: str = 'chebyshev', order: int = 30,
                carry_dtype=None, carry_tol=None, vals_dtype=None,
                fixed_graph: bool = False):
-        """Analysis (1 → Nf features) or synthesis (Nf → 1) with the
-        Chebyshev recurrence.
+        """Analysis (1 → Nf features) or synthesis (Nf → 1).
 
         ``s`` (numpy or tensor) is moved to the graph's device; the result
-        is a squeezed tensor there. ``carry_dtype`` (windowed format): the
-        dtype the recurrence terms are carried in, e.g. ``torch.bfloat16``;
-        it is gated by the a-priori error bound
+        is a squeezed tensor there. ``method``: ``'chebyshev'`` (order
+        ``order``), ``'lanczos'`` (a Krylov space of ``order`` vectors per
+        column) or ``'exact'`` (the Fourier basis, computed on first use).
+
+        ``carry_dtype`` (chebyshev, windowed format): the dtype the
+        recurrence terms are carried in, e.g. ``torch.bfloat16``; it is
+        gated by the a-priori error bound
         (:func:`~pygsp_tpu_torch.ops.chebyshev.carry_error_estimate`) of
         the bank's coefficients against ``carry_tol``. ``vals_dtype``
         (windowed format): the dtype of the stored edge values; with both
         in bf16 the fold multiplies bf16 by bf16 (the fast mode of the JAX
         package's bench). On the CSR and banded formats both raise the JAX
         package's ``ValueError``.
+
+        ``fixed_graph`` (chebyshev, analysis): route through
+        :func:`~pygsp_tpu_torch.ops.chebyshev.cheby_op_fixed_graph`, whose
+        backward is two fresh recurrences instead of 3K stored terms.
+        Gradients flow to the signal and, through the coefficients, to any
+        parameter the kernels close over; the graph gets none. Without it,
+        a signal or kernel that requires grad raises on the card (the
+        kernels are invisible to autograd) and is differentiated by plain
+        autograd on the CPU.
         """
         if fixed_graph and (carry_dtype is not None
                             or vals_dtype is not None):
             raise ValueError('fixed_graph does not combine with '
                              'carry_dtype/vals_dtype yet — the exact '
                              'path is the training configuration')
-        if fixed_graph:
-            raise NotImplementedError(_NOT_PORTED.format(
-                'fixed_graph=True', _ITEM_RECURRENCE))
+        if fixed_graph and method != 'chebyshev':
+            raise ValueError('fixed_graph requires method="chebyshev" — '
+                             'the constant-memory VJP wraps the Chebyshev '
+                             'recurrence only')
         s = self.G._check_signal(s)
         if s.ndim == 1 or s.shape[-1] not in (1, self.Nf):
             if s.ndim == 3:
@@ -131,14 +143,32 @@ class Filter:
         if s.ndim > 3:
             raise ValueError('At most 3 dimensions: '
                              '#nodes x #signals x #features.')
-
-        if method in ('exact', 'lanczos'):
-            raise NotImplementedError(_NOT_PORTED.format(
-                f'method={method!r}', _ITEM_SPECTRAL))
-        if method != 'chebyshev':
-            raise ValueError(f'Unknown method {method}.')
-
         s = torch.as_tensor(s, device=self.G.device)
+
+        if method == 'exact':
+            f = self.evaluate(self.G.e).T                 # (N, Nf)
+            f = f.unsqueeze(1 if n_features_in == 1 else 2)
+            s_hat = self.G.gft(s)
+            out = self.G.igft(torch.matmul(s_hat, f.to(s_hat.dtype)))
+        elif method == 'chebyshev':
+            out = self._chebyshev(s, order, carry_dtype, carry_tol,
+                                  vals_dtype, fixed_graph)
+        elif method == 'lanczos':
+            if n_features_in == 1:
+                r = lanczos_mod.lanczos_op(self.G.L, self.evaluate,
+                                           s[..., 0], order=order)
+                out = torch.movedim(r, 0, -1)
+            else:
+                out = lanczos_mod.lanczos_synthesis_op(
+                    self.G.L, self.evaluate, s, order=order)[..., None]
+        else:
+            raise ValueError(f'Unknown method {method}.')
+        return out.squeeze()
+
+    def _chebyshev(self, s, order, carry_dtype, carry_tol, vals_dtype,
+                   fixed_graph):
+        """The Chebyshev recurrence on ``s`` (N, S, features in): (N, S,
+        features out)."""
         lmax = float(self.G.lmax)
         if carry_dtype is not None:
             # the gate of the JAX package's program build: coefficients in
@@ -150,10 +180,16 @@ class Filter:
                               device=s.device)
         kw = dict(carry_dtype=carry_dtype, carry_tol=carry_tol,
                   vals_dtype=vals_dtype)
-        if n_features_in == 1:                           # analysis
-            r = cheby.cheby_op(self.G.L, lmax, c, s[..., 0], **kw)
-            return torch.movedim(r, 0, -1).squeeze()     # (N, S, Nf) squeezed
-        return cheby.cheby_synthesis(self.G.L, lmax, c, s, **kw).squeeze()
+        if s.shape[-1] == 1:                             # analysis
+            if fixed_graph:
+                r = cheby.cheby_op_fixed_graph(self.G.L, lmax, c, s[..., 0])
+            else:
+                r = cheby.cheby_op(self.G.L, lmax, c, s[..., 0], **kw)
+            return torch.movedim(r, 0, -1)               # (N, S, Nf)
+        if fixed_graph:
+            raise ValueError('fixed_graph supports the analysis direction '
+                             '(1 -> Nf features); differentiate that side')
+        return cheby.cheby_synthesis(self.G.L, lmax, c, s, **kw)[..., None]
 
     def analyze(self, s, method='chebyshev', order=30):
         if not isinstance(s, torch.Tensor):

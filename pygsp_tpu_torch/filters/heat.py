@@ -10,8 +10,8 @@ from pygsp_tpu_torch.filters.filter import Filter
 class Heat(Filter):
     r"""Heat diffusion kernel: ``g(x) = min(exp(-scale·x/lmax), 1)``.
 
-    One kernel per scale, default scale 10. ``normalize=True`` needs the
-    Fourier basis, which is not ported yet.
+    One kernel per scale, default scale 10; ``normalize=True`` divides each
+    by ``‖g(G.e)‖``, which needs the Fourier basis.
 
     Examples
     --------
@@ -29,11 +29,6 @@ class Heat(Filter):
     """
 
     def __init__(self, G, scale=10, normalize: bool = False):
-        if normalize:
-            raise NotImplementedError(
-                'Heat(normalize=True) needs the Fourier basis, which is not '
-                'ported yet: see ROADMAP.md, "Modules to port", item 5 (the '
-                'spectral side)')
         try:
             iter(scale)
         except TypeError:
@@ -43,10 +38,14 @@ class Heat(Filter):
 
         # G.lmax is read at evaluation time (not captured) so the kernels
         # track lmax refinements.
-        def kernel(x, s):
+        def base(x, s):
             return torch.clamp(torch.exp(-s * x / G.lmax), max=1.0)
 
-        super().__init__(G, [lambda x, s=s: kernel(x, s) for s in self.scale])
+        kernels = []
+        for s in self.scale:
+            norm = float(torch.linalg.norm(base(G.e, s))) if normalize else 1.0
+            kernels.append(lambda x, s=s, norm=norm: base(x, s) / norm)
+        super().__init__(G, kernels)
 
     def _get_extra_repr(self):
         scale = '[' + ', '.join(f'{s:.2f}' for s in self.scale) + ']'

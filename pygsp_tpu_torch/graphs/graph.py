@@ -103,6 +103,9 @@ class Graph:
         self._L = None
         self._lmax = None
         self._lmax_method = None
+        self._U = None
+        self._e = None
+        self._coherence = None
         self._d = None
         self._dw = None
         self._directed = None
@@ -234,6 +237,9 @@ class Graph:
         if getattr(self, 'lap_type', None) != lap_type:
             self._lmax = None
             self._lmax_method = None
+            self._U = None
+            self._e = None
+            self._coherence = None
         self.lap_type = lap_type
 
         if lap_type not in ('combinatorial', 'normalized'):
@@ -318,3 +324,77 @@ class Graph:
             m = W.dot(dw) / safe
             bounds.append(float(np.max(dw + m)))
         return min(bounds)
+
+    # ------------------------------------------------------------------
+    # Fourier basis (the exact spectral path; small graphs)
+    # ------------------------------------------------------------------
+
+    def compute_fourier_basis(self, n_eigenvectors=None):
+        """Dense eigendecomposition of L on ``device``
+        (:func:`~pygsp_tpu_torch.ops.eigen.fourier_basis`). The full basis
+        also sets λmax to its largest eigenvalue and the coherence
+        ``max |U|``.
+
+        Examples
+        --------
+        >>> import torch
+        >>> from pygsp_tpu_torch import graphs
+        >>> G = graphs.Grid2d(3, 3, device='cpu', dtype=torch.float64)
+        >>> G.compute_fourier_basis()
+        >>> tuple(G.U.shape), float(G.e[0])
+        ((9, 9), 0.0)
+        """
+        if n_eigenvectors is None:
+            n_eigenvectors = self.n_vertices
+        if self._U is not None and n_eigenvectors <= len(self._e):
+            return
+        if self.n_vertices ** 2 * n_eigenvectors > 3000 ** 3:
+            self.logger.warning(
+                'Computing the eigendecomposition of a large matrix is '
+                'expensive. Consider using a polynomial filter instead.')
+        e, U = ops_eigen.fourier_basis(self._L, n_eigenvectors)
+        self._e, self._U = e, U
+        if n_eigenvectors == self.N:
+            self._lmax = float(e[-1])
+            self._lmax_method = 'fourier'
+            self._coherence = float(torch.max(torch.abs(U)))
+
+    @property
+    def U(self):
+        """Fourier basis: the Laplacian's eigenvectors, by column."""
+        return self._check_fourier('_U')
+
+    @property
+    def e(self):
+        """The Laplacian's eigenvalues, ascending."""
+        return self._check_fourier('_e')
+
+    @property
+    def coherence(self):
+        """``max |U|``, the Fourier basis's coherence."""
+        return self._check_fourier('_coherence')
+
+    def _check_fourier(self, attr):
+        if getattr(self, attr) is None:
+            self.logger.warning(
+                f'The Fourier basis G.{attr[1:]} is not available, we need '
+                'to compute the Fourier basis. Explicitly call '
+                'G.compute_fourier_basis() once beforehand to suppress the '
+                'warning.')
+            self.compute_fourier_basis()
+        return getattr(self, attr)
+
+    def gft(self, s):
+        """Graph Fourier transform ``ŝ = Uᵀ s`` over the first axis; ``s``
+        (numpy or tensor) is moved to the graph's device."""
+        U = self.U
+        s = torch.as_tensor(self._check_signal(s), device=U.device)
+        dt = torch.promote_types(s.dtype, U.dtype)
+        return torch.tensordot(U.conj().to(dt), s.to(dt), dims=([0], [0]))
+
+    def igft(self, s_hat):
+        """Inverse graph Fourier transform ``s = U ŝ`` over the first axis."""
+        U = self.U
+        s_hat = torch.as_tensor(s_hat, device=U.device)
+        dt = torch.promote_types(s_hat.dtype, U.dtype)
+        return torch.tensordot(U.to(dt), s_hat.to(dt), dims=([1], [0]))

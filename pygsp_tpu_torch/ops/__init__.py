@@ -2,7 +2,8 @@
 
 from pygsp_tpu_torch.ops.spmm import spmm
 from pygsp_tpu_torch.ops.chebyshev import (carry_error_estimate, cheby_coeff,
-                                           cheby_op, cheby_op_intermediates,
+                                           cheby_op, cheby_op_fixed_graph,
+                                           cheby_op_intermediates,
                                            cheby_rect, cheby_synthesis,
                                            jackson_cheby_coeff)
 from pygsp_tpu_torch.ops.eigen import (estimate_lmax_bounds,
@@ -11,7 +12,8 @@ from pygsp_tpu_torch.ops.eigen import (estimate_lmax_bounds,
 __all__ = [
     'spmm',
     'carry_error_estimate',
-    'cheby_coeff', 'cheby_op', 'cheby_op_intermediates', 'cheby_rect',
+    'cheby_coeff', 'cheby_op', 'cheby_op_fixed_graph',
+    'cheby_op_intermediates', 'cheby_rect',
     'cheby_synthesis', 'jackson_cheby_coeff',
     'estimate_lmax_lanczos', 'estimate_lmax_bounds',
 ]

@@ -26,6 +26,10 @@ follow the JAX package: the carried terms are stored narrow, every row sum,
 diagonal term and accumulator stays in the signal's dtype, and the mode is
 gated by :func:`carry_error_estimate`.
 
+:func:`cheby_op_fixed_graph` is the training path: ``cheby_op`` under a
+``torch.autograd.Function`` whose backward runs two fresh recurrences, the
+JAX package's constant-memory custom VJP.
+
 Signal convention: ``x`` has shape ``(N, ...)``; ``cheby_op`` returns
 ``(Nf, N, ...)``.
 """
@@ -248,23 +252,23 @@ def _operator_bytes(off) -> int:
                    if isinstance(getattr(off, f.name), torch.Tensor))
 
 
-def _grouped_steps(step, cT, t_old, t_cur, acc, g):
-    """Steps 2..m of the recurrence: the terms go into a ring of ``g + 2``
-    buffers and are added to ``acc`` ``g`` steps at a time (the first
-    ``(m - 1) mod g`` one at a time), as the JAX package's grouped
-    accumulation does. A group's terms and the two terms before it, which
+def _grouped_steps(step, m1: int, t_old, t_cur, g: int, group):
+    """Steps 2..m1-1 of the recurrence: the terms go into a ring of ``g + 2``
+    buffers and are handed on ``g`` steps at a time (the first
+    ``(m1 - 2) mod g`` one at a time), as the JAX package's grouped
+    accumulation does: ``group(ring, k, size, start)`` takes terms
+    ``k .. k + size - 1``, which stand in ring slots ``start, start + 1,
+    ...`` (wrapping). A group's terms and the two terms before it, which
     its first steps read, are distinct slots."""
     slots = g + 2
     ring = torch.empty((slots,) + t_cur.shape, dtype=t_cur.dtype,
                        device=t_cur.device)
-    m1 = cT.shape[0]
     head = 2 + (m1 - 2) % g
     for k in range(2, m1):                 # term k goes to slot k - 2
         t_old, t_cur = t_cur, step(t_cur, t_old, ring[(k - 2) % slots])
         size = 1 if k < head else g
         if size == 1 or (k - head) % g == g - 1:
-            cheby_kernel.cheby_acc_group(acc, ring, cT[k + 1 - size:k + 1],
-                                         (k - 1 - size) % slots)
+            group(ring, k + 1 - size, size, (k - 1 - size) % slots)
 
 
 def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
@@ -296,7 +300,9 @@ def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
     if m1 > 2:
         g = acc_group(m1 - 2, xin.numel(), xin.dtype, t_cur.dtype,
                       _operator_bytes(L.offdiag), nf)
-        _grouped_steps(step, cT, t_old, t_cur, acc, g)
+        _grouped_steps(step, m1, t_old, t_cur, g,
+                       lambda ring, k, size, start: cheby_kernel
+                       .cheby_acc_group(acc, ring, cT[k:k + size], start))
     return pout(acc, axis=1)
 
 
@@ -329,8 +335,15 @@ def cheby_synthesis(L: LaplacianOp, lmax, c, x: torch.Tensor,
                          f'number of filters ({nf})')
     L, c, x, cdt = _prepare(L, c, x, carry_dtype, carry_tol, vals_dtype)
     op, pin, pout = L.hoisted()
-    t_old, t_cur, step = _start(op, float(lmax), pin(x), cdt)
-    odt = x.dtype
+    return pout(_synthesis(op, lmax, c, pin(x), cdt))
+
+
+def _synthesis(op: LaplacianOp, lmax, c, xin, carry_dtype=None):
+    """The synthesis recurrence on ``op`` in its internal order, for ``xin``
+    (N, ..., Nf) in that order; returns (N, ...) in that order. ``xin`` is
+    read, never written."""
+    t_old, t_cur, step = _start(op, float(lmax), xin, carry_dtype)
+    odt = xin.dtype
     acc = (0.5 * c[:, 0] * t_old.to(odt) + c[:, 1] * t_cur.to(odt)).sum(-1)
     cT = c.T.contiguous()
     free = None
@@ -340,7 +353,105 @@ def cheby_synthesis(L: LaplacianOp, lmax, c, x: torch.Tensor,
         cheby_kernel.cheby_acc_contract(acc, t_new, cT[k])
         free = t_old if k > 2 else None
         t_old, t_cur = t_cur, t_new
-    return pout(acc)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# the fixed-graph VJP: training through the recurrence in constant memory
+# ---------------------------------------------------------------------------
+
+def cheby_op_fixed_graph(L: LaplacianOp, lmax, c, x: torch.Tensor
+                         ) -> torch.Tensor:
+    """:func:`cheby_op` with a constant-memory backward, for training.
+
+    Autograd through the K-step recurrence would keep every carried term,
+    3K (N, S) buffers (48.3 GB in float32 at N = 2^20, S = 128, K = 30);
+    on the card it cannot see the kernels at all. The bank is linear in
+    ``c`` and ``x``, so its adjoint needs none of them
+    (``pygsp_tpu/ops/chebyshev.py:361-456``):
+
+    - ``x̄ = Σ_f Σ_k c'[f, k] T̃_k ḡ_f``, the same series applied to the
+      cotangent bank (the shifted operator is symmetric):
+      :func:`cheby_synthesis` of ḡ with its filter axis last;
+    - ``c̄[f, k] = ⟨T̃_k x, ḡ_f⟩`` (0.5 at k = 0): one fresh recurrence on
+      x in the operator's internal order, its terms contracted with the
+      cotangents a group at a time
+      (:func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_dot_group`).
+
+    The backward holds the recurrence state of one pass at a time, and
+    computes the gradients of the inputs that require grad only. ``L`` and
+    ``lmax`` get
+    none: differentiating through the graph's weights needs the SpMM's own
+    backward, which the port does not have. ``c`` (Nf, m+1) or (m+1,) and
+    ``x`` (N, ...) are as in :func:`cheby_op`; c̄ has c's shape and dtype,
+    x̄ x's.
+    """
+    return _FixedGraph.apply(L, lmax, torch.as_tensor(c), x)
+
+
+class _FixedGraph(torch.autograd.Function):
+    """:func:`cheby_op_fixed_graph`'s forward and backward. The context
+    keeps L, λmax, c and x, nothing of the recurrence."""
+
+    @staticmethod
+    def forward(ctx, L, lmax, c, x):
+        ctx.L, ctx.lmax = L, lmax
+        ctx.save_for_backward(c, x)
+        return cheby_op(L, lmax, c, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        c, x = ctx.saved_tensors
+        c_bar, x_bar = _fixed_graph_grads(ctx.L, ctx.lmax, c, x, gout,
+                                          *ctx.needs_input_grad[2:])
+        return None, None, c_bar, x_bar
+
+
+def _fixed_graph_grads(L: LaplacianOp, lmax, c, x, gout, need_c: bool,
+                       need_x: bool):
+    """``(c̄, x̄)`` of the bank ``cheby_op(L, lmax, c, x)`` for its
+    cotangent ``gout`` (Nf, N, ...), each None where it is not needed. x is
+    promoted to the operator's dtype, as in the JAX package
+    (``pygsp_tpu/ops/chebyshev.py:411-412``)."""
+    L, xp = _promote(L, x)
+    dt = xp.dtype
+    c2 = torch.atleast_2d(c).to(dtype=dt, device=xp.device)
+    op, pin, pout = L.hoisted()
+    # the cotangent bank with its filter axis last, in the operator's
+    # internal order: one copy at most, read by both passes
+    gin = pin(gout.to(dt).movedim(0, -1)).contiguous()
+    c_bar = x_bar = None
+    if need_x:
+        x_bar = pout(_synthesis(op, lmax, c2, gin)).to(x.dtype)
+    if need_c:
+        c_bar = _coeff_grads(op, L, lmax, c2.shape[1],
+                             pin(xp).contiguous(), gin)
+        c_bar = c_bar.to(c).reshape(c.shape)
+    return c_bar, x_bar
+
+
+def _coeff_grads(op: LaplacianOp, L: LaplacianOp, lmax, m1: int, xin, gin):
+    """``c̄ (Nf, m1)``, ``c̄[f, k] = ⟨T̃_k x, ḡ_f⟩`` with 0.5 at k = 0, for
+    ``xin`` (N, ...) and ``gin`` (N, ..., Nf) in the internal order of
+    ``op`` (``L`` hoisted): the recurrence of :func:`cheby_op` with its
+    ring and its groups (the same ``g``), each group of terms contracted
+    with the cotangents in one pass, and terms 0 and 1 as groups of one
+    (the JAX package's ``_cheby_coeff_grads_chunked``,
+    ``pygsp_tpu/ops/chebyshev.py:707-736``)."""
+    nf = gin.shape[-1]
+    cbar_t = torch.empty((m1, nf), dtype=xin.dtype, device=xin.device)
+    t_old, t_cur, step = _start(op, float(lmax), xin)
+    cheby_kernel.cheby_dot_group(cbar_t[0:1], gin, t_old[None])
+    cheby_kernel.cheby_dot_group(cbar_t[1:2], gin, t_cur[None])
+    if m1 > 2:
+        g = acc_group(m1 - 2, xin.numel(), xin.dtype, xin.dtype,
+                      _operator_bytes(L.offdiag), nf)
+        _grouped_steps(step, m1, t_old, t_cur, g,
+                       lambda ring, k, size, start: cheby_kernel
+                       .cheby_dot_group(cbar_t[k:k + size], gin, ring, start))
+    cbar_t[0] *= 0.5
+    return cbar_t.T
 
 
 def cheby_rect(L: LaplacianOp, lmax, bounds, x: torch.Tensor,

@@ -1,8 +1,10 @@
-"""Spectrum estimation: the Lanczos λmax estimate and the algebraic bounds.
+"""Spectrum estimation: the Lanczos λmax estimate, the algebraic bounds and
+the dense Fourier basis.
 
-Counterpart of the λmax half of :mod:`pygsp_tpu.ops.eigen`. The Lanczos
-start vector comes from a seeded ``torch.Generator`` on the operator's
-device; it cannot match ``jax.random``, so parity tests pin λmax.
+Counterpart of :mod:`pygsp_tpu.ops.eigen` without its LOBPCG path. The
+Lanczos start vector comes from a seeded ``torch.Generator`` on the
+operator's device; it cannot match ``jax.random``, so parity tests pin
+λmax.
 """
 
 from __future__ import annotations
@@ -62,3 +64,24 @@ def estimate_lmax_bounds(W, dw=None, lap_type: str = 'combinatorial'):
 def matvec_adj(W, x):
     """Adjacency matvec (no diag term)."""
     return spmm(W, x)
+
+
+def fourier_basis(L: LaplacianOp, n_eigenvectors: int | None = None):
+    """Eigendecomposition of the Laplacian: ``(e, U)``, ascending, with
+    ``e[0]`` set to exactly 0 as in the reference. The dense operator goes
+    to ``torch.linalg.eigh`` on its device. A partial request that the JAX
+    package sends to LOBPCG (``k < N``, ``N > 2000`` and ``5k < N``) raises
+    ``NotImplementedError``: LOBPCG is not ported yet."""
+    n = L.n_vertices
+    k = n if n_eigenvectors is None else int(n_eigenvectors)
+    if k < n and n > 2000 and 5 * k < n:
+        raise NotImplementedError(
+            f'fourier_basis(n_eigenvectors={k}) on {n} vertices takes the '
+            f'LOBPCG path (partial_fourier_basis), which is not ported yet: '
+            f'see ROADMAP.md, "Modules to port", item 2 (the rest of the '
+            f'spectral side)')
+    e, U = torch.linalg.eigh(L.to_dense())
+    e[0] = 0.0
+    if k < e.shape[0]:
+        e, U = e[:k], U[:, :k]
+    return e, U

@@ -1,11 +1,17 @@
-"""Blocked Lanczos recursion (the part λmax estimation needs).
+"""Blocked Lanczos recursion, and Lanczos filtering.
 
 Counterpart of :mod:`pygsp_tpu.ops.lanczos`: one Krylov recursion advances
-every column of an (N, S) block at once, each step one SpMM plus
-per-column reductions. On a windowed operator the whole recursion runs in
-the matrix's internal (relabeled) order (``LaplacianOp.hoisted``): dot
-products and norms do not see the permutation, so the permutes apply once
-per solve. Lanczos filtering (``lanczos_op``) is not ported yet.
+every column of an (N, S) block at once, each step one SpMM (a kernel on
+the card) plus per-column reductions, followed by a small batched ``eigh``
+of the tridiagonal H matrices. On a windowed operator the whole recursion
+runs in the matrix's internal (relabeled) order (``LaplacianOp.hoisted``):
+dot products and norms do not see the permutation, so the permutes apply
+once per solve.
+
+The reductions over the basis (the reorthogonalization and the filter's
+assembly) run one basis vector at a time, where the JAX package's einsums
+would lay out the (order, N, S) basis again: the same sums, without a
+second copy of the basis at bench width.
 """
 
 from __future__ import annotations
@@ -13,13 +19,29 @@ from __future__ import annotations
 import torch
 
 from pygsp_tpu_torch.core.operators import LaplacianOp, matvec
+from pygsp_tpu_torch.ops.chebyshev import _promote
+
+
+def _dots(V, r, k: int):
+    """``(k, S)``: the per-column dot products of ``V[0..k-1]`` with
+    ``r`` (N, S)."""
+    return torch.stack([(V[j] * r).sum(dim=0) for j in range(k)])
+
+
+def _combine(V, w):
+    """``Σ_o V[o] · w[o]`` for ``V (o, N, S)`` and ``w (o, S)``."""
+    out = V[0] * w[0]
+    for j in range(1, w.shape[0]):
+        out.addcmul_(V[j], w[j])
+    return out
 
 
 def _lanczos_block(mv, x: torch.Tensor, order: int):
     """Blocked Lanczos bases for every column of ``x`` (N, S) at once.
 
     Returns ``V``: (order, N, S) and ``H``: (S, order, order). Full
-    reorthogonalization each step. A breakdown (zero residual) zeroes the
+    reorthogonalization each step, against the basis vectors so far (the
+    later ones are still zero). A breakdown (zero residual) zeroes the
     later basis vectors of that column instead of stopping early.
     """
     n, s = x.shape
@@ -50,7 +72,7 @@ def _lanczos_block(mv, x: torch.Tensor, order: int):
         alpha = torch.sum(q_new * r, dim=0)
         r = r - alpha * q_new
         # full reorthogonalization (per column)
-        r = r - torch.einsum('kns,ks->ns', V, torch.einsum('kns,ns->ks', V, r))
+        r = r - _combine(V, _dots(V, r, k + 1))
         alphas[k] = alpha
         betas[k] = torch.where(alive, beta, torch.zeros_like(beta))
         q = q_new
@@ -65,8 +87,80 @@ def _lanczos_block(mv, x: torch.Tensor, order: int):
     return V, H
 
 
+def _hoisted(L: LaplacianOp, x: torch.Tensor):
+    """``(mv, x, pout)``: the matvec of ``L`` in its internal order, ``x``
+    promoted with the operator and permuted into that order, and the
+    permute out of it."""
+    L, x = _promote(L, x)
+    op, pin, pout = L.hoisted()
+    return (lambda v: matvec(op, v)), pin(x), pout
+
+
 def _lanczos_single(L: LaplacianOp, x: torch.Tensor, order: int):
     """Lanczos basis for one vector: returns V (N, order), H (order, order)."""
-    op, pin, pout = L.hoisted()
-    V, H = _lanczos_block(lambda v: matvec(op, v), pin(x)[:, None], order)
+    mv, xp, pout = _hoisted(L, x)
+    V, H = _lanczos_block(mv, xp[:, None], order)
     return pout(torch.movedim(V[:, :, 0], 0, 1)), H[0]
+
+
+def lanczos_basis(L: LaplacianOp, x: torch.Tensor, order: int):
+    """Per-column Lanczos bases. x: (N,) or (N, S) →
+    V: (S, N, order), H: (S, order, order) (S squeezed off for 1-D x)."""
+    if x.ndim == 1:
+        return _lanczos_single(L, x, order)
+    mv, xp, pout = _hoisted(L, x)
+    V, H = _lanczos_block(mv, xp, order)
+    return pout(V.permute(2, 1, 0), axis=1), H
+
+
+def _ritz(H, evaluate):
+    """``(uh, fe)``: the Ritz vectors of each column's H, (S, order,
+    order), and the bank's responses at its Ritz values clamped at 0,
+    (Nf, S, order)."""
+    eh, uh = torch.linalg.eigh(H)                       # (S, o), (S, o, o)
+    eh = eh.clamp(min=0.0)
+    fe = torch.atleast_2d(evaluate(eh.reshape(-1)))     # (Nf, S*o)
+    return uh, fe.reshape(fe.shape[0], *eh.shape)
+
+
+def lanczos_op(L: LaplacianOp, evaluate, x: torch.Tensor,
+               order: int = 30) -> torch.Tensor:
+    """Filter ``x`` through a bank via the Lanczos approximation.
+
+    ``evaluate``: λ-tensor → (Nf, len(λ)) kernel responses.
+    x: (N,) or (N, S). Returns (Nf, N) or (Nf, N, S), the layout of
+    :func:`~pygsp_tpu_torch.ops.chebyshev.cheby_op`: per column,
+    ``‖x‖ V U f(Θ) Uᵀ e₁`` with the Ritz pairs (Θ, U) of its H.
+    """
+    squeeze = x.ndim == 1
+    xs = x[:, None] if squeeze else x
+    mv, xp, pout = _hoisted(L, xs)
+    V, H = _lanczos_block(mv, xp, order)                # (o, N, S)
+    uh, fe = _ritz(H, evaluate)                         # (S, o, o), (Nf, S, o)
+    # the JAX package's VU = V uh and proj = VUᵀ x, by the basis
+    proj = torch.einsum('soj,os->sj', uh, _dots(V, xp, order))
+    w = torch.einsum('soj,fsj->fos', uh, fe * proj[None])   # (Nf, o, S)
+    out = torch.stack([_combine(V, w[f]) for f in range(w.shape[0])])
+    out = pout(out, axis=1)
+    return out[..., 0] if squeeze else out
+
+
+def lanczos_synthesis_op(L: LaplacianOp, evaluate, s: torch.Tensor,
+                         order: int = 30) -> torch.Tensor:
+    """Synthesis ``Σ_i g_i(L) s[..., i]`` in one blocked pass: the Krylov
+    recursions of all (signal, filter) columns advance together, each step
+    one (N, S·Nf)-wide SpMM.
+
+    ``evaluate``: λ-tensor → (Nf, len(λ)) bank responses.
+    s: (N, S, Nf). Returns (N, S).
+    """
+    n, n_s, nf = s.shape
+    cols = s.reshape(n, n_s * nf)                   # filter-major flatten
+    mv, xp, pout = _hoisted(L, cols)
+    V, H = _lanczos_block(mv, xp, order)
+    uh, fe_all = _ritz(H, evaluate)                 # (C, o, o), (Nf, C, o)
+    c = torch.arange(n_s * nf, device=xp.device)
+    fe = fe_all[c % nf, c]                          # each column's kernel
+    proj = torch.einsum('coj,oc->cj', uh, _dots(V, xp, order))
+    out = _combine(V, torch.einsum('coj,cj->oc', uh, fe * proj))
+    return pout(out).reshape(n, n_s, nf).sum(dim=2)

@@ -324,8 +324,10 @@ def test_fixed_graph_refuses_the_modes_first():
         tgsp.filters.Heat(T, 5.0).filter(s, carry_dtype=torch.bfloat16,
                                          fixed_graph=True)
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match='item 3'):
-        tgsp.filters.Heat(T, 5.0).filter(s, fixed_graph=True)
+    s = np.random.default_rng(2).normal(size=J.N).astype(np.float32)
+    want = tgsp.filters.Heat(T, 5.0).filter(s)
+    got = tgsp.filters.Heat(T, 5.0).filter(s, fixed_graph=True)
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

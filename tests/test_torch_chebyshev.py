@@ -171,20 +171,21 @@ def test_errors_match_jax():
         g.analyze(np.zeros((T.N, 1, 2)))
 
 
-@pytest.mark.parametrize('call', ['exact', 'lanczos', 'fixed_graph',
-                                  'normalize'])
+@pytest.mark.parametrize('call', ['partial_fourier_basis', 'to_hybrid',
+                                  'to_chunked'])
 def test_unported_options_name_their_roadmap_item(call):
-    T = tgsp.graphs.Grid2d(4, 4, **CPU64)
-    T.estimate_lmax(method='bounds')
-    g = tgsp.filters.Heat(T, [1.0, 2.0])
-    s = np.zeros(T.N)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        if call in ('exact', 'lanczos'):
-            g.filter(s, method=call)
-        elif call == 'fixed_graph':
-            g.filter(s, fixed_graph=True)
-        else:
-            tgsp.filters.Heat(T, normalize=True)
+    """What is still not ported raises NotImplementedError naming its
+    current item of ROADMAP.md's "Modules to port"."""
+    if call == 'partial_fourier_basis':
+        T = tgsp.graphs.Grid2d(50, 50, **CPU64)     # LOBPCG above 2000
+        with pytest.raises(NotImplementedError,
+                           match='"Modules to port", item 2 '):
+            T.compute_fourier_basis(n_eigenvectors=10)
+    else:
+        T = tgsp.graphs.Grid2d(4, 4, **CPU64)
+        with pytest.raises(NotImplementedError,
+                           match='"Modules to port", item 4 '):
+            getattr(T.L, call)()
 
 
 def test_filter_bank_algebra():

@@ -23,9 +23,13 @@ and #4's ``y = 2x``; the tail (``window_strip`` with the residue list) in
 every instance against its plain version, with heavy rows, K = 2 and 4, S
 of 3 (one value a lane), 128 and 600, unaligned rows, and inf where only
 dead slots point; the bf16 instances of the fold and the strip (a bf16
-carry, bf16 values, both) and a fast-mode bank against the CPU; and the
-fused Chebyshev step's three entry points against their plain versions, bit
-for bit, in f32, f64 and with a bf16 carry.
+carry, bf16 values, both) and a fast-mode bank against the CPU; the
+fused Chebyshev step's first three entry points against their plain
+versions, bit for bit, in f32, f64 and with a bf16 carry, and its fourth,
+the coefficient gradient ``cheby_dot_group``, within its summation bound
+and bit-equal across launches; the guard that makes every kernel wrapper
+refuse an operand that requires grad, and the fixed-graph training path's
+gradients against the CPU's.
 """
 
 import ctypes
@@ -685,3 +689,132 @@ def test_synthesis_on_the_card_matches_the_cpu(cuda):
         s = np.random.default_rng(7).normal(size=(G.N, 2, 3))
         out.append(g.synthesize(s, order=20).cpu())
     assert torch.allclose(out[0], out[1], rtol=0, atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# kernel B's coefficient gradient, and the training path on the card
+# ---------------------------------------------------------------------------
+
+DOT_SHAPES = [(1000, 128), (333, 5), (77, 3), (41,)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('shape', DOT_SHAPES)
+@pytest.mark.parametrize('nf', [1, 2, 3, 4, 6])
+@pytest.mark.parametrize('g,start', [(1, 0), (3, 4), (14, 9), (17, 2)])
+def test_cheby_dot_group_matches_plain(cuda, dtype, shape, nf, g, start):
+    """Within the summation bound of a float64 reference, and bit-equal
+    across two launches; groups that wrap, more than 16 terms (two passes),
+    more than 4 filters and odd widths (the one-value route)."""
+    ring = _signal((g + 2,) + shape, dtype, 40, cuda)
+    gbar = _signal(shape + (nf,), dtype, 41, cuda)
+    out = torch.empty((g, nf), dtype=dtype, device=cuda)
+    before = cheby_kernel.cheby_dot_group.launches
+    cheby_kernel.cheby_dot_group(out, gbar, ring, start)
+    assert cheby_kernel.cheby_dot_group.launches == before + 1
+    want = cheby_kernel.cheby_dot_group_plain(
+        torch.empty((g, nf), dtype=torch.float64, device=cuda),
+        gbar.double(), ring.double(), start)
+    bound = cheby_kernel.cheby_dot_group_bound(gbar, ring, start, g, dtype)
+    assert bool(((out.double() - want).abs() <= bound).all())
+    again = torch.empty_like(out)
+    cheby_kernel.cheby_dot_group(again, gbar, ring, start)
+    assert torch.equal(out, again)
+
+
+def test_cheby_dot_group_off_a_16_byte_boundary(cuda):
+    """A cotangent bank one value past an aligned address takes the
+    one-value route and gives the same sums within the bound."""
+    n, s, nf, g = 500, 8, 4, 5
+    ring = _signal((g, n, s), torch.float32, 42, cuda)
+    flat = torch.empty(n * s * nf + 1, dtype=torch.float32, device=cuda)
+    gbar = flat[1:].view(n, s, nf)
+    gbar.copy_(_signal((n, s, nf), torch.float32, 43, cuda))
+    out = cheby_kernel.cheby_dot_group(
+        torch.empty((g, nf), dtype=torch.float32, device=cuda), gbar, ring)
+    want = cheby_kernel.cheby_dot_group_plain(
+        torch.empty((g, nf), dtype=torch.float64, device=cuda),
+        gbar.double(), ring.double())
+    bound = cheby_kernel.cheby_dot_group_bound(gbar, ring, 0, g,
+                                               torch.float32)
+    assert bool(((out.double() - want).abs() <= bound).all())
+
+
+def _requires_grad(t):
+    return t.detach().clone().requires_grad_()
+
+
+def test_every_kernel_route_refuses_autograd(cuda):
+    """A CUDA operand that requires grad raises on each wrapper under grad
+    mode, and the same call runs under torch.no_grad()."""
+    f32 = torch.float32
+    A = tsp.from_scipy(sps.random(50, 40, density=0.1, random_state=1,
+                                  format='csr'), dtype=f32, device=cuda)
+    x = _signal((40, 3), f32, 50, cuda)
+    _, M = _ba_windowed(f32, cuda)
+    kp = M.borrow_span * M.window_rows
+    xw = _signal((M.n_cols, 4), f32, 51, cuda)
+    t = wk.windowed_fold(M.cols, M.vals, M.rowid, xw, M.chunk_rows, kp)
+    y, tt = (_signal((64, 4), f32, k, cuda) for k in (52, 53))
+    fd = _signal((64,), f32, 54, cuda)
+    sc = torch.ones((), dtype=f32, device=cuda)
+    acc = _signal((2, 64, 4), f32, 55, cuda)
+    ring = _signal((3, 64, 4), f32, 56, cuda)
+    rid = torch.zeros((1, 32), dtype=torch.int32, device=cuda)
+    p = _signal((1, 32, 8), f32, 57, cuda)
+    tiles = torch.zeros((1, 3, 128, 128), dtype=f32, device=cuda)
+    calls = {
+        'csr_spmm': lambda r: csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals,
+                                                  r(x)),
+        'banded_spmm': lambda r: banded_kernel.banded_spmm(
+            r(tiles), _signal((128, 3), f32, 58, cuda), 128),
+        'windowed_fold': lambda r: wk.windowed_fold(
+            M.cols, M.vals, M.rowid, r(xw), M.chunk_rows, kp),
+        'window_strip': lambda r: wk.window_strip(
+            r(t), M.n_rows, M.window_rows, M.residue, xw),
+        'fold_products': lambda r: wk.fold_products(rid, r(p), 16),
+        'double': lambda r: wk.double(r(x)),
+        'cheby_step': lambda r: cheby_kernel.cheby_step(y, r(tt), tt, fd, sc),
+        'cheby_acc_group': lambda r: cheby_kernel.cheby_acc_group(
+            r(acc), ring, _signal((3, 2), f32, 59, cuda)),
+        'cheby_acc_contract': lambda r: cheby_kernel.cheby_acc_contract(
+            r(acc[0]), ring.permute(1, 2, 0)[..., :2].contiguous(),
+            fd[:2]),
+        'cheby_dot_group': lambda r: cheby_kernel.cheby_dot_group(
+            torch.empty((2, 2), dtype=f32, device=cuda),
+            r(acc.permute(1, 2, 0)).contiguous(), ring),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match='cheby_op_fixed_graph'):
+            call(_requires_grad)
+        with torch.no_grad():
+            call(_requires_grad)
+    torch.cuda.synchronize()
+
+
+def test_filter_refuses_autograd_and_fixed_graph_trains_on_the_card(cuda):
+    """``g.filter(x)`` with x requiring grad raises on the card; with
+    ``fixed_graph=True`` its gradients (to x and to a kernel parameter)
+    match the CPU's, on the windowed format."""
+    W, _ = _ba_windowed(torch.float64, 'cpu')
+    x0 = np.random.default_rng(5).normal(size=(W.shape[0], 3))
+    w = np.random.default_rng(6).normal(size=(W.shape[0], 3, 2))
+    grads = []
+    for device in (cuda, 'cpu'):
+        G = tgsp.graphs.Graph(W, device=device, dtype=torch.float64)
+        G.compute_laplacian(fmt='windowed')
+        G.estimate_lmax(method='bounds')
+        tau = torch.tensor([3.0, 20.0], dtype=torch.float64, device=device,
+                           requires_grad=True)
+        g = tgsp.filters.Filter(G, [
+            lambda lam, i=i: torch.exp(-tau[i] * lam / G.lmax)
+            for i in range(2)])
+        x = torch.tensor(x0, device=device, requires_grad=True)
+        if device != 'cpu':
+            with pytest.raises(RuntimeError, match='fixed_graph'):
+                g.filter(x, order=20)
+        out = g.filter(x, order=20, fixed_graph=True)
+        (out * torch.tensor(w, device=device)).sum().backward()
+        grads.append((tau.grad.cpu(), x.grad.cpu()))
+    for got, want in zip(*grads):
+        assert torch.allclose(got, want, rtol=0, atol=1e-10)
