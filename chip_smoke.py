@@ -76,6 +76,25 @@ F. path F, the other filter methods: ``method='lanczos'`` (order 30) of
    ``Grid2d(64, 64)`` in f32 against host f64 ``numpy.linalg.eigh``
    filtering; and ``g.filter(x)`` with x requiring grad must raise on the
    card, naming ``cheby_op_fixed_graph``;
+G. path G, the filter zoo and the rest of the spectral and graph side:
+   on path A's graph and signal a ``MexicanHat`` bank of 6 (CSR kernel,
+   kernel B's groups at the g its rule gives, the group at Nf = 6 timed
+   beside its bound and ``addmm_``), ``laplacian_upper_bound`` against the
+   host Gershgorin bound, ``power_iteration_lmax`` below it beside
+   Lanczos's λmax, and the difference operator for both Laplacian types:
+   ``grad`` and ``div`` at 128 columns, one ``csr_spmm`` launch each,
+   ``grad`` against a host Dᵀ built from the edge list, ``div(grad(x))``
+   against the host Laplacian, two launches bit-equal, each product timed
+   beside its bound, its plain version and ``torch.sparse.mm``, and a
+   backward through ``grad`` equal to ``div(ȳ)``; on path B's banded
+   operator a ``SimpleTight`` bank of 6 and the synthesis of its output
+   (the contraction's symbol counted); on path C's windowed operator a
+   ``Meyer`` bank of 6 (fold and tail); ``partial_fourier_basis`` (LOBPCG,
+   k = 4, f64) and ``compute_fourier_basis(4)`` on ``Grid2d(100, 27)``
+   against host ``eigsh``; and every design at tests/test_filters.py's
+   parameters on ``Grid2d(64, 64)`` against the SciPy f64 recurrence of
+   its own coefficients, ``Gabor`` against host f64 ``eigh`` filtering and
+   ``Modulation`` against its formula in f64 on the card's basis;
 7. kernel B's entry points at each path's shape and at path E's (the step
    at 512 columns, the contraction at (N, 128, 4), ``cheby_dot_group`` at
    paths A's and B's N), held bit for bit against
@@ -84,7 +103,8 @@ F. path F, the other filter methods: ``method='lanczos'`` (order 30) of
    library call where there is one (``addmm_`` for the grouped
    accumulation of f32 terms, ``addmv_`` for the synthesis contraction,
    ``torch.mm`` for the coefficient gradient);
-8. one JSON line of per-kernel numbers (times from CUDA events, bounds
+8. one JSON line of per-kernel numbers (kernel A's entry with ``grad`` and
+   ``div``, kernel B's group with Nf = 6; times from CUDA events, bounds
    from the H100 SXM data sheet: HBM, FP32, and TF32 for the banded
    kernel's f32 products), the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
@@ -101,6 +121,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy.sparse as sps
+import scipy.sparse.linalg as spl
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -111,15 +132,21 @@ from pygsp_tpu_torch.core import chunked, csr_kernel
 from pygsp_tpu_torch.core import windowed as wd
 from pygsp_tpu_torch.core import windowed_kernel as wk
 from pygsp_tpu_torch.ops import lanczos as lz
+from pygsp_tpu_torch.ops.eigen import (estimate_lmax_lanczos,
+                                       laplacian_upper_bound,
+                                       partial_fourier_basis,
+                                       power_iteration_lmax)
 from pygsp_tpu_torch.ops.chebyshev import (_fixed_graph_grads,
                                            _operator_bytes, acc_group,
                                            carry_error_estimate, cheby_coeff,
-                                           cheby_op, cheby_op_fixed_graph)
+                                           cheby_op, cheby_op_fixed_graph,
+                                           cheby_synthesis)
 
-# H100 SXM data sheet: HBM rate, FP32 rate outside the tensor cores, and
-# the dense TF32 and bf16 tensor-core rates.
+# H100 SXM data sheet: HBM rate, FP32 and FP64 rates outside the tensor
+# cores, and the dense TF32 and bf16 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 TF32_PRODUCTS = 3       # the banded f32 kernel's TF32 products per product
@@ -143,6 +170,41 @@ TEACHER_MIX = [0.4, 0.3, 0.2, 0.1]
 TRAIN_STEPS = 5
 TRAIN_LR = 0.2
 EXACT_SIDE = 64         # Grid2d(64, 64), __graft_entry__.entry's graph
+# path G: the filter zoo's banks of 6 on paths A-C, every design on
+# Grid2d(64, 64) at tests/test_filters.py:36-57's parameters, and LOBPCG's
+# 4 smallest eigenpairs on a 2700-vertex grid whose 5 smallest eigenvalues
+# are simple (unequal sides)
+NF_ZOO = 6
+ZOO = (('Heat', dict(scale=[10, 50])), ('Heat', dict(scale=5)),
+       ('Wave', dict(time=[5, 10], speed=[1])), ('MexicanHat', dict(Nf=6)),
+       ('MexicanHat', dict(Nf=5, normalize=True)), ('Meyer', dict(Nf=6)),
+       ('Itersine', dict(Nf=6)), ('SimpleTight', dict(Nf=6)),
+       ('Abspline', dict(Nf=6)), ('HalfCosine', dict(Nf=6)),
+       ('Regular', dict()), ('Regular', dict(degree=0)),
+       ('Regular', dict(degree=5)), ('Held', dict()), ('Simoncelli', dict()),
+       ('Papadakis', dict()), ('Expwin', dict()),
+       ('Expwin', dict(band_min=0.1, band_max=0.7)),
+       ('Expwin', dict(band_min=0.1, band_max=None)),
+       ('Rectangular', dict(band_min=0.1, band_max=0.5)))
+LOBPCG_GRID = (100, 27)
+LOBPCG_K = 4
+# LOBPCG against eigsh(which='SM') (tests/test_graphs.py:100-112): the
+# eigenvalues, and each eigenvector's alignment |Uᵀ U_ref| against 1
+TOL_LOBPCG_E = 1e-6
+TOL_LOBPCG_U = 1e-4
+# the f32 Chebyshev coefficients filter() computes on the card against f64
+# ones on the host, relative to the largest: read 1.5e-6 or less on an H100
+# for every design but Regular. Regular's complement √(1 − g²) rounds in
+# f32 to within √eps ≈ 3.5e-4 where g → 1: read 1.0e-5 on an H100 (and
+# 1.7e-5 on a CPU for degree 5, whose λmax estimate puts the nodes
+# elsewhere), so it is held to its own limit
+TOL_COEFF = 1e-5
+TOL_COEFF_REGULAR = 1e-4
+# power iteration (100 steps) against Lanczos's λmax on path A: read 3.4e-6
+# on an H100
+TOL_POWER = 1e-4
+# the Gabor bank's filters held against the host (every 512th of 4096)
+GABOR_STRIDE = 512
 # the backward's x̄ synthesis runs every SpMM and the step at S·Nf columns
 WIDE = N_SIGNALS * len(SCALES)
 
@@ -254,23 +316,38 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters):
+def device_ms(fn, iters, key='device_ms', tries=3):
     """Device time of one launch of ``fn``, which launches one kernel per
-    call: the mean time on the card of the kernels that torch.profiler
-    records over ``iters`` calls (after one warm-up call). The mean is
-    taken over the kernels recorded, so a record the profiler drops does
-    not count as a launch that took no time."""
+    call, as ``{key: ms, key + '_by': how}``: the mean time on the card of
+    the kernels that torch.profiler records over ``iters`` calls (after one
+    warm-up call). The mean is taken over the kernels recorded, so a record
+    the profiler drops does not count as a launch that took no time. CUPTI
+    may deliver no record at all for a whole profile; after ``tries`` such
+    profiles each launch is timed between two CUDA events instead, and
+    ``how`` says so."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-          if ev.device_type == DeviceType.CUDA]
-    if not us or sum(us) <= 0:
-        raise AssertionError('torch.profiler saw no device time')
-    return sum(us) / len(us) / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.end - ev.time_range.start
+              for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if us and sum(us) > 0:
+            return {key: sum(us) / len(us) / 1e3,
+                    key + '_by': 'torch.profiler'}
+    log(f'  torch.profiler recorded no device time in {tries} profiles; '
+        'timing each launch between two CUDA events')
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return {key: sum(a.elapsed_time(b) for a, b in pairs) / iters,
+            key + '_by': 'CUDA events around each launch'}
 
 
 def check(name, got, want, tol):
@@ -376,8 +453,8 @@ def phase_build():
     max_abs_err = float((y - wk.double_plain(x)).abs().max())
     ms = time_ms(lambda: wk.double(x), 100)
     return {'max_abs_err': max_abs_err, 'ms': ms,
-            'device_ms': device_ms(lambda: wk.double(x), 100),
-            'library_device_ms': device_ms(lambda: torch.mul(x, 2), 100),
+            **device_ms(lambda: wk.double(x), 100),
+            **device_ms(lambda: torch.mul(x, 2), 100, 'library_device_ms'),
             'plain_ms': time_ms(lambda: wk.double_plain(x), 100),
             'library_ms': time_ms(lambda: torch.mul(x, 2), 100),
             'library': 'torch.mul(x, 2)',
@@ -866,8 +943,7 @@ def measure_fold(rid, p, kp, iters):
     dense_flops = 2 * nw * kp * lt * s
     return {'max_abs_err': max_abs_err,
             'ms': time_ms(lambda: wk.fold_products(rid, p, kp), iters),
-            'device_ms': device_ms(lambda: wk.fold_products(rid, p, kp),
-                                   iters),
+            **device_ms(lambda: wk.fold_products(rid, p, kp), iters),
             'plain_ms': time_ms(lambda: wk.fold_products_plain(rid, p, kp),
                                 max(iters // 10, 2)),
             'library_ms': time_ms(lambda: acc.index_add_(0, dst, p32), iters),
@@ -879,70 +955,83 @@ def measure_fold(rid, p, kp, iters):
             'shape': {'NW': nw, 'Lt': lt, 'KP': kp, 'S': s}}
 
 
-def measure_wide(name, kernel, plain, tol, work):
-    """A kernel at the x̄ synthesis's width (WIDE columns, as the backward
-    runs it) against its plain version on the same inputs, run on blocks
-    of N_SIGNALS columns (an output column reads its own input column
-    alone; the CSR plain version would gather 69 GB at once) and joined
-    along the last axis; two launches bit-equal; then timed. ``kernel()``
-    returns the output, ``plain(cols)`` that of a column slice; ``tol`` is
-    ``check``'s (0.0: bit for bit); ``work`` the bound dict at WIDE."""
+def measure_wide(name, kernel, plain, tol, work, width=WIDE):
+    """A kernel at a width above N_SIGNALS (WIDE columns, the x̄ synthesis's,
+    as the backward runs it, unless ``width`` says otherwise) against its
+    plain version on the same inputs, run on blocks of N_SIGNALS columns
+    (an output column reads its own input column alone; the CSR plain
+    version would gather 69 GB at once) and joined along the last axis; two
+    launches bit-equal; then timed. ``kernel()`` returns the output,
+    ``plain(cols)`` that of a column slice; ``tol`` is ``check``'s (0.0: bit
+    for bit); ``work`` the bound dict at ``width``."""
     y = kernel()
     want = torch.cat([plain(slice(i, i + N_SIGNALS))
-                      for i in range(0, WIDE, N_SIGNALS)], dim=-1)
-    rel_err = check(f'{name} at {WIDE} columns', y, want, tol)
+                      for i in range(0, width, N_SIGNALS)], dim=-1)
+    rel_err = check(f'{name} at {width} columns', y, want, tol)
     max_abs_err = float((y.float() - want.float()).abs().max())
     del want
     if not torch.equal(y, kernel()):
-        raise AssertionError(f'{name}: two launches differ at {WIDE} columns')
-    log(f'  {name} at {WIDE} columns: two launches bit-equal')
+        raise AssertionError(f'{name}: two launches differ at {width} '
+                             f'columns')
+    log(f'  {name} at {width} columns: two launches bit-equal')
     del y
     return {'max_abs_err': max_abs_err, 'rel_err': rel_err,
-            'ms': time_ms(kernel, 10), 's': WIDE, **work}
+            'ms': time_ms(kernel, 10), 's': width, **work}
+
+
+def csr_work(M, s, item, flops_per_s=FP32_FLOPS):
+    """The bound of one CSR product ``M @ v``, v (n_cols, s): v read once,
+    the output (n_rows, s) written once, the CSR's columns, values and row
+    pointers read once; two operations per stored entry and column."""
+    return bound((M.n_cols + M.n_rows) * s * item + M.nnz * (4 + item)
+                 + (M.n_rows + 1) * 4, 2 * M.nnz * s, flops_per_s)
+
+
+def measure_spmm(name, M, v, flops_per_s=FP32_FLOPS, tol=TOL_CSR):
+    """One CSR product ``M @ v`` on kernel A, held against its plain version
+    within ``tol``, two launches bit-equal, then timed beside its plain
+    version and ``torch.sparse.mm`` of the same CSR, with its bound."""
+    args = (M.rowptr, M.cols, M.vals, v)
+    y = csr_kernel.csr_spmm(*args)
+    y_plain = csr_kernel.csr_spmm_plain(*args)
+    max_abs_err = float((y - y_plain).abs().max())
+    check(f'{name} kernel vs plain', y, y_plain, tol)
+    del y_plain
+    if not torch.equal(y, csr_kernel.csr_spmm(*args)):
+        raise AssertionError(f'{name}: two launches differ')
+    log(f'  {name}: two launches bit-equal')
+    del y
+    nnz, s = M.nnz, v.shape[1]
+    lib = torch.sparse_csr_tensor(M.rowptr, M.cols[:nnz], M.vals[:nnz],
+                                  size=M.shape)
+    out = {'max_abs_err': max_abs_err,
+           'ms': time_ms(lambda: csr_kernel.csr_spmm(*args), 20),
+           'plain_ms': time_ms(lambda: csr_kernel.csr_spmm_plain(*args), 3),
+           'library_ms': time_ms(lambda: torch.sparse.mm(lib, v), 20),
+           'library': 'torch.sparse.mm on a sparse CSR tensor',
+           **csr_work(M, s, v.element_size(), flops_per_s),
+           'shape': [M.n_rows, M.n_cols], 'nnz': nnz, 's': s,
+           'dtype': str(v.dtype)}
+    del lib
+    return out
 
 
 def measure_csr(A, x):
     """Kernel, plain and library times of one CSR SpMM at the path's shape,
     and the kernel at the x̄ synthesis's width (``at_backward_width``)."""
-    args = (A.rowptr, A.cols, A.vals, x)
-    y = csr_kernel.csr_spmm(*args)
-    y_plain = csr_kernel.csr_spmm_plain(*args)
-    max_abs_err = float((y - y_plain).abs().max())
-    check('csr kernel at path A shape', y, y_plain, TOL_CSR)
-    del y_plain
-    if not torch.equal(y, csr_kernel.csr_spmm(*args)):
-        raise AssertionError('csr_spmm: two launches differ at path A')
-    log('  csr kernel at path A shape: two launches bit-equal')
-    del y
-    nnz, n, s = A.nnz, A.n_rows, x.shape[1]
-    lib = torch.sparse_csr_tensor(A.rowptr, A.cols[:nnz], A.vals[:nnz],
-                                  size=A.shape)
-    ms = time_ms(lambda: csr_kernel.csr_spmm(*args), 20)
-    plain_ms = time_ms(lambda: csr_kernel.csr_spmm_plain(*args), 3)
-    library_ms = time_ms(lambda: torch.sparse.mm(lib, x), 20)
-    del lib
-    item = x.element_size()
-
-    def work(s):
-        return bound(2 * n * s * item + nnz * (4 + item) + (n + 1) * 4,
-                     2 * nnz * s)
-
+    out = measure_spmm('csr_spmm at path A', A, x)
+    nnz, n, s, item = A.nnz, A.n_rows, x.shape[1], x.element_size()
     bytes_gather = nnz * s * item + n * s * item + nnz * (4 + item)
     x_wide = seeded_normal((n, WIDE), 80)
     wide = measure_wide(
         'csr_spmm', lambda: csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals,
                                                 x_wide),
         lambda c: csr_kernel.csr_spmm_plain(A.rowptr, A.cols, A.vals,
-                                            x_wide[:, c]), TOL_CSR, work(WIDE))
+                                            x_wide[:, c]), TOL_CSR,
+        csr_work(A, WIDE, item))
     del x_wide
-    return {
-        'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
-        'library_ms': library_ms,
-        'library': 'torch.sparse.mm on a sparse CSR tensor',
-        **work(s),
-        'bound_gather_ms': bytes_gather / HBM_BYTES_PER_S * 1e3,
-        'nnz': nnz, 'n': n, 's': s, 'at_backward_width': wide,
-    }
+    return {**out, 'bound_gather_ms': bytes_gather / HBM_BYTES_PER_S * 1e3,
+            'n': n, 'at_backward_width': wide}
 
 
 def measure_hub_tail(A, x):
@@ -998,31 +1087,46 @@ def measure_banded(B, x):
     plain_ms = time_ms(lambda: banded_kernel.banded_spmm_plain(tiles, x, n), 5)
     library_ms = time_ms(lambda: torch.bmm(a_cat, x_cat), 20)
     del a_cat, x_cat
-    # tile pairs (i, d) whose x block lies inside the matrix
-    pairs = nb * n_diag - b * (b + 1)
-    item = x.element_size()
-
-    def work(s):
-        return bound(tiles.numel() * item + 2 * n * s * item,
-                     2 * pairs * 128 * 128 * s, TF32_FLOPS)
-
-    flops = 2 * pairs * 128 * 128 * s
-    x_wide = seeded_normal((n, WIDE), 81)
-    wide = measure_wide(
-        'banded_spmm', lambda: banded_kernel.banded_spmm(tiles, x_wide, n),
-        lambda c: banded_kernel.banded_spmm_plain(
-            tiles, x_wide[:, c].contiguous(), n), TOL_BANDED, work(WIDE))
-    del x_wide
+    flops = 2 * banded_pairs(B) * 128 * 128 * s
     return {
         'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
         'library_ms': library_ms,
         'library': 'torch.bmm over pre-gathered band windows',
-        **work(s), 'at_backward_width': wide,
+        **banded_work(B, s, x.element_size()),
+        'at_backward_width': measure_banded_wide(B, WIDE),
         'bound_fp32_ms': flops / FP32_FLOPS * 1e3,
         'bound_tf32x3_ms': TF32_PRODUCTS * flops / TF32_FLOPS * 1e3,
         'gflop': flops / 1e9, 'tf32_gflop': TF32_PRODUCTS * flops / 1e9,
         'n': n, 's': s, 'half_bw': b,
     }
+
+
+def banded_pairs(B):
+    """The tile pairs (i, d) of a banded matrix whose x block lies inside
+    the matrix."""
+    nb, n_diag = B.tiles.shape[:2]
+    return nb * n_diag - B.half_bw * (B.half_bw + 1)
+
+
+def banded_work(B, s, item):
+    """The bound of one banded product on s columns: the tiles read once, x
+    read and the output written once; the products at the TF32 rate."""
+    return bound(B.tiles.numel() * item + 2 * B.n_rows * s * item,
+                 2 * banded_pairs(B) * 128 * 128 * s, TF32_FLOPS)
+
+
+def measure_banded_wide(B, width):
+    """The banded kernel at ``width`` columns against its plain version
+    (``measure_wide``)."""
+    tiles, n = B.tiles, B.n_rows
+    x_wide = seeded_normal((n, width), 81)
+    out = measure_wide(
+        'banded_spmm', lambda: banded_kernel.banded_spmm(tiles, x_wide, n),
+        lambda c: banded_kernel.banded_spmm_plain(
+            tiles, x_wide[:, c].contiguous(), n), TOL_BANDED,
+        banded_work(B, width, x_wide.element_size()), width)
+    del x_wide
+    return out
 
 
 def reference(L_host, lmax, evaluate, x):
@@ -1423,10 +1527,17 @@ def phase_path_c():
     return fold, strip, fold2, path, (launches, per_bank), (G, g, x, ref)
 
 
-def group_of(L, x, carry=torch.float32):
-    """The accumulator group the bank takes on the Laplacian ``L``."""
+def group_of(L, x, carry=torch.float32, nf=len(SCALES)):
+    """The accumulator group a bank of ``nf`` filters takes on the
+    Laplacian ``L``."""
     return acc_group(ORDER - 1, x.numel(), x.dtype, carry,
-                     _operator_bytes(L.offdiag), len(SCALES))
+                     _operator_bytes(L.offdiag), nf)
+
+
+def group_launches(g):
+    """``cheby_acc_group`` launches in one bank that groups by g: T_1's,
+    the head's one term at a time, then the groups of g."""
+    return 1 + (ORDER - 1) % g + (ORDER - 1) // g
 
 
 def fast_bank(g, x):
@@ -1966,6 +2077,430 @@ def phase_path_f_exact():
             'lmax': G.lmax}, launches
 
 
+# ---------------------------------------------------------------------------
+# path G: the filter zoo at full width, the difference operator, the spectral
+# helpers and LOBPCG
+# ---------------------------------------------------------------------------
+
+def zoo_bank(path, per_bank, g_rule, spmm='csr_spmm'):
+    """Raise unless a bank launched the path's SpMM kernel and the step once
+    per order and the accumulator groups the rule's g gives."""
+    want = {spmm: ORDER, 'cheby_step': ORDER - 1,
+            'cheby_acc_group': group_launches(g_rule)}
+    got = {k: per_bank[k] for k in want}
+    if got != want:
+        raise AssertionError(f'path {path}: launches {got}, not {want}')
+
+
+def timed(phase, *args):
+    """``phase(*args)`` -> ``(result, launches)``, with the phase's seconds
+    on the host clock added to the result as ``phase_s``."""
+    t0 = time.time()
+    out, launches = phase(*args)
+    out['phase_s'] = time.time() - t0
+    return out, launches
+
+
+def phase_path_g_bank(path, G, x, name, L_host):
+    """A bank of NF_ZOO filters (``name``) on a path's graph and signal,
+    through ``Filter.filter``: its launches, 8 columns against the SciPy
+    f64 recurrence of its own coefficients, its time."""
+    g = getattr(gsp.filters, name)(G, Nf=NF_ZOO)
+    g_rule = group_of(G.L, x, nf=NF_ZOO)
+
+    def bank():
+        return g.filter(x, method='chebyshev', order=ORDER)
+
+    reset_counts()
+    out, launches, per_bank = run_bank(bank)
+    log(f'  {name}(Nf={NF_ZOO}) on path {path}: per bank {per_bank}, '
+        f'group g = {g_rule}')
+    spmm = 'csr_spmm' if path == 'A' else 'windowed_fold'
+    zoo_bank(path, per_bank, g_rule, spmm)
+    if path == 'C':
+        require_tail('G on C', per_bank)
+        if per_bank['csr_spmm']:
+            raise AssertionError('the CSR kernel ran inside the windowed '
+                                 'bank')
+    if tuple(out.shape) != (G.N, x.shape[1], NF_ZOO):
+        raise AssertionError(f'path G on {path}: shape {tuple(out.shape)}')
+    rel_err = validate_path(f'G ({name} on {path})',
+                            reference(L_host, G.lmax, g.evaluate, x),
+                            out.permute(2, 0, 1))
+    del out
+    ms = time_ms(bank, 3)
+    log(f'  {ms:.3f} ms per bank of {NF_ZOO}')
+    return {'design': name, 'nf': NF_ZOO, 'ms_per_bank': ms,
+            'rel_err': rel_err, 'acc_group': g_rule}, launches
+
+
+def measure_difference(G, x):
+    """The difference operator on path A's graph for both Laplacian types:
+    ``grad`` and ``div`` at 128 columns, one CSR launch each, ``grad``
+    against the host SciPy Dᵀ (built from the edge list) on 8 columns and
+    ``div(grad(x))`` against the host Laplacian, each bit-equal across two
+    launches; for the combinatorial type, each product timed and a backward
+    through ``grad`` equal to ``div(ȳ)``."""
+    tri = sps.triu(G.W, format='coo')
+    src, tgt, w = tri.row, tri.col, tri.data
+    e = np.arange(len(w))
+    x8 = x[:, :N_CHECK_COLS].double().cpu().numpy()
+    out = {}
+    launches = dict.fromkeys(counts(), 0)
+    for lap_type in ('combinatorial', 'normalized'):
+        G.compute_laplacian(lap_type)
+        t0 = time.time()
+        G.compute_differential_operator()
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        dw = np.ravel(G.W.sum(axis=0))
+        if lap_type == 'combinatorial':
+            v_src, v_tgt = -np.sqrt(w), np.sqrt(w)
+            L_host = sps.diags(dw) - G.W
+        else:
+            v_src, v_tgt = -np.sqrt(w / dw[src]), np.sqrt(w / dw[tgt])
+            dm = sps.diags(1 / np.sqrt(dw))
+            L_host = sps.eye(G.N) - dm @ G.W @ dm
+        DT = sps.csr_matrix((np.concatenate([v_src, v_tgt]),
+                             (np.concatenate([e, e]),
+                              np.concatenate([src, tgt]))),
+                            shape=(len(w), G.N))
+        reset_counts()
+        y = G.grad(x)
+        grad_launches = counts()
+        reset_counts()
+        z = G.div(y)
+        div_launches = counts()
+        for op, n in (('grad', grad_launches['csr_spmm']),
+                      ('div', div_launches['csr_spmm'])):
+            if n != 1:
+                raise AssertionError(f'{op}: {n} csr_spmm launches, not 1')
+        for k in launches:
+            launches[k] += grad_launches[k] + div_launches[k]
+        res = {'build_s': build_s, 'n_edges': G.D.n_edges,
+               'grad_rel_err': check(
+                   f'grad ({lap_type}) vs host Dᵀ x', y[:, :N_CHECK_COLS],
+                   torch.from_numpy(DT @ x8), TOL_CSR),
+               'div_grad_rel_err': check(
+                   f'div(grad(x)) ({lap_type}) vs host L x',
+                   z[:, :N_CHECK_COLS], torch.from_numpy(L_host @ x8),
+                   TOL_CSR)}
+        if not torch.equal(y, G.grad(x)) or not torch.equal(z, G.div(y)):
+            raise AssertionError(f'{lap_type}: two launches of grad or div '
+                                 f'differ')
+        log(f'  grad and div ({lap_type}): one csr_spmm launch each, two '
+            f'launches bit-equal; D built in {build_s:.1f} s')
+        del z
+        if lap_type == 'combinatorial':
+            res['grad'] = measure_spmm('grad at path A', G.D.DT, x)
+            res['div'] = measure_spmm('div at path A', G.D.D, y)
+            res['grad']['ms_call'] = time_ms(lambda: G.grad(x), 10)
+            res['div']['ms_call'] = time_ms(lambda: G.div(y), 10)
+            del y
+            xr = x.clone().requires_grad_()
+            ybar = seeded_normal((G.D.n_edges, x.shape[1]), 90)
+            reset_counts()
+            G.grad(xr).backward(ybar)
+            backward = counts()
+            launches['csr_spmm'] += backward['csr_spmm']
+            n = backward['csr_spmm']
+            if n != 2:
+                raise AssertionError(f'grad forward and backward: {n} '
+                                     f'csr_spmm launches, not 2')
+            if not torch.equal(xr.grad, G.div(ybar)):
+                raise AssertionError('the backward of grad is not div(ȳ)')
+            log('  backward through grad: one more csr_spmm launch, '
+                'equal to div(ȳ)')
+            del xr, ybar
+        else:
+            del y
+        out[lap_type] = res
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_path_g_a(G, x):
+    """Path G on path A's graph and signal: a MexicanHat bank of 6, the
+    spectral helpers on A's Laplacian, then the difference operator (which
+    leaves the graph on the normalized Laplacian)."""
+    log('phase G: path G on path A\'s graph')
+    bank, launches = phase_path_g_bank('A', G, x, 'MexicanHat',
+                                       G.L.to_scipy())
+    other = {'G_A_bank': launches}
+    # the accumulator groups at Nf = 6 (of g, and of one term) against
+    # their bound and addmm_
+    group6 = {g: measure_group(G.N, x.shape[1], NF_ZOO, torch.float32,
+                               torch.float32, g)
+              for g in (bank['acc_group'], 1)}
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    ub = float(laplacian_upper_bound(G.L))
+    L_host = abs(G.L.to_scipy().astype(np.float64))
+    ub_host = float(np.max(np.ravel(L_host.sum(axis=1))))
+    log(f'  laplacian_upper_bound {ub} against the host Gershgorin bound '
+        f'{ub_host}')
+    if abs(ub - ub_host) > 1e-6 * ub_host:
+        raise AssertionError(f'laplacian_upper_bound {ub} != {ub_host}')
+    t0 = time.time()
+    power = float(power_iteration_lmax(G.L))
+    power_s = time.time() - t0
+    lanczos = float(estimate_lmax_lanczos(G.L)) / 1.01
+    other['G_A_spectral'] = counts()
+    gap = (lanczos - power) / lanczos
+    log(f'  power_iteration_lmax (100 iterations) {power} in {power_s:.2f} '
+        f's; Lanczos λmax {lanczos}: gap {gap:.3e}')
+    if not power <= ub * (1 + 1e-6):
+        raise AssertionError(f'power iteration {power} above the bound {ub}')
+    if not abs(gap) <= TOL_POWER:
+        raise AssertionError(f'power iteration {power} is {gap} from '
+                             f'Lanczos\'s λmax {lanczos} (tol {TOL_POWER})')
+    # the helpers' SpMM: one column
+    one_column = measure_spmm('csr_spmm at path A, one column',
+                              G.L.offdiag, seeded_normal((G.N, 1), 92))
+
+    diff, other['G_A_difference'] = measure_difference(G, x)
+    return {'bank': bank, 'acc_group_nf6': group6[bank['acc_group']],
+            'acc_group_nf6_g1': group6[1],
+            'upper_bound': ub, 'upper_bound_host': ub_host,
+            'power_iteration_lmax': power, 'power_s': power_s,
+            'lanczos_lmax': lanczos, 'power_gap': gap,
+            'spmm_one_column': one_column, 'difference': diff}, other
+
+
+def phase_path_g_b(G, Lb, x):
+    """Path G on path B's banded operator: a SimpleTight bank of 6 through
+    ``cheby_op``, then ``cheby_synthesis`` of its output, each against the
+    SciPy f64 recurrence; the symbols launched are counted, so that the
+    synthesis contraction at Nf = 6 is seen to run."""
+    log('phase G: path G on path B\'s banded operator')
+    g = gsp.filters.SimpleTight(G, Nf=NF_ZOO)
+    c = cheby_coeff(g.evaluate, G.lmax, m=ORDER)
+    g_rule = group_of(Lb, x, nf=NF_ZOO)
+    symbols = {}
+    launch = _cuda.launch
+
+    def spy(name, symbol, *args):
+        symbols[symbol] = symbols.get(symbol, 0) + 1
+        return launch(name, symbol, *args)
+
+    reset_counts()
+    _cuda.launch = spy
+    try:
+        out, launches, per_bank = run_bank(
+            lambda: cheby_op(Lb, G.lmax, c, x))
+        zoo_bank('G on B', per_bank, g_rule, 'banded_spmm')
+        coeffs = out.permute(1, 2, 0).contiguous()           # (N, S, Nf)
+        syn, launches, per_syn = run_bank(
+            lambda: cheby_synthesis(Lb, G.lmax, c, coeffs))
+    finally:
+        _cuda.launch = launch
+    log(f'  analysis {per_bank}; synthesis {per_syn}; symbols {symbols}')
+    want = {'banded_spmm': ORDER, 'cheby_step': ORDER - 1,
+            'cheby_acc_contract': ORDER - 1}
+    if any(per_syn[k] != n for k, n in want.items()):
+        raise AssertionError(f'path G on B, synthesis: {per_syn}')
+    if symbols.get('cheby_acc_contract_f32', 0) != ORDER - 1:
+        raise AssertionError(f'path G on B: symbols {symbols}')
+    L_host = G.L.to_scipy()
+    c64 = cheby_coeff(g.evaluate, G.lmax, m=ORDER, dtype=torch.float64,
+                      device='cpu').numpy()
+    rel_err = validate_path('G (SimpleTight on B)',
+                            reference(L_host, G.lmax, g.evaluate, x), out)
+    # the synthesis of the kernel's own analysis, 8 signals: filter f's
+    # coefficients applied to filter f's columns, summed
+    cols = coeffs[:, :N_CHECK_COLS].double().cpu().numpy()
+    r = scipy_recurrence(L_host, G.lmax, c64,
+                         cols.transpose(0, 2, 1).reshape(G.N, -1))
+    syn_ref = sum(r[f][:, f * N_CHECK_COLS:(f + 1) * N_CHECK_COLS]
+                  for f in range(NF_ZOO))
+    syn_err = check('path G synthesis on B vs scipy f64',
+                    syn[:, :N_CHECK_COLS], torch.from_numpy(syn_ref),
+                    TOL_PATH)
+    del out, syn
+    ms = time_ms(lambda: cheby_op(Lb, G.lmax, c, x), 3)
+    ms_syn = time_ms(lambda: cheby_synthesis(Lb, G.lmax, c, coeffs), 3)
+    log(f'  {ms:.3f} ms per bank of {NF_ZOO}, synthesis {ms_syn:.3f} ms')
+    del coeffs
+    torch.cuda.empty_cache()
+    # each kernel at the shapes this path gave it that no other phase
+    # holds: the groups at Nf = 6, the contraction, and the synthesis's
+    # SpMM and step on (N, S·Nf)
+    s, f32 = x.shape[1], torch.float32
+    held = {f'cheby_acc_group_g{g}': measure_group(G.N, s, NF_ZOO, f32, f32, g)
+            for g in (g_rule, 1)}
+    held['cheby_acc_contract'] = measure_contract(G.N, s, NF_ZOO)
+    held['cheby_step'] = measure_step(G.N, s * NF_ZOO, f32, f32,
+                                      windowed=False)
+    held['banded_spmm'] = measure_banded_wide(Lb.offdiag, s * NF_ZOO)
+    torch.cuda.empty_cache()
+    return {'design': 'SimpleTight', 'nf': NF_ZOO, 'ms_per_bank': ms,
+            'synthesis_ms': ms_syn, 'rel_err': rel_err,
+            'synthesis_rel_err': syn_err, 'acc_group': g_rule,
+            'symbols': symbols, 'kernels': held}, launches
+
+
+def phase_path_g_lobpcg():
+    """``partial_fourier_basis`` (LOBPCG, k = 4) in f64 on the card, and
+    ``compute_fourier_basis(4)``, which dispatches to it, against host
+    ``eigsh(which='SM')``."""
+    log(f'phase G: LOBPCG on Grid2d{LOBPCG_GRID}, f64')
+    G = gsp.graphs.Grid2d(*LOBPCG_GRID, dtype=torch.float64)
+    t0 = time.time()
+    er, Ur = spl.eigsh(G.L.to_scipy(), LOBPCG_K + 1, which='SM')
+    eigsh_s = time.time() - t0
+    if not np.diff(er).min() > 1e-4:
+        raise AssertionError(f'the smallest eigenvalues are not simple: {er}')
+    er, Ur = er[:LOBPCG_K], Ur[:, :LOBPCG_K]
+    reset_counts()
+    t0 = time.time()
+    e, U = partial_fourier_basis(G.L, LOBPCG_K)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = counts()
+    G.compute_fourier_basis(n_eigenvectors=LOBPCG_K)
+    out = {'n': G.N, 'k': LOBPCG_K, 'first_call_s': first_s,
+           'eigsh_s': eigsh_s}
+    for name, (ee, UU) in (('partial_fourier_basis', (e, U)),
+                           ('compute_fourier_basis', (G.e, G.U))):
+        ee, UU = ee.cpu().numpy(), UU.cpu().numpy()
+        err_e = float(np.abs(ee - er).max())
+        err_u = float(np.abs(np.diag(np.abs(UU.T @ Ur)) - 1).max())
+        log(f'  {name}: eigenvalues {err_e:.3e} from eigsh (tol '
+            f'{TOL_LOBPCG_E}), alignment {err_u:.3e} (tol {TOL_LOBPCG_U})')
+        if not (err_e <= TOL_LOBPCG_E and err_u <= TOL_LOBPCG_U
+                and ee[0] == 0.0):
+            raise AssertionError(f'{name}: {err_e}, {err_u}, {ee}')
+        out[f'{name}_err'] = [err_e, err_u]
+    out['ms'] = time_ms(lambda: partial_fourier_basis(G.L, LOBPCG_K), 1)
+    log(f'  {out["ms"]:.1f} ms a call; launches {launches}')
+    # its SpMM in f64 at the widths it takes: the probe and the bound (1),
+    # the block (k) and the Rayleigh-Ritz basis (3k)
+    out['spmm'] = {
+        str(w): measure_spmm(f'csr_spmm at LOBPCG\'s shape, {w} columns f64',
+                             G.L.offdiag, seeded_normal(
+                                 (G.N, w), 93, dtype=torch.float64),
+                             FP64_FLOPS, TOL_F64)
+        for w in (1, LOBPCG_K, 3 * LOBPCG_K)}
+    return out, launches
+
+
+def heat_host(e, scale, lmax):
+    return np.minimum(np.exp(-scale * e / lmax), 1.0)
+
+
+def coefficients(g, lmax, edges, tol):
+    """The f32 Chebyshev coefficients ``filter()`` computes on the card,
+    held against f64 ones on the host within ``tol`` (relative to the
+    largest). A quadrature node where the f32 and f64 kernels differ by a
+    jump (more than 1/2) must lie within f32 rounding (1e-6 · lmax) of one
+    of ``edges``, the band edges of a discontinuous kernel (Rectangular's),
+    where the f32 node may fall on the other side: there the f64 reference
+    takes the f32 kernel's value. Returns ``(c, gap, nodes at a jump)``."""
+    sampled = {}
+
+    def at(dtype):
+        def evaluate(lam):
+            sampled[dtype] = (lam, torch.atleast_2d(g.evaluate(lam)))
+            return sampled[dtype][1]
+        return evaluate
+
+    c = cheby_coeff(at(torch.float32), lmax, m=ORDER, dtype=torch.float32)
+    cheby_coeff(at(torch.float64), lmax, m=ORDER, dtype=torch.float64,
+                device='cpu')
+    lam, k64 = sampled[torch.float64]
+    k32 = sampled[torch.float32][1].cpu().double()
+    jump = (k32 - k64).abs() > 0.5
+    for v in (lam[jump.any(0)] / lmax).tolist():
+        if not any(abs(v - e) <= 1e-6 for e in edges):
+            raise AssertionError(f'the f32 kernel jumps at λ/lmax = {v}, not '
+                                 f'at a band edge {edges}')
+    k64 = torch.where(jump, k32, k64)
+    c64 = cheby_coeff(lambda _: k64, lmax, m=ORDER, dtype=torch.float64,
+                      device='cpu')
+    gap = float((c.cpu().double() - c64).abs().max() / c64.abs().max())
+    log(f'    f32 coefficients {gap:.3e} from f64 (tol {tol}), '
+        f'{int(jump.sum())} nodes at a band edge')
+    if not gap <= tol:
+        raise AssertionError(f'f32 coefficients {gap} from f64 (tol {tol})')
+    return c, gap, int(jump.sum())
+
+
+def phase_path_g_designs():
+    """Every design at tests/test_filters.py's parameters on Grid2d(64, 64)
+    in f32, through ``Filter.filter``, each against the SciPy f64
+    recurrence of its own (f32) coefficients, and those against f64 ones
+    (``coefficients``); the kernels at the shapes the designs gave them;
+    then ``Gabor`` (exact) against host f64 ``eigh`` filtering, and
+    ``Modulation`` against the same formula in f64 on the host, on the
+    card's own Fourier basis (a basis of the square grid is fixed only up
+    to rotations within its repeated eigenvalues, and Modulation's atoms
+    depend on it)."""
+    log(f'phase G: the filter zoo on Grid2d({EXACT_SIDE}, {EXACT_SIDE})')
+    G = gsp.graphs.Grid2d(EXACT_SIDE, EXACT_SIDE)
+    G.estimate_lmax()
+    x = seeded_normal((G.N, N_SIGNALS), 91)
+    x8 = x[:, :N_CHECK_COLS].double().cpu().numpy()
+    L_host = G.L.to_scipy()
+    reset_counts()
+    errs, groups = {}, set()
+    for name, kwargs in ZOO:
+        g = getattr(gsp.filters, name)(G, **kwargs)
+        g_rule = group_of(G.L, x, nf=g.Nf)
+        groups.update({(g.Nf, g_rule), (g.Nf, 1)})
+        out, _, per_bank = run_bank(lambda: g.filter(x, order=ORDER))
+        zoo_bank(f'G ({name})', per_bank, g_rule)
+        out = out.reshape(G.N, N_SIGNALS, g.Nf).permute(2, 0, 1)
+        # the recurrence is held to f64 on the coefficients filter()
+        # computes, in f32: a kernel such as Regular's complement √(1 − g²)
+        # rounds in f32 well above the recurrence's error
+        edges = ([b for b in (g.band_min, g.band_max) if b is not None]
+                 if name == 'Rectangular' else [])
+        label = f'{name} {json.dumps(kwargs)}'
+        c, gap, at_edge = coefficients(
+            g, G.lmax, edges,
+            TOL_COEFF_REGULAR if name == 'Regular' else TOL_COEFF)
+        ref = scipy_recurrence(L_host, G.lmax, c.double().cpu().numpy(), x8)
+        errs[label] = [validate_path(f'G ({label})', torch.from_numpy(ref),
+                                     out), gap, at_edge]
+    launches = counts()
+    f32 = torch.float32
+    held = {'csr_spmm': measure_spmm(
+                f'csr_spmm at Grid2d({EXACT_SIDE}, {EXACT_SIDE})',
+                G.L.offdiag, x),
+            'cheby_step': measure_step(G.N, N_SIGNALS, f32, f32,
+                                       windowed=False),
+            'cheby_acc_group': {f'nf{nf}_g{gr}': measure_group(
+                G.N, N_SIGNALS, nf, f32, f32, gr)
+                for nf, gr in sorted(groups)}}
+
+    t0 = time.time()
+    G.compute_fourier_basis()
+    basis_s = time.time() - t0
+    e, U = np.linalg.eigh(L_host.astype(np.float64).toarray())
+    mother = gsp.filters.Heat(G, scale=20)
+    out = gsp.filters.Gabor(G, mother).filter(x[:, :N_CHECK_COLS],
+                                              method='exact')
+    cols = np.arange(0, G.N, GABOR_STRIDE)
+    x_hat = U.T @ x8
+    ref = np.stack([U @ (heat_host(e - e[j], 20, G.lmax)[:, None] * x_hat)
+                    for j in cols], axis=-1)
+    errs['Gabor (exact)'] = check('path G Gabor vs host f64 eigh',
+                                  out[:, :, cols].cpu(),
+                                  torch.from_numpy(ref), TOL_PATH)
+    del out
+    Uc = G.U.double().cpu().numpy()
+    ec = G.e.double().cpu().numpy()
+    out = gsp.filters.Modulation(G, mother).filter(x[:, 0])
+    gL = Uc @ (heat_host(ec, 20, G.lmax)[:, None] * Uc.T)
+    ref = (x8[None, :, 0] * (np.sqrt(G.N) * gL.T)) @ Uc * np.sqrt(G.N)
+    errs['Modulation (exact)'] = check(
+        'path G Modulation vs the host f64 formula on the card\'s basis',
+        out.cpu(), torch.from_numpy(ref), TOL_PATH)
+    return {'n': G.N, 'designs': len(ZOO) + 2, 'rel_err': errs,
+            'basis_s': basis_s, 'kernels': held}, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1979,7 +2514,7 @@ def main():
     double = phase_build()
     fold3 = phase_kernels()
     phase_kernel_b()
-    path_e, path_f, other = {}, {}, {}
+    path_e, path_f, path_g, other = {}, {}, {}, {}
     csr, path_a, counts_a, (G, x) = phase_path_a()
     path_e['A'], other['E_A'] = phase_path_e('A', G, None, x, TRAIN_STEPS,
                                              G.L.to_scipy())
@@ -1987,6 +2522,8 @@ def main():
                      **train_kernels(TRAIN_STEPS))
     path_f['lanczos'], other['F_lanczos'] = phase_path_f_lanczos(G, x)
     require_launches('F (Lanczos)', other['F_lanczos'], csr_spmm=ORDER)
+    path_g['A'], other_g = timed(phase_path_g_a, G, x)
+    other.update(other_g)
     del G, x
     torch.cuda.empty_cache()
     banded, path_b, counts_b, (G, Lb, x) = phase_path_b()
@@ -1994,6 +2531,7 @@ def main():
                                              G.L.to_scipy())
     require_launches('E on B', other['E_B'], banded_spmm=3 * ORDER,
                      **train_kernels(1))
+    path_g['B'], other['G_B'] = timed(phase_path_g_b, G, Lb, x)
     del G, Lb, x
     torch.cuda.empty_cache()
     fold, strip, fold2, path_c, counts_c, shared = phase_path_c()
@@ -2010,20 +2548,41 @@ def main():
                      **train_kernels(TRAIN_STEPS))
     if other['E_C']['csr_spmm']:
         raise AssertionError('the CSR kernel ran in path E on C')
+    path_g['C'], other['G_C'] = timed(phase_path_g_bank, 'C', G, x, 'Meyer',
+                                      sps.diags(G.dw) - G.W)
     del G, x
     torch.cuda.empty_cache()
     path_f['exact'], other['F_exact'] = phase_path_f_exact()
+    torch.cuda.empty_cache()
+    path_g['lobpcg'], other['G_lobpcg'] = timed(phase_path_g_lobpcg)
+    path_g['designs'], other['G_designs'] = timed(phase_path_g_designs)
     torch.cuda.empty_cache()
     paths = {'A': path_a, 'B': path_b, 'C': path_c, 'D': path_d}
     step, group, one, contract, kb_bank, dot = phase_kernel_b_times(
         {p: path['acc_group'] for p, path in paths.items()})
     for p, path in paths.items():
         path['kernel_b_per_bank'] = kb_bank[p]
-    paths.update(E=path_e, F=path_f)
+    paths.update(E=path_e, F=path_f, G=path_g)
     log(f'paths: {json.dumps(paths)}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')
 
+    # kernel A: grad (Dᵀ x) and div (D y) on path A's graph beside the
+    # bank's SpMM
+    difference = path_g['A']['difference']['combinatorial']
+    csr.update(grad=difference['grad'], div=difference['div'])
+    # each kernel at path G's other shapes, where it was held against its
+    # plain version
+    held_b, held_z = (path_g['B'].pop('kernels'),
+                      path_g['designs'].pop('kernels'))
+    csr.update(at_paths={
+        'G_A_one_column': path_g['A'].pop('spmm_one_column'),
+        'G_lobpcg_f64': path_g['lobpcg'].pop('spmm'),
+        'G_designs': held_z['csr_spmm']})
+    banded.update(at_synthesis_nf6=held_b['banded_spmm'])
+    step.update(B_synthesis_nf6=held_b['cheby_step'],
+                G_designs=held_z['cheby_step'])
+    contract.update(B_nf6=held_b['cheby_acc_contract'])
     csr.update(name='csr_spmm', route='cuda',
                source='pygsp_tpu_torch/csrc/csr_spmm.cu',
                replaces='pygsp_tpu/core/sparse.py:282 (XLA gather + '
@@ -2053,6 +2612,7 @@ def main():
     # group's are path C's, the same shape and types), the others under
     # at_paths; max_abs_err from the bit-equality check at that shape
     source = 'pygsp_tpu_torch/csrc/cheby_step.cu'
+    g_b = path_g['B']['acc_group']
     kb_step = dict(step['A'], name='cheby_step', route='cuda', source=source,
                    at_paths=step,
                    replaces='pygsp_tpu/ops/chebyshev.py:186-190 and '
@@ -2061,7 +2621,12 @@ def main():
     kb_group = dict(group['C'], name='cheby_acc_group', route='cuda',
                     source=source,
                     at_paths={**{p: group[p] for p in 'BCD'},
-                              **{f'g1_{p}': one[p] for p in 'BCD'}},
+                              **{f'g1_{p}': one[p] for p in 'BCD'},
+                              'A_nf6': path_g['A']['acc_group_nf6'],
+                              'g1_A_nf6': path_g['A'].pop('acc_group_nf6_g1'),
+                              'B_nf6': held_b[f'cheby_acc_group_g{g_b}'],
+                              'g1_B_nf6': held_b['cheby_acc_group_g1'],
+                              'G_designs': held_z['cheby_acc_group']},
                     replaces='pygsp_tpu/ops/chebyshev.py:189 and :323-334 '
                              '(XLA fusions, no Pallas kernel)')
     g = path_a['acc_group']

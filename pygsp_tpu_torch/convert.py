@@ -4,7 +4,8 @@ The operators are this system's state: a graph's Laplacian, held by the
 JAX package as pytrees of arrays plus static ints. These functions take
 those leaves as numpy arrays (``np.asarray`` of each JAX leaf) and the
 ints, and build the port's :class:`CSRMatrix`, :class:`BandedMatrix`,
-:class:`WindowedELLMatrix` and :class:`LaplacianOp` on ``device``. Nothing
+:class:`WindowedELLMatrix` and :class:`LaplacianOp` on ``device``, and a
+graph's difference operator (``G.D``) from its edge arrays. Nothing
 here imports JAX. The kernels read without bounds checks, so leaves from
 outside are checked first.
 
@@ -159,3 +160,24 @@ def laplacian_from_numpy(leaves: dict, device='cuda') -> LaplacianOp:
         offdiag = csr_from_numpy(off, device)
     return LaplacianOp(offdiag=offdiag, diag=_tensor(leaves['diag'], device),
                        lap_type=str(leaves['lap_type']))
+
+
+def difference_from_numpy(leaves: dict, device='cuda'):
+    """A difference operator (``Graph.D``) from the JAX package's
+    ``_DifferenceOp`` leaves: ``sources, targets`` (vertex ids), ``v_src,
+    v_tgt`` (the values at each end of each edge, whose dtype it keeps)
+    and the int ``n_vertices``. The kernel gathers x rows at the edge ends
+    without bounds checks, so the ids are checked here."""
+    from pygsp_tpu_torch.graphs.graph import _DifferenceOp
+    n = int(leaves['n_vertices'])
+    arrays = [np.asarray(leaves[k])
+              for k in ('sources', 'targets', 'v_src', 'v_tgt')]
+    if any(a.ndim != 1 or a.shape != arrays[0].shape for a in arrays):
+        raise ValueError('sources, targets, v_src and v_tgt must be 1-D, '
+                         'of one length')
+    sources, targets, v_src, v_tgt = arrays
+    for ids in (sources, targets):
+        if ids.size and (ids.min() < 0 or ids.max() >= n):
+            raise ValueError(f'edge ends out of range for {n} vertices')
+    return _DifferenceOp(n, sources, targets, v_src, v_tgt, device=device,
+                         dtype=torch.from_numpy(v_src[:0]).dtype)

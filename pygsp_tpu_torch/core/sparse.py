@@ -96,6 +96,24 @@ class CSRMatrix:
     def __matmul__(self, x):
         return spmm(self, x)
 
+    @property
+    def T(self) -> 'CSRMatrix':
+        """The transpose, on the matrix's device: a stable sort of the
+        entries by column, so each new row keeps its entries in the old row
+        order; padding (``cols == n_cols``, beyond every real column) sorts
+        to the end. The row pointer comes from the column counts."""
+        order = torch.argsort(self.cols, stable=True)
+        real = self.rows < self.n_rows
+        counts = torch.bincount(
+            torch.where(real, self.cols, self.n_cols).long(),
+            minlength=self.n_cols + 1)[:self.n_cols]
+        rowptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+        return CSRMatrix(rows=self.cols[order], cols=self.rows[order],
+                         vals=self.vals[order],
+                         rowptr=rowptr.to(torch.int32),
+                         n_rows=self.n_cols, n_cols=self.n_rows,
+                         nnz=self.nnz)
+
 
 # ---------------------------------------------------------------------------
 # Builders (host-side; NumPy in, tensors out)

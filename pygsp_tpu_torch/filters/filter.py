@@ -8,16 +8,29 @@ cache), and with ``fixed_graph=True`` its constant-memory backward;
 ``'exact'`` the graph's Fourier basis.
 
 Signal convention is the rank-3 ``(N_NODES, N_SIGNALS, N_FEATURES)`` with
-the same squeeze/expand ergonomics as the JAX package.
+the same squeeze/expand ergonomics as the JAX package. The frame methods
+(``localize``, ``estimate_frame_bounds``, ``compute_frame``,
+``complement``, ``inverse``) build their kernels as torch functions of λ.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from pygsp_tpu_torch import utils
 from pygsp_tpu_torch.ops import chebyshev as cheby
 from pygsp_tpu_torch.ops import lanczos as lanczos_mod
+
+_logger = utils.build_logger(__name__)
+
+
+def _ftype(x):
+    """The float dtype a kernel's result takes for responses at ``x``: x's
+    own, or the default one for integer x (``jnp.result_type(x, 1.0)``)."""
+    return torch.result_type(x, 1.0)
 
 
 class Filter:
@@ -207,3 +220,123 @@ class Filter:
                              f'number of filters Nf = {self.Nf}, got '
                              f'{tuple(s.shape)}.')
         return self.filter(s, method, order)
+
+    def localize(self, i, **kwargs):
+        """Filter √N·δᵢ to show the kernels in the vertex domain; ``kwargs``
+        go to :meth:`filter`.
+
+        Examples
+        --------
+        >>> import torch
+        >>> from pygsp_tpu_torch import graphs, filters
+        >>> G = graphs.Grid2d(8, 8, device='cpu', dtype=torch.float64)
+        >>> G.estimate_lmax()
+        >>> g = filters.Heat(G, scale=[5, 20])
+        >>> tuple(g.localize(9).shape)   # the two atoms centred at v=9
+        (64, 2)
+        """
+        s = torch.zeros(self.G.N, dtype=self.G.dtype, device=self.G.device)
+        s[i] = 1.0
+        return math.sqrt(self.G.N) * self.filter(s, **kwargs)
+
+    # -- frame machinery --------------------------------------------------
+
+    def estimate_frame_bounds(self, x=None):
+        """``(A, B)``, the least and the largest of Σᵢ gᵢ²(x) over ``x``
+        (default 1000 points spanning [0, λmax]), as Python floats.
+
+        Examples
+        --------
+        >>> import torch
+        >>> from pygsp_tpu_torch import graphs, filters
+        >>> G = graphs.Grid2d(8, 8, device='cpu', dtype=torch.float64)
+        >>> G.estimate_lmax()
+        >>> A, B = filters.Itersine(G, Nf=5).estimate_frame_bounds()
+        >>> print(round(B / A, 2))     # tight frame
+        1.0
+        """
+        if x is None:
+            x = torch.linspace(0, self.G.lmax, 1000, dtype=self.G.dtype,
+                               device=self.G.device)
+        else:
+            x = torch.as_tensor(x, device=self.G.device)
+        s = torch.sum(self.evaluate(x) ** 2, dim=0)
+        return float(torch.min(s)), float(torch.max(s))
+
+    def compute_frame(self, **kwargs):
+        """The analysis operator as a (N·Nf, N) matrix, by filtering the
+        identity (``kwargs`` go to :meth:`filter`). Small graphs only.
+
+        Examples
+        --------
+        >>> import torch
+        >>> from pygsp_tpu_torch import graphs, filters
+        >>> G = graphs.Grid2d(4, 4, device='cpu', dtype=torch.float64)
+        >>> G.estimate_lmax()
+        >>> g = filters.Heat(G, scale=[5, 20])
+        >>> tuple(g.compute_frame().shape)   # Nf*N atoms as rows
+        (32, 16)
+        """
+        if self.G.N > 2000:
+            _logger.warning('Creating a big matrix. '
+                            'You should prefer the filter method.')
+        s = torch.eye(self.G.N, dtype=self.G.dtype, device=self.G.device)
+        out = self.filter(s, **kwargs)
+        return out.permute(*reversed(range(out.ndim))).reshape(-1, self.G.N)
+
+    def toarray(self):
+        return self.compute_frame()
+
+    def complement(self, frame_bound=None):
+        """The kernel √(B − Σg²) that makes the bank a tight frame of bound
+        B: by default the largest Σg² at the points it is evaluated on;
+        ``frame_bound`` raises ``ValueError`` below that.
+
+        Examples
+        --------
+        >>> import numpy as np, torch
+        >>> from pygsp_tpu_torch import graphs, filters
+        >>> G = graphs.Grid2d(8, 8, device='cpu', dtype=torch.float64)
+        >>> G.estimate_lmax()
+        >>> g = filters.Heat(G, scale=10)
+        >>> gc = g + g.complement()           # saturate the frame
+        >>> lam = torch.linspace(0, G.lmax, 5, dtype=torch.float64)
+        >>> v = (gc.evaluate(lam) ** 2).sum(dim=0)
+        >>> print(np.round(v.numpy(), 2))     # now exactly tight
+        [1. 1. 1. 1. 1.]
+        """
+        def kernel(x):
+            y = torch.sum(self.evaluate(x) ** 2, dim=0)
+            if frame_bound is None:
+                bound = torch.max(y)
+            else:
+                _, B = self.estimate_frame_bounds(x)
+                if B > frame_bound:
+                    raise ValueError(f'The chosen bound is not feasible. '
+                                     f'Choose at least {B}.')
+                bound = frame_bound
+            return torch.sqrt(torch.clamp(bound - y, min=0.0))
+        return Filter(self.G, kernel)
+
+    def inverse(self):
+        """The canonical dual bank gᵢ⁺ = gᵢ / Σⱼ gⱼ² (the pseudo-inverse),
+        with a warning if the bank is not a frame or is badly
+        conditioned."""
+        A, B = self.estimate_frame_bounds()
+        if A == 0:
+            _logger.warning('The filter bank is not invertible as it is not '
+                            'a frame (lower frame bound A=0).')
+        elif A / B < 1e-10:
+            _logger.warning('The filter bank is badly conditioned. '
+                            'The inverse will be approximate.')
+
+        def make_kernel(i):
+            def kernel(x):
+                y = self.evaluate(x)               # (Nf, len(x))
+                denom = torch.sum(y ** 2, dim=0)
+                nonzero = denom > 0
+                return torch.where(
+                    nonzero, y[i] / torch.where(nonzero, denom, 1.0), 0.0)
+            return kernel
+
+        return Filter(self.G, [make_kernel(i) for i in range(self.n_filters)])

@@ -7,6 +7,8 @@ validation, predicates, degrees live on the host) plus operators on
 
 - ``W_op`` : padded row-sorted :class:`~pygsp_tpu_torch.core.sparse.CSRMatrix`
 - ``L``    : :class:`~pygsp_tpu_torch.core.operators.LaplacianOp`
+- ``D``    : the difference operator (``grad``/``div``), whose products run
+  on the CSR SpMM kernel
 
 ``device`` defaults to ``'cuda'``; pass ``device='cpu'`` to run the plain
 PyTorch versions of the kernels on the CPU. ``dtype`` is the operators'
@@ -106,6 +108,7 @@ class Graph:
         self._U = None
         self._e = None
         self._coherence = None
+        self._D = None
         self._d = None
         self._dw = None
         self._directed = None
@@ -155,6 +158,10 @@ class Graph:
     # structure predicates (host-side)
     # ------------------------------------------------------------------
 
+    def is_weighted(self) -> bool:
+        """False iff every edge weight is 1."""
+        return not np.all(self._adjacency.data == 1)
+
     def is_directed(self) -> bool:
         """W != W.T anywhere."""
         if self._directed is None:
@@ -172,6 +179,65 @@ class Graph:
                 connection='strong' if self.is_directed() else 'weak')
             self._connected = n_comp == 1
         return self._connected
+
+    def extract_components(self):
+        """The connected components as subgraphs, each with
+        ``info['orig_idx']``, its vertices in this graph. A directed graph
+        logs an error and gives None."""
+        if self.is_directed():
+            self.logger.error('Directed graphs not supported yet.')
+            return None
+        n_comp, labels = sps.csgraph.connected_components(
+            self._adjacency, directed=False)
+        graphs = []
+        for c in range(n_comp):
+            idx = np.nonzero(labels == c)[0]
+            G = self.subgraph(idx)
+            G.info = {'orig_idx': idx}
+            graphs.append(G)
+        return graphs
+
+    def subgraph(self, vertices):
+        """The subgraph induced by ``vertices``, on this graph's device and
+        dtype, with the coordinates and signals of those vertices.
+
+        Examples
+        --------
+        >>> from pygsp_tpu_torch import graphs
+        >>> G = graphs.Grid2d(4, 4, device='cpu')
+        >>> H = G.subgraph([0, 1, 2, 3])     # the first row of the grid
+        >>> H.N, H.Ne
+        (4, 3)
+        """
+        vertices = np.asarray(vertices)
+        adjacency = self._adjacency[vertices, :][:, vertices]
+        try:
+            coords = self.coords[vertices] if self.coords is not None else None
+        except (TypeError, IndexError):
+            coords = None
+        G = Graph(adjacency, lap_type=self.lap_type, coords=coords,
+                  plotting=self.plotting, device=self.device,
+                  dtype=self.dtype)
+        for name, signal in self.signals.items():
+            G.set_signal(name, signal[vertices])
+        return G
+
+    def get_edge_list(self):
+        """``(sources, targets, weights)`` as host arrays; the upper
+        triangle only if the graph is undirected.
+
+        Examples
+        --------
+        >>> from pygsp_tpu_torch import graphs
+        >>> v_in, v_out, weights = graphs.Grid2d(1, 4, device='cpu').get_edge_list()
+        >>> [v_in.tolist(), v_out.tolist()]
+        [[0, 1, 2], [1, 2, 3]]
+        """
+        if self.is_directed():
+            W = self._adjacency.tocoo()
+        else:
+            W = sps.triu(self._adjacency, format='coo')
+        return W.row, W.col, W.data
 
     # ------------------------------------------------------------------
     # signals
@@ -240,6 +306,7 @@ class Graph:
             self._U = None
             self._e = None
             self._coherence = None
+            self._D = None
         self.lap_type = lap_type
 
         if lap_type not in ('combinatorial', 'normalized'):
@@ -398,3 +465,154 @@ class Graph:
         s_hat = torch.as_tensor(s_hat, device=U.device)
         dt = torch.promote_types(s_hat.dtype, U.dtype)
         return torch.tensordot(U.to(dt), s_hat.to(dt), dims=([1], [0]))
+
+    # ------------------------------------------------------------------
+    # the difference operator: grad / div
+    # ------------------------------------------------------------------
+
+    def compute_differential_operator(self):
+        """The edge-incidence operator D with ``L = D Dᵀ``, on ``device``:
+        per edge ``±√w`` (combinatorial) or ``√(w/dw)`` at each end
+        (normalized, dw of the symmetrized adjacency), divided by √2 on a
+        directed graph, zero on a self-loop.
+
+        Examples
+        --------
+        >>> import numpy as np, torch
+        >>> from pygsp_tpu_torch import graphs
+        >>> G = graphs.Grid2d(1, 5, device='cpu', dtype=torch.float64)
+        >>> G.compute_differential_operator()
+        >>> s = np.arange(5.)
+        >>> tuple(G.grad(s).shape)    # one difference per edge
+        (4,)
+        >>> bool(torch.allclose(G.div(G.grad(s)), G.L @ torch.from_numpy(s)))
+        True
+        """
+        sources, targets, weights = self.get_edge_list()
+        w = np.asarray(weights, dtype=np.float64)
+        if self.lap_type == 'combinatorial':
+            v_src = -np.sqrt(w)
+            v_tgt = np.sqrt(w)
+        elif self.lap_type == 'normalized':
+            dw = np.ravel(getattr(self, '_Wsym_host', self._adjacency).sum(axis=0))
+            safe = np.where(dw > 0, dw, 1.0)
+            v_src = -np.sqrt(w / safe[sources])
+            v_tgt = np.sqrt(w / safe[targets])
+        else:
+            raise ValueError(f'Unknown lap_type {self.lap_type!r}')
+        if self.is_directed():
+            v_src = v_src / np.sqrt(2)
+            v_tgt = v_tgt / np.sqrt(2)
+        # a self-loop's row of D is zero (√w − √w on one vertex)
+        loops = sources == targets
+        v_src = np.where(loops, 0.0, v_src)
+        v_tgt = np.where(loops, 0.0, v_tgt)
+        self._D = _DifferenceOp(self.n_vertices, sources, targets, v_src,
+                               v_tgt, device=self.device, dtype=self.dtype)
+
+    @property
+    def D(self):
+        """The difference operator, computed on first use with a warning."""
+        if self._D is None:
+            self.logger.warning(
+                'The differential operator G.D is not available, we need to '
+                'compute it. Explicitly call G.compute_differential_operator() '
+                'once beforehand to suppress the warning.')
+            self.compute_differential_operator()
+        return self._D
+
+    def grad(self, x):
+        """The gradient on the edges, ``Dᵀ x`` (one CSR SpMM)."""
+        return self.D.grad(self._check_signal(x))
+
+    def div(self, y):
+        """The divergence on the vertices, ``D y`` (one CSR SpMM)."""
+        return self.D.div(y)
+
+
+class _DifferenceOp:
+    """The edge-incidence operator D (N × Ne) on a device.
+
+    Dᵀ is stored as a :class:`~pygsp_tpu_torch.core.sparse.CSRMatrix` of Ne
+    rows with two entries each, ``(s_e, v_src[e])`` and ``(t_e, v_tgt[e])``,
+    and D as its transpose (:attr:`CSRMatrix.T`), each vertex's entries in
+    edge order. ``grad(x) = Dᵀ x`` and ``div(y) = D y`` are each one product
+    on the CSR SpMM kernel, and each is the other's adjoint in autograd.
+    Together they satisfy ``div(grad(x)) = L x``.
+    """
+
+    def __init__(self, n_vertices, sources, targets, v_src, v_tgt, *,
+                 device='cuda', dtype=torch.float32):
+        self.n_vertices = int(n_vertices)
+        self.n_edges = len(sources)
+        self.device = torch.device(device)
+        np_dtype = torch.zeros(0, dtype=dtype).numpy().dtype
+        cols = np.stack([sources, targets], axis=1).reshape(-1)
+        vals = np.stack([v_src, v_tgt], axis=1).reshape(-1).astype(np_dtype)
+        rows = np.repeat(np.arange(self.n_edges), 2)
+        self.DT = core_sparse._pad_and_build(rows, cols, vals, self.n_edges,
+                                             self.n_vertices, self.device)
+        self.D = self.DT.T
+
+    def grad(self, x):
+        """``(Dᵀ x)[e] = v_tgt[e] x[t_e] + v_src[e] x[s_e]``: (Ne, ...)."""
+        return _Grad.apply(torch.as_tensor(x, device=self.device), self)
+
+    def div(self, y):
+        """``(D y)[v]``, the sum over the edges at v of their value times
+        y: (N, ...)."""
+        y = torch.as_tensor(y, device=self.device)
+        if y.ndim == 0 or y.shape[0] != self.n_edges:
+            raise ValueError(f'First dimension must be the number of edges '
+                             f'G.Ne = {self.n_edges}, got {tuple(y.shape)}.')
+        return _Div.apply(y, self)
+
+    def to_scipy(self):
+        """D as a scipy CSC matrix (N, Ne), without explicit zeros."""
+        D = core_sparse.to_scipy(self.DT).T.tocsc()
+        D.eliminate_zeros()
+        return D
+
+    def toarray(self):
+        return self.to_scipy().toarray()
+
+    @property
+    def T(self):
+        return _TransposedDiff(self)
+
+    def dot(self, y):
+        return self.div(y)
+
+
+class _TransposedDiff:
+    def __init__(self, D):
+        self._D = D
+
+    def dot(self, x):
+        return self._D.grad(x)
+
+
+class _Grad(torch.autograd.Function):
+    """``Dᵀ x``; its backward is ``D ȳ``, on the same kernel."""
+
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op = op
+        return core_sparse.spmm(op.DT, x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _Div.apply(gy, ctx.op), None
+
+
+class _Div(torch.autograd.Function):
+    """``D y``; its backward is ``Dᵀ x̄``, on the same kernel."""
+
+    @staticmethod
+    def forward(ctx, y, op):
+        ctx.op = op
+        return core_sparse.spmm(op.D, y)
+
+    @staticmethod
+    def backward(ctx, gx):
+        return _Grad.apply(gx, ctx.op), None

@@ -1,10 +1,10 @@
-"""Spectrum estimation: the Lanczos λmax estimate, the algebraic bounds and
-the dense Fourier basis.
+"""Spectrum estimation: the Lanczos λmax estimate, the algebraic bounds,
+power iteration, and the dense and the partial (LOBPCG) Fourier basis.
 
-Counterpart of :mod:`pygsp_tpu.ops.eigen` without its LOBPCG path. The
-Lanczos start vector comes from a seeded ``torch.Generator`` on the
-operator's device; it cannot match ``jax.random``, so parity tests pin
-λmax.
+Counterpart of :mod:`pygsp_tpu.ops.eigen`. The random start vectors come
+from seeded ``torch.Generator``s on the operator's device; they cannot match
+``jax.random``, so parity tests pin λmax and hold LOBPCG's eigenpairs to a
+tolerance.
 """
 
 from __future__ import annotations
@@ -13,7 +13,9 @@ import torch
 
 from pygsp_tpu_torch.core.operators import (LaplacianOp, degrees_from_adjacency,
                                             matvec)
+from pygsp_tpu_torch.core.sparse import BandedMatrix, CSRMatrix
 from pygsp_tpu_torch.ops.lanczos import _lanczos_single
+from pygsp_tpu_torch.ops.lobpcg import lobpcg_standard
 from pygsp_tpu_torch.ops.spmm import spmm
 
 
@@ -67,21 +69,87 @@ def matvec_adj(W, x):
 
 
 def fourier_basis(L: LaplacianOp, n_eigenvectors: int | None = None):
-    """Eigendecomposition of the Laplacian: ``(e, U)``, ascending, with
-    ``e[0]`` set to exactly 0 as in the reference. The dense operator goes
-    to ``torch.linalg.eigh`` on its device. A partial request that the JAX
-    package sends to LOBPCG (``k < N``, ``N > 2000`` and ``5k < N``) raises
-    ``NotImplementedError``: LOBPCG is not ported yet."""
+    """(Partial) eigendecomposition of the Laplacian: ``(e, U)``, ascending,
+    with ``e[0]`` set to exactly 0 as in the reference. A full request
+    densifies the operator and runs ``torch.linalg.eigh`` on its device; a
+    partial one with k small against N (``k < N``, ``N > 2000`` and
+    ``5k < N``) goes to LOBPCG (:func:`partial_fourier_basis`)."""
     n = L.n_vertices
     k = n if n_eigenvectors is None else int(n_eigenvectors)
     if k < n and n > 2000 and 5 * k < n:
-        raise NotImplementedError(
-            f'fourier_basis(n_eigenvectors={k}) on {n} vertices takes the '
-            f'LOBPCG path (partial_fourier_basis), which is not ported yet: '
-            f'see ROADMAP.md, "Modules to port", item 2 (the rest of the '
-            f'spectral side)')
+        return partial_fourier_basis(L, k)
     e, U = torch.linalg.eigh(L.to_dense())
     e[0] = 0.0
     if k < e.shape[0]:
         e, U = e[:k], U[:, :k]
     return e, U
+
+
+def laplacian_upper_bound(L: LaplacianOp):
+    """Gershgorin's bound on λmax, ``max_i (diag_i + Σ_j |offdiag_ij|)``, as
+    a 0-d tensor. On the CSR format the row sums are one SpMM of ``|vals|``
+    by a vector of ones; on the banded format sums over the tiles. The
+    windowed format raises ``TypeError`` (the JAX package has no path for
+    it either)."""
+    off = L.offdiag
+    if isinstance(off, CSRMatrix):
+        ones = torch.ones(off.n_cols, dtype=off.dtype, device=off.device)
+        absrow = spmm(off.with_vals(torch.abs(off.vals)), ones)
+    elif isinstance(off, BandedMatrix):
+        absrow = torch.sum(torch.abs(off.tiles),
+                           dim=(1, 3)).reshape(-1)[:off.n_rows]
+    else:
+        raise TypeError(f'laplacian_upper_bound takes a Laplacian on the CSR '
+                        f'or banded format, not {type(off).__name__}')
+    return torch.max(L.diag + absrow)
+
+
+def partial_fourier_basis(L: LaplacianOp, k: int, *, maxiter: int = 300,
+                          tol=None, seed: int = 17):
+    """The k smallest eigenpairs of L by LOBPCG on the flipped operator
+    ``B = c·I − L``, ``c = 1.01 ×`` :func:`laplacian_upper_bound`: L's
+    smallest eigenvalues are B's largest, ``λ = c − θ``. Each iteration is
+    a few k-wide SpMMs of L. Returns ``(e, U)``, ascending, ``e[0] = 0``;
+    the start block is drawn from a ``torch.Generator`` seeded with
+    ``seed``.
+
+    Examples
+    --------
+    >>> import torch
+    >>> from pygsp_tpu_torch import graphs
+    >>> G = graphs.Grid2d(60, 7, device='cpu', dtype=torch.float64)
+    >>> e, U = partial_fourier_basis(G.L, 3)
+    >>> float(e[0]), tuple(U.shape)
+    (0.0, (420, 3))
+    """
+    n = L.n_vertices
+    if not 1 <= k or 5 * k >= n:
+        raise ValueError(f'need 1 <= k and 5k < n, got k={k}, n={n}')
+    c = laplacian_upper_bound(L) * 1.01
+
+    def B(x):
+        return c * x - matvec(L, x)
+
+    gen = torch.Generator(device=L.device).manual_seed(seed)
+    x0 = torch.randn((n, k), generator=gen, dtype=L.dtype, device=L.device)
+    theta, U, _ = lobpcg_standard(B, x0, m=maxiter, tol=tol)
+    e = c - theta
+    order = torch.argsort(e)
+    e = e[order]
+    e[0] = 0.0
+    return e, U[:, order]
+
+
+def power_iteration_lmax(L: LaplacianOp, iters: int = 100, seed: int = 0):
+    """λmax by plain power iteration on L (slower to converge than Lanczos
+    on clustered spectra), as a 0-d tensor; the start vector is drawn from
+    a ``torch.Generator`` seeded with ``seed``."""
+    n = L.n_vertices
+    gen = torch.Generator(device=L.device).manual_seed(seed)
+    v = torch.randn(n, generator=gen, dtype=L.dtype, device=L.device)
+    v = v / torch.linalg.norm(v)
+    tiny = torch.finfo(v.dtype).tiny
+    for _ in range(iters):
+        w = matvec(L, v)
+        v = w / torch.clamp(torch.linalg.norm(w), min=tiny)
+    return v @ matvec(L, v)

@@ -1,6 +1,6 @@
 """Host-side utilities: logging, symmetrization, bundled assets.
 
-Counterpart of :mod:`pygsp_tpu.utils` (the parts the Chebyshev path needs).
+Counterpart of :mod:`pygsp_tpu.utils` (the parts the ported modules need).
 These run on host NumPy/SciPy: they build graphs, they are not compute-path
 code. The assets are read from this package's own ``data/`` folder.
 """
@@ -77,6 +77,21 @@ def symmetrize(W, method: str = 'average'):
         tri = getattr(sps if issp else np, method)
         return symmetrize(tri(W), method='maximum')
     raise ValueError(f'Unknown symmetrization method {method!r}')
+
+
+def compute_log_scales(lmin: float, lmax: float, n_scales: int,
+                       t1: float = 1.0, t2: float = 2.0):
+    """Log-spaced wavelet scales between heuristic bounds: they span
+    [t1/lmax, t2/lmin] geometrically, largest first.
+
+    Examples
+    --------
+    >>> compute_log_scales(1.0, 10.0, 3)
+    array([2.       , 0.4472136, 0.1      ])
+    """
+    scale_min = t1 / lmax
+    scale_max = t2 / lmin
+    return np.exp(np.linspace(np.log(scale_max), np.log(scale_min), n_scales))
 
 
 def loadmat(name: str) -> dict:

@@ -171,21 +171,14 @@ def test_errors_match_jax():
         g.analyze(np.zeros((T.N, 1, 2)))
 
 
-@pytest.mark.parametrize('call', ['partial_fourier_basis', 'to_hybrid',
-                                  'to_chunked'])
+@pytest.mark.parametrize('call', ['to_hybrid', 'to_chunked'])
 def test_unported_options_name_their_roadmap_item(call):
     """What is still not ported raises NotImplementedError naming its
     current item of ROADMAP.md's "Modules to port"."""
-    if call == 'partial_fourier_basis':
-        T = tgsp.graphs.Grid2d(50, 50, **CPU64)     # LOBPCG above 2000
-        with pytest.raises(NotImplementedError,
-                           match='"Modules to port", item 2 '):
-            T.compute_fourier_basis(n_eigenvectors=10)
-    else:
-        T = tgsp.graphs.Grid2d(4, 4, **CPU64)
-        with pytest.raises(NotImplementedError,
-                           match='"Modules to port", item 4 '):
-            getattr(T.L, call)()
+    T = tgsp.graphs.Grid2d(4, 4, **CPU64)
+    with pytest.raises(NotImplementedError,
+                       match='"Modules to port", item 4 '):
+        getattr(T.L, call)()
 
 
 def test_filter_bank_algebra():

@@ -81,3 +81,45 @@ def test_malformed_csr_leaves_are_refused(fault):
         leaves['rowptr'] = leaves['rowptr'][:-1]
     with pytest.raises(ValueError):
         convert.csr_from_numpy(leaves, device='cpu')
+
+
+def _difference_leaves(D):
+    """A JAX ``_DifferenceOp`` as numpy leaves and its vertex count."""
+    return {'sources': np.asarray(D.sources), 'targets': np.asarray(D.targets),
+            'v_src': np.asarray(D.v_src), 'v_tgt': np.asarray(D.v_tgt),
+            'n_vertices': D.n_vertices}
+
+
+@pytest.mark.parametrize('lap_type', ['combinatorial', 'normalized'])
+def test_difference_operator_carries_across(lap_type):
+    G = jgsp.graphs.BarabasiAlbert(120, m0=3, m=2, seed=4, lap_type=lap_type)
+    G.compute_differential_operator()
+    D = convert.difference_from_numpy(_difference_leaves(G.D), device='cpu')
+    assert (D.n_vertices, D.n_edges) == (G.N, G.D.n_edges)
+    assert D.DT.vals.dtype == D.D.vals.dtype == torch.float64
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(G.N, 3))
+    y = rng.normal(size=(G.D.n_edges, 3))
+    for got, want in ((D.grad(torch.from_numpy(x)), G.D.grad(jnp.asarray(x))),
+                      (D.div(torch.from_numpy(y)), G.D.div(jnp.asarray(y)))):
+        assert np.allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)
+    assert abs(D.to_scipy() - G.D.to_scipy()).max() == 0
+
+
+@pytest.mark.parametrize('fault', ['source_high', 'target_negative',
+                                   'lengths', 'two_d'])
+def test_malformed_difference_leaves_are_refused(fault):
+    G = jgsp.graphs.Grid2d(4, 3)
+    G.compute_differential_operator()
+    leaves = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+              for k, v in _difference_leaves(G.D).items()}
+    if fault == 'source_high':
+        leaves['sources'][2] = G.N
+    elif fault == 'target_negative':
+        leaves['targets'][0] = -1
+    elif fault == 'lengths':
+        leaves['v_tgt'] = leaves['v_tgt'][:-1]
+    else:
+        leaves['v_src'] = leaves['v_src'][:, None]
+    with pytest.raises(ValueError):
+        convert.difference_from_numpy(leaves, device='cpu')

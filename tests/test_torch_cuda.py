@@ -818,3 +818,111 @@ def test_filter_refuses_autograd_and_fixed_graph_trains_on_the_card(cuda):
         grads.append((tau.grad.cpu(), x.grad.cpu()))
     for got, want in zip(*grads):
         assert torch.allclose(got, want, rtol=0, atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the difference operator on kernel A, the filter zoo, LOBPCG
+# ---------------------------------------------------------------------------
+
+def _difference_pair(cuda, dtype, lap_type, directed=False):
+    rng = np.random.default_rng(11)
+    W = sps.random(600, 600, density=0.02, random_state=rng, format='csr')
+    W = W + sps.diags(np.ones(599), 1)
+    if not directed:
+        W = W + W.T
+    W.setdiag(0)
+    W.eliminate_zeros()
+    pair = []
+    for device in (cuda, 'cpu'):
+        G = tgsp.graphs.Graph(W, lap_type=lap_type, device=device,
+                              dtype=dtype)
+        G.compute_differential_operator()
+        pair.append(G)
+    return pair
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('lap_type,directed', [('combinatorial', False),
+                                               ('normalized', False),
+                                               ('normalized', True)])
+@pytest.mark.parametrize('shape', [(), (7,), (130,), (2, 3)])
+def test_grad_and_div_launch_kernel_a_once(cuda, dtype, lap_type, directed,
+                                           shape):
+    """grad and div on the card: one csr_spmm launch each, no plain
+    version, against the CPU's plain products; two launches bit-equal."""
+    Gc, Gh = _difference_pair(cuda, dtype, lap_type, directed)
+    x = _signal((Gc.N,) + shape, dtype, 3, 'cpu')
+    y = _signal((Gc.Ne,) + shape, dtype, 4, 'cpu')
+    tol = TOL[dtype]
+    for op, v in (('grad', x), ('div', y)):
+        before = csr_kernel.csr_spmm.launches
+        got = getattr(Gc, op)(v.to(cuda))
+        assert csr_kernel.csr_spmm.launches == before + 1
+        assert tuple(got.shape) == (
+            (Gc.Ne if op == 'grad' else Gc.N),) + shape
+        assert _rel_err(got.cpu(), getattr(Gh, op)(v)) <= tol
+        assert torch.equal(got, getattr(Gc, op)(v.to(cuda)))
+    assert _rel_err(Gc.div(Gc.grad(x.to(cuda))).cpu(),
+                    Gh.L @ x) <= 10 * tol
+
+
+def test_grad_and_div_differentiate_through_each_other(cuda):
+    """A backward through grad is div on the card (and the reverse), one
+    more launch each; and a second-order gradient runs."""
+    Gc, _ = _difference_pair(cuda, torch.float64, 'combinatorial')
+    x = _signal((Gc.N, 3), torch.float64, 5, cuda).requires_grad_()
+    y = _signal((Gc.Ne, 3), torch.float64, 6, cuda).requires_grad_()
+    ybar = _signal((Gc.Ne, 3), torch.float64, 7, cuda)
+    xbar = _signal((Gc.N, 3), torch.float64, 8, cuda)
+    before = csr_kernel.csr_spmm.launches
+    (gx,) = torch.autograd.grad(Gc.grad(x), x, ybar)
+    (gy,) = torch.autograd.grad(Gc.div(y), y, xbar)
+    assert csr_kernel.csr_spmm.launches == before + 4
+    assert torch.equal(gx, Gc.div(ybar)) and torch.equal(gy, Gc.grad(xbar))
+    (g2,) = torch.autograd.grad((Gc.grad(x) ** 2).sum(), x,
+                                create_graph=True)
+    (h,) = torch.autograd.grad(g2.sum(), x)
+    assert _rel_err(h, 2 * Gc.div(Gc.grad(torch.ones_like(x)))) <= 1e-12
+
+
+def test_csr_transpose_on_the_card_equals_the_cpus(cuda):
+    Gc, Gh = _difference_pair(cuda, torch.float32, 'combinatorial', True)
+    for name in ('rows', 'cols', 'vals', 'rowptr'):
+        assert torch.equal(getattr(Gc.D.D, name).cpu(),
+                           getattr(Gh.D.D, name)), name
+
+
+@pytest.mark.parametrize('name,kwargs', [('MexicanHat', dict(Nf=6)),
+                                         ('Meyer', dict(Nf=6)),
+                                         ('Regular', dict())])
+def test_a_bank_of_six_on_the_card_matches_the_cpu(cuda, name, kwargs):
+    """A bank of Nf = 6 (kernel B's groups take two passes of four
+    filters) on CSR and windowed, against the CPU."""
+    W, _ = _ba_windowed(torch.float64, 'cpu')
+    for fmt in ('coo', 'windowed'):
+        out = []
+        for device in (cuda, 'cpu'):
+            G = tgsp.graphs.Graph(W, device=device, dtype=torch.float64)
+            G.compute_laplacian(fmt=fmt)
+            G.estimate_lmax(method='bounds')
+            g = getattr(tgsp.filters, name)(G, **kwargs)
+            x = np.random.default_rng(5).normal(size=(G.N, 9))
+            out.append(g.filter(x, order=30).cpu())
+        assert _rel_err(out[0], out[1]) <= 1e-12
+
+
+def test_upper_bound_power_iteration_and_lobpcg_on_the_card(cuda):
+    from pygsp_tpu_torch.ops import eigen
+    out = []
+    for device in (cuda, 'cpu'):
+        G = tgsp.graphs.Grid2d(60, 37, device=device, dtype=torch.float64)
+        e, U = eigen.partial_fourier_basis(G.L, 3)
+        out.append((float(eigen.laplacian_upper_bound(G.L)),
+                    float(eigen.laplacian_upper_bound(G.L.to_banded())),
+                    e.cpu(), U.cpu()))
+        p = float(eigen.power_iteration_lmax(G.L))
+        assert p <= out[-1][0]
+    (ub, ubb, e, U), (ub_h, ubb_h, e_h, U_h) = out
+    assert ub == ub_h == ubb == ubb_h
+    assert float((e - e_h).abs().max()) <= 1e-8
+    assert float((torch.diag(U.T @ U_h).abs() - 1).abs().max()) <= 1e-6
