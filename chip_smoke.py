@@ -95,6 +95,27 @@ G. path G, the filter zoo and the rest of the spectral and graph side:
    parameters on ``Grid2d(64, 64)`` against the SciPy f64 recurrence of
    its own coefficients, ``Gabor`` against host f64 ``eigh`` filtering and
    ``Modulation`` against its formula in f64 on the card's basis;
+H. path H, the hybrid ELL format on its kernel ``ell_spmm``:
+   ``compute_laplacian(fmt='auto')`` on BA(2^16), the largest graph that
+   ``'auto'`` sends to hybrid, then path A's graph with ``fmt='hybrid'``,
+   each with λmax and the heat bank against the SciPy f64 recurrence, 30
+   ``ell_spmm`` launches a bank and no CSR kernel, plain SpMM or
+   ``index_add_``; the kernel against its plain version in f64 at the
+   bank's shape (heavy rows in blocks of their own), at one column and in
+   f64 at 5, two launches bit-equal, ``inf`` behind every dead slot adding
+   nothing, timed beside its bound, its gather model, its plain version
+   and ``torch.sparse.mm``; ``laplacian_upper_bound`` against the host
+   Gershgorin bound; and ``fmt='auto'`` on ``Minnesota``, ``Airfoil``,
+   ``StochasticBlockModel(N=1024)`` and ``Community(N=256)`` at a fixed
+   seed, a one-filter bank each against SciPy f64;
+I. path I, the chunked format on its kernel ``chunked_spmm``: path A's
+   graph with ``fmt='chunked'``, the bank and its checks as on path H; the
+   kernel held as there at the bank's shape, at one column, in every bf16
+   operand pair and at the x̄ synthesis's 512 columns; the fast mode
+   (``carry_dtype`` and ``vals_dtype`` bf16, the ``chunked_spmm_bf16``
+   symbol counted) within 1.5e-2 on the first filter and twice
+   ``carry_error_estimate`` on all four; then the fixed-graph VJP's checks
+   of path E and one Adam step through ``Filter.filter(fixed_graph=True)``;
 7. kernel B's entry points at each path's shape and at path E's (the step
    at 512 columns, the contraction at (N, 128, 4), ``cheby_dot_group`` at
    paths A's and B's N), held bit for bit against
@@ -104,7 +125,9 @@ G. path G, the filter zoo and the rest of the spectral and graph side:
    accumulation of f32 terms, ``addmv_`` for the synthesis contraction,
    ``torch.mm`` for the coefficient gradient);
 8. one JSON line of per-kernel numbers (kernel A's entry with ``grad`` and
-   ``div``, kernel B's group with Nf = 6; times from CUDA events, bounds
+   ``div``, kernel B's group with Nf = 6, ``ell_spmm`` and
+   ``chunked_spmm`` with the shapes paths H and I held them at under
+   ``at_paths``; times from CUDA events, bounds
    from the H100 SXM data sheet: HBM, FP32, and TF32 for the banded
    kernel's f32 products), the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
@@ -128,7 +151,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import pygsp_tpu_torch as gsp
 from pygsp_tpu_torch.core import _cuda, banded_kernel, cheby_kernel
-from pygsp_tpu_torch.core import chunked, csr_kernel
+from pygsp_tpu_torch.core import chunked, csr_kernel, ell_kernel
 from pygsp_tpu_torch.core import windowed as wd
 from pygsp_tpu_torch.core import windowed_kernel as wk
 from pygsp_tpu_torch.ops import lanczos as lz
@@ -216,6 +239,7 @@ TOL_CSR = 1e-5
 # these inputs (tests/test_torch_kernel_budget.py emulates each)
 TOL_BANDED = 1e-5
 TOL_WINDOWED = 1e-5
+TOL_SLOT = 1e-5         # the ELL and chunked kernels against f64
 TOL_FOLD = 1e-6         # f32 sums of bf16 products, another order
 TOL_PATH = 1e-4
 TOL_F64 = 1e-12
@@ -250,7 +274,7 @@ FOLD2_NW, FOLD2_LT, FOLD2_KP = 1024, 1152, 256
 FOLD3_LT, FOLD3_KP = 512, 256
 
 KERNELS = ((csr_kernel.csr_spmm, banded_kernel.banded_spmm) + wk.KERNELS
-           + cheby_kernel.KERNELS)
+           + cheby_kernel.KERNELS + ell_kernel.KERNELS)
 
 
 def log(*args):
@@ -261,14 +285,16 @@ def reset_counts():
     for k in KERNELS:
         k.launches = 0
     wk.tail_plain.calls = 0
+    ell_kernel.slot_spmm_plain.calls = 0
 
 
 def counts():
-    """Every kernel's launch count and the calls of the tail's plain
-    version (the residue sum that the windowed bank must not call), by
-    name."""
+    """Every kernel's launch count and the calls of two plain versions that
+    the banks must not call, by name: the tail's (the windowed residue sum)
+    and the ELL and chunked SpMMs' (``slot_plain``)."""
     return {**{k.__name__: k.launches for k in KERNELS},
-            'tail_plain': wk.tail_plain.calls}
+            'tail_plain': wk.tail_plain.calls,
+            'slot_plain': ell_kernel.slot_spmm_plain.calls}
 
 
 def require_tail(path, per_bank):
@@ -439,7 +465,8 @@ def phase_build():
     log('phase 1: build, then the canary kernel #4')
     t0 = time.time()
     outputs = _cuda.build(['csr_spmm', 'banded_spmm', 'windowed_fold',
-                           'cheby_step'], extra_flags=('-Xptxas', '-v'))
+                           'cheby_step', 'ell_spmm'],
+                          extra_flags=('-Xptxas', '-v'))
     log(f'  built in {time.time() - t0:.1f} s')
     for name, out in outputs.items():
         for line in out.splitlines():
@@ -1152,15 +1179,15 @@ def validate_path(name, ref, out, tol=TOL_PATH):
 # by tools/profile_torch_port.py, so both measure the same work)
 # ---------------------------------------------------------------------------
 
-def bench_graph(fmt):
-    """The BA graph of bench.py:53-58 with its Laplacian in ``fmt``, its
-    λmax and the heat bank. Returns ``(G, g, x, bank)``, ``bank()``
-    filtering x (N, 128) f32."""
+def bench_graph(fmt, n=N_BA):
+    """The BA graph of bench.py:53-58 (at ``n`` vertices) with its
+    Laplacian in ``fmt``, its λmax and the heat bank. Returns ``(G, g, x,
+    bank)``, ``bank()`` filtering x (n, 128) f32."""
     t0 = time.time()
-    src, tgt = gsp.graphs.ba_edges_fast(N_BA, m0=M_ATTACH, m=M_ATTACH, seed=42)
-    W = symmetric_from_edges(src, tgt, N_BA)
+    src, tgt = gsp.graphs.ba_edges_fast(n, m0=M_ATTACH, m=M_ATTACH, seed=42)
+    W = symmetric_from_edges(src, tgt, n)
     log(f'  edges generated in {time.time() - t0:.1f} s: {W.nnz} stored')
-    x = seeded_normal((N_BA, N_SIGNALS), 0)
+    x = seeded_normal((n, N_SIGNALS), 0)
     t0 = time.time()
     G = gsp.graphs.Graph(W)
     torch.cuda.synchronize()
@@ -2501,6 +2528,353 @@ def phase_path_g_designs():
             'basis_s': basis_s, 'kernels': held}, launches
 
 
+# ---------------------------------------------------------------------------
+# paths H and I: the hybrid ELL and chunked formats, on their SpMM kernels
+# ---------------------------------------------------------------------------
+
+def slot_operands(M):
+    """The SpMM kernel of an ELL or chunked matrix and its operands
+    ``(table, cols, vals, residue)``."""
+    if isinstance(M, gsp.core.sparse.ELLMatrix):
+        return ell_kernel.ell_spmm, (M.table, M.ell_cols.reshape(-1),
+                                     M.ell_vals.reshape(-1), M.residue)
+    return ell_kernel.chunked_spmm, (M.table, M.slot_cols, M.slot_vals,
+                                     M.residue)
+
+
+def slot_bytes(M):
+    """The bytes of the kernel's operands that a product reads once: the
+    slots' columns and values (padding included) and the overflow list."""
+    _, (_, cols, vals, res) = slot_operands(M)
+    out = cols.numel() * (4 + vals.element_size())
+    if res is not None:
+        out += ((res.rowptr.numel() + res.entptr.numel() + res.cols.numel())
+                * 4 + res.vals.numel() * res.vals.element_size())
+    return out
+
+
+def slot_work(M, s, item):
+    """The bound of one product ``M @ v``, v (n_cols, s) of ``item``-byte
+    values: v read once, y written once, the operands once, two operations
+    per stored entry and column; beside it the gather model, in which each
+    stored entry reads its x row."""
+    ops = slot_bytes(M)
+    return {**bound((M.n_cols + M.n_rows) * s * item + ops, 2 * M.nnz * s),
+            'bound_gather_ms': ((M.nnz + M.n_rows) * s * item + ops)
+            / HBM_BYTES_PER_S * 1e3}
+
+
+def dead_to_inf(M):
+    """A copy of the kernel's slot values with every dead (sentinel) slot's
+    value set to inf."""
+    _, (table, cols, vals, res) = slot_operands(M)
+    vals = vals.clone()
+    for i, off, width, _, limit in table.blocks:
+        n = (M.n_rows if isinstance(M, gsp.core.sparse.ELLMatrix)
+             else M.out_chunk_size(i)) * width
+        part = vals[off:off + n]
+        part[cols[off:off + n] >= limit] = float('inf')
+    return vals
+
+
+def hold_slot(name, M, x, want_dtype=None):
+    """The SpMM kernel of ``M`` on x (the matrix's internal order) against
+    its plain version: outputs in f32 or f64 within TOL_SLOT of the plain
+    version in f64 (on the card it sums in no fixed order), bf16 outputs
+    within TOL_BF16_ULPS of the plain version in the same types; two
+    launches bit-equal; inf behind every dead slot changes nothing.
+    Returns ``{'max_abs_err', 'rel_err' or 'ulps', 's', 'dtype'}``."""
+    kernel, (table, cols, vals, res) = slot_operands(M)
+    y = kernel(table, cols, vals, res, x, M.n_rows)
+    out = {'s': x.shape[1], 'dtype': f'{x.dtype}/{vals.dtype}'}
+    if x.dtype == torch.bfloat16:
+        want = ell_kernel.slot_spmm_plain(table, cols, vals, res, x,
+                                          M.n_rows)
+        out['ulps'] = ulps(y, want)
+        log(f'  {name} {out["dtype"]} S={x.shape[1]}: {out["ulps"]:.2f} '
+            f'bf16 ulps from the plain version (tol {TOL_BF16_ULPS})')
+        if not out['ulps'] <= TOL_BF16_ULPS:
+            raise AssertionError(f'{name}: {out["ulps"]} bf16 ulps')
+    else:
+        r64 = None if res is None else res._replace(vals=res.vals.double())
+        want = ell_kernel.slot_spmm_plain(table, cols, vals.double(), r64,
+                                          x.double(), M.n_rows)
+        tol = TOL_F64 if x.dtype == torch.float64 else TOL_SLOT
+        out['rel_err'] = check(f'{name} {out["dtype"]} S={x.shape[1]} vs '
+                               f'plain (f64)', y, want, tol)
+    out['max_abs_err'] = float((y.double() - want.double()).abs().max())
+    del want
+    if not torch.equal(y, kernel(table, cols, vals, res, x, M.n_rows)):
+        raise AssertionError(f'{name}: two launches differ')
+    if not torch.equal(y, kernel(table, cols, dead_to_inf(M), res, x,
+                                 M.n_rows)):
+        raise AssertionError(f'{name}: inf behind the dead slots changed y')
+    log(f'  {name} S={x.shape[1]}: two launches bit-equal, dead slots of '
+        f'inf add nothing')
+    out['ms'] = time_ms(lambda: kernel(table, cols, vals, res, x, M.n_rows),
+                        10)
+    return out
+
+
+def measure_slot(name, M, x):
+    """The SpMM kernel of ``M`` at the bank's shape: held against its plain
+    version (``hold_slot``), then timed beside it, its device time, its
+    bound and gather model, and ``torch.sparse.mm`` on the same
+    off-diagonal in CSR (the library yardstick; the port never calls
+    it)."""
+    kernel, args = slot_operands(M)
+    out = hold_slot(name, M, x)
+    csr = sps.csr_matrix(gsp.core.to_scipy(M))
+    lib = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr.astype(np.int64)).to('cuda'),
+        torch.from_numpy(csr.indices.astype(np.int64)).to('cuda'),
+        torch.from_numpy(csr.data).to('cuda', x.dtype), size=csr.shape)
+    del csr
+    out.update(
+        ms=time_ms(lambda: kernel(*args, x, M.n_rows), 20),
+        **device_ms(lambda: kernel(*args, x, M.n_rows), 20),
+        plain_ms=time_ms(lambda: ell_kernel.slot_spmm_plain(
+            *args, x, M.n_rows), 2),
+        library_ms=time_ms(lambda: torch.sparse.mm(lib, x), 20),
+        library='torch.sparse.mm on a sparse CSR tensor of the same '
+                'off-diagonal',
+        **slot_work(M, x.shape[1], x.element_size()),
+        shape=[M.n_rows, M.n_cols], nnz=M.nnz, dense_slots=args[1].numel(),
+        overflow_slots=0 if args[3] is None else args[3].cols.numel(),
+        heavy_rows=0 if args[3] is None else args[3].heavy.numel())
+    del lib
+    log(f'  {name}: {json.dumps(out)}')
+    return out
+
+
+def count_index_add(bank):
+    """``run_bank(bank)``, with every ``index_add_`` and ``index_add``
+    that PyTorch runs in it counted: ``(out, launches, per_bank,
+    n_index_add)``."""
+    calls = [0]
+    method, function = torch.Tensor.index_add_, torch.index_add
+
+    def spy_method(self, *args, **kwargs):
+        calls[0] += 1
+        return method(self, *args, **kwargs)
+
+    def spy_function(*args, **kwargs):
+        calls[0] += 1
+        return function(*args, **kwargs)
+
+    torch.Tensor.index_add_, torch.index_add = spy_method, spy_function
+    try:
+        out, launches, per_bank = run_bank(bank)
+    finally:
+        torch.Tensor.index_add_, torch.index_add = method, function
+    return out, launches, per_bank, calls[0]
+
+
+def require_slot_bank(path, kernel, per_bank, n_index_add):
+    """Raise unless the bank launched ``kernel`` once per SpMM (ORDER) and
+    no other SpMM: no CSR kernel, no plain version, no index_add_."""
+    if per_bank[kernel] != ORDER:
+        raise AssertionError(f'path {path}: {per_bank[kernel]} {kernel} '
+                             f'launches in one bank, not {ORDER}')
+    if per_bank['csr_spmm'] or per_bank['slot_plain'] or n_index_add:
+        raise AssertionError(
+            f'path {path}: the bank ran csr_spmm {per_bank["csr_spmm"]}, '
+            f'the plain SpMM {per_bank["slot_plain"]} and index_add_ '
+            f'{n_index_add} times')
+    require_launches(path, per_bank, cheby_step=ORDER - 1, cheby_acc_group=1)
+
+
+def slot_bank_path(path, fmt, kernel, n=N_BA):
+    """A bank path on BA(n) with ``compute_laplacian(fmt=fmt)``: the bank
+    through ``kernel`` against the SciPy f64 recurrence, timed. Returns
+    ``(G, g, x, ref, path_numbers, (launches, per_bank))``."""
+    G, g, x, bank = bench_graph(fmt, n)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, per_bank, n_add = count_index_add(bank)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'  launches on the path {launches}, per bank {per_bank}, '
+        f'index_add_ {n_add}; peak device memory {peak:.2f} GiB')
+    require_slot_bank(path, kernel, per_bank, n_add)
+    if tuple(out.shape) != (n, N_SIGNALS, len(SCALES)):
+        raise AssertionError(f'path {path} output shape {tuple(out.shape)}')
+    ref = reference(sps.diags(G.dw) - G.W, G.lmax, g.evaluate, x)
+    rel_err = validate_path(path, ref, out.permute(2, 0, 1))
+    del out
+    ms_bank = time_ms(bank, 3)
+    nnz = G.L.offdiag.nnz
+    log(f'  {ms_bank:.3f} ms per bank, '
+        f'{ORDER * nnz * N_SIGNALS / (ms_bank / 1e3):.4e} edge-ops/s')
+    numbers = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'nnz': nnz,
+               'n': n, 'lmax': G.lmax, 'peak_bank_gib': peak,
+               'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
+               'acc_group': group_of(G.L, x)}
+    return G, g, x, ref, numbers, (launches, per_bank)
+
+
+def phase_path_h():
+    """Path H, the hybrid ELL format: (a) ``fmt='auto'`` on BA(2^16), the
+    largest graph it sends to hybrid; (b) path A's graph with
+    ``fmt='hybrid'``; both banks against SciPy f64, 30 ``ell_spmm``
+    launches and no other SpMM a bank; the kernel held and timed at the
+    bank's shape, at one column (λmax's Lanczos, the upper bound) and in
+    f64 at 5; (c) ``fmt='auto'`` on four zoo graphs at their default
+    sizes, a one-filter bank each against SciPy f64 and the kernel held at
+    its shape."""
+    log('phase H: path H, the hybrid ELL format (ell_spmm)')
+    result, held, counts_h = {}, {}, {}
+    reset_counts()
+    G, _, x, _, result['auto_2^16'], (counts_h['H_auto'], _) = (
+        slot_bank_path('H (auto, 2^16)', 'auto', 'ell_spmm', n=1 << 16))
+    if not isinstance(G.L.offdiag, gsp.core.sparse.ELLMatrix):
+        raise AssertionError(f'fmt=auto on 2^16 vertices gave '
+                             f'{type(G.L.offdiag).__name__}')
+    held['auto_2^16'] = hold_slot('ell_spmm at 2^16', G.L.offdiag, x)
+    del G, x
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    G, _, x, _, result['hybrid'], bank_counts = slot_bank_path(
+        'H', 'hybrid', 'ell_spmm')
+    M = G.L.offdiag
+    result['layout'] = {
+        'ell_width': M.ell_width, 'level_widths': [
+            lev.cols.shape[1] for lev in M.levels],
+        'level_rows': [lev.rows.numel() for lev in M.levels],
+        'slots': M.ell_cols.numel() + sum(lev.cols.numel()
+                                          for lev in M.levels),
+        'overflow_live_slots': M.residue.cols.numel(),
+        'heavy_rows': M.residue.heavy.numel()}
+    log(f'  layout: {json.dumps(result["layout"])}')
+    kernel = measure_slot('ell_spmm at path H', M, x)
+    held['one_column'] = hold_slot('ell_spmm at one column', M,
+                                  x[:, :1].contiguous())
+    held['f64_5_columns'] = hold_slot(
+        'ell_spmm in f64', M.astype(torch.float64),
+        x[:, :5].double().contiguous())
+    ub = float(laplacian_upper_bound(G.L))
+    ub_host = float(np.max(np.ravel(abs(G.L.to_scipy().astype(
+        np.float64)).sum(axis=1))))
+    if abs(ub - ub_host) > 1e-6 * ub_host:
+        raise AssertionError(f'laplacian_upper_bound {ub} != {ub_host}')
+    result['upper_bound'] = ub
+    del G, x, M
+    torch.cuda.empty_cache()
+
+    zoo = {}
+    reset_counts()
+    for name, kw in (('Minnesota', {}), ('Airfoil', {}),
+                     ('StochasticBlockModel', dict(N=1024, seed=42)),
+                     ('Community', dict(N=256, seed=42))):
+        Gz = getattr(gsp.graphs, name)(**kw)
+        Gz.compute_laplacian(fmt='auto')
+        if not isinstance(Gz.L.offdiag, gsp.core.sparse.ELLMatrix):
+            raise AssertionError(f'{name}: fmt=auto gave '
+                                 f'{type(Gz.L.offdiag).__name__}')
+        Gz.estimate_lmax()
+        gz = gsp.filters.Heat(Gz, scale=10)
+        xz = seeded_normal((Gz.N, N_CHECK_COLS), 95)
+        out = gz.filter(xz, method='chebyshev', order=ORDER)
+        ref = reference(sps.diags(Gz.dw) - Gz.W, Gz.lmax, gz.evaluate, xz)
+        zoo[name] = {'n': Gz.N, 'nnz': Gz.L.offdiag.nnz,
+                     'rel_err': validate_path(
+                         f'H ({name})', ref, out.reshape(
+                             Gz.N, N_CHECK_COLS, -1).permute(2, 0, 1)),
+                     'held': hold_slot(f'ell_spmm on {name}',
+                                       Gz.L.offdiag, xz)}
+    counts_h['H_zoo'] = counts()
+    result['zoo'] = zoo
+    kernel['at_paths'] = held
+    return kernel, result, bank_counts, counts_h
+
+
+def phase_path_i():
+    """Path I, the chunked format: path A's graph with
+    ``fmt='chunked'``; the bank against SciPy f64, 30 ``chunked_spmm``
+    launches and no other SpMM; the kernel held and timed at the bank's
+    shape, held at one column (the upper bound, λmax's Lanczos), in every
+    bf16 pair and at the x̄ synthesis's 512 columns; the fast mode
+    (``carry_dtype`` and ``vals_dtype`` bf16) within TOL_PATH_BF16 on the
+    first filter and 2 × ``carry_error_estimate`` on all four; then one
+    forward and backward through the fixed-graph VJP with its checks (as
+    on path E) and one Adam step through ``Filter.filter(fixed_graph=
+    True)``."""
+    log('phase I: path I, the chunked format (chunked_spmm)')
+    reset_counts()
+    G, g, x, ref, result, bank_counts = slot_bank_path('I', 'chunked',
+                                                       'chunked_spmm')
+    M = G.L.offdiag
+    result['layout'] = {
+        'blocks': len(M.blocks), 'block_widths': sorted(
+            {b.cols.shape[1] for b in M.blocks}),
+        'slots': M.slot_cols.numel(), 'tiers': len(M.levels),
+        'tier_slots': sum(lev.cols.numel() for lev in M.levels),
+        'tier_entries': M.level_rows.numel(),
+        'overflow_live_slots': M.residue.cols.numel(),
+        'heavy_rows': M.residue.heavy.numel()}
+    log(f'  layout: {json.dumps(result["layout"])}')
+    kernel = measure_slot('chunked_spmm at path I', M, x)
+    held = {'one_column': hold_slot('chunked_spmm at one column', M,
+                                    x[:, :1].contiguous())}
+    for combo, (xd, vd) in BF16_FOLDS.items():
+        held[f'bf16_{combo}'] = hold_slot(f'chunked_spmm bf16 {combo}',
+                                          M.astype(vd), x.to(xd))
+    xw = seeded_normal((M.n_cols, WIDE), 96)
+    held['x_bar_width'] = hold_slot('chunked_spmm at the x_bar width', M, xw)
+    held['x_bar_width'].update(slot_work(M, WIDE, 4))
+    del xw
+    ub = float(laplacian_upper_bound(G.L))
+    ub_host = float(np.max(np.ravel(abs(G.L.to_scipy().astype(
+        np.float64)).sum(axis=1))))
+    if abs(ub - ub_host) > 1e-6 * ub_host:
+        raise AssertionError(f'laplacian_upper_bound {ub} != {ub_host}')
+    result['upper_bound'] = ub
+    torch.cuda.empty_cache()
+
+    # the fast mode: the bf16 instance and a bf16 carry through kernel B
+    c = cheby_coeff(g.evaluate, G.lmax, m=ORDER, device='cpu')
+    est = carry_error_estimate(c, torch.bfloat16)
+    symbols = {}
+    launch = _cuda.launch
+
+    def spy(name, symbol, *args):
+        symbols[symbol] = symbols.get(symbol, 0) + 1
+        return launch(name, symbol, *args)
+
+    bank = fast_bank(g, x)
+    reset_counts()
+    _cuda.launch = spy
+    try:
+        out, fast_launches, fast_per_bank, n_add = count_index_add(bank)
+    finally:
+        _cuda.launch = launch
+    log(f'  fast mode: per bank {fast_per_bank}, symbols {symbols}')
+    require_slot_bank('I (fast mode)', 'chunked_spmm', fast_per_bank, n_add)
+    if symbols.get('chunked_spmm_bf16', 0) != ORDER or any(
+            s.startswith('chunked_spmm_f32') for s in symbols):
+        raise AssertionError(f'path I fast mode: symbols {symbols}')
+    out = out.permute(2, 0, 1)
+    result['fast'] = {
+        'carry_error_estimate': est,
+        'rel_err': validate_path('I fast (first filter)', ref[:1], out[:1],
+                                 TOL_PATH_BF16),
+        'rel_err_all_filters': validate_path('I fast (all, 2 x the '
+                                             'estimate)', ref, out, 2 * est),
+        'ms_per_bank': time_ms(bank, 3), 'symbols': symbols}
+    del out
+    log(f'  fast mode: {json.dumps(result["fast"])}')
+    torch.cuda.empty_cache()
+    result['E'], counts_e = phase_path_e('I', G, None, x, 1,
+                                         sps.diags(G.dw) - G.W)
+    require_launches('E on I', counts_e, chunked_spmm=3 * ORDER,
+                     **train_kernels(1))
+    if counts_e['csr_spmm'] or counts_e['slot_plain']:
+        raise AssertionError(f'path E on I ran csr_spmm or the plain SpMM: '
+                             f'{counts_e}')
+    kernel['at_paths'] = held
+    return kernel, result, bank_counts, {'I_fast': fast_launches,
+                                         'E_I': counts_e}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -2557,12 +2931,22 @@ def main():
     path_g['lobpcg'], other['G_lobpcg'] = timed(phase_path_g_lobpcg)
     path_g['designs'], other['G_designs'] = timed(phase_path_g_designs)
     torch.cuda.empty_cache()
+    t0 = time.time()
+    ell, path_h, counts_h, other_h = phase_path_h()
+    path_h['phase_s'] = time.time() - t0
+    other.update(other_h)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    chunked_k, path_i, counts_i, other_i = phase_path_i()
+    path_i['phase_s'] = time.time() - t0
+    other.update(other_i)
+    torch.cuda.empty_cache()
     paths = {'A': path_a, 'B': path_b, 'C': path_c, 'D': path_d}
     step, group, one, contract, kb_bank, dot = phase_kernel_b_times(
         {p: path['acc_group'] for p, path in paths.items()})
     for p, path in paths.items():
         path['kernel_b_per_bank'] = kb_bank[p]
-    paths.update(E=path_e, F=path_f, G=path_g)
+    paths.update(E=path_e, F=path_f, G=path_g, H=path_h, I=path_i)
     log(f'paths: {json.dumps(paths)}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')
@@ -2646,11 +3030,24 @@ def main():
     # (A-D, the banks; E, training on A, B and C; F, Lanczos and exact);
     # `launches_per_bank` sums a bank path's bank over the paths the kernel
     # serves (all four for the kernels that serve none)
-    by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d}
+    ell.update(name='ell_spmm', route='cuda',
+               source='pygsp_tpu_torch/csrc/ell_spmm.cu',
+               replaces='pygsp_tpu/core/sparse.py:411-420 (ell_spmm: XLA '
+                        'gather-sums of _slot_block_sum and unique-row '
+                        'scatter-adds, no Pallas kernel)')
+    chunked_k.update(name='chunked_spmm', route='cuda',
+                     source='pygsp_tpu_torch/csrc/ell_spmm.cu',
+                     replaces='pygsp_tpu/core/chunked.py:206-250 '
+                              '(chunked_spmm_chunks: XLA gather-sums per '
+                              'block and one scatter-add of the tiers, no '
+                              'Pallas kernel)')
+    by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d,
+               'H': counts_h, 'I': counts_i}
     for kernel, served in ((csr, 'A'), (banded, 'B'), (fold, 'CD'),
                            (strip, 'CD'), (fold2, None), (double, None),
-                           (kb_step, 'ABCD'), (kb_group, 'ABCD'),
-                           (kb_dot, None), (kb_contract, None)):
+                           (kb_step, 'ABCDHI'), (kb_group, 'ABCDHI'),
+                           (kb_dot, None), (kb_contract, None),
+                           (ell, 'H'), (chunked_k, 'I')):
         name = kernel['name']
         served = list(served or by_path)
         launches = {**{p: by_path[p][0][name] for p in by_path},
@@ -2665,7 +3062,8 @@ def main():
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     print(json.dumps({'kernels': [csr, banded, fold, strip, fold2, double,
-                                  kb_step, kb_group, kb_contract, kb_dot]}),
+                                  kb_step, kb_group, kb_contract, kb_dot,
+                                  ell, chunked_k]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

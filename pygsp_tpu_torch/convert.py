@@ -3,7 +3,8 @@
 The operators are this system's state: a graph's Laplacian, held by the
 JAX package as pytrees of arrays plus static ints. These functions take
 those leaves as numpy arrays (``np.asarray`` of each JAX leaf) and the
-ints, and build the port's :class:`CSRMatrix`, :class:`BandedMatrix`,
+ints, and build the port's :class:`CSRMatrix`, :class:`ELLMatrix`,
+:class:`BandedMatrix`, :class:`ChunkedELLMatrix`,
 :class:`WindowedELLMatrix` and :class:`LaplacianOp` on ``device``, and a
 graph's difference operator (``G.D``) from its edge arrays. Nothing
 here imports JAX. The kernels read without bounds checks, so leaves from
@@ -22,10 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pygsp_tpu_torch.core import windowed
-from pygsp_tpu_torch.core.chunked import ChunkLevel
+from pygsp_tpu_torch.core import chunked, sparse, windowed
+from pygsp_tpu_torch.core.chunked import ChunkedELLMatrix, ChunkLevel
 from pygsp_tpu_torch.core.operators import LaplacianOp
-from pygsp_tpu_torch.core.sparse import BandedMatrix, CSRMatrix
+from pygsp_tpu_torch.core.sparse import BandedMatrix, CSRMatrix, ELLMatrix
 from pygsp_tpu_torch.core.windowed import WindowedELLMatrix
 
 
@@ -116,6 +117,10 @@ def _check_windowed(leaves: dict, levels):
         _check_local_cols(lev.cols, lev.src_chunk, R, n_cols, 'level')
     if np.shape(leaves['rowptr']) != (n_rows + 1,):
         raise ValueError(f'rowptr must have {n_rows + 1} entries')
+    _check_perm(leaves, n_rows, n_cols)
+
+
+def _check_perm(leaves, n_rows, n_cols):
     perm, iperm = leaves.get('perm'), leaves.get('iperm')
     if (perm is None) != (iperm is None):
         raise ValueError('perm and iperm come together')
@@ -146,13 +151,116 @@ def windowed_from_numpy(leaves: dict, device='cuda') -> WindowedELLMatrix:
     return windowed.upload(host, device)
 
 
+_ELL_INTS = ('n_rows', 'n_cols', 'nnz', 'ell_width')
+
+
+def _check_rows(rows, n_rows, what):
+    if rows.size and (rows.min() < 0 or rows.max() >= n_rows):
+        raise ValueError(f'{what} out of range for {n_rows} rows')
+
+
+def ell_from_numpy(leaves: dict, device='cuda') -> ELLMatrix:
+    """ELL leaves ``ell_cols, ell_vals`` (level 0, (n_pad, ell_width)),
+    ``levels`` (a list of ``{rows, cols, vals}``), ``rowptr`` and the ints
+    ``n_rows, n_cols, nnz, ell_width``. The kernel's slot table and residue
+    list are made as at a build."""
+    n_rows, n_cols, nnz, width = (int(leaves[k]) for k in _ELL_INTS)
+    c0 = np.asarray(leaves['ell_cols'])
+    if (c0.ndim != 2 or c0.shape[1] != width or c0.shape[0] < n_rows
+            or np.shape(leaves['ell_vals']) != c0.shape):
+        raise ValueError(f'ell_cols and ell_vals must be (n_pad >= {n_rows}, '
+                         f'ell_width = {width}) of one shape')
+    levels = [tuple(np.asarray(lev[k]) for k in ('rows', 'cols', 'vals'))
+              for lev in leaves['levels']]
+    for cols in [c0] + [c for _, c, _ in levels]:
+        if cols.size and (cols.min() < 0 or cols.max() > n_cols):
+            raise ValueError(f'ELL cols must lie in [0, n_cols = {n_cols}]')
+    for rows, cols, vals in levels:
+        if (rows.ndim != 1 or cols.ndim != 2 or cols.shape[0] != rows.size
+                or vals.shape != cols.shape):
+            raise ValueError('each level needs 1-D rows and (rows, w) cols '
+                             'and vals')
+        _check_rows(rows, n_rows, 'level rows')
+        if np.unique(rows).size != rows.size:
+            raise ValueError('each level\'s rows must be unique')
+    if np.shape(leaves['rowptr']) != (n_rows + 1,):
+        raise ValueError(f'rowptr must have {n_rows + 1} entries')
+    return sparse._ell_upload(c0, np.asarray(leaves['ell_vals']), levels,
+                              np.asarray(leaves['rowptr'], np.int32), n_rows,
+                              n_cols, nnz, width, device)
+
+
+_CHUNKED_INTS = ('n_rows', 'n_cols', 'nnz', 'chunk_rows')
+
+
+def chunked_from_numpy(leaves: dict, device='cuda') -> ChunkedELLMatrix:
+    """Chunked leaves ``blocks`` (a list of ``{cols, vals}``),
+    ``block_keys`` (a list of (out_chunk, src_chunk)), ``levels`` (a list of
+    ``{cols, vals, src_chunk}``), ``level_rows, rowptr, perm, iperm``
+    (``perm``/``iperm`` may be None) and the ints ``n_rows, n_cols, nnz,
+    chunk_rows``. Every slot column must lie in ``[0, src_chunk_size]``
+    (the sentinel is the chunk's size)."""
+    n_rows, n_cols, _, R = (int(leaves[k]) for k in _CHUNKED_INTS)
+    if R < 1:
+        raise ValueError(f'chunk_rows must be positive, got {R}')
+    n_out, n_src = max(-(-n_rows // R), 1), max(-(-n_cols // R), 1)
+    keys = [tuple(int(v) for v in k) for k in leaves['block_keys']]
+    blocks = [(np.asarray(b['cols']), np.asarray(b['vals']))
+              for b in leaves['blocks']]
+    levels = [ChunkLevel(cols=np.asarray(lev['cols']),
+                         vals=np.asarray(lev['vals']),
+                         src_chunk=int(lev['src_chunk']))
+              for lev in leaves['levels']]
+
+    def check_cols(cols, c, what):
+        size = min(R, n_cols - c * R)
+        if cols.size and (cols.min() < 0 or cols.max() > size):
+            raise ValueError(f'{what} cols must lie in [0, {size}], the '
+                             f'size of source chunk {c}')
+
+    if len(keys) != len(blocks) or len(set(keys)) != len(keys):
+        raise ValueError('blocks and block_keys must pair up, one block a '
+                         'key')
+    for (i, c), (cols, vals) in zip(keys, blocks):
+        if not (0 <= i < n_out and 0 <= c < n_src):
+            raise ValueError(f'block key {(i, c)} outside the {n_out} x '
+                             f'{n_src} chunks')
+        if (cols.ndim != 2 or cols.shape[0] != min(R, n_rows - i * R)
+                or vals.shape != cols.shape):
+            raise ValueError(f'block {(i, c)} must hold (rows of out chunk '
+                             f'{i}, w) cols and vals of one shape')
+        check_cols(cols, c, f'block {(i, c)}')
+    for lev in levels:
+        if (lev.cols.ndim != 2 or lev.vals.shape != lev.cols.shape
+                or not 0 <= lev.src_chunk < n_src):
+            raise ValueError('each level needs 2-D cols and vals of one shape '
+                             'and a src_chunk among the source chunks')
+        check_cols(lev.cols, lev.src_chunk, 'level')
+    level_rows = np.asarray(leaves['level_rows'])
+    if level_rows.shape != (sum(lev.cols.shape[0] for lev in levels),):
+        raise ValueError('level_rows must hold one row per tier entry')
+    _check_rows(level_rows, n_rows, 'level_rows')
+    if np.shape(leaves['rowptr']) != (n_rows + 1,):
+        raise ValueError(f'rowptr must have {n_rows + 1} entries')
+    _check_perm(leaves, n_rows, n_cols)
+    host = {k: leaves.get(k) for k in ('level_rows', 'rowptr', 'perm',
+                                       'iperm')}
+    host.update({k: leaves[k] for k in _CHUNKED_INTS}, blocks=blocks,
+                block_keys=keys, levels=levels)
+    return chunked.upload(host, device)
+
+
 def laplacian_from_numpy(leaves: dict, device='cuda') -> LaplacianOp:
-    """``{'offdiag': <CSR, banded or windowed leaves>, 'diag': array,
-    'lap_type': str}`` → :class:`LaplacianOp`. The off-diagonal format is
-    told by its leaves: banded ones have ``tiles``, windowed ones
-    ``rowid``."""
+    """``{'offdiag': <CSR, ELL, banded, chunked or windowed leaves>, 'diag':
+    array, 'lap_type': str}`` → :class:`LaplacianOp`. The off-diagonal
+    format is told by its leaves: ELL ones have ``ell_cols``, banded ones
+    ``tiles``, chunked ones ``block_keys``, windowed ones ``rowid``."""
     off = leaves['offdiag']
-    if 'tiles' in off:
+    if 'ell_cols' in off:
+        offdiag = ell_from_numpy(off, device)
+    elif 'block_keys' in off:
+        offdiag = chunked_from_numpy(off, device)
+    elif 'tiles' in off:
         offdiag = banded_from_numpy(off, device)
     elif 'rowid' in off:
         offdiag = windowed_from_numpy(off, device)

@@ -24,14 +24,16 @@ import torch
 
 from pygsp_tpu_torch.core import cheby_kernel
 from pygsp_tpu_torch.core import sparse as sp
-from pygsp_tpu_torch.core.chunked import permute_in, permute_out
-from pygsp_tpu_torch.core.sparse import CSRMatrix
+from pygsp_tpu_torch.core.chunked import (ChunkedELLMatrix,
+                                          chunked_from_host_coo, permute_in,
+                                          permute_out)
+from pygsp_tpu_torch.core.sparse import CSRMatrix, ELLMatrix
 from pygsp_tpu_torch.core.windowed import (WindowedELLMatrix,
                                            windowed_from_host_coo)
 
-_NOT_PORTED = ('LaplacianOp.{}() is not ported yet: see ROADMAP.md, '
-               '"Modules to port", item 4 (the ELL/hybrid and chunked '
-               'formats)')
+# The formats that store their vertices relabeled and emit their SpMM in the
+# carry dtype: the recurrence scales their product inside the step.
+SCALED_OUTPUT = (ChunkedELLMatrix, WindowedELLMatrix)
 
 
 def _identity(x, axis=0):
@@ -42,7 +44,9 @@ def _identity(x, axis=0):
 class LaplacianOp:
     """Sparse symmetric Laplacian ``L = diag(diag) + offdiag``.
 
-    ``offdiag`` (a :class:`CSRMatrix`, :class:`BandedMatrix` or
+    ``offdiag`` (a :class:`CSRMatrix`, :class:`ELLMatrix`,
+    :class:`BandedMatrix`,
+    :class:`~pygsp_tpu_torch.core.chunked.ChunkedELLMatrix` or
     :class:`~pygsp_tpu_torch.core.windowed.WindowedELLMatrix`) stores
     ``-w`` or ``-w/sqrt(dw_i dw_j)``, so one SpMM plus the diagonal term
     applies L exactly.
@@ -87,11 +91,12 @@ class LaplacianOp:
         """``(op, pin, pout)`` for an iterative driver: this operator in its
         off-diagonal's internal vertex order, the permute of a signal into
         that order, and ``pout(y, axis=0)`` out of it. A windowed
-        off-diagonal stores its vertices relabeled; the driver permutes once
-        in and once out instead of at every product. Without a relabeling
-        ``op`` is this operator and both permutes are the identity."""
+        off-diagonal stores its vertices relabeled, a chunked one when it
+        was built with ``permute='degree'``; the driver permutes once in and
+        once out instead of at every product. Without a relabeling ``op`` is
+        this operator and both permutes are the identity."""
         off = self.offdiag
-        if not isinstance(off, WindowedELLMatrix) or off.perm is None:
+        if not isinstance(off, SCALED_OUTPUT) or off.perm is None:
             return self, _identity, _identity
         op = LaplacianOp(
             offdiag=dataclasses.replace(off, perm=None, iperm=None),
@@ -104,13 +109,14 @@ class LaplacianOp:
         ``scale·(L − shift·I)·t − t_old`` for t (N, ...) in the carry dtype,
         on the fused step kernel
         (:func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_step`), in the JAX
-        package's arithmetic for each format. The CSR and banded formats fold the
-        scale into a scaled copy of the off-diagonal (:meth:`shifted`) and
-        step with ``sc = 1``; the windowed format emits its SpMM in the
-        carry dtype and applies the scale to it inside the step, with no
-        scaled copy of its slabs. The arithmetic is in the diagonal's
-        dtype."""
-        if not isinstance(self.offdiag, WindowedELLMatrix):
+        package's arithmetic for each format. The CSR, ELL and banded
+        formats fold the scale into a scaled copy of the off-diagonal
+        (:meth:`shifted`) and step with ``sc = 1``; the chunked and
+        windowed formats emit their SpMM in the carry dtype and apply the
+        scale to it inside the step, with no scaled copy of their slots
+        (the JAX package's ``_cheby_op_chunked``). The arithmetic is in the
+        diagonal's dtype."""
+        if not isinstance(self.offdiag, SCALED_OUTPUT):
             factor = self.shifted(scale, shift)
             one = torch.ones((), dtype=factor.diag.dtype, device=self.device)
 
@@ -130,11 +136,38 @@ class LaplacianOp:
 
         return step
 
-    def to_hybrid(self, width=None):
-        raise NotImplementedError(_NOT_PORTED.format('to_hybrid'))
+    def _host_coo(self):
+        """The off-diagonal's stored entries as host arrays (a CSR
+        off-diagonal, the format every other one is converted from)."""
+        off = self.offdiag
+        return tuple(t[:off.nnz].cpu().numpy()
+                     for t in (off.rows, off.cols, off.vals))
 
-    def to_chunked(self, chunk_rows=None, permute=None):
-        raise NotImplementedError(_NOT_PORTED.format('to_chunked'))
+    def to_hybrid(self, width: int | None = None) -> 'LaplacianOp':
+        """Convert the off-diagonal block to the multi-level ELL format
+        (:class:`~pygsp_tpu_torch.core.sparse.ELLMatrix`, ``'hybrid'``):
+        ``width`` level-0 slots a row (default the mean degree rounded up
+        to 8), the rest in levels of unique rows."""
+        if isinstance(self.offdiag, ELLMatrix):
+            return self
+        return LaplacianOp(offdiag=sp.to_ell(self.offdiag, width=width),
+                           diag=self.diag, lap_type=self.lap_type)
+
+    def to_chunked(self, chunk_rows: int | None = None,
+                   permute: str | None = None) -> 'LaplacianOp':
+        """Convert the off-diagonal block to the chunked multi-level ELL
+        format (:mod:`pygsp_tpu_torch.core.chunked`); ``permute='degree'``
+        relabels the vertices by descending degree inside the format, and
+        the operator keeps the original order."""
+        if isinstance(self.offdiag, ChunkedELLMatrix):
+            return self
+        off = self.offdiag
+        kw = {} if chunk_rows is None else {'chunk_rows': chunk_rows}
+        return LaplacianOp(
+            offdiag=chunked_from_host_coo(
+                *self._host_coo(), off.n_rows, off.n_cols, permute=permute,
+                device=self.device, **kw),
+            diag=self.diag, lap_type=self.lap_type)
 
     def to_windowed(self, chunk_rows: int | None = None,
                     window_rows: int | None = None,
@@ -147,8 +180,7 @@ class LaplacianOp:
         if isinstance(self.offdiag, WindowedELLMatrix):
             return self
         off = self.offdiag
-        rows, cols, vals = (t[:off.nnz].cpu().numpy()
-                            for t in (off.rows, off.cols, off.vals))
+        rows, cols, vals = self._host_coo()
         kw = {}
         if chunk_rows is not None:
             kw['chunk_rows'] = chunk_rows

@@ -1,4 +1,5 @@
-"""Sparse matrices as small dataclasses of tensors: padded CSR and block-banded.
+"""Sparse matrices as small dataclasses of tensors: padded CSR, multi-level
+ELL and block-banded.
 
 Counterpart of :mod:`pygsp_tpu.core.sparse`, with the same field names so
 that operators carry across (:mod:`pygsp_tpu_torch.convert`). Edges are
@@ -9,8 +10,9 @@ them.
 
 The builders run on the host (NumPy in, tensors on ``device`` out). Entry
 points default to ``device='cuda'``; the CPU is used only when asked for.
-The windowed-compact format lives in :mod:`.windowed`; :func:`spmm`,
-:func:`to_scipy` and :func:`to_dense` dispatch to it too.
+The chunked format lives in :mod:`.chunked` and the windowed-compact one
+in :mod:`.windowed`; :func:`spmm`, :func:`to_scipy` and :func:`to_dense`
+dispatch to them too.
 """
 
 from __future__ import annotations
@@ -21,16 +23,25 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from pygsp_tpu_torch.core import banded_kernel, csr_kernel, windowed
+from pygsp_tpu_torch.core import (banded_kernel, chunked, csr_kernel,
+                                  ell_kernel, windowed, windowed_kernel)
 # Rows and columns of one dense tile of the block-banded format.
 from pygsp_tpu_torch.core.banded_kernel import BAND_TILE
+from pygsp_tpu_torch.core.chunked import ChunkedELLMatrix, ChunkLevel
 from pygsp_tpu_torch.core.windowed import WindowedELLMatrix
 
 # Edge arrays are padded to a multiple of this (the JAX package's layout).
 EDGE_BLOCK = 1024
+# The ELL format's level 0 rows are padded to a multiple of this.
+ROW_BLOCK = 8
 
-_NOT_PORTED = ('{} storage is not ported yet: see ROADMAP.md, "Modules to '
-               'port", item 4 (the ELL/hybrid and chunked formats)')
+_FORMATS = ('CSRMatrix, ELLMatrix, BandedMatrix, ChunkedELLMatrix or '
+            'WindowedELLMatrix')
+
+
+def _unknown(mat):
+    return TypeError(f'{type(mat).__name__} is not a sparse format of this '
+                     f'package: expected a {_FORMATS}')
 
 
 def _round_up(x: int, m: int) -> int:
@@ -192,14 +203,18 @@ def from_dense(arr, *, dtype=None, device='cuda') -> CSRMatrix:
 
 
 def to_scipy(mat):
-    """Export a CSR, banded or windowed matrix back to scipy CSR (padding
-    dropped, original vertex order)."""
+    """Export any of the formats back to scipy CSR (padding dropped,
+    original vertex order)."""
+    if isinstance(mat, ELLMatrix):
+        return _ell_to_scipy(mat)
     if isinstance(mat, BandedMatrix):
         return _banded_to_scipy(mat)
+    if isinstance(mat, ChunkedELLMatrix):
+        return chunked.chunked_to_scipy(mat)
     if isinstance(mat, WindowedELLMatrix):
         return windowed.windowed_to_scipy(mat)
     if not isinstance(mat, CSRMatrix):
-        raise NotImplementedError(_NOT_PORTED.format(type(mat).__name__))
+        raise _unknown(mat)
     nnz = mat.nnz
     rows = mat.rows[:nnz].cpu().numpy()
     cols = mat.cols[:nnz].cpu().numpy()
@@ -221,10 +236,11 @@ def _banded_to_scipy(mat: 'BandedMatrix'):
 
 def to_dense(mat) -> torch.Tensor:
     """Densify on the matrix's device (small matrices only)."""
-    if isinstance(mat, (BandedMatrix, WindowedELLMatrix)):
+    if isinstance(mat, (ELLMatrix, BandedMatrix, ChunkedELLMatrix,
+                        WindowedELLMatrix)):
         return torch.from_numpy(to_scipy(mat).toarray()).to(mat.device)
     if not isinstance(mat, CSRMatrix):
-        raise NotImplementedError(_NOT_PORTED.format(type(mat).__name__))
+        raise _unknown(mat)
     out = torch.zeros(mat.shape, dtype=mat.dtype, device=mat.device)
     nnz = mat.nnz
     out.index_put_((mat.rows[:nnz].long(), mat.cols[:nnz].long()),
@@ -239,17 +255,23 @@ def to_dense(mat) -> torch.Tensor:
 def spmm(mat, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` for x of shape (n_cols,) or (n_cols, ...).
 
-    CSR goes to the CSR SpMM kernel, banded to the banded SpMM kernel,
-    windowed to the windowed fold and strip kernels. Each wrapper launches
-    its CUDA kernel for a CUDA tensor and runs its plain PyTorch version for
-    a CPU tensor. Operands of mixed dtypes are promoted, as in the JAX
-    package. ``out_dtype``: the dtype of ``y`` (the windowed format's bf16
-    modes emit the product narrow; the others cast it).
+    CSR goes to the CSR SpMM kernel, ELL to the ELL SpMM kernel, banded to
+    the banded SpMM kernel, chunked to the chunked SpMM kernel, windowed to
+    the windowed fold and strip kernels. Each wrapper launches its CUDA
+    kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
+    tensor. Operands of mixed dtypes are promoted, as in the JAX package.
+    ``out_dtype``: the dtype of ``y`` (the chunked and windowed formats'
+    bf16 modes emit the product narrow; the others cast it). Any other
+    operand raises ``TypeError``.
     """
     if isinstance(mat, WindowedELLMatrix):
         return windowed.windowed_spmm(mat, x, out_dtype=out_dtype)
+    if isinstance(mat, ChunkedELLMatrix):
+        return chunked.chunked_spmm(mat, x, out_dtype=out_dtype)
+    if isinstance(mat, ELLMatrix):
+        return ell_spmm(mat, x, out_dtype=out_dtype)
     if not isinstance(mat, (CSRMatrix, BandedMatrix)):
-        raise NotImplementedError(_NOT_PORTED.format(type(mat).__name__))
+        raise _unknown(mat)
     x = torch.as_tensor(x)
     if x.ndim == 0 or x.shape[0] != mat.n_cols:
         raise ValueError(f'x must have {mat.n_cols} rows, got shape '
@@ -262,6 +284,241 @@ def spmm(mat, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     else:
         y = banded_kernel.banded_spmm(mat.tiles.to(dtype), x2, mat.n_rows)
     return y.reshape((mat.n_rows,) + lead).to(out_dtype or dtype)
+
+
+# ---------------------------------------------------------------------------
+# Multi-level ELL format ('hybrid')
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ELLLevel:
+    """One overflow level: ``rows`` (R,) unique row ids (int32);
+    ``cols``/``vals`` (R, w) slot blocks holding those rows' next w
+    edges."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    vals: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ELLMatrix:
+    """Multi-level ELL, the counterpart of the JAX package's ``ELLMatrix``
+    (``fmt='hybrid'``), with its field names and arrays:
+
+    - level 0: every row owns ``ell_width`` slots, ``ell_cols``/``ell_vals``
+      of shape (n_pad, ell_width), ``n_pad`` rounded up to
+      :data:`ROW_BLOCK`;
+    - level ℓ ≥ 1 (:class:`ELLLevel`): the rows still overflowing, each
+      level's rows unique, in geometrically wider slot blocks.
+
+    Slot padding: ``col == n_cols``, ``val == 0``. ``rowptr``: the true
+    degrees as a CSR pointer (int32). The port adds two operands of the
+    SpMM kernel (:mod:`.ell_kernel`), made once at upload: ``table``, level
+    0 as one block of the kernel's slot table over the flat ``ell_cols``
+    and ``ell_vals``, and ``residue``, the levels as one list sorted by row
+    (None without levels).
+    """
+
+    ell_cols: torch.Tensor
+    ell_vals: torch.Tensor
+    levels: tuple
+    rowptr: torch.Tensor
+    n_rows: int
+    n_cols: int
+    nnz: int
+    ell_width: int
+    table: ell_kernel.SlotTable = None
+    residue: windowed_kernel.Residue | None = None
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def dtype(self):
+        return self.ell_vals.dtype
+
+    @property
+    def device(self):
+        return self.ell_vals.device
+
+    def _map_vals(self, fn) -> 'ELLMatrix':
+        """The matrix with ``fn`` applied to every value: level 0's, the
+        levels' and the residue list's, so that the three stay in step."""
+        return dataclasses.replace(
+            self, ell_vals=fn(self.ell_vals),
+            levels=tuple(dataclasses.replace(lev, vals=fn(lev.vals))
+                         for lev in self.levels),
+            residue=None if self.residue is None else self.residue._replace(
+                vals=fn(self.residue.vals)))
+
+    def astype(self, dtype) -> 'ELLMatrix':
+        return self._map_vals(lambda v: v.to(dtype))
+
+    def scale_vals(self, scale) -> 'ELLMatrix':
+        return self._map_vals(lambda v: v * scale)
+
+    def abs_vals(self) -> 'ELLMatrix':
+        return self._map_vals(torch.abs)
+
+    def __matmul__(self, x):
+        return ell_spmm(self, x)
+
+
+def ell_spmm(mat: ELLMatrix, x, out_dtype=None) -> torch.Tensor:
+    """``y = A @ x`` for the multi-level ELL format, x (n_cols,) or
+    (n_cols, ...): one launch of the ELL SpMM kernel
+    (:func:`~pygsp_tpu_torch.core.ell_kernel.ell_spmm`), which sums each
+    row's level-0 slots and then its overflow slots and writes the row once.
+    The kernel takes float32 or float64; other operands are computed in
+    float32 and ``y`` cast to ``out_dtype`` (default the promotion of the
+    two dtypes)."""
+    x = torch.as_tensor(x)
+    if x.ndim == 0 or x.shape[0] != mat.n_cols:
+        raise ValueError(f'x must have {mat.n_cols} rows, got shape '
+                         f'{tuple(x.shape)}')
+    pdt = torch.promote_types(x.dtype, mat.dtype)
+    kdt = pdt if pdt in (torch.float32, torch.float64) else torch.float32
+    if mat.dtype != kdt:
+        mat = mat.astype(kdt)
+    x2 = x.to(kdt).reshape(mat.n_cols, -1).contiguous()
+    y = ell_kernel.ell_spmm(mat.table, mat.ell_cols.reshape(-1),
+                            mat.ell_vals.reshape(-1), mat.residue, x2,
+                            mat.n_rows)
+    return y.reshape((mat.n_rows,) + x.shape[1:]).to(out_dtype or pdt)
+
+
+def to_ell(mat: CSRMatrix, width: int | None = None,
+           row_block: int = ROW_BLOCK, level_factor: int = 2) -> ELLMatrix:
+    """CSR → multi-level ELL on the matrix's device (the host packer)."""
+    nnz = mat.nnz
+    rows, cols, vals = (t[:nnz].cpu().numpy()
+                        for t in (mat.rows, mat.cols, mat.vals))
+    return ell_from_host_coo(rows, cols, vals, mat.n_rows, mat.n_cols,
+                             width=width, level_factor=level_factor,
+                             row_block=row_block, device=mat.device)
+
+
+def ell_from_host_coo(rows, cols, vals, n_rows: int, n_cols: int, *,
+                      width: int | None = None, level_factor: int = 2,
+                      row_block: int = ROW_BLOCK,
+                      device='cuda') -> ELLMatrix:
+    """Build a multi-level ELL from host COO (row-sorted, deduplicated),
+    with the JAX package's packer, so that the same input packs to the same
+    arrays: level 0 ``width`` slots a row (by default the mean degree
+    rounded up to 8), then levels of geometrically wider blocks (each
+    ``level_factor`` times the last, rounded up to 8) for the rows still
+    overflowing."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    vals = np.asarray(vals)
+    n = n_rows
+    counts = (np.bincount(rows, minlength=n) if rows.size
+              else np.zeros(n, np.int64))
+    rowptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=rowptr[1:])
+    deg = counts
+
+    if width is None:
+        if rows.size == 0 or n == 0:
+            width = 8
+        else:
+            mean = max(1, int(np.ceil(rows.size / n)))
+            width = max(_round_up(mean, 8), 8)
+
+    n_pad = max(_round_up(n, row_block), row_block)
+
+    def pack(row_subset, base, w):
+        """Slot block [base, base+w) of each row: O(R*w) CSR-range
+        gathers."""
+        starts = rowptr[row_subset] + base
+        ends = rowptr[row_subset + 1] if len(row_subset) < n else rowptr[1:]
+        idx = starts[:, None] + np.arange(w)[None, :]
+        valid = idx < ends[:, None]
+        idx = np.minimum(idx, max(rows.size - 1, 0))
+        pc = np.where(valid, cols[idx], n_cols).astype(np.int32)
+        pv = np.where(valid, vals[idx], 0).astype(vals.dtype)
+        return pc, pv
+
+    all_rows = np.arange(n, dtype=np.int64)
+    if rows.size:
+        c0, v0 = pack(all_rows, 0, width)
+    else:
+        c0 = np.full((n, width), n_cols, np.int32)
+        v0 = np.zeros((n, width), vals.dtype)
+    ell_cols = np.full((n_pad, width), n_cols, dtype=np.int32)
+    ell_vals = np.zeros((n_pad, width), dtype=vals.dtype)
+    ell_cols[:n] = c0
+    ell_vals[:n] = v0
+
+    levels = []
+    base = width
+    w = max(_round_up(width, 8), 8)
+    maxdeg = int(deg.max()) if n else 0
+    while base < maxdeg:
+        lrows = np.flatnonzero(deg > base)
+        remaining_max = int((deg[lrows] - base).max())
+        w = min(w, max(_round_up(remaining_max, 8), 8))
+        lc, lv = pack(lrows, base, w)
+        levels.append((lrows.astype(np.int32), lc, lv))
+        base += w
+        w = max(_round_up(w * level_factor, 8), 8)
+
+    return _ell_upload(ell_cols, ell_vals, levels, rowptr.astype(np.int32),
+                       n, n_cols, int(rows.size), width, device)
+
+
+def _ell_upload(ell_cols, ell_vals, levels, rowptr, n_rows, n_cols, nnz,
+                width, device) -> ELLMatrix:
+    """The matrix on ``device`` from host arrays (``levels``: (rows, cols,
+    vals) triples), with the kernel's slot table and residue list."""
+    residue = chunked.upload_residue(
+        [ChunkLevel(cols=c, vals=v, src_chunk=0) for _, c, v in levels],
+        np.concatenate([r for r, _, _ in levels]) if levels
+        else np.zeros(0, np.int64), n_rows, n_cols, max(n_cols, 1), device)
+    return ELLMatrix(
+        ell_cols=chunked._tensor(ell_cols, device, np.int32),
+        ell_vals=chunked._tensor(ell_vals, device),
+        levels=tuple(ELLLevel(rows=chunked._tensor(r, device, np.int32),
+                              cols=chunked._tensor(c, device, np.int32),
+                              vals=chunked._tensor(v, device))
+                     for r, c, v in levels),
+        rowptr=chunked._tensor(rowptr, device, np.int32),
+        n_rows=int(n_rows), n_cols=int(n_cols), nnz=int(nnz),
+        ell_width=int(width),
+        table=ell_kernel.slot_table([(0, 0, width, 0, n_cols)], 1,
+                                    max(n_rows, 1), device),
+        residue=residue)
+
+
+def ell_from_scipy(mat, *, dtype=None, width: int | None = None,
+                   level_factor: int = 2, device='cuda') -> ELLMatrix:
+    """scipy sparse → multi-level ELL on ``device`` (values in ``dtype``,
+    by default the matrix's own)."""
+    csr = mat.tocsr()
+    csr.sum_duplicates()
+    coo = csr.tocoo()
+    vals = (coo.data if dtype is None
+            else coo.data.astype(_numpy_dtype(_torch_dtype(dtype))))
+    return ell_from_host_coo(coo.row, coo.col, vals, coo.shape[0],
+                             coo.shape[1], width=width,
+                             level_factor=level_factor, device=device)
+
+
+def _ell_to_scipy(mat: ELLMatrix):
+    co = mat.ell_cols.cpu().numpy()
+    parts = [(np.repeat(np.arange(co.shape[0]), co.shape[1]), co.ravel(),
+              chunked._host(mat.ell_vals).ravel())]
+    for lev in mat.levels:
+        lc = lev.cols.cpu().numpy()
+        parts.append((np.repeat(lev.rows.cpu().numpy(), lc.shape[1]),
+                      lc.ravel(), chunked._host(lev.vals).ravel()))
+    rows, cols, vals = (np.concatenate([p[k] for p in parts])
+                        for k in range(3))
+    keep = (rows < mat.n_rows) & (cols < mat.n_cols)
+    return sps.csr_matrix((vals[keep], (rows[keep], cols[keep])),
+                          shape=mat.shape)
 
 
 # ---------------------------------------------------------------------------

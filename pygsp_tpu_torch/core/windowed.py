@@ -51,7 +51,8 @@ import torch
 
 from pygsp_tpu_torch.core import windowed_kernel
 from pygsp_tpu_torch.core.chunked import (CHUNK_ROWS, ChunkLevel,
-                                          chunk_signal, permute_in,
+                                          _flat_residue, _host, _numpy_dtype,
+                                          _tensor, chunk_signal, permute_in,
                                           permute_out, unchunk_signal)
 
 # Output rows per window (the JAX package's default).
@@ -595,23 +596,6 @@ def windowed_from_host_coo(rows, cols, vals, n_rows: int, n_cols: int, *,
         iperm=None if iperm is None else iperm.astype(np.int32)), device)
 
 
-def _numpy_dtype(dtype):
-    if isinstance(dtype, torch.dtype):
-        return torch.zeros(0, dtype=dtype).numpy().dtype
-    return np.dtype(dtype)
-
-
-def _tensor(a, device, dtype=None):
-    """A host array on ``device``. A bfloat16 array (the ``ml_dtypes`` type
-    of the JAX package's arrays, which torch cannot read) goes across as
-    its bits, viewed as int16 and back as ``torch.bfloat16``."""
-    a = np.ascontiguousarray(a, dtype=dtype)
-    if a.dtype.name == 'bfloat16':
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
-            device)
-    return torch.from_numpy(a).to(device)
-
-
 def upload(host: dict, device) -> WindowedELLMatrix:
     """The matrix on ``device`` from host arrays with the field names of
     :class:`WindowedELLMatrix` (levels as :class:`ChunkLevel` of arrays).
@@ -644,45 +628,6 @@ def upload(host: dict, device) -> WindowedELLMatrix:
         residue=residue, **vec,
         **{k: int(host[k]) for k in ('n_rows', 'n_cols', 'nnz', 'chunk_rows',
                                      'window_rows', 'borrow_span')})
-
-
-def _flat_residue(levels, level_rows, n_rows, n_cols, R):
-    """The residue tiers as one list sorted by output row, host arrays with
-    the fields of :class:`~.windowed_kernel.Residue`, or None without
-    tiers. The entries are sorted stably by row, so a row's entries keep
-    their order in ``level_rows``, which is the order the tiers'
-    ``index_add`` adds them in. A slot is live iff its column lies inside
-    its source chunk (``src_chunk_size``); dead ones, the tiers' padding,
-    are dropped, and an entry keeps its live slots in slot order. The
-    heavy rows (:data:`~.windowed_kernel.TAIL_HEAVY_ENTRIES` entries or
-    more) come longest first, so that their blocks start first."""
-    if not len(levels):
-        return None
-    counts, cols, vals = [], [], []
-    for lev in levels:
-        c = int(lev.src_chunk)
-        lc, lv = np.asarray(lev.cols), np.asarray(lev.vals)
-        live = lc < min(R, n_cols - c * R)
-        counts.append(live.sum(axis=1))
-        cols.append(lc[live].astype(np.int64) + c * R)
-        vals.append(lv[live])
-    counts = np.concatenate(counts)
-    rows = np.asarray(level_rows, dtype=np.int64)
-    order = np.argsort(rows, kind='stable')
-    start = np.zeros(counts.size + 1, np.int64)
-    np.cumsum(counts, out=start[1:])
-    entptr = np.zeros(counts.size + 1, np.int64)
-    np.cumsum(counts[order], out=entptr[1:])
-    slot = (np.repeat(start[:-1][order] - entptr[:-1], counts[order])
-            + np.arange(entptr[-1]))
-    per_row = np.bincount(rows, minlength=n_rows)
-    rowptr = np.zeros(n_rows + 1, np.int64)
-    np.cumsum(per_row, out=rowptr[1:])
-    heavy = np.flatnonzero(per_row >= windowed_kernel.TAIL_HEAVY_ENTRIES)
-    return dict(rowptr=rowptr, entptr=entptr,
-                cols=np.concatenate(cols)[slot],
-                vals=np.concatenate(vals)[slot],
-                heavy=heavy[np.argsort(-per_row[heavy], kind='stable')])
 
 
 def _pack_residue_levels(rrows, rcols, rvals, rchunk, R, vdtype):
@@ -805,7 +750,3 @@ def windowed_to_scipy(mat: WindowedELLMatrix):
         p = _host(mat.perm).astype(np.int64)
         rows, cols = p[rows], p[cols]
     return sps.csr_matrix((vals, (rows, cols)), shape=mat.shape)
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()

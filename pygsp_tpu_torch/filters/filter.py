@@ -115,15 +115,15 @@ class Filter:
         ``order``), ``'lanczos'`` (a Krylov space of ``order`` vectors per
         column) or ``'exact'`` (the Fourier basis, computed on first use).
 
-        ``carry_dtype`` (chebyshev, windowed format): the dtype the
-        recurrence terms are carried in, e.g. ``torch.bfloat16``; it is
-        gated by the a-priori error bound
+        ``carry_dtype`` (chebyshev, chunked and windowed formats): the
+        dtype the recurrence terms are carried in, e.g. ``torch.bfloat16``;
+        it is gated by the a-priori error bound
         (:func:`~pygsp_tpu_torch.ops.chebyshev.carry_error_estimate`) of
         the bank's coefficients against ``carry_tol``. ``vals_dtype``
-        (windowed format): the dtype of the stored edge values; with both
-        in bf16 the fold multiplies bf16 by bf16 (the fast mode of the JAX
-        package's bench). On the CSR and banded formats both raise the JAX
-        package's ``ValueError``.
+        (chunked and windowed formats): the dtype of the stored edge
+        values; with both in bf16 the SpMM multiplies bf16 by bf16 (the
+        fast mode of the JAX package's bench). On the CSR, ELL and banded
+        formats both raise the JAX package's ``ValueError``.
 
         ``fixed_graph`` (chebyshev, analysis): route through
         :func:`~pygsp_tpu_torch.ops.chebyshev.cheby_op_fixed_graph`, whose

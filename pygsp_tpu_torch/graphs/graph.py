@@ -27,11 +27,6 @@ from pygsp_tpu_torch.core.chunked import CHUNK_ROWS
 from pygsp_tpu_torch.core.operators import LaplacianOp, laplacian_op, matvec
 from pygsp_tpu_torch.ops import eigen as ops_eigen
 
-_NOT_PORTED_FMT = ('compute_laplacian(fmt={!r}) is not ported yet: see '
-                   'ROADMAP.md, "Modules to port", item 4 (the ELL/hybrid '
-                   'and chunked formats)')
-
-
 class Graph:
     """Weighted (un)directed graph with device-resident operators.
 
@@ -239,6 +234,50 @@ class Graph:
             W = sps.triu(self._adjacency, format='coo')
         return W.row, W.col, W.data
 
+    def set_coordinates(self, kind='spring', seed=None):
+        """Set ``coords`` from an array (N, N×2 or N×3) or by the name of a
+        closed-form layout: ``'line1D'``, ``'line2D'``, ``'ring2D'``,
+        ``'random2D'``, ``'random3D'`` (NumPy's generator seeded with
+        ``seed``), as in the JAX package. Its solved layouts (``'spring'``,
+        the default, ``'community2D'``, the Laplacian eigenmaps) are not
+        ported yet: see ROADMAP.md, "Modules to port", item 5
+        (``_layout.py``).
+
+        Examples
+        --------
+        >>> from pygsp_tpu_torch import graphs
+        >>> G = graphs.Graph([[0, 1], [1, 0]], device='cpu')
+        >>> G.set_coordinates('line2D')
+        >>> G.coords.tolist()
+        [[0.0, 0.0], [1.0, 0.0]]
+        """
+        n = self.n_vertices
+        if not isinstance(kind, str):
+            coords = np.asanyarray(kind).squeeze()
+            ok_1d = coords.ndim == 1
+            ok_2d3d = coords.ndim == 2 and 2 <= coords.shape[1] <= 3
+            if coords.shape[0] != n or not (ok_1d or ok_2d3d):
+                raise ValueError('Expecting coordinates to be of size N, '
+                                 'Nx2, or Nx3.')
+            self.coords = coords
+        elif kind == 'line1D':
+            self.coords = np.arange(n)
+        elif kind == 'line2D':
+            self.coords = np.stack([np.arange(n), np.zeros(n)], axis=1)
+        elif kind == 'ring2D':
+            angle = np.arange(n) * 2 * np.pi / n
+            self.coords = np.stack([np.cos(angle), np.sin(angle)], axis=1)
+        elif kind in ('random2D', 'random3D'):
+            self.coords = np.random.default_rng(seed).uniform(
+                size=(n, int(kind[-2])))
+        elif kind in ('spring', 'community2D', 'laplacian_eigenmap2D',
+                      'laplacian_eigenmap3D'):
+            raise NotImplementedError(
+                f'set_coordinates(kind={kind!r}) is not ported yet: see '
+                f'ROADMAP.md, "Modules to port", item 5 (_layout.py)')
+        else:
+            raise ValueError(f'Unexpected argument kind={kind}.')
+
     # ------------------------------------------------------------------
     # signals
     # ------------------------------------------------------------------
@@ -292,13 +331,16 @@ class Graph:
 
         Directed graphs are average-symmetrized first; a change of
         Laplacian type drops the cached λmax. ``fmt='coo'`` stores the
-        off-diagonal block as padded CSR, ``fmt='windowed'`` in the
-        windowed-compact format (:mod:`pygsp_tpu_torch.core.windowed`), and
+        off-diagonal block as padded CSR, ``fmt='hybrid'`` in the
+        multi-level ELL format
+        (:class:`~pygsp_tpu_torch.core.sparse.ELLMatrix`), ``fmt='chunked'``
+        in the chunked one
+        (:mod:`pygsp_tpu_torch.core.chunked`), ``fmt='windowed'`` in the
+        windowed-compact one (:mod:`pygsp_tpu_torch.core.windowed`), and
         ``fmt='auto'`` picks ``'windowed'`` above
         :data:`~pygsp_tpu_torch.core.chunked.CHUNK_ROWS` vertices and
-        ``'hybrid'`` below, as the JAX package does. ``'hybrid'`` and
-        ``'chunked'`` are not ported yet and raise. Use ``G.L.to_banded()``
-        for the banded format.
+        ``'hybrid'`` at or below, as the JAX package does. Use
+        ``G.L.to_banded()`` for the banded format.
         """
         if getattr(self, 'lap_type', None) != lap_type:
             self._lmax = None
@@ -324,9 +366,11 @@ class Graph:
         self._L = laplacian_op(Wsym, lap_type)
         if fmt == 'auto':
             fmt = 'windowed' if self.n_vertices > CHUNK_ROWS else 'hybrid'
-        if fmt in ('hybrid', 'chunked'):
-            raise NotImplementedError(_NOT_PORTED_FMT.format(fmt))
-        if fmt == 'windowed':
+        if fmt == 'hybrid':
+            self._L = self._L.to_hybrid()
+        elif fmt == 'chunked':
+            self._L = self._L.to_chunked()
+        elif fmt == 'windowed':
             self._L = self._L.to_windowed()
         elif fmt != 'coo':
             raise ValueError(f'Unknown Laplacian format {fmt!r}')
@@ -336,7 +380,7 @@ class Graph:
     def L(self) -> LaplacianOp:
         """Laplacian operator. Supports ``L @ x``, ``L.dot(x)``,
         ``L.to_scipy()``, ``L.to_dense()``, ``L.to_banded()``,
-        ``L.to_windowed()``."""
+        ``L.to_hybrid()``, ``L.to_chunked()``, ``L.to_windowed()``."""
         return self._L
 
     def dirichlet_energy(self, x):

@@ -1,11 +1,11 @@
 """Chebyshev polynomial filtering, the hot path.
 
-Counterpart of :mod:`pygsp_tpu.ops.chebyshev` on the CSR, banded and
-windowed formats. The three-term recurrence runs as a Python loop whose
-state is ``(T_{k-1} s, T_k s, accumulators for all Nf filters)``, so the K
-SpMMs are shared by the whole filter bank. The whole recurrence runs in the
-operator's internal vertex order, as the JAX package's
-``_cheby_op_chunked`` does for the windowed format; the operator says how
+Counterpart of :mod:`pygsp_tpu.ops.chebyshev` on every storage format. The
+three-term recurrence runs as a Python loop whose state is ``(T_{k-1} s, T_k s,
+accumulators for all Nf filters)``, so the K SpMMs are shared by the whole
+filter bank. The whole recurrence runs in the operator's internal vertex order,
+as the JAX package's ``_cheby_op_chunked`` does for the chunked and windowed
+formats; the operator says how
 (:meth:`~pygsp_tpu_torch.core.operators.LaplacianOp.hoisted`,
 :meth:`~pygsp_tpu_torch.core.operators.LaplacianOp.shifted_step`).
 
@@ -13,15 +13,18 @@ Each step after the SpMM is one launch of the fused step kernel
 (:mod:`pygsp_tpu_torch.core.cheby_kernel`), where the JAX package has the
 XLA fusions of its ``lax.scan`` bodies. The step writes into a ring of
 ``g + 2`` terms, and the accumulators are updated once per ``g`` steps: the
-JAX package's accumulator grouping of the windowed format, with its
+JAX package's accumulator grouping of the chunked and windowed formats,
+with its
 environment settings ``PYGSP_CHEBY_ACC_GROUP`` and ``PYGSP_CHEBY_DEVICE_MB``,
-so that both packages pick the same ``g`` there. The port groups on the CSR
-and banded formats too, where the JAX package adds each term as it comes:
+so that both packages pick the same ``g`` there. The port groups on the
+CSR, ELL and banded formats too, where the JAX package adds each term as it
+comes:
 the bank's accumulators are then read and written once per group instead of
 once per step, the same sums in another order. ``PYGSP_CHEBY_GROUP_UNROLL``
 is not ported: it only chooses how XLA compiles the group's body.
 
-The bf16 modes of the windowed format (``carry_dtype``, ``vals_dtype``)
+The bf16 modes of the chunked and windowed formats (``carry_dtype``,
+``vals_dtype``)
 follow the JAX package: the carried terms are stored narrow, every row sum,
 diagonal term and accumulator stays in the signal's dtype, and the mode is
 gated by :func:`carry_error_estimate`.
@@ -43,9 +46,8 @@ import numpy as np
 import torch
 
 from pygsp_tpu_torch.core import cheby_kernel
-from pygsp_tpu_torch.core.operators import LaplacianOp, matvec
+from pygsp_tpu_torch.core.operators import SCALED_OUTPUT, LaplacianOp, matvec
 from pygsp_tpu_torch.core.sparse import spmm
-from pygsp_tpu_torch.core.windowed import WindowedELLMatrix
 from pygsp_tpu_torch.utils import check_device
 
 _FORMAT_ONLY = ('{} is only supported on chunked/windowed operator formats '
@@ -141,13 +143,13 @@ def _check_carry_budget(c, carry_dtype, carry_tol):
 
 
 def _cast_vals(L: LaplacianOp, vals_dtype) -> LaplacianOp:
-    """Opt-in reduced-precision edge values (the windowed format): the
-    fold's products are then formed in ``promote(carry, vals)``, bf16·bf16
-    with a bf16 carry. Costs one rounding of each edge weight: exact for
-    unit and power-of-two weights. The diagonal stays as it is."""
+    """Opt-in reduced-precision edge values (the chunked and windowed formats):
+    the SpMM's products are then formed in ``promote(carry, vals)``, bf16·bf16
+    with a bf16 carry. Costs one rounding of each edge weight: exact for unit
+    and power-of-two weights. The diagonal stays as it is."""
     if vals_dtype is None:
         return L
-    if not isinstance(L.offdiag, WindowedELLMatrix):
+    if not isinstance(L.offdiag, SCALED_OUTPUT):
         raise ValueError(_FORMAT_ONLY.format('vals_dtype'))
     return LaplacianOp(offdiag=L.offdiag.astype(vals_dtype), diag=L.diag,
                        lap_type=L.lap_type)
@@ -156,13 +158,13 @@ def _cast_vals(L: LaplacianOp, vals_dtype) -> LaplacianOp:
 def _promote(L: LaplacianOp, x, promote_x: bool = True):
     """The operator and signal in one arithmetic: the signal promoted with
     the off-diagonal's dtype (unless it is carried narrow), and the operator
-    made to fit it. The CSR and banded kernels take one dtype, so their
-    operator is cast; the windowed SpMM mixes dtypes itself, so only its
-    diagonal is cast to the signal's dtype."""
+    made to fit it. The CSR, ELL and banded kernels take one dtype, so their
+    operator is cast; the chunked and windowed SpMMs mix dtypes themselves,
+    so only their diagonal is cast to the signal's dtype."""
     pdt = torch.promote_types(x.dtype, L.offdiag.dtype)
     if promote_x:
         x = x.to(pdt)
-    if isinstance(L.offdiag, WindowedELLMatrix):
+    if isinstance(L.offdiag, SCALED_OUTPUT):
         if L.diag.dtype != x.dtype:
             L = LaplacianOp(offdiag=L.offdiag, diag=L.diag.to(x.dtype),
                             lap_type=L.lap_type)
@@ -176,15 +178,16 @@ def _prepare(L: LaplacianOp, c, x, carry_dtype=None, carry_tol=None,
     """The JAX package's checks and dtype rules
     (``pygsp_tpu/ops/chebyshev.py:144-166``): ``(L, c, x, carry_dtype)``.
     A carry in the signal's own dtype is the exact path (``carry_dtype``
-    comes back None); a narrower one runs on the windowed format only,
-    under the carry gate; without one the signal is promoted once."""
+    comes back None); a narrower one runs on the chunked and windowed
+    formats only, under the carry gate; without one the signal is promoted
+    once."""
     c = torch.atleast_2d(torch.as_tensor(c))
     if c.shape[1] < 2:
         raise ValueError('Chebyshev coefficients need order >= 1')
     if carry_dtype is not None and carry_dtype == x.dtype:
         carry_dtype = None
     if carry_dtype is not None:
-        if not isinstance(L.offdiag, WindowedELLMatrix):
+        if not isinstance(L.offdiag, SCALED_OUTPUT):
             raise ValueError(_FORMAT_ONLY.format('carry_dtype'))
         _check_carry_budget(c, carry_dtype, carry_tol)
     L = _cast_vals(L, vals_dtype)
@@ -241,11 +244,12 @@ def acc_group(rem: int, n_values: int, signal_dtype, carry_dtype,
 
 
 def _operator_bytes(off) -> int:
-    """The operator bytes the group rule counts: on the windowed format the
-    JAX package's own count (:meth:`WindowedELLMatrix.stored_bytes`); on
-    the CSR and banded formats, which the JAX package does not group, the
-    port's tensors twice over (the step keeps a scaled copy)."""
-    if isinstance(off, WindowedELLMatrix):
+    """The operator bytes the group rule counts: on the chunked and windowed
+    formats the JAX package's own count (their ``stored_bytes``, the JAX
+    package's tree leaves); on the CSR, ELL and banded formats, which the
+    JAX package does not group, the port's tensors twice over (the step
+    keeps a scaled copy)."""
+    if isinstance(off, SCALED_OUTPUT):
         return off.stored_bytes()
     return 2 * sum(getattr(off, f.name).nbytes
                    for f in dataclasses.fields(off)
@@ -280,14 +284,15 @@ def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
     filters accumulated from the shared recurrence terms, in the
     operator's internal vertex order (:meth:`LaplacianOp.hoisted`).
 
-    ``carry_dtype`` (windowed format only): the dtype the recurrence terms
+    ``carry_dtype`` (chunked and windowed formats only): the dtype the
+    recurrence terms
     are carried in; ``torch.bfloat16`` halves the bytes of every SpMM's
     operand and of the window tensor, while row sums, diagonal terms and
     accumulators stay in the signal's dtype, so each step rounds once. It
     is gated by :func:`carry_error_estimate` against ``carry_tol`` (default
-    0.05, environment ``PYGSP_CARRY_TOL``). ``vals_dtype`` (windowed only)
-    casts the stored edge values. On the CSR and banded formats both raise
-    the JAX package's ``ValueError``.
+    0.05, environment ``PYGSP_CARRY_TOL``). ``vals_dtype`` (chunked and
+    windowed only) casts the stored edge values. On the CSR, ELL and banded
+    formats both raise the JAX package's ``ValueError``.
     """
     L, c, x, cdt = _prepare(L, c, x, carry_dtype, carry_tol, vals_dtype)
     op, pin, pout = L.hoisted()
@@ -458,9 +463,9 @@ def cheby_rect(L: LaplacianOp, lmax, bounds, x: torch.Tensor,
                order: int = 30) -> torch.Tensor:
     """Ideal band-pass filtering with closed-form Chebyshev coefficients:
     the analytic Chebyshev series of the indicator of ``bounds = [b1, b2]``
-    ⊂ [0, lmax]. On the windowed format the recurrence is the hot path's
-    (internal order, scale on the SpMM output); on the others the
-    reference's arithmetic order, ``sc·(L t − a2·t) − t_old``."""
+    ⊂ [0, lmax]. On the chunked and windowed formats the recurrence is the
+    hot path's (internal order, scale on the SpMM output); on the others
+    the reference's arithmetic order, ``sc·(L t − a2·t) − t_old``."""
     L, x = _promote(L, torch.as_tensor(x))
     lmax_t = torch.as_tensor(lmax, dtype=x.dtype, device=x.device)
     bounds = torch.as_tensor(bounds, dtype=x.dtype, device=x.device)
@@ -470,7 +475,7 @@ def cheby_rect(L: LaplacianOp, lmax, bounds, x: torch.Tensor,
     ks = torch.arange(2, order + 1, dtype=x.dtype, device=x.device)
     coeffs = 2.0 / (ks * torch.pi) * (torch.sin(ks * b1) - torch.sin(ks * b2))
 
-    if isinstance(L.offdiag, WindowedELLMatrix):
+    if isinstance(L.offdiag, SCALED_OUTPUT):
         op, pin, pout = L.hoisted()
         terms = _terms(op, float(lmax), pin(x), order + 1)
         acc = c0 * next(terms) + c1 * next(terms)

@@ -13,7 +13,8 @@ import torch
 
 from pygsp_tpu_torch.core.operators import (LaplacianOp, degrees_from_adjacency,
                                             matvec)
-from pygsp_tpu_torch.core.sparse import BandedMatrix, CSRMatrix
+from pygsp_tpu_torch.core.chunked import ChunkedELLMatrix
+from pygsp_tpu_torch.core.sparse import BandedMatrix, CSRMatrix, ELLMatrix
 from pygsp_tpu_torch.ops.lanczos import _lanczos_single
 from pygsp_tpu_torch.ops.lobpcg import lobpcg_standard
 from pygsp_tpu_torch.ops.spmm import spmm
@@ -87,20 +88,30 @@ def fourier_basis(L: LaplacianOp, n_eigenvectors: int | None = None):
 
 def laplacian_upper_bound(L: LaplacianOp):
     """Gershgorin's bound on λmax, ``max_i (diag_i + Σ_j |offdiag_ij|)``, as
-    a 0-d tensor. On the CSR format the row sums are one SpMM of ``|vals|``
-    by a vector of ones; on the banded format sums over the tiles. The
-    windowed format raises ``TypeError`` (the JAX package has no path for
-    it either)."""
+    a 0-d tensor. On the CSR and chunked formats the row sums are one SpMM
+    of ``|vals|`` by a vector of ones; on the ELL format the sums of level
+    0's rows plus those of each level, added onto its unique rows; on the
+    banded format sums over the tiles. The windowed format raises
+    ``TypeError`` (the JAX package has no path for it either)."""
     off = L.offdiag
     if isinstance(off, CSRMatrix):
         ones = torch.ones(off.n_cols, dtype=off.dtype, device=off.device)
         absrow = spmm(off.with_vals(torch.abs(off.vals)), ones)
+    elif isinstance(off, ChunkedELLMatrix):
+        ones = torch.ones(off.n_cols, dtype=off.dtype, device=off.device)
+        absrow = spmm(off.abs_vals(), ones)
+    elif isinstance(off, ELLMatrix):
+        absrow = torch.sum(torch.abs(off.ell_vals), dim=1)[:off.n_rows]
+        for lev in off.levels:
+            absrow = absrow.index_add(0, lev.rows.long(),
+                                      torch.sum(torch.abs(lev.vals), dim=1))
     elif isinstance(off, BandedMatrix):
         absrow = torch.sum(torch.abs(off.tiles),
                            dim=(1, 3)).reshape(-1)[:off.n_rows]
     else:
-        raise TypeError(f'laplacian_upper_bound takes a Laplacian on the CSR '
-                        f'or banded format, not {type(off).__name__}')
+        raise TypeError(f'laplacian_upper_bound takes a Laplacian on the CSR, '
+                        f'ELL, banded or chunked format, not '
+                        f'{type(off).__name__}')
     return torch.max(L.diag + absrow)
 
 

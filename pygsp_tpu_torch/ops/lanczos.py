@@ -3,8 +3,9 @@
 Counterpart of :mod:`pygsp_tpu.ops.lanczos`: one Krylov recursion advances
 every column of an (N, S) block at once, each step one SpMM (a kernel on
 the card) plus per-column reductions, followed by a small batched ``eigh``
-of the tridiagonal H matrices. On a windowed operator the whole recursion
-runs in the matrix's internal (relabeled) order (``LaplacianOp.hoisted``):
+of the tridiagonal H matrices. On a windowed operator, or a chunked one
+built with ``permute='degree'``, the whole recursion runs in the matrix's
+internal (relabeled) order (``LaplacianOp.hoisted``):
 dot products and norms do not see the permutation, so the permutes apply
 once per solve.
 

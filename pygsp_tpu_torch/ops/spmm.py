@@ -1,12 +1,17 @@
 """SpMM dispatch, the primitive the Chebyshev recurrence reduces to.
 
-Three storage formats, dispatched by operand type in
-:func:`pygsp_tpu_torch.core.sparse.spmm`:
+Five storage formats, dispatched by operand type in
+:func:`pygsp_tpu_torch.core.sparse.spmm`; any other operand raises
+``TypeError``:
 
 - :class:`~pygsp_tpu_torch.core.sparse.CSRMatrix` → the CSR SpMM kernel
   (:mod:`pygsp_tpu_torch.core.csr_kernel`);
+- :class:`~pygsp_tpu_torch.core.sparse.ELLMatrix` → the ELL SpMM kernel
+  (:mod:`pygsp_tpu_torch.core.ell_kernel`);
 - :class:`~pygsp_tpu_torch.core.sparse.BandedMatrix` → the banded SpMM
   kernel (:mod:`pygsp_tpu_torch.core.banded_kernel`);
+- :class:`~pygsp_tpu_torch.core.chunked.ChunkedELLMatrix` → the chunked
+  SpMM kernel (:mod:`pygsp_tpu_torch.core.ell_kernel`);
 - :class:`~pygsp_tpu_torch.core.windowed.WindowedELLMatrix` → the windowed
   fold and strip kernels (:mod:`pygsp_tpu_torch.core.windowed_kernel`).
 """

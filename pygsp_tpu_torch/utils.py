@@ -79,6 +79,48 @@ def symmetrize(W, method: str = 'average'):
     raise ValueError(f'Unknown symmetrization method {method!r}')
 
 
+def distanz(x, y=None):
+    """Pairwise Euclidean distances between the columns of x and y.
+
+    x, y: (d, Nx), (d, Ny) (1-D inputs are promoted to one row); returns
+    (Nx, Ny).
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> distanz(np.arange(3))
+    array([[0., 1., 2.],
+           [1., 0., 1.],
+           [2., 1., 0.]])
+    """
+    x = np.asarray(x, dtype=float)
+    x = x.reshape(1, -1) if x.ndim == 1 else x
+    y = x if y is None else np.asarray(y, dtype=float)
+    y = y.reshape(1, -1) if y.ndim == 1 else y
+    if x.shape[0] != y.shape[0]:
+        raise ValueError('The sizes of x and y do not fit')
+    xx = np.sum(x * x, axis=0)
+    yy = np.sum(y * y, axis=0)
+    d2 = np.abs(xx[:, None] + yy[None, :] - 2.0 * (x.T @ y))
+    return np.sqrt(d2)
+
+
+def rescale_center(x):
+    """Center point-cloud coordinates x (d, N) and scale them into [-1, 1].
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> rescale_center(np.array([[0.0, 2.0, 4.0]]))
+    array([[-1.,  0.,  1.]])
+    """
+    x = np.asarray(x, dtype=float)
+    n = x.shape[1]
+    y = x - np.kron(np.ones((1, n)), np.mean(x, axis=1)[:, None])
+    c = np.amax(np.abs(y))
+    return y / c
+
+
 def compute_log_scales(lmin: float, lmax: float, n_scales: int,
                        t1: float = 1.0, t2: float = 2.0):
     """Log-spaced wavelet scales between heuristic bounds: they span

@@ -173,12 +173,24 @@ def test_errors_match_jax():
 
 @pytest.mark.parametrize('call', ['to_hybrid', 'to_chunked'])
 def test_unported_options_name_their_roadmap_item(call):
-    """What is still not ported raises NotImplementedError naming its
-    current item of ROADMAP.md's "Modules to port"."""
+    """``to_hybrid`` and ``to_chunked``, which raised until the formats of
+    ROADMAP.md's "Modules to port" item 4 were ported, now convert as the
+    JAX package does: the same operator, and a heat bank on it within
+    1e-12."""
     T = tgsp.graphs.Grid2d(4, 4, **CPU64)
-    with pytest.raises(NotImplementedError,
-                       match='"Modules to port", item 4 '):
-        getattr(T.L, call)()
+    J = jgsp.graphs.Grid2d(4, 4)
+    J.estimate_lmax(method='bounds')
+    TL, JL = getattr(T.L, call)(), getattr(J.L, call)()
+    assert type(TL.offdiag).__name__ == type(JL.offdiag).__name__
+    assert abs(TL.to_scipy() - JL.to_scipy()).max() == 0
+    x = np.random.default_rng(1).normal(size=(T.N, 2))
+    c = np.asarray(jcheby.cheby_coeff(
+        lambda lam: jnp.exp(-2.0 * lam)[None], J.lmax, 30))
+    want = np.asarray(jcheby.cheby_op(JL, J.lmax, jnp.asarray(c),
+                                      jnp.asarray(x)))
+    got = tcheby.cheby_op(TL, J.lmax, torch.from_numpy(c),
+                          torch.from_numpy(x))
+    assert np.abs(got.numpy() - want).max() <= 1e-12
 
 
 def test_filter_bank_algebra():

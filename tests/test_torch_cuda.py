@@ -29,7 +29,10 @@ versions, bit for bit, in f32, f64 and with a bf16 carry, and its fourth,
 the coefficient gradient ``cheby_dot_group``, within its summation bound
 and bit-equal across launches; the guard that makes every kernel wrapper
 refuse an operand that requires grad, and the fixed-graph training path's
-gradients against the CPU's.
+gradients against the CPU's; the ELL and chunked SpMMs against their plain
+version (heavy rows, ragged chunks, the degree relabeling, S of 1 to 512,
+every operand pair, dead slots holding ``inf``, two launches bit-equal),
+a bank on each format against the CPU, and their refusals.
 """
 
 import ctypes
@@ -42,6 +45,8 @@ import torch
 import pygsp_tpu_torch as tgsp
 from pygsp_tpu_torch.core import sparse as tsp
 from pygsp_tpu_torch.core import _cuda, banded_kernel, cheby_kernel, csr_kernel
+from pygsp_tpu_torch.core import chunked as tck
+from pygsp_tpu_torch.core import ell_kernel
 from pygsp_tpu_torch.core import windowed as twd
 from pygsp_tpu_torch.core import windowed_kernel as wk
 from pygsp_tpu_torch.ops.chebyshev import carry_error_estimate, cheby_coeff
@@ -926,3 +931,129 @@ def test_upper_bound_power_iteration_and_lobpcg_on_the_card(cuda):
     assert ub == ub_h == ubb == ubb_h
     assert float((e - e_h).abs().max()) <= 1e-8
     assert float((torch.diag(U.T @ U_h).abs() - 1).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the ELL and chunked SpMMs (csrc/ell_spmm.cu)
+# ---------------------------------------------------------------------------
+
+def _slot_hub_graph(n=3000, seed=6, hubs=(2, 7, 2999)):
+    """A Barabási–Albert graph with three dense hub rows: each has over
+    HEAVY_SLOTS overflow slots in both formats, so the kernel gives it a
+    block of its own; the last one lies in the ragged last chunk."""
+    src, tgt = tgsp.graphs.ba_edges_fast(n, m0=4, m=4, seed=seed)
+    rng = np.random.default_rng(seed)
+    W = sps.csr_matrix((rng.uniform(0.5, 1.5, len(src)), (src, tgt)),
+                       shape=(n, n)).tolil()
+    for h in hubs:
+        W[h, ::3] = rng.uniform(0.5, 1.5, W[h, ::3].shape)
+    W = sps.csr_matrix(W)
+    W = W + W.T
+    W.setdiag(0)
+    W.eliminate_zeros()
+    return W
+
+
+SLOT_FORMATS = {
+    'ell': lambda W, device: tsp.ell_from_scipy(W, device=device),
+    'ell-width8': lambda W, device: tsp.ell_from_scipy(W, width=8,
+                                                       device=device),
+    'chunked-R1024': lambda W, device: tck.chunked_from_scipy(
+        W, chunk_rows=1024, device=device),
+    'chunked-R700-degree': lambda W, device: tck.chunked_from_scipy(
+        W, chunk_rows=700, permute='degree', device=device),
+}
+
+
+def _slot_operands(M):
+    if isinstance(M, tsp.ELLMatrix):
+        return ell_kernel.ell_spmm, (M.table, M.ell_cols.reshape(-1),
+                                     M.ell_vals.reshape(-1), M.residue)
+    return ell_kernel.chunked_spmm, (M.table, M.slot_cols, M.slot_vals,
+                                     M.residue)
+
+
+@pytest.mark.parametrize('s', [1, 3, 128, 129, 512])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('fmt', list(SLOT_FORMATS))
+def test_slot_kernels_match_plain(cuda, fmt, dtype, s):
+    """Each kernel against its plain version in f64 (heavy rows, ragged
+    chunks, one value a lane where S is odd), one launch, two launches
+    bit-equal, and inf behind every dead slot adding nothing."""
+    W = _slot_hub_graph()
+    M = SLOT_FORMATS[fmt](W, cuda).astype(dtype)
+    kernel, (table, cols, vals, res) = _slot_operands(M)
+    assert res.heavy.numel() >= 3
+    x = _signal((M.n_cols, s), dtype, s, cuda)
+    before = kernel.launches
+    y = kernel(table, cols, vals, res, x, M.n_rows)
+    assert kernel.launches == before + 1 and y.dtype == dtype
+    want = ell_kernel.slot_spmm_plain(
+        table, cols, vals.double(), res._replace(vals=res.vals.double()),
+        x.double(), M.n_rows)
+    assert _rel_err(y.double(), want) <= TOL[dtype]
+    assert torch.equal(y, kernel(table, cols, vals, res, x, M.n_rows))
+    dead = vals.clone()
+    for i, off, width, _, limit in table.blocks:
+        rows = (M.n_rows if isinstance(M, tsp.ELLMatrix)
+                else M.out_chunk_size(i))
+        part = dead[off:off + rows * width]
+        part[cols[off:off + rows * width] >= limit] = float('inf')
+    assert torch.equal(y, kernel(table, cols, dead, res, x, M.n_rows))
+
+
+@pytest.mark.parametrize('pair', sorted(ell_kernel.CHUNKED_OPERANDS,
+                                        key=str))
+def test_chunked_kernel_takes_every_pair(cuda, pair):
+    """The chunked kernel in each operand pair against its plain version
+    in the same dtypes (bf16 y within one bf16 ulp: the sums' order)."""
+    xd, vd = pair
+    M = tck.chunked_from_scipy(_slot_hub_graph(), chunk_rows=1024,
+                               device=cuda).astype(vd)
+    _, (table, cols, vals, res) = _slot_operands(M)
+    x = _signal((M.n_cols, 128), torch.float32, 7, cuda).to(xd)
+    y = ell_kernel.chunked_spmm(table, cols, vals, res, x, M.n_rows)
+    want = ell_kernel.slot_spmm_plain(table, cols, vals, res, x, M.n_rows)
+    assert y.dtype == xd
+    if xd == torch.bfloat16:
+        assert _ulps(y, want) <= 1.0
+    else:
+        assert _rel_err(y.double(), want.double()) <= TOL[xd]
+    assert torch.equal(y, ell_kernel.chunked_spmm(table, cols, vals, res, x,
+                                                  M.n_rows))
+
+
+@pytest.mark.parametrize('fmt', ['hybrid', 'chunked'])
+def test_a_bank_on_the_new_formats_matches_the_cpu(cuda, fmt):
+    """compute_laplacian(fmt) and a heat bank on the card against the CPU
+    in f64; the bank launches its format's kernel once per SpMM."""
+    W = _slot_hub_graph()
+    out = []
+    for device in (cuda, 'cpu'):
+        G = tgsp.graphs.Graph(W, device=device, dtype=torch.float64)
+        G.compute_laplacian(fmt=fmt)
+        G.estimate_lmax(method='bounds')
+        kernel = (ell_kernel.ell_spmm if fmt == 'hybrid'
+                  else ell_kernel.chunked_spmm)
+        before = kernel.launches
+        x = np.random.default_rng(5).normal(size=(G.N, 9))
+        out.append(tgsp.filters.Heat(G, [2.0, 20.0]).filter(
+            x, order=30).cpu())
+        if device == cuda:
+            assert kernel.launches - before == 30
+    assert _rel_err(out[0], out[1]) <= 1e-12
+
+
+def test_slot_kernels_refuse_autograd_and_mixed_devices(cuda):
+    W = _slot_hub_graph()
+    for M in (tsp.ell_from_scipy(W, device=cuda, dtype=torch.float32),
+              tck.chunked_from_scipy(W, device=cuda, dtype=torch.float32)):
+        kernel, (table, cols, vals, res) = _slot_operands(M)
+        x = _signal((M.n_cols, 4), torch.float32, 3, cuda)
+        with pytest.raises(RuntimeError, match='cheby_op_fixed_graph'):
+            kernel(table, cols, vals, res, _requires_grad(x), M.n_rows)
+        with torch.no_grad():
+            kernel(table, cols, vals, res, _requires_grad(x), M.n_rows)
+        with pytest.raises(ValueError, match='one device'):
+            kernel(table, cols, vals, res, x.cpu(), M.n_rows)
+    torch.cuda.synchronize()

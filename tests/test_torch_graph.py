@@ -121,23 +121,27 @@ def test_graph_api_details():
     assert torch.equal(T.L.dot(x.numpy()), T.L @ x)
     with pytest.raises(ValueError, match='Unknown Laplacian type'):
         T.compute_laplacian('bogus')
-    # a refused format leaves the operator of the requested type, as the
-    # JAX package builds it before it looks at the format ('auto' is
-    # 'hybrid' here; the JAX package has both, and no 'bogus')
+    # each format builds the operator of the requested type, as the JAX
+    # package does ('auto' is 'hybrid' here), and a refused one leaves the
+    # operator of that type, as the JAX package builds it before it looks
+    # at the format
     J = jgsp.graphs.Graph(W)
     for fmt, lap_type, error, match in (
-            ('chunked', 'normalized', NotImplementedError, 'ROADMAP'),
-            ('hybrid', 'combinatorial', NotImplementedError, 'ROADMAP'),
-            ('auto', 'normalized', NotImplementedError, 'ROADMAP'),
+            ('chunked', 'normalized', None, 'ChunkedELLMatrix'),
+            ('hybrid', 'combinatorial', None, 'ELLMatrix'),
+            ('auto', 'normalized', None, 'ELLMatrix'),
             ('bogus', 'combinatorial', ValueError, 'Unknown Laplacian format'),
             ('bogus', 'normalized', ValueError, 'Unknown Laplacian format')):
-        with pytest.raises(error, match=match):
+        if error is None:
             T.compute_laplacian(lap_type, fmt=fmt)
-        if fmt == 'bogus':
-            with pytest.raises(ValueError, match='Unknown Laplacian format'):
-                J.compute_laplacian(lap_type, fmt=fmt)
-        else:
             J.compute_laplacian(lap_type, fmt=fmt)
+            assert type(T.L.offdiag).__name__ == match
+            assert type(J.L.offdiag).__name__ == match
+        else:
+            with pytest.raises(error, match=match):
+                T.compute_laplacian(lap_type, fmt=fmt)
+            with pytest.raises(error, match=match):
+                J.compute_laplacian(lap_type, fmt=fmt)
         assert T.L.lap_type == T.lap_type == J.L.lap_type == lap_type
         assert abs(T.L.to_scipy() - J.L.to_scipy()).max() <= 1e-14
         T.estimate_lmax(method='bounds')

@@ -55,6 +55,8 @@ load('bench_torch', 'bench_torch.py')
 report('bench_torch')
 load('fold_instances', 'tools/fold_instances.py')
 report('fold_tool')
+load('slot_variants', 'tools/slot_variants.py')
+report('slot_tool')
 try:
     import pygsp_tpu
 except ImportError as err:
@@ -74,7 +76,7 @@ def isolated_run():
 
 
 @pytest.mark.parametrize('part', ['package', 'chip_smoke', 'profile_tool',
-                                  'bench_torch', 'fold_tool'])
+                                  'bench_torch', 'fold_tool', 'slot_tool'])
 def test_imports_neither_jax_nor_pygsp_tpu(isolated_run, part):
     parts, stderr = isolated_run
     assert part in parts, stderr

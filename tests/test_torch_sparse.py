@@ -123,5 +123,11 @@ def test_kernel_wrappers_validate_arguments():
 
 
 def test_unported_format_raises():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tsp.spmm(object(), torch.zeros(3))
+    """An operand of no format of the port raises TypeError naming the
+    formats it has, from the SpMM and both exports."""
+    for fn in (lambda m: tsp.spmm(m, torch.zeros(3)), tsp.to_scipy,
+               tsp.to_dense):
+        with pytest.raises(TypeError, match='CSRMatrix, ELLMatrix, '
+                           'BandedMatrix, ChunkedELLMatrix or '
+                           'WindowedELLMatrix'):
+            fn(object())
