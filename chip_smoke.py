@@ -116,6 +116,31 @@ I. path I, the chunked format on its kernel ``chunked_spmm``: path A's
    symbol counted) within 1.5e-2 on the first filter and twice
    ``carry_error_estimate`` on all four; then the fixed-graph VJP's checks
    of path E and one Adam step through ``Filter.filter(fixed_graph=True)``;
+J. path J, the algorithms on the nearest-neighbour graphs: J1,
+   ``Sensor(N=2**20, k=6, seed=42)`` built on the card, 8 classes by
+   angular sector, 5 % labelled: ``classification_tikhonov(tau=0.5)`` (one
+   CG over the (N, 8) block), ``regression_tikhonov(tau=0)`` on one column
+   and ``classification_tikhonov_simplex(tau=0.5, maxit=500)``, each CG held
+   by its true relative residual in f64 on the host (≤ 1e-3), the simplex
+   rows within 1e-5 of the simplex; J2, ``prox_tv`` of a noisy
+   piecewise-constant signal against the same dual iterations in f64 on
+   the host for the card's count (read from kernel A's launches), within
+   1e-4 of max|x|, its objective lower; J3,
+   ``effective_resistances_sketch(n_probes=24)`` held by Foster's theorem
+   within 5 %, then ``graph_sparsify(epsilon=0.5)``, connected with fewer
+   edges; J4, ``graph_multiresolution(levels=2)`` on ``Sensor(N=8000)``
+   (the Kron method of each level), the (N, 8) block refused as in the JAX
+   package and each column analysed and synthesized back within 1e-5 of
+   ‖f‖, level 0's low-pass bank against the SciPy f64 recurrence; J5,
+   ``compute_spectrogram(Sensor(N=2048), M=100)``, 64 columns against
+   SciPy f64; J6, the 8 nearest-neighbour classes on the card, a heat bank
+   each against SciPy f64, and ``laplacian_eigenmap2D`` on
+   ``Sensor(N=16384)`` in f64 (LOBPCG), its Rayleigh quotients within 1e-4
+   of ``eigsh``'s eigenvalues and its residuals within 1e-3 of ‖L‖ (in f32
+   the same readings are shown, not held). Kernel A held against its plain
+   version at 1, 8 and 24 columns on J1's graph, as ``grad`` and ``div`` at
+   one column and at the spectrogram's 2048; kernel B's step and group at
+   the spectrogram's shape (Nf = 100);
 7. kernel B's entry points at each path's shape and at path E's (the step
    at 512 columns, the contraction at (N, 128, 4), ``cheby_dot_group`` at
    paths A's and B's N), held bit for bit against
@@ -127,7 +152,7 @@ I. path I, the chunked format on its kernel ``chunked_spmm``: path A's
 8. one JSON line of per-kernel numbers (kernel A's entry with ``grad`` and
    ``div``, kernel B's group with Nf = 6, ``ell_spmm`` and
    ``chunked_spmm`` with the shapes paths H and I held them at under
-   ``at_paths``; times from CUDA events, bounds
+   ``at_paths``, kernels A and B at path J's shapes there too; times from CUDA events, bounds
    from the H100 SXM data sheet: HBM, FP32, and TF32 for the banded
    kernel's f32 products), the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
@@ -230,6 +255,36 @@ TOL_POWER = 1e-4
 GABOR_STRIDE = 512
 # the backward's x̄ synthesis runs every SpMM and the step at S·Nf columns
 WIDE = N_SIGNALS * len(SCALES)
+
+# path J: the algorithms on the nearest-neighbour graphs. J1-J3 on
+# Sensor(N=2^20, k=6): 8 classes by angular sector, 5 % labelled; CG's
+# true residual held to 100 × its tol (room for f32's floor on it)
+J_SENSOR_N = 1 << 20
+J_SENSOR_K = 6
+J_CLASSES = 8
+J_LABEL_SHARE = 0.05
+J_SEED = 7
+J_TAU = 0.5
+J_MAXITER_TAU0 = 1000   # regression_tikhonov's own cap at tau = 0
+J_SIMPLEX_MAXIT = 500
+J_TV_GAMMA = 0.1
+J_TV_NOISE = 0.1
+J_TV_MAXIT = 200
+J_PROBES = 24
+J_SPARSIFY_EPS = 0.5
+J_WIDTHS = (1, 8, 24)   # kernel A's widths in CG: tau = 0, the classes, probes
+J_PYRAMID_N = 8000
+J_SPECTRO_N = 2048
+J_SPECTRO_M = 100
+J_SPECTRO_COLS = 64
+J_EIGENMAP_N = 16384
+TOL_CG_RESIDUAL = 1e-3
+TOL_SIMPLEX = 1e-5
+TOL_TV = 1e-4           # of max|x|
+TOL_FOSTER = 0.05
+TOL_PYRAMID = 1e-5      # of ‖f‖
+TOL_EIGENMAP_E = 1e-4   # relative
+TOL_EIGENMAP_RES = 1e-3  # of ‖L‖
 
 # Tolerances (relative to the largest reference magnitude): f32 sums in
 # another order than the plain version; the recurrence is held against f64.
@@ -982,7 +1037,8 @@ def measure_fold(rid, p, kp, iters):
             'shape': {'NW': nw, 'Lt': lt, 'KP': kp, 'S': s}}
 
 
-def measure_wide(name, kernel, plain, tol, work, width=WIDE):
+def measure_wide(name, kernel, plain, tol, work, width=WIDE, library=None,
+                 library_name=None):
     """A kernel at a width above N_SIGNALS (WIDE columns, the x̄ synthesis's,
     as the backward runs it, unless ``width`` says otherwise) against its
     plain version on the same inputs, run on blocks of N_SIGNALS columns
@@ -990,7 +1046,8 @@ def measure_wide(name, kernel, plain, tol, work, width=WIDE):
     version would gather 69 GB at once) and joined along the last axis; two
     launches bit-equal; then timed. ``kernel()`` returns the output,
     ``plain(cols)`` that of a column slice; ``tol`` is ``check``'s (0.0: bit
-    for bit); ``work`` the bound dict at ``width``."""
+    for bit); ``work`` the bound dict at ``width``; ``library()``, where
+    given, the one PyTorch call for the same product, timed beside it."""
     y = kernel()
     want = torch.cat([plain(slice(i, i + N_SIGNALS))
                       for i in range(0, width, N_SIGNALS)], dim=-1)
@@ -1002,8 +1059,11 @@ def measure_wide(name, kernel, plain, tol, work, width=WIDE):
                              f'columns')
     log(f'  {name} at {width} columns: two launches bit-equal')
     del y
-    return {'max_abs_err': max_abs_err, 'rel_err': rel_err,
-            'ms': time_ms(kernel, 10), 's': width, **work}
+    out = {'max_abs_err': max_abs_err, 'rel_err': rel_err,
+           'ms': time_ms(kernel, 10), 's': width, **work}
+    if library is not None:
+        out.update(library_ms=time_ms(library, 10), library=library_name)
+    return out
 
 
 def csr_work(M, s, item, flops_per_s=FP32_FLOPS):
@@ -1050,13 +1110,16 @@ def measure_csr(A, x):
     nnz, n, s, item = A.nnz, A.n_rows, x.shape[1], x.element_size()
     bytes_gather = nnz * s * item + n * s * item + nnz * (4 + item)
     x_wide = seeded_normal((n, WIDE), 80)
+    lib = torch.sparse_csr_tensor(A.rowptr, A.cols[:nnz], A.vals[:nnz],
+                                  size=A.shape)
     wide = measure_wide(
         'csr_spmm', lambda: csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals,
                                                 x_wide),
         lambda c: csr_kernel.csr_spmm_plain(A.rowptr, A.cols, A.vals,
                                             x_wide[:, c]), TOL_CSR,
-        csr_work(A, WIDE, item))
-    del x_wide
+        csr_work(A, WIDE, item), library=lambda: torch.sparse.mm(lib, x_wide),
+        library_name='torch.sparse.mm on a sparse CSR tensor')
+    del x_wide, lib
     return {**out, 'bound_gather_ms': bytes_gather / HBM_BYTES_PER_S * 1e3,
             'n': n, 'at_backward_width': wide}
 
@@ -1147,12 +1210,16 @@ def measure_banded_wide(B, width):
     (``measure_wide``)."""
     tiles, n = B.tiles, B.n_rows
     x_wide = seeded_normal((n, width), 81)
+    lib = slot_csr(B, x_wide.dtype)
     out = measure_wide(
         'banded_spmm', lambda: banded_kernel.banded_spmm(tiles, x_wide, n),
         lambda c: banded_kernel.banded_spmm_plain(
             tiles, x_wide[:, c].contiguous(), n), TOL_BANDED,
-        banded_work(B, width, x_wide.element_size()), width)
-    del x_wide
+        banded_work(B, width, x_wide.element_size()), width,
+        library=lambda: torch.sparse.mm(lib, x_wide),
+        library_name='torch.sparse.mm on a sparse CSR tensor of the same '
+                     'off-diagonal')
+    del x_wide, lib
     return out
 
 
@@ -1340,7 +1407,7 @@ def measure_windowed(G, x):
     library_ms = time_ms(lambda: torch.sparse.mm(lib, xp), 10)
     csr_ms = time_ms(
         lambda: csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals, xp), 10)
-    del lib, A
+    del A
 
     item = x.element_size()
     live = int((M.cols < R).sum())
@@ -1376,7 +1443,10 @@ def measure_windowed(G, x):
         'windowed_fold', lambda: wk.windowed_fold(*args),
         lambda c: wk.windowed_fold_plain(*args[:3], xw[:, c].contiguous(),
                                          R, K * P), TOL_WINDOWED,
-        fold_work(WIDE))
+        fold_work(WIDE), library=lambda: torch.sparse.mm(lib, xw),
+        library_name='torch.sparse.mm on the CSR of the same shuffled '
+                     'matrix (the whole SpMM)')
+    del lib
     tw = wk.windowed_fold(*args)
     strip['at_backward_width'] = measure_wide(
         'window_strip (tail)', lambda: wk.window_strip(tw, n, P, M.residue,
@@ -2564,6 +2634,26 @@ def slot_work(M, s, item):
             / HBM_BYTES_PER_S * 1e3}
 
 
+def slot_csr(M, dtype):
+    """The off-diagonal of a sparse matrix of the port (ELL, chunked,
+    banded) as a sparse CSR tensor on the card: ``torch.sparse.mm``'s
+    operand, the library yardstick (the port never calls it)."""
+    csr = sps.csr_matrix(gsp.core.to_scipy(M))
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr.astype(np.int64)).to('cuda'),
+        torch.from_numpy(csr.indices.astype(np.int64)).to('cuda'),
+        torch.from_numpy(csr.data).to('cuda', dtype), size=csr.shape)
+
+
+def slot_yardsticks(M, x, lib):
+    """The bound and gather model of ``M @ x`` on its slot kernel, and
+    ``torch.sparse.mm``'s time for it on ``lib`` (:func:`slot_csr`)."""
+    return {**slot_work(M, x.shape[1], x.element_size()),
+            'library_ms': time_ms(lambda: torch.sparse.mm(lib, x), 20),
+            'library': 'torch.sparse.mm on a sparse CSR tensor of the same '
+                       'off-diagonal'}
+
+
 def dead_to_inf(M):
     """A copy of the kernel's slot values with every dead (sentinel) slot's
     value set to inf."""
@@ -2616,33 +2706,22 @@ def hold_slot(name, M, x, want_dtype=None):
     return out
 
 
-def measure_slot(name, M, x):
+def measure_slot(name, M, x, lib):
     """The SpMM kernel of ``M`` at the bank's shape: held against its plain
     version (``hold_slot``), then timed beside it, its device time, its
-    bound and gather model, and ``torch.sparse.mm`` on the same
-    off-diagonal in CSR (the library yardstick; the port never calls
-    it)."""
+    bound and gather model, and ``torch.sparse.mm`` on ``lib``, the same
+    off-diagonal in CSR (:func:`slot_yardsticks`)."""
     kernel, args = slot_operands(M)
     out = hold_slot(name, M, x)
-    csr = sps.csr_matrix(gsp.core.to_scipy(M))
-    lib = torch.sparse_csr_tensor(
-        torch.from_numpy(csr.indptr.astype(np.int64)).to('cuda'),
-        torch.from_numpy(csr.indices.astype(np.int64)).to('cuda'),
-        torch.from_numpy(csr.data).to('cuda', x.dtype), size=csr.shape)
-    del csr
     out.update(
         ms=time_ms(lambda: kernel(*args, x, M.n_rows), 20),
         **device_ms(lambda: kernel(*args, x, M.n_rows), 20),
         plain_ms=time_ms(lambda: ell_kernel.slot_spmm_plain(
             *args, x, M.n_rows), 2),
-        library_ms=time_ms(lambda: torch.sparse.mm(lib, x), 20),
-        library='torch.sparse.mm on a sparse CSR tensor of the same '
-                'off-diagonal',
-        **slot_work(M, x.shape[1], x.element_size()),
+        **slot_yardsticks(M, x, lib),
         shape=[M.n_rows, M.n_cols], nnz=M.nnz, dense_slots=args[1].numel(),
         overflow_slots=0 if args[3] is None else args[3].cols.numel(),
         heavy_rows=0 if args[3] is None else args[3].heavy.numel())
-    del lib
     log(f'  {name}: {json.dumps(out)}')
     return out
 
@@ -2729,7 +2808,9 @@ def phase_path_h():
         raise AssertionError(f'fmt=auto on 2^16 vertices gave '
                              f'{type(G.L.offdiag).__name__}')
     held['auto_2^16'] = hold_slot('ell_spmm at 2^16', G.L.offdiag, x)
-    del G, x
+    lib = slot_csr(G.L.offdiag, x.dtype)
+    held['auto_2^16'].update(slot_yardsticks(G.L.offdiag, x, lib))
+    del G, x, lib
     torch.cuda.empty_cache()
 
     reset_counts()
@@ -2745,9 +2826,12 @@ def phase_path_h():
         'overflow_live_slots': M.residue.cols.numel(),
         'heavy_rows': M.residue.heavy.numel()}
     log(f'  layout: {json.dumps(result["layout"])}')
-    kernel = measure_slot('ell_spmm at path H', M, x)
-    held['one_column'] = hold_slot('ell_spmm at one column', M,
-                                  x[:, :1].contiguous())
+    lib = slot_csr(M, x.dtype)
+    kernel = measure_slot('ell_spmm at path H', M, x, lib)
+    x1 = x[:, :1].contiguous()
+    held['one_column'] = hold_slot('ell_spmm at one column', M, x1)
+    held['one_column'].update(slot_yardsticks(M, x1, lib))
+    del lib
     held['f64_5_columns'] = hold_slot(
         'ell_spmm in f64', M.astype(torch.float64),
         x[:, :5].double().contiguous())
@@ -2812,16 +2896,18 @@ def phase_path_i():
         'overflow_live_slots': M.residue.cols.numel(),
         'heavy_rows': M.residue.heavy.numel()}
     log(f'  layout: {json.dumps(result["layout"])}')
-    kernel = measure_slot('chunked_spmm at path I', M, x)
-    held = {'one_column': hold_slot('chunked_spmm at one column', M,
-                                    x[:, :1].contiguous())}
+    lib = slot_csr(M, x.dtype)
+    kernel = measure_slot('chunked_spmm at path I', M, x, lib)
+    x1 = x[:, :1].contiguous()
+    held = {'one_column': hold_slot('chunked_spmm at one column', M, x1)}
+    held['one_column'].update(slot_yardsticks(M, x1, lib))
     for combo, (xd, vd) in BF16_FOLDS.items():
         held[f'bf16_{combo}'] = hold_slot(f'chunked_spmm bf16 {combo}',
                                           M.astype(vd), x.to(xd))
     xw = seeded_normal((M.n_cols, WIDE), 96)
     held['x_bar_width'] = hold_slot('chunked_spmm at the x_bar width', M, xw)
-    held['x_bar_width'].update(slot_work(M, WIDE, 4))
-    del xw
+    held['x_bar_width'].update(slot_yardsticks(M, xw, lib))
+    del xw, lib
     ub = float(laplacian_upper_bound(G.L))
     ub_host = float(np.max(np.ravel(abs(G.L.to_scipy().astype(
         np.float64)).sum(axis=1))))
@@ -2873,6 +2959,465 @@ def phase_path_i():
     kernel['at_paths'] = held
     return kernel, result, bank_counts, {'I_fast': fast_launches,
                                          'E_I': counts_e}
+
+
+# ---------------------------------------------------------------------------
+# path J: the algorithms (learning, optimization, reduction, features), the
+# nearest-neighbour graphs and the solved layouts
+# ---------------------------------------------------------------------------
+
+def sensor_labels(G):
+    """J_CLASSES labels by the angular sector around (0.5, 0.5), and a mask
+    of J_LABEL_SHARE of the vertices drawn from a seeded generator."""
+    xy = G.coords - 0.5
+    angle = np.arctan2(xy[:, 1], xy[:, 0]) + np.pi
+    labels = np.minimum((angle / (2 * np.pi) * J_CLASSES).astype(int),
+                        J_CLASSES - 1)
+    mask = np.random.default_rng(J_SEED).random(G.N) < J_LABEL_SHARE
+    return labels, mask
+
+
+def host_laplacian(G):
+    """G's combinatorial Laplacian in f64 from the host adjacency."""
+    return (sps.diags(G.dw) - G.W).tocsr()
+
+
+def relative_residual(name, A, b, x, limit):
+    """``‖b − A x‖ / ‖b‖`` over the whole block in f64 on the host; raises
+    above ``limit``."""
+    r = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    log(f'  {name}: true relative residual {r:.3e} (limit {limit:g})')
+    if not r <= limit:
+        raise AssertionError(f'{name}: relative residual {r} > {limit}')
+    return r
+
+
+def run_part(fn):
+    """``fn()`` with every kernel's count set to 0 just before and read
+    just after: ``(out, counts, ms)``, ms on the host clock."""
+    reset_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, counts(), (time.time() - t0) * 1e3
+
+
+def phase_path_j_learning(G, labels, mask):
+    """J1: the three learning solvers on the million-vertex sensor graph,
+    each CG held by its true relative residual on the host in f64, the
+    simplex rows on the simplex."""
+    from pygsp_tpu_torch import learning
+    L64 = host_laplacian(G)
+    out, parts = {}, {}
+    unknown = ~mask
+    # classification_tikhonov: one CG over the (N, 8) block, M + τL
+    y = np.where(mask, labels, 0)
+    scores, c, ms = run_part(lambda: learning.classification_tikhonov(
+        G, y, mask, tau=J_TAU))
+    Y = np.zeros((G.N, J_CLASSES))
+    Y[np.arange(G.N), y] = 1.0
+    Y *= mask[:, None]
+    A = sps.diags(mask.astype(float)) + J_TAU * L64
+    iters = c['csr_spmm'] - 1
+    out['classification'] = {
+        'ms': ms, 'iterations': iters, 'csr_spmm_launches': c['csr_spmm'],
+        'width': J_CLASSES, 'rel_residual': relative_residual(
+            'classification_tikhonov', A, Y,
+            scores.double().cpu().numpy(), TOL_CG_RESIDUAL)}
+    parts['J1_classification'] = c
+    # regression_tikhonov, τ = 0, one column: L_uu x_u = W_ul y_l
+    f = np.sin(2 * np.pi * G.coords[:, 0]) * np.cos(2 * np.pi * G.coords[:, 1])
+    sol, c, ms = run_part(lambda: learning.regression_tikhonov(
+        G, f, mask, tau=0))
+    sol = sol.double().cpu().numpy()
+    if not np.array_equal(sol[mask], f[mask].astype(np.float32)):
+        raise AssertionError('regression_tikhonov changed a labelled value')
+    Luu = L64[unknown][:, unknown]
+    b = -(L64[unknown][:, mask] @ sol[mask])
+    iters = c['csr_spmm'] - 2
+    if iters >= J_MAXITER_TAU0:
+        raise AssertionError(f'regression_tikhonov stopped at maxiter '
+                             f'{J_MAXITER_TAU0}')
+    out['regression_tau0'] = {
+        'ms': ms, 'iterations': iters, 'csr_spmm_launches': c['csr_spmm'],
+        'width': 1, 'rel_residual': relative_residual(
+            'regression_tikhonov(tau=0)', Luu, b, sol[unknown],
+            TOL_CG_RESIDUAL)}
+    parts['J1_regression'] = c
+    # classification_tikhonov_simplex: projected FBS, one matvec a step
+    simplex, c, ms = run_part(lambda: learning.classification_tikhonov_simplex(
+        G, y, mask, tau=J_TAU, maxit=J_SIMPLEX_MAXIT))
+    rows = simplex.double()
+    off = float(max((rows.sum(dim=1) - 1).abs().max(), -rows.min()))
+    log(f'  classification_tikhonov_simplex: {c["csr_spmm"]} iterations, '
+        f'{ms:.0f} ms, rows off the simplex by {off:.3e} (tol '
+        f'{TOL_SIMPLEX:g})')
+    if not off <= TOL_SIMPLEX:
+        raise AssertionError(f'simplex rows off by {off}')
+    agree = float((rows.argmax(dim=1).cpu().numpy() == labels).mean())
+    # what an iteration spends outside kernel A: the projection's sort and
+    # cumsum of the (N, 8) rows, in plain PyTorch
+    proj_ms = time_ms(lambda: learning._proj_simplex(simplex), 5)
+    log(f'  the projection onto the simplex alone: {proj_ms:.3f} ms')
+    out['simplex'] = {'ms': ms, 'iterations': c['csr_spmm'],
+                      'csr_spmm_launches': c['csr_spmm'], 'width': J_CLASSES,
+                      'off_simplex': off, 'label_agreement': agree,
+                      'projection_ms': proj_ms}
+    parts['J1_simplex'] = c
+    for name in ('classification', 'regression_tau0'):
+        log(f'  {name}: {json.dumps(out[name])}')
+    return out, parts
+
+
+def host_prox_tv(D, x, gamma, step, iters):
+    """``iters`` iterations of prox_tv's dual projected gradient in SciPy f64
+    with the host D (N, Ne), then z; the products split over HOST_THREADS
+    threads by rows."""
+    D_blocks, DT_blocks = host_blocks(D), host_blocks(D.T)
+    p = np.zeros(D.shape[1])
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        for _ in range(iters):
+            z = x - host_product(pool, D_blocks, p)
+            p = np.clip(p + step * host_product(pool, DT_blocks, z), -gamma,
+                        gamma)
+        return x - host_product(pool, D_blocks, p)
+
+
+def phase_path_j_tv(G, labels):
+    """J2: ``prox_tv`` of a noisy piecewise-constant signal on J1's graph,
+    held against the same dual iterations in f64 on the host, for the
+    card's count (two ``csr_spmm`` launches an iteration, and one)."""
+    from pygsp_tpu_torch import optimization
+    x = labels / (J_CLASSES - 1.0) + J_TV_NOISE * np.random.default_rng(
+        J_SEED + 1).normal(size=G.N)
+    t0 = time.time()
+    G.compute_differential_operator()
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    z, c, ms = run_part(lambda: optimization.prox_tv(
+        x, J_TV_GAMMA, G, maxit=J_TV_MAXIT))
+    if (c['csr_spmm'] - 1) % 2:
+        raise AssertionError(f'prox_tv launched csr_spmm {c["csr_spmm"]} '
+                             f'times, not 2 an iteration and 1')
+    iters = (c['csr_spmm'] - 1) // 2
+    src, tgt, w = G.get_edge_list()
+    e = np.arange(len(src))
+    D = sps.csr_matrix((np.concatenate([-np.sqrt(w), np.sqrt(w)]),
+                        (np.concatenate([src, tgt]), np.concatenate([e, e]))),
+                       shape=(G.N, len(src)))
+    step = 1.0 / (2.0 * G.lmax)
+    t0 = time.time()
+    z_host = host_prox_tv(D, x, J_TV_GAMMA, step, iters)
+    host_s = time.time() - t0
+    z = z.double().cpu().numpy()
+    err = float(np.abs(z - z_host).max() / np.abs(x).max())
+    log(f'  prox_tv: {iters} iterations, {ms:.0f} ms, against the host f64 '
+        f'iterations ({host_s:.1f} s): {err:.3e} of max|x| (tol '
+        f'{TOL_TV:g})')
+    if not err <= TOL_TV:
+        raise AssertionError(f'prox_tv: {err} > {TOL_TV}')
+
+    def objective(v):
+        return (0.5 * np.sum((x - v) ** 2)
+                + J_TV_GAMMA * np.abs(D.T @ v).sum())
+
+    obj_x, obj_z = objective(x), objective(z)
+    log(f'  TV objective {obj_x:.6e} at x, {obj_z:.6e} at the prox')
+    if not obj_z < obj_x:
+        raise AssertionError('prox_tv did not lower the TV objective')
+    return {'ms': ms, 'iterations': iters, 'csr_spmm_launches': c['csr_spmm'],
+            'width': 1, 'rel_err': err, 'objective': [obj_x, obj_z],
+            'D_build_s': build_s, 'edges': int(len(src))}, c
+
+
+def phase_path_j_sketch(G):
+    """J3: the sketched resistances on J1's graph held by Foster's theorem,
+    then ``graph_sparsify`` (connected, fewer edges)."""
+    from pygsp_tpu_torch import reduction
+    (src, tgt, R), c_sketch, ms_sketch = run_part(
+        lambda: reduction.effective_resistances_sketch(G,
+                                                       n_probes=J_PROBES))
+    w = G.get_edge_list()[2]
+    n_comp, _ = sps.csgraph.connected_components(G.W, directed=False)
+    foster = float(np.sum(w * R) / (G.N - n_comp))
+    log(f'  effective_resistances_sketch: {ms_sketch:.0f} ms, '
+        f'{c_sketch["csr_spmm"]} csr_spmm launches at {J_PROBES} columns; '
+        f'Σ w_e R_e / (N − {n_comp}) = {foster:.6f} (tol {TOL_FOSTER:g})')
+    if not abs(foster - 1) <= TOL_FOSTER:
+        raise AssertionError(f"Foster's theorem: {foster}")
+    Gs, c_sparse, ms_sparse = run_part(
+        lambda: reduction.graph_sparsify(G, epsilon=J_SPARSIFY_EPS, seed=1))
+    log(f'  graph_sparsify(epsilon={J_SPARSIFY_EPS}): {ms_sparse:.0f} ms, '
+        f'{G.Ne} → {Gs.Ne} edges, connected {Gs.is_connected()}')
+    if not (Gs.is_connected() and Gs.Ne < G.Ne):
+        raise AssertionError('graph_sparsify gave a disconnected graph or '
+                             'no fewer edges')
+    return {'sketch': {'ms': ms_sketch, 'iterations': c_sketch['csr_spmm'] - 1,
+                       'csr_spmm_launches': c_sketch['csr_spmm'],
+                       'width': J_PROBES, 'foster_ratio': foster,
+                       'n_components': int(n_comp)},
+            'sparsify': {'ms': ms_sparse, 'edges': [int(G.Ne), int(Gs.Ne)],
+                         'csr_spmm_launches': c_sparse['csr_spmm']}}, {
+                'J3_sketch': c_sketch, 'J3_sparsify': c_sparse}
+
+
+def phase_path_j_pyramid():
+    """J4: a two-level pyramid on ``Sensor(N=8000)``: the Kron method of
+    each level, the (N, 8) block refused as the JAX package refuses it,
+    each column analysed and synthesized back exactly, and level 0's
+    low-pass bank against the SciPy f64 recurrence."""
+    from pygsp_tpu_torch import reduction
+    G = gsp.graphs.Sensor(N=J_PYRAMID_N, seed=42)
+    f = seeded_normal((G.N, N_CHECK_COLS), 97).double().cpu().numpy()
+    Gs, c_levels, ms_levels = run_part(
+        lambda: reduction.graph_multiresolution(G, levels=2))
+    levels = []
+    for Gi, Gj in zip(Gs[:-1], Gs[1:]):
+        drop = Gi.N - len(Gj.mr['idx'])
+        levels.append({'n': int(Gj.N), 'edges': int(Gj.Ne),
+                       'dropped': int(drop),
+                       'kron': 'exact' if drop <= reduction._DENSE_SOLVE_MAX
+                       else 'eliminate'})
+    log(f'  graph_multiresolution: {ms_levels:.0f} ms, levels '
+        f'{json.dumps(levels)}')
+    try:
+        reduction.pyramid_analysis(Gs, f)
+    except ValueError as err:
+        log(f'  an (N, {N_CHECK_COLS}) block: ValueError, as in the JAX '
+            f'package ({err})')
+    else:
+        raise AssertionError('pyramid_analysis took an (N, 8) block')
+
+    def pyramid():
+        return [reduction.pyramid_synthesis(Gs, ca[-1], pe)[0] for ca, pe in (
+            reduction.pyramid_analysis(Gs, f[:, j], order=ORDER)
+            for j in range(N_CHECK_COLS))]
+
+    recs, c_pyr, ms_pyr = run_part(pyramid)
+    err = max(float(np.linalg.norm(r - f[:, j]) / np.linalg.norm(f[:, j]))
+              for j, r in enumerate(recs))
+    log(f'  pyramid analysis and synthesis of {N_CHECK_COLS} columns: '
+        f'{ms_pyr:.0f} ms, reconstruction {err:.3e} of ‖f‖ (tol '
+        f'{TOL_PYRAMID:g})')
+    if not err <= TOL_PYRAMID:
+        raise AssertionError(f'pyramid reconstruction {err}')
+    h = gsp.filters.Filter(G, lambda x: 1.0 / (2 * x + 1))
+    x = torch.from_numpy(f).float().cuda()
+    low = h.filter(x, order=ORDER)
+    rel = validate_path('J (pyramid level 0 low-pass)',
+                        reference(host_laplacian(G), G.lmax, h.evaluate, x),
+                        low[None])
+    return {'levels': levels, 'ms_levels': ms_levels, 'ms_pyramid': ms_pyr,
+            'reconstruction': err, 'lowpass_rel_err': rel,
+            'csr_spmm_launches': c_levels['csr_spmm'] + c_pyr['csr_spmm']}, {
+                'J4_levels': c_levels, 'J4_pyramid': c_pyr}
+
+
+def phase_path_j_spectrogram():
+    """J5: ``compute_spectrogram(Sensor(N=2048), M=100)``: one bank of 100
+    filters on the identity, 64 of its columns against the SciPy f64
+    recurrence; kernel A at 2048 columns and kernel B at Nf = 100 held
+    against their plain versions."""
+    from pygsp_tpu_torch import features
+    G = gsp.graphs.Sensor(N=J_SPECTRO_N, seed=42)
+    G.estimate_lmax()
+    spectr, c, ms = run_part(lambda: features.compute_spectrogram(
+        G, M=J_SPECTRO_M))
+    if spectr.shape != (G.N, J_SPECTRO_M) or not np.isfinite(spectr).all():
+        raise AssertionError(f'spectrogram {spectr.shape}')
+    cols = np.arange(0, G.N, G.N // J_SPECTRO_COLS)[:J_SPECTRO_COLS]
+    lmax, M = G.lmax, J_SPECTRO_M
+    scale = np.linspace(0, lmax, M)
+    c64 = cheby_coeff(
+        lambda x: torch.stack([torch.exp(-M * ((x - s) / lmax) ** 2)
+                               for s in scale]),
+        lmax, m=ORDER, dtype=torch.float64, device='cpu').numpy()
+    X = np.zeros((G.N, len(cols)))
+    X[cols, np.arange(len(cols))] = 1.0
+    t0 = time.time()
+    ref = (scipy_recurrence(host_laplacian(G), lmax, c64, X) ** 2).sum(1).T
+    log(f'  scipy f64 reference of {len(cols)} columns: '
+        f'{time.time() - t0:.1f} s')
+    rel = check('J (spectrogram) vs scipy f64', torch.from_numpy(
+        spectr[cols]), torch.from_numpy(ref), TOL_PATH)
+    g = group_of(G.L, torch.empty((G.N, G.N)), nf=M)
+    log(f'  compute_spectrogram(M={M}): {ms:.0f} ms, launches {c}, group '
+        f'g = {g}')
+    held = {'csr_spmm': measure_spmm(
+                f'csr_spmm at the spectrogram ({G.N} columns)',
+                G.L.offdiag, seeded_normal((G.N, G.N), 98)),
+            'cheby_step': measure_step(G.N, G.N, torch.float32,
+                                       torch.float32, False),
+            'cheby_acc_group': measure_group(G.N, G.N, M, torch.float32,
+                                             torch.float32, g)}
+    return {'ms': ms, 'nf': M, 'rel_err': rel, 'group': g,
+            'launches': {k: c[k] for k in ('csr_spmm', 'cheby_step',
+                                            'cheby_acc_group')}}, c, held
+
+
+def nn_zoo():
+    """The 8 nearest-neighbour classes at their default sizes on the card
+    (NNGraph on a seeded 300-point cloud, the image classes on a seeded
+    64 × 64 image)."""
+    rng = np.random.default_rng(J_SEED)
+    pts, img = rng.normal(size=(300, 3)), rng.random((64, 64))
+    return (('NNGraph', lambda: gsp.graphs.NNGraph(pts)),
+            ('Sensor', gsp.graphs.Sensor), ('Sphere', gsp.graphs.Sphere),
+            ('Cube', gsp.graphs.Cube), ('TwoMoons', gsp.graphs.TwoMoons),
+            ('Bunny', gsp.graphs.Bunny),
+            ('ImgPatches', lambda: gsp.graphs.ImgPatches(img)),
+            ('Grid2dImgPatches', lambda: gsp.graphs.Grid2dImgPatches(img)))
+
+
+def eigenmap_check(G, name, hold):
+    """``laplacian_eigenmap2D``'s two columns: their Rayleigh quotients
+    against host ``eigsh``'s eigenvalues 1 and 2, and their residuals
+    against ‖L‖, in f64 on the host; raises only if ``hold``."""
+    L = host_laplacian(G)
+    ev = np.sort(spl.eigsh(L, k=4, sigma=-1e-3, which='LM')[0])[1:3]
+    norm_L = float(spl.eigsh(L, k=1, which='LA')[0][0])
+    u = G.coords.astype(np.float64)
+    rq = np.einsum('ij,ij->j', u, L @ u) / np.einsum('ij,ij->j', u, u)
+    rq_err = np.abs(rq - ev) / ev
+    res = np.linalg.norm(L @ u - rq * u, axis=0) / np.linalg.norm(u, axis=0)
+    log(f'  {name}: Rayleigh quotients {rq} against eigsh {ev}: '
+        f'{rq_err} relative (tol {TOL_EIGENMAP_E:g}); residuals {res} '
+        f'(tol {TOL_EIGENMAP_RES:g} × ‖L‖ = {TOL_EIGENMAP_RES * norm_L:.3e})'
+        + ('' if hold else '; a reading, not held'))
+    ok = (rq_err.max() <= TOL_EIGENMAP_E
+          and res.max() <= TOL_EIGENMAP_RES * norm_L)
+    if hold and not ok:
+        raise AssertionError(f'{name}: {rq_err}, {res}')
+    return {'rq_rel_err': rq_err.tolist(), 'residual': res.tolist(),
+            'norm_L': norm_L}
+
+
+def phase_path_j_zoo():
+    """J6: each nearest-neighbour class on the card with a heat bank
+    against the SciPy f64 recurrence, then ``laplacian_eigenmap2D`` on
+    ``Sensor(N=16384)`` in f64, held by its Rayleigh quotients and
+    residuals (and the same in f32, shown)."""
+    zoo = {}
+
+    def banks():
+        for name, make in nn_zoo():
+            t0 = time.time()
+            Gz = make()
+            Gz.estimate_lmax()
+            gz = gsp.filters.Heat(Gz, scale=10)
+            xz = seeded_normal((Gz.N, N_CHECK_COLS), 99)
+            out = gz.filter(xz, method='chebyshev', order=ORDER)
+            zoo[name] = {'n': int(Gz.N), 'edges': int(Gz.Ne),
+                         'build_and_bank_s': time.time() - t0,
+                         'rel_err': validate_path(
+                             f'J ({name})', reference(
+                                 host_laplacian(Gz), Gz.lmax, gz.evaluate,
+                                 xz), out[None])}
+
+    _, c_zoo, ms_zoo = run_part(banks)
+    Ge = gsp.graphs.Sensor(N=J_EIGENMAP_N, seed=42, dtype=torch.float64)
+    _, c_map, ms_map = run_part(
+        lambda: Ge.set_coordinates('laplacian_eigenmap2D'))
+    log(f'  laplacian_eigenmap2D on Sensor({J_EIGENMAP_N}), f64: '
+        f'{ms_map:.0f} ms, {c_map["csr_spmm"]} csr_spmm launches')
+    eigenmap = {'ms': ms_map, 'csr_spmm_launches': c_map['csr_spmm'],
+                **eigenmap_check(Ge, 'laplacian_eigenmap2D f64', True)}
+    G32 = gsp.graphs.Sensor(N=J_EIGENMAP_N, seed=42)
+    G32.set_coordinates('laplacian_eigenmap2D')
+    eigenmap['f32'] = eigenmap_check(G32, 'laplacian_eigenmap2D f32', False)
+    return {'zoo': zoo, 'ms_zoo': ms_zoo, 'eigenmap': eigenmap}, {
+        'J6_zoo': c_zoo, 'J6_eigenmap': c_map}
+
+
+def phase_path_j():
+    """Path J: J1-J6 (see the module's docstring); each part's launches
+    counted from 0, summed under 'J'. Kernel A is held against its plain
+    version at each new shape: 1, 8 and 24 columns on J1's graph and D,
+    Dᵀ at one column."""
+    log(f'phase J: path J, the algorithms on Sensor(N={J_SENSOR_N})')
+    result, parts, held = {}, {}, {}
+    t0 = time.time()
+    G = gsp.graphs.Sensor(N=J_SENSOR_N, k=J_SENSOR_K, seed=42)
+    torch.cuda.synchronize()
+    result['build_s'] = time.time() - t0
+    result['stored_edges'] = int(G.W.nnz)
+    log(f'  Sensor(N={J_SENSOR_N}, k={J_SENSOR_K}) in '
+        f'{result["build_s"]:.1f} s: {G.W.nnz} stored edges')
+    G.estimate_lmax()
+    labels, mask = sensor_labels(G)
+    # one small solve first, so that J1's first part does not carry the
+    # set-up of the library calls the solver makes (cuBLAS's dot)
+    from pygsp_tpu_torch import learning
+    small = gsp.graphs.Sensor(N=64, seed=42)
+    learning.regression_tikhonov(small, np.ones(64), np.arange(64) < 8, 0.5)
+    t0 = time.time()
+    result['J1'], p = phase_path_j_learning(G, labels, mask)
+    result['J1']['phase_s'] = time.time() - t0
+    parts.update(p)
+    t0 = time.time()
+    result['J2'], parts['J2'] = phase_path_j_tv(G, labels)
+    result['J2']['phase_s'] = time.time() - t0
+    t0 = time.time()
+    result['J3'], p = phase_path_j_sketch(G)
+    result['J3']['phase_s'] = time.time() - t0
+    parts.update(p)
+    A = G.L.offdiag
+    for s in J_WIDTHS:
+        held[f'J1_{s}_columns'] = measure_spmm(
+            f'csr_spmm on J1\'s graph at {s} columns', A,
+            seeded_normal((G.N, s), 100 + s))
+    DT, D = G.D.DT, G.D.D
+    held['J2_grad_one_column'] = measure_spmm(
+        'csr_spmm as grad (Dᵀ) at one column', DT, seeded_normal((G.N, 1),
+                                                                 110))
+    held['J2_div_one_column'] = measure_spmm(
+        'csr_spmm as div (D) at one column', D, seeded_normal((G.Ne, 1), 111))
+    # kernel A's share of each part: its launches there times its ms at the
+    # part's width (held above), over the part's ms on the host clock
+    j1, j2 = result['J1'], result['J2']
+    kernel_a_ms = {
+        'J1_classification': (j1['classification']['csr_spmm_launches']
+                              * held['J1_8_columns']['ms'],
+                              j1['classification']['ms']),
+        'J1_regression': (j1['regression_tau0']['csr_spmm_launches']
+                          * held['J1_1_columns']['ms'],
+                          j1['regression_tau0']['ms']),
+        'J1_simplex': (j1['simplex']['csr_spmm_launches']
+                       * held['J1_8_columns']['ms'], j1['simplex']['ms']),
+        'J2': (j2['iterations'] * held['J2_grad_one_column']['ms']
+               + (j2['iterations'] + 1) * held['J2_div_one_column']['ms'],
+               j2['ms']),
+        'J3_sketch': (result['J3']['sketch']['csr_spmm_launches']
+                      * held['J1_24_columns']['ms'],
+                      result['J3']['sketch']['ms'])}
+    result['kernel_a_share'] = {part: {'kernel_a_ms': a, 'part_ms': b,
+                                       'share': a / b}
+                                for part, (a, b) in kernel_a_ms.items()}
+    log(f'  kernel A in path J: {json.dumps(result["kernel_a_share"])}')
+    del G, A, DT, D
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    result['J4'], p = phase_path_j_pyramid()
+    result['J4']['phase_s'] = time.time() - t0
+    parts.update(p)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    result['J5'], parts['J5'], held_b = phase_path_j_spectrogram()
+    result['J5']['phase_s'] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    result['J6'], p = phase_path_j_zoo()
+    result['J6']['phase_s'] = time.time() - t0
+    parts.update(p)
+    total = {k: sum(c[k] for c in parts.values()) for k in counts()}
+    for name in ('tail_plain', 'slot_plain'):
+        if total[name]:
+            raise AssertionError(f'path J ran {name} {total[name]} times')
+    result['launches'] = {part: {k: v for k, v in c.items() if v}
+                          for part, c in parts.items()}
+    held['J5_spectrogram'] = held_b.pop('csr_spmm')
+    log(f'path J: {json.dumps(result)}')
+    return result, total, held, held_b
 
 
 def main():
@@ -2941,12 +3486,17 @@ def main():
     path_i['phase_s'] = time.time() - t0
     other.update(other_i)
     torch.cuda.empty_cache()
+    t0 = time.time()
+    path_j, other['J'], held_j, held_jb = phase_path_j()
+    path_j['phase_s'] = time.time() - t0
+    torch.cuda.empty_cache()
     paths = {'A': path_a, 'B': path_b, 'C': path_c, 'D': path_d}
     step, group, one, contract, kb_bank, dot = phase_kernel_b_times(
         {p: path['acc_group'] for p, path in paths.items()})
     for p, path in paths.items():
         path['kernel_b_per_bank'] = kb_bank[p]
-    paths.update(E=path_e, F=path_f, G=path_g, H=path_h, I=path_i)
+    paths.update(E=path_e, F=path_f, G=path_g, H=path_h, I=path_i,
+                 J=path_j)
     log(f'paths: {json.dumps(paths)}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')
@@ -2962,10 +3512,11 @@ def main():
     csr.update(at_paths={
         'G_A_one_column': path_g['A'].pop('spmm_one_column'),
         'G_lobpcg_f64': path_g['lobpcg'].pop('spmm'),
-        'G_designs': held_z['csr_spmm']})
+        'G_designs': held_z['csr_spmm'], **held_j})
     banded.update(at_synthesis_nf6=held_b['banded_spmm'])
     step.update(B_synthesis_nf6=held_b['cheby_step'],
-                G_designs=held_z['cheby_step'])
+                G_designs=held_z['cheby_step'],
+                J5_spectrogram=held_jb['cheby_step'])
     contract.update(B_nf6=held_b['cheby_acc_contract'])
     csr.update(name='csr_spmm', route='cuda',
                source='pygsp_tpu_torch/csrc/csr_spmm.cu',
@@ -3010,7 +3561,8 @@ def main():
                               'g1_A_nf6': path_g['A'].pop('acc_group_nf6_g1'),
                               'B_nf6': held_b[f'cheby_acc_group_g{g_b}'],
                               'g1_B_nf6': held_b['cheby_acc_group_g1'],
-                              'G_designs': held_z['cheby_acc_group']},
+                              'G_designs': held_z['cheby_acc_group'],
+                              'J5_nf100': held_jb['cheby_acc_group']},
                     replaces='pygsp_tpu/ops/chebyshev.py:189 and :323-334 '
                              '(XLA fusions, no Pallas kernel)')
     g = path_a['acc_group']
@@ -3027,7 +3579,8 @@ def main():
                                 'not on the bench path)')
     # launches as counted in each path's own run, its counts set to 0 just
     # before it and read just after: `launches` sums them over every path
-    # (A-D, the banks; E, training on A, B and C; F, Lanczos and exact);
+    # (A-D, the banks; E, training on A, B and C; F, Lanczos and exact;
+    # G-I; J, the algorithms, each of its parts counted from 0 and summed);
     # `launches_per_bank` sums a bank path's bank over the paths the kernel
     # serves (all four for the kernels that serve none)
     ell.update(name='ell_spmm', route='cuda',

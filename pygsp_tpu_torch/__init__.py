@@ -11,7 +11,10 @@ The slices so far cover the Chebyshev heat-filtering path (``Graph`` with
 its Laplacian and λmax, ``Grid2d``, ``BarabasiAlbert``, ``Logo``,
 ``Filter`` and ``Heat``, on the CSR, block-banded and windowed-compact
 storage formats), training through the constant-memory fixed-graph VJP
-(``Filter.filter(fixed_graph=True)``), and exact and Lanczos filtering.
+(``Filter.filter(fixed_graph=True)``), exact and Lanczos filtering, the
+graph zoo with the nearest-neighbour graphs, layouts and graph I/O, and the
+algorithms: ``reduction``, ``learning``, ``features`` and ``optimization``
+(imported on first use, as in the JAX package).
 """
 
 from pygsp_tpu_torch import core
@@ -22,4 +25,19 @@ from pygsp_tpu_torch import utils
 
 __version__ = '0.1.0'
 
-__all__ = ['core', 'ops', 'graphs', 'filters', 'utils']
+__all__ = ['core', 'ops', 'graphs', 'filters', 'utils', 'reduction',
+           'learning', 'features', 'optimization']
+
+
+def __getattr__(name):
+    # the algorithm modules, imported on first use
+    if name in ('reduction', 'learning', 'features', 'optimization'):
+        import importlib
+        module = importlib.import_module(f'pygsp_tpu_torch.{name}')
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module 'pygsp_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -223,15 +223,16 @@ def to_scipy(mat):
 
 
 def _banded_to_scipy(mat: 'BandedMatrix'):
+    """The tiles' nonzero entries at their places, without a dense N × N
+    matrix (a 512 × 512 grid's would take 275 GB)."""
     tiles = mat.tiles.cpu().numpy()        # (nb, 2*half_bw+1, 128, 128)
-    nb, ndiag, tr, tc = tiles.shape
-    dense = np.zeros((nb * tr, nb * tc), tiles.dtype)
-    for i in range(nb):
-        for d in range(ndiag):
-            j = i + d - mat.half_bw
-            if 0 <= j < nb:
-                dense[i * tr:(i + 1) * tr, j * tc:(j + 1) * tc] = tiles[i, d]
-    return sps.csr_matrix(dense[:mat.n_rows, :mat.n_cols])
+    _, _, tr, tc = tiles.shape
+    i, d, r, c = np.nonzero(tiles)
+    rows = i * tr + r
+    cols = (i + d - mat.half_bw) * tc + c
+    keep = (rows < mat.n_rows) & (cols >= 0) & (cols < mat.n_cols)
+    return sps.csr_matrix((tiles[i, d, r, c][keep], (rows[keep], cols[keep])),
+                          shape=(mat.n_rows, mat.n_cols))
 
 
 def to_dense(mat) -> torch.Tensor:

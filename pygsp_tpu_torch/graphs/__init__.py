@@ -21,6 +21,11 @@ _LAZY = {
     'RandomRing': 'randomring', 'Ring': 'ring',
     'StochasticBlockModel': 'stochasticblockmodel', 'Star': 'star',
     'SwissRoll': 'swissroll', 'Torus': 'torus',
+    # nearest-neighbour graphs
+    'NNGraph': 'nngraphs.nngraph', 'Bunny': 'nngraphs.bunny',
+    'Cube': 'nngraphs.cube', 'Grid2dImgPatches': 'nngraphs.grid2dimgpatches',
+    'ImgPatches': 'nngraphs.imgpatches', 'Sensor': 'nngraphs.sensor',
+    'Sphere': 'nngraphs.sphere', 'TwoMoons': 'nngraphs.twomoons',
 }
 
 

@@ -92,6 +92,7 @@ class Graph:
         if plotting:
             self.plotting.update(plotting)
         self.signals = {}
+        self.mr = None  # set by reduction.graph_multiresolution
 
         self.compute_laplacian(lap_type)
 
@@ -234,14 +235,14 @@ class Graph:
             W = sps.triu(self._adjacency, format='coo')
         return W.row, W.col, W.data
 
-    def set_coordinates(self, kind='spring', seed=None):
+    def set_coordinates(self, kind='spring', seed=None, **kwargs):
         """Set ``coords`` from an array (N, N×2 or N×3) or by the name of a
-        closed-form layout: ``'line1D'``, ``'line2D'``, ``'ring2D'``,
-        ``'random2D'``, ``'random3D'`` (NumPy's generator seeded with
-        ``seed``), as in the JAX package. Its solved layouts (``'spring'``,
-        the default, ``'community2D'``, the Laplacian eigenmaps) are not
-        ported yet: see ROADMAP.md, "Modules to port", item 5
-        (``_layout.py``).
+        layout (:func:`pygsp_tpu_torch.graphs._layout.set_coordinates`):
+        ``'line1D'``, ``'line2D'``, ``'ring2D'``, ``'random2D'``,
+        ``'random3D'``, ``'spring'`` (the default; ``kwargs`` go to it),
+        ``'community2D'``, ``'laplacian_eigenmap2D'`` and
+        ``'laplacian_eigenmap3D'``. The seeded layouts draw from NumPy's
+        generator seeded with ``seed``, as in the JAX package.
 
         Examples
         --------
@@ -251,32 +252,51 @@ class Graph:
         >>> G.coords.tolist()
         [[0.0, 0.0], [1.0, 0.0]]
         """
-        n = self.n_vertices
-        if not isinstance(kind, str):
-            coords = np.asanyarray(kind).squeeze()
-            ok_1d = coords.ndim == 1
-            ok_2d3d = coords.ndim == 2 and 2 <= coords.shape[1] <= 3
-            if coords.shape[0] != n or not (ok_1d or ok_2d3d):
-                raise ValueError('Expecting coordinates to be of size N, '
-                                 'Nx2, or Nx3.')
-            self.coords = coords
-        elif kind == 'line1D':
-            self.coords = np.arange(n)
-        elif kind == 'line2D':
-            self.coords = np.stack([np.arange(n), np.zeros(n)], axis=1)
-        elif kind == 'ring2D':
-            angle = np.arange(n) * 2 * np.pi / n
-            self.coords = np.stack([np.cos(angle), np.sin(angle)], axis=1)
-        elif kind in ('random2D', 'random3D'):
-            self.coords = np.random.default_rng(seed).uniform(
-                size=(n, int(kind[-2])))
-        elif kind in ('spring', 'community2D', 'laplacian_eigenmap2D',
-                      'laplacian_eigenmap3D'):
-            raise NotImplementedError(
-                f'set_coordinates(kind={kind!r}) is not ported yet: see '
-                f'ROADMAP.md, "Modules to port", item 5 (_layout.py)')
-        else:
-            raise ValueError(f'Unexpected argument kind={kind}.')
+        from pygsp_tpu_torch.graphs import _layout
+        _layout.set_coordinates(self, kind=kind, seed=seed, **kwargs)
+
+    # ------------------------------------------------------------------
+    # import and export (networkx, graph-tool, files)
+    # ------------------------------------------------------------------
+
+    def to_networkx(self):
+        """The graph as a networkx (Di)Graph
+        (:func:`pygsp_tpu_torch.graphs._io.to_networkx`)."""
+        from pygsp_tpu_torch.graphs import _io
+        return _io.to_networkx(self)
+
+    @classmethod
+    def from_networkx(cls, graph_nx, weight='weight', *, device='cuda',
+                      dtype=torch.float32):
+        """A Graph from a networkx graph, on ``device``."""
+        from pygsp_tpu_torch.graphs import _io
+        return _io.from_networkx(graph_nx, weight=weight, device=device,
+                                 dtype=dtype)
+
+    def to_graphtool(self):
+        from pygsp_tpu_torch.graphs import _io
+        return _io.to_graphtool(self)
+
+    @classmethod
+    def from_graphtool(cls, graph_gt, weight='weight', *, device='cuda',
+                       dtype=torch.float32):
+        from pygsp_tpu_torch.graphs import _io
+        return _io.from_graphtool(graph_gt, weight=weight, device=device,
+                                  dtype=dtype)
+
+    def save(self, path, fmt=None, backend=None):
+        """Save to GraphML, GML or GEXF
+        (:func:`pygsp_tpu_torch.graphs._io.save`)."""
+        from pygsp_tpu_torch.graphs import _io
+        return _io.save(self, path, fmt=fmt, backend=backend)
+
+    @classmethod
+    def load(cls, path, fmt=None, backend=None, *, device='cuda',
+             dtype=torch.float32):
+        """A Graph read from GraphML, GML or GEXF, on ``device``."""
+        from pygsp_tpu_torch.graphs import _io
+        return _io.load(path, fmt=fmt, backend=backend, device=device,
+                        dtype=dtype)
 
     # ------------------------------------------------------------------
     # signals

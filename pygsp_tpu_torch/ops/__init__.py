@@ -1,5 +1,5 @@
 """Compute paths: SpMM, Chebyshev recurrence, Lanczos, the spectrum
-(λmax, the Fourier basis, LOBPCG)."""
+(λmax, the Fourier basis, LOBPCG), conjugate gradients."""
 
 from pygsp_tpu_torch.ops.spmm import spmm
 from pygsp_tpu_torch.ops.chebyshev import (carry_error_estimate, cheby_coeff,

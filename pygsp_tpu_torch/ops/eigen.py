@@ -115,7 +115,7 @@ def laplacian_upper_bound(L: LaplacianOp):
     return torch.max(L.diag + absrow)
 
 
-def partial_fourier_basis(L: LaplacianOp, k: int, *, maxiter: int = 300,
+def partial_fourier_basis(L: LaplacianOp, k: int, *, maxiter: int = 3000,
                           tol=None, seed: int = 17):
     """The k smallest eigenpairs of L by LOBPCG on the flipped operator
     ``B = c·I − L``, ``c = 1.01 ×`` :func:`laplacian_upper_bound`: L's
@@ -123,6 +123,13 @@ def partial_fourier_basis(L: LaplacianOp, k: int, *, maxiter: int = 300,
     a few k-wide SpMMs of L. Returns ``(e, U)``, ascending, ``e[0] = 0``;
     the start block is drawn from a ``torch.Generator`` seeded with
     ``seed``.
+
+    The iteration ends when every pair has converged (``tol``, as in
+    :func:`~pygsp_tpu_torch.ops.lobpcg.lobpcg_standard`) or after
+    ``maxiter`` iterations. The JAX package stops at 300, which is short of
+    convergence once the small eigenvalues crowd: in float64 ``Grid2d(100,
+    27)`` needs 612 iterations at k = 4 and a 16384-vertex ``Sensor`` graph
+    1356 at k = 3, where 300 leave its eigenvalues 7e-3 and 7e-2 off.
 
     Examples
     --------

@@ -7,6 +7,7 @@ code. The assets are read from this package's own ``data/`` folder.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 
@@ -25,6 +26,20 @@ def check_device(device, caller: str) -> torch.device:
         raise RuntimeError(f'{caller}: no CUDA device is available; pass '
                            "device='cpu' to run on the CPU")
     return device
+
+
+def to_numpy(x):
+    """``x`` as a host NumPy array; a tensor is copied off its device.
+
+    Examples
+    --------
+    >>> import torch
+    >>> to_numpy(torch.arange(3))
+    array([0, 1, 2])
+    """
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def build_logger(name: str) -> logging.Logger:
@@ -105,6 +120,37 @@ def distanz(x, y=None):
     return np.sqrt(d2)
 
 
+def resistance_distance(G):
+    """The resistance-distance matrix, as a scipy CSC matrix, from a Graph
+    with a combinatorial Laplacian or from a sparse Laplacian.
+
+    It takes the dense pseudo-inverse of L on the host
+    (``numpy.linalg.pinv``, a Graph's Laplacian in float64): small graphs
+    only. The sparsifiers estimate
+    the resistances of large graphs by sketching instead
+    (:func:`pygsp_tpu_torch.reduction.effective_resistances_sketch`).
+
+    Examples
+    --------
+    >>> import scipy.sparse as sps
+    >>> L = sps.csc_matrix([[1., -1., 0.], [-1., 2., -1.], [0., -1., 1.]])
+    >>> resistance_distance(L).toarray().round(6)     # a path of 3
+    array([[0., 1., 2.],
+           [1., 0., 1.],
+           [2., 1., 0.]])
+    """
+    if sps.issparse(G):
+        L = G.tocsc()
+    else:
+        if G.lap_type != 'combinatorial':
+            raise ValueError('Need a combinatorial Laplacian.')
+        L = sps.csc_matrix(G.L.to_scipy(), dtype=np.float64)
+    pseudo = np.linalg.pinv(L.toarray())
+    d = np.diagonal(pseudo)
+    rd = d[:, None] + d[None, :] - pseudo - pseudo.T
+    return sps.csc_matrix(rd)
+
+
 def rescale_center(x):
     """Center point-cloud coordinates x (d, N) and scale them into [-1, 1].
 
@@ -160,3 +206,18 @@ def loadmat(name: str) -> dict:
         else:
             out[key] = value
     return out
+
+
+def filterbank_handler(func):
+    """Map a per-kernel function ``func(f, ..., i=k)`` over a filter bank:
+    one result for a bank of one kernel or when ``i`` is given, else the
+    list of the results for each of the bank's kernels."""
+    @functools.wraps(func)
+    def wrapper(f, *args, **kwargs):
+        if 'i' in kwargs:
+            return func(f, *args, **kwargs)
+        n = f.n_filters if hasattr(f, 'n_filters') else len(f.g)
+        if n <= 1:
+            return func(f, *args, i=0, **kwargs)
+        return [func(f, *args, i=i, **kwargs) for i in range(n)]
+    return wrapper

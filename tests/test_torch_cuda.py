@@ -32,7 +32,10 @@ refuse an operand that requires grad, and the fixed-graph training path's
 gradients against the CPU's; the ELL and chunked SpMMs against their plain
 version (heavy rows, ragged chunks, the degree relabeling, S of 1 to 512,
 every operand pair, dead slots holding ``inf``, two launches bit-equal),
-a bank on each format against the CPU, and their refusals.
+a bank on each format against the CPU, and their refusals; and the
+algorithms in f64 against the CPU (the learning solvers, ``prox_tv`` and
+its launches, the dense Kron solve, the resistance sketch, the
+spectrogram, a nearest-neighbour graph and its LOBPCG eigenmap).
 """
 
 import ctypes
@@ -1057,3 +1060,80 @@ def test_slot_kernels_refuse_autograd_and_mixed_devices(cuda):
         with pytest.raises(ValueError, match='one device'):
             kernel(table, cols, vals, res, x.cpu(), M.n_rows)
     torch.cuda.synchronize()
+
+
+def _sensor_pair(cuda, n=512):
+    return [tgsp.graphs.Sensor(n, seed=42, device=device, dtype=torch.float64)
+            for device in (cuda, 'cpu')]
+
+
+def test_learning_on_the_card_matches_the_cpu(cuda):
+    """The learning solvers in f64 on the card against the CPU: one CG
+    over the block (one csr_spmm launch an operator application), the
+    simplex loop (one a step). The card sums its dot products and rows in
+    another order, which CG carries through its iterations: 2.8e-10 on an
+    H100, held to 1e-8."""
+    from pygsp_tpu_torch import learning
+    Gc, Gh = _sensor_pair(cuda)
+    Gh.estimate_lmax()
+    Gc._lmax = Gh._lmax
+    mask = np.random.default_rng(1).random(Gh.N) < 0.1
+    labels = (np.arange(Gh.N) % 4).astype(float)
+    y = np.random.default_rng(2).normal(size=(Gh.N, 3))
+    for call in (lambda G: learning.regression_tikhonov(G, y, mask, 0.5),
+                 lambda G: learning.regression_tikhonov(G, y[:, 0], mask, 0),
+                 lambda G: learning.classification_tikhonov(G, labels, mask,
+                                                            0.2),
+                 lambda G: learning.classification_tikhonov_simplex(
+                     G, labels, mask, maxit=60)):
+        before = csr_kernel.csr_spmm.launches
+        got = call(Gc)
+        assert csr_kernel.csr_spmm.launches - before > 1
+        assert _rel_err(got.cpu(), call(Gh)) <= 1e-8
+
+
+def test_prox_tv_on_the_card_matches_the_cpu(cuda):
+    """Two csr_spmm launches an iteration (div, grad) and one div after."""
+    from pygsp_tpu_torch import optimization
+    Gc, Gh = _sensor_pair(cuda)
+    Gh.estimate_lmax()
+    Gc._lmax = Gh._lmax
+    x = np.random.default_rng(3).normal(size=Gh.N)
+    before = csr_kernel.csr_spmm.launches
+    got = optimization.prox_tv(x, 0.3, Gc, maxit=25)
+    assert csr_kernel.csr_spmm.launches - before == 2 * 25 + 1
+    assert _rel_err(got.cpu(), optimization.prox_tv(x, 0.3, Gh,
+                                                    maxit=25)) <= 1e-10
+
+
+def test_reduction_and_features_on_the_card_match_the_cpu(cuda):
+    """The dense Kron solve, the CG sketch of the resistances and the
+    spectrogram's bank of 100 filters on the card against the CPU."""
+    from pygsp_tpu_torch import features, reduction
+    Gc, Gh = _sensor_pair(cuda, 256)
+    keep = np.flatnonzero(np.random.default_rng(4).random(256) < 0.5)
+    Wc = reduction.kron_reduction(Gc, keep, method='exact').W
+    Wh = reduction.kron_reduction(Gh, keep, method='exact').W
+    assert abs(Wc - Wh).max() <= 1e-10 * abs(Wh).max()
+    Rc = reduction.effective_resistances_sketch(Gc)[2]
+    Rh = reduction.effective_resistances_sketch(Gh)[2]
+    assert np.abs(Rc - Rh).max() <= 1e-10 * np.abs(Rh).max()
+    Gh.estimate_lmax()
+    Gc._lmax = Gh._lmax
+    Sc = features.compute_spectrogram(Gc)
+    Sh = features.compute_spectrogram(Gh)
+    assert np.abs(Sc - Sh).max() <= 1e-10 * np.abs(Sh).max()
+
+
+def test_nn_graphs_and_eigenmap_on_the_card(cuda):
+    """A nearest-neighbour graph on the card has the host's W; the LOBPCG
+    eigenmap in f64 on the card matches the CPU's eigenvalues."""
+    Gc, Gh = [tgsp.graphs.Sensor(2500, seed=42, device=device,
+                                 dtype=torch.float64)
+              for device in (cuda, 'cpu')]
+    assert abs(Gc.W - Gh.W).max() == 0
+    for G in (Gc, Gh):
+        G.set_coordinates('laplacian_eigenmap2D')
+    assert torch.allclose(Gc.e.cpu(), Gh.e, rtol=0, atol=1e-10)
+    align = np.abs(np.sum(Gc.coords * Gh.coords, axis=0))
+    assert np.abs(align - 1).max() <= 1e-6

@@ -149,6 +149,17 @@ def test_partial_fourier_basis_matches_eigsh_and_jax(lobpcg_graphs):
         teigen.partial_fourier_basis(T.L, 0)
 
 
+def test_partial_fourier_basis_runs_to_convergence(lobpcg_graphs):
+    """The JAX package's cap of 300 iterations stops LOBPCG short on this
+    grid, which needs about 612 at k = 4; the port's cap of 3000 lets it
+    converge, to the eigenvalues of eigsh within 1e-10."""
+    _, T, er, _ = lobpcg_graphs
+    e, _ = teigen.partial_fourier_basis(T.L, K)
+    e300, _ = teigen.partial_fourier_basis(T.L, K, maxiter=300)
+    assert np.abs(e.numpy() - er).max() <= 1e-10
+    assert np.abs(e300.numpy() - er).max() > 1e-10
+
+
 def test_compute_fourier_basis_dispatches_to_lobpcg(lobpcg_graphs):
     J, T, er, Ur = lobpcg_graphs
     T.compute_fourier_basis(n_eigenvectors=K)

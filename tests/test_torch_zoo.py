@@ -148,5 +148,10 @@ def test_set_coordinates_closed_forms_match_jax():
     assert T.coords.shape == (7, 3)
     with pytest.raises(ValueError, match='Expecting coordinates'):
         T.set_coordinates(np.ones((6, 2)))
-    with pytest.raises(NotImplementedError, match='item 5'):
-        T.set_coordinates('spring')
+    # the solved layouts are ported (tests/test_torch_layout_io.py): the
+    # default, 'spring', gives the JAX package's coordinates
+    J.set_coordinates(seed=3)
+    T.set_coordinates(seed=3)
+    assert np.array_equal(T.coords, J.coords)
+    with pytest.raises(ValueError, match='Unexpected argument'):
+        T.set_coordinates('spiral')
