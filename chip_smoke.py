@@ -7,17 +7,21 @@ Phases, each of which raises on failure:
    then launch ``double`` (TPU kernel #4, the toolchain canary) against
    ``x * 2``, its call time beside its device time (torch.profiler);
 2. hold each kernel against its plain PyTorch version on the card, in f32
-   (and once in f64): CSR (also a star row of 20,000 edges across many of
-   the kernel's segments), banded (f32 on the tensor cores, 3×TF32, also
-   on Grid2d tiles that TF32 does not hold exactly), the
+   (and once in f64): CSR (its wide entry at 128 columns, its narrow one
+   at 1 and 5; a star row of 20,000 edges across many of the kernel's
+   segments at 1 and 128; a tenth of the entries repeated and kept as
+   separate stored entries, against the matrix with them summed), banded
+   (f32 on the tensor cores, 3×TF32, also on Grid2d tiles that TF32 does
+   not hold exactly), the
    windowed fold and the tail, the strip with the residue list (including
    ``window_rows=256`` and a span-4 matrix, and the bf16 instances: a bf16
    carry, bf16 values, both), the
    one-hot fold at TPU kernel #3's shape (call and device time), and with
    dead slots holding ``inf``, which must add nothing; then the fused
    Chebyshev step (kernel B: step, grouped accumulation, synthesis
-   contraction) in f32, f64 and with a bf16 carry, bit for bit, and its
-   fourth entry point, the coefficient gradient ``cheby_dot_group``, in
+   contraction) in f32, f64 and with a bf16 carry, bit for bit, the group
+   also at Nf = 1, 5, 8 and 13 with g = 13 and 14, and its fourth entry
+   point, the coefficient gradient ``cheby_dot_group``, in
    f32 and f64 within its summation bound against a float64 reference,
    two launches bit-equal;
 3. path A, the README path at the bench size: Barabási–Albert N=2^20
@@ -25,10 +29,17 @@ Phases, each of which raises on failure:
    ``Heat(scale=[5, 10, 25, 50]).filter(x, order=30)`` with x (N, 128) f32,
    through the CSR SpMM kernel and kernel B (step and grouped
    accumulation, as on every path), checked against the SciPy f64
-   recurrence; the kernel's two launches bit-equal at this shape, and its
-   time with the hub rows (above 1024 edges) emptied and on those rows
-   alone; each SpMM kernel (here and in phases 4 and 5) also at the x̄
-   synthesis's width, S·Nf = 512 columns, against its plain version;
+   recurrence; λmax's 32 products at one column on kernel A's narrow
+   entry and the bank's 30 on its wide one (counted by symbol), and
+   ``estimate_lmax``'s time; the kernel's two launches bit-equal at this
+   shape, and its time with the hub rows (above 1024 edges) emptied and on
+   those rows alone; kernel A's width sweep on this graph, S in
+   ``SWEEP_F32`` and ``SWEEP_F64``, each entry that takes the width held
+   against the plain version, two launches bit-equal, timed beside its
+   bound and ``torch.sparse.mm`` (up to 32 columns also both device
+   times, from CUDA graphs of 20 calls); each SpMM kernel (here and in
+   phases 4 and 5) also at the x̄ synthesis's width, S·Nf = 512 columns,
+   against its plain version;
 4. path B, the banded path: ``Grid2d(512, 512)`` → ``L.to_banded()`` →
    ``cheby_op`` through the banded SpMM kernel and kernel B, checked
    against the CSR path and the SciPy f64 recurrence;
@@ -122,7 +133,9 @@ J. path J, the algorithms on the nearest-neighbour graphs: J1,
    CG over the (N, 8) block), ``regression_tikhonov(tau=0)`` on one column
    and ``classification_tikhonov_simplex(tau=0.5, maxit=500)``, each CG held
    by its true relative residual in f64 on the host (≤ 1e-3), the simplex
-   rows within 1e-5 of the simplex; J2, ``prox_tv`` of a noisy
+   rows within 1e-5 of the simplex, the one-column CG on kernel A's
+   narrow entry alone; J2, ``prox_tv`` (its ``grad`` and ``div`` on the
+   narrow entry alone) of a noisy
    piecewise-constant signal against the same dual iterations in f64 on
    the host for the card's count (read from kernel A's launches), within
    1e-4 of max|x|, its objective lower; J3,
@@ -136,11 +149,11 @@ J. path J, the algorithms on the nearest-neighbour graphs: J1,
    SciPy f64; J6, the 8 nearest-neighbour classes on the card, a heat bank
    each against SciPy f64, and ``laplacian_eigenmap2D`` on
    ``Sensor(N=16384)`` in f64 (LOBPCG), its Rayleigh quotients within 1e-4
-   of ``eigsh``'s eigenvalues and its residuals within 1e-3 of ‖L‖ (in f32
-   the same readings are shown, not held). Kernel A held against its plain
-   version at 1, 8 and 24 columns on J1's graph, as ``grad`` and ``div`` at
-   one column and at the spectrogram's 2048; kernel B's step and group at
-   the spectrogram's shape (Nf = 100);
+   of ``eigsh``'s eigenvalues and its residuals within 1e-3 of ‖L‖, and the
+   same in f32 (the float32 operator solved in float64). Kernel A held
+   against its plain version at 1, 8 and 24 columns on J1's graph, as
+   ``grad`` and ``div`` at one column and at the spectrogram's 2048;
+   kernel B's step and group at the spectrogram's shape (Nf = 100);
 7. kernel B's entry points at each path's shape and at path E's (the step
    at 512 columns, the contraction at (N, 128, 4), ``cheby_dot_group`` at
    paths A's and B's N), held bit for bit against
@@ -150,7 +163,8 @@ J. path J, the algorithms on the nearest-neighbour graphs: J1,
    accumulation of f32 terms, ``addmv_`` for the synthesis contraction,
    ``torch.mm`` for the coefficient gradient);
 8. one JSON line of per-kernel numbers (kernel A's entry with ``grad`` and
-   ``div``, kernel B's group with Nf = 6, ``ell_spmm`` and
+   ``div``, its narrow entry with the width sweep and the narrow shapes of
+   paths G and J, kernel B's group with Nf = 6, ``ell_spmm`` and
    ``chunked_spmm`` with the shapes paths H and I held them at under
    ``at_paths``, kernels A and B at path J's shapes there too; times from CUDA events, bounds
    from the H100 SXM data sheet: HBM, FP32, and TF32 for the banded
@@ -189,6 +203,13 @@ from pygsp_tpu_torch.ops.chebyshev import (_fixed_graph_grads,
                                            carry_error_estimate, cheby_coeff,
                                            cheby_op, cheby_op_fixed_graph,
                                            cheby_synthesis)
+
+# kernel A's width sweep on path A's graph (it sets the wrapper's crossover
+# from its narrow entry to its wide one)
+SWEEP_F32 = (1, 2, 3, 4, 8, 12, 16, 24, 32, 64, 128)
+SWEEP_F64 = (1, 4, 12)
+# kernel B's group at more filter counts, at (2^16, 128)
+GROUP_NFS = (1, 5, 8, 13)
 
 # H100 SXM data sheet: HBM rate, FP32 and FP64 rates outside the tensor
 # cores, and the dense TF32 and bf16 tensor-core rates.
@@ -336,20 +357,52 @@ def log(*args):
     print(*args, flush=True)
 
 
+# launches by C symbol, counted by count_symbols' spy on _cuda.launch and
+# set to 0 with the wrappers' counts
+SYMBOLS = {}
+
+
+def count_symbols():
+    """Count every launch by its C symbol from now on (``SYMBOLS``): kernel
+    A's wrapper launches one of two entries, told apart by symbol."""
+    launch = _cuda.launch
+
+    def spy(name, symbol, *args):
+        SYMBOLS[symbol] = SYMBOLS.get(symbol, 0) + 1
+        return launch(name, symbol, *args)
+
+    _cuda.launch = spy
+
+
 def reset_counts():
     for k in KERNELS:
         k.launches = 0
     wk.tail_plain.calls = 0
     ell_kernel.slot_spmm_plain.calls = 0
+    SYMBOLS.clear()
 
 
 def counts():
-    """Every kernel's launch count and the calls of two plain versions that
-    the banks must not call, by name: the tail's (the windowed residue sum)
-    and the ELL and chunked SpMMs' (``slot_plain``)."""
+    """Every kernel's launch count, kernel A's by entry (narrow, wide), and
+    the calls of two plain versions that the banks must not call, by name:
+    the tail's (the windowed residue sum) and the ELL and chunked SpMMs'
+    (``slot_plain``)."""
     return {**{k.__name__: k.launches for k in KERNELS},
+            'csr_spmm_narrow': (SYMBOLS.get('csr_spmm_narrow_f32', 0)
+                                + SYMBOLS.get('csr_spmm_narrow_f64', 0)),
+            'csr_spmm_wide': (SYMBOLS.get('csr_spmm_f32', 0)
+                              + SYMBOLS.get('csr_spmm_f64', 0)),
             'tail_plain': wk.tail_plain.calls,
             'slot_plain': ell_kernel.slot_spmm_plain.calls}
+
+
+def require_narrow(part, c):
+    """Raise unless every kernel A launch of a part took the narrow
+    entry."""
+    if not c['csr_spmm'] or c['csr_spmm_narrow'] != c['csr_spmm']:
+        raise AssertionError(f'{part}: {c["csr_spmm"]} csr_spmm launches, '
+                             f'{c["csr_spmm_narrow"]} of them narrow')
+    log(f'  {part}: all {c["csr_spmm"]} csr_spmm launches narrow')
 
 
 def require_tail(path, per_bank):
@@ -429,6 +482,29 @@ def device_ms(fn, iters, key='device_ms', tries=3):
     torch.cuda.synchronize()
     return {key: sum(a.elapsed_time(b) for a, b in pairs) / iters,
             key + '_by': 'CUDA events around each launch'}
+
+
+def graph_ms(fn, iters):
+    """Device time of one call of ``fn`` (which may launch several
+    kernels), the host's launch costs left out: a CUDA graph of ``iters``
+    calls, captured after a warm-up call and replayed 5 times between two
+    CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
 
 
 def check(name, got, want, tol):
@@ -565,11 +641,35 @@ def phase_kernels():
     star[3] = rng.normal(size=20_000)
     A = gsp.core.from_scipy(star.tocsr(), dtype=torch.float32,
                             device='cuda')
-    x = seeded_normal((20_000, 128), 9)
-    check('csr star row of 20,000 edges S=128',
-          csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals, x),
-          csr_kernel.csr_spmm_plain(A.rowptr, A.cols, A.vals.double(),
-                                    x.double()), TOL_CSR)
+    for s in (128, 1):
+        x = seeded_normal((20_000, s), 9)
+        check(f'csr star row of 20,000 edges S={s}',
+              csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals, x),
+              csr_kernel.csr_spmm_plain(A.rowptr, A.cols, A.vals.double(),
+                                        x.double()), TOL_CSR)
+    # a tenth of the entries repeated and kept as separate stored entries
+    # (from_coo(sum_duplicates=False)): both entries sum them like any
+    # others, against the matrix with the repeats summed, in f64
+    coo = W.tocoo()
+    dup = rng.choice(coo.nnz, coo.nnz // 10, replace=False)
+    rows = np.concatenate([coo.row, coo.row[dup]])
+    cols = np.concatenate([coo.col, coo.col[dup]])
+    vals = np.concatenate([coo.data, rng.normal(size=len(dup))])
+    A = gsp.core.from_coo(rows, cols, vals, n, sum_duplicates=False,
+                          dtype=torch.float32, device='cuda')
+    A64 = gsp.core.from_coo(rows, cols, vals, n, dtype=torch.float64,
+                            device='cuda')
+    if A.nnz != A64.nnz + len(dup):
+        raise AssertionError(f'{A.nnz} stored entries with the repeats '
+                             f'kept, {A64.nnz} summed')
+    for s in (1, 128):
+        x = seeded_normal((n, s), 10 + s)
+        check(f'csr with {len(dup)} repeated entries kept, S={s} '
+              f'({csr_kernel.entry_for(s, torch.float32)} entry)',
+              csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals, x),
+              csr_kernel.csr_spmm_plain(A64.rowptr, A64.cols, A64.vals,
+                                        x.double()), TOL_CSR)
+    del A, A64
 
     n = 128 * 64 + 37        # ragged last tile
     for offsets, b in (((1, 7, 100), 1), ((1, 128, 300, 500), 4)):
@@ -686,6 +786,24 @@ def phase_kernel_b():
             equal('cheby_acc_contract', a, a_plain)
             log(f'  kernel B {md} arithmetic, {cd} carry, S={s}: step, '
                 f'group (g={g}) and contraction bit-equal')
+    # the group at more filter counts (its one pass over the terms for any
+    # Nf), f32 and bf16 terms, groups of 13 and 14
+    s = 128
+    for md, cd in ((torch.float32, torch.float32),
+                   (torch.float32, torch.bfloat16)):
+        ring = seeded_normal((g + 2, 1 << 16, s), 70).to(cd)
+        for nf_k in GROUP_NFS:
+            acc = seeded_normal((nf_k, 1 << 16, s), 71, dtype=md)
+            for size in (13, 14):
+                cg = seeded_normal((size, nf_k), 72, dtype=md)
+                acc_plain = acc.clone()
+                cheby_kernel.cheby_acc_group(acc, ring, cg, 9)
+                cheby_kernel.cheby_acc_group_plain(acc_plain, ring, cg, 9)
+                equal(f'cheby_acc_group Nf={nf_k} g={size} {cd} terms', acc,
+                      acc_plain)
+        log(f'  cheby_acc_group at (2^16, {s}), {cd} terms, Nf in '
+            f'{GROUP_NFS}, g in (13, 14): bit-equal')
+        del ring, acc, acc_plain
     for dt in (torch.float32, torch.float64):
         for s in (128, 5):
             ring = seeded_normal((g + 2, n, s), 61, dtype=dt)
@@ -1074,32 +1192,74 @@ def csr_work(M, s, item, flops_per_s=FP32_FLOPS):
                  + (M.n_rows + 1) * 4, 2 * M.nnz * s, flops_per_s)
 
 
-def measure_spmm(name, M, v, flops_per_s=FP32_FLOPS, tol=TOL_CSR):
-    """One CSR product ``M @ v`` on kernel A, held against its plain version
-    within ``tol``, two launches bit-equal, then timed beside its plain
-    version and ``torch.sparse.mm`` of the same CSR, with its bound."""
+def measure_spmm(name, M, v, flops_per_s=FP32_FLOPS, tol=TOL_CSR,
+                 entry=None):
+    """One CSR product ``M @ v`` on kernel A (the entry the wrapper's width
+    table gives, or ``entry``), held against its plain version within
+    ``tol``, two launches bit-equal, then timed beside its plain version
+    and ``torch.sparse.mm`` of the same CSR, with its bound; the symbol
+    launched; at up to 32 columns also the device time of a call and of
+    the library's."""
     args = (M.rowptr, M.cols, M.vals, v)
-    y = csr_kernel.csr_spmm(*args)
+    before = dict(SYMBOLS)
+    y = csr_kernel.csr_spmm(*args, entry=entry)
+    symbol = [k for k, n in SYMBOLS.items() if n != before.get(k, 0)]
     y_plain = csr_kernel.csr_spmm_plain(*args)
     max_abs_err = float((y - y_plain).abs().max())
     check(f'{name} kernel vs plain', y, y_plain, tol)
     del y_plain
-    if not torch.equal(y, csr_kernel.csr_spmm(*args)):
+    if not torch.equal(y, csr_kernel.csr_spmm(*args, entry=entry)):
         raise AssertionError(f'{name}: two launches differ')
-    log(f'  {name}: two launches bit-equal')
+    log(f'  {name}: two launches bit-equal ({", ".join(symbol)})')
     del y
     nnz, s = M.nnz, v.shape[1]
     lib = torch.sparse_csr_tensor(M.rowptr, M.cols[:nnz], M.vals[:nnz],
                                   size=M.shape)
     out = {'max_abs_err': max_abs_err,
-           'ms': time_ms(lambda: csr_kernel.csr_spmm(*args), 20),
+           'ms': time_ms(lambda: csr_kernel.csr_spmm(*args, entry=entry), 20),
            'plain_ms': time_ms(lambda: csr_kernel.csr_spmm_plain(*args), 3),
            'library_ms': time_ms(lambda: torch.sparse.mm(lib, v), 20),
            'library': 'torch.sparse.mm on a sparse CSR tensor',
            **csr_work(M, s, v.element_size(), flops_per_s),
            'shape': [M.n_rows, M.n_cols], 'nnz': nnz, 's': s,
-           'dtype': str(v.dtype)}
+           'dtype': str(v.dtype), 'symbol': symbol}
+    if s <= 32:
+        out.update(device_ms=graph_ms(
+            lambda: csr_kernel.csr_spmm(*args, entry=entry), 20),
+                   library_device_ms=graph_ms(
+                       lambda: torch.sparse.mm(lib, v), 20),
+                   device_ms_by='a CUDA graph of 20 calls, replayed')
     del lib
+    return out
+
+
+def measure_width_sweep(A):
+    """Kernel A on path A's graph at each width of the sweep, f32 and f64:
+    each entry that takes the width held and timed by ``measure_spmm``
+    (the narrow one up to its 128 f32 or 64 f64 columns), the wrapper's
+    choice named. The crossover of ``csr_kernel.NARROW_WIDTH`` comes from
+    these times."""
+    out = {}
+    for dtype, widths, tol, flops in (
+            (torch.float32, SWEEP_F32, TOL_CSR, FP32_FLOPS),
+            (torch.float64, SWEEP_F64, TOL_F64, FP64_FLOPS)):
+        M = A if dtype == torch.float32 else A.astype(dtype)
+        for s in widths:
+            v = seeded_normal((M.n_cols, s), 120 + s, dtype=dtype)
+            row = {'chosen': csr_kernel.entry_for(s, dtype)}
+            for entry in ('narrow', 'wide'):
+                if entry == 'narrow' and s > csr_kernel.NARROW_MAX[dtype]:
+                    continue
+                row[entry] = measure_spmm(
+                    f'csr_spmm ({entry}) on path A\'s graph, S={s} {dtype}',
+                    M, v, flops, tol, entry=entry)
+            torch.cuda.empty_cache()
+            out[f'{s}_{str(dtype)[6:]}'] = row
+        del M
+    log(f'  width sweep (ms narrow / wide / library): ' + ', '.join(
+        f'{k} {r.get("narrow", {}).get("ms", float("nan")):.4f} / '
+        f'{r["wide"]["ms"]:.4f} / {r["wide"]["library_ms"]:.4f}'
+        for k, r in out.items()))
     return out
 
 
@@ -1317,6 +1477,15 @@ def phase_path_a():
         f'device memory {peak:.2f} GiB')
     require_launches('A', per_bank, csr_spmm=ORDER, cheby_step=ORDER - 1,
                      cheby_acc_group=1)
+    # λmax's Lanczos products at one column take the narrow entry, the
+    # bank's at 128 columns the wide one
+    lmax_launches = {k: launches[k] - per_bank[k] for k in launches}
+    require_narrow('A (estimate_lmax)', lmax_launches)
+    if (per_bank['csr_spmm_wide'] != ORDER
+            or per_bank['csr_spmm_narrow']):
+        raise AssertionError(f'path A bank: {per_bank["csr_spmm_wide"]} '
+                             f'wide and {per_bank["csr_spmm_narrow"]} '
+                             f'narrow csr_spmm launches')
     if tuple(out.shape) != (N_BA, N_SIGNALS, len(SCALES)):
         raise AssertionError(f'path A output shape {tuple(out.shape)}')
     rel_err = validate_path('A', reference(G.L.to_scipy(), G.lmax,
@@ -1328,15 +1497,22 @@ def phase_path_a():
     nnz = G.L.offdiag.nnz
     log(f'  {ms_bank:.3f} ms per bank, '
         f'{ORDER * nnz * N_SIGNALS / (ms_bank / 1e3):.4e} edge-ops/s')
+    lmax_ms = time_ms(lambda: estimate_lmax_lanczos(G.L), 3)
+    log(f'  estimate_lmax (32 Lanczos products of one column): '
+        f'{lmax_ms:.3f} ms')
     kernel = measure_csr(G.L.offdiag, x)
     kernel.update(max_row_nnz=int(degree.max()))
+    kernel['width_sweep'] = measure_width_sweep(G.L.offdiag)
     hub_tail = measure_hub_tail(G.L.offdiag, x)
     log(f'  hub tail: {json.dumps(hub_tail)}')
     kernel.update(hub_tail=hub_tail)
     path = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'nnz': nnz,
             'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
             'lmax': G.lmax, 'acc_group': group_of(G.L, x),
-            'peak_bank_gib': peak}
+            'peak_bank_gib': peak, 'estimate_lmax_ms': lmax_ms,
+            'estimate_lmax_launches': {
+                k: lmax_launches[k] for k in ('csr_spmm', 'csr_spmm_narrow',
+                                              'csr_spmm_wide')}}
     return kernel, path, (launches, per_bank), (G, x)
 
 
@@ -3034,6 +3210,7 @@ def phase_path_j_learning(G, labels, mask):
         raise AssertionError('regression_tikhonov changed a labelled value')
     Luu = L64[unknown][:, unknown]
     b = -(L64[unknown][:, mask] @ sol[mask])
+    require_narrow('J1 regression_tikhonov(tau=0), one column', c)
     iters = c['csr_spmm'] - 2
     if iters >= J_MAXITER_TAU0:
         raise AssertionError(f'regression_tikhonov stopped at maxiter '
@@ -3099,6 +3276,7 @@ def phase_path_j_tv(G, labels):
     if (c['csr_spmm'] - 1) % 2:
         raise AssertionError(f'prox_tv launched csr_spmm {c["csr_spmm"]} '
                              f'times, not 2 an iteration and 1')
+    require_narrow('J2 prox_tv (grad and div at one column)', c)
     iters = (c['csr_spmm'] - 1) // 2
     src, tgt, w = G.get_edge_list()
     e = np.arange(len(src))
@@ -3269,10 +3447,10 @@ def nn_zoo():
             ('Grid2dImgPatches', lambda: gsp.graphs.Grid2dImgPatches(img)))
 
 
-def eigenmap_check(G, name, hold):
+def eigenmap_check(G, name):
     """``laplacian_eigenmap2D``'s two columns: their Rayleigh quotients
     against host ``eigsh``'s eigenvalues 1 and 2, and their residuals
-    against ‖L‖, in f64 on the host; raises only if ``hold``."""
+    against ‖L‖, in f64 on the host; raises outside the limits."""
     L = host_laplacian(G)
     ev = np.sort(spl.eigsh(L, k=4, sigma=-1e-3, which='LM')[0])[1:3]
     norm_L = float(spl.eigsh(L, k=1, which='LA')[0][0])
@@ -3282,11 +3460,10 @@ def eigenmap_check(G, name, hold):
     res = np.linalg.norm(L @ u - rq * u, axis=0) / np.linalg.norm(u, axis=0)
     log(f'  {name}: Rayleigh quotients {rq} against eigsh {ev}: '
         f'{rq_err} relative (tol {TOL_EIGENMAP_E:g}); residuals {res} '
-        f'(tol {TOL_EIGENMAP_RES:g} × ‖L‖ = {TOL_EIGENMAP_RES * norm_L:.3e})'
-        + ('' if hold else '; a reading, not held'))
-    ok = (rq_err.max() <= TOL_EIGENMAP_E
-          and res.max() <= TOL_EIGENMAP_RES * norm_L)
-    if hold and not ok:
+        f'(tol {TOL_EIGENMAP_RES:g} × ‖L‖ = '
+        f'{TOL_EIGENMAP_RES * norm_L:.3e})')
+    if not (rq_err.max() <= TOL_EIGENMAP_E
+            and res.max() <= TOL_EIGENMAP_RES * norm_L):
         raise AssertionError(f'{name}: {rq_err}, {res}')
     return {'rq_rel_err': rq_err.tolist(), 'residual': res.tolist(),
             'norm_L': norm_L}
@@ -3295,8 +3472,8 @@ def eigenmap_check(G, name, hold):
 def phase_path_j_zoo():
     """J6: each nearest-neighbour class on the card with a heat bank
     against the SciPy f64 recurrence, then ``laplacian_eigenmap2D`` on
-    ``Sensor(N=16384)`` in f64, held by its Rayleigh quotients and
-    residuals (and the same in f32, shown)."""
+    ``Sensor(N=16384)`` in f64 and in f32 (solved in f64), each held by
+    its Rayleigh quotients and residuals."""
     zoo = {}
 
     def banks():
@@ -3321,10 +3498,11 @@ def phase_path_j_zoo():
     log(f'  laplacian_eigenmap2D on Sensor({J_EIGENMAP_N}), f64: '
         f'{ms_map:.0f} ms, {c_map["csr_spmm"]} csr_spmm launches')
     eigenmap = {'ms': ms_map, 'csr_spmm_launches': c_map['csr_spmm'],
-                **eigenmap_check(Ge, 'laplacian_eigenmap2D f64', True)}
+                **eigenmap_check(Ge, 'laplacian_eigenmap2D f64')}
+    # a float32 graph's eigenmap is solved in float64 and cast back
     G32 = gsp.graphs.Sensor(N=J_EIGENMAP_N, seed=42)
     G32.set_coordinates('laplacian_eigenmap2D')
-    eigenmap['f32'] = eigenmap_check(G32, 'laplacian_eigenmap2D f32', False)
+    eigenmap['f32'] = eigenmap_check(G32, 'laplacian_eigenmap2D f32')
     return {'zoo': zoo, 'ms_zoo': ms_zoo, 'eigenmap': eigenmap}, {
         'J6_zoo': c_zoo, 'J6_eigenmap': c_map}
 
@@ -3426,6 +3604,7 @@ def main():
         sys.exit(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    count_symbols()
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
     t_start = time.time()
@@ -3509,10 +3688,23 @@ def main():
     # plain version
     held_b, held_z = (path_g['B'].pop('kernels'),
                       path_g['designs'].pop('kernels'))
-    csr.update(at_paths={
-        'G_A_one_column': path_g['A'].pop('spmm_one_column'),
-        'G_lobpcg_f64': path_g['lobpcg'].pop('spmm'),
-        'G_designs': held_z['csr_spmm'], **held_j})
+    # kernel A's narrow entry: its headline at one column on path A's graph
+    # (estimate_lmax's product), the width sweep and the narrow shapes of
+    # paths G and J under at_paths; the wide entry keeps the rest
+    sweep = csr.pop('width_sweep')
+    csr_narrow = dict(
+        sweep['1_float32']['narrow'], name='csr_spmm_narrow', route='cuda',
+        source='pygsp_tpu_torch/csrc/csr_spmm.cu',
+        replaces='pygsp_tpu/core/sparse.py:282 (XLA gather + segment_sum, '
+                 'no Pallas kernel), at up to '
+                 f'{csr_kernel.NARROW_WIDTH[torch.float32]} f32 and '
+                 f'{csr_kernel.NARROW_WIDTH[torch.float64]} f64 columns',
+        at_paths={'A_width_sweep': sweep,
+                  'G_A_one_column': path_g['A'].pop('spmm_one_column'),
+                  'G_lobpcg_f64': path_g['lobpcg'].pop('spmm'),
+                  **{k: held_j.pop(k) for k in list(held_j)
+                     if k.startswith(('J1_', 'J2_'))}})
+    csr.update(at_paths={'G_designs': held_z['csr_spmm'], **held_j})
     banded.update(at_synthesis_nf6=held_b['banded_spmm'])
     step.update(B_synthesis_nf6=held_b['cheby_step'],
                 G_designs=held_z['cheby_step'],
@@ -3596,7 +3788,8 @@ def main():
                               'Pallas kernel)')
     by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d,
                'H': counts_h, 'I': counts_i}
-    for kernel, served in ((csr, 'A'), (banded, 'B'), (fold, 'CD'),
+    for kernel, served in ((csr, 'A'), (csr_narrow, None), (banded, 'B'),
+                           (fold, 'CD'),
                            (strip, 'CD'), (fold2, None), (double, None),
                            (kb_step, 'ABCDHI'), (kb_group, 'ABCDHI'),
                            (kb_dot, None), (kb_contract, None),
@@ -3614,7 +3807,11 @@ def main():
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    print(json.dumps({'kernels': [csr, banded, fold, strip, fold2, double,
+    csr['launches_wide'] = sum(
+        [by_path[p][0]['csr_spmm_wide'] for p in by_path]
+        + [other[p]['csr_spmm_wide'] for p in other])
+    print(json.dumps({'kernels': [csr, csr_narrow, banded, fold, strip,
+                                  fold2, double,
                                   kb_step, kb_group, kb_contract, kb_dot,
                                   ell, chunked_k]}),
           flush=True)

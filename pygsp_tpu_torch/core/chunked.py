@@ -283,7 +283,7 @@ def chunked_spmm_chunks(mat: ChunkedELLMatrix, x_chunks,
                         mat.chunk_rows)
 
 
-def chunked_spmm(mat: ChunkedELLMatrix, x, out_dtype=None) -> torch.Tensor:
+def chunked_spmm(mat: ChunkedELLMatrix, x, *, out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` for x of shape (n_cols,) or (n_cols, ...), in the
     original vertex order (``out_dtype``: see :func:`spmm_internal`).
     Iterative callers hoist the two permutes out of their loops."""

@@ -12,6 +12,22 @@ each; :func:`csr_segments` gives each segment's start. A row that crosses a
 segment boundary (every hub row does) leaves one partial sum per segment,
 which a second kernel adds in segment order, so every row sums in a fixed
 order and two launches are bit-equal.
+
+The kernel has two entries, both on that walk and that join. The wide one
+(``csr_spmm_f32``/``_f64``) puts a warp's lanes over the columns, 4 f32
+or 2 f64 a lane, and walks the edges one at a time. The narrow one
+(``csr_spmm_narrow_f32``/``_f64``) puts its lanes over the edges: a group
+of ``L = next_pow2(ceil(S / V))`` lanes takes one edge (V values a lane,
+up to 16 bytes), so a warp takes ``32 / L`` edges a step and adds them by
+row with a segmented reduction across the warp. :func:`csr_spmm` chooses
+by ``(S, dtype)`` alone, from :data:`NARROW_WIDTH`: the narrow entry up to
+that many columns, the wide one above.
+
+The segment table depends on ``rowptr`` alone, and at small sizes its
+half-dozen launches took longer than the product: :func:`segment_table`
+keeps it on the ``rowptr`` tensor, keyed by the segment length, the edge
+count and the tensor's version counter, with whether any row crosses a
+segment (the narrow entry skips the join kernel where none does).
 """
 
 from __future__ import annotations
@@ -21,9 +37,32 @@ import torch
 from pygsp_tpu_torch.core import _cuda
 
 _SYMBOLS = {torch.float32: 'csr_spmm_f32', torch.float64: 'csr_spmm_f64'}
+_NARROW_SYMBOLS = {torch.float32: 'csr_spmm_narrow_f32',
+                   torch.float64: 'csr_spmm_narrow_f64'}
 
-# Walk steps (row ends and edges) per warp (kSegSteps in csrc/csr_spmm.cu).
+# Walk steps (row ends and edges) per warp of the wide entry (kSegSteps in
+# csrc/csr_spmm.cu) and of the narrow one (the kernel reads its segments'
+# bounds from the table, whatever their length). 512 for the narrow entry:
+# on an H100 (tools/narrow_sweep.py, PERF.md) it was within 4 % of the
+# best of 128-2048 at 1, 8 and 24 columns on path A's graph and on
+# Sensor(2**20), where 256 lost up to 6 % and 1024 up to 15 %.
 SEGMENT_STEPS = 256
+NARROW_SEGMENT_STEPS = 512
+# A walk too short for NARROW_MIN_SEGMENTS segments of that length takes
+# shorter ones, halving down to NARROW_MIN_STEPS: a warp takes its steps
+# one after another, so on a small matrix a few long segments leave the
+# card idle while each warp waits on its gathers in turn.
+NARROW_MIN_SEGMENTS = 2048
+NARROW_MIN_STEPS = 32
+
+# The widest S that takes the narrow entry, by dtype; wider S takes the
+# wide one. On an H100 (tools/narrow_sweep.py, PERF.md) the narrow entry
+# was the faster at every width up to 32 in f32 and f64, on path A's graph
+# and on Sensor(2**20); at 48 f32 and at 64 f64 the wide one was, and at
+# 64 f32 the two were within 3 %. The narrow entry takes at most 128 f32
+# or 64 f64 columns (32 lanes of 16 bytes).
+NARROW_WIDTH = {torch.float32: 32, torch.float64: 32}
+NARROW_MAX = {torch.float32: 128, torch.float64: 64}
 
 
 def csr_spmm_plain(rowptr, cols, vals, x):
@@ -39,28 +78,68 @@ def csr_spmm_plain(rowptr, cols, vals, x):
     return y.index_add_(0, rows, contrib)
 
 
-def n_segments(n_steps: int) -> int:
-    """Segments a walk of ``n_steps`` steps is cut into (at least one)."""
-    return max(1, -(-n_steps // SEGMENT_STEPS))
+def n_segments(n_steps: int, steps: int | None = None) -> int:
+    """Segments a walk of ``n_steps`` steps is cut into (at least one),
+    ``steps`` (default :data:`SEGMENT_STEPS`) a segment."""
+    return max(1, -(-n_steps // (steps or SEGMENT_STEPS)))
 
 
-def csr_segments(rowptr, n_edges: int):
+def csr_segments(rowptr, n_edges: int, steps: int | None = None):
     """Where each segment of the kernel's walk starts, int32
     ``(2, n_seg)``: ``[0, w]`` the row in progress (its end not yet
-    taken) and ``[1, w]`` the next edge, after ``d = w · SEGMENT_STEPS``
-    steps. Row r's end is step ``rowptr[r+1] + r`` of the walk, so the row
-    is the count of row ends before ``d``, one ``torch.searchsorted``, and
-    the edge ``d`` less that. ``n_edges``, the length of the (padded) edge
-    arrays, bounds ``rowptr[-1]`` on the host, so the table needs no
-    device-to-host copy; segments past the walk's end start at row
-    ``n_rows``."""
+    taken) and ``[1, w]`` the next edge, after ``d = w · steps`` steps
+    (default :data:`SEGMENT_STEPS`). Row r's end is step
+    ``rowptr[r+1] + r`` of the walk, so the row is the count of row ends
+    before ``d``, one ``torch.searchsorted``, and the edge ``d`` less
+    that. ``n_edges``, the length of the (padded) edge arrays, bounds
+    ``rowptr[-1]`` on the host, so the table needs no device-to-host copy;
+    segments past the walk's end start at row ``n_rows``."""
+    steps = steps or SEGMENT_STEPS
     n_rows = rowptr.shape[0] - 1
     ends = rowptr[1:] + torch.arange(n_rows, dtype=torch.int32,
                                      device=rowptr.device)
-    d = torch.arange(n_segments(n_rows + n_edges), dtype=torch.int32,
-                     device=rowptr.device) * SEGMENT_STEPS
+    d = torch.arange(n_segments(n_rows + n_edges, steps), dtype=torch.int32,
+                     device=rowptr.device) * steps
     row = torch.searchsorted(ends, d, out_int32=True)
     return torch.stack([row, d - row])
+
+
+def segment_table(rowptr, n_edges: int, steps: int):
+    """``(seg, join)``: :func:`csr_segments` of ``rowptr`` at ``steps`` a
+    segment, and whether any row is in progress, with edges before it, at
+    a segment's start (so that the join kernel has work). Kept on the
+    ``rowptr`` tensor by ``(steps, n_edges)`` with the tensor's version
+    counter: another tensor has its own, and an in-place change of this
+    one (which bumps its version counter) makes it anew. Making it reads
+    ``join`` back to the host once."""
+    tables = rowptr.__dict__.setdefault('_csr_segment_tables', {})
+    version, seg, join = tables.get((steps, n_edges), (None, None, None))
+    if version != rowptr._version:
+        seg = csr_segments(rowptr, n_edges, steps)
+        row, edge = seg[0, 1:], seg[1, 1:]
+        inside = row < rowptr.shape[0] - 1
+        begun = rowptr[torch.where(inside, row, 0).long()] < edge
+        join = bool((inside & begun).any())
+        tables[(steps, n_edges)] = (rowptr._version, seg, join)
+    return seg, join
+
+
+def narrow_steps(n_steps: int) -> int:
+    """The narrow entry's segment length for a walk of ``n_steps`` steps:
+    :data:`NARROW_SEGMENT_STEPS`, halved while that makes fewer than
+    :data:`NARROW_MIN_SEGMENTS` segments, down to
+    :data:`NARROW_MIN_STEPS`."""
+    steps = NARROW_SEGMENT_STEPS
+    while (steps > NARROW_MIN_STEPS
+           and n_steps < steps * NARROW_MIN_SEGMENTS):
+        steps //= 2
+    return steps
+
+
+def entry_for(s: int, dtype) -> str:
+    """The kernel entry :func:`csr_spmm` takes for S columns of ``dtype``:
+    ``'narrow'`` up to :data:`NARROW_WIDTH`, else ``'wide'``."""
+    return 'narrow' if 0 < s <= NARROW_WIDTH[dtype] else 'wide'
 
 
 def _check(rowptr, cols, vals, x):
@@ -81,13 +160,17 @@ def _check(rowptr, cols, vals, x):
             raise ValueError('all operands must be contiguous')
 
 
-def csr_spmm(rowptr, cols, vals, x):
+def csr_spmm(rowptr, cols, vals, x, *, entry=None):
     """``y = A @ x`` for a CSR ``A`` given by ``rowptr`` (n_rows + 1,),
     ``cols`` and ``vals`` (E_pad,), and x (n_cols, S). Returns (n_rows, S).
+    ``entry`` (``'narrow'`` or ``'wide'``) overrides :func:`entry_for`'s
+    choice of the kernel's entry on the card (for measurements and tests).
 
     Indices must lie inside x: :func:`pygsp_tpu_torch.core.sparse.from_coo`
     checks them when the matrix is built."""
     _check(rowptr, cols, vals, x)
+    if entry not in (None, 'narrow', 'wide'):
+        raise ValueError(f'entry must be None, narrow or wide, not {entry!r}')
     if x.device.type == 'cpu':
         return csr_spmm_plain(rowptr, cols, vals, x)
     if x.device.type != 'cuda':
@@ -97,15 +180,28 @@ def csr_spmm(rowptr, cols, vals, x):
     y = torch.empty((n_rows, s), dtype=x.dtype, device=x.device)
     if n_rows == 0 or s == 0:
         return y
-    seg = csr_segments(rowptr, cols.shape[0])
+    entry = entry or entry_for(s, x.dtype)
+    if entry == 'narrow' and s > NARROW_MAX[x.dtype]:
+        raise ValueError(f'the narrow entry takes at most '
+                         f'{NARROW_MAX[x.dtype]} columns of {x.dtype}, '
+                         f'not {s}')
+    narrow = entry == 'narrow'
+    seg, join = segment_table(
+        rowptr, cols.shape[0],
+        narrow_steps(n_rows + cols.shape[0]) if narrow else SEGMENT_STEPS)
     n_seg = seg.shape[1]
     # per segment, the partial sums of its first row (when that row began
     # in an earlier segment) and of its last row (when it goes on past it)
     partials = torch.empty((2 * n_seg, s), dtype=x.dtype, device=x.device)
-    _cuda.launch('csr_spmm', _SYMBOLS[x.dtype], 7, 3, x.get_device(),
-                 rowptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), seg.data_ptr(),
-                 partials.data_ptr(), n_rows, s, n_seg)
+    args = (rowptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            x.data_ptr(), y.data_ptr(), seg.data_ptr(), partials.data_ptr(),
+            n_rows, s, n_seg)
+    if narrow:
+        _cuda.launch('csr_spmm', _NARROW_SYMBOLS[x.dtype], 7, 4,
+                     x.get_device(), *args, int(join))
+    else:
+        _cuda.launch('csr_spmm', _SYMBOLS[x.dtype], 7, 3, x.get_device(),
+                     *args)
     csr_spmm.launches += 1
     return y
 

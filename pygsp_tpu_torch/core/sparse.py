@@ -87,6 +87,10 @@ class CSRMatrix:
         return (self.n_rows, self.n_cols)
 
     @property
+    def n_edges_padded(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
     def dtype(self):
         return self.vals.dtype
 
@@ -131,11 +135,15 @@ class CSRMatrix:
 # ---------------------------------------------------------------------------
 
 def from_coo(rows, cols, vals, n_rows: int, n_cols: int | None = None,
-             *, dtype=None, device='cuda') -> CSRMatrix:
+             *, dtype=None, sum_duplicates: bool = True,
+             edge_block: int = EDGE_BLOCK, device='cuda') -> CSRMatrix:
     """Build a padded CSRMatrix from host COO triplets.
 
-    Explicit zeros are dropped, duplicates summed, and the triplets sorted
-    by row then column. ``dtype`` defaults to float32.
+    Explicit zeros are dropped and the triplets sorted by row then column.
+    With ``sum_duplicates`` (the default) entries at one place are summed
+    into one; without it they stay separate stored entries, in their input
+    order, as in the JAX package. The edge arrays are padded to a multiple
+    of ``edge_block``. ``dtype`` defaults to float32.
     """
     if n_cols is None:
         n_cols = n_rows
@@ -152,7 +160,7 @@ def from_coo(rows, cols, vals, n_rows: int, n_cols: int | None = None,
     keep = vals != 0
     rows, cols, vals = rows[keep], cols[keep], vals[keep]
 
-    if rows.size:
+    if sum_duplicates and rows.size:
         key = rows * n_cols + cols
         order = np.argsort(key, kind='stable')
         key, rows, cols, vals = key[order], rows[order], cols[order], vals[order]
@@ -163,13 +171,18 @@ def from_coo(rows, cols, vals, n_rows: int, n_cols: int | None = None,
             rows = uniq // n_cols
             cols = uniq % n_cols
             vals = summed
+    elif rows.size:
+        order = np.lexsort((cols, rows))
+        rows, cols, vals = rows[order], cols[order], vals[order]
 
-    return _pad_and_build(rows, cols, vals, n_rows, n_cols, device)
+    return _pad_and_build(rows, cols, vals, n_rows, n_cols, edge_block,
+                          device)
 
 
-def _pad_and_build(rows, cols, vals, n_rows, n_cols, device) -> CSRMatrix:
+def _pad_and_build(rows, cols, vals, n_rows, n_cols, edge_block,
+                   device) -> CSRMatrix:
     nnz = int(rows.size)
-    e_pad = max(_round_up(nnz, EDGE_BLOCK), EDGE_BLOCK)
+    e_pad = max(_round_up(nnz, edge_block), edge_block)
     pad = e_pad - nnz
     rows_p = np.concatenate([rows, np.full(pad, n_rows, dtype=np.int64)])
     cols_p = np.concatenate([cols, np.full(pad, n_cols, dtype=np.int64)])
@@ -188,18 +201,21 @@ def _pad_and_build(rows, cols, vals, n_rows, n_cols, device) -> CSRMatrix:
     )
 
 
-def from_scipy(mat, *, dtype=None, device='cuda') -> CSRMatrix:
+def from_scipy(mat, *, dtype=None, edge_block: int = EDGE_BLOCK,
+               device='cuda') -> CSRMatrix:
     """Build from any scipy.sparse matrix."""
     coo = mat.tocoo()
     return from_coo(coo.row, coo.col, coo.data, coo.shape[0], coo.shape[1],
-                    dtype=dtype, device=device)
+                    dtype=dtype, sum_duplicates=True, edge_block=edge_block,
+                    device=device)
 
 
-def from_dense(arr, *, dtype=None, device='cuda') -> CSRMatrix:
+def from_dense(arr, *, dtype=None, edge_block: int = EDGE_BLOCK,
+               device='cuda') -> CSRMatrix:
     arr = np.asarray(arr)
     rows, cols = np.nonzero(arr)
     return from_coo(rows, cols, arr[rows, cols], arr.shape[0], arr.shape[1],
-                    dtype=dtype, device=device)
+                    dtype=dtype, edge_block=edge_block, device=device)
 
 
 def to_scipy(mat):
@@ -253,7 +269,7 @@ def to_dense(mat) -> torch.Tensor:
 # SpMM dispatch
 # ---------------------------------------------------------------------------
 
-def spmm(mat, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+def spmm(mat, x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` for x of shape (n_cols,) or (n_cols, ...).
 
     CSR goes to the CSR SpMM kernel, ELL to the ELL SpMM kernel, banded to
@@ -367,7 +383,7 @@ class ELLMatrix:
         return ell_spmm(self, x)
 
 
-def ell_spmm(mat: ELLMatrix, x, out_dtype=None) -> torch.Tensor:
+def ell_spmm(mat: ELLMatrix, x, *, out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` for the multi-level ELL format, x (n_cols,) or
     (n_cols, ...): one launch of the ELL SpMM kernel
     (:func:`~pygsp_tpu_torch.core.ell_kernel.ell_spmm`), which sums each
@@ -564,6 +580,15 @@ class BandedMatrix:
 
     def __matmul__(self, x):
         return spmm(self, x)
+
+
+def banded_spmm(mat: BandedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` for the block-banded format (the banded SpMM kernel,
+    :func:`spmm`)."""
+    if not isinstance(mat, BandedMatrix):
+        raise TypeError(f'banded_spmm takes a BandedMatrix, not '
+                        f'{type(mat).__name__}')
+    return spmm(mat, x)
 
 
 def banded_from_scipy(mat, *, dtype=None, max_half_bw: int = 16,

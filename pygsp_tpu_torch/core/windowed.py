@@ -213,7 +213,8 @@ def windowed_spmm_chunks(mat: WindowedELLMatrix, x_chunks,
                         mat.chunk_rows)
 
 
-def windowed_spmm(mat: WindowedELLMatrix, x, out_dtype=None) -> torch.Tensor:
+def windowed_spmm(mat: WindowedELLMatrix, x, *,
+                  out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` for x of shape (n_cols,) or (n_cols, ...), in the
     original vertex order (``out_dtype``: see :func:`spmm_internal`).
     Iterative callers (``cheby_op``, Lanczos) hoist the two permutes out of

@@ -38,11 +38,24 @@
 // __fadd_rn and __fsub_rn (__d*_rn in f64): no contraction to FMA, each
 // operation rounded as the plain PyTorch version's single operations round,
 // so kernel and plain version are bit-equal; a bf16 carry is stored by
-// round-to-nearest-even, as .to(torch.bfloat16) does. (b) keeps up to
-// kFilters sums per value in registers and walks the g terms once, in
-// order, so that each filter's sum runs j = 0..g-1 left to right and the
-// accumulator is added last, as in pygsp_tpu/ops/chebyshev.py:331-334. The
-// terms are a ring of (N, S) buffers (core/cheby_kernel.py): the group is g
+// round-to-nearest-even, as .to(torch.bfloat16) does. (b) loads the packs
+// of its group's g terms into registers once (g <= kGroup = 14, the group
+// rule's cap; the g loads issued together), then takes the filters
+// kFilters at a time, their accumulator packs loaded together, so that a
+// group's terms are read once whatever Nf is; each filter's sum runs
+// j = 0..g-1 left to right and the accumulator is added last, as in
+// pygsp_tpu/ops/chebyshev.py:331-334. The coefficients cg (g x Nf, 1400 at
+// Nf = 100) are copied to shared memory once a block. Before, the filters
+// were passes of four outside the loop over the terms, which read them
+// ceil(Nf / 4) times; that loop stays for a group of more than 14 terms,
+// which only the tests' override of the group rule gives. Registers
+// (nvcc -Xptxas -v, sm_90a): 126 in f32 and f64, 201 with bf16 terms (one
+// block an SM), no spills. On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py; before in brackets): Nf = 100, g = 14 at (2048, 2048)
+// 1.270 ms [2.989] against a 1.072 ms bound and addmm_'s 1.601; Nf = 6,
+// g = 13 at path A's (2^20, 128) 4.309 [6.392], bound 4.006; Nf = 4,
+// g = 14 there 3.762 [4.111], bound 3.526; with bf16 terms 3.032 [3.337],
+// bound 2.404. The terms are a ring of (N, S) buffers (core/cheby_kernel.py): the group is g
 // consecutive entries from `start`, wrapping, so the recurrence writes each
 // term where it will be accumulated from and never copies one.
 //
@@ -77,7 +90,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kFilters = 4;  // accumulators a pass of (b) keeps in registers
+constexpr int kFilters = 4;  // accumulators (b) loads and stores together
+constexpr int kGroup = 14;   // terms (b) keeps in registers: the group
+                             // rule's cap (ops/chebyshev.py:_MAX_GROUP)
+constexpr size_t kGroupSharedBytes = 48 * 1024;  // cg in shared memory
 constexpr int kDotThreads = 128;
 constexpr int kDotTerms = 14;  // terms a pass of (d) keeps sums for
 constexpr int kDotBlocksPerSM = 3;  // (d)'s blocks an SM holds, at most
@@ -169,13 +185,77 @@ cheby_step_kernel(const C* __restrict__ y, const C* __restrict__ t,
   }
 }
 
-// (b) the g terms of a group, entries start .. start + g - 1 (mod slots) of
-// the ring, read once per pass of up to kFilters accumulators.
-template <typename M, typename C, int V>
+// (b) a group of up to NT terms, entries start .. start + g - 1 (mod
+// slots) of the ring: a thread loads the g packs of its terms once, all
+// issued before the first product, then takes the filters kFilters at a
+// time (their accumulator packs loaded together), each filter's sum
+// running j = 0..g-1 left to right and the accumulator added last. cg
+// (g, nf) is copied to shared memory once a block where it fits
+// (cg_shared), else read where it lies, one address for all threads. A
+// group of one term (the recurrence's first terms) runs the instance with
+// NT = 1, whose few registers let more blocks share an SM.
+template <typename M, typename C, int V, int NT>
 __global__ void __launch_bounds__(kThreads)
 cheby_acc_group_kernel(M* __restrict__ acc, const C* __restrict__ ring,
                        const M* __restrict__ cg, long long n, int slots,
-                       int start, int g, int nf) {
+                       int start, int g, int nf, bool cg_shared) {
+  using A = Arith<M>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  M* cg_s = reinterpret_cast<M*>(smem);
+  if (cg_shared) {
+    for (int k = threadIdx.x; k < g * nf; k += blockDim.x) cg_s[k] = cg[k];
+    __syncthreads();
+  }
+  const M* c_gf = cg_shared ? cg_s : cg;
+  const long long packs = n / V;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < packs; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    Pack<C, V> pt[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < g) {
+        const int slot = start + j < slots ? start + j : start + j - slots;
+        pt[j] = load<C, V>(ring + static_cast<long long>(slot) * n, i);
+      }
+    }
+    for (int f0 = 0; f0 < nf; f0 += kFilters) {
+      const int nff = min(kFilters, nf - f0);
+      Pack<M, V> pa[kFilters];
+#pragma unroll
+      for (int ff = 0; ff < kFilters; ++ff)
+        if (ff < nff) pa[ff] = load<M, V>(acc + (f0 + ff) * n, i);
+#pragma unroll
+      for (int ff = 0; ff < kFilters; ++ff) {
+        if (ff >= nff) break;
+        M sum[V];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j < g) {
+            const M c = c_gf[j * nf + f0 + ff];
+#pragma unroll
+            for (int u = 0; u < V; ++u) {
+              const M p = A::mul(c, widen(pt[j].v[u]));
+              sum[u] = j == 0 ? p : A::add(sum[u], p);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < V; ++u) pa[ff].v[u] = A::add(pa[ff].v[u], sum[u]);
+        store<M, V>(acc + (f0 + ff) * n, i, pa[ff]);
+      }
+    }
+  }
+}
+
+// (b) for a group of more than kGroup terms (only from the tests' override
+// of the group rule, PYGSP_CHEBY_ACC_GROUP): the terms are read once per
+// pass of up to kFilters accumulators.
+template <typename M, typename C, int V>
+__global__ void __launch_bounds__(kThreads)
+cheby_acc_group_passes_kernel(M* __restrict__ acc, const C* __restrict__ ring,
+                              const M* __restrict__ cg, long long n,
+                              int slots, int start, int g, int nf) {
   using A = Arith<M>;
   const long long packs = n / V;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -354,24 +434,40 @@ int launch_step(const void* y, const void* t, const void* t_old,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename M, typename C, int V>
+void group_instance(void* acc, const void* ring, const void* cg, long long n,
+                    int slots, int start, int g, int nf, cudaStream_t st) {
+  const unsigned blocks = blocks_for(n / V);
+  if (g > kGroup) {
+    cheby_acc_group_passes_kernel<M, C, V><<<blocks, kThreads, 0, st>>>(
+        static_cast<M*>(acc), static_cast<const C*>(ring),
+        static_cast<const M*>(cg), n, slots, start, g, nf);
+    return;
+  }
+  const size_t cg_bytes = sizeof(M) * g * nf;
+  const bool cg_shared = cg_bytes <= kGroupSharedBytes;
+  const auto kernel = g == 1 ? cheby_acc_group_kernel<M, C, V, 1>
+                             : cheby_acc_group_kernel<M, C, V, kGroup>;
+  kernel<<<blocks, kThreads, cg_shared ? cg_bytes : 0, st>>>(
+      static_cast<M*>(acc), static_cast<const C*>(ring),
+      static_cast<const M*>(cg), n, slots, start, g, nf, cg_shared);
+}
+
 template <typename M, typename C>
 int launch_group(void* acc, const void* ring, const void* cg, int n_rows,
                  int s, int slots, int start, int g, int nf, void* stream) {
   constexpr int V = 16 / sizeof(C);
   const long long n = static_cast<long long>(n_rows) * s;
   if (n == 0 || g == 0 || nf == 0) return 0;
-  if (slots < g || start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (slots < g || start < 0 || start >= slots)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = n % V == 0 && aligned(ring, 16) &&
                    aligned(acc, V * sizeof(M));
   const auto st = static_cast<cudaStream_t>(stream);
   if (vec)
-    cheby_acc_group_kernel<M, C, V><<<blocks_for(n / V), kThreads, 0, st>>>(
-        static_cast<M*>(acc), static_cast<const C*>(ring),
-        static_cast<const M*>(cg), n, slots, start, g, nf);
+    group_instance<M, C, V>(acc, ring, cg, n, slots, start, g, nf, st);
   else
-    cheby_acc_group_kernel<M, C, 1><<<blocks_for(n), kThreads, 0, st>>>(
-        static_cast<M*>(acc), static_cast<const C*>(ring),
-        static_cast<const M*>(cg), n, slots, start, g, nf);
+    group_instance<M, C, 1>(acc, ring, cg, n, slots, start, g, nf, st);
   return static_cast<int>(cudaGetLastError());
 }
 

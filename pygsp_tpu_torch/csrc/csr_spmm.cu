@@ -43,6 +43,38 @@
 // one-warp-per-row kernel before it, 1.18 ms of which was the tail of the
 // 54 hub rows. Registers (nvcc -Xptxas -v, sm_90a): 80 in f32 with 12
 // bytes of spill, 91 in f64 with none.
+//
+// The narrow entry (csr_narrow_kernel, csr_spmm_narrow_f32/_f64), which
+// core/csr_kernel.py takes up to 32 columns (NARROW_WIDTH). What bounds
+// it: at S <= 8 in f32 x is at most 32 MB at 2^20 vertices and stays in
+// the 50 MB L2, so the least time is the CSR's own bytes (cols, vals,
+// rowptr) and y: 0.044 ms at path A's 16.8M stored entries, 0.021 ms at
+// Sensor(2^20)'s 7.4M. The wide entry leaves 31 of a warp's 32 lanes idle
+// at one column and walks its edges one at a time (1.21 ms at one column
+// on path A). Design: the same walk, segments, destinations and join as
+// above, the lanes over edges. A group of L = next_pow2(ceil(S / V))
+// lanes takes one edge, V values a lane (up to 16 bytes), so a warp takes
+// 32 / L edges a step with one coalesced load of cols and vals and as many
+// gathers in flight; each lane finds its edge's row among the next 32 row
+// ends, which the warp holds one a lane, by a binary search of shuffles,
+// and the groups add their products by row in a segmented scan across the
+// warp. So a row sums in a fixed order (the scan's tree within a step, the
+// carried sum of the earlier steps first, the join in segment order): two
+// launches are bit-equal, with no atomics. The wrapper's segments are 512
+// steps (shorter on small matrices, so that enough warps run), the table
+// kept on rowptr, and it skips the join where no row crosses a segment.
+// Registers (nvcc -Xptxas -v, sm_90a): 32-40 in f32, 32-44 in f64, no
+// spills. On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): at one
+// column 0.181 ms on path A's graph (torch.sparse.mm 0.169) and 0.091 on
+// Sensor(2^20) (0.082), against 1.262 and 0.640 for the wide entry; at 8
+// columns 0.314 and 0.175 (library 1.191 and 0.643); at 32 columns 0.887
+// on path A (wide 1.502). At one column it is 4x its byte bound and 1.07x
+// the library's device time: a warp's steps wait on their gathers and
+// shuffles in turn. A variant that found the rows from a mask of row
+// starts (one __reduce_or_sync) instead of the binary search was no faster
+// at one column and 12 % slower at 8 (tools/kernel_ab.py).
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -237,6 +269,181 @@ csr_join_kernel(const int* __restrict__ rowptr, T* __restrict__ y,
   }
 }
 
+// The narrow entry's share of a row for one lane: V values of T, loaded or
+// stored as one aligned access where rows are whole packs (vec), else as
+// masked scalars.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void load_pack(const T* p, int c0, int s,
+                                          bool vec, T (&v)[V]) {
+  if (vec && c0 < s) {
+    const Pack<T, V> u = *reinterpret_cast<const Pack<T, V>*>(p + c0);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = u.v[i];
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i] = c0 + i < s ? __ldg(p + c0 + i) : T(0);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_pack(T* p, int c0, int s, bool vec,
+                                           const T (&v)[V]) {
+  if (vec) {
+    if (c0 < s) {
+      Pack<T, V> u;
+#pragma unroll
+      for (int i = 0; i < V; ++i) u.v[i] = v[i];
+      *reinterpret_cast<Pack<T, V>*>(p + c0) = u;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    if (c0 + i < s) p[c0 + i] = v[i];
+}
+
+// The narrow entry: one warp per segment, as csr_segment_kernel, with the
+// same destinations (y, or the partials that csr_join_kernel adds), but
+// its lanes over edges. A group of L lanes takes one edge, each lane V of
+// its columns (V * L >= s), so a step takes the G = 32 / L edges
+// c .. c + G - 1. A lane finds its edge's row among the next 32 row ends,
+// rowptr[rb + 1 ..], held one a lane (a binary search by __shfl_sync); the
+// groups then add their products by row, a segmented inclusive scan over
+// the groups (Kogge-Stone, by __shfl_up_sync), so the group that holds a
+// row's last edge of the step has the row's sum over the step. The row in
+// progress at the end of a step is carried into the next, whose first run
+// adds it first. A step is cut short where the 32 row ends held do not
+// reach its last edge (runs of empty rows): the window then moves on. The
+// next step's cols and vals are loaded before this step's products.
+template <typename T, int V, int L>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+csr_narrow_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
+                  const T* __restrict__ vals, const T* __restrict__ x,
+                  T* __restrict__ y, const int* __restrict__ seg,
+                  T* __restrict__ partials, int n_rows, int s, int n_seg,
+                  bool vec) {
+  constexpr int G = 32 / L;
+  const int lane = threadIdx.x & 31;
+  const int q = lane / L;       // the lane's group: edge c + q of a step
+  const int c0 = (lane % L) * V;  // the lane's first column
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (w >= n_seg) return;  // uniform across the warp
+  const int r_begin = seg[w];
+  if (r_begin >= n_rows) return;  // past the end of the walk
+  const int nnz = rowptr[n_rows];
+  const int e0 = min(seg[n_seg + w], nnz);
+  const bool last = w + 1 == n_seg;
+  const int r_stop = last ? n_rows : seg[w + 1];
+  const int e1 = last ? nnz : min(seg[n_seg + w + 1], nnz);
+  const bool begun = rowptr[r_begin] < e0;  // r_begin began before e0
+  // where row r's sum over this segment goes (csr_segment_kernel's flush)
+  auto dst = [&](int r) {
+    return r == r_begin && begun ? partials + static_cast<size_t>(w) * s
+           : r < r_stop          ? y + static_cast<size_t>(r) * s
+                          : partials + static_cast<size_t>(n_seg + w) * s;
+  };
+
+  // rows that end here with no edge in [e0, e1): empty rows, and r_begin
+  // when its last edge lies in an earlier segment
+  for (int r = r_begin + lane; r < r_stop; r += 32) {
+    if (rowptr[r + 1] <= max(rowptr[r], e0)) {
+      T* d = dst(r);
+      for (int c = 0; c < s; ++c) d[c] = T(0);
+    }
+  }
+
+  // lane k holds the end of row rb + k, rowptr[rb + 1 + k]
+  int rb = r_begin;
+  auto window = [&](int base) {
+    const int i = base + 1 + lane;
+    return i <= n_rows ? rowptr[i] : INT_MAX;
+  };
+  int end = window(rb);
+  T carry[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) carry[i] = T(0);
+  int cur = -1;  // the row whose sum so far `carry` holds, or -1
+  int c = e0;
+  int col = 0;
+  T val = T(0);
+  if (c + q < e1) {
+    col = cols[c + q];
+    val = vals[c + q];
+  }
+  while (c < e1) {
+    int e_last = __shfl_sync(kFull, end, 31);
+    while (e_last - c < min(G, e1 - c)) {
+      const int done = __popc(__ballot_sync(kFull, end <= c));
+      if (done == 0) break;  // the window starts at edge c's row
+      rb += done;
+      end = window(rb);
+      e_last = __shfl_sync(kFull, end, 31);
+    }
+    const int n = min(min(G, e1 - c), e_last - c);  // edges in this step
+    int col_next = 0;
+    T val_next = T(0);
+    if (c + n + q < e1) {
+      col_next = cols[c + n + q];
+      val_next = vals[c + n + q];
+    }
+    const bool live = q < n;
+    const int e = c + q;
+    T v[V];
+    if (live) {
+      load_pack<T, V>(x + static_cast<size_t>(col) * s, c0, s, vec, v);
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = val * v[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = T(0);
+    }
+    // the edge's row: rb + the number of held row ends at or before e
+    int j = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(kFull, end, j + step - 1) <= e) j += step;
+    const int row = rb + j;
+    const int row_end = __shfl_sync(kFull, end, j);
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1) {
+      const int r_up = __shfl_up_sync(kFull, row, off * L);
+      T u[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) u[i] = __shfl_up_sync(kFull, v[i], off * L);
+      if (q >= off && r_up == row) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = u[i] + v[i];
+      }
+    }
+    if (cur >= 0 && row == cur) {  // the step's first run goes on from cur
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = carry[i] + v[i];
+    }
+    const int row_below = __shfl_down_sync(kFull, row, L);
+    if (live && (q == n - 1 || row_below != row) && e + 1 == row_end &&
+        row < r_stop)
+      store_pack<T, V>(dst(row), c0, s, vec, v);
+    // the step's last run: ended, or carried into the next step
+    const int tail = (n - 1) * L;
+    const int row_tail = __shfl_sync(kFull, row, tail);
+    const int end_tail = __shfl_sync(kFull, row_end, tail);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      carry[i] = __shfl_sync(kFull, v[i], tail + lane % L);
+    cur = c + n == end_tail && row_tail < r_stop ? -1 : row_tail;
+    c += n;
+    col = col_next;
+    val = val_next;
+  }
+  // r_stop, begun here (or before) and going on past e1
+  if (cur >= 0 && q == 0) store_pack<T, V>(dst(cur), c0, s, vec, carry);
+}
+
 template <typename T>
 int launch(const void* rowptr, const void* cols, const void* vals,
            const void* x, void* y, const void* seg, void* partials,
@@ -264,6 +471,67 @@ int launch(const void* rowptr, const void* cols, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The narrow entry's instance for s columns: V values a lane (at most 16
+// bytes), L = next_pow2(ceil(s / V)) lanes an edge.
+template <typename T, int V, int L>
+void launch_narrow_instance(const void* rowptr, const void* cols,
+                            const void* vals, const void* x, void* y,
+                            const void* seg, void* partials, int n_rows,
+                            int s, int n_seg, bool vec, cudaStream_t st) {
+  csr_narrow_kernel<T, V, L><<<(n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                               32 * kWarpsPerBlock, 0, st>>>(
+      static_cast<const int*>(rowptr), static_cast<const int*>(cols),
+      static_cast<const T*>(vals), static_cast<const T*>(x),
+      static_cast<T*>(y), static_cast<const int*>(seg),
+      static_cast<T*>(partials), n_rows, s, n_seg, vec);
+}
+
+template <typename T>
+int launch_narrow(const void* rowptr, const void* cols, const void* vals,
+                  const void* x, void* y, const void* seg, void* partials,
+                  int n_rows, int s, int n_seg, int join, void* stream) {
+  constexpr int kV = 16 / sizeof(T);  // values of a 16-byte load
+  if (s < 1 || s > 32 * kV) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int v = s >= kV ? kV : (s > 2 ? 4 : s);  // min(kV, next_pow2(s))
+  const int lanes = (s + v - 1) / v;
+  const size_t pack = v * sizeof(T);
+  const bool vec = s % v == 0 && reinterpret_cast<size_t>(x) % pack == 0 &&
+                   reinterpret_cast<size_t>(y) % pack == 0 &&
+                   reinterpret_cast<size_t>(partials) % pack == 0;
+  const auto go = [&](auto instance) {
+    instance(rowptr, cols, vals, x, y, seg, partials, n_rows, s, n_seg, vec,
+             st);
+  };
+  if (v == 1)
+    go(launch_narrow_instance<T, 1, 1>);
+  else if (v < kV)  // f32 at s = 2
+    go(launch_narrow_instance<T, 2, 1>);
+  else if (lanes == 1)
+    go(launch_narrow_instance<T, kV, 1>);
+  else if (lanes == 2)
+    go(launch_narrow_instance<T, kV, 2>);
+  else if (lanes <= 4)
+    go(launch_narrow_instance<T, kV, 4>);
+  else if (lanes <= 8)
+    go(launch_narrow_instance<T, kV, 8>);
+  else if (lanes <= 16)
+    go(launch_narrow_instance<T, kV, 16>);
+  else
+    go(launch_narrow_instance<T, kV, 32>);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !join || n_seg < 2) return static_cast<int>(err);
+  const bool vec16 = reinterpret_cast<size_t>(y) % 16 == 0 &&
+                     reinterpret_cast<size_t>(partials) % 16 == 0 &&
+                     s * sizeof(T) % 16 == 0;
+  csr_join_kernel<T><<<(n_seg - 1 + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                       32 * kWarpsPerBlock, 0, st>>>(
+      static_cast<const int*>(rowptr), static_cast<T*>(y),
+      static_cast<const int*>(seg), static_cast<const T*>(partials), n_rows,
+      s, n_seg, vec16);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int csr_spmm_f32(const void* rowptr, const void* cols,
@@ -280,4 +548,22 @@ extern "C" int csr_spmm_f64(const void* rowptr, const void* cols,
                             int s, int n_seg, void* stream) {
   return launch<double>(rowptr, cols, vals, x, y, seg, partials, n_rows,
                         s, n_seg, stream);
+}
+
+extern "C" int csr_spmm_narrow_f32(const void* rowptr, const void* cols,
+                                   const void* vals, const void* x, void* y,
+                                   const void* seg, void* partials,
+                                   int n_rows, int s, int n_seg, int join,
+                                   void* stream) {
+  return launch_narrow<float>(rowptr, cols, vals, x, y, seg, partials,
+                              n_rows, s, n_seg, join, stream);
+}
+
+extern "C" int csr_spmm_narrow_f64(const void* rowptr, const void* cols,
+                                   const void* vals, const void* x, void* y,
+                                   const void* seg, void* partials,
+                                   int n_rows, int s, int n_seg, int join,
+                                   void* stream) {
+  return launch_narrow<double>(rowptr, cols, vals, x, y, seg, partials,
+                               n_rows, s, n_seg, join, stream);
 }

@@ -615,7 +615,9 @@ class _DifferenceOp:
         vals = np.stack([v_src, v_tgt], axis=1).reshape(-1).astype(np_dtype)
         rows = np.repeat(np.arange(self.n_edges), 2)
         self.DT = core_sparse._pad_and_build(rows, cols, vals, self.n_edges,
-                                             self.n_vertices, self.device)
+                                             self.n_vertices,
+                                             core_sparse.EDGE_BLOCK,
+                                             self.device)
         self.D = self.DT.T
 
     def grad(self, x):

@@ -12,6 +12,7 @@ from pygsp_tpu_torch.ops.eigen import (estimate_lmax_bounds,
                                        laplacian_upper_bound,
                                        partial_fourier_basis,
                                        power_iteration_lmax)
+from pygsp_tpu_torch.ops.lanczos import lanczos_basis, lanczos_op
 from pygsp_tpu_torch.ops.lobpcg import lobpcg_standard
 
 __all__ = [
@@ -22,5 +23,5 @@ __all__ = [
     'cheby_synthesis', 'jackson_cheby_coeff',
     'estimate_lmax_lanczos', 'estimate_lmax_bounds', 'fourier_basis',
     'laplacian_upper_bound', 'partial_fourier_basis', 'power_iteration_lmax',
-    'lobpcg_standard',
+    'lanczos_basis', 'lanczos_op', 'lobpcg_standard',
 ]

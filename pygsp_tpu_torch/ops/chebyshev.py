@@ -58,7 +58,7 @@ _MAX_GROUP = 14
 
 
 def cheby_coeff(evaluate, lmax, m: int = 30, grid_n: int | None = None,
-                dtype=None, device='cuda'):
+                dtype=None, *, device='cuda'):
     """Chebyshev–Gauss quadrature coefficients of a filter bank.
 
     Parameters
@@ -495,8 +495,8 @@ def cheby_rect(L: LaplacianOp, lmax, bounds, x: torch.Tensor,
     return acc
 
 
-def jackson_cheby_coeff(filter_bounds, delta_lambda, m: int, dtype=None,
-                        device='cuda'):
+def jackson_cheby_coeff(filter_bounds, delta_lambda, m: int, *,
+                        dtype=None, device='cuda'):
     """Jackson-damped Chebyshev coefficients of an ideal band-pass between
     the two ``filter_bounds`` within the spectrum ``delta_lambda = [λmin,
     λmax]``. Returns ``(ch, jch)``, the raw and damped coefficient vectors

@@ -131,6 +131,12 @@ def partial_fourier_basis(L: LaplacianOp, k: int, *, maxiter: int = 3000,
     27)`` needs 612 iterations at k = 4 and a 16384-vertex ``Sensor`` graph
     1356 at k = 3, where 300 leave its eigenvalues 7e-3 and 7e-2 off.
 
+    A float32 operator is solved as a float64 copy on its device, and
+    ``(e, U)`` cast back to float32: LOBPCG's stopping rule (a residual
+    under eps · 10 · n of the eigenvalue's scale) holds at the first
+    iteration in float32 once n is a few thousand, and the JAX package,
+    which keeps float32, returns eigenpairs far off there.
+
     Examples
     --------
     >>> import torch
@@ -143,6 +149,10 @@ def partial_fourier_basis(L: LaplacianOp, k: int, *, maxiter: int = 3000,
     n = L.n_vertices
     if not 1 <= k or 5 * k >= n:
         raise ValueError(f'need 1 <= k and 5k < n, got k={k}, n={n}')
+    if L.dtype == torch.float32:
+        e, U = partial_fourier_basis(L.astype(torch.float64), k,
+                                     maxiter=maxiter, tol=tol, seed=seed)
+        return e.float(), U.float()
     c = laplacian_upper_bound(L) * 1.01
 
     def B(x):

@@ -124,6 +124,60 @@ def test_csr_kernel_star_row_spans_segments(cuda, dtype, s):
     assert torch.equal(y, csr_kernel.csr_spmm(*args))
 
 
+def _narrow_case(dtype, device):
+    """Empty rows (among them the first and last, and a run of 40), a hub
+    row of 3,000 edges, and entries kept as duplicates
+    (``sum_duplicates=False``) that the kernel must sum like any others."""
+    rng = np.random.default_rng(31)
+    A = sps.random(5000, 4000, density=0.002, random_state=rng, format='lil')
+    A[0] = A[4999] = 0
+    A[100:140] = 0
+    A[7, :3000] = rng.normal(size=3000)
+    A = A.tocoo()
+    dup = rng.choice(A.nnz, 500, replace=False)
+    rows = np.concatenate([A.row, A.row[dup]])
+    cols = np.concatenate([A.col, A.col[dup]])
+    vals = np.concatenate([A.data, rng.normal(size=500)])
+    M = tsp.from_coo(rows, cols, vals, 5000, 4000, sum_duplicates=False,
+                     dtype=dtype, device=device)
+    assert M.nnz == A.nnz + 500
+    return M
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('s', [1, 2, 3, 5, 8, 16, 17])
+def test_csr_narrow_entry_matches_plain(cuda, dtype, s):
+    """The narrow entry (lanes over edges) against the plain version in
+    float64, two launches bit-equal, empty rows 0; and the wrapper's
+    choice by width launching it up to NARROW_WIDTH."""
+    M = _narrow_case(dtype, cuda)
+    x = _signal((4000, s), dtype, 32, cuda)
+    args = (M.rowptr, M.cols, M.vals, x)
+    y = csr_kernel.csr_spmm(*args, entry='narrow')
+    want = csr_kernel.csr_spmm_plain(M.rowptr, M.cols, M.vals.double(),
+                                     x.double())
+    assert y.shape == (5000, s) and y.dtype == dtype
+    assert _rel_err(y.double(), want) <= TOL[dtype]
+    for r in (0, 4999, 100, 139):
+        assert float(y[r].abs().max()) == 0.0
+    assert torch.equal(y, csr_kernel.csr_spmm(*args, entry='narrow'))
+    symbols = []
+    launch = _cuda.launch
+
+    def spy(name, symbol, *rest):
+        symbols.append(symbol)
+        return launch(name, symbol, *rest)
+
+    _cuda.launch = spy
+    try:
+        csr_kernel.csr_spmm(*args)
+    finally:
+        _cuda.launch = launch
+    narrow = s <= csr_kernel.NARROW_WIDTH[dtype]
+    assert symbols == [('csr_spmm_narrow_' if narrow else 'csr_spmm_')
+                       + ('f32' if dtype == torch.float32 else 'f64')]
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_csr_kernel_hub_rows_among_empty_rows(cuda, dtype):
     """Three rows of 3,000 edges among 200,000 empty rows: the kernel's
@@ -661,6 +715,31 @@ def test_cheby_acc_group_is_bit_equal_to_plain(cuda, md, cd, n, s, nf, g,
     assert cheby_kernel.cheby_acc_group.launches == before + 1
     cheby_kernel.cheby_acc_group_plain(acc_plain, ring, cg, start)
     assert torch.equal(acc, acc_plain)
+
+
+@pytest.mark.parametrize('md,cd', CHEBY_TYPES)
+@pytest.mark.parametrize('nf', [1, 4, 5, 6, 100, 500])
+@pytest.mark.parametrize('g', [1, 13, 14])
+def test_cheby_acc_group_any_filter_count_is_bit_equal(cuda, md, cd, nf, g):
+    """The group's one pass over its terms for any Nf (the filters taken
+    four at a time), bit-equal to the plain version; and a group above
+    the kernel's 14 terms (the tests' override of the group rule), which
+    takes the passes of four filters."""
+    n, s = 513, 12
+    ring = _signal((g + 2, n, s), torch.float32, 23, cuda).to(cd)
+    acc = _signal((nf, n, s), md, 24, cuda)
+    cg = _signal((g, nf), md, 25, cuda)
+    acc_plain = acc.clone()
+    cheby_kernel.cheby_acc_group(acc, ring, cg, g + 1)
+    cheby_kernel.cheby_acc_group_plain(acc_plain, ring, cg, g + 1)
+    assert torch.equal(acc, acc_plain)
+    if g == 14:
+        ring = _signal((20, n, s), torch.float32, 26, cuda).to(cd)
+        cg = _signal((17, nf), md, 27, cuda)
+        acc_plain = acc.clone()
+        cheby_kernel.cheby_acc_group(acc, ring, cg, 5)
+        cheby_kernel.cheby_acc_group_plain(acc_plain, ring, cg, 5)
+        assert torch.equal(acc, acc_plain)
 
 
 @pytest.mark.parametrize('md,cd', CHEBY_TYPES)

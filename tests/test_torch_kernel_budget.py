@@ -375,3 +375,187 @@ def test_csr_kernel_walk_writes_every_row_once(monkeypatch, case, seg_steps):
     want = A @ x
     assert np.allclose(y, want, rtol=0,
                        atol=1e-12 * max(1.0, np.abs(want).max()))
+
+
+def _narrow_lanes(s):
+    """The narrow entry's lanes an edge for S columns of float64 (V = 2
+    values a lane at most): ``next_pow2(ceil(S / V))``."""
+    v = min(2, s)
+    return 1 << (-(-s // v) - 1).bit_length()
+
+
+def _emulate_csr_narrow(rowptr, cols, vals, x, steps):
+    """csrc/csr_spmm.cu's narrow entry (float64 instance), warp by warp:
+    per step the 32 / L edges' products by group, each edge's row from the
+    32 row ends the warp holds, the segmented inclusive scan over the
+    groups in the kernel's order (Kogge-Stone: at offset 1, 2, 4, ... a
+    group adds the one that far below it, if of its row), the carried row
+    added first to the step's first run; then the join kernel. Returns y
+    and how many times each row was written; partials start as NaN, so one
+    read before it was written shows in y."""
+    rp, cols, vals = rowptr.tolist(), cols.tolist(), vals.numpy()
+    n_rows, nnz, s = len(rp) - 1, rp[-1], x.shape[1]
+    g = 32 // _narrow_lanes(s)
+    rows, edges = csr_kernel.csr_segments(rowptr, len(cols), steps).tolist()
+    n_seg = len(rows)
+    y = np.full((n_rows, s), np.nan)
+    partials = np.full((2 * n_seg, s), np.nan)
+    writes = np.zeros(n_rows, int)
+    big = 2**31 - 1
+    for w in range(n_seg):
+        r_begin = rows[w]
+        if r_begin >= n_rows:
+            continue
+        e0 = min(edges[w], nnz)
+        last = w + 1 == n_seg
+        r_stop = n_rows if last else rows[w + 1]
+        e1 = nnz if last else min(edges[w + 1], nnz)
+        begun = rp[r_begin] < e0
+
+        def store(r, value):
+            if r == r_begin and begun:
+                partials[w] = value
+            elif r < r_stop:
+                y[r] = value
+                writes[r] += 1
+            else:
+                partials[n_seg + w] = value
+
+        for r in range(r_begin, r_stop):
+            if rp[r + 1] <= max(rp[r], e0):
+                store(r, np.zeros(s))
+
+        def window(base):
+            return [rp[i] if i <= n_rows else big
+                    for i in range(base + 1, base + 33)]
+
+        rb, end = r_begin, window(r_begin)
+        carry, cur, c = np.zeros(s), -1, e0
+        while c < e1:
+            while end[31] - c < min(g, e1 - c):
+                done = sum(e <= c for e in end)
+                if done == 0:
+                    break
+                rb += done
+                end = window(rb)
+            n = min(g, e1 - c, end[31] - c)
+            # the kernel's binary search over the 32 ends: at most 31
+            row = [rb + min(31, sum(e <= c + q for e in end))
+                   for q in range(n)]
+            v = [vals[c + q] * x[cols[c + q]] for q in range(n)]
+            off = 1
+            while off < g:
+                v = [v[q] + v[q - off] if q >= off and row[q - off] == row[q]
+                     else v[q] for q in range(n)]
+                off *= 2
+            v = [carry + v[q] if row[q] == cur else v[q] for q in range(n)]
+            for q in range(n):
+                tail = q == n - 1 or row[q + 1] != row[q]
+                if tail and c + q + 1 == rp[row[q] + 1] and row[q] < r_stop:
+                    store(row[q], v[q])
+            ends = c + n == rp[row[-1] + 1] and row[-1] < r_stop
+            carry, cur = v[-1], -1 if ends else row[-1]
+            c += n
+        if cur >= 0:
+            store(cur, carry)
+    for b in range(1, n_seg):
+        rc = rows[b]
+        if rc >= n_rows or not edges[b - 1] <= rp[rc] < edges[b]:
+            continue
+        b_end = b + 1
+        while b_end < n_seg and rows[b_end] == rc:
+            b_end += 1
+        acc = partials[n_seg + b - 1].copy()
+        for k in range(b, b_end):
+            acc = acc + partials[k]
+        y[rc] = acc
+        writes[rc] += 1
+    return y, writes
+
+
+def _empty_runs():
+    """Rows of 5 edges between runs of 40 empty rows: a step of the
+    narrow entry spans more row ends than the 32 a warp holds."""
+    A = sps.lil_matrix((410, 50))
+    A[::41] = np.arange(1, 51) % 10 == 3
+    return A.tocsr()
+
+
+@pytest.mark.parametrize('s', [1, 3, 8])
+@pytest.mark.parametrize('seg_steps', [5, 64, 256])
+@pytest.mark.parametrize('case', list(CSR_CASES) + ['hubs_alone',
+                                                    'empty_runs'])
+def test_csr_narrow_walk_writes_every_row_once(case, seg_steps, s):
+    """The narrow entry's walk (lanes over edges, a segmented reduction by
+    row across the warp, the carried row, the window of 32 row ends that a
+    run of empty rows cuts a step short at) with segments of a few steps:
+    every row written once, y within 1e-12 of the plain SpMM in f64."""
+    A = {'hubs_alone': _hubs_alone, 'empty_runs': _empty_runs,
+         **CSR_CASES}[case]()
+    M = tsp.from_scipy(A, dtype=torch.float64, device='cpu')
+    x = np.random.default_rng(6).normal(size=(A.shape[1], s))
+    y, writes = _emulate_csr_narrow(M.rowptr, M.cols, M.vals, x, seg_steps)
+    assert np.all(writes == 1)
+    want = csr_kernel.csr_spmm_plain(M.rowptr, M.cols, M.vals,
+                                     torch.from_numpy(x)).numpy()
+    assert np.allclose(y, want, rtol=0,
+                       atol=1e-12 * max(1.0, np.abs(want).max()))
+
+
+def test_segment_table_is_kept_per_rowptr_and_version():
+    """segment_table keeps one table per rowptr tensor: another rowptr
+    (same shape, other rows) gets its own, never this one's, and an
+    in-place change of this one makes the table anew."""
+    a = tsp.from_scipy(_empty_rows(), device='cpu')
+    b = tsp.from_scipy(CSR_CASES['rectangular']()[:60], device='cpu')
+    assert a.rowptr.shape == b.rowptr.shape
+    n = a.cols.shape[0]
+    seg_a, join_a = csr_kernel.segment_table(a.rowptr, n, 16)
+    assert seg_a is csr_kernel.segment_table(a.rowptr, n, 16)[0]
+    seg_b, _ = csr_kernel.segment_table(b.rowptr, n, 16)
+    assert torch.equal(seg_b, csr_kernel.csr_segments(b.rowptr, n, 16))
+    assert not torch.equal(seg_a, seg_b)
+    assert torch.equal(csr_kernel.segment_table(a.rowptr, n, 5)[0],
+                       csr_kernel.csr_segments(a.rowptr, n, 5))
+    a.rowptr.copy_(b.rowptr)
+    seg, join = csr_kernel.segment_table(a.rowptr, n, 16)
+    assert torch.equal(seg, seg_b) and seg is not seg_a
+    # join: some row is in progress, with edges before, at a segment start
+    star = tsp.from_scipy(_star(), device='cpu')
+    assert csr_kernel.segment_table(star.rowptr, star.cols.shape[0], 64)[1]
+    diag = tsp.from_scipy(sps.eye(40, format='csr'), device='cpu')
+    assert not csr_kernel.segment_table(diag.rowptr, diag.cols.shape[0],
+                                        64)[1]
+
+
+def test_csr_spmm_entry_by_width():
+    """The wrapper's table: the narrow entry up to NARROW_WIDTH columns of
+    each dtype, the wide one above, and an entry that is neither
+    refused."""
+    for dt, widest in csr_kernel.NARROW_WIDTH.items():
+        assert 0 < widest <= csr_kernel.NARROW_MAX[dt]
+        assert csr_kernel.entry_for(1, dt) == 'narrow'
+        assert csr_kernel.entry_for(widest, dt) == 'narrow'
+        assert csr_kernel.entry_for(widest + 1, dt) == 'wide'
+        assert csr_kernel.entry_for(128, dt) == 'wide'
+    M = tsp.from_scipy(_empty_rows(), device='cpu')
+    with pytest.raises(ValueError, match='entry'):
+        csr_kernel.csr_spmm(M.rowptr, M.cols, M.vals, torch.ones(60, 2),
+                            entry='both')
+
+
+@pytest.mark.parametrize('n_steps', [0, 100, 13_246, 131_072, 1_000_000,
+                                     17_824_212])
+def test_narrow_segment_length_by_walk(n_steps):
+    """The narrow entry's segments: NARROW_SEGMENT_STEPS long on a large
+    walk, halved while fewer than NARROW_MIN_SEGMENTS would cover it, never
+    below NARROW_MIN_STEPS."""
+    steps = csr_kernel.narrow_steps(n_steps)
+    longest, shortest = (csr_kernel.NARROW_SEGMENT_STEPS,
+                         csr_kernel.NARROW_MIN_STEPS)
+    assert shortest <= steps <= longest
+    assert longest % steps == 0
+    if steps < longest:
+        assert n_steps < 2 * steps * csr_kernel.NARROW_MIN_SEGMENTS
+    if steps > shortest:
+        assert n_steps >= steps * csr_kernel.NARROW_MIN_SEGMENTS

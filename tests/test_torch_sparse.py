@@ -53,6 +53,43 @@ def test_from_coo_sums_duplicates_and_checks_indices():
         tsp.from_coo([0, 2], [1, 0], [1.0, 1.0], 2, device='cpu')
 
 
+@pytest.mark.parametrize('edge_block', [1024, 64])
+@pytest.mark.parametrize('sum_duplicates', [True, False])
+def test_from_coo_keywords_match_jax(sum_duplicates, edge_block):
+    """``sum_duplicates`` and ``edge_block`` as in the JAX package: unsorted
+    triplets with repeated places and explicit zeros give the same padded
+    arrays, and with the duplicates kept as separate entries ``A @ x``
+    still sums them (f64, 1e-12)."""
+    rng = np.random.default_rng(5)
+    n, e = 90, 700
+    rows, cols = rng.integers(0, n, e), rng.integers(0, n, e)
+    rows[:60], cols[:60] = rows[60:120], cols[60:120]     # repeated places
+    vals = rng.normal(size=e)
+    vals[::37] = 0.0
+    M = tsp.from_coo(rows, cols, vals, n, sum_duplicates=sum_duplicates,
+                     edge_block=edge_block, dtype=torch.float64,
+                     device='cpu')
+    J = jsp.from_coo(rows, cols, vals, n, sum_duplicates=sum_duplicates,
+                     edge_block=edge_block, dtype=np.float64)
+    for field in ('rows', 'cols', 'vals', 'rowptr'):
+        assert np.array_equal(getattr(M, field).numpy(),
+                              np.asarray(getattr(J, field))), field
+    assert (M.nnz, M.n_edges_padded) == (J.nnz, J.n_edges_padded)
+    assert M.n_edges_padded % edge_block == 0
+    x = rng.normal(size=(n, 3))
+    want = np.asarray(jsp.spmm(J, jnp.asarray(x)))
+    got = tsp.spmm(M, torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    A = sps.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    for build, jbuild, arg in ((tsp.from_scipy, jsp.from_scipy, A),
+                               (tsp.from_dense, jsp.from_dense, A.toarray())):
+        M = build(arg, edge_block=edge_block, dtype=torch.float64,
+                  device='cpu')
+        J = jbuild(arg, edge_block=edge_block, dtype=np.float64)
+        assert M.n_edges_padded == J.n_edges_padded
+        assert np.array_equal(M.cols.numpy(), np.asarray(J.cols))
+
+
 @pytest.mark.parametrize('s', [1, 5, 128])
 def test_csr_spmm_matches_jax(s):
     A = _random_sparse(400, 0.02, 1)
@@ -78,6 +115,8 @@ def test_banded_plain_matches_jax_einsum(offsets, s):
     got = banded_kernel.banded_spmm_plain(B.tiles, torch.from_numpy(x), n)
     assert np.allclose(got.numpy(), want, rtol=0, atol=1e-12)   # f64 order
     assert np.allclose(tsp.spmm(B, torch.from_numpy(x)).numpy(), want,
+                       rtol=0, atol=1e-12)
+    assert np.allclose(tsp.banded_spmm(B, torch.from_numpy(x)).numpy(), want,
                        rtol=0, atol=1e-12)
 
 
