@@ -111,18 +111,25 @@ H. path H, the hybrid ELL format on its kernel ``ell_spmm``:
    ``'auto'`` sends to hybrid, then path A's graph with ``fmt='hybrid'``,
    each with λmax and the heat bank against the SciPy f64 recurrence, 30
    ``ell_spmm`` launches a bank and no CSR kernel, plain SpMM or
-   ``index_add_``; the kernel against its plain version in f64 at the
-   bank's shape (heavy rows in blocks of their own), at one column and in
-   f64 at 5, two launches bit-equal, ``inf`` behind every dead slot adding
-   nothing, timed beside its bound, its gather model, its plain version
-   and ``torch.sparse.mm``; ``laplacian_upper_bound`` against the host
-   Gershgorin bound; and ``fmt='auto'`` on ``Minnesota``, ``Airfoil``,
+   ``index_add_``, λmax's 32 products at one column on the kernel's narrow
+   entry and the bank's 30 on its wide one (counted by symbol); the kernel
+   against its plain version in f64 at the bank's shape (heavy rows in
+   blocks of their own), two launches bit-equal, ``inf`` behind every dead
+   slot adding nothing, timed beside its bound, its gather model, its
+   plain version and ``torch.sparse.mm``; its narrow entry held the same
+   way at 1 and 8 columns and in f64 at 5 (on BA(2^16) at 1 and 8), timed
+   beside the wide entry in turns (each also by the device time of a CUDA
+   graph of 20 calls), its bound and ``torch.sparse.mm``;
+   ``laplacian_upper_bound`` against the host Gershgorin bound; and
+   ``fmt='auto'`` on ``Minnesota``, ``Airfoil``,
    ``StochasticBlockModel(N=1024)`` and ``Community(N=256)`` at a fixed
-   seed, a one-filter bank each against SciPy f64;
+   seed, λmax on the narrow entry alone, a one-filter bank each against
+   SciPy f64, the narrow entry held and timed at 1 and 8 columns;
 I. path I, the chunked format on its kernel ``chunked_spmm``: path A's
    graph with ``fmt='chunked'``, the bank and its checks as on path H; the
-   kernel held as there at the bank's shape, at one column, in every bf16
-   operand pair and at the x̄ synthesis's 512 columns; the fast mode
+   kernel held as there at the bank's shape, in every bf16 operand pair
+   and at the x̄ synthesis's 512 columns, its narrow entry as on path H at
+   1 and 8 columns, in f64 at 5 and in each bf16 pair at one; the fast mode
    (``carry_dtype`` and ``vals_dtype`` bf16, the ``chunked_spmm_bf16``
    symbol counted) within 1.5e-2 on the first filter and twice
    ``carry_error_estimate`` on all four; then the fixed-graph VJP's checks
@@ -166,7 +173,10 @@ J. path J, the algorithms on the nearest-neighbour graphs: J1,
    ``div``, its narrow entry with the width sweep and the narrow shapes of
    paths G and J, kernel B's group with Nf = 6, ``ell_spmm`` and
    ``chunked_spmm`` with the shapes paths H and I held them at under
-   ``at_paths``, kernels A and B at path J's shapes there too; times from CUDA events, bounds
+   ``at_paths``, their narrow entries ``ell_spmm_narrow`` and
+   ``chunked_spmm_narrow`` at one column on paths H and I's graph with
+   their other narrow shapes there, kernels A and B at path J's shapes
+   there too; times from CUDA events, bounds
    from the H100 SXM data sheet: HBM, FP32, and TF32 for the banded
    kernel's f32 products), the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
@@ -383,26 +393,31 @@ def reset_counts():
 
 
 def counts():
-    """Every kernel's launch count, kernel A's by entry (narrow, wide), and
-    the calls of two plain versions that the banks must not call, by name:
-    the tail's (the windowed residue sum) and the ELL and chunked SpMMs'
-    (``slot_plain``)."""
-    return {**{k.__name__: k.launches for k in KERNELS},
-            'csr_spmm_narrow': (SYMBOLS.get('csr_spmm_narrow_f32', 0)
-                                + SYMBOLS.get('csr_spmm_narrow_f64', 0)),
-            'csr_spmm_wide': (SYMBOLS.get('csr_spmm_f32', 0)
-                              + SYMBOLS.get('csr_spmm_f64', 0)),
+    """Every kernel's launch count, kernels A, ELL and chunked by entry
+    (narrow, wide; by C symbol), and the calls of two plain versions that
+    the banks must not call, by name: the tail's (the windowed residue sum)
+    and the ELL and chunked SpMMs' (``slot_plain``)."""
+    by_entry = {}
+    for kernel in ('csr_spmm', 'ell_spmm', 'chunked_spmm'):
+        for entry in ('narrow', 'wide'):
+            head = f'{kernel}_narrow_' if entry == 'narrow' else f'{kernel}_'
+            by_entry[f'{kernel}_{entry}'] = sum(
+                n for symbol, n in SYMBOLS.items()
+                if symbol.startswith(head)
+                and (entry == 'narrow') == ('_narrow_' in symbol))
+    return {**{k.__name__: k.launches for k in KERNELS}, **by_entry,
             'tail_plain': wk.tail_plain.calls,
             'slot_plain': ell_kernel.slot_spmm_plain.calls}
 
 
-def require_narrow(part, c):
-    """Raise unless every kernel A launch of a part took the narrow
-    entry."""
-    if not c['csr_spmm'] or c['csr_spmm_narrow'] != c['csr_spmm']:
-        raise AssertionError(f'{part}: {c["csr_spmm"]} csr_spmm launches, '
-                             f'{c["csr_spmm_narrow"]} of them narrow')
-    log(f'  {part}: all {c["csr_spmm"]} csr_spmm launches narrow')
+def require_narrow(part, c, kernel='csr_spmm'):
+    """Raise unless every launch of ``kernel`` (A, ELL or chunked) in a
+    part took the narrow entry."""
+    narrow = c[f'{kernel}_narrow']
+    if not c[kernel] or narrow != c[kernel]:
+        raise AssertionError(f'{part}: {c[kernel]} {kernel} launches, '
+                             f'{narrow} of them narrow')
+    log(f'  {part}: all {c[kernel]} {kernel} launches narrow')
 
 
 def require_tail(path, per_bank):
@@ -2902,6 +2917,54 @@ def measure_slot(name, M, x, lib):
     return out
 
 
+def measure_narrow(name, M, x, lib=None):
+    """The narrow entry of ``M``'s kernel at x's width (the entry the
+    wrapper takes there): held against the plain version (``hold_slot``),
+    then timed beside the wide entry (the kernel at every width before the
+    narrow entry) in turns, each also by its device time (``graph_ms``),
+    beside ``torch.sparse.mm`` on ``lib`` (None: no single PyTorch call
+    computes the pair, x and values of two dtypes) and the bound.
+    """
+    kernel, args = slot_operands(M)
+    if ell_kernel.entry_for(x.shape[1], x.dtype) != 'narrow':
+        raise AssertionError(f'{name}: S={x.shape[1]} of {x.dtype} is not '
+                             f'a narrow width')
+    out = hold_slot(name, M, x)
+
+    def run(entry):
+        return ell_kernel.spmm_entry(kernel.__name__, entry, *args, x,
+                                     M.n_rows)
+
+    # the host's launch costs, which set a small graph's call time, vary
+    # between calls: more calls there
+    iters = 200 if M.n_rows <= 1 << 16 else 20
+    times = {'narrow': [], 'wide': []}
+    for entry in ('narrow', 'wide', 'wide', 'narrow'):
+        times[entry].append(time_ms(lambda: run(entry), iters))
+    out.update(ms=sum(times['narrow']) / 2, wide_ms=sum(times['wide']) / 2,
+               device_ms=graph_ms(lambda: run('narrow'), 20),
+               wide_device_ms=graph_ms(lambda: run('wide'), 20),
+               plain_ms=time_ms(lambda: ell_kernel.slot_spmm_plain(
+                   *args, x, M.n_rows), 2),
+               **slot_work(M, x.shape[1], x.element_size()))
+    out.update(library_ms=None, library_device_ms=None, library=None)
+    if lib is not None:
+        out.update(library_ms=time_ms(lambda: torch.sparse.mm(lib, x), 20),
+                   library_device_ms=graph_ms(
+                       lambda: torch.sparse.mm(lib, x), 20),
+                   library='torch.sparse.mm on a sparse CSR tensor of the '
+                           'same off-diagonal')
+    log(f'  {name}: {json.dumps(out)}')
+    return out
+
+
+def measure_narrow_widths(path, M, x, lib, widths=(1, 8)):
+    """``measure_narrow`` at each width, x's first columns: ``{'<s>_<dtype>':
+    numbers}``."""
+    return {f'{s}_{str(x.dtype)[6:]}': measure_narrow(
+        f'{path} narrow', M, x[:, :s].contiguous(), lib) for s in widths}
+
+
 def count_index_add(bank):
     """``run_bank(bank)``, with every ``index_add_`` and ``index_add``
     that PyTorch runs in it counted: ``(out, launches, per_bank,
@@ -2950,6 +3013,13 @@ def slot_bank_path(path, fmt, kernel, n=N_BA):
     log(f'  launches on the path {launches}, per bank {per_bank}, '
         f'index_add_ {n_add}; peak device memory {peak:.2f} GiB')
     require_slot_bank(path, kernel, per_bank, n_add)
+    # λmax's Lanczos products at one column take the narrow entry, the
+    # bank's at 128 columns the wide one
+    lmax_launches = {k: launches[k] - per_bank[k] for k in launches}
+    require_narrow(f'{path} (estimate_lmax)', lmax_launches, kernel)
+    if per_bank[f'{kernel}_wide'] != ORDER:
+        raise AssertionError(f'path {path} bank: {per_bank[kernel]} '
+                             f'launches, {per_bank[kernel + "_wide"]} wide')
     if tuple(out.shape) != (n, N_SIGNALS, len(SCALES)):
         raise AssertionError(f'path {path} output shape {tuple(out.shape)}')
     ref = reference(sps.diags(G.dw) - G.W, G.lmax, g.evaluate, x)
@@ -2962,8 +3032,50 @@ def slot_bank_path(path, fmt, kernel, n=N_BA):
     numbers = {'ms_per_bank': ms_bank, 'rel_err': rel_err, 'nnz': nnz,
                'n': n, 'lmax': G.lmax, 'peak_bank_gib': peak,
                'edge_ops_per_s': ORDER * nnz * N_SIGNALS / (ms_bank / 1e3),
-               'acc_group': group_of(G.L, x)}
+               'acc_group': group_of(G.L, x),
+               'estimate_lmax_launches': {
+                   k: lmax_launches[k] for k in (kernel, f'{kernel}_narrow',
+                                                 f'{kernel}_wide')},
+               **lmax_timing(G.L, kernel)}
     return G, g, x, ref, numbers, (launches, per_bank)
+
+
+def lmax_timing(L, kernel, repeats=5):
+    """``estimate_lmax_lanczos(L)`` timed ``repeats`` times, one call each
+    after a warm-up call (``estimate_lmax_ms``: the median;
+    ``estimate_lmax_ms_all``: every time, sorted), and in one more call the
+    device time of its ``kernel`` launches, each between two CUDA events
+    (``lmax_products_ms``: their sum; ``lmax_products``: how many)."""
+    def run():
+        return estimate_lmax_lanczos(L)
+
+    times = sorted(time_ms(run, 1) for _ in range(repeats))
+    events = []
+    launch = _cuda.launch
+
+    def spy(name, symbol, *args):
+        if not symbol.startswith(kernel):
+            return launch(name, symbol, *args)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = launch(name, symbol, *args)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    _cuda.launch = spy
+    try:
+        run()
+    finally:
+        _cuda.launch = launch
+    torch.cuda.synchronize()
+    out = {'estimate_lmax_ms': times[repeats // 2],
+           'estimate_lmax_ms_all': times,
+           'lmax_products_ms': sum(a.elapsed_time(b) for a, b in events),
+           'lmax_products': len(events)}
+    log(f'  estimate_lmax: {json.dumps(out)}')
+    return out
 
 
 def phase_path_h():
@@ -2986,6 +3098,8 @@ def phase_path_h():
     held['auto_2^16'] = hold_slot('ell_spmm at 2^16', G.L.offdiag, x)
     lib = slot_csr(G.L.offdiag, x.dtype)
     held['auto_2^16'].update(slot_yardsticks(G.L.offdiag, x, lib))
+    narrow = {'auto_2^16': measure_narrow_widths('H at 2^16', G.L.offdiag,
+                                                 x, lib)}
     del G, x, lib
     torch.cuda.empty_cache()
 
@@ -3004,13 +3118,13 @@ def phase_path_h():
     log(f'  layout: {json.dumps(result["layout"])}')
     lib = slot_csr(M, x.dtype)
     kernel = measure_slot('ell_spmm at path H', M, x, lib)
-    x1 = x[:, :1].contiguous()
-    held['one_column'] = hold_slot('ell_spmm at one column', M, x1)
-    held['one_column'].update(slot_yardsticks(M, x1, lib))
+    narrow['H'] = measure_narrow_widths('H', M, x, lib)
     del lib
-    held['f64_5_columns'] = hold_slot(
-        'ell_spmm in f64', M.astype(torch.float64),
-        x[:, :5].double().contiguous())
+    M64 = M.astype(torch.float64)
+    narrow['H'].update(measure_narrow_widths(
+        'H', M64, x[:, :5].double(), slot_csr(M64, torch.float64),
+        widths=(5,)))
+    del M64
     ub = float(laplacian_upper_bound(G.L))
     ub_host = float(np.max(np.ravel(abs(G.L.to_scipy().astype(
         np.float64)).sum(axis=1))))
@@ -3020,20 +3134,29 @@ def phase_path_h():
     del G, x, M
     torch.cuda.empty_cache()
 
-    zoo = {}
+    # the zoo's launches: each graph's λmax and bank, without the holds and
+    # timings after them
+    zoo, zoo_launches = {}, {}
     reset_counts()
     for name, kw in (('Minnesota', {}), ('Airfoil', {}),
                      ('StochasticBlockModel', dict(N=1024, seed=42)),
                      ('Community', dict(N=256, seed=42))):
+        before = counts()
         Gz = getattr(gsp.graphs, name)(**kw)
         Gz.compute_laplacian(fmt='auto')
         if not isinstance(Gz.L.offdiag, gsp.core.sparse.ELLMatrix):
             raise AssertionError(f'{name}: fmt=auto gave '
                                  f'{type(Gz.L.offdiag).__name__}')
-        Gz.estimate_lmax()
+        _, _, lmax_launches = run_bank(Gz.estimate_lmax)
+        require_narrow(f'H ({name}, estimate_lmax)', lmax_launches,
+                       'ell_spmm')
         gz = gsp.filters.Heat(Gz, scale=10)
         xz = seeded_normal((Gz.N, N_CHECK_COLS), 95)
         out = gz.filter(xz, method='chebyshev', order=ORDER)
+        torch.cuda.synchronize()
+        after = counts()
+        zoo_launches = {k: zoo_launches.get(k, 0) + after[k] - before[k]
+                        for k in after}
         ref = reference(sps.diags(Gz.dw) - Gz.W, Gz.lmax, gz.evaluate, xz)
         zoo[name] = {'n': Gz.N, 'nnz': Gz.L.offdiag.nnz,
                      'rel_err': validate_path(
@@ -3041,10 +3164,13 @@ def phase_path_h():
                              Gz.N, N_CHECK_COLS, -1).permute(2, 0, 1)),
                      'held': hold_slot(f'ell_spmm on {name}',
                                        Gz.L.offdiag, xz)}
-    counts_h['H_zoo'] = counts()
+        narrow[name] = measure_narrow_widths(
+            f'H ({name})', Gz.L.offdiag, xz,
+            slot_csr(Gz.L.offdiag, xz.dtype))
+    counts_h['H_zoo'] = zoo_launches
     result['zoo'] = zoo
     kernel['at_paths'] = held
-    return kernel, result, bank_counts, counts_h
+    return kernel, narrow, result, bank_counts, counts_h
 
 
 def phase_path_i():
@@ -3074,12 +3200,22 @@ def phase_path_i():
     log(f'  layout: {json.dumps(result["layout"])}')
     lib = slot_csr(M, x.dtype)
     kernel = measure_slot('chunked_spmm at path I', M, x, lib)
-    x1 = x[:, :1].contiguous()
-    held = {'one_column': hold_slot('chunked_spmm at one column', M, x1)}
-    held['one_column'].update(slot_yardsticks(M, x1, lib))
+    narrow = {'I': measure_narrow_widths('I', M, x, lib)}
+    held = {}
     for combo, (xd, vd) in BF16_FOLDS.items():
         held[f'bf16_{combo}'] = hold_slot(f'chunked_spmm bf16 {combo}',
                                           M.astype(vd), x.to(xd))
+        # torch.sparse.mm takes bf16 x on bf16 values; no call takes the
+        # mixed pairs
+        narrow['I'][f'bf16_{combo}_1'] = measure_narrow(
+            f'I narrow bf16 {combo}', M.astype(vd),
+            x[:, :1].to(xd).contiguous(),
+            slot_csr(M, xd) if xd == vd else None)
+    M64 = M.astype(torch.float64)
+    narrow['I'].update(measure_narrow_widths(
+        'I', M64, x[:, :5].double(), slot_csr(M64, torch.float64),
+        widths=(5,)))
+    del M64
     xw = seeded_normal((M.n_cols, WIDE), 96)
     held['x_bar_width'] = hold_slot('chunked_spmm at the x_bar width', M, xw)
     held['x_bar_width'].update(slot_yardsticks(M, xw, lib))
@@ -3133,8 +3269,8 @@ def phase_path_i():
         raise AssertionError(f'path E on I ran csr_spmm or the plain SpMM: '
                              f'{counts_e}')
     kernel['at_paths'] = held
-    return kernel, result, bank_counts, {'I_fast': fast_launches,
-                                         'E_I': counts_e}
+    return kernel, narrow, result, bank_counts, {'I_fast': fast_launches,
+                                                 'E_I': counts_e}
 
 
 # ---------------------------------------------------------------------------
@@ -3656,12 +3792,12 @@ def main():
     path_g['designs'], other['G_designs'] = timed(phase_path_g_designs)
     torch.cuda.empty_cache()
     t0 = time.time()
-    ell, path_h, counts_h, other_h = phase_path_h()
+    ell, narrow_h, path_h, counts_h, other_h = phase_path_h()
     path_h['phase_s'] = time.time() - t0
     other.update(other_h)
     torch.cuda.empty_cache()
     t0 = time.time()
-    chunked_k, path_i, counts_i, other_i = phase_path_i()
+    chunked_k, narrow_i, path_i, counts_i, other_i = phase_path_i()
     path_i['phase_s'] = time.time() - t0
     other.update(other_i)
     torch.cuda.empty_cache()
@@ -3786,6 +3922,21 @@ def main():
                               '(chunked_spmm_chunks: XLA gather-sums per '
                               'block and one scatter-add of the tiers, no '
                               'Pallas kernel)')
+    # the narrow entries: their headline at one column on paths H
+    # and I's graph (estimate_lmax's product), every narrow shape of the
+    # paths under at_paths
+    source = 'pygsp_tpu_torch/csrc/ell_spmm.cu'
+    widths = (f'{ell_kernel.SLOT_NARROW_WIDTH[torch.float32]} f32, '
+              f'{ell_kernel.SLOT_NARROW_WIDTH[torch.float64]} f64 and '
+              f'{ell_kernel.SLOT_NARROW_WIDTH[torch.bfloat16]} bf16 columns')
+    ell_narrow = dict(
+        narrow_h['H']['1_float32'], name='ell_spmm_narrow', route='cuda',
+        source=source, at_paths=narrow_h,
+        replaces=f'{ell["replaces"]}, at up to {widths}')
+    chunked_narrow = dict(
+        narrow_i['I']['1_float32'], name='chunked_spmm_narrow',
+        route='cuda', source=source, at_paths=narrow_i,
+        replaces=f'{chunked_k["replaces"]}, at up to {widths}')
     by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d,
                'H': counts_h, 'I': counts_i}
     for kernel, served in ((csr, 'A'), (csr_narrow, None), (banded, 'B'),
@@ -3793,7 +3944,8 @@ def main():
                            (strip, 'CD'), (fold2, None), (double, None),
                            (kb_step, 'ABCDHI'), (kb_group, 'ABCDHI'),
                            (kb_dot, None), (kb_contract, None),
-                           (ell, 'H'), (chunked_k, 'I')):
+                           (ell, 'H'), (chunked_k, 'I'), (ell_narrow, 'H'),
+                           (chunked_narrow, 'I')):
         name = kernel['name']
         served = list(served or by_path)
         launches = {**{p: by_path[p][0][name] for p in by_path},
@@ -3813,7 +3965,8 @@ def main():
     print(json.dumps({'kernels': [csr, csr_narrow, banded, fold, strip,
                                   fold2, double,
                                   kb_step, kb_group, kb_contract, kb_dot,
-                                  ell, chunked_k]}),
+                                  ell, chunked_k, ell_narrow,
+                                  chunked_narrow]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -39,9 +39,21 @@ the row once, in x's dtype: two launches are bit-equal. Products are
 formed in the promotion of x's and the values' dtypes, so a bfloat16 ·
 bfloat16 product rounds to bfloat16, as the JAX package forms it.
 
+Each kernel has two entries. The wide one (``ell_spmm_f32``, ...) gives
+each row a group of lanes that walks the row's slot positions through the
+slot table. The narrow one (``ell_spmm_narrow_f32``,
+``chunked_spmm_narrow_<pair>``) gives a warp a tile of consecutive rows
+of one out chunk, ``L`` lanes a row and ``P`` values a lane (the launcher
+in csrc/ell_spmm.cu chooses both and the tile): the warp reads the chunk's
+blocks from the per-block table of :class:`SlotTable` once, and each row's
+lanes walk its slots where the format keeps them, then its overflow slots,
+with no table entry read per slot. Both entries sum a row in the same
+order, so they give the same bits. Each wrapper picks the entry by ``(S,
+dtype)`` alone (:func:`entry_for`, from :data:`SLOT_NARROW_WIDTH`).
+
 Each wrapper launches its kernel for CUDA tensors and runs
 :func:`slot_spmm_plain` for CPU tensors; there is no fallback from one to
-the other. Each counts its launches in ``.launches``.
+the other. Each counts its launches, of both entries, in ``.launches``.
 """
 
 from __future__ import annotations
@@ -71,6 +83,15 @@ CHUNKED_OPERANDS = frozenset(_CHUNKED_TYPES)
 # its own (kHeavySlots in csrc/ell_spmm.cu, the same number: the kernel's
 # row blocks skip such a row).
 HEAVY_SLOTS = 256
+# The widest S, by x's dtype, that takes the narrow entry; wider S takes
+# the wide one (:func:`entry_for`). On an H100 (tools/slot_narrow_sweep.py,
+# PERF.md) the narrow entry was the faster on path H's and path I's graphs
+# at every f32 and f64 width up to 32 (at 48 f32 on path I the two tie);
+# with bf16 x it was the faster at one column, and at 8 with bf16 values
+# the slower. The narrow kernel takes at most 32 lanes of 16 bytes a row;
+# its launcher refuses wider S.
+SLOT_NARROW_WIDTH = {torch.float32: 32, torch.float64: 32,
+                     torch.bfloat16: 1}
 # The plain version's rows and overflow slots per pass, which bound its
 # (rows, width, S) products on the card.
 _PLAIN_ROWS = 1 << 14
@@ -79,11 +100,14 @@ _PLAIN_SLOTS = 1 << 20
 
 class SlotTable(NamedTuple):
     """The dense slot blocks of a matrix as the kernel walks them (see the
-    module docstring). ``blocks`` holds, per block, the host ints
-    ``(out_chunk, offset, width, col_base, limit)`` that the table was made
-    from, which the plain version reads."""
+    module docstring): per out chunk its slot positions (the wide entry's
+    table) and its blocks (the narrow entry's). ``blocks`` holds, per
+    block, the host ints ``(out_chunk, offset, width, col_base, limit)``
+    that the table was made from, which the plain version reads."""
     chunk_ptr: torch.Tensor   # (n_out + 1,) int32
     pos: torch.Tensor         # (n_pos, 4) int64: base, stride, col_base, limit
+    block_ptr: torch.Tensor   # (n_out + 1,) int32
+    block_table: torch.Tensor  # (n_blk, 4) int64: off, width, col_base, limit
     blocks: tuple
     chunk_rows: int
 
@@ -91,17 +115,27 @@ class SlotTable(NamedTuple):
 def slot_table(blocks, n_out: int, chunk_rows: int, device) -> SlotTable:
     """The :class:`SlotTable` of ``blocks``, a sequence of ``(out_chunk,
     offset, width, col_base, limit)`` in the order each out chunk sums
-    them."""
+    them. The per-block table keeps each out chunk's blocks of nonzero
+    width in that order."""
     blocks = tuple(tuple(int(v) for v in b) for b in blocks)
     pos = [[] for _ in range(n_out)]
+    per_chunk = [[] for _ in range(n_out)]
     for i, off, width, col_base, limit in blocks:
         pos[i].extend([off + j, width, col_base, limit] for j in range(width))
-    counts = [len(p) for p in pos]
-    ptr = np.zeros(n_out + 1, np.int32)
-    np.cumsum(counts, out=ptr[1:])
-    flat = np.array([q for p in pos for q in p], np.int64).reshape(-1, 4)
-    return SlotTable(chunk_ptr=torch.from_numpy(ptr).to(device),
-                     pos=torch.from_numpy(flat).to(device), blocks=blocks,
+        if width:
+            per_chunk[i].append([off, width, col_base, limit])
+
+    def table(rows):
+        ptr = np.zeros(n_out + 1, np.int32)
+        np.cumsum([len(r) for r in rows], out=ptr[1:])
+        flat = np.array([q for r in rows for q in r], np.int64).reshape(-1, 4)
+        return torch.from_numpy(ptr).to(device), torch.from_numpy(flat).to(
+            device)
+
+    chunk_ptr, flat = table(pos)
+    block_ptr, block_table = table(per_chunk)
+    return SlotTable(chunk_ptr=chunk_ptr, pos=flat, block_ptr=block_ptr,
+                     block_table=block_table, blocks=blocks,
                      chunk_rows=int(chunk_rows))
 
 
@@ -111,6 +145,29 @@ def heavy_rows(rowptr: np.ndarray, entptr: np.ndarray) -> np.ndarray:
     slots = entptr[rowptr[1:]] - entptr[rowptr[:-1]]
     heavy = np.flatnonzero(slots >= HEAVY_SLOTS)
     return heavy[np.argsort(-slots[heavy], kind='stable')]
+
+
+def entry_for(s: int, dtype) -> str:
+    """The entry the wrappers take for S columns of x's ``dtype``:
+    ``'narrow'`` up to :data:`SLOT_NARROW_WIDTH`, else ``'wide'``."""
+    return 'narrow' if 0 < s <= SLOT_NARROW_WIDTH[dtype] else 'wide'
+
+
+# (kind, entry, x dtype, values dtype) -> the C symbol
+_SYMBOLS = {(kind, entry, xd, vd): (f'{kind}_narrow_{suffix}'
+                                    if entry == 'narrow'
+                                    else f'{kind}_{suffix}')
+            for kind, types in (('ell_spmm', _ELL_TYPES),
+                                ('chunked_spmm', _CHUNKED_TYPES))
+            for (xd, vd), suffix in types.items()
+            for entry in ('narrow', 'wide')}
+
+
+def symbol(kind: str, entry: str, x_dtype, vals_dtype) -> str:
+    """The C symbol of ``kind`` (``'ell_spmm'`` or ``'chunked_spmm'``) and
+    ``entry`` (``'narrow'`` or ``'wide'``) for the operand pair, e.g.
+    ``chunked_spmm_narrow_bf16_f32``."""
+    return _SYMBOLS[kind, entry, x_dtype, vals_dtype]
 
 
 def _sum_dtype(dtype):
@@ -167,14 +224,18 @@ def _check(name, types, table, cols, vals, residue, x, n_rows):
     if cols.dtype != torch.int32 or cols.shape != vals.shape or cols.ndim != 1:
         raise ValueError(f'{name}: cols must be int32, 1-D, of the values\' '
                          f'shape')
-    if (table.chunk_ptr.dtype != torch.int32 or table.pos.dtype != torch.int64
-            or table.pos.ndim != 2 or table.pos.shape[1] != 4):
-        raise ValueError(f'{name}: the slot table takes an int32 chunk_ptr '
-                         f'and (n_pos, 4) int64 positions')
+    if any(ptr.dtype != torch.int32 or t.dtype != torch.int64
+           or t.ndim != 2 or t.shape[1] != 4
+           or ptr.shape != table.chunk_ptr.shape
+           for ptr, t in ((table.chunk_ptr, table.pos),
+                          (table.block_ptr, table.block_table))):
+        raise ValueError(f'{name}: the slot table takes int32 chunk_ptr and '
+                         f'block_ptr, and (n, 4) int64 positions and blocks')
     if n_rows > (table.chunk_ptr.numel() - 1) * table.chunk_rows:
         raise ValueError(f'{name}: {table.chunk_ptr.numel() - 1} out chunks '
                          f'of {table.chunk_rows} rows do not hold {n_rows}')
-    tensors = [table.chunk_ptr, table.pos, cols, vals, x]
+    tensors = [table.chunk_ptr, table.pos, table.block_ptr,
+               table.block_table, cols, vals, x]
     if residue is not None:
         index = (residue.rowptr, residue.entptr, residue.cols, residue.heavy)
         if any(a.dtype != torch.int32 or a.ndim != 1 for a in index):
@@ -187,8 +248,9 @@ def _check(name, types, table, cols, vals, residue, x, n_rows):
             raise ValueError(f'{name}: the residue values must have the '
                              f'slots\' dtype {vals.dtype}')
         tensors += [*index, residue.vals]
+    dev = x.device
     for t in tensors:
-        if t.device != x.device:
+        if t.device != dev:
             raise ValueError(f'{name}: all operands must be on one device')
         if not t.is_contiguous():
             raise ValueError(f'{name}: all operands must be contiguous')
@@ -196,11 +258,26 @@ def _check(name, types, table, cols, vals, residue, x, n_rows):
         raise ValueError(f'{name} runs on cuda or cpu, not {x.device}')
 
 
-def _launch(name, symbol, table, cols, vals, residue, x, n_rows):
+def spmm_entry(kind: str, entry: str, table: SlotTable, cols, vals,
+               residue: Residue | None, x, n_rows: int):
+    """One launch of ``kind``'s kernel (``'ell_spmm'`` or
+    ``'chunked_spmm'``) through ``entry`` (``'narrow'`` or ``'wide'``) on
+    CUDA operands: what the wrappers launch with :func:`entry_for`'s entry,
+    here for the measurements and tests that hold the two entries against
+    each other. Counts nothing."""
+    _check(kind, _ELL_TYPES if kind == 'ell_spmm' else _CHUNKED_TYPES,
+           table, cols, vals, residue, x, n_rows)
+    if x.device.type != 'cuda' or entry not in ('narrow', 'wide'):
+        raise ValueError(f'spmm_entry launches the narrow or wide entry on '
+                         f'cuda, not {entry!r} on {x.device}')
+    return _run(kind, entry, table, cols, vals, residue, x, n_rows)
+
+
+def _run(kind, entry, table, cols, vals, residue, x, n_rows):
     residue_ops = (() if residue is None
                    else (residue.rowptr, residue.entptr, residue.cols,
                          residue.vals))
-    _cuda.refuse_autograd(name, vals, x, *residue_ops)
+    _cuda.refuse_autograd(kind, vals, x, *residue_ops)
     s = x.shape[1]
     y = torch.empty((n_rows, s), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
@@ -210,8 +287,12 @@ def _launch(name, symbol, table, cols, vals, residue, x, n_rows):
     else:
         lists = tuple(t.data_ptr() for t in residue_ops + (residue.heavy,))
         n_heavy = residue.heavy.numel()
-    _cuda.launch(_SOURCE, symbol, 11, 4, x.get_device(),
-                 table.chunk_ptr.data_ptr(), table.pos.data_ptr(),
+    tables = ((table.chunk_ptr.data_ptr(), table.pos.data_ptr(),
+               table.block_ptr.data_ptr(), table.block_table.data_ptr())
+              if entry == 'narrow'
+              else (table.chunk_ptr.data_ptr(), table.pos.data_ptr()))
+    _cuda.launch(_SOURCE, _SYMBOLS[kind, entry, x.dtype, vals.dtype],
+                 len(tables) + 9, 4, x.get_device(), *tables,
                  cols.data_ptr(), vals.data_ptr(), *lists, x.data_ptr(),
                  y.data_ptr(), n_rows, s, table.chunk_rows, n_heavy)
     return y
@@ -226,8 +307,8 @@ def ell_spmm(table: SlotTable, cols, vals, residue: Residue | None, x,
     _check('ell_spmm', _ELL_TYPES, table, cols, vals, residue, x, n_rows)
     if x.device.type == 'cpu':
         return slot_spmm_plain(table, cols, vals, residue, x, n_rows)
-    y = _launch('ell_spmm', f'ell_spmm_{_ELL_TYPES[x.dtype, vals.dtype]}',
-                table, cols, vals, residue, x, n_rows)
+    y = _run('ell_spmm', entry_for(x.shape[1], x.dtype), table, cols, vals,
+             residue, x, n_rows)
     ell_spmm.launches += 1
     return y
 
@@ -245,9 +326,8 @@ def chunked_spmm(table: SlotTable, cols, vals, residue: Residue | None, x,
            n_rows)
     if x.device.type == 'cpu':
         return slot_spmm_plain(table, cols, vals, residue, x, n_rows)
-    y = _launch('chunked_spmm',
-                f'chunked_spmm_{_CHUNKED_TYPES[x.dtype, vals.dtype]}',
-                table, cols, vals, residue, x, n_rows)
+    y = _run('chunked_spmm', entry_for(x.shape[1], x.dtype), table, cols,
+             vals, residue, x, n_rows)
     chunked_spmm.launches += 1
     return y
 

@@ -62,9 +62,71 @@
 //     W, ... in order into its own sums, and after a barrier the thread
 //     that owns a column adds the W workers' sums in worker order. The
 //     order is fixed by the data and the block size alone.
+//
+// The narrow entry (slot_narrow_kernel: ell_spmm_narrow_f32/_f64 and
+// chunked_spmm_narrow_<pair>), which core/ell_kernel.py takes up to
+// SLOT_NARROW_WIDTH columns (32 f32 and f64, 1 with bf16 x). It replaces
+// the same XLA compositions (pygsp_tpu/core/sparse.py:411-420 and
+// pygsp_tpu/core/chunked.py:206-250, no Pallas kernel) at the widths of
+// lambda_max's Lanczos, CG, LOBPCG and the zoo graphs' banks.
+//   - What bounds it: at one column x (4 MB at 2^20 vertices) stays in L2,
+//     so the least time is the slots' own bytes (path H's graph: 25.1M ELL
+//     slots, 0.055 ms; path I's: 29.6M chunked slots, 0.083 ms); but every
+//     live slot's gather brings a 32-byte L2 sector for 4 bytes, 537 MB a
+//     call for the 16.8M stored edges, the wall kernel A's narrow entry
+//     and torch.sparse.mm meet (0.166 ms there).
+//   - The wide entry at one column gives each row one thread, which reads
+//     per position a 32-byte table entry (the same for every row of the
+//     chunk) before the column, the value and the x row, and leaves the
+//     heavy rows' blocks to lead its grid.
+//   - Design: a warp owns a tile of 32 / L consecutive rows of one out
+//     chunk (halved on small matrices, kSlotMinTiles; the launcher chooses
+//     P, L and the tile); L lanes a row, P values a lane (up to 16 bytes).
+//     The block table is read once per warp
+//     (32 entries, one a lane, handed round by shuffles), so a slot costs
+//     its column and value and, if live, its x row; kFlight x rows are in
+//     flight a lane, the chain running on across the chunked format's thin
+//     blocks; ELL's level 0 (whole, 16-byte aligned 4-slot groups) is read
+//     4 columns and 4 values a load. Each row sums its positions, then its
+//     overflow slots, in order: the wide entry's order, so the two entries
+//     give the same bits. The heavy rows keep the wide kernel's blocks: on
+//     ELL at one column they lead this kernel's grid, else they are a
+//     launch on a side stream that runs beside the tiles (launched before
+//     the tiles on the same stream they cost the tiles' wait: path H's graph
+//     in f64 at 5 columns 0.472 ms, on the side stream 0.450; BA(2^16) at 8
+//     f32 columns 0.064, side stream 0.052; on ELL at one column the side
+//     stream took 0.196 ms, the grid 0.183; on the chunked format at one
+//     column the grid took 0.209, the side stream 0.193, where the heavy
+//     code no longer sets the register count; NVIDIA H100 80GB HBM3 at
+//     700.00 W, device time, tools/slot_narrow_sweep.py on copies).
+//   - Tried first and measured (tools/slot_narrow_sweep.py, NVIDIA H100
+//     80GB HBM3 at 700.00 W, one column, path H / path I, ms of device
+//     time, the wide entry 0.219-0.222 / 0.241-0.244 in the same runs):
+//     lanes over slots, 32 a step with a segmented scan by row across the
+//     warp, 0.239 / 0.361 (the scan's shuffles and a step per 32 slots,
+//     dead padding included); the tile's slots staged in shared memory by
+//     coalesced loads, each row's lanes adding its staged slots, at best
+//     0.238 / 0.310 (each stage waits for its loads before its gathers);
+//     this design 0.183 / 0.212.
+//   - Measured (same card and tool, ms of device time, narrow / wide /
+//     torch.sparse.mm): path H at 1, 8, 32 f32 columns 0.183 / 0.219 /
+//     0.166, 0.291 / 0.466 / 1.282, 0.724 / 1.752 / 1.639, f64 at 5 0.450 /
+//     0.839 / 1.457; path I at 1, 8, 32 f32 columns 0.194 / 0.242 / 0.168,
+//     0.401 / 0.614 / 1.284, 1.223 / 2.104 / 1.638, bf16 x and values at
+//     one column 0.186 / 0.242 / 0.176; BA(2^16) at 1 and 8 columns 0.028 /
+//     0.047 / 0.017, 0.052 / 0.062 / 0.077. At one column it stays 1.10x
+//     (H) and 1.15x (I) the library: the ELL and chunked formats read 1.5x
+//     and 1.8x the slots of the CSR the library reads, and every live
+//     slot's sector.
+//     Registers (nvcc -Xptxas -v, sm_90a), no spills: f32 61-64, 78 on ELL
+//     at one column (the heavy rows' code in the grid); f64 60-64, 78 at
+//     two columns, 122 on ELL at one; bf16 x 64-92, f32 x with bf16 values
+//     57-64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 namespace {
 
@@ -509,40 +571,507 @@ slot_spmm_kernel(const Args<T, V> a, int vec) {
   }
 }
 
-template <typename T, typename V>
-int launch_slot_spmm(const void* chunk_ptr, const void* pos, const void* cols,
-                     const void* vals, const void* rowptr, const void* entptr,
-                     const void* rcols, const void* rvals, const void* heavy,
-                     const void* x, void* y, int n_rows, int s,
-                     int chunk_rows, int n_heavy, void* stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  if (n_rows < 1 || s < 1 || chunk_rows < 1 || n_heavy < 0 ||
-      (n_heavy > 0 && rowptr == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+// Whether the wide kernel takes rows as 16-byte pieces: s a multiple of a
+// piece, x and y 16-byte aligned.
+template <typename T>
+int wide_vec(const void* x, const void* y, int s) {
   auto aligned = [](const void* q) {
     return reinterpret_cast<size_t>(q) % 16 == 0;
   };
-  const int vec = s % kVec == 0 && aligned(x) && aligned(y);
-  const int nvec = vec ? s / kVec : s;
-  // a warp per row from 8 pieces a row up (the warp's lanes read the row's
-  // slots together), else the fewest lanes that cover a row
+  return s % (16 / sizeof(T)) == 0 && aligned(x) && aligned(y);
+}
+
+// The kernels' operands, with the wide kernel's lanes a row: a warp per row
+// from 8 pieces a row up (the warp's lanes read the row's slots together),
+// else the fewest lanes that cover a row.
+template <typename T, typename V>
+Args<T, V> slot_args(const void* chunk_ptr, const void* pos, const void* cols,
+                     const void* vals, const void* rowptr, const void* entptr,
+                     const void* rcols, const void* rvals, const void* heavy,
+                     const void* x, void* y, int n_rows, int s,
+                     int chunk_rows, int n_heavy) {
+  const int nvec = wide_vec<T>(x, y, s) ? s / (16 / sizeof(T)) : s;
   int group = 1;
   while (group < 32 && group < nvec) group *= 2;
   if (nvec >= 8) group = 32;
-  const long long rows_per_block = kThreads / group;
-  const long long blocks =
-      n_heavy + (n_rows + rows_per_block - 1) / rows_per_block;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const Args<T, V> a{
+  return Args<T, V>{
       static_cast<const int*>(chunk_ptr), static_cast<const long long*>(pos),
       static_cast<const int*>(cols),      static_cast<const V*>(vals),
       static_cast<const int*>(rowptr),    static_cast<const int*>(entptr),
       static_cast<const int*>(rcols),     static_cast<const V*>(rvals),
       static_cast<const int*>(heavy),     static_cast<const T*>(x),
       static_cast<T*>(y), n_rows, s, chunk_rows, n_heavy, group};
+}
+
+template <typename T, typename V>
+int launch_slot_spmm(const void* chunk_ptr, const void* pos, const void* cols,
+                     const void* vals, const void* rowptr, const void* entptr,
+                     const void* rcols, const void* rvals, const void* heavy,
+                     const void* x, void* y, int n_rows, int s,
+                     int chunk_rows, int n_heavy, void* stream) {
+  if (n_rows < 1 || s < 1 || chunk_rows < 1 || n_heavy < 0 ||
+      (n_heavy > 0 && rowptr == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args<T, V> a = slot_args<T, V>(chunk_ptr, pos, cols, vals, rowptr,
+                                       entptr, rcols, rvals, heavy, x, y,
+                                       n_rows, s, chunk_rows, n_heavy);
+  const long long rows_per_block = kThreads / a.group;
+  const long long blocks =
+      n_heavy + (n_rows + rows_per_block - 1) / rows_per_block;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   slot_spmm_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(a, vec);
+                           static_cast<cudaStream_t>(stream)>>>(
+      a, wide_vec<T>(x, y, s));
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The narrow entry: a warp a tile of rows, the blocks from the block table
+// ---------------------------------------------------------------------------
+
+// The bits a value of T is stored in (bf16 as its 16 bits), and P of them
+// as one aligned access.
+template <typename T>
+struct Raw {
+  using type = T;
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  using type = unsigned short;
+};
+
+template <typename T, int P>
+struct alignas(sizeof(T) * P) Pack {
+  typename Raw<T>::type v[P];
+};
+
+template <typename T, typename A>
+__device__ __forceinline__ A widen(typename Raw<T>::type b) {
+  if constexpr (sizeof(T) == 2)
+    return __uint_as_float(static_cast<unsigned>(b) << 16);
+  else
+    return static_cast<A>(b);
+}
+
+template <typename T, typename A>
+__device__ __forceinline__ typename Raw<T>::type narrow(A v) {
+  if constexpr (sizeof(T) == 2)
+    return static_cast<unsigned short>(bf16_word(v));
+  else
+    return static_cast<T>(v);
+}
+
+// A lane's P columns c0 .. c0 + P - 1 of the row at p, as stored: one
+// aligned access where rows are whole packs (vec), else masked scalars.
+template <typename T, int P>
+__device__ __forceinline__ Pack<T, P> load_row(const T* p, int c0, int s,
+                                               int vec) {
+  using R = typename Raw<T>::type;
+  Pack<T, P> u;
+  if (vec && c0 < s) return *reinterpret_cast<const Pack<T, P>*>(p + c0);
+  const R* r = reinterpret_cast<const R*>(p);
+#pragma unroll
+  for (int m = 0; m < P; ++m) u.v[m] = c0 + m < s ? r[c0 + m] : R(0);
+  return u;
+}
+
+template <typename T, int P, typename A>
+__device__ __forceinline__ void store_row(T* p, int c0, int s, int vec,
+                                          const A (&a)[P]) {
+  using R = typename Raw<T>::type;
+  Pack<T, P> u;
+#pragma unroll
+  for (int m = 0; m < P; ++m) u.v[m] = narrow<T>(a[m]);
+  if (vec) {
+    if (c0 < s) *reinterpret_cast<Pack<T, P>*>(p + c0) = u;
+    return;
+  }
+  R* r = reinterpret_cast<R*>(p);
+#pragma unroll
+  for (int m = 0; m < P; ++m)
+    if (c0 + m < s) r[c0 + m] = u.v[m];
+}
+
+// Slots whose x rows a lane loads together: 8, or 4 from 8 bytes a row.
+template <typename T, int P>
+constexpr int kFlight = P * sizeof(T) >= 8 ? 4 : 8;
+
+// acc += the products of the F slots (x row xr, -1 for a dead slot, which
+// adds nothing and reads no x; value val) in order, the lane's columns c0
+// .. of each x row, all F x rows loaded before the first product.
+template <typename T, typename V, int P, int F, typename A>
+__device__ __forceinline__ void add_chain(const Args<T, V>& a,
+                                          const int (&xr)[F],
+                                          const A (&val)[F], int c0, int vec,
+                                          A (&acc)[P]) {
+  Pack<T, P> xb[F];
+#pragma unroll
+  for (int u = 0; u < F; ++u)
+    if (xr[u] >= 0)
+      xb[u] = load_row<T, P>(a.x + static_cast<long long>(xr[u]) * a.s, c0,
+                             a.s, vec);
+#pragma unroll
+  for (int u = 0; u < F; ++u) {
+    if (xr[u] < 0) continue;
+#pragma unroll
+    for (int m = 0; m < P; ++m)
+      acc[m] = add_rn(acc[m], product<T, V>(widen<T, A>(xb[u].v[m]), val[u]));
+  }
+}
+
+// The per-block table as a warp reads it: lane j holds block wb + j's entry
+// (off, width, col_base, limit), 32 at a time, and the current block's entry
+// is handed round by shuffles. Every call is warp-uniform.
+struct BlockWindow {
+  int wb = 0;
+  long long e_off = 0;
+  int e_width = 0, e_base = 0, e_limit = 0;
+  long long off = 0;   // the current block
+  int width = 0, col_base = 0, limit = 0;
+
+  // the entries from block `from` on, and block `from` current
+  __device__ __forceinline__ void read(const long long* table, int from,
+                                       int end, int lane) {
+    wb = from;
+    if (wb + lane < end) {
+      const longlong2* p =
+          reinterpret_cast<const longlong2*>(table) + 2 * (wb + lane);
+      const longlong2 u = __ldg(p), v = __ldg(p + 1);
+      e_off = u.x;
+      e_width = static_cast<int>(u.y);
+      e_base = static_cast<int>(v.x);
+      e_limit = static_cast<int>(v.y);
+    }
+    take(from);
+  }
+
+  // block kb (>= wb) current
+  __device__ __forceinline__ void at(const long long* table, int kb, int end,
+                                     int lane) {
+    if (kb - wb >= 32)
+      read(table, kb, end, lane);
+    else
+      take(kb);
+  }
+
+  __device__ __forceinline__ void take(int kb) {
+    off = __shfl_sync(kFull, e_off, kb - wb);
+    width = __shfl_sync(kFull, e_width, kb - wb);
+    col_base = __shfl_sync(kFull, e_base, kb - wb);
+    limit = __shfl_sync(kFull, e_limit, kb - wb);
+  }
+};
+
+// One warp per tile of `tile` (<= 32 / L) consecutive rows of one out chunk;
+// group q (L lanes, P columns a lane) owns the tile's row q, sums it in
+// registers and writes it once. The row's positions are walked in order,
+// block by block in table order (row lr of a block of width w reads the
+// slots off + lr * w .. + w - 1 of the flat cols/vals), then its overflow
+// slots in order: the wide entry's order. The per-block table (off, width,
+// col_base, limit), block kb of chunk i at [block_ptr[i], block_ptr[i + 1]),
+// is read once by the warp, 32 entries at a time, one a lane, and handed
+// round by shuffles, so no slot reads a table entry. The slots are taken
+// kFlight at a time, their x rows all loaded before the first product; a
+// chain runs on across block boundaries, and where a block starts whole
+// 4-slot groups, 16-byte aligned (ELL's level 0), a lane reads its columns
+// and values four at a time. A heavy row (kHeavySlots overflow slots or
+// more) belongs to a block of the wide kernel's heavy rows (spmm_heavy):
+// the tile reads none of its slots and does not write it. With Lead (the
+// ELL instances at one column) those blocks lead this kernel's grid and
+// start before the tiles; else they are a launch of the wide kernel on a
+// side stream that runs beside this one (launch_slot_narrow), which keeps
+// the heavy code's registers out of this kernel.
+template <typename T, typename V, int P, int L, bool Lead>
+__device__ __forceinline__ void narrow_tile(const Args<T, V>& a,
+                                            const int* block_ptr,
+                                            const long long* block_table,
+                                            int tile, int vec) {
+  using A = typename SumOf<T>::type;
+  using RV = typename Raw<V>::type;
+  constexpr int F = kFlight<T, P>;
+  int b = static_cast<int>(blockIdx.x);
+  if constexpr (Lead) {   // the heavy rows' blocks lead
+    if (b < a.n_heavy) {
+      spmm_heavy<T, V, 1>(a, __ldg(a.heavy + b));
+      return;
+    }
+    b -= a.n_heavy;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane / L, c0 = (lane % L) * P;
+  const long long w = static_cast<long long>(b) * kWarps + warp;
+  const int per_chunk = (a.chunk_rows + tile - 1) / tile;
+  const long long i = w / per_chunk;
+  const int lr0 = static_cast<int>(w - i * per_chunk) * tile;
+  const long long row0 = i * a.chunk_rows + lr0;
+  if (row0 >= a.n_rows) return;   // warp-uniform
+  const int nt = static_cast<int>(
+      min(static_cast<long long>(min(tile, a.chunk_rows - lr0)),
+          a.n_rows - row0));
+  const bool own = q < nt;
+  int q0 = 0, q1 = 0;   // the owned row's overflow slots
+  if (own && a.rowptr != nullptr) {
+    q0 = __ldg(a.entptr + __ldg(a.rowptr + row0 + q));
+    q1 = __ldg(a.entptr + __ldg(a.rowptr + row0 + q + 1));
+  }
+  const bool adds = own && q1 - q0 < kHeavySlots;
+  const long long lr = lr0 + q;   // the owned row in its chunk
+  A acc[P];
+#pragma unroll
+  for (int m = 0; m < P; ++m) acc[m] = A(0);
+
+  // the dense blocks; the current one's entry in bw
+  const int kb0 = __ldg(block_ptr + i), kb1 = __ldg(block_ptr + i + 1);
+  BlockWindow bw;
+  if (kb0 < kb1) bw.read(block_table, kb0, kb1, lane);
+  int kb = kb0, j = 0;   // the next position: slot j of block kb
+  while (kb < kb1) {
+    int xr[F];
+    A val[F];
+    const RV* vals = reinterpret_cast<const RV*>(a.vals);
+    if (j == 0 && bw.width % 4 == 0 && (bw.off & 3) == 0 &&
+        reinterpret_cast<size_t>(a.cols) % 16 == 0 &&
+        reinterpret_cast<size_t>(vals) % (4 * sizeof(RV)) == 0) {
+      // a whole aligned block, four slots a load
+      const long long at = bw.off + lr * bw.width;
+      for (; j < bw.width; j += F) {
+#pragma unroll
+        for (int g = 0; g < F; g += 4) {
+          int4 c4 = make_int4(bw.limit, bw.limit, bw.limit, bw.limit);
+          Pack<V, 4> v4 = {};
+          if (adds && j + g < bw.width) {
+            c4 = __ldg(reinterpret_cast<const int4*>(a.cols + at + j + g));
+            v4 = *reinterpret_cast<const Pack<V, 4>*>(vals + at + j + g);
+          }
+          const int cg[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            xr[g + e] = cg[e] < bw.limit ? bw.col_base + cg[e] : -1;
+            val[g + e] = xr[g + e] >= 0 ? widen<V, A>(v4.v[e]) : A(0);
+          }
+        }
+        add_chain<T, V, P>(a, xr, val, c0, vec, acc);
+      }
+      j = 0;
+      if (++kb < kb1) bw.at(block_table, kb, kb1, lane);
+      continue;
+    }
+    // F positions one at a time, across block boundaries
+#pragma unroll
+    for (int u = 0; u < F; ++u) {
+      xr[u] = -1;
+      val[u] = A(0);
+      if (kb < kb1) {
+        if (adds) {
+          const long long src = bw.off + lr * bw.width + j;
+          const int c = __ldg(a.cols + src);
+          val[u] = load_val<V, A>(a.vals + src);
+          xr[u] = c < bw.limit ? bw.col_base + c : -1;
+        }
+        if (++j == bw.width) {
+          j = 0;
+          if (++kb < kb1) bw.at(block_table, kb, kb1, lane);
+        }
+      }
+    }
+    add_chain<T, V, P>(a, xr, val, c0, vec, acc);
+  }
+
+  // the overflow slots [q0, q1), in order
+  if (adds) {
+    for (int k = q0; k < q1; k += F) {
+      int xr[F];
+      A val[F];
+#pragma unroll
+      for (int u = 0; u < F; ++u) {
+        xr[u] = -1;
+        val[u] = A(0);
+        if (k + u < q1) {
+          xr[u] = __ldg(a.rcols + k + u);
+          val[u] = load_val<V, A>(a.rvals + k + u);
+        }
+      }
+      add_chain<T, V, P>(a, xr, val, c0, vec, acc);
+    }
+    store_row<T, P>(a.y + (row0 + q) * a.s, c0, a.s, vec, acc);
+  }
+}
+
+// The instance that ptxas, left to its own register target, spills (12
+// bytes at 64 registers: f64 at two columns) takes at least two blocks an
+// SM, up to 128 registers, and spills nothing; the others keep ptxas's
+// choice (one column in f32 at 78, where a bound of one or two blocks made
+// it take 106 or 122).
+template <typename T, typename V, int P, int L>
+constexpr bool kRoomy = sizeof(T) == 8 && P == 2 && L == 1;
+
+template <typename T, typename V, int P, int L, bool Lead>
+__global__ void __launch_bounds__(kThreads)
+slot_narrow_kernel(const Args<T, V> a, const int* __restrict__ block_ptr,
+                   const long long* __restrict__ block_table, int tile,
+                   int vec) {
+  narrow_tile<T, V, P, L, Lead>(a, block_ptr, block_table, tile, vec);
+}
+
+template <typename T, typename V, int P, int L>
+__global__ void __launch_bounds__(kThreads, 2)
+slot_narrow_kernel_roomy(const Args<T, V> a,
+                         const int* __restrict__ block_ptr,
+                         const long long* __restrict__ block_table, int tile,
+                         int vec) {
+  narrow_tile<T, V, P, L, false>(a, block_ptr, block_table, tile, vec);
+}
+
+template <typename T, typename V, int P, int L, bool Lead = false>
+void launch_narrow_instance(unsigned blocks, cudaStream_t st,
+                            const Args<T, V>& a, const void* block_ptr,
+                            const void* block_table, int tile, int vec) {
+  const auto* bp = static_cast<const int*>(block_ptr);
+  const auto* bt = static_cast<const long long*>(block_table);
+  if constexpr (kRoomy<T, V, P, L>)
+    slot_narrow_kernel_roomy<T, V, P, L><<<blocks, kThreads, 0, st>>>(
+        a, bp, bt, tile, vec);
+  else
+    slot_narrow_kernel<T, V, P, L, Lead><<<blocks, kThreads, 0, st>>>(
+        a, bp, bt, tile, vec);
+}
+
+// The narrow entry's tiles: 32 / L rows (a group of L lanes each), halved
+// while the matrix has fewer than kSlotMinTiles tiles, down to one row: on
+// a small matrix a few long tiles leave the card idle while each warp waits
+// on its gathers in turn (kernel A's NARROW_MIN_SEGMENTS).
+constexpr int kSlotMinTiles = 2048;
+
+int narrow_tile_rows(int n_rows, int chunk_rows, int lanes) {
+  const long long full = n_rows / chunk_rows, rest = n_rows % chunk_rows;
+  const auto tiles = [&](int t) {
+    return full * ((chunk_rows + t - 1) / t) + (rest + t - 1) / t;
+  };
+  int tile = 32 / lanes;
+  while (tile > 1 && tiles(tile) < kSlotMinTiles) tile /= 2;
+  return tile;
+}
+
+// The stream and events on which the narrow entry runs the heavy rows'
+// blocks beside its tiles: one set per device, made at the first call that
+// has heavy rows, at the highest priority, so that those blocks, the
+// longest first, take the SMs before the tiles do. The lock keeps the
+// fork, the two launches and the join of one call together.
+struct SideStream {
+  std::mutex lock;
+  cudaStream_t stream = nullptr;
+  cudaEvent_t fork = nullptr, join = nullptr;
+};
+
+constexpr int kMaxDevices = 64;
+
+cudaError_t side_stream(SideStream** out) {
+  static SideStream sides[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  SideStream& side = sides[dev];
+  std::lock_guard<std::mutex> hold(side.lock);
+  if (side.join == nullptr) {
+    int least = 0, greatest = 0;
+    err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+    if (err == cudaSuccess && side.stream == nullptr)
+      err = cudaStreamCreateWithPriority(&side.stream, cudaStreamNonBlocking,
+                                         greatest);
+    if (err == cudaSuccess && side.fork == nullptr)
+      err = cudaEventCreateWithFlags(&side.fork, cudaEventDisableTiming);
+    if (err == cudaSuccess)
+      err = cudaEventCreateWithFlags(&side.join, cudaEventDisableTiming);
+    if (err != cudaSuccess) return err;
+  }
+  *out = &side;
+  return cudaSuccess;
+}
+
+template <typename T, typename V, bool Ell>
+int launch_slot_narrow(const void* chunk_ptr, const void* pos,
+                       const void* block_ptr, const void* block_table,
+                       const void* cols, const void* vals, const void* rowptr,
+                       const void* entptr, const void* rcols,
+                       const void* rvals, const void* heavy, const void* x,
+                       void* y, int n_rows, int s, int chunk_rows,
+                       int n_heavy, void* stream) {
+  constexpr int kV = 16 / sizeof(T);   // values of a 16-byte access
+  // P = min(kV, next_pow2(s)) values a lane, L = next_pow2(ceil(s / P))
+  // lanes a row
+  int p = 1;
+  while (p < kV && p < s) p *= 2;
+  int lanes = 1;
+  while (lanes * p < s) lanes *= 2;
+  if (n_rows < 1 || s < 1 || lanes > 32 || chunk_rows < 1 || n_heavy < 0 ||
+      (n_heavy > 0 && rowptr == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = narrow_tile_rows(n_rows, chunk_rows, lanes);
+  const size_t pack = p * sizeof(T);
+  const int vec = s % p == 0 && reinterpret_cast<size_t>(x) % pack == 0 &&
+                  reinterpret_cast<size_t>(y) % pack == 0;
+  const long long n_out = (n_rows + chunk_rows - 1LL) / chunk_rows;
+  const long long warps = n_out * ((chunk_rows + tile - 1LL) / tile);
+  // the heavy rows' blocks: leading the grid for ELL at one column (Lead),
+  // else on the side stream
+  const bool lead = Ell && p == 1;
+  const long long blocks =
+      (lead ? n_heavy : 0) + (warps + kWarps - 1) / kWarps;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const Args<T, V> a = slot_args<T, V>(
+      chunk_ptr, pos, cols, vals, rowptr, entptr, rcols, rvals, heavy, x, y,
+      n_rows, s, chunk_rows, n_heavy);
+  SideStream* side = nullptr;
+  std::unique_lock<std::mutex> hold;
+  if (n_heavy > 0 && !lead) {   // the heavy rows' blocks on the side stream
+    cudaError_t err = side_stream(&side);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hold = std::unique_lock<std::mutex>(side->lock);
+    err = cudaEventRecord(side->fork, st);
+    if (err == cudaSuccess)
+      err = cudaStreamWaitEvent(side->stream, side->fork);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    slot_spmm_kernel<T, V><<<n_heavy, kThreads, 0, side->stream>>>(
+        a, wide_vec<T>(x, y, s));
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = cudaEventRecord(side->join, side->stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto go = [&](auto launch) {
+    launch(static_cast<unsigned>(blocks), st, a, block_ptr, block_table,
+           tile, vec);
+  };
+  if (p < kV) {   // s below one 16-byte access: one lane a row
+    if (p == 1) {
+      if constexpr (Ell)
+        go(launch_narrow_instance<T, V, 1, 1, true>);
+      else
+        go(launch_narrow_instance<T, V, 1, 1>);
+    } else if (p == 2)
+      go(launch_narrow_instance<T, V, 2, 1>);
+    else if constexpr (kV > 4)
+      go(launch_narrow_instance<T, V, 4, 1>);
+  } else if (lanes == 1) {
+    go(launch_narrow_instance<T, V, kV, 1>);
+  } else if (lanes == 2) {
+    go(launch_narrow_instance<T, V, kV, 2>);
+  } else if (lanes == 4) {
+    go(launch_narrow_instance<T, V, kV, 4>);
+  } else if (lanes == 8) {
+    go(launch_narrow_instance<T, V, kV, 8>);
+  } else if (lanes == 16) {
+    go(launch_narrow_instance<T, V, kV, 16>);
+  } else {
+    go(launch_narrow_instance<T, V, kV, 32>);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (side != nullptr) {   // the caller's stream waits for the heavy rows
+    const cudaError_t joined = cudaStreamWaitEvent(st, side->join);
+    if (err == cudaSuccess) err = joined;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -568,3 +1097,26 @@ SLOT_SPMM(chunked_spmm_f64, double, double)
 SLOT_SPMM(chunked_spmm_bf16_f32, __nv_bfloat16, float)
 SLOT_SPMM(chunked_spmm_bf16, __nv_bfloat16, __nv_bfloat16)
 SLOT_SPMM(chunked_spmm_f32_bf16, float, __nv_bfloat16)
+
+// The narrow entry's instances, one per pair as above; ELL's take the heavy
+// rows into the grid at one column (Lead).
+#define SLOT_NARROW(NAME, T, V, ELL)                                          \
+  extern "C" int NAME(const void* chunk_ptr, const void* pos,                 \
+                      const void* block_ptr, const void* block_table,         \
+                      const void* cols, const void* vals,                     \
+                      const void* rowptr, const void* entptr,                 \
+                      const void* rcols, const void* rvals,                   \
+                      const void* heavy, const void* x, void* y, int n_rows,  \
+                      int s, int chunk_rows, int n_heavy, void* stream) {     \
+    return launch_slot_narrow<T, V, ELL>(                                     \
+        chunk_ptr, pos, block_ptr, block_table, cols, vals, rowptr, entptr,   \
+        rcols, rvals, heavy, x, y, n_rows, s, chunk_rows, n_heavy, stream);   \
+  }
+
+SLOT_NARROW(ell_spmm_narrow_f32, float, float, true)
+SLOT_NARROW(ell_spmm_narrow_f64, double, double, true)
+SLOT_NARROW(chunked_spmm_narrow_f32, float, float, false)
+SLOT_NARROW(chunked_spmm_narrow_f64, double, double, false)
+SLOT_NARROW(chunked_spmm_narrow_bf16_f32, __nv_bfloat16, float, false)
+SLOT_NARROW(chunked_spmm_narrow_bf16, __nv_bfloat16, __nv_bfloat16, false)
+SLOT_NARROW(chunked_spmm_narrow_f32_bf16, float, __nv_bfloat16, false)

@@ -32,7 +32,9 @@ refuse an operand that requires grad, and the fixed-graph training path's
 gradients against the CPU's; the ELL and chunked SpMMs against their plain
 version (heavy rows, ragged chunks, the degree relabeling, S of 1 to 512,
 every operand pair, dead slots holding ``inf``, two launches bit-equal),
-a bank on each format against the CPU, and their refusals; and the
+their narrow entry either side of ``SLOT_NARROW_WIDTH``, in every pair and
+against the wide entry, λmax on the narrow symbols alone, a bank on each
+format against the CPU, and their refusals; and the
 algorithms in f64 against the CPU (the learning solvers, ``prox_tv`` and
 its launches, the dense Kron solve, the resistance sketch, the
 spectrogram, a nearest-neighbour graph and its LOBPCG eigenmap).
@@ -1139,6 +1141,125 @@ def test_slot_kernels_refuse_autograd_and_mixed_devices(cuda):
         with pytest.raises(ValueError, match='one device'):
             kernel(table, cols, vals, res, x.cpu(), M.n_rows)
     torch.cuda.synchronize()
+
+
+def _launched(fn):
+    """``(fn(), the C symbols it launched)``."""
+    symbols = []
+    launch = _cuda.launch
+
+    def spy(name, symbol, *rest):
+        symbols.append(symbol)
+        return launch(name, symbol, *rest)
+
+    _cuda.launch = spy
+    try:
+        out = fn()
+    finally:
+        _cuda.launch = launch
+    return out, symbols
+
+
+def _narrow_widths(dtype):
+    widest = ell_kernel.SLOT_NARROW_WIDTH[dtype]
+    return sorted({2, 8, 32, widest - 1, widest, widest + 1})
+
+
+def _inf_behind_dead_slots(M, table, cols, vals):
+    dead = vals.clone()
+    for i, off, width, _, limit in table.blocks:
+        rows = (M.n_rows if isinstance(M, tsp.ELLMatrix)
+                else M.out_chunk_size(i))
+        part = dead[off:off + rows * width]
+        part[cols[off:off + rows * width] >= limit] = float('inf')
+    return dead
+
+
+@pytest.mark.parametrize('s', sorted(set(_narrow_widths(torch.float32)
+                                         + _narrow_widths(torch.float64))))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('fmt', list(SLOT_FORMATS))
+def test_slot_narrow_entry_matches_plain(cuda, fmt, dtype, s):
+    """The wrappers at the narrow widths and either side of the crossover:
+    the entry SLOT_NARROW_WIDTH gives (its symbol launched), within TOL of
+    the plain version in f64, two launches bit-equal, inf behind every dead
+    slot adding nothing."""
+    if s not in _narrow_widths(dtype):
+        pytest.skip('not a width of this dtype')
+    M = SLOT_FORMATS[fmt](_slot_hub_graph(), cuda).astype(dtype)
+    kernel, (table, cols, vals, res) = _slot_operands(M)
+    x = _signal((M.n_cols, s), dtype, s, cuda)
+    y, symbols = _launched(lambda: kernel(table, cols, vals, res, x,
+                                          M.n_rows))
+    entry = ell_kernel.entry_for(s, dtype)
+    assert symbols == [ell_kernel.symbol(kernel.__name__, entry, dtype,
+                                         dtype)]
+    want = ell_kernel.slot_spmm_plain(
+        table, cols, vals.double(), res._replace(vals=res.vals.double()),
+        x.double(), M.n_rows)
+    assert _rel_err(y.double(), want) <= TOL[dtype]
+    assert torch.equal(y, kernel(table, cols, vals, res, x, M.n_rows))
+    dead = _inf_behind_dead_slots(M, table, cols, vals)
+    assert torch.equal(y, kernel(table, cols, dead, res, x, M.n_rows))
+
+
+@pytest.mark.parametrize('fmt', list(SLOT_FORMATS))
+def test_slot_entries_agree_at_the_crossover(cuda, fmt):
+    """In f64 the narrow and the wide entry sum each row in the same order,
+    so they give the same bits, at the widest narrow width and at one
+    column, with x aligned and not (the narrow entry's scalar path)."""
+    M = SLOT_FORMATS[fmt](_slot_hub_graph(), cuda).astype(torch.float64)
+    kernel, ops = _slot_operands(M)
+    for s in (1, ell_kernel.SLOT_NARROW_WIDTH[torch.float64]):
+        for lead in (0, 1):
+            x = _signal((M.n_cols * s + lead,), torch.float64, 11, cuda)
+            x = x[lead:].reshape(M.n_cols, s)
+            narrow, wide = (ell_kernel.spmm_entry(kernel.__name__, e, *ops,
+                                                  x, M.n_rows)
+                            for e in ('narrow', 'wide'))
+            assert torch.equal(narrow, wide), (s, lead)
+
+
+@pytest.mark.parametrize('s', [1, 8])
+@pytest.mark.parametrize('pair', sorted(ell_kernel.CHUNKED_OPERANDS,
+                                        key=str))
+def test_chunked_narrow_entry_takes_every_pair(cuda, pair, s):
+    """The narrow entry in each operand pair against its plain version in
+    the same dtypes (bf16 y within one bf16 ulp), two launches bit-equal;
+    the wrapper launches the symbol of the entry entry_for gives."""
+    xd, vd = pair
+    M = tck.chunked_from_scipy(_slot_hub_graph(), chunk_rows=700,
+                               permute='degree', device=cuda).astype(vd)
+    _, (table, cols, vals, res) = _slot_operands(M)
+    x = _signal((M.n_cols, s), torch.float32, 7, cuda).to(xd)
+    ops = (table, cols, vals, res, x, M.n_rows)
+    y = ell_kernel.spmm_entry('chunked_spmm', 'narrow', *ops)
+    want = ell_kernel.slot_spmm_plain(*ops)
+    assert y.dtype == xd
+    if xd == torch.bfloat16:
+        assert _ulps(y, want) <= 1.0
+    else:
+        assert _rel_err(y.double(), want.double()) <= TOL[xd]
+    assert torch.equal(y, ell_kernel.spmm_entry('chunked_spmm', 'narrow',
+                                                *ops))
+    _, symbols = _launched(lambda: ell_kernel.chunked_spmm(*ops))
+    assert symbols == [ell_kernel.symbol(
+        'chunked_spmm', ell_kernel.entry_for(s, xd), xd, vd)]
+
+
+@pytest.mark.parametrize('fmt', ['hybrid', 'chunked'])
+def test_estimate_lmax_takes_the_narrow_entry(cuda, fmt):
+    """λmax's Lanczos products at one column launch only narrow symbols of
+    the format's kernel."""
+    G = tgsp.graphs.Graph(_slot_hub_graph(), device=cuda,
+                          dtype=torch.float64)
+    G.compute_laplacian(fmt=fmt)
+    _, symbols = _launched(G.estimate_lmax)
+    kind = 'ell_spmm' if fmt == 'hybrid' else 'chunked_spmm'
+    slot = [name for name in symbols if name.startswith(kind)]
+    assert slot and all(name == f'{kind}_narrow_f64' for name in slot)
+    assert not any(name.startswith('csr_spmm') for name in symbols)
+    assert np.isfinite(G.lmax) and G.lmax > 0
 
 
 def _sensor_pair(cuda, n=512):
