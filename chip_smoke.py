@@ -85,8 +85,13 @@ F. path F, the other filter methods: ``method='lanczos'`` (order 30) of
    filters, against a host f64 Lanczos (beside it, the error of the same
    recurrence without reorthogonalization, shown); ``method='exact'`` on
    ``Grid2d(64, 64)`` in f32 against host f64 ``numpy.linalg.eigh``
-   filtering; and ``g.filter(x)`` with x requiring grad must raise on the
-   card, naming ``cheby_op_fixed_graph``;
+   filtering; and ``g.filter(x)`` with x requiring grad on that CSR
+   operator, which now differentiates on the card: its x̄ against the
+   fixed-graph VJP's within 1e-5, no SDDMM launched (x alone requires
+   grad); the grid with its Fourier basis through ``save_graph`` and
+   ``load_graph``, back on the card bit for bit. The refusal of a
+   grad-requiring ``g.filter(x)`` (naming ``cheby_op_fixed_graph``) is
+   checked on path C's windowed operator, after path E on C;
 G. path G, the filter zoo and the rest of the spectral and graph side:
    on path A's graph and signal a ``MexicanHat`` bank of 6 (CSR kernel,
    kernel B's groups at the g its rule gives, the group at Nf = 6 timed
@@ -161,6 +166,33 @@ J. path J, the algorithms on the nearest-neighbour graphs: J1,
    against its plain version at 1, 8 and 24 columns on J1's graph, as
    ``grad`` and ``div`` at one column and at the spectrogram's 2048;
    kernel B's step and group at the spectrogram's shape (Nf = 100);
+K. path K, gradients through the graph's weights, on path A's graph
+   after path F's Lanczos (before path G leaves the graph on the
+   normalized Laplacian): W's CSR values as a leaf that requires grad →
+   ``laplacian_op`` → ``cheby_op`` of the heat bank (order 30, λmax path
+   A's, c and x requiring grad too) → the VJP of ⟨ḡ, out⟩ for a seeded ḡ
+   nonzero on 8 columns. The backward's peak memory at most m+1 + Nf + 8
+   (N, S) units above what is held (plain autograd's 3K beside it), 30
+   ``csr_sddmm`` launches a backward (counted by symbol) and no plain SpMM
+   or SDDMM, two backward passes bit-equal; w̄, x̄ and c̄ against a host
+   SciPy f64 computation on those 8 columns (the terms, the Clenshaw
+   adjoint, the per-edge dots, the chain through ``laplacian_op``) within
+   1e-4 of their largest value, x̄ exactly 0 on the other columns and w̄ on
+   the padding; the forward, the backward and its parts (an adjoint step,
+   the SDDMM, the c̄ pass) timed; ``csr_sddmm`` with the diagonal at 128
+   and 1 columns against its plain version, two launches bit-equal, timed
+   beside its bound, its gather model, its plain version and
+   ``torch.sparse.sampled_addmm`` (a yardstick only); three Adam steps on
+   the weights towards a teacher (the graph with each edge's weight
+   scaled by a seeded factor in [0.9, 1.1]): the loss must fall, each
+   step timed; on BA(2^16) in f64 with the normalized Laplacian, w̄, c̄,
+   x̄ and λ̄ on the card against the port on the CPU within 1e-10, and λ̄
+   against a central difference within 1e-7. Then the auxiliaries on the
+   card: BA(2^16) with its λmax and a signal through ``save_graph`` and
+   ``load_graph`` (its Laplacian's product bit for bit), a ``Throughput``
+   around each of three banks of path A within 2 % of the CUDA events
+   around the same bank, and ``trace`` over one bank, whose file must
+   name the CSR kernel (``csr_spmm_segment_kernel``);
 7. kernel B's entry points at each path's shape and at path E's (the step
    at 512 columns, the contraction at (N, 128, 4), ``cheby_dot_group`` at
    paths A's and B's N), held bit for bit against
@@ -171,7 +203,8 @@ J. path J, the algorithms on the nearest-neighbour graphs: J1,
    ``torch.mm`` for the coefficient gradient);
 8. one JSON line of per-kernel numbers (kernel A's entry with ``grad`` and
    ``div``, its narrow entry with the width sweep and the narrow shapes of
-   paths G and J, kernel B's group with Nf = 6, ``ell_spmm`` and
+   paths G and J, ``csr_sddmm`` at path K's 128 columns and at one,
+   kernel B's group with Nf = 6, ``ell_spmm`` and
    ``chunked_spmm`` with the shapes paths H and I held them at under
    ``at_paths``, their narrow entries ``ell_spmm_narrow`` and
    ``chunked_spmm_narrow`` at one column on paths H and I's graph with
@@ -186,6 +219,7 @@ non-zero without one.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -208,7 +242,7 @@ from pygsp_tpu_torch.ops.eigen import (estimate_lmax_lanczos,
                                        laplacian_upper_bound,
                                        partial_fourier_basis,
                                        power_iteration_lmax)
-from pygsp_tpu_torch.ops.chebyshev import (_fixed_graph_grads,
+from pygsp_tpu_torch.ops.chebyshev import (_bank, _fixed_graph_grads,
                                            _operator_bytes, acc_group,
                                            carry_error_estimate, cheby_coeff,
                                            cheby_op, cheby_op_fixed_graph,
@@ -329,6 +363,19 @@ TOL_SLOT = 1e-5         # the ELL and chunked kernels against f64
 TOL_FOLD = 1e-6         # f32 sums of bf16 products, another order
 TOL_PATH = 1e-4
 TOL_F64 = 1e-12
+# path K: gradients through the graph's weights. w̄, x̄ and c̄ at full width
+# against the host f64 reference within the exact modes' limit (TOL_PATH);
+# the f64 graph on the card against the port on the CPU; λmax as a tensor
+# against a central difference (h = 1e-6 λmax); path F's x̄ of a
+# grad-requiring g.filter on CSR against the fixed-graph x̄
+K_SMALL_N = 1 << 16
+K_SMALL_S = 16
+K_TRAIN_STEPS = 3
+K_TRAIN_LR = 0.005
+K_TEACHER = (0.9, 1.1)
+TOL_K_F64 = 1e-10
+TOL_K_LMAX_FD = 1e-7
+TOL_F_XBAR = 1e-5
 # the fixed-graph VJP's adjoint identities at full width, each relative to
 # the magnitude of its own terms (f32 terms summed in f64): ⟨ḡ, out⟩ =
 # Σ c̄ ⊙ c to Σ |c̄ ⊙ c|, read 6.0e-9 to 4.2e-8 on paths A-C on an H100;
@@ -359,7 +406,8 @@ CHEBY_TYPES = ((torch.float32, torch.float32), (torch.float64, torch.float64),
 FOLD2_NW, FOLD2_LT, FOLD2_KP = 1024, 1152, 256
 FOLD3_LT, FOLD3_KP = 512, 256
 
-KERNELS = ((csr_kernel.csr_spmm, banded_kernel.banded_spmm) + wk.KERNELS
+KERNELS = ((csr_kernel.csr_spmm, csr_kernel.csr_sddmm,
+            banded_kernel.banded_spmm) + wk.KERNELS
            + cheby_kernel.KERNELS + ell_kernel.KERNELS)
 
 
@@ -610,8 +658,8 @@ def symmetric_from_edges(src, tgt, n, weights=None):
 def phase_build():
     log('phase 1: build, then the canary kernel #4')
     t0 = time.time()
-    outputs = _cuda.build(['csr_spmm', 'banded_spmm', 'windowed_fold',
-                           'cheby_step', 'ell_spmm'],
+    outputs = _cuda.build(['csr_spmm', 'csr_sddmm', 'banded_spmm',
+                           'windowed_fold', 'cheby_step', 'ell_spmm'],
                           extra_flags=('-Xptxas', '-v'))
     log(f'  built in {time.time() - t0:.1f} s')
     for name, out in outputs.items():
@@ -2329,8 +2377,8 @@ def heat_np(scale, lmax):
 def phase_path_f_exact():
     """``method='exact'`` on Grid2d(64, 64), the graph of
     __graft_entry__.entry, in f32 on the card against host f64
-    numpy.linalg.eigh filtering; and the guard: ``g.filter(x)`` with x
-    requiring grad raises on the card."""
+    numpy.linalg.eigh filtering; and ``g.filter(x)`` with x requiring grad
+    on this CSR operator: its x̄ against the fixed-graph VJP's."""
     log('phase F: path F (exact) on Grid2d(64, 64)')
     G = gsp.graphs.Grid2d(EXACT_SIDE, EXACT_SIDE)
     reset_counts()
@@ -2350,19 +2398,481 @@ def phase_path_f_exact():
     err = check('path F exact vs host f64 eigh', out[:, :N_CHECK_COLS].cpu(),
                 torch.from_numpy(ref), TOL_PATH)
     ms = time_ms(lambda: g.filter(x, method='exact'), 3)
+    # a grad-requiring g.filter(x) on the CSR operator differentiates (the
+    # bank's own backward): its x̄ against the fixed-graph VJP's
+    gbar = seeded_normal((G.N, N_SIGNALS, len(SCALES)), 73)
+    x_bars = []
+    for fixed in (False, True):
+        xr = x.clone().requires_grad_()
+        before = counts()
+        g.filter(xr, order=ORDER, fixed_graph=fixed).backward(gbar)
+        torch.cuda.synchronize()
+        if not fixed and counts()['csr_sddmm'] != before['csr_sddmm']:
+            raise AssertionError('path F: an SDDMM ran with only x '
+                                 'requiring grad')
+        x_bars.append(xr.grad)
+    xbar_err = check('path F: x̄ of a grad-requiring g.filter on CSR vs the '
+                     'fixed-graph VJP', x_bars[0], x_bars[1], TOL_F_XBAR)
     launches = counts()
-    xr = x.clone().requires_grad_()
+    from pygsp_tpu_torch import checkpoint
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_graph(f'{d}/grid.npz', G)
+        G2 = checkpoint.load_graph(f'{d}/grid.npz')
+    if (G2.U.device.type != 'cuda' or not torch.equal(G2.U, G.U)
+            or not torch.equal(G2.e, G.e) or G2.lmax != G.lmax
+            or (G2.W != G.W).nnz):
+        raise AssertionError('checkpoint: Grid2d(64, 64) with its basis did '
+                             'not round-trip')
+    log('  Grid2d(64, 64) with its Fourier basis round-trips to the card')
+    return {'basis_s': basis_s, 'ms': ms, 'rel_err': err,
+            'x_bar_vs_fixed_graph': xbar_err, 'lmax': G.lmax}, launches
+
+
+def refusal_on_windowed(G, x):
+    """``g.filter(x)`` with x requiring grad on the windowed operator, which
+    has no backward of its own, raises on the card, naming
+    ``cheby_op_fixed_graph``."""
+    g = gsp.filters.Heat(G, scale=SCALES)
+    xr = x[:, :N_CHECK_COLS].clone().requires_grad_()
     try:
         g.filter(xr, order=ORDER)
     except RuntimeError as exc:
         if 'cheby_op_fixed_graph' not in str(exc):
             raise
-        log(f'  a grad-requiring g.filter(x) on the card raises: {exc}')
+        log(f'  a grad-requiring g.filter(x) on the windowed operator '
+            f'raises: {exc}')
     else:
         raise AssertionError('g.filter(x) with x requiring grad ran on the '
-                             'card')
-    return {'basis_s': basis_s, 'ms': ms, 'rel_err': err,
-            'lmax': G.lmax}, launches
+                             'windowed operator on the card')
+
+
+# ---------------------------------------------------------------------------
+# path K: gradients through the graph's weights (the CSR bank's backward)
+# ---------------------------------------------------------------------------
+
+def count_plain_calls():
+    """Count calls of the CSR SpMM's and SDDMM's plain versions from now on
+    (``PLAIN_CALLS``): on the card the path must run none."""
+    for name in ('csr_spmm_plain', 'csr_sddmm_plain'):
+        plain = getattr(csr_kernel, name)
+
+        def spy(*args, _plain=plain, _name=name, **kwargs):
+            PLAIN_CALLS[_name] = PLAIN_CALLS.get(_name, 0) + 1
+            return _plain(*args, **kwargs)
+
+        setattr(csr_kernel, name, spy)
+
+
+PLAIN_CALLS = {}
+
+
+def sddmm_work(M, s, item):
+    """The bound of one SDDMM with the diagonal fused, u and t (N, s): u
+    and t read once, the rows and columns read once, the values' and the
+    diagonal's cotangents read and written once; two operations per entry
+    and column. ``gather_ms``: the gather model, one row of t read per
+    stored entry (and per diagonal entry) instead of t once."""
+    n, nnz = M.n_rows, M.nnz
+    rest = nnz * 8 + 2 * (nnz + n) * item
+    work = bound(2 * n * s * item + rest, 2 * (nnz + n) * s)
+    work['gather_ms'] = ((nnz + 2 * n) * s * item + rest) / HBM_BYTES_PER_S * 1e3
+    return work
+
+
+def measure_sddmm(name, M, s, seed):
+    """``csr_sddmm`` with the diagonal fused on M's pattern at ``s``
+    columns: held against its plain version on the same f32 inputs within
+    TOL_CSR, two launches bit-equal, then timed beside its bound, its
+    gather model, its plain version and ``torch.sparse.sampled_addmm`` on
+    the same CSR (a yardstick that the port never calls; where it refuses
+    the shape, its error is kept instead of a time)."""
+    n, nnz = M.n_rows, M.nnz
+    u, t = seeded_normal((n, s), seed), seeded_normal((n, s), seed + 1)
+
+    def run(fn):
+        out = torch.zeros_like(M.vals)
+        dg = torch.zeros(n, dtype=M.vals.dtype, device=M.device)
+        fn(M.rows, M.cols, u, t, out, 1.0, dg)
+        return out, dg
+
+    got = run(csr_kernel.csr_sddmm)
+    want = run(csr_kernel.csr_sddmm_plain)
+    max_abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    rel_err = max(check(f'{name} kernel vs plain ({part})', a, b, TOL_CSR)
+                  for part, a, b in zip(('values', 'diagonal'), got, want))
+    if bool(got[0][nnz:].any()):
+        raise AssertionError(f'{name}: the padding\'s cotangent is not 0')
+    again = run(csr_kernel.csr_sddmm)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f'{name}: two launches differ')
+    log(f'  {name}: two launches bit-equal')
+    del want, again
+    out, dg = got
+    library = {'library': 'torch.sparse.sampled_addmm on a sparse CSR '
+                          'tensor (the values only, no diagonal)'}
+    pattern = torch.sparse_csr_tensor(M.rowptr, M.cols[:nnz],
+                                      torch.zeros_like(M.vals[:nnz]),
+                                      size=M.shape)
+
+    def lib():
+        return torch.sparse.sampled_addmm(pattern, u, t.T, beta=0.0)
+
+    try:
+        library['library_rel_diff'] = float(
+            (lib().values() - out[:nnz]).abs().max() / out[:nnz].abs().max())
+        library['library_ms'] = time_ms(lib, 10)
+    except RuntimeError as exc:       # the yardstick only, never the path
+        library.update(library_ms=None, library_refused=str(exc)[:300])
+    result = {'max_abs_err': max_abs_err, 'rel_err': rel_err,
+              'ms': time_ms(lambda: csr_kernel.csr_sddmm(
+                  M.rows, M.cols, u, t, out, 1.0, dg), 20),
+              'plain_ms': time_ms(lambda: csr_kernel.csr_sddmm_plain(
+                  M.rows, M.cols, u, t, out, 1.0, dg), 2),
+              **sddmm_work(M, s, u.element_size()), 's': s, 'nnz': nnz,
+              **library}
+    log(f'  {name}: {json.dumps(result)}')
+    return result
+
+
+def host_weight_grads(W, rows, cols, lmax, c, x, gbar):
+    """The bank's gradients on the host in SciPy f64 for the combinatorial
+    Laplacian of the symmetric ``W``: the terms T̃_k x, the Clenshaw
+    adjoint u_k = G_k + 2 L̃ u_{k+1} − u_{k+2} (G_k = Σ_f c'[f, k] ḡ_f),
+    the per-edge dots Σ_k α_k ⟨u_{k+1}[i], t_k[j]⟩ (α = 2/a1, 1/a1 at
+    k = 0) of the off-diagonal and the diagonal, chained through
+    ``laplacian_op`` (off-diagonal −w, diagonal Σ_row w):
+    ``(w̄ (nnz,), x̄ (N, S), c̄ (Nf, m1))``. x (N, S), gbar (Nf, N, S)."""
+    L = (sps.diags(np.ravel(W.sum(axis=1))) - W).tocsr()
+    blocks = host_blocks(L)
+    nf, m1 = c.shape
+    m = m1 - 1
+    a1 = a2 = lmax / 2
+    terms = list(host_terms(L, lmax, x, m1))
+    cp = c.copy()
+    cp[:, 0] *= 0.5
+    c_bar = np.array([[np.vdot(gbar[f], t) for t in terms]
+                      for f in range(nf)])
+    c_bar[:, 0] *= 0.5
+    rows_t = torch.from_numpy(rows.astype(np.int64))
+    cols_t = torch.from_numpy(cols.astype(np.int64))
+    off = torch.zeros(len(rows), dtype=torch.float64)
+    diag = torch.zeros(L.shape[0], dtype=torch.float64)
+
+    def g_k(k):
+        return np.einsum('f,fns->ns', cp[:, k], gbar)
+
+    def dots(u, k):
+        alpha = 2.0 / a1 if k else 1.0 / a1
+        ut, tt = torch.from_numpy(u), torch.from_numpy(terms[k])
+        off.add_(torch.einsum('ec,ec->e', torch.index_select(ut, 0, rows_t),
+                              torch.index_select(tt, 0, cols_t)), alpha=alpha)
+        diag.add_(torch.einsum('ic,ic->i', ut, tt), alpha=alpha)
+
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        u_next2, u_next = np.zeros_like(x), g_k(m)
+        dots(u_next, m - 1)
+        for k in range(m - 1, 0, -1):
+            u = (g_k(k) + (2.0 / a1) * (host_product(pool, blocks, u_next)
+                                        - a2 * u_next) - u_next2)
+            dots(u, k - 1)
+            u_next2, u_next = u_next, u
+        x_bar = (g_k(0) + (host_product(pool, blocks, u_next)
+                           - a2 * u_next) / a1 - u_next2)
+    w_bar = -off + diag[rows_t]
+    return w_bar.numpy(), x_bar, c_bar
+
+
+def teacher_weights(W, seed):
+    """W with every undirected edge's weight scaled by a seeded factor in
+    K_TEACHER, the same on both of its stored entries."""
+    up = sps.triu(W, k=1).tocoo()
+    f = np.random.default_rng(seed).uniform(*K_TEACHER, size=up.nnz)
+    F = sps.coo_matrix((f, (up.row, up.col)), shape=W.shape).tocsr()
+    F = F + F.T + sps.diags(np.ones(W.shape[0]))
+    return W.multiply(F).tocsr()
+
+
+def phase_path_k(G, x):
+    """Path K: the heat bank of path A through its graph's weights on the
+    card, at full width (see the module's docstring)."""
+    log('phase K: path K, gradients through the weights on path A\'s '
+        'graph')
+    n, s = x.shape
+    nf, m1 = len(SCALES), ORDER + 1
+    unit = n * s * x.element_size()
+    units = m1 + nf + 8
+    free, total = torch.cuda.mem_get_info()
+    log(f'  device memory free {free / 2**30:.2f} of {total / 2**30:.2f} GiB; '
+        f'the backward may hold {units} units of {unit / 2**30:.3f} GiB')
+    if free < (units + 4) * unit:
+        raise AssertionError(f'path K: {free} bytes free, under '
+                             f'{units + 4} units')
+    lmax = G.lmax                                  # path A's, pinned
+    t0 = time.time()
+    M = gsp.core.sparse.from_scipy(G.W)
+    torch.cuda.synchronize()
+    log(f'  W on the card ({M.nnz} stored entries) in {time.time() - t0:.1f} '
+        f's')
+    w = M.vals.clone().requires_grad_()
+    c = heat_coeff(torch.tensor(SCALES, device='cuda'), lmax).detach()
+    c.requires_grad_()
+    xr = x.detach().requires_grad_()
+    gbar = torch.zeros((nf, n, s), device='cuda')
+    gbar[:, :, :N_CHECK_COLS] = seeded_normal((nf, n, N_CHECK_COLS), 80)
+
+    def forward(vals=w):
+        L = gsp.core.operators.laplacian_op(M.with_vals(vals))
+        return cheby_op(L, lmax, c, xr)
+
+    def backward(out):
+        return torch.autograd.grad(out, (w, xr, c), gbar, retain_graph=True)
+
+    result = {'lmax': lmax, 'nnz': M.nnz, 'units_allowed': units}
+    torch.cuda.synchronize()
+    reset_counts()
+    PLAIN_CALLS.clear()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = forward()
+    fwd = counts()
+    grads = backward(out)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = counts()
+    per_backward = {k: launches[k] - fwd[k] for k in launches}
+    symbols = dict(SYMBOLS)
+    result.update(peak_units=peak / unit, peak_gib=peak / 2**30,
+                  autograd_3k_units=3 * ORDER, forward_launches=fwd,
+                  backward_launches=per_backward, symbols=symbols,
+                  plain_calls=dict(PLAIN_CALLS))
+    log(f'  one forward and backward: peak {peak / unit:.2f} units '
+        f'({peak / 2**30:.2f} GiB) above what is held, at most {units} '
+        f'(plain autograd would keep 3K = {3 * ORDER}); backward launches '
+        f'{per_backward}; symbols {symbols}')
+    if peak > units * unit:
+        raise AssertionError(f'path K: peak {peak / unit:.2f} units > {units}')
+    if (per_backward['csr_sddmm'] != ORDER
+            or symbols.get('csr_sddmm_f32') != ORDER):
+        raise AssertionError(f'path K: {per_backward["csr_sddmm"]} csr_sddmm '
+                             f'launches in a backward, not {ORDER}')
+    if PLAIN_CALLS:
+        raise AssertionError(f'path K: plain versions ran: {PLAIN_CALLS}')
+    again = backward(out)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError('path K: two backward passes differ')
+    log('  two backward passes bit-equal')
+    del again
+    w_bar, x_bar, c_bar = grads
+    if bool(w_bar[M.nnz:].any()):
+        raise AssertionError('path K: the padding\'s cotangent is not 0')
+    if bool((x_bar[:, N_CHECK_COLS:] != 0).any()):
+        raise AssertionError('path K: x̄ is not 0 where ḡ is')
+    t0 = time.time()
+    ref = host_weight_grads(
+        G.W, M.rows[:M.nnz].cpu().numpy(), M.cols[:M.nnz].cpu().numpy(),
+        lmax, c.detach().double().cpu().numpy(),
+        x[:, :N_CHECK_COLS].double().cpu().numpy(),
+        gbar[:, :, :N_CHECK_COLS].double().cpu().numpy())
+    result['host_reference_s'] = time.time() - t0
+    log(f'  host f64 reference on {N_CHECK_COLS} columns: '
+        f'{result["host_reference_s"]:.1f} s')
+    result['rel_err'] = {
+        'w_bar': check('path K w̄ vs host f64', w_bar[:M.nnz].cpu(),
+                       torch.from_numpy(ref[0]), TOL_PATH),
+        'x_bar': check('path K x̄ vs host f64',
+                       x_bar[:, :N_CHECK_COLS].cpu(),
+                       torch.from_numpy(ref[1]), TOL_PATH),
+        'c_bar': check('path K c̄ vs host f64', c_bar.cpu(),
+                       torch.from_numpy(ref[2]), TOL_PATH)}
+    del ref, grads, w_bar, x_bar, c_bar
+    result['ms'] = {'backward': time_ms(lambda: backward(out), 3)}
+    del out
+    torch.cuda.empty_cache()
+    result['ms']['forward'] = time_ms(forward, 2)
+    result['ms'].update(backward_parts(M, lmax, c.detach(), x, gbar))
+    result['sddmm'] = {
+        str(k): measure_sddmm(f'csr_sddmm on path A\'s graph at {k} '
+                              f'column{"s" if k > 1 else ""}', M, k, 90 + k)
+        for k in (s, 1)}
+    result['train'] = train_weights(M, G.W, lmax, c.detach(), x)
+    result['small_f64'] = weights_small_f64()
+    log(f'path K: {json.dumps(result)}')
+    return result, launches
+
+
+def phase_auxiliaries(G, x):
+    """Checkpoint and profiling on the card: ``save_graph``/``load_graph``
+    of BA(2^16) with its λmax and a signal, loaded to the card; a
+    ``Throughput`` around each of three banks of path A against the CUDA
+    events around the same bank (within 2 %: its clock waits for the card);
+    ``trace`` over one bank, whose file must name the CSR kernel."""
+    import tempfile
+    from pygsp_tpu_torch import checkpoint, profiling
+    log('phase aux: checkpoint and profiling')
+    result = {}
+    src, tgt = gsp.graphs.ba_edges_fast(K_SMALL_N, m0=M_ATTACH, m=M_ATTACH,
+                                        seed=42)
+    H = gsp.graphs.Graph(symmetric_from_edges(src, tgt, K_SMALL_N))
+    H.estimate_lmax()
+    H.set_signal('s', np.random.default_rng(85).normal(size=(H.N, 3)))
+    with tempfile.TemporaryDirectory() as d:
+        path = f'{d}/ba.npz'
+        checkpoint.save_graph(path, H)
+        H2 = checkpoint.load_graph(path)
+        if (H2.device.type != 'cuda' or (H2.W != H.W).nnz
+                or H2.lmax != H.lmax or H2.lap_type != H.lap_type
+                or not np.array_equal(H2.signals['s'], H.signals['s'])):
+            raise AssertionError('checkpoint: BA(2^16) did not round-trip')
+        v = seeded_normal((H.N, 4), 86)
+        if not torch.equal(H2.L @ v, H.L @ v):
+            raise AssertionError('checkpoint: the loaded Laplacian differs')
+    log(f'  BA(2^16) with λmax {H.lmax:.6f} round-trips to the card')
+    g = gsp.filters.Heat(G, scale=SCALES)
+    meter = profiling.Throughput(G.L.offdiag.nnz, ORDER, x.shape[1])
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with meter:
+            start.record()
+            g.filter(x, order=ORDER)
+            end.record()
+        runs.append((meter.last_s * 1e3, start.elapsed_time(end)))
+    diff = max(abs(a - b) / b for a, b in runs)
+    result['throughput'] = {'runs_ms_meter_events': runs, 'rel_diff': diff,
+                            'report': meter.report()}
+    log(f'  Throughput: {json.dumps(result["throughput"])}')
+    if not diff <= 0.02:
+        raise AssertionError(f'Throughput off the CUDA events by {diff}')
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            g.filter(x, order=ORDER)
+            torch.cuda.synchronize()
+        files = [f'{root}/{f}' for root, _, fs in os.walk(d) for f in fs]
+        text = ''.join(open(f, errors='replace').read() for f in files)
+        result['trace'] = {'files': len(files), 'bytes': len(text),
+                           'names_csr_spmm': 'csr_spmm' in text}
+    log(f'  trace: {json.dumps(result["trace"])}')
+    if not result['trace']['names_csr_spmm']:
+        raise AssertionError('the trace of a bank does not name csr_spmm')
+    return result
+
+
+def backward_parts(M, lmax, c, x, gbar):
+    """The backward's parts at path K's shape, each timed alone: an adjoint
+    step (the transpose's SpMM, the shifted step and the G_k group, 30 a
+    backward), the SDDMM with the diagonal (30), and the c̄ pass (ḡ's copy
+    with its filter axis last and one ``cheby_dot_group`` over the slab)."""
+    a1 = a2 = lmax / 2
+    L = gsp.core.operators.laplacian_op(M)
+    Lt = gsp.core.operators.LaplacianOp(offdiag=L.offdiag.T, diag=L.diag,
+                                        lap_type=L.lap_type)
+    step2 = Lt.shifted_step(2.0 / a1, a2)
+    u, u_old, u_new = (seeded_normal(x.shape, 95 + i) for i in range(3))
+    cg = c.T.contiguous()[5].reshape(-1, 1)
+    parts = {'adjoint_step': time_ms(lambda: cheby_kernel.cheby_acc_group(
+        step2(u, u_old, u_new)[None], gbar, cg), 10)}
+    parts['sddmm'] = time_ms(lambda: csr_kernel.csr_sddmm(
+        M.rows, M.cols, u, u_old, torch.zeros_like(M.vals), 2.0 / a1,
+        torch.zeros_like(L.diag)), 10)
+    del u, u_old, u_new
+    with torch.no_grad():
+        _, slab = _bank(L, L, lmax, c, x, keep_terms=True)
+    cbar = torch.empty((ORDER + 1, len(SCALES)), device='cuda')
+    parts['c_bar_pass'] = time_ms(lambda: cheby_kernel.cheby_dot_group(
+        cbar, gbar.movedim(0, -1).contiguous(), slab), 3)
+    del slab
+    torch.cuda.empty_cache()
+    parts['sum_of_parts'] = (ORDER * (parts['adjoint_step'] + parts['sddmm'])
+                             + parts['c_bar_pass'])
+    log(f'  backward parts (ms): {json.dumps(parts)}')
+    return parts
+
+
+def train_weights(M, W, lmax, c, x):
+    """K_TRAIN_STEPS Adam steps on the weights (from W's) towards a teacher,
+    the same graph with weights scaled by a seeded factor: the loss must
+    fall. Returns the losses and the ms of a whole step (forward, loss,
+    backward, update) from CUDA events."""
+    with torch.no_grad():
+        vt = gsp.core.sparse.from_scipy(teacher_weights(W, 83)).vals
+        y = cheby_op(gsp.core.operators.laplacian_op(M.with_vals(vt)), lmax,
+                     c, x)
+    del vt
+    w = M.vals.clone().requires_grad_()
+    opt = torch.optim.Adam([w], lr=K_TRAIN_LR)
+    losses, ms = [], []
+    for _ in range(K_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.zero_grad(set_to_none=True)
+        out = cheby_op(gsp.core.operators.laplacian_op(M.with_vals(w)), lmax,
+                       c, x)
+        loss = torch.mean((out - y) ** 2)
+        del out
+        loss.backward()
+        opt.step()
+        end.record()
+        end.synchronize()
+        losses.append(float(loss.detach()))
+        ms.append(start.elapsed_time(end))
+    result = {'losses': losses, 'ms_per_step': ms, 'lr': K_TRAIN_LR}
+    log(f'  {K_TRAIN_STEPS} Adam steps on the weights: {json.dumps(result)}')
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'path K: Adam on the weights, losses {losses}')
+    return result
+
+
+def weights_small_f64():
+    """On BA(2^16) in f64 with the normalized Laplacian: the bank's w̄, c̄,
+    x̄ and λ̄ on the card against the port on the CPU (TOL_K_F64), and λ̄
+    against a central difference of the loss on the card."""
+    n = K_SMALL_N
+    src, tgt = gsp.graphs.ba_edges_fast(n, m0=M_ATTACH, m=M_ATTACH, seed=42)
+    W = symmetric_from_edges(src, tgt, n)
+    lmax = 2.0
+    f64 = torch.float64
+    c0 = cheby_coeff(lambda lam: torch.exp(-torch.tensor(
+        SCALES, dtype=f64)[:, None] * lam[None, :] / lmax), lmax, m=ORDER,
+        dtype=f64, device='cpu').numpy()
+    rng = np.random.default_rng(84)
+    x0 = rng.normal(size=(n, K_SMALL_S))
+    g0 = rng.normal(size=(len(SCALES), n, K_SMALL_S))
+    grads, t = {}, {}
+    for device in ('cuda', 'cpu'):
+        t0 = time.time()
+        M = gsp.core.sparse.from_scipy(W, dtype=f64, device=device)
+        w = M.vals.clone().requires_grad_()
+        c = torch.tensor(c0, device=device, requires_grad=True)
+        x = torch.tensor(x0, device=device, requires_grad=True)
+        lt = torch.tensor(lmax, dtype=f64, device=device, requires_grad=True)
+        L = gsp.core.operators.laplacian_op(M.with_vals(w), 'normalized')
+        cheby_op(L, lt, c, x).backward(torch.tensor(g0, device=device))
+        grads[device] = [v.grad.cpu() for v in (w, c, x, lt)]
+        t[device] = time.time() - t0
+    errs = {name: check(f'path K f64 {name} card vs CPU', a, b, TOL_K_F64)
+            for name, a, b in zip(('w_bar', 'c_bar', 'x_bar', 'lmax_bar'),
+                                  grads['cuda'], grads['cpu'])}
+    M = gsp.core.sparse.from_scipy(W, dtype=f64)
+    L = gsp.core.operators.laplacian_op(M, 'normalized')
+    c, x, g = (torch.tensor(a, device='cuda') for a in (c0, x0, g0))
+    h = 1e-6 * lmax
+    with torch.no_grad():
+        fd = float(((cheby_op(L, lmax + h, c, x) - cheby_op(L, lmax - h, c,
+                                                            x)) * g).sum()
+                   / (2 * h))
+    got = float(grads['cuda'][3])
+    fd_err = abs(got - fd) / abs(fd)
+    log(f'  λ̄ {got:.12e} against the central difference {fd:.12e}: rel '
+        f'err {fd_err:.3e} (tol {TOL_K_LMAX_FD})')
+    if not fd_err <= TOL_K_LMAX_FD:
+        raise AssertionError(f'path K: λ̄ off its central difference by '
+                             f'{fd_err}')
+    return {'rel_err': errs, 'lmax_bar': got, 'lmax_fd': fd,
+            'lmax_fd_rel_err': fd_err, 'nnz': M.nnz, 's': K_SMALL_S,
+            'seconds': t}
 
 
 # ---------------------------------------------------------------------------
@@ -3741,6 +4251,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     count_symbols()
+    count_plain_calls()
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
     t_start = time.time()
@@ -3756,6 +4267,12 @@ def main():
                      **train_kernels(TRAIN_STEPS))
     path_f['lanczos'], other['F_lanczos'] = phase_path_f_lanczos(G, x)
     require_launches('F (Lanczos)', other['F_lanczos'], csr_spmm=ORDER)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    path_k, other['K'] = phase_path_k(G, x)
+    path_k['phase_s'] = time.time() - t0
+    torch.cuda.empty_cache()
+    path_k['auxiliaries'] = phase_auxiliaries(G, x)
     path_g['A'], other_g = timed(phase_path_g_a, G, x)
     other.update(other_g)
     del G, x
@@ -3782,6 +4299,7 @@ def main():
                      **train_kernels(TRAIN_STEPS))
     if other['E_C']['csr_spmm']:
         raise AssertionError('the CSR kernel ran in path E on C')
+    refusal_on_windowed(G, x)
     path_g['C'], other['G_C'] = timed(phase_path_g_bank, 'C', G, x, 'Meyer',
                                       sps.diags(G.dw) - G.W)
     del G, x
@@ -3810,8 +4328,9 @@ def main():
         {p: path['acc_group'] for p, path in paths.items()})
     for p, path in paths.items():
         path['kernel_b_per_bank'] = kb_bank[p]
+    sddmm = path_k.pop('sddmm')
     paths.update(E=path_e, F=path_f, G=path_g, H=path_h, I=path_i,
-                 J=path_j)
+                 J=path_j, K=path_k)
     log(f'paths: {json.dumps(paths)}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')
@@ -3937,6 +4456,15 @@ def main():
         narrow_i['I']['1_float32'], name='chunked_spmm_narrow',
         route='cuda', source=source, at_paths=narrow_i,
         replaces=f'{chunked_k["replaces"]}, at up to {widths}')
+    # the SDDMM: its headline at path K's 128 columns, one column beside
+    kernel_sddmm = dict(
+        sddmm[str(N_SIGNALS)], name='csr_sddmm', route='cuda',
+        source='pygsp_tpu_torch/csrc/csr_sddmm.cu',
+        replaces='pygsp_tpu/core/sparse.py:282-289 under jax.grad with '
+                 'respect to mat.vals (the transposes of the gather and '
+                 'segment_sum, XLA, no Pallas kernel)',
+        at_one_column=sddmm['1'],
+        launches_per_backward=path_k['backward_launches']['csr_sddmm'])
     by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d,
                'H': counts_h, 'I': counts_i}
     for kernel, served in ((csr, 'A'), (csr_narrow, None), (banded, 'B'),
@@ -3945,7 +4473,7 @@ def main():
                            (kb_step, 'ABCDHI'), (kb_group, 'ABCDHI'),
                            (kb_dot, None), (kb_contract, None),
                            (ell, 'H'), (chunked_k, 'I'), (ell_narrow, 'H'),
-                           (chunked_narrow, 'I')):
+                           (chunked_narrow, 'I'), (kernel_sddmm, None)):
         name = kernel['name']
         served = list(served or by_path)
         launches = {**{p: by_path[p][0][name] for p in by_path},
@@ -3966,7 +4494,7 @@ def main():
                                   fold2, double,
                                   kb_step, kb_group, kb_contract, kb_dot,
                                   ell, chunked_k, ell_narrow,
-                                  chunked_narrow]}),
+                                  chunked_narrow, kernel_sddmm]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

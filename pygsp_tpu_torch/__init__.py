@@ -13,8 +13,11 @@ its Laplacian and λmax, ``Grid2d``, ``BarabasiAlbert``, ``Logo``,
 storage formats), training through the constant-memory fixed-graph VJP
 (``Filter.filter(fixed_graph=True)``), exact and Lanczos filtering, the
 graph zoo with the nearest-neighbour graphs, layouts and graph I/O, and the
-algorithms: ``reduction``, ``learning``, ``features`` and ``optimization``
-(imported on first use, as in the JAX package).
+algorithms: ``reduction``, ``learning``, ``features`` and ``optimization``,
+with ``plotting`` (matplotlib, an optional dependency), imported on first
+use as in the JAX package; and the auxiliaries ``checkpoint`` and
+``profiling``. On a CSR operator ``ops.cheby_op`` differentiates through
+the graph's weights.
 """
 
 from pygsp_tpu_torch import core
@@ -26,12 +29,13 @@ from pygsp_tpu_torch import utils
 __version__ = '0.1.0'
 
 __all__ = ['core', 'ops', 'graphs', 'filters', 'utils', 'reduction',
-           'learning', 'features', 'optimization']
+           'learning', 'features', 'optimization', 'plotting']
 
 
 def __getattr__(name):
-    # the algorithm modules, imported on first use
-    if name in ('reduction', 'learning', 'features', 'optimization'):
+    # the algorithm modules and plotting, imported on first use
+    if name in ('reduction', 'learning', 'features', 'optimization',
+                'plotting'):
         import importlib
         module = importlib.import_module(f'pygsp_tpu_torch.{name}')
         globals()[name] = module

@@ -1,4 +1,6 @@
-"""CSR SpMM: ``y[r, :] = Σ_{e ∈ rowptr[r]:rowptr[r+1]} vals[e] · x[cols[e], :]``.
+"""CSR SpMM: ``y[r, :] = Σ_{e ∈ rowptr[r]:rowptr[r+1]} vals[e] · x[cols[e], :]``,
+and its gradient with respect to ``vals``, the SDDMM
+``out[e] += α·⟨u[rows[e], :], t[cols[e], :]⟩`` (:func:`csr_sddmm`).
 
 The CUDA kernel (``csrc/csr_spmm.cu``) takes the place of the XLA gather +
 ``segment_sum`` in ``pygsp_tpu/core/sparse.py:spmm``. :func:`csr_spmm`
@@ -28,6 +30,13 @@ half-dozen launches took longer than the product: :func:`segment_table`
 keeps it on the ``rowptr`` tensor, keyed by the segment length, the edge
 count and the tensor's version counter, with whether any row crosses a
 segment (the narrow entry skips the join kernel where none does).
+
+The SDDMM (``csrc/csr_sddmm.cu``) takes the place of what ``jax.grad``
+makes of the same ``spmm`` with respect to ``mat.vals``. Its edges are
+independent, so a warp takes a run of them whatever the rows' lengths, and
+the diagonal's cotangent rides in the same launch. :func:`csr_sddmm`
+launches it for CUDA tensors and runs :func:`csr_sddmm_plain` for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -207,3 +216,105 @@ def csr_spmm(rowptr, cols, vals, x, *, entry=None):
 
 
 csr_spmm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The SDDMM: the SpMM's gradient with respect to its stored values
+# ---------------------------------------------------------------------------
+
+_SDDMM_SYMBOLS = {torch.float32: 'csr_sddmm_f32',
+                  torch.float64: 'csr_sddmm_f64'}
+# Columns one launch of the SDDMM kernel takes; wider u and t take one
+# launch per 512 columns, each adding its part of the dot products.
+SDDMM_WIDTH = 512
+# Edges the plain version gathers at once, so that its (chunk, S) products
+# stay a few GB at path A's width.
+SDDMM_PLAIN_CHUNK = 1 << 22
+
+
+def csr_sddmm_plain(rows, cols, u, t, out, alpha, out_diag=None):
+    """Plain PyTorch version of :func:`csr_sddmm`: the rows of u and t
+    gathered for :data:`SDDMM_PLAIN_CHUNK` edges at a time, multiplied and
+    summed over the columns, over the stored edges (the rows below
+    ``n_rows``, counted by a read back to the host)."""
+    n_rows = u.shape[0]
+    nnz = int((rows < n_rows).sum())
+    for a in range(0, nnz, SDDMM_PLAIN_CHUNK):
+        b = min(nnz, a + SDDMM_PLAIN_CHUNK)
+        dots = (u[rows[a:b].long()] * t[cols[a:b].long()]).sum(1)
+        out[a:b] += alpha * dots
+    if out_diag is not None:
+        out_diag += alpha * (u * t).sum(1)
+    return out
+
+
+def _check_sddmm(rows, cols, u, t, out, out_diag):
+    if u.ndim != 2 or t.ndim != 2 or u.shape[1] != t.shape[1]:
+        raise ValueError(f'csr_sddmm: u (n_rows, S) and t (n_cols, S), got '
+                         f'{tuple(u.shape)} and {tuple(t.shape)}')
+    if u.dtype not in _SDDMM_SYMBOLS or not (
+            t.dtype == out.dtype == u.dtype):
+        raise ValueError(f'csr_sddmm takes float32 or float64 u, t and out '
+                         f'of one dtype, got {u.dtype}, {t.dtype} and '
+                         f'{out.dtype}')
+    if rows.dtype != torch.int32 or cols.dtype != torch.int32:
+        raise ValueError('rows and cols must be int32')
+    if not rows.shape == cols.shape == out.shape or rows.ndim != 1:
+        raise ValueError('rows, cols and out must be 1-D, of one length')
+    operands = [rows, cols, u, t, out]
+    if out_diag is not None:
+        if (u.shape[0] != t.shape[0] or out_diag.shape != u.shape[:1]
+                or out_diag.dtype != u.dtype):
+            raise ValueError('out_diag: a square matrix and out_diag '
+                             '(n_rows,) of the dtype of u')
+        operands.append(out_diag)
+    for x in operands:
+        if x.device != u.device:
+            raise ValueError('all operands must be on one device')
+        if not x.is_contiguous():
+            raise ValueError('all operands must be contiguous')
+
+
+def csr_sddmm(rows, cols, u, t, out, alpha, out_diag=None):
+    """``out[e] += alpha·⟨u[rows[e]], t[cols[e]]⟩`` for the stored edges
+    of a CSR's row-sorted ``rows`` and ``cols`` (E_pad,), in place, and
+    with ``out_diag`` (n_rows,) also
+    ``out_diag[i] += alpha·⟨u[i], t[i]⟩`` in the same launch: the gradient
+    of ``A @ t`` with respect to A's stored values for the cotangent u
+    (n_rows, S), t (n_cols, S). Padding entries (``rows == n_rows``) are
+    neither read nor written (the kernel skips an entry by its row).
+    ``alpha``: a Python number or a 0-dim tensor of u's dtype. Returns
+    ``out``.
+
+    The CUDA kernel (``csrc/csr_sddmm.cu``) runs for CUDA tensors, a warp
+    on a run of edges, every edge's dot product in a fixed order, so two
+    launches are bit-equal; :func:`csr_sddmm_plain` for CPU tensors."""
+    _check_sddmm(rows, cols, u, t, out, out_diag)
+    if u.device.type == 'cpu':
+        return csr_sddmm_plain(rows, cols, u, t, out, alpha, out_diag)
+    if u.device.type != 'cuda':
+        raise ValueError(f'csr_sddmm runs on cuda or cpu, not {u.device}')
+    _cuda.refuse_autograd('csr_sddmm', rows, cols, u, t, out,
+                          *(() if out_diag is None else (out_diag,)))
+    n_rows, s = u.shape
+    if n_rows == 0 or s == 0:
+        return out
+    if not isinstance(alpha, torch.Tensor):
+        alpha = torch.full((), alpha, dtype=u.dtype, device=u.device)
+    elif alpha.shape != () or alpha.dtype != u.dtype or (
+            alpha.device != u.device):
+        raise ValueError('csr_sddmm: alpha must be a number or a 0-dim '
+                         'tensor of the dtype and device of u')
+    item = u.element_size()
+    diag_ptr = None if out_diag is None else out_diag.data_ptr()
+    for a in range(0, s, SDDMM_WIDTH):      # each slice adds its columns
+        _cuda.launch('csr_sddmm', _SDDMM_SYMBOLS[u.dtype], 7, 4,
+                     u.get_device(), rows.data_ptr(), cols.data_ptr(),
+                     u.data_ptr() + a * item, t.data_ptr() + a * item,
+                     out.data_ptr(), diag_ptr, alpha.data_ptr(),
+                     rows.shape[0], n_rows, min(SDDMM_WIDTH, s - a), s)
+        csr_sddmm.launches += 1
+    return out
+
+
+csr_sddmm.launches = 0

@@ -277,9 +277,11 @@ def spmm(mat, x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     the windowed fold and strip kernels. Each wrapper launches its CUDA
     kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
     tensor. Operands of mixed dtypes are promoted, as in the JAX package.
-    ``out_dtype``: the dtype of ``y`` (the chunked and windowed formats'
-    bf16 modes emit the product narrow; the others cast it). Any other
-    operand raises ``TypeError``.
+    On a CSR it differentiates with respect to the values and ``x`` on both
+    devices (:class:`_CSRSpmm`); the other formats' kernels refuse an
+    operand that requires grad on the card. ``out_dtype``: the dtype of
+    ``y`` (the chunked and windowed formats' bf16 modes emit the product
+    narrow; the others cast it). Any other operand raises ``TypeError``.
     """
     if isinstance(mat, WindowedELLMatrix):
         return windowed.windowed_spmm(mat, x, out_dtype=out_dtype)
@@ -297,10 +299,75 @@ def spmm(mat, x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     lead = x.shape[1:]
     x2 = x.to(dtype).reshape(mat.n_cols, -1).contiguous()
     if isinstance(mat, CSRMatrix):
-        y = csr_kernel.csr_spmm(mat.rowptr, mat.cols, mat.vals.to(dtype), x2)
+        vals = mat.vals.to(dtype)
+        if torch.is_grad_enabled() and (vals.requires_grad
+                                        or x2.requires_grad):
+            y = _CSRSpmm.apply(mat, vals, x2)
+        else:
+            y = csr_kernel.csr_spmm(mat.rowptr, mat.cols, vals, x2)
     else:
         y = banded_kernel.banded_spmm(mat.tiles.to(dtype), x2, mat.n_rows)
     return y.reshape((mat.n_rows,) + lead).to(out_dtype or dtype)
+
+
+class _CSRSpmm(torch.autograd.Function):
+    """``A @ x`` on a CSR with its own backward, on both devices: the SpMM
+    kernel (or its plain version) forward, and for the cotangent ȳ
+
+    - ``x̄ = Aᵀ ȳ``, the same kernel on :attr:`CSRMatrix.T`;
+    - ``vals̄[e] = ⟨ȳ[rows[e]], x[cols[e]]⟩``, the SDDMM
+      (:func:`~pygsp_tpu_torch.core.csr_kernel.csr_sddmm`), 0 on padding.
+
+    :func:`spmm` takes it under grad mode when ``vals`` or ``x`` requires
+    grad; the kernels run inside, where autograd records nothing. The
+    backward is itself made of :class:`_CSRSpmm` and :class:`_CSRSddmm`,
+    so it differentiates again (``create_graph=True``). ``x`` is kept only
+    where ``vals`` requires grad, so that a caller may write into it once
+    the product is taken (the recurrence's ring of terms)."""
+
+    @staticmethod
+    def forward(ctx, mat, vals, x):
+        ctx.mat = mat
+        ctx.save_for_backward(vals, x if ctx.needs_input_grad[1] else None)
+        return csr_kernel.csr_spmm(mat.rowptr, mat.cols, vals, x)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        vals, x = ctx.saved_tensors
+        ybar = ybar.contiguous()
+        vals_bar = x_bar = None
+        if ctx.needs_input_grad[1]:
+            vals_bar = _CSRSddmm.apply(ctx.mat, ybar, x)
+        if ctx.needs_input_grad[2]:
+            At = ctx.mat.with_vals(vals).T
+            x_bar = _CSRSpmm.apply(At, At.vals, ybar)
+        return None, vals_bar, x_bar
+
+
+class _CSRSddmm(torch.autograd.Function):
+    """``out[e] = ⟨u[rows[e]], t[cols[e]]⟩`` on a CSR's stored entries, 0
+    on padding: the SDDMM as a function of u and t, the weights' cotangent
+    of :class:`_CSRSpmm`. Its own backward for ō is two SpMMs with ō as
+    the values, ``ū = A(ō) t`` and ``t̄ = A(ō)ᵀ u``."""
+
+    @staticmethod
+    def forward(ctx, mat, u, t):
+        ctx.mat = mat
+        ctx.save_for_backward(u, t)
+        out = u.new_zeros(mat.rows.shape)
+        return csr_kernel.csr_sddmm(mat.rows, mat.cols, u, t, out, 1.0)
+
+    @staticmethod
+    def backward(ctx, obar):
+        u, t = ctx.saved_tensors
+        mat = ctx.mat.with_vals(obar.contiguous())
+        u_bar = t_bar = None
+        if ctx.needs_input_grad[1]:
+            u_bar = _CSRSpmm.apply(mat, mat.vals, t)
+        if ctx.needs_input_grad[2]:
+            At = mat.T
+            t_bar = _CSRSpmm.apply(At, At.vals, u)
+        return None, u_bar, t_bar
 
 
 # ---------------------------------------------------------------------------

@@ -44,9 +44,9 @@
 // 54 hub rows. Registers (nvcc -Xptxas -v, sm_90a): 80 in f32 with 12
 // bytes of spill, 91 in f64 with none.
 //
-// The narrow entry (csr_narrow_kernel, csr_spmm_narrow_f32/_f64), which
-// core/csr_kernel.py takes up to 32 columns (NARROW_WIDTH). What bounds
-// it: at S <= 8 in f32 x is at most 32 MB at 2^20 vertices and stays in
+// The narrow entry (csr_spmm_narrow_kernel, csr_spmm_narrow_f32/_f64),
+// which core/csr_kernel.py takes up to 32 columns (NARROW_WIDTH). What
+// bounds it: at S <= 8 in f32 x is at most 32 MB at 2^20 vertices and stays in
 // the 50 MB L2, so the least time is the CSR's own bytes (cols, vals,
 // rowptr) and y: 0.044 ms at path A's 16.8M stored entries, 0.021 ms at
 // Sensor(2^20)'s 7.4M. The wide entry leaves 31 of a warp's 32 lanes idle
@@ -151,11 +151,12 @@ __device__ __forceinline__ void store_cols(T* p, int c0, int s, bool vec,
 //   partials[n_seg + w]       else: r_stop, begun here, goes on past e1.
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-csr_segment_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
-                   const T* __restrict__ vals, const T* __restrict__ x,
-                   T* __restrict__ y, const int* __restrict__ seg,
-                   T* __restrict__ partials, int n_rows, int s, int n_seg,
-                   bool vec) {
+csr_spmm_segment_kernel(const int* __restrict__ rowptr,
+                        const int* __restrict__ cols,
+                        const T* __restrict__ vals, const T* __restrict__ x,
+                        T* __restrict__ y, const int* __restrict__ seg,
+                        T* __restrict__ partials, int n_rows, int s, int n_seg,
+                        bool vec) {
   constexpr int V = Lane16<T>::kVec;
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -241,9 +242,10 @@ csr_segment_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
 // order.
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-csr_join_kernel(const int* __restrict__ rowptr, T* __restrict__ y,
-                const int* __restrict__ seg, const T* __restrict__ partials,
-                int n_rows, int s, int n_seg, bool vec) {
+csr_spmm_join_kernel(const int* __restrict__ rowptr, T* __restrict__ y,
+                     const int* __restrict__ seg,
+                     const T* __restrict__ partials, int n_rows, int s,
+                     int n_seg, bool vec) {
   constexpr int V = Lane16<T>::kVec;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5) + 1;
@@ -307,9 +309,9 @@ __device__ __forceinline__ void store_pack(T* p, int c0, int s, bool vec,
     if (c0 + i < s) p[c0 + i] = v[i];
 }
 
-// The narrow entry: one warp per segment, as csr_segment_kernel, with the
-// same destinations (y, or the partials that csr_join_kernel adds), but
-// its lanes over edges. A group of L lanes takes one edge, each lane V of
+// The narrow entry: one warp per segment, as csr_spmm_segment_kernel, with
+// the same destinations (y, or the partials that csr_spmm_join_kernel adds),
+// but its lanes over edges. A group of L lanes takes one edge, each lane V of
 // its columns (V * L >= s), so a step takes the G = 32 / L edges
 // c .. c + G - 1. A lane finds its edge's row among the next 32 row ends,
 // rowptr[rb + 1 ..], held one a lane (a binary search by __shfl_sync); the
@@ -322,11 +324,12 @@ __device__ __forceinline__ void store_pack(T* p, int c0, int s, bool vec,
 // next step's cols and vals are loaded before this step's products.
 template <typename T, int V, int L>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-csr_narrow_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
-                  const T* __restrict__ vals, const T* __restrict__ x,
-                  T* __restrict__ y, const int* __restrict__ seg,
-                  T* __restrict__ partials, int n_rows, int s, int n_seg,
-                  bool vec) {
+csr_spmm_narrow_kernel(const int* __restrict__ rowptr,
+                       const int* __restrict__ cols,
+                       const T* __restrict__ vals, const T* __restrict__ x,
+                       T* __restrict__ y, const int* __restrict__ seg,
+                       T* __restrict__ partials, int n_rows, int s, int n_seg,
+                       bool vec) {
   constexpr int G = 32 / L;
   const int lane = threadIdx.x & 31;
   const int q = lane / L;       // the lane's group: edge c + q of a step
@@ -341,7 +344,8 @@ csr_narrow_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
   const int r_stop = last ? n_rows : seg[w + 1];
   const int e1 = last ? nnz : min(seg[n_seg + w + 1], nnz);
   const bool begun = rowptr[r_begin] < e0;  // r_begin began before e0
-  // where row r's sum over this segment goes (csr_segment_kernel's flush)
+  // where row r's sum over this segment goes (csr_spmm_segment_kernel's
+  // flush)
   auto dst = [&](int r) {
     return r == r_begin && begun ? partials + static_cast<size_t>(w) * s
            : r < r_stop          ? y + static_cast<size_t>(r) * s
@@ -455,16 +459,16 @@ int launch(const void* rowptr, const void* cols, const void* vals,
                    reinterpret_cast<size_t>(partials) % 16 == 0 &&
                    s * sizeof(T) % 16 == 0;
   const dim3 block(32 * kWarpsPerBlock);
-  csr_segment_kernel<T><<<(n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                          block, 0, st>>>(
+  csr_spmm_segment_kernel<T><<<(n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                               block, 0, st>>>(
       static_cast<const int*>(rowptr), static_cast<const int*>(cols),
       static_cast<const T*>(vals), static_cast<const T*>(x),
       static_cast<T*>(y), static_cast<const int*>(seg),
       static_cast<T*>(partials), n_rows, s, n_seg, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_seg < 2) return static_cast<int>(err);
-  csr_join_kernel<T><<<(n_seg - 1 + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                       block, 0, st>>>(
+  csr_spmm_join_kernel<T><<<(n_seg - 1 + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                            block, 0, st>>>(
       static_cast<const int*>(rowptr), static_cast<T*>(y),
       static_cast<const int*>(seg), static_cast<const T*>(partials),
       n_rows, s, n_seg, vec);
@@ -478,8 +482,9 @@ void launch_narrow_instance(const void* rowptr, const void* cols,
                             const void* vals, const void* x, void* y,
                             const void* seg, void* partials, int n_rows,
                             int s, int n_seg, bool vec, cudaStream_t st) {
-  csr_narrow_kernel<T, V, L><<<(n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                               32 * kWarpsPerBlock, 0, st>>>(
+  csr_spmm_narrow_kernel<T, V, L>
+      <<<(n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock,
+         0, st>>>(
       static_cast<const int*>(rowptr), static_cast<const int*>(cols),
       static_cast<const T*>(vals), static_cast<const T*>(x),
       static_cast<T*>(y), static_cast<const int*>(seg),
@@ -524,8 +529,8 @@ int launch_narrow(const void* rowptr, const void* cols, const void* vals,
   const bool vec16 = reinterpret_cast<size_t>(y) % 16 == 0 &&
                      reinterpret_cast<size_t>(partials) % 16 == 0 &&
                      s * sizeof(T) % 16 == 0;
-  csr_join_kernel<T><<<(n_seg - 1 + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                       32 * kWarpsPerBlock, 0, st>>>(
+  csr_spmm_join_kernel<T><<<(n_seg - 1 + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                            32 * kWarpsPerBlock, 0, st>>>(
       static_cast<const int*>(rowptr), static_cast<T*>(y),
       static_cast<const int*>(seg), static_cast<const T*>(partials), n_rows,
       s, n_seg, vec16);

@@ -318,6 +318,12 @@ class Filter:
             return torch.sqrt(torch.clamp(bound - y, min=0.0))
         return Filter(self.G, kernel)
 
+    def plot(self, **kwargs):
+        """Draw the kernels' responses
+        (:func:`pygsp_tpu_torch.plotting.plot_filter`)."""
+        from pygsp_tpu_torch import plotting
+        return plotting.plot_filter(self, **kwargs)
+
     def inverse(self):
         """The canonical dual bank gᵢ⁺ = gᵢ / Σⱼ gⱼ² (the pseudo-inverse),
         with a warning if the bank is not a frame or is badly

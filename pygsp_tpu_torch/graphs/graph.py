@@ -255,6 +255,22 @@ class Graph:
         from pygsp_tpu_torch.graphs import _layout
         _layout.set_coordinates(self, kind=kind, seed=seed, **kwargs)
 
+    def plot(self, *args, **kwargs):
+        """Draw the graph (:func:`pygsp_tpu_torch.plotting.plot_graph`)."""
+        from pygsp_tpu_torch import plotting
+        return plotting.plot_graph(self, *args, **kwargs)
+
+    def plot_signal(self, signal, **kwargs):
+        """Draw a signal as the vertices' colour."""
+        from pygsp_tpu_torch import plotting
+        return plotting.plot_graph(self, vertex_color=signal, **kwargs)
+
+    def plot_spectrogram(self, **kwargs):
+        """Draw the graph spectrogram
+        (:func:`pygsp_tpu_torch.plotting.plot_spectrogram`)."""
+        from pygsp_tpu_torch import plotting
+        return plotting.plot_spectrogram(self, **kwargs)
+
     # ------------------------------------------------------------------
     # import and export (networkx, graph-tool, files)
     # ------------------------------------------------------------------

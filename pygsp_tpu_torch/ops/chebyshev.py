@@ -31,7 +31,9 @@ gated by :func:`carry_error_estimate`.
 
 :func:`cheby_op_fixed_graph` is the training path: ``cheby_op`` under a
 ``torch.autograd.Function`` whose backward runs two fresh recurrences, the
-JAX package's constant-memory custom VJP.
+JAX package's constant-memory custom VJP. Through the graph's weights,
+:func:`cheby_op` itself differentiates on a CSR operator (:class:`_ChebyOp`:
+the terms kept, a Clenshaw adjoint, one SDDMM a step).
 
 Signal convention: ``x`` has shape ``(N, ...)``; ``cheby_op`` returns
 ``(Nf, N, ...)``.
@@ -45,9 +47,9 @@ import os
 import numpy as np
 import torch
 
-from pygsp_tpu_torch.core import cheby_kernel
+from pygsp_tpu_torch.core import cheby_kernel, csr_kernel
 from pygsp_tpu_torch.core.operators import SCALED_OUTPUT, LaplacianOp, matvec
-from pygsp_tpu_torch.core.sparse import spmm
+from pygsp_tpu_torch.core.sparse import CSRMatrix, spmm
 from pygsp_tpu_torch.utils import check_device
 
 _FORMAT_ONLY = ('{} is only supported on chunked/windowed operator formats '
@@ -196,6 +198,59 @@ def _prepare(L: LaplacianOp, c, x, carry_dtype=None, carry_tol=None,
 
 
 # ---------------------------------------------------------------------------
+# which calls autograd records
+# ---------------------------------------------------------------------------
+
+def _operator_tensors(L: LaplacianOp) -> list:
+    """L's diagonal and every tensor of its off-diagonal, those of nested
+    levels, slot tables and residue lists included."""
+    out = [L.diag]
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            for f in dataclasses.fields(v):
+                walk(getattr(v, f.name))
+        elif isinstance(v, tuple):          # levels, NamedTuples
+            for w in v:
+                walk(w)
+
+    walk(L.offdiag)
+    return out
+
+
+def _operator_records(L: LaplacianOp, lmax) -> bool:
+    """Whether autograd would record the bank through the operator: grad
+    mode is on and L's tensors or a tensor λmax require grad."""
+    return torch.is_grad_enabled() and (
+        getattr(lmax, 'requires_grad', False)
+        or any(t.requires_grad for t in _operator_tensors(L)))
+
+
+def _records(L: LaplacianOp, c, x, lmax) -> bool:
+    """Whether autograd would record the bank: grad mode is on and L's
+    tensors, ``c``, ``x`` or a tensor λmax require grad."""
+    return (torch.is_grad_enabled() and (c.requires_grad or x.requires_grad)
+            or _operator_records(L, lmax))
+
+
+def _refuse_operator_grad(L: LaplacianOp, lmax, name: str):
+    """Raise where a bank off the CSR format would be differentiated
+    through the operator (its values, its diagonal or λmax): its in-place
+    recurrence cannot be recorded, and only the CSR format has the SpMM's
+    backward. ``c`` and ``x`` alone go on to the plain recurrence."""
+    if _operator_records(L, lmax):
+        raise ValueError(
+            f'{name}: a gradient through the graph\'s weights or λmax is '
+            f'taken on the CSR operator only (compute_laplacian(fmt=\'coo\'), '
+            f'or laplacian_op of a CSR adjacency: from_scipy, with_vals, '
+            f'laplacian_op, cheby_op); the {type(L.offdiag).__name__} '
+            f'format has no such backward yet (ROADMAP.md §1, the other '
+            f'formats\' weight gradients)')
+
+
+# ---------------------------------------------------------------------------
 # the recurrence
 # ---------------------------------------------------------------------------
 
@@ -256,23 +311,28 @@ def _operator_bytes(off) -> int:
                    if isinstance(getattr(off, f.name), torch.Tensor))
 
 
-def _grouped_steps(step, m1: int, t_old, t_cur, g: int, group):
+def _grouped_steps(step, m1: int, t_old, t_cur, g: int, group, slab=None):
     """Steps 2..m1-1 of the recurrence: the terms go into a ring of ``g + 2``
     buffers and are handed on ``g`` steps at a time (the first
     ``(m1 - 2) mod g`` one at a time), as the JAX package's grouped
     accumulation does: ``group(ring, k, size, start)`` takes terms
     ``k .. k + size - 1``, which stand in ring slots ``start, start + 1,
     ...`` (wrapping). A group's terms and the two terms before it, which
-    its first steps read, are distinct slots."""
-    slots = g + 2
-    ring = torch.empty((slots,) + t_cur.shape, dtype=t_cur.dtype,
-                       device=t_cur.device)
+    its first steps read, are distinct slots. With ``slab`` (m1, N, ...)
+    the ring is the slab and term k goes to slot k, where it stays (the
+    backward through the operator reads every term)."""
+    if slab is None:
+        slots, shift = g + 2, 2
+        ring = torch.empty((slots,) + t_cur.shape, dtype=t_cur.dtype,
+                           device=t_cur.device)
+    else:
+        ring, slots, shift = slab, m1, 0
     head = 2 + (m1 - 2) % g
-    for k in range(2, m1):                 # term k goes to slot k - 2
-        t_old, t_cur = t_cur, step(t_cur, t_old, ring[(k - 2) % slots])
+    for k in range(2, m1):                 # term k goes to slot k - shift
+        t_old, t_cur = t_cur, step(t_cur, t_old, ring[(k - shift) % slots])
         size = 1 if k < head else g
         if size == 1 or (k - head) % g == g - 1:
-            group(ring, k + 1 - size, size, (k - 1 - size) % slots)
+            group(ring, k + 1 - size, size, (k + 1 - size - shift) % slots)
 
 
 def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
@@ -293,22 +353,204 @@ def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
     0.05, environment ``PYGSP_CARRY_TOL``). ``vals_dtype`` (chunked and
     windowed only) casts the stored edge values. On the CSR, ELL and banded
     formats both raise the JAX package's ``ValueError``.
+
+    Under autograd on a CSR operator the bank differentiates with respect
+    to the operator's values and diagonal (and so, through
+    :func:`~pygsp_tpu_torch.core.operators.laplacian_op`, W's values), a
+    tensor ``lmax``, ``c`` and ``x``, on both devices (:class:`_ChebyOp`:
+    the terms kept, m+1 (N, ...) units, and a Clenshaw adjoint with one
+    SDDMM a step); it differentiates once. On the CPU a gradient through
+    ``x`` alone runs the plain recurrence under autograd, which
+    differentiates again (``create_graph=True``). On the other formats a
+    gradient through the operator or λmax raises ``ValueError``; one
+    through ``c`` and ``x`` alone runs the plain recurrence on the CPU and
+    is refused on the card, where :func:`cheby_op_fixed_graph` serves.
     """
     L, c, x, cdt = _prepare(L, c, x, carry_dtype, carry_tol, vals_dtype)
+    if _records(L, c, x, lmax):
+        if isinstance(L.offdiag, CSRMatrix) and (
+                x.device.type != 'cpu' or c.requires_grad
+                or _operator_records(L, lmax)):
+            return _ChebyOp.apply(L, L.offdiag.vals, L.diag, lmax, c, x)
+        _refuse_operator_grad(L, lmax, 'cheby_op')
     op, pin, pout = L.hoisted()
-    xin = pin(x)
+    return pout(_bank(op, L, float(lmax), c, pin(x), cdt)[0], axis=1)
+
+
+def _bank(op: LaplacianOp, L: LaplacianOp, lmax: float, c, xin,
+          carry_dtype=None, keep_terms: bool = False):
+    """``(acc, slab)``: the bank of :func:`cheby_op` on ``op`` (``L``
+    hoisted) for ``xin`` in its internal order, and with ``keep_terms``
+    every term ``T̃_k x`` in one (m1, N, ...) slab (else None); the same
+    steps and groups either way, so the same bits."""
     nf, m1 = c.shape
-    t_old, t_cur, step = _start(op, float(lmax), xin, cdt)
+    t_old, t_cur, step = _start(op, lmax, xin, carry_dtype)
+    slab = None
+    if keep_terms:
+        slab = torch.empty((m1,) + t_cur.shape, dtype=t_cur.dtype,
+                           device=t_cur.device)
+        slab[0].copy_(t_old)
+        slab[1].copy_(t_cur)
+        t_old, t_cur = slab[0], slab[1]
     cT = c.T.contiguous()                       # row k: c[:, k]
-    acc = (0.5 * c[:, 0]).reshape((nf,) + (1,) * x.ndim) * xin[None]
+    acc = (0.5 * c[:, 0]).reshape((nf,) + (1,) * xin.ndim) * xin[None]
     cheby_kernel.cheby_acc_group(acc, t_cur[None], cT[1:2])
     if m1 > 2:
         g = acc_group(m1 - 2, xin.numel(), xin.dtype, t_cur.dtype,
                       _operator_bytes(L.offdiag), nf)
         _grouped_steps(step, m1, t_old, t_cur, g,
                        lambda ring, k, size, start: cheby_kernel
-                       .cheby_acc_group(acc, ring, cT[k:k + size], start))
-    return pout(acc, axis=1)
+                       .cheby_acc_group(acc, ring, cT[k:k + size], start),
+                       slab)
+    return acc, slab
+
+
+class _ChebyOp(torch.autograd.Function):
+    """:func:`cheby_op` on a CSR operator under autograd: the bank's
+    gradients with respect to the operator's values and diagonal, λmax (a
+    tensor), ``c`` and ``x``, on both devices. The operator's tensors are
+    inputs of their own (``vals``, ``diag``), so that autograd carries
+    their cotangents back through :func:`laplacian_op` to W's values.
+
+    The forward is :func:`cheby_op`'s recurrence with every term kept in
+    one (m+1, N, ...) slab where the values, the diagonal, λmax or ``c``
+    require grad (the same steps and groups, so the same bits), and the
+    ring of terms where ``x`` alone does: x̄ reads no term. The backward is
+    :func:`_operator_grads`."""
+
+    @staticmethod
+    def forward(ctx, L, vals, diag, lmax, c, x):
+        ctx.L, ctx.lmax = L, float(lmax)
+        ctx.lmax_like = lmax if isinstance(lmax, torch.Tensor) else None
+        acc, slab = _bank(L, L, ctx.lmax, c, x,
+                          keep_terms=any(ctx.needs_input_grad[1:5]))
+        ctx.save_for_backward(vals, diag, c, slab)
+        return acc
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        vals, diag, c, slab = ctx.saved_tensors
+        L = LaplacianOp(offdiag=ctx.L.offdiag.with_vals(vals), diag=diag,
+                        lap_type=ctx.L.lap_type)
+        grads = _operator_grads(L, ctx.lmax, c, slab, gout,
+                                *ctx.needs_input_grad[1:])
+        lmax_bar = grads[2]
+        if lmax_bar is not None:
+            lmax_bar = lmax_bar.to(ctx.lmax_like).reshape(
+                ctx.lmax_like.shape)
+        return (None, grads[0], grads[1], lmax_bar, grads[3], grads[4])
+
+
+def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
+                    need_vals: bool, need_diag: bool, need_lmax: bool,
+                    need_c: bool, need_x: bool):
+    """``(vals̄, diag̅, λ̄, c̄, x̄)`` of the bank ``cheby_op(L, lmax, c, x)``
+    on a CSR ``L`` for its cotangent ``gout`` (Nf, N, ...), each None where
+    it is not needed, from the forward's terms ``slab[k] = T̃_k x`` (None
+    where x̄ alone is needed).
+
+    With L̃ = (L − a2)/a1, a1 = a2 = λmax/2, and c' = c with 0.5 at k = 0:
+
+    - ``G_k = Σ_f c'[f, k] ḡ_f``, each added in place by
+      :func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_acc_group` with ḡ's
+      Nf filters as its group of terms (no copy of ḡ);
+    - the adjoint terms, the Clenshaw recurrence on the shifted step of
+      the transpose (L̃ itself for symmetric weights),
+      ``u_k = G_k + 2 L̃ᵀ u_{k+1} − u_{k+2}`` for k = m .. 1 with
+      ``u_{m+1} = u_{m+2} = 0``, three buffers;
+    - after each ``u_{k+1}``, one SDDMM
+      (:func:`~pygsp_tpu_torch.core.csr_kernel.csr_sddmm`) adds
+      ``α·⟨u_{k+1}[i], t_k[j]⟩`` to the off-diagonal's cotangent and, in
+      the same launch, the diagonal's: α = 2/a1 for k ≥ 1, 1/a1 for k = 0,
+      m launches in all (the cotangent of the unscaled values, though the
+      step multiplies a scaled copy);
+    - ``x̄ = G_0 + L̃ᵀ u_1 − u_2``;
+    - ``c̄[f, k] = ⟨t_k, ḡ_f⟩`` with 0.5 at k = 0, one
+      :func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_dot_group` over the
+      slab, on a copy of ḡ with its filter axis last that is freed before
+      the adjoint;
+    - ``λ̄ = −(1/λmax)·[⟨u_1, t_1 + t_0⟩ + Σ_{k=1}^{m−1} ⟨u_{k+1},
+      t_{k+1} + 2 t_k + t_{k−1}⟩]`` (∂L̃/∂λmax = −(L̃ + 1)/λmax), from
+      ``cheby_dot_group`` with u as a one-filter ḡ.
+
+    Memory beside the slab and ḡ: ḡ's copy for c̄ (Nf units of (N, ...)),
+    then the three adjoint terms (x̄ takes the first one freed) and the
+    step's SpMM output."""
+    nf, m1 = c.shape
+    m = m1 - 1
+    a1 = a2 = lmax / 2
+    gout = gout.contiguous()                             # (Nf, N, ...)
+    dt, dev = gout.dtype, gout.device
+    shape = gout.shape[1:]
+    n = shape[0]
+    cp = c.to(dt).clone()
+    cp[:, 0] *= 0.5
+    cpT = cp.T.contiguous()                              # row k: c'[:, k]
+    c_bar = None
+    if need_c:
+        c_bar = torch.empty((m1, nf), dtype=dt, device=dev)
+        cheby_kernel.cheby_dot_group(c_bar, gout.movedim(0, -1).contiguous(),
+                                     slab)
+        c_bar[0] *= 0.5
+        c_bar = c_bar.T.to(c.dtype)
+    need_w = need_vals or need_diag
+    if not (need_w or need_lmax or need_x):
+        return None, None, None, c_bar, None
+
+    def add_g(u, k):
+        """u += G_k: ḡ's filters as one group of Nf terms."""
+        cheby_kernel.cheby_acc_group(u[None], gout, cpT[k].reshape(nf, 1))
+
+    off = L.offdiag
+    # the adjoint steps apply L̃ᵀ: the transpose's own CSR, so that the
+    # gradient is exact for weights that are not symmetric (as after an
+    # optimizer's step on them)
+    Lt = LaplacianOp(offdiag=off.T, diag=L.diag, lap_type=L.lap_type)
+    vals_bar = torch.zeros_like(off.vals) if need_w else None
+    diag_bar = torch.zeros_like(L.diag) if need_w else None
+    alphas = (torch.full((), 1.0 / a1, dtype=dt, device=dev),
+              torch.full((), 2.0 / a1, dtype=dt, device=dev))
+    # ⟨u_{k+1}, t_{k-1}⟩, ⟨u_{k+1}, t_k⟩, ⟨u_{k+1}, t_{k+1}⟩ for step k
+    lam = torch.zeros((m, 3, 1), dtype=dt, device=dev) if need_lmax else None
+
+    def step_cotangent(u, k):
+        """What step k (t_{k+1} from t_k) gives once u = u_{k+1} is
+        formed."""
+        if need_w:
+            csr_kernel.csr_sddmm(off.rows, off.cols, u.reshape(n, -1),
+                                 slab[k].reshape(n, -1), vals_bar,
+                                 alphas[k > 0], diag_bar)
+        if need_lmax:                   # k = 0: ⟨u_1, t_0⟩, ⟨u_1, t_1⟩
+            cheby_kernel.cheby_dot_group(lam[k] if k else lam[0, 1:],
+                                         u[..., None], slab, max(k - 1, 0))
+
+    step2 = Lt.shifted_step(2.0 / a1, a2)      # 2 L̃ᵀ u − u_old
+    u_next2 = torch.zeros(shape, dtype=dt, device=dev)         # u_{m+1}
+    u_next = torch.zeros(shape, dtype=dt, device=dev)
+    add_g(u_next, m)                                           # u_m = G_m
+    step_cotangent(u_next, m - 1)
+    free = None
+    for k in range(m - 1, 0, -1):              # u_k, then step k - 1's share
+        u = torch.empty(shape, dtype=dt, device=dev) if free is None else free
+        step2(u_next, u_next2, u)
+        add_g(u, k)
+        step_cotangent(u, k - 1)
+        free, u_next2, u_next = u_next2, u_next, u
+
+    x_bar = None
+    if need_x:
+        x_bar = torch.empty(shape, dtype=dt, device=dev) if free is None \
+            else free
+        Lt.shifted_step(1.0 / a1, a2)(u_next, u_next2, x_bar)  # L̃ᵀu_1 − u_2
+        add_g(x_bar, 0)
+    lmax_bar = None
+    if need_lmax:
+        weights = torch.tensor([[0.0, 1.0, 1.0]] + [[1.0, 2.0, 1.0]] * (m - 1),
+                               dtype=dt, device=dev)
+        lmax_bar = -(lam[..., 0] * weights).sum() / lmax
+    return (vals_bar if need_vals else None,
+            diag_bar if need_diag else None, lmax_bar, c_bar, x_bar)
 
 
 def cheby_op_intermediates(L: LaplacianOp, lmax, c, x: torch.Tensor):
@@ -332,21 +574,38 @@ def cheby_synthesis(L: LaplacianOp, lmax, c, x: torch.Tensor,
     term contracted over the filter axis into the accumulator in one pass
     (:func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_acc_contract`).
     ``carry_dtype``, ``carry_tol``, ``vals_dtype``: as in
-    :func:`cheby_op`."""
+    :func:`cheby_op`. Through the graph's weights (a CSR operator whose
+    values or diagonal require grad, or a tensor λmax) it differentiates
+    on the CPU only, by the plain recurrence under autograd; on the card
+    that raises ``ValueError`` naming :func:`cheby_op`, and the other
+    formats raise as in :func:`cheby_op`."""
     c = torch.atleast_2d(torch.as_tensor(c))
     nf = c.shape[0]
     if x.shape[-1] != nf:
         raise ValueError(f'last axis of x ({x.shape[-1]}) must equal the '
                          f'number of filters ({nf})')
     L, c, x, cdt = _prepare(L, c, x, carry_dtype, carry_tol, vals_dtype)
+    recorded = _records(L, c, x, lmax)
+    if recorded and not isinstance(L.offdiag, CSRMatrix):
+        _refuse_operator_grad(L, lmax, 'cheby_synthesis')
+    if x.device.type != 'cpu' and _operator_records(L, lmax):
+        raise ValueError(
+            'cheby_synthesis: a gradient through the graph\'s weights or '
+            'λmax is taken on the CPU only (the plain recurrence under '
+            'autograd); on the card, differentiate the analysis bank '
+            'through cheby_op on the CSR operator, whose backward has the '
+            'SDDMM')
     op, pin, pout = L.hoisted()
-    return pout(_synthesis(op, lmax, c, pin(x), cdt))
+    return pout(_synthesis(op, lmax, c, pin(x), cdt, reuse=not recorded))
 
 
-def _synthesis(op: LaplacianOp, lmax, c, xin, carry_dtype=None):
+def _synthesis(op: LaplacianOp, lmax, c, xin, carry_dtype=None,
+               reuse: bool = True):
     """The synthesis recurrence on ``op`` in its internal order, for ``xin``
     (N, ..., Nf) in that order; returns (N, ...) in that order. ``xin`` is
-    read, never written."""
+    read, never written. A step writes into the buffer of the term three
+    back, unless ``reuse`` is off: autograd, which records the plain
+    recurrence on the CPU, keeps the terms it multiplied."""
     t_old, t_cur, step = _start(op, float(lmax), xin, carry_dtype)
     odt = xin.dtype
     acc = (0.5 * c[:, 0] * t_old.to(odt) + c[:, 1] * t_cur.to(odt)).sum(-1)
@@ -356,7 +615,7 @@ def _synthesis(op: LaplacianOp, lmax, c, xin, carry_dtype=None):
         out = torch.empty_like(t_cur) if free is None else free
         t_new = step(t_cur, t_old, out)
         cheby_kernel.cheby_acc_contract(acc, t_new, cT[k])
-        free = t_old if k > 2 else None
+        free = t_old if k > 2 and reuse else None
         t_old, t_cur = t_cur, t_new
     return acc
 
@@ -385,9 +644,9 @@ def cheby_op_fixed_graph(L: LaplacianOp, lmax, c, x: torch.Tensor
 
     The backward holds the recurrence state of one pass at a time, and
     computes the gradients of the inputs that require grad only. ``L`` and
-    ``lmax`` get
-    none: differentiating through the graph's weights needs the SpMM's own
-    backward, which the port does not have. ``c`` (Nf, m+1) or (m+1,) and
+    ``lmax`` get none, as in the JAX package: to differentiate through the
+    graph's weights, call :func:`cheby_op` on a CSR operator, whose
+    backward has the SpMM's own (an SDDMM). ``c`` (Nf, m+1) or (m+1,) and
     ``x`` (N, ...) are as in :func:`cheby_op`; c̄ has c's shape and dtype,
     x̄ x's.
     """

@@ -21,12 +21,11 @@ import pytest
 
 import pygsp_tpu
 
-# Modules and names of the JAX package still to port (ROADMAP §1 items 1
-# and 3, §2 item 4).
+# Modules and names of the JAX package still to port (ROADMAP §1 item 3,
+# the multi-device engines, with the sharded checkpoints; §2 item 4).
 TO_PORT = (
-    'pygsp_tpu.checkpoint',
-    'pygsp_tpu.profiling',
-    'pygsp_tpu.plotting',
+    'pygsp_tpu.checkpoint.save_sharded',
+    'pygsp_tpu.checkpoint.load_sharded',
     'pygsp_tpu.parallel',
     'pygsp_tpu.parallel.launch',
     'pygsp_tpu.parallel.partition',
@@ -34,8 +33,6 @@ TO_PORT = (
     'pygsp_tpu.parallel.twod',
     'pygsp_tpu.parallel.windowed_shards',
     'pygsp_tpu.core.windowed.windowed_spmm_chunks_multi',
-    'Graph.plot', 'Graph.plot_signal', 'Graph.plot_spectrogram',
-    'Filter.plot',
 )
 
 # A module that holds a Pallas kernel: its counterpart is the wrapper of

@@ -27,7 +27,10 @@ carry, bf16 values, both) and a fast-mode bank against the CPU; the
 fused Chebyshev step's first three entry points against their plain
 versions, bit for bit, in f32, f64 and with a bf16 carry, and its fourth,
 the coefficient gradient ``cheby_dot_group``, within its summation bound
-and bit-equal across launches; the guard that makes every kernel wrapper
+and bit-equal across launches; the SDDMM ``csr_sddmm`` against its plain
+version (1 to 600 columns, a star row, the padding untouched, two launches
+bit-equal) and the gradients through W's values on the card against the
+CPU's; the guard that makes every kernel wrapper
 refuse an operand that requires grad, and the fixed-graph training path's
 gradients against the CPU's; the ELL and chunked SpMMs against their plain
 version (heavy rows, ragged chunks, the degree relabeling, S of 1 to 512,
@@ -178,6 +181,122 @@ def test_csr_narrow_entry_matches_plain(cuda, dtype, s):
     narrow = s <= csr_kernel.NARROW_WIDTH[dtype]
     assert symbols == [('csr_spmm_narrow_' if narrow else 'csr_spmm_')
                        + ('f32' if dtype == torch.float32 else 'f64')]
+
+
+def _sddmm_case(dtype, device):
+    """A square CSR with a star row of 3,000 edges (many warps' runs), an
+    empty row and the edge padding of ``from_coo`` (``n_edges_padded >
+    nnz``)."""
+    rng = np.random.default_rng(61)
+    A = sps.random(4000, 4000, density=0.001, random_state=rng, format='lil')
+    A[9] = 0
+    A[11, :3000] = rng.normal(size=3000)
+    M = tsp.from_scipy(A.tocsr(), dtype=dtype, device=device)
+    assert M.n_edges_padded > M.nnz
+    return M
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('s', [1, 8, 128, 512, 600])
+def test_csr_sddmm_matches_plain(cuda, dtype, s):
+    """The SDDMM and its fused diagonal against the plain version in
+    float64, at one column to 512 (one launch) and 600 (two), the padding
+    untouched, two launches bit-equal."""
+    M = _sddmm_case(dtype, cuda)
+    u, t = (_signal((4000, s), dtype, k, cuda) for k in (62, 63))
+    out0 = torch.zeros_like(M.vals)
+    out0[:M.nnz] = _signal((M.nnz,), dtype, 64, cuda)
+    out0[M.nnz:] = 7.0                  # padding: never read nor written
+    d0 = _signal((4000,), dtype, 65, cuda)
+    runs = []
+    for _ in range(2):
+        out, dg = out0.clone(), d0.clone()
+        before = csr_kernel.csr_sddmm.launches
+        csr_kernel.csr_sddmm(M.rows, M.cols, u, t, out, 0.5, dg)
+        assert csr_kernel.csr_sddmm.launches == before + -(-s // 512)
+        runs.append((out, dg))
+    want = out0.to(torch.float64, copy=True)
+    want_d = d0.to(torch.float64, copy=True)
+    csr_kernel.csr_sddmm_plain(M.rows, M.cols, u.double(), t.double(),
+                               want, 0.5, want_d)
+    assert _rel_err(runs[0][0].double(), want) <= TOL[dtype]
+    assert _rel_err(runs[0][1].double(), want_d) <= TOL[dtype]
+    assert bool((runs[0][0][M.nnz:] == 7.0).all())
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    # without the diagonal
+    out = out0.clone()
+    csr_kernel.csr_sddmm(M.rows, M.cols, u, t, out, 0.5)
+    assert torch.equal(out, runs[0][0])
+
+
+def test_weight_grads_on_the_card_match_the_cpu(cuda):
+    """``cheby_op`` through W's values (both Laplacian types), a tensor
+    λmax, c and x on the card against the port on the CPU, float64, and
+    ``L @ x`` through W; the SDDMM launched once a step."""
+    W = tgsp.graphs.BarabasiAlbert(2000, seed=3, device='cpu').W
+    rng = np.random.default_rng(66)
+    c0, x0 = rng.normal(size=(3, 21)), rng.normal(size=(2000, 4))
+    g0 = rng.normal(size=(3, 2000, 4))
+    for lap_type, lmax in (('combinatorial', 2.05 * W.sum(1).max()),
+                           ('normalized', 2.0)):
+        grads = []
+        for device in (cuda, 'cpu'):
+            M = tsp.from_scipy(W, dtype=torch.float64, device=device)
+            w = M.vals.clone().requires_grad_()
+            c = torch.tensor(c0, device=device, requires_grad=True)
+            x = torch.tensor(x0, device=device, requires_grad=True)
+            lt = torch.tensor(float(lmax), dtype=torch.float64,
+                              device=device, requires_grad=True)
+            L = tgsp.core.operators.laplacian_op(M.with_vals(w), lap_type)
+            out = tgsp.ops.cheby_op(L, lt, c, x)
+            before = csr_kernel.csr_sddmm.launches
+            (out * torch.tensor(g0, device=device)).sum().backward()
+            if device != 'cpu':
+                assert csr_kernel.csr_sddmm.launches == before + 20
+            grads.append([t.grad.cpu() for t in (w, c, x, lt)])
+            wx = M.vals.clone().requires_grad_()
+            xx = torch.tensor(x0, device=device, requires_grad=True)
+            Lx = tgsp.core.operators.laplacian_op(M.with_vals(wx), lap_type)
+            (xx * (Lx @ xx)).sum().backward()
+            grads[-1] += [wx.grad.cpu(), xx.grad.cpu()]
+        for got, want in zip(*grads):
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 1e-10 * scale
+        assert not grads[0][0][M.nnz:].any()
+
+
+def test_weight_second_order_and_synthesis_refusal_on_the_card(cuda):
+    """A Hessian-vector product through ``L @ x`` (W's values and x,
+    ``create_graph=True``) on the card against the CPU's in float64; a
+    synthesis through W's values raises on the card, naming ``cheby_op``."""
+    W = tgsp.graphs.BarabasiAlbert(2000, seed=3, device='cpu').W
+    rng = np.random.default_rng(67)
+    x0, dx0 = rng.normal(size=(2000, 3)), rng.normal(size=(2000, 3))
+    dv0 = rng.normal(size=W.nnz)
+    hvps = []
+    for device in (cuda, 'cpu'):
+        M = tsp.from_scipy(W, dtype=torch.float64, device=device)
+        dv = torch.zeros_like(M.vals)
+        dv[:M.nnz] = torch.from_numpy(dv0).to(device)
+        v = M.vals.clone().requires_grad_()
+        x = torch.tensor(x0, device=device, requires_grad=True)
+        L = tgsp.core.operators.laplacian_op(M.with_vals(v), 'normalized')
+        gv, gx = torch.autograd.grad(((L @ x) ** 2).sum(), (v, x),
+                                     create_graph=True)
+        dx = torch.tensor(dx0, device=device)
+        hvps.append([h.cpu() for h in torch.autograd.grad(
+            (gv * dv).sum() + (gx * dx).sum(), (v, x))])
+    for got, want in zip(*hvps):
+        assert float((got - want).abs().max()) <= 1e-10 * float(
+            want.abs().max())
+    M = tsp.from_scipy(W, dtype=torch.float64, device=cuda)
+    L = tgsp.core.operators.laplacian_op(
+        M.with_vals(M.vals.clone().requires_grad_()))
+    c = torch.ones((2, 5), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match='cheby_op'):
+        tgsp.ops.cheby_synthesis(L, 8.0, c, torch.ones(
+            (2000, 2), dtype=torch.float64, device=cuda))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -855,6 +974,9 @@ def test_every_kernel_route_refuses_autograd(cuda):
     calls = {
         'csr_spmm': lambda r: csr_kernel.csr_spmm(A.rowptr, A.cols, A.vals,
                                                   r(x)),
+        'csr_sddmm': lambda r: csr_kernel.csr_sddmm(
+            A.rows, A.cols, _signal((50, 3), f32, 60, cuda), r(x),
+            torch.zeros_like(A.vals), 1.0),
         'banded_spmm': lambda r: banded_kernel.banded_spmm(
             r(tiles), _signal((128, 3), f32, 58, cuda), 128),
         'windowed_fold': lambda r: wk.windowed_fold(
@@ -882,7 +1004,8 @@ def test_every_kernel_route_refuses_autograd(cuda):
 
 
 def test_filter_refuses_autograd_and_fixed_graph_trains_on_the_card(cuda):
-    """``g.filter(x)`` with x requiring grad raises on the card; with
+    """``g.filter(x)`` with x requiring grad raises on the card on the
+    windowed format (only CSR has the bank's own backward); with
     ``fixed_graph=True`` its gradients (to x and to a kernel parameter)
     match the CPU's, on the windowed format."""
     W, _ = _ba_windowed(torch.float64, 'cpu')

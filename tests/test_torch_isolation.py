@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, no pygsp_tpu, no networkx at load time,
-no silent CPU fallback."""
+"""The port stands alone: no JAX, no pygsp_tpu, no networkx and no
+matplotlib at load time, no silent CPU fallback."""
 
 import json
 import os
@@ -17,14 +17,15 @@ from pygsp_tpu_torch.core import _cuda, banded_kernel, csr_kernel
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # One fresh interpreter refuses jax, jaxlib, pygsp_tpu (but not
-# pygsp_tpu_torch) and networkx, an optional dependency that the graph I/O
-# imports only when called; then it imports every module of the port and
+# pygsp_tpu_torch), networkx, an optional dependency that the graph I/O
+# imports only when called, and matplotlib, which plotting imports only when
+# called; then it imports every module of the port and
 # loads the scripts that drive it on the card without running them. After
 # each part it prints, as one JSON line, the refused modules loaded so far;
 # last, it tries the JAX package itself, which the hook must refuse.
 _SCRIPT = '''
 import importlib, importlib.util, json, pkgutil, sys
-REFUSED = ('jax', 'jaxlib', 'pygsp_tpu', 'networkx')
+REFUSED = ('jax', 'jaxlib', 'pygsp_tpu', 'networkx', 'matplotlib')
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):

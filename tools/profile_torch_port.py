@@ -214,8 +214,9 @@ def main():
                       'copy_bytes_per_s': copy_rate()}), flush=True)
     step = ('cheby_step', 'cheby_acc_group')
     windowed = ('windowed_fold', 'window_strip') + step
+    csr = ('csr_spmm_segment', 'csr_spmm_join', 'csr_spmm_narrow')
     for name, kernels, make in (
-            ('A', ('csr_segment', 'csr_join') + step, chip_smoke.path_a),
+            ('A', csr + step, chip_smoke.path_a),
             ('B', ('banded_spmm',) + step, chip_smoke.path_b)):
         bank = make()[-1]
         print(json.dumps(profile_bank(name, kernels, bank, args.out)),
