@@ -173,19 +173,32 @@ K. path K, gradients through the graph's weights, on path A's graph
    A's, c and x requiring grad too) → the VJP of ⟨ḡ, out⟩ for a seeded ḡ
    nonzero on 8 columns. The backward's peak memory at most m+1 + Nf + 8
    (N, S) units above what is held (plain autograd's 3K beside it), 30
-   ``csr_sddmm`` launches a backward (counted by symbol) and no plain SpMM
-   or SDDMM, two backward passes bit-equal; w̄, x̄ and c̄ against a host
+   launches a backward of kernel A's fused entry ``csr_spmm_sddmm`` (the
+   transpose's SpMM with the weights' SDDMM and the diagonal in one pass,
+   u_1's share in x̄'s step) and none of ``csr_sddmm`` or ``csr_spmm``
+   (counted by wrapper and by symbol), no plain SpMM or SDDMM, two
+   backward passes bit-equal; w̄, x̄ and c̄ against a host
    SciPy f64 computation on those 8 columns (the terms, the Clenshaw
    adjoint, the per-edge dots, the chain through ``laplacian_op``) within
    1e-4 of their largest value, x̄ exactly 0 on the other columns and w̄ on
-   the padding; the forward, the backward and its parts (an adjoint step,
-   the SDDMM, the c̄ pass) timed; ``csr_sddmm`` with the diagonal at 128
+   the padding; the forward, the backward and its parts (the fused
+   adjoint step, beside it the unfused adjoint step and SDDMM, the c̄ pass)
+   timed; the fused entry on the transpose of path A's off-diagonal at 128
+   and 200 (two passes) f32 and 64 f64 columns bit-equal to kernel A's
+   wide entry plus ``csr_sddmm`` (its cotangent taken back by the
+   transpose's edge order), held against its plain version, two launches
+   bit-equal, timed beside those two launches, its bound, its gather
+   model, its plain version and ``torch.sparse.mm`` of the transpose plus
+   ``torch.sparse.sampled_addmm`` (a yardstick only); ``csr_sddmm`` with
+   the diagonal at 128
    and 1 columns against its plain version, two launches bit-equal, timed
    beside its bound, its gather model, its plain version and
    ``torch.sparse.sampled_addmm`` (a yardstick only); three Adam steps on
    the weights towards a teacher (the graph with each edge's weight
    scaled by a seeded factor in [0.9, 1.1]): the loss must fall, each
-   step timed; on BA(2^16) in f64 with the normalized Laplacian, w̄, c̄,
+   step timed (and the fused entry's, the adjoint step's, the backward's
+   and an Adam step's ms printed with the card's name and power limit);
+   on BA(2^16) in f64 with the normalized Laplacian, w̄, c̄,
    x̄ and λ̄ on the card against the port on the CPU within 1e-10, and λ̄
    against a central difference within 1e-7. Then the auxiliaries on the
    card: BA(2^16) with its λmax and a signal through ``save_graph`` and
@@ -203,7 +216,8 @@ K. path K, gradients through the graph's weights, on path A's graph
    ``torch.mm`` for the coefficient gradient);
 8. one JSON line of per-kernel numbers (kernel A's entry with ``grad`` and
    ``div``, its narrow entry with the width sweep and the narrow shapes of
-   paths G and J, ``csr_sddmm`` at path K's 128 columns and at one,
+   paths G and J, ``csr_sddmm`` at path K's 128 columns and at one, the
+   fused entry ``csr_spmm_sddmm`` at 128 with 200 f32 and 64 f64 beside,
    kernel B's group with Nf = 6, ``ell_spmm`` and
    ``chunked_spmm`` with the shapes paths H and I held them at under
    ``at_paths``, their narrow entries ``ell_spmm_narrow`` and
@@ -407,7 +421,8 @@ FOLD2_NW, FOLD2_LT, FOLD2_KP = 1024, 1152, 256
 FOLD3_LT, FOLD3_KP = 512, 256
 
 KERNELS = ((csr_kernel.csr_spmm, csr_kernel.csr_sddmm,
-            banded_kernel.banded_spmm) + wk.KERNELS
+            csr_kernel.csr_spmm_sddmm, banded_kernel.banded_spmm)
+           + wk.KERNELS
            + cheby_kernel.KERNELS + ell_kernel.KERNELS)
 
 
@@ -442,9 +457,10 @@ def reset_counts():
 
 def counts():
     """Every kernel's launch count, kernels A, ELL and chunked by entry
-    (narrow, wide; by C symbol), and the calls of two plain versions that
-    the banks must not call, by name: the tail's (the windowed residue sum)
-    and the ELL and chunked SpMMs' (``slot_plain``)."""
+    (narrow, wide; by C symbol; kernel A's fused entry is
+    ``csr_spmm_sddmm``, its own wrapper), and the calls of two plain
+    versions that the banks must not call, by name: the tail's (the
+    windowed residue sum) and the ELL and chunked SpMMs' (``slot_plain``)."""
     by_entry = {}
     for kernel in ('csr_spmm', 'ell_spmm', 'chunked_spmm'):
         for entry in ('narrow', 'wide'):
@@ -452,6 +468,7 @@ def counts():
             by_entry[f'{kernel}_{entry}'] = sum(
                 n for symbol, n in SYMBOLS.items()
                 if symbol.startswith(head)
+                and not symbol.startswith('csr_spmm_sddmm_')
                 and (entry == 'narrow') == ('_narrow_' in symbol))
     return {**{k.__name__: k.launches for k in KERNELS}, **by_entry,
             'tail_plain': wk.tail_plain.calls,
@@ -673,7 +690,12 @@ def phase_build():
     check('double (#4) vs x * 2', y, wk.double_plain(x), 0.0)
     max_abs_err = float((y - wk.double_plain(x)).abs().max())
     ms = time_ms(lambda: wk.double(x), 100)
-    return {'max_abs_err': max_abs_err, 'ms': ms,
+    # an empty kernel's device time: the least any launch takes, double's
+    # bound on the card beside its bytes' (csrc/windowed_fold.cu)
+    floor = device_ms(lambda: _cuda.launch(
+        'windowed_fold', 'launch_floor', 0, 0, torch.cuda.current_device()),
+        100, 'launch_floor_ms')
+    return {'max_abs_err': max_abs_err, 'ms': ms, **floor,
             **device_ms(lambda: wk.double(x), 100),
             **device_ms(lambda: torch.mul(x, 2), 100, 'library_device_ms'),
             'plain_ms': time_ms(lambda: wk.double_plain(x), 100),
@@ -2452,9 +2474,11 @@ def refusal_on_windowed(G, x):
 # ---------------------------------------------------------------------------
 
 def count_plain_calls():
-    """Count calls of the CSR SpMM's and SDDMM's plain versions from now on
-    (``PLAIN_CALLS``): on the card the path must run none."""
-    for name in ('csr_spmm_plain', 'csr_sddmm_plain'):
+    """Count calls of the CSR SpMM's, the SDDMM's and the fused entry's
+    plain versions from now on (``PLAIN_CALLS``): on the card the path
+    must run none."""
+    for name in ('csr_spmm_plain', 'csr_sddmm_plain',
+                 'csr_spmm_sddmm_plain'):
         plain = getattr(csr_kernel, name)
 
         def spy(*args, _plain=plain, _name=name, **kwargs):
@@ -2533,6 +2557,124 @@ def measure_sddmm(name, M, s, seed):
               **library}
     log(f'  {name}: {json.dumps(result)}')
     return result
+
+
+def card():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def fused_work(M, s, item, flops_per_s=FP32_FLOPS):
+    """The bound of one launch of the fused entry on ``M`` (the
+    transpose, square) at ``s`` columns with the diagonal: u and t read
+    once, y written once, the CSR's columns, values and row pointers read
+    once, the values' and the diagonal's cotangents read and written once;
+    two operations per entry and column for the product and two for each
+    dot (entries and diagonal). ``gather_ms``: the gather model, one row
+    of u read per stored entry instead of u once."""
+    n, nnz = M.n_rows, M.nnz
+    rest = nnz * (4 + item) + (n + 1) * 4 + 2 * (nnz + n) * item
+    work = bound(3 * n * s * item + rest, 2 * nnz * s + 2 * (nnz + n) * s,
+                 flops_per_s)
+    work['gather_ms'] = ((nnz + 2 * n) * s * item + rest) / HBM_BYTES_PER_S \
+        * 1e3
+    return work
+
+
+def measure_fused(M, lmax):
+    """Kernel A's fused entry (``csr_spmm_sddmm``) on the transpose of
+    path A's off-diagonal at 128 and 200 (two passes) f32 columns and 64
+    f64 columns, with the diagonal and α = 2/a1 onto seeded cotangents:
+    bit-equal to the two launches it replaces (kernel A's wide entry on
+    the transpose, ``csr_sddmm`` on the matrix, its cotangent taken back
+    by the transpose's edge order), held against its plain version, two
+    launches bit-equal; timed beside the two launches, its bound, its
+    gather model, its plain version and the library pair
+    ``torch.sparse.mm`` of the transpose plus
+    ``torch.sparse.sampled_addmm`` (a yardstick that the port never
+    calls)."""
+    off32 = gsp.core.operators.laplacian_op(M).offdiag
+    out = {}
+    for dtype, s, tol, flops in ((torch.float32, N_SIGNALS, TOL_CSR,
+                                  FP32_FLOPS),
+                                 (torch.float32, 200, TOL_CSR, FP32_FLOPS),
+                                 (torch.float64, 64, TOL_F64, FP64_FLOPS)):
+        name = f'csr_spmm_sddmm on path A\'s transpose, S={s} {dtype}'
+        A = off32 if dtype == torch.float32 else off32.astype(dtype)
+        At, order = gsp.core.sparse._transpose(A)
+        n, nnz = A.n_rows, A.nnz
+        u, t = (seeded_normal((n, s), 130 + s + i, dtype=dtype)
+                for i in range(2))
+        alpha = torch.full((), 4.0 / lmax, dtype=dtype, device='cuda')
+        out0 = torch.zeros_like(A.vals)
+        out0[:nnz] = seeded_normal((nnz,), 133, dtype=dtype)
+        d0 = seeded_normal((n,), 134, dtype=dtype)
+        args = (At.rowptr, At.cols, At.vals, u, t)
+
+        def fused():
+            o, d = out0[order], d0.clone()
+            y = csr_kernel.csr_spmm_sddmm(*args, o, alpha, d)
+            return y, torch.empty_like(o).index_copy_(0, order, o), d
+
+        def two_launches():
+            o, d = out0.clone(), d0.clone()
+            y = csr_kernel.csr_spmm(At.rowptr, At.cols, At.vals, u)
+            csr_kernel.csr_sddmm(A.rows, A.cols, u, t, o, alpha, d)
+            return y, o, d
+
+        def plain():
+            o, d = out0[order], d0.clone()
+            y = csr_kernel.csr_spmm_sddmm_plain(*args, o, alpha, d)
+            return y, torch.empty_like(o).index_copy_(0, order, o), d
+
+        got = fused()
+        parts = ('y', 'values', 'diagonal')
+        for part, a, b in zip(parts, got, two_launches()):
+            if not torch.equal(a, b):
+                raise AssertionError(f'{name}: {part} differs from the two '
+                                     f'launches')
+        log(f'  {name}: bit-equal to kernel A\'s wide entry and csr_sddmm')
+        if not all(torch.equal(a, b) for a, b in zip(got, fused())):
+            raise AssertionError(f'{name}: two launches differ')
+        log(f'  {name}: two launches bit-equal')
+        want = plain()
+        rel_err = max(check(f'{name} vs plain ({part})', a, b, tol)
+                      for part, a, b in zip(parts, got, want))
+        max_abs_err = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+        if bool(got[1][nnz:].any()):
+            raise AssertionError(f'{name}: the padding\'s cotangent moved')
+        del got, want
+        o_t, d = out0[order], d0.clone()
+        lib_t = torch.sparse_csr_tensor(At.rowptr, At.cols[:nnz],
+                                        At.vals[:nnz], size=At.shape)
+        pattern = torch.sparse_csr_tensor(A.rowptr, A.cols[:nnz],
+                                          torch.zeros_like(A.vals[:nnz]),
+                                          size=A.shape)
+        row = {'max_abs_err': max_abs_err, 'rel_err': rel_err,
+               'ms': time_ms(lambda: csr_kernel.csr_spmm_sddmm(
+                   *args, o_t, alpha, d), 20),
+               'two_launches_ms': time_ms(two_launches, 10),
+               'plain_ms': time_ms(plain, 2),
+               **fused_work(At, s, u.element_size(), flops),
+               'library': 'torch.sparse.mm of the transpose plus '
+                          'torch.sparse.sampled_addmm (the values only, '
+                          'no diagonal)',
+               's': s, 'dtype': str(dtype), 'nnz': nnz}
+        try:
+            row['library_ms'] = time_ms(lambda: (
+                torch.sparse.mm(lib_t, u),
+                torch.sparse.sampled_addmm(pattern, u, t.T, beta=0.0)), 10)
+        except RuntimeError as exc:   # the yardstick only, never the path
+            row.update(library_ms=None, library_refused=str(exc)[:300])
+        log(f'  {name}: {json.dumps(row)}')
+        out[f'{s}_{str(dtype)[6:]}'] = row
+        del A, At, order, u, t, out0, d0, o_t, d, lib_t, pattern
+        torch.cuda.empty_cache()
+    return out
 
 
 def host_weight_grads(W, rows, cols, lmax, c, x, gbar):
@@ -2652,10 +2794,19 @@ def phase_path_k(G, x):
         f'{per_backward}; symbols {symbols}')
     if peak > units * unit:
         raise AssertionError(f'path K: peak {peak / unit:.2f} units > {units}')
-    if (per_backward['csr_sddmm'] != ORDER
-            or symbols.get('csr_sddmm_f32') != ORDER):
-        raise AssertionError(f'path K: {per_backward["csr_sddmm"]} csr_sddmm '
-                             f'launches in a backward, not {ORDER}')
+    # the weights' SDDMM rides in the transpose's SpMM: ORDER fused
+    # launches (u_1's share in x̄'s step), no csr_sddmm and no csr_spmm
+    fused = {k: per_backward[k] for k in ('csr_spmm_sddmm', 'csr_sddmm',
+                                          'csr_spmm')}
+    fused_symbols = {k: symbols.get(k, 0) for k in (
+        'csr_spmm_sddmm_f32', 'csr_sddmm_f32', 'csr_spmm_f32')}
+    if (fused != {'csr_spmm_sddmm': ORDER, 'csr_sddmm': 0, 'csr_spmm': 0}
+            or fused_symbols != {'csr_spmm_sddmm_f32': ORDER,
+                                 'csr_sddmm_f32': 0,
+                                 'csr_spmm_f32': fwd['csr_spmm']}):
+        raise AssertionError(f'path K: backward launches {fused}, symbols '
+                             f'{fused_symbols}, not {ORDER} fused and no '
+                             f'csr_sddmm or csr_spmm')
     if PLAIN_CALLS:
         raise AssertionError(f'path K: plain versions ran: {PLAIN_CALLS}')
     again = backward(out)
@@ -2695,7 +2846,14 @@ def phase_path_k(G, x):
         str(k): measure_sddmm(f'csr_sddmm on path A\'s graph at {k} '
                               f'column{"s" if k > 1 else ""}', M, k, 90 + k)
         for k in (s, 1)}
+    result['fused'] = measure_fused(M, lmax)
     result['train'] = train_weights(M, G.W, lmax, c.detach(), x)
+    result['summary_ms'] = {
+        'fused_128_f32': result['fused'][f'{s}_float32']['ms'],
+        'fused_adjoint_step': result['ms']['fused_adjoint_step'],
+        'backward': result['ms']['backward'],
+        'adam_step': result['train']['ms_per_step']}
+    log(f'  path K on {card()}: {json.dumps(result["summary_ms"])}')
     result['small_f64'] = weights_small_f64()
     log(f'path K: {json.dumps(result)}')
     return result, launches
@@ -2760,23 +2918,38 @@ def phase_auxiliaries(G, x):
 
 
 def backward_parts(M, lmax, c, x, gbar):
-    """The backward's parts at path K's shape, each timed alone: an adjoint
-    step (the transpose's SpMM, the shifted step and the G_k group, 30 a
-    backward), the SDDMM with the diagonal (30), and the c̄ pass (ḡ's copy
-    with its filter axis last and one ``cheby_dot_group`` over the slab)."""
+    """The backward's parts at path K's shape, each timed alone: the fused
+    adjoint step as the backward runs it (the transpose's SpMM with the
+    SDDMM and the diagonal in one launch, the shifted step and the G_k
+    group, 30 a backward), and beside it the two parts it fuses, the adjoint
+    step without the SDDMM and the SDDMM with the diagonal; and the c̄ pass
+    (ḡ's copy with its filter axis last and one ``cheby_dot_group`` over
+    the slab)."""
     a1 = a2 = lmax / 2
     L = gsp.core.operators.laplacian_op(M)
     Lt = gsp.core.operators.LaplacianOp(offdiag=L.offdiag.T, diag=L.diag,
                                         lap_type=L.lap_type)
     step2 = Lt.shifted_step(2.0 / a1, a2)
-    u, u_old, u_new = (seeded_normal(x.shape, 95 + i) for i in range(3))
+    u, u_old, u_new, t = (seeded_normal(x.shape, 95 + i) for i in range(4))
     cg = c.T.contiguous()[5].reshape(-1, 1)
-    parts = {'adjoint_step': time_ms(lambda: cheby_kernel.cheby_acc_group(
-        step2(u, u_old, u_new)[None], gbar, cg), 10)}
+    factor = Lt.shifted(2.0 / a1, a2)
+    f_off, one = factor.offdiag, torch.ones((), device='cuda')
+    out_t, diag = torch.zeros_like(M.vals), torch.zeros_like(L.diag)
+    alpha = torch.full((), 2.0 / a1, device='cuda')
+
+    def fused_step():
+        y = csr_kernel.csr_spmm_sddmm(f_off.rowptr, f_off.cols, f_off.vals,
+                                      u, t, out_t, alpha, diag)
+        cheby_kernel.cheby_step(y, u, u_old, factor.diag, one, u_new)
+        cheby_kernel.cheby_acc_group(u_new[None], gbar, cg)
+
+    parts = {'fused_adjoint_step': time_ms(fused_step, 10),
+             'adjoint_step': time_ms(lambda: cheby_kernel.cheby_acc_group(
+                 step2(u, u_old, u_new)[None], gbar, cg), 10)}
     parts['sddmm'] = time_ms(lambda: csr_kernel.csr_sddmm(
         M.rows, M.cols, u, u_old, torch.zeros_like(M.vals), 2.0 / a1,
         torch.zeros_like(L.diag)), 10)
-    del u, u_old, u_new
+    del u, u_old, u_new, t, out_t
     with torch.no_grad():
         _, slab = _bank(L, L, lmax, c, x, keep_terms=True)
     cbar = torch.empty((ORDER + 1, len(SCALES)), device='cuda')
@@ -2784,8 +2957,11 @@ def backward_parts(M, lmax, c, x, gbar):
         cbar, gbar.movedim(0, -1).contiguous(), slab), 3)
     del slab
     torch.cuda.empty_cache()
-    parts['sum_of_parts'] = (ORDER * (parts['adjoint_step'] + parts['sddmm'])
+    parts['sum_of_parts'] = (ORDER * parts['fused_adjoint_step']
                              + parts['c_bar_pass'])
+    parts['sum_of_parts_two_launches'] = (
+        ORDER * (parts['adjoint_step'] + parts['sddmm'])
+        + parts['c_bar_pass'])
     log(f'  backward parts (ms): {json.dumps(parts)}')
     return parts
 
@@ -4465,6 +4641,18 @@ def main():
                  'segment_sum, XLA, no Pallas kernel)',
         at_one_column=sddmm['1'],
         launches_per_backward=path_k['backward_launches']['csr_sddmm'])
+    # kernel A's fused entry: its headline at path K's 128 columns on the
+    # transpose of path A's off-diagonal, 200 f32 and 64 f64 beside
+    fused = path_k.pop('fused')
+    head = f'{N_SIGNALS}_float32'
+    kernel_fused = dict(
+        fused[head], name='csr_spmm_sddmm', route='cuda',
+        source='pygsp_tpu_torch/csrc/csr_spmm.cu',
+        replaces='pygsp_tpu/core/sparse.py:282-289 under jax.grad with '
+                 'respect to mat.vals and x (the transposes of the gather '
+                 'and segment_sum, XLA, no Pallas kernel), in one pass',
+        at_shapes={k: v for k, v in fused.items() if k != head},
+        launches_per_backward=path_k['backward_launches']['csr_spmm_sddmm'])
     by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d,
                'H': counts_h, 'I': counts_i}
     for kernel, served in ((csr, 'A'), (csr_narrow, None), (banded, 'B'),
@@ -4473,7 +4661,8 @@ def main():
                            (kb_step, 'ABCDHI'), (kb_group, 'ABCDHI'),
                            (kb_dot, None), (kb_contract, None),
                            (ell, 'H'), (chunked_k, 'I'), (ell_narrow, 'H'),
-                           (chunked_narrow, 'I'), (kernel_sddmm, None)):
+                           (chunked_narrow, 'I'), (kernel_sddmm, None),
+                           (kernel_fused, None)):
         name = kernel['name']
         served = list(served or by_path)
         launches = {**{p: by_path[p][0][name] for p in by_path},
@@ -4482,11 +4671,7 @@ def main():
             launches=sum(launches.values()),
             launches_per_bank=sum(by_path[p][1][name] for p in served),
             launches_by_path=launches)
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    print(card(), flush=True)
     csr['launches_wide'] = sum(
         [by_path[p][0]['csr_spmm_wide'] for p in by_path]
         + [other[p]['csr_spmm_wide'] for p in other])
@@ -4494,7 +4679,8 @@ def main():
                                   fold2, double,
                                   kb_step, kb_group, kb_contract, kb_dot,
                                   ell, chunked_k, ell_narrow,
-                                  chunked_narrow, kernel_sddmm]}),
+                                  chunked_narrow, kernel_sddmm,
+                                  kernel_fused]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

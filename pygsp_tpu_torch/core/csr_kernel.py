@@ -37,6 +37,13 @@ independent, so a warp takes a run of them whatever the rows' lengths, and
 the diagonal's cotangent rides in the same launch. :func:`csr_sddmm`
 launches it for CUDA tensors and runs :func:`csr_sddmm_plain` for CPU
 tensors.
+
+The backward of ``A @ t`` through A's values needs both on A's edges:
+``Aᵀ u`` (kernel A on the transpose) and the SDDMM, which gathers t's
+rows where the SpMM gathers u's. :func:`csr_spmm_sddmm`, kernel A's fused
+entry, walks the transpose once for both, above :data:`NARROW_WIDTH`
+columns (:func:`fused_width`), with the two launches' bits;
+:func:`csr_spmm_sddmm_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -318,3 +325,122 @@ def csr_sddmm(rows, cols, u, t, out, alpha, out_diag=None):
 
 
 csr_sddmm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused entry: the transpose's SpMM and the weights' SDDMM in one walk
+# ---------------------------------------------------------------------------
+
+_FUSED_SYMBOLS = {torch.float32: 'csr_spmm_sddmm_f32',
+                  torch.float64: 'csr_spmm_sddmm_f64'}
+
+
+def fused_width(s: int, dtype) -> bool:
+    """Whether :func:`csr_spmm_sddmm` takes S columns of ``dtype``: above
+    :data:`NARROW_WIDTH`, where kernel A takes its wide entry, up to
+    :data:`SDDMM_WIDTH`, one launch of the SDDMM. Elsewhere the backward
+    keeps its two launches (:func:`csr_spmm` on the transpose and
+    :func:`csr_sddmm`)."""
+    return dtype in _FUSED_SYMBOLS and NARROW_WIDTH[dtype] < s <= SDDMM_WIDTH
+
+
+def csr_spmm_sddmm_plain(rowptr, cols, vals, x, t, out, alpha,
+                         out_diag=None):
+    """Plain PyTorch version of :func:`csr_spmm_sddmm`:
+    :func:`csr_spmm_plain`, then the dots of :func:`csr_sddmm_plain` in
+    this matrix's edge order, each the same products summed as there."""
+    y = csr_spmm_plain(rowptr, cols, vals, x)
+    n_rows = rowptr.shape[0] - 1
+    nnz = int(rowptr[-1])
+    rows = torch.repeat_interleave(
+        torch.arange(n_rows, device=x.device),
+        (rowptr[1:] - rowptr[:-1]).long(), output_size=nnz)
+    for a in range(0, nnz, SDDMM_PLAIN_CHUNK):
+        b = min(nnz, a + SDDMM_PLAIN_CHUNK)
+        dots = (x[cols[a:b].long()] * t[rows[a:b]]).sum(1)
+        out[a:b] += alpha * dots
+    if out_diag is not None:
+        out_diag += alpha * (x * t).sum(1)
+    return y
+
+
+def _check_fused(rowptr, cols, vals, x, t, out, out_diag):
+    _check(rowptr, cols, vals, x)
+    n_rows = rowptr.shape[0] - 1
+    if t.shape != (n_rows, x.shape[1]) or t.dtype != x.dtype:
+        raise ValueError(f'csr_spmm_sddmm: t must be (n_rows, S) = '
+                         f'{(n_rows, x.shape[1])} of {x.dtype}, got '
+                         f'{tuple(t.shape)} of {t.dtype}')
+    if out.shape != cols.shape or out.dtype != x.dtype:
+        raise ValueError('csr_spmm_sddmm: out must be (E_pad,), of the '
+                         'dtype of x')
+    operands = [t, out]
+    if out_diag is not None:
+        if (x.shape[0] != n_rows or out_diag.shape != (n_rows,)
+                or out_diag.dtype != x.dtype):
+            raise ValueError('csr_spmm_sddmm: out_diag needs a square '
+                             'matrix and is (n_rows,) of the dtype of x')
+        operands.append(out_diag)
+    for a in operands:
+        if a.device != x.device:
+            raise ValueError('all operands must be on one device')
+        if not a.is_contiguous():
+            raise ValueError('all operands must be contiguous')
+
+
+def csr_spmm_sddmm(rowptr, cols, vals, x, t, out, alpha, out_diag=None):
+    """``y = M @ x`` for a CSR ``M`` (``rowptr``, ``cols``, ``vals``) and,
+    in the same pass over its edges,
+    ``out[e] += alpha·⟨x[cols[e]], t[r]⟩`` for each stored edge e of row
+    r, in place, and with ``out_diag`` (n_rows,) also
+    ``out_diag[r] += alpha·⟨x[r], t[r]⟩``. Returns y (n_rows, S).
+
+    The backward of ``A @ t`` through A's stored values calls it with
+    ``M = Aᵀ`` and x the cotangent u: y is then ``Aᵀ u`` and ``out``, in
+    Aᵀ's edge order, the values' cotangent ``⟨u[i], t[j]⟩`` of A's entry
+    (i, j), which :func:`csr_sddmm` gives in A's order. ``alpha``: a
+    Python number or a 0-dim tensor of x's dtype. Padding entries (past
+    ``rowptr[-1]``) are neither read nor written.
+
+    The CUDA kernel (the fused entry of ``csrc/csr_spmm.cu``) runs for
+    CUDA tensors at the widths of :func:`fused_width`; its y is bit-equal
+    to :func:`csr_spmm`'s and each entry of ``out`` and ``out_diag`` to
+    :func:`csr_sddmm`'s on the same operands, and two launches are
+    bit-equal. :func:`csr_spmm_sddmm_plain` runs for CPU tensors."""
+    _check_fused(rowptr, cols, vals, x, t, out, out_diag)
+    if x.device.type == 'cpu':
+        return csr_spmm_sddmm_plain(rowptr, cols, vals, x, t, out, alpha,
+                                    out_diag)
+    if x.device.type != 'cuda':
+        raise ValueError(f'csr_spmm_sddmm runs on cuda or cpu, not '
+                         f'{x.device}')
+    _cuda.refuse_autograd('csr_spmm_sddmm', rowptr, cols, vals, x, t, out,
+                          *(() if out_diag is None else (out_diag,)))
+    n_rows, s = rowptr.shape[0] - 1, x.shape[1]
+    if not fused_width(s, x.dtype):
+        raise ValueError(f'csr_spmm_sddmm takes {NARROW_WIDTH[x.dtype] + 1} '
+                         f'to {SDDMM_WIDTH} columns of {x.dtype}, not {s} '
+                         f'(fused_width)')
+    y = torch.empty((n_rows, s), dtype=x.dtype, device=x.device)
+    if n_rows == 0:
+        return y
+    if not isinstance(alpha, torch.Tensor):
+        alpha = torch.full((), alpha, dtype=x.dtype, device=x.device)
+    elif alpha.shape != () or alpha.dtype != x.dtype or (
+            alpha.device != x.device):
+        raise ValueError('csr_spmm_sddmm: alpha must be a number or a 0-dim '
+                         'tensor of the dtype and device of x')
+    seg, _ = segment_table(rowptr, cols.shape[0], SEGMENT_STEPS)
+    n_seg = seg.shape[1]
+    partials = torch.empty((2 * n_seg, s), dtype=x.dtype, device=x.device)
+    _cuda.launch('csr_spmm', _FUSED_SYMBOLS[x.dtype], 11, 3, x.get_device(),
+                 rowptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                 x.data_ptr(), t.data_ptr(), y.data_ptr(), seg.data_ptr(),
+                 partials.data_ptr(), out.data_ptr(),
+                 None if out_diag is None else out_diag.data_ptr(),
+                 alpha.data_ptr(), n_rows, s, n_seg)
+    csr_spmm_sddmm.launches += 1
+    return y
+
+
+csr_spmm_sddmm.launches = 0

@@ -117,17 +117,24 @@ class CSRMatrix:
         entries by column, so each new row keeps its entries in the old row
         order; padding (``cols == n_cols``, beyond every real column) sorts
         to the end. The row pointer comes from the column counts."""
-        order = torch.argsort(self.cols, stable=True)
-        real = self.rows < self.n_rows
-        counts = torch.bincount(
-            torch.where(real, self.cols, self.n_cols).long(),
-            minlength=self.n_cols + 1)[:self.n_cols]
-        rowptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
-        return CSRMatrix(rows=self.cols[order], cols=self.rows[order],
-                         vals=self.vals[order],
-                         rowptr=rowptr.to(torch.int32),
-                         n_rows=self.n_cols, n_cols=self.n_rows,
-                         nnz=self.nnz)
+        return _transpose(self)[0]
+
+
+def _transpose(mat: CSRMatrix):
+    """``(Aᵀ, order)``: :attr:`CSRMatrix.T` of ``mat`` and its edge order,
+    entry p of the transpose being entry ``order[p]`` of ``mat``; a
+    cotangent taken in the transpose's order goes back to ``mat``'s by
+    one scatter, ``out.index_copy_(0, order, out_t)``."""
+    order = torch.argsort(mat.cols, stable=True)
+    real = mat.rows < mat.n_rows
+    counts = torch.bincount(
+        torch.where(real, mat.cols, mat.n_cols).long(),
+        minlength=mat.n_cols + 1)[:mat.n_cols]
+    rowptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return CSRMatrix(rows=mat.cols[order], cols=mat.rows[order],
+                     vals=mat.vals[order], rowptr=rowptr.to(torch.int32),
+                     n_rows=mat.n_cols, n_cols=mat.n_rows,
+                     nnz=mat.nnz), order
 
 
 # ---------------------------------------------------------------------------
@@ -321,9 +328,14 @@ class _CSRSpmm(torch.autograd.Function):
     :func:`spmm` takes it under grad mode when ``vals`` or ``x`` requires
     grad; the kernels run inside, where autograd records nothing. The
     backward is itself made of :class:`_CSRSpmm` and :class:`_CSRSddmm`,
-    so it differentiates again (``create_graph=True``). ``x`` is kept only
-    where ``vals`` requires grad, so that a caller may write into it once
-    the product is taken (the recurrence's ring of terms)."""
+    so it differentiates again (``create_graph=True``). Where both are
+    needed and the backward is not recorded, at the widths of
+    :func:`~pygsp_tpu_torch.core.csr_kernel.fused_width`, one walk of the
+    transpose gives both
+    (:func:`~pygsp_tpu_torch.core.csr_kernel.csr_spmm_sddmm`, the same
+    bits). ``x`` is kept only where ``vals`` requires grad, so that a
+    caller may write into it once the product is taken (the recurrence's
+    ring of terms)."""
 
     @staticmethod
     def forward(ctx, mat, vals, x):
@@ -335,6 +347,15 @@ class _CSRSpmm(torch.autograd.Function):
     def backward(ctx, ybar):
         vals, x = ctx.saved_tensors
         ybar = ybar.contiguous()
+        if (ctx.needs_input_grad[1] and ctx.needs_input_grad[2]
+                and not torch.is_grad_enabled()
+                and csr_kernel.fused_width(ybar.shape[1], ybar.dtype)):
+            At, order = _transpose(ctx.mat.with_vals(vals))
+            out_t = torch.zeros_like(vals)
+            x_bar = csr_kernel.csr_spmm_sddmm(At.rowptr, At.cols, At.vals,
+                                              ybar, x, out_t, 1.0)
+            return (None, torch.empty_like(out_t).index_copy_(0, order, out_t),
+                    x_bar)
         vals_bar = x_bar = None
         if ctx.needs_input_grad[1]:
             vals_bar = _CSRSddmm.apply(ctx.mat, ybar, x)

@@ -138,7 +138,8 @@ csr_sddmm_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 #pragma unroll
     for (int off = L / 2; off > 0; off >>= 1)
       acc += __shfl_xor_sync(kFull, acc, off);
-    if (live && sub == 0) dst[e] = dst[e] + alpha * acc;
+    // one rounding, as the fused entry of csr_spmm.cu adds its dots
+    if (live && sub == 0) dst[e] = fma(alpha, acc, dst[e]);
   }
 }
 

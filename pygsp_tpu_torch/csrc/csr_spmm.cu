@@ -73,6 +73,41 @@
 // shuffles in turn. A variant that found the rows from a mask of row
 // starts (one __reduce_or_sync) instead of the binary search was no faster
 // at one column and 12 % slower at 8 (tools/kernel_ab.py).
+//
+// The fused entry (csr_spmm_sddmm_kernel, csr_spmm_sddmm_f32/_f64), which
+// the backward of A @ t through A's stored values takes above 32 columns
+// (core/csr_kernel.py:csr_spmm_sddmm, fused_width). Replaces: the two
+// passes of that backward over A's edges, each a transpose of
+// pygsp_tpu/core/sparse.py:spmm (lines 282-289) under jax.grad: the
+// cotangent of x, u's rows gathered and summed by A's columns (this
+// kernel's wide entry on A^T), and the cotangent of the values, a dot of
+// u[i] and t[j] for each stored (i, j) (csrc/csr_sddmm.cu, which gathers
+// t's rows again). Walked by A^T's rows, one gather serves both: row j of
+// A^T gathers u[i] for each edge (i, j), which the SpMM needs, and the dot
+// needs only the row's own t[j], read once a row. What bounds it on this
+// card: the gathers, one row of u per stored edge (8.6 GB at path A's
+// 16.8M edges at S = 128 f32, 2.6 ms at 3.35 TB/s), beside which the
+// bytes read or written once (A^T, u, t, y and the cotangents, about
+// 1.9 GB) and the 4S flops an edge are small. Design: the wide entry's
+// walk, segments, destinations and join, with all passes of an edge's
+// columns in registers at once (K = kInFlight / P edges in flight, P
+// passes each, so the per-column sums keep the wide entry's order and its
+// bits). A lane dots the row pieces it gathered for the SpMM with t's row
+// of the row in progress, which it loads one row ahead and keeps in
+// registers, and the K edges' dots are reduced across the warp in the
+// order of csr_sddmm's butterfly (split_dots, then butterfly), so each
+// edge's cotangent is bit-equal to csr_sddmm's; a chunk's 32 dots are
+// added to the cotangent with one coalesced load and store. Each edge lies
+// in one segment, so no atomics, and two launches are bit-equal. The
+// diagonal's dot <u[r], t[r]> is taken by the warp where row r begins,
+// with u's row loaded when the row starts. Padding entries lie past
+// rowptr[n_rows]: the walk never reaches them. At path A's A^T (S = 128
+// f32, with the diagonal): 3.49 ms on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py), 1.17x the gather model, against 6.16 ms for the two
+// launches it replaces. Registers (nvcc -Xptxas -v, sm_90a): 104 in f32
+// and 106 in f64 at one pass (2 blocks an SM, the wide entry 3), 117-173
+// at two and four, no spill; f64 at eight passes (above 256 columns) 255
+// with 16 bytes of spill.
 
 #include <climits>
 
@@ -537,6 +572,258 @@ int launch_narrow(const void* rowptr, const void* cols, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The fused entry: the transpose's SpMM and the weights' SDDMM in one walk
+// ---------------------------------------------------------------------------
+
+// The first log2(K) levels of csr_sddmm.cu's butterfly over K edges' lane
+// partials d[0..K-1] at once, the first at offset h (= L / 2). At each
+// level a lane keeps half of its edges and sends its partner the other
+// half, so a level costs K / 2 shuffles where a butterfly an edge costs
+// K. Each kept value is the butterfly's own pair sum (x + y == y + x in
+// IEEE arithmetic, and after a full butterfly every lane holds lane 0's
+// bits), so the sums are bit-equal to csr_sddmm's. After them edge u lies
+// in d[0] of the lanes whose bits h, h / 2, ... spell u from the top.
+template <int K, typename T, int N>
+__device__ __forceinline__ void split_dots(T (&d)[N], int lane, int& h) {
+  if constexpr (K > 1) {
+    const bool upper = (lane & h) != 0;
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) {
+      const T send = upper ? d[i] : d[i + K / 2];
+      const T recv = __shfl_xor_sync(kFull, send, h);
+      d[i] = (upper ? d[i + K / 2] : d[i]) + recv;
+    }
+    h >>= 1;
+    split_dots<K / 2>(d, lane, h);
+  }
+}
+
+// csr_sddmm.cu's butterfly of one value from offset h down to 1.
+template <typename T>
+__device__ __forceinline__ T butterfly(T v, int h) {
+  for (; h > 0; h >>= 1) v += __shfl_xor_sync(kFull, v, h);
+  return v;
+}
+
+// One warp per segment w, as csr_spmm_segment_kernel, on the same walk,
+// segments, destinations and join: y = M x for the CSR M (rowptr, cols,
+// vals), and in the same pass
+//   out[e]      += alpha * <x[cols[e]], t[r]>   for each edge e of row r,
+//   out_diag[r] += alpha * <x[r], t[r]>          (optional; M square).
+// The backward of A @ t calls it with M = A^T, x = the cotangent u: an edge
+// (j, i) of A^T is A's (i, j), so out (in A^T's edge order) takes
+// <u[i], t[j]>, the weights' cotangent of A's entry. All P passes of the
+// columns are walked at once (kernel A's wide entry walks them one after
+// another), so that an edge's dot is whole when its last pass is added:
+// K = kInFlight / P edges in flight, each with its P row pieces. A
+// column's sum over the edges, and so y, keeps kernel A's order.
+template <typename T, int P>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+csr_spmm_sddmm_kernel(const int* __restrict__ rowptr,
+                      const int* __restrict__ cols,
+                      const T* __restrict__ vals, const T* __restrict__ x,
+                      const T* __restrict__ t, T* __restrict__ y,
+                      const int* __restrict__ seg, T* __restrict__ partials,
+                      T* __restrict__ out, T* __restrict__ out_diag,
+                      const T* __restrict__ alpha_p, int n_rows, int s,
+                      int n_seg, bool vec, int half) {
+  constexpr int V = Lane16<T>::kVec;
+  constexpr int K = kInFlight / P > 0 ? kInFlight / P : 1;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (w >= n_seg) return;  // uniform across the warp
+  const int r_begin = seg[w];
+  if (r_begin >= n_rows) return;  // past the end of the walk
+  const int nnz = rowptr[n_rows];
+  const int e0 = min(seg[n_seg + w], nnz);
+  const bool last = w + 1 == n_seg;
+  const int r_stop = last ? n_rows : seg[w + 1];
+  const int e1 = last ? nnz : min(seg[n_seg + w + 1], nnz);
+  const bool diag = out_diag != nullptr;
+  const T alpha = *alpha_p;
+
+  // the lane's columns of row r of a (n, s) tensor, every pass
+  auto load_row = [&](const T* base, int r, T (&v)[P][V]) {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      load_cols(base + static_cast<size_t>(r) * s, p * 32 * V + lane * V, s,
+                vec, v[p]);
+  };
+  auto zero = [](T (&v)[P][V]) {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[p][i] = T(0);
+  };
+
+  // rowptr[rb + lane], 32 entries at a time, read by __shfl_sync
+  int rb = r_begin;
+  int rp = rb + lane <= n_rows ? rowptr[rb + lane] : nnz;
+  auto row_ptr = [&](int i) {  // rowptr[i] for a warp-uniform i >= rb
+    if (i - rb >= 32) {
+      rb = i;
+      rp = rb + lane <= n_rows ? rowptr[rb + lane] : nnz;
+    }
+    return __shfl_sync(kFull, rp, i - rb);
+  };
+  int r = r_begin;
+  int rs = row_ptr(r), re = row_ptr(r + 1);  // row r's edges [rs, re)
+  T acc[P][V], tr[P][V], tn[P][V], ud[P][V];
+  zero(acc);
+  // t's row of the row in progress (tr) and of the next (tn, loaded a row
+  // ahead), and x's row of the row in progress for the diagonal (ud)
+  load_row(t, r, tr);
+  if (r + 1 < n_rows) load_row(t, r + 1, tn); else zero(tn);
+  if (diag && rs >= e0) load_row(x, r, ud); else zero(ud);
+  auto flush = [&]() {
+    T* dst = rs < e0    ? partials + static_cast<size_t>(w) * s
+             : r < r_stop ? y + static_cast<size_t>(r) * s
+                          : partials + static_cast<size_t>(n_seg + w) * s;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      store_cols(dst, p * 32 * V + lane * V, s, vec, acc[p]);
+    zero(acc);
+    if (diag && rs >= e0) {  // the row began here: its diagonal is ours
+      T dd = T(0);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int i = 0; i < V; ++i) dd = fma(ud[p][i], tr[p][i], dd);
+      dd = butterfly(dd, half);
+      if (lane == 0) out_diag[r] = fma(alpha, dd, out_diag[r]);
+    }
+    ++r;
+    rs = re;
+    re = r < n_rows ? row_ptr(r + 1) : nnz;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < V; ++i) tr[p][i] = tn[p][i];
+    if (r + 1 < n_rows) load_row(t, r + 1, tn);
+    if (diag && r < n_rows) load_row(x, r, ud);
+  };
+
+  for (int c = e0; c < e1; c += 32) {
+    const int n = min(32, e1 - c);
+    int col = 0;
+    T val = T(0), o = T(0), mine = T(0);
+    if (lane < n) {
+      col = cols[c + lane];
+      val = vals[c + lane];
+      o = out[c + lane];
+    }
+    for (int j = 0; j < n; j += K) {
+      T xv[K][P][V], v[K], d[K];
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        const int cj = __shfl_sync(kFull, col, (j + u) & 31);
+        v[u] = __shfl_sync(kFull, val, (j + u) & 31);
+        if (j + u < n)
+          load_row(x, cj, xv[u]);
+        else
+          zero(xv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        d[u] = T(0);
+        if (j + u < n) {
+          while (c + j + u >= re) flush();  // rows that end before it
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[p][i] += v[u] * xv[u][p][i];
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+#pragma unroll
+            for (int i = 0; i < V; ++i)
+              d[u] = fma(xv[u][p][i], tr[p][i], d[u]);
+        }
+      }
+      int h = half;
+      split_dots<K>(d, lane, h);
+      const T dot = butterfly(d[0], h);
+      // edge j + u's dot to lane j + u, for one coalesced store a chunk
+      const T got =
+          __shfl_sync(kFull, dot, ((lane - j) & (K - 1)) * (2 * half / K));
+      if (lane >= j && lane < j + K) mine = got;
+    }
+    if (lane < n) out[c + lane] = fma(alpha, mine, o);
+  }
+  // the rows that end in this segment, then r_stop if it has edges here
+  // or began before
+  while (r < n_rows && (r < r_stop || rs < e1)) flush();
+}
+
+template <typename T, int P>
+int launch_sddmm_instance(const void* rowptr, const void* cols,
+                          const void* vals, const void* x, const void* t,
+                          void* y, const void* seg, void* partials, void* out,
+                          void* out_diag, const void* alpha, int n_rows,
+                          int s, int n_seg, bool vec, int half,
+                          cudaStream_t st) {
+  csr_spmm_sddmm_kernel<T, P>
+      <<<(n_seg + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock,
+         0, st>>>(
+      static_cast<const int*>(rowptr), static_cast<const int*>(cols),
+      static_cast<const T*>(vals), static_cast<const T*>(x),
+      static_cast<const T*>(t), static_cast<T*>(y),
+      static_cast<const int*>(seg), static_cast<T*>(partials),
+      static_cast<T*>(out), static_cast<T*>(out_diag),
+      static_cast<const T*>(alpha), n_rows, s, n_seg, vec, half);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P = next_pow2(passes of 32 lanes * 16 bytes), as csr_sddmm.cu's P at
+// 32 lanes; half = L / 2 with L = next_pow2(ceil(s / V)) lanes an edge
+// there (at least 8: K = 8 edges split over 8 lanes), so that each dot's
+// butterfly is csr_sddmm's. s up to 512, as one csr_sddmm launch.
+template <typename T>
+int launch_sddmm(const void* rowptr, const void* cols, const void* vals,
+                 const void* x, const void* t, void* y, const void* seg,
+                 void* partials, void* out, void* out_diag,
+                 const void* alpha, int n_rows, int s, int n_seg,
+                 void* stream) {
+  constexpr int V = Lane16<T>::kVec;
+  const int lanes = (s + V - 1) / V;
+  int l = 1;
+  while (l < lanes && l < 32) l *= 2;
+  if (s < 1 || s > 512 || l < 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int passes = (s + 32 * V - 1) / (32 * V);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool vec = reinterpret_cast<size_t>(x) % 16 == 0 &&
+                   reinterpret_cast<size_t>(t) % 16 == 0 &&
+                   reinterpret_cast<size_t>(y) % 16 == 0 &&
+                   reinterpret_cast<size_t>(partials) % 16 == 0 &&
+                   s * sizeof(T) % 16 == 0;
+  int err;
+#define SDDMM_GO(P_)                                                        \
+  err = launch_sddmm_instance<T, P_>(rowptr, cols, vals, x, t, y, seg,      \
+                                     partials, out, out_diag, alpha,        \
+                                     n_rows, s, n_seg, vec, l / 2, st)
+  if (passes <= 1) {
+    SDDMM_GO(1);
+  } else if (passes <= 2) {
+    SDDMM_GO(2);
+  } else if (passes <= 4) {
+    SDDMM_GO(4);
+  } else {
+    if constexpr (V == 2)  // f64 above 256 columns; f32 takes at most 4
+      SDDMM_GO(8);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SDDMM_GO
+  if (err != cudaSuccess || n_seg < 2) return err;
+  csr_spmm_join_kernel<T><<<(n_seg - 1 + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                            32 * kWarpsPerBlock, 0, st>>>(
+      static_cast<const int*>(rowptr), static_cast<T*>(y),
+      static_cast<const int*>(seg), static_cast<const T*>(partials), n_rows,
+      s, n_seg, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int csr_spmm_f32(const void* rowptr, const void* cols,
@@ -571,4 +858,24 @@ extern "C" int csr_spmm_narrow_f64(const void* rowptr, const void* cols,
                                    void* stream) {
   return launch_narrow<double>(rowptr, cols, vals, x, y, seg, partials,
                                n_rows, s, n_seg, join, stream);
+}
+
+extern "C" int csr_spmm_sddmm_f32(const void* rowptr, const void* cols,
+                                  const void* vals, const void* x,
+                                  const void* t, void* y, const void* seg,
+                                  void* partials, void* out, void* out_diag,
+                                  const void* alpha, int n_rows, int s,
+                                  int n_seg, void* stream) {
+  return launch_sddmm<float>(rowptr, cols, vals, x, t, y, seg, partials, out,
+                             out_diag, alpha, n_rows, s, n_seg, stream);
+}
+
+extern "C" int csr_spmm_sddmm_f64(const void* rowptr, const void* cols,
+                                  const void* vals, const void* x,
+                                  const void* t, void* y, const void* seg,
+                                  void* partials, void* out, void* out_diag,
+                                  const void* alpha, int n_rows, int s,
+                                  int n_seg, void* stream) {
+  return launch_sddmm<double>(rowptr, cols, vals, x, t, y, seg, partials,
+                              out, out_diag, alpha, n_rows, s, n_seg, stream);
 }

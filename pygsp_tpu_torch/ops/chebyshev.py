@@ -49,7 +49,7 @@ import torch
 
 from pygsp_tpu_torch.core import cheby_kernel, csr_kernel
 from pygsp_tpu_torch.core.operators import SCALED_OUTPUT, LaplacianOp, matvec
-from pygsp_tpu_torch.core.sparse import CSRMatrix, spmm
+from pygsp_tpu_torch.core.sparse import CSRMatrix, _transpose, spmm
 from pygsp_tpu_torch.utils import check_device
 
 _FORMAT_ONLY = ('{} is only supported on chunked/windowed operator formats '
@@ -311,7 +311,8 @@ def _operator_bytes(off) -> int:
                    if isinstance(getattr(off, f.name), torch.Tensor))
 
 
-def _grouped_steps(step, m1: int, t_old, t_cur, g: int, group, slab=None):
+def _grouped_steps(step, m1: int, t_old, t_cur, g: int, group, slab=None,
+                   fresh: bool = False):
     """Steps 2..m1-1 of the recurrence: the terms go into a ring of ``g + 2``
     buffers and are handed on ``g`` steps at a time (the first
     ``(m1 - 2) mod g`` one at a time), as the JAX package's grouped
@@ -320,8 +321,15 @@ def _grouped_steps(step, m1: int, t_old, t_cur, g: int, group, slab=None):
     ...`` (wrapping). A group's terms and the two terms before it, which
     its first steps read, are distinct slots. With ``slab`` (m1, N, ...)
     the ring is the slab and term k goes to slot k, where it stays (the
-    backward through the operator reads every term)."""
-    if slab is None:
+    backward through the operator reads every term). With ``fresh``
+    (autograd records the recurrence) each term is a tensor of its own and
+    a group gets its terms stacked: the ring's slots are views of one
+    tensor, so a write to one would invalidate the terms autograd saved
+    from another. The same steps and groups either way, so the same
+    bits."""
+    if fresh:
+        terms = {}
+    elif slab is None:
         slots, shift = g + 2, 2
         ring = torch.empty((slots,) + t_cur.shape, dtype=t_cur.dtype,
                            device=t_cur.device)
@@ -329,10 +337,21 @@ def _grouped_steps(step, m1: int, t_old, t_cur, g: int, group, slab=None):
         ring, slots, shift = slab, m1, 0
     head = 2 + (m1 - 2) % g
     for k in range(2, m1):                 # term k goes to slot k - shift
-        t_old, t_cur = t_cur, step(t_cur, t_old, ring[(k - shift) % slots])
+        if fresh:
+            t_old, t_cur = t_cur, step(t_cur, t_old)
+            terms[k] = t_cur
+        else:
+            t_old, t_cur = t_cur, step(t_cur, t_old,
+                                       ring[(k - shift) % slots])
         size = 1 if k < head else g
         if size == 1 or (k - head) % g == g - 1:
-            group(ring, k + 1 - size, size, (k + 1 - size - shift) % slots)
+            if fresh:
+                group(torch.stack([terms.pop(j) for j in
+                                   range(k + 1 - size, k + 1)]),
+                      k + 1 - size, size, 0)
+            else:
+                group(ring, k + 1 - size, size,
+                      (k + 1 - size - shift) % slots)
 
 
 def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
@@ -382,7 +401,9 @@ def _bank(op: LaplacianOp, L: LaplacianOp, lmax: float, c, xin,
     """``(acc, slab)``: the bank of :func:`cheby_op` on ``op`` (``L``
     hoisted) for ``xin`` in its internal order, and with ``keep_terms``
     every term ``T̃_k x`` in one (m1, N, ...) slab (else None); the same
-    steps and groups either way, so the same bits."""
+    steps and groups either way, so the same bits. Where autograd records
+    it (``c`` or ``xin`` requires grad: the plain recurrence on the CPU),
+    each term is a tensor of its own (:func:`_grouped_steps`)."""
     nf, m1 = c.shape
     t_old, t_cur, step = _start(op, lmax, xin, carry_dtype)
     slab = None
@@ -401,7 +422,8 @@ def _bank(op: LaplacianOp, L: LaplacianOp, lmax: float, c, xin,
         _grouped_steps(step, m1, t_old, t_cur, g,
                        lambda ring, k, size, start: cheby_kernel
                        .cheby_acc_group(acc, ring, cT[k:k + size], start),
-                       slab)
+                       slab, fresh=slab is None and torch.is_grad_enabled()
+                       and (c.requires_grad or xin.requires_grad))
     return acc, slab
 
 
@@ -459,12 +481,20 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
       the transpose (L̃ itself for symmetric weights),
       ``u_k = G_k + 2 L̃ᵀ u_{k+1} − u_{k+2}`` for k = m .. 1 with
       ``u_{m+1} = u_{m+2} = 0``, three buffers;
-    - after each ``u_{k+1}``, one SDDMM
-      (:func:`~pygsp_tpu_torch.core.csr_kernel.csr_sddmm`) adds
-      ``α·⟨u_{k+1}[i], t_k[j]⟩`` to the off-diagonal's cotangent and, in
-      the same launch, the diagonal's: α = 2/a1 for k ≥ 1, 1/a1 for k = 0,
-      m launches in all (the cotangent of the unscaled values, though the
-      step multiplies a scaled copy);
+    - step k's share of the off-diagonal's cotangent,
+      ``α·⟨u_{k+1}[i], t_k[j]⟩``, and in the same launch the diagonal's:
+      α = 2/a1 for k ≥ 1, 1/a1 for k = 0 (the cotangent of the unscaled
+      values, though the step multiplies a scaled copy). Above
+      :data:`~pygsp_tpu_torch.core.csr_kernel.NARROW_WIDTH` columns
+      (:func:`~pygsp_tpu_torch.core.csr_kernel.fused_width`) it rides in
+      the transpose's SpMM that forms ``u_k`` from ``u_{k+1}``, one launch
+      of :func:`~pygsp_tpu_torch.core.csr_kernel.csr_spmm_sddmm` (the
+      cotangent taken in the transpose's edge order and scattered back
+      once at the end), and ``u_1``'s share rides in x̄'s step, or is one
+      :func:`~pygsp_tpu_torch.core.csr_kernel.csr_sddmm` where x̄ is not
+      needed; below, each share is one ``csr_sddmm`` after ``u_{k+1}``
+      is formed. Either way m launches add the shares in the order k =
+      m−1 .. 0, so the bits are the same;
     - ``x̄ = G_0 + L̃ᵀ u_1 − u_2``;
     - ``c̄[f, k] = ⟨t_k, ḡ_f⟩`` with 0.5 at k = 0, one
       :func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_dot_group` over the
@@ -506,7 +536,11 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
     # the adjoint steps apply L̃ᵀ: the transpose's own CSR, so that the
     # gradient is exact for weights that are not symmetric (as after an
     # optimizer's step on them)
-    Lt = LaplacianOp(offdiag=off.T, diag=L.diag, lap_type=L.lap_type)
+    off_t, order = _transpose(off)
+    Lt = LaplacianOp(offdiag=off_t, diag=L.diag, lap_type=L.lap_type)
+    fused = need_w and csr_kernel.fused_width(gout[0].numel() // max(n, 1),
+                                              dt)
+    # the off-diagonal's cotangent, in the transpose's edge order if fused
     vals_bar = torch.zeros_like(off.vals) if need_w else None
     diag_bar = torch.zeros_like(L.diag) if need_w else None
     alphas = (torch.full((), 1.0 / a1, dtype=dt, device=dev),
@@ -514,18 +548,44 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
     # ⟨u_{k+1}, t_{k-1}⟩, ⟨u_{k+1}, t_k⟩, ⟨u_{k+1}, t_{k+1}⟩ for step k
     lam = torch.zeros((m, 3, 1), dtype=dt, device=dev) if need_lmax else None
 
+    def sddmm(u, k):
+        """Step k's share of the cotangents, u = u_{k+1}, in off's order."""
+        csr_kernel.csr_sddmm(off.rows, off.cols, u.reshape(n, -1),
+                             slab[k].reshape(n, -1), vals_bar,
+                             alphas[k > 0], diag_bar)
+
     def step_cotangent(u, k):
         """What step k (t_{k+1} from t_k) gives once u = u_{k+1} is
-        formed."""
-        if need_w:
-            csr_kernel.csr_sddmm(off.rows, off.cols, u.reshape(n, -1),
-                                 slab[k].reshape(n, -1), vals_bar,
-                                 alphas[k > 0], diag_bar)
+        formed, its share of the cotangents unless the step that reads u
+        takes it."""
+        if need_w and not fused:
+            sddmm(u, k)
         if need_lmax:                   # k = 0: ⟨u_1, t_0⟩, ⟨u_1, t_1⟩
             cheby_kernel.cheby_dot_group(lam[k] if k else lam[0, 1:],
                                          u[..., None], slab, max(k - 1, 0))
 
-    step2 = Lt.shifted_step(2.0 / a1, a2)      # 2 L̃ᵀ u − u_old
+    def adjoint_step(scale):
+        """``step(u, u_old, out, k)``: ``scale·(Lᵀ − a2)·u − u_old`` into
+        out in :meth:`LaplacianOp.shifted_step`'s arithmetic, and where
+        fused step k's share of the cotangents for u = u_{k+1} in the same
+        SpMM."""
+        if not fused:
+            plain = Lt.shifted_step(scale, a2)
+            return lambda u, u_old, out, k: plain(u, u_old, out)
+        factor = Lt.shifted(scale, a2)
+        f_off = factor.offdiag
+        one = torch.ones((), dtype=factor.diag.dtype, device=dev)
+
+        def step(u, u_old, out, k):
+            y = csr_kernel.csr_spmm_sddmm(
+                f_off.rowptr, f_off.cols, f_off.vals, u.reshape(n, -1),
+                slab[k].reshape(n, -1), vals_bar, alphas[k > 0], diag_bar)
+            return cheby_kernel.cheby_step(y.reshape(shape), u, u_old,
+                                           factor.diag, one, out)
+
+        return step
+
+    step2 = adjoint_step(2.0 / a1)             # 2 L̃ᵀ u − u_old
     u_next2 = torch.zeros(shape, dtype=dt, device=dev)         # u_{m+1}
     u_next = torch.zeros(shape, dtype=dt, device=dev)
     add_g(u_next, m)                                           # u_m = G_m
@@ -533,7 +593,7 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
     free = None
     for k in range(m - 1, 0, -1):              # u_k, then step k - 1's share
         u = torch.empty(shape, dtype=dt, device=dev) if free is None else free
-        step2(u_next, u_next2, u)
+        step2(u_next, u_next2, u, k)
         add_g(u, k)
         step_cotangent(u, k - 1)
         free, u_next2, u_next = u_next2, u_next, u
@@ -542,8 +602,12 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
     if need_x:
         x_bar = torch.empty(shape, dtype=dt, device=dev) if free is None \
             else free
-        Lt.shifted_step(1.0 / a1, a2)(u_next, u_next2, x_bar)  # L̃ᵀu_1 − u_2
+        adjoint_step(1.0 / a1)(u_next, u_next2, x_bar, 0)     # L̃ᵀu_1 − u_2
         add_g(x_bar, 0)
+    if fused:                       # back to off's order, then u_1's share
+        vals_bar = torch.empty_like(vals_bar).index_copy_(0, order, vals_bar)
+        if not need_x:
+            sddmm(u_next, 0)
     lmax_bar = None
     if need_lmax:
         weights = torch.tensor([[0.0, 1.0, 1.0]] + [[1.0, 2.0, 1.0]] * (m - 1),

@@ -29,8 +29,10 @@ versions, bit for bit, in f32, f64 and with a bf16 carry, and its fourth,
 the coefficient gradient ``cheby_dot_group``, within its summation bound
 and bit-equal across launches; the SDDMM ``csr_sddmm`` against its plain
 version (1 to 600 columns, a star row, the padding untouched, two launches
-bit-equal) and the gradients through W's values on the card against the
-CPU's; the guard that makes every kernel wrapper
+bit-equal), kernel A's fused entry ``csr_spmm_sddmm`` bit-equal to its wide
+entry plus ``csr_sddmm`` (33 to 512 columns, duplicates, padding, a star
+row, empty rows) and its refusals, and the gradients through W's values on
+the card against the CPU's, on both routes; the guard that makes every kernel wrapper
 refuse an operand that requires grad, and the fixed-graph training path's
 gradients against the CPU's; the ELL and chunked SpMMs against their plain
 version (heavy rows, ragged chunks, the degree relabeling, S of 1 to 512,
@@ -228,6 +230,126 @@ def test_csr_sddmm_matches_plain(cuda, dtype, s):
     out = out0.clone()
     csr_kernel.csr_sddmm(M.rows, M.cols, u, t, out, 0.5)
     assert torch.equal(out, runs[0][0])
+
+
+def _fused_case(dtype, device):
+    """A square CSR with a star row of 3,000 edges (many segments of the
+    walk), empty rows, entries kept as duplicates and the edge padding of
+    ``from_coo``, not symmetric."""
+    rng = np.random.default_rng(68)
+    A = sps.random(4000, 4000, density=0.001, random_state=rng, format='lil')
+    A[9] = A[3999] = 0
+    A[11, :3000] = rng.normal(size=3000)
+    A = A.tocoo()
+    dup = rng.choice(A.nnz, 400, replace=False)
+    M = tsp.from_coo(np.concatenate([A.row, A.row[dup]]),
+                     np.concatenate([A.col, A.col[dup]]),
+                     np.concatenate([A.data, rng.normal(size=400)]), 4000,
+                     sum_duplicates=False, dtype=dtype, device=device)
+    assert M.n_edges_padded > M.nnz == A.nnz + 400
+    return M
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('s', [33, 64, 128, 200, 512])
+def test_fused_entry_is_the_two_launches(cuda, dtype, s):
+    """Kernel A's fused entry on the transpose bit-equal to its wide entry
+    on the transpose plus ``csr_sddmm`` on the matrix (its cotangent taken
+    back by the transpose's edge order), onto nonzero cotangents with the
+    diagonal; the padding never written; two launches bit-equal, one
+    launch a call; against the plain version in float64."""
+    M = _fused_case(dtype, cuda)
+    At, order = tsp._transpose(M)
+    u, t = (_signal((4000, s), dtype, k, cuda) for k in (69, 70))
+    out0 = torch.full_like(M.vals, 7.0)        # padding: never written
+    out0[:M.nnz] = _signal((M.nnz,), dtype, 71, cuda)
+    d0 = _signal((4000,), dtype, 72, cuda)
+    alpha = torch.tensor(0.37, dtype=dtype, device=cuda)
+    runs = []
+    for _ in range(2):
+        out_t, dg = out0[order], d0.clone()
+        before = csr_kernel.csr_spmm_sddmm.launches
+        y = csr_kernel.csr_spmm_sddmm(At.rowptr, At.cols, At.vals, u, t,
+                                      out_t, alpha, dg)
+        assert csr_kernel.csr_spmm_sddmm.launches == before + 1
+        runs.append((y, torch.empty_like(out_t).index_copy_(0, order, out_t),
+                     dg))
+    out_a, d_a = out0.clone(), d0.clone()
+    want = (csr_kernel.csr_spmm(At.rowptr, At.cols, At.vals, u,
+                                entry='wide'), out_a, d_a)
+    csr_kernel.csr_sddmm(M.rows, M.cols, u, t, out_a, alpha, d_a)
+    for got, again, two in zip(runs[0], runs[1], want):
+        assert torch.equal(got, again)
+        assert torch.equal(got, two)
+    assert bool((runs[0][1][M.nnz:] == 7.0).all())
+    out_p, d_p = out0.double()[order], d0.double()
+    y_p = csr_kernel.csr_spmm_sddmm_plain(
+        At.rowptr, At.cols, At.vals.double(), u.double(), t.double(), out_p,
+        alpha.double(), d_p)
+    assert _rel_err(runs[0][0].double(), y_p) <= TOL[dtype]
+    assert _rel_err(runs[0][1].double()[:M.nnz],
+                    torch.empty_like(out_p).index_copy_(
+                        0, order, out_p)[:M.nnz]) <= TOL[dtype]
+    assert _rel_err(runs[0][2].double(), d_p) <= TOL[dtype]
+    # without the diagonal: the same values
+    out_t = out0[order]
+    csr_kernel.csr_spmm_sddmm(At.rowptr, At.cols, At.vals, u, t, out_t,
+                              alpha)
+    assert torch.equal(torch.empty_like(out_t).index_copy_(0, order, out_t),
+                       runs[0][1])
+
+
+def test_fused_entry_refuses_what_it_does_not_take(cuda):
+    """Widths the fused entry does not serve raise (the backward keeps its
+    two launches there), and so does an operand that requires grad under
+    grad mode."""
+    M = _fused_case(torch.float32, cuda)
+    At = M.T
+    out = torch.zeros_like(M.vals)
+    for s in (csr_kernel.NARROW_WIDTH[torch.float32],
+              csr_kernel.SDDMM_WIDTH + 1):
+        u, t = (_signal((4000, s), torch.float32, k, cuda) for k in (73, 74))
+        with pytest.raises(ValueError, match='fused_width'):
+            csr_kernel.csr_spmm_sddmm(At.rowptr, At.cols, At.vals, u, t, out,
+                                      1.0)
+    u, t = (_signal((4000, 40), torch.float32, k, cuda) for k in (75, 76))
+    with pytest.raises(RuntimeError, match='cheby_op_fixed_graph'):
+        csr_kernel.csr_spmm_sddmm(At.rowptr, At.cols, At.vals,
+                                  u.requires_grad_(), t, out, 1.0)
+
+
+def test_fused_weight_grads_on_the_card_match_the_cpu(cuda):
+    """``cheby_op`` through W's values, c and x at 40 columns (the fused
+    route: one ``csr_spmm_sddmm`` a step, no ``csr_sddmm``) and ``A @ x``
+    through its values and x on the card against the CPU, float64."""
+    W = tgsp.graphs.BarabasiAlbert(2000, seed=3, device='cpu').W
+    rng = np.random.default_rng(77)
+    c0, x0 = rng.normal(size=(3, 21)), rng.normal(size=(2000, 40))
+    g0 = rng.normal(size=(3, 2000, 40))
+    grads = []
+    for device in (cuda, 'cpu'):
+        M = tsp.from_scipy(W, dtype=torch.float64, device=device)
+        w = M.vals.clone().requires_grad_()
+        c = torch.tensor(c0, device=device, requires_grad=True)
+        x = torch.tensor(x0, device=device, requires_grad=True)
+        L = tgsp.core.operators.laplacian_op(M.with_vals(w))
+        out = tgsp.ops.cheby_op(L, 2.05 * float(W.sum(1).max()), c, x)
+        fused, sddmm = (csr_kernel.csr_spmm_sddmm.launches,
+                        csr_kernel.csr_sddmm.launches)
+        (out * torch.tensor(g0, device=device)).sum().backward()
+        if device != 'cpu':
+            assert csr_kernel.csr_spmm_sddmm.launches == fused + 20
+            assert csr_kernel.csr_sddmm.launches == sddmm
+        grads.append([v.grad.cpu() for v in (w, c, x)])
+        v = M.vals.clone().requires_grad_()
+        xx = torch.tensor(x0, device=device, requires_grad=True)
+        (torch.tensor(g0[0], device=device)
+         * tsp.spmm(M.with_vals(v), xx)).sum().backward()
+        grads[-1] += [v.grad.cpu(), xx.grad.cpu()]
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-10 * float(
+            want.abs().max())
+    assert not grads[0][0][M.nnz:].any()
 
 
 def test_weight_grads_on_the_card_match_the_cpu(cuda):
@@ -958,6 +1080,7 @@ def test_every_kernel_route_refuses_autograd(cuda):
     f32 = torch.float32
     A = tsp.from_scipy(sps.random(50, 40, density=0.1, random_state=1,
                                   format='csr'), dtype=f32, device=cuda)
+    At = tsp._transpose(A)[0]
     x = _signal((40, 3), f32, 50, cuda)
     _, M = _ba_windowed(f32, cuda)
     kp = M.borrow_span * M.window_rows
@@ -977,6 +1100,9 @@ def test_every_kernel_route_refuses_autograd(cuda):
         'csr_sddmm': lambda r: csr_kernel.csr_sddmm(
             A.rows, A.cols, _signal((50, 3), f32, 60, cuda), r(x),
             torch.zeros_like(A.vals), 1.0),
+        'csr_spmm_sddmm': lambda r: csr_kernel.csr_spmm_sddmm(
+            At.rowptr, At.cols, At.vals, r(_signal((50, 40), f32, 61, cuda)),
+            _signal((40, 40), f32, 62, cuda), torch.zeros_like(A.vals), 1.0),
         'banded_spmm': lambda r: banded_kernel.banded_spmm(
             r(tiles), _signal((128, 3), f32, 58, cuda), 128),
         'windowed_fold': lambda r: wk.windowed_fold(

@@ -214,7 +214,10 @@ def main():
                       'copy_bytes_per_s': copy_rate()}), flush=True)
     step = ('cheby_step', 'cheby_acc_group')
     windowed = ('windowed_fold', 'window_strip') + step
-    csr = ('csr_spmm_segment', 'csr_spmm_join', 'csr_spmm_narrow')
+    # kernel A's device functions, its fused entry (the backward through
+    # the weights' transpose SpMM and SDDMM) among them
+    csr = ('csr_spmm_segment', 'csr_spmm_join', 'csr_spmm_narrow',
+           'csr_spmm_sddmm')
     for name, kernels, make in (
             ('A', csr + step, chip_smoke.path_a),
             ('B', ('banded_spmm',) + step, chip_smoke.path_b)):
