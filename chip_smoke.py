@@ -214,10 +214,35 @@ K. path K, gradients through the graph's weights, on path A's graph
    library call where there is one (``addmm_`` for the grouped
    accumulation of f32 terms, ``addmv_`` for the synthesis contraction,
    ``torch.mm`` for the coefficient gradient);
+L. path L, the multi-device engines (``pygsp_tpu_torch.parallel``) at one
+   rank on path A's graph, signal, λmax and SciPy reference: L1, a
+   one-rank NCCL group from ``launch.initialize``, ``partition_graph(W,
+   1)`` with the production layout (``shard_local_windowed(
+   split_boundary=True)``, kernels D and E) and the COO one (kernel A on
+   the shard's CSR), each bank's 8 columns within 1e-4 of the reference,
+   its launches counted and its time beside path A's; one fixed-graph VJP
+   step (``sharded_cheby_op_fixed_graph``) with its two c̄ ``all_reduce``
+   calls ('graph', 'batch') counted and the adjoint identities held; L2,
+   the 2-D engine at 1 × 1 (``partition_graph_2d``,
+   ``twod_local_windowed(ring=True, split_cols=True)``, ``cheby_op_2d``),
+   checked the same way; L3, the fused multi-matrix fold
+   (``windowed_fold_multi``) on device (0, 0)'s four ring matrices of
+   ``partition_graph_2d(W, 4, 4)`` through
+   ``windowed_spmm_chunks_multi`` (one fold and one strip launch), held
+   against its plain version in f64 and in the bf16 carry (ulps), two
+   launches bit-equal, its strip over the merged residue lists bit-equal
+   to its plain version and timed alone, timed beside the four matrices'
+   separate fold and strip launches, ``torch.sparse.mm`` of the stacked
+   matrices and its bound; a ``save_sharded``/``load_sharded`` round trip (BA(2^16), 4
+   shards); and one log line saying whether NCCL takes two ranks on one
+   card (two processes, each killed at 90 s; the run does not depend on
+   it). Paths A, C, H, I and L share one SciPy reference of the bench
+   bank (computed once per N and λmax);
 8. one JSON line of per-kernel numbers (kernel A's entry with ``grad`` and
    ``div``, its narrow entry with the width sweep and the narrow shapes of
    paths G and J, ``csr_sddmm`` at path K's 128 columns and at one, the
    fused entry ``csr_spmm_sddmm`` at 128 with 200 f32 and 64 f64 beside,
+   the fused multi-matrix fold ``windowed_fold_multi`` at L3's shape,
    kernel B's group with Nf = 6, ``ell_spmm`` and
    ``chunked_spmm`` with the shapes paths H and I held them at under
    ``at_paths``, their narrow entries ``ell_spmm_narrow`` and
@@ -1468,16 +1493,27 @@ def measure_banded_wide(B, width):
     return out
 
 
-def reference(L_host, lmax, evaluate, x):
+# the bench bank's SciPy references, by ('bench', N, λmax): paths A, C, H,
+# I and L filter the same graph's signal with the same bank
+REFERENCES = {}
+
+
+def reference(L_host, lmax, evaluate, x, key=None):
     """The SciPy f64 recurrence on the scipy Laplacian ``L_host`` for 8
-    columns of x: (Nf, N, 8)."""
+    columns of x: (Nf, N, 8). With ``key`` it is computed once and kept
+    under it."""
+    if key is not None and key in REFERENCES:
+        log(f'  scipy f64 reference: the one of {key}')
+        return REFERENCES[key]
     c64 = cheby_coeff(evaluate, lmax, m=ORDER, dtype=torch.float64,
                       device='cpu').numpy()
     x8 = x[:, :N_CHECK_COLS].double().cpu().numpy()
     t0 = time.time()
-    ref = scipy_recurrence(L_host, lmax, c64, x8)
+    ref = torch.from_numpy(scipy_recurrence(L_host, lmax, c64, x8))
     log(f'  scipy f64 reference: {time.time() - t0:.1f} s')
-    return torch.from_numpy(ref)
+    if key is not None:
+        REFERENCES[key] = ref
+    return ref
 
 
 def validate_path(name, ref, out, tol=TOL_PATH):
@@ -1574,7 +1610,8 @@ def phase_path_a():
     if tuple(out.shape) != (N_BA, N_SIGNALS, len(SCALES)):
         raise AssertionError(f'path A output shape {tuple(out.shape)}')
     rel_err = validate_path('A', reference(G.L.to_scipy(), G.lmax,
-                                           g.evaluate, x),
+                                           g.evaluate, x,
+                                           key=('bench', N_BA, G.lmax)),
                             out.permute(2, 0, 1))
     del out
 
@@ -1867,7 +1904,8 @@ def phase_path_c():
     if tuple(out.shape) != (N_BA, N_SIGNALS, len(SCALES)):
         raise AssertionError(f'path C output shape {tuple(out.shape)}')
     L_host = sps.diags(G.dw) - G.W         # independent of the windowed format
-    ref = reference(L_host, G.lmax, g.evaluate, x)
+    ref = reference(L_host, G.lmax, g.evaluate, x,
+                    key=('bench', G.N, G.lmax))
     rel_err = validate_path('C', ref, out.permute(2, 0, 1))
     del out
 
@@ -3708,7 +3746,8 @@ def slot_bank_path(path, fmt, kernel, n=N_BA):
                              f'launches, {per_bank[kernel + "_wide"]} wide')
     if tuple(out.shape) != (n, N_SIGNALS, len(SCALES)):
         raise AssertionError(f'path {path} output shape {tuple(out.shape)}')
-    ref = reference(sps.diags(G.dw) - G.W, G.lmax, g.evaluate, x)
+    ref = reference(sps.diags(G.dw) - G.W, G.lmax, g.evaluate, x,
+                    key=('bench', G.N, G.lmax))
     rel_err = validate_path(path, ref, out.permute(2, 0, 1))
     del out
     ms_bank = time_ms(bank, 3)
@@ -4420,6 +4459,346 @@ def phase_path_j():
     return result, total, held, held_b
 
 
+# ---------------------------------------------------------------------------
+# path L: the multi-device engines at one rank, and the fused fold
+# ---------------------------------------------------------------------------
+
+# L3: device (0, 0)'s ring matrices of the L_RING × L_RING edge partition
+L_RING = 4
+L_SMALL_N = 1 << 16     # the sharded checkpoint's graph
+L_NCCL_PAIR_S = 90      # the deadline of the two-rank NCCL probe
+TOL_MULTI = 1e-5        # the fused fold against its plain version in f64
+
+# two ranks of one NCCL group on card 0, one all_reduce (run as two
+# processes by nccl_two_ranks_one_card)
+NCCL_PAIR = r"""
+import sys, torch, torch.distributed as dist
+rank, port = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group('nccl', init_method=f'tcp://localhost:{port}',
+                        world_size=2, rank=rank)
+t = torch.full((4,), float(rank + 1), device='cuda')
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print('sum', float(t[0]), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def nccl_two_ranks_one_card():
+    """Whether NCCL takes two ranks on one card: two processes on card 0
+    join one group and sum a tensor; each is killed at its deadline. The
+    run does not depend on the answer."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, '-c', NCCL_PAIR, str(r),
+                               str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    ranks = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=L_NCCL_PAIR_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, err = p.communicate()
+            err = f'killed at {L_NCCL_PAIR_S} s; {err}'
+        ranks.append({'rc': p.returncode, 'stdout': out.strip()[-200:],
+                      'stderr_tail': err.strip()[-300:]})
+    accepted = all(r['rc'] == 0 and 'sum 3.0' in r['stdout'] for r in ranks)
+    return {'accepted': accepted, 'ranks': ranks}
+
+
+def require_same(name, got, want):
+    """Raise unless two tensors are bit-equal (two launches, a round
+    trip)."""
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f'{name}: not bit-equal')
+    log(f'  {name}: bit-equal')
+
+
+def multi_work(mats, xs, t):
+    """The fused fold's bound: every slab (column, value, row id) and every
+    x read once, the window tensor written once; two operations a live
+    slot and column (this run's live slots)."""
+    live = sum(int(((m.cols < m.chunk_rows)
+                    & (m.cols + torch.arange(m.cols.shape[2], device='cuda')[
+                        :, None] * m.chunk_rows < m.n_cols)).sum())
+               for m in mats)
+    slab = sum(m.cols.numel() * (4 + m.vals.element_size()
+                                 + m.rowid.element_size()) for m in mats)
+    s = xs[0].shape[1]
+    moved = slab + sum(x.numel() * x.element_size() for x in xs) + \
+        t.numel() * t.element_size()
+    return live, bound(moved, 2.0 * live * s)
+
+
+def measure_multi(mats, xs):
+    """The fused fold (``windowed_fold_multi``) at L3's shape: against its
+    plain version in f64 (f32 x), in ulps (bf16 carry), two launches
+    bit-equal; the strip over the merged residue list bit-equal to its
+    plain version; the fold's device time beside its plain version's, its
+    bound, the strip's, the whole fused SpMM (fold and strip), the four
+    matrices' separate fold and strip launches, and ``torch.sparse.mm`` of
+    the stacked matrices against the stacked x's."""
+    m0 = mats[0]
+    R, KP = m0.chunk_rows, m0.borrow_span * m0.window_rows
+    slabs = [(m.cols, m.vals, m.rowid) for m in mats]
+    t = wk.windowed_fold_multi(slabs, xs, R, KP)
+    want = wk.windowed_fold_multi_plain(
+        [(c_, v.double(), r) for c_, v, r in slabs],
+        [x.double() for x in xs], R, KP)
+    err = check('fused fold vs its plain version (f64)', t.double(), want,
+                TOL_MULTI)
+    max_abs = float((t.double() - want).abs().max())
+    require_same('fused fold, two launches',
+                  wk.windowed_fold_multi(slabs, xs, R, KP), t)
+    xb = [x.to(torch.bfloat16) for x in xs]
+    tb = wk.windowed_fold_multi(slabs, xb, R, KP)
+    u = ulps(tb, wk.windowed_fold_multi_plain(slabs, xb, R, KP))
+    log(f'  fused fold, bf16 carry: {u:.2f} ulps from its plain version')
+    if u > 1.0:
+        raise AssertionError(f'fused fold (bf16 carry): {u} ulps')
+    require_same('fused fold (bf16 carry), two launches',
+                  wk.windowed_fold_multi(slabs, xb, R, KP), tb)
+    merged = wk.merge_residues([m.residue for m in mats], m0.n_rows)
+    P = m0.window_rows
+    y = wk.window_strip(t, m0.n_rows, P, merged, xs)
+    require_same('merged strip vs its plain version', y,
+                 wk.window_strip_plain(t, m0.n_rows, P, merged, xs))
+    require_same('merged strip (bf16 carry) vs its plain version',
+                 wk.window_strip(tb, m0.n_rows, P, merged, xb),
+                 wk.window_strip_plain(tb, m0.n_rows, P, merged, xb))
+    y = wd.spmm_multi_internal(mats, xs, merged)
+    y_sep = sum(wd.spmm_internal(m, x) for m, x in zip(mats, xs))
+    check('fused SpMM vs the four SpMMs', y, y_sep, TOL_MULTI)
+    live, work = multi_work(mats, xs, t)
+    dense = sps.hstack([wd.windowed_to_scipy(m) for m in mats]).tocsr()
+    A = torch.sparse_csr_tensor(
+        torch.from_numpy(dense.indptr).cuda(),
+        torch.from_numpy(dense.indices).cuda(),
+        torch.from_numpy(dense.data.astype(np.float32)).cuda(),
+        size=dense.shape)
+    X = torch.cat(xs)
+    check('torch.sparse.mm of the stacked matrices', torch.sparse.mm(A, X),
+          y_sep, TOL_MULTI)
+    out = {'ms': device_ms(lambda: wk.windowed_fold_multi(slabs, xs, R, KP),
+                           10)['device_ms'],
+           'plain_ms': time_ms(lambda: wk.windowed_fold_multi_plain(
+               slabs, xs, R, KP), 3),
+           'strip_ms': device_ms(lambda: wk.window_strip(
+               t, m0.n_rows, P, merged, xs), 10)['device_ms'],
+           'fused_spmm_ms': time_ms(
+               lambda: wd.spmm_multi_internal(mats, xs, merged), 10),
+           'separate_fold_strip_ms': time_ms(
+               lambda: [wd.spmm_internal(m, x) for m, x in zip(mats, xs)], 10),
+           'library_ms': time_ms(lambda: torch.sparse.mm(A, X), 10),
+           'bf16_carry_ms': device_ms(
+               lambda: wk.windowed_fold_multi(slabs, xb, R, KP),
+               10)['device_ms'],
+           'max_abs_err': max_abs, 'rel_err_f64': err, 'bf16_ulps': u,
+           'live_slots': live, 'matrices': len(mats),
+           'slab_shapes': [list(m.cols.shape) for m in mats],
+           'n_rows': m0.n_rows, 'n_cols': [m.n_cols for m in mats],
+           'columns': xs[0].shape[1], **work}
+    log(f'  fused fold: {json.dumps(out)}')
+    return out
+
+
+def phase_path_l(lmax, ref, ms_a):
+    """Path L on path A's graph, signal and SciPy reference (``ref``, at
+    path A's λmax ``lmax``): L1, the 1-D engine on a one-rank NCCL group
+    (``launch.initialize``) with the production layout
+    (``shard_local_windowed(split_boundary=True)``) and the COO one, and
+    one fixed-graph VJP step with its c̄ all_reduce; L2, the 2-D engine at
+    1 × 1 (``ring=True, split_cols=True``); L3, the fused fold on device
+    (0, 0)'s ring matrices of the 4 × 4 partition; a sharded checkpoint
+    round trip; and whether NCCL takes two ranks on one card. Returns
+    ``(path, launches by part, fused fold's numbers)``."""
+    import tempfile
+    from pygsp_tpu_torch import checkpoint, parallel as par
+    from pygsp_tpu_torch.parallel.partition import shard_slice
+    log('phase L: path L, the multi-device engines at one rank on path A\'s '
+        'graph')
+    path, other = {}, {}
+    src, tgt = gsp.graphs.ba_edges_fast(N_BA, m0=M_ATTACH, m=M_ATTACH,
+                                        seed=42)
+    W = symmetric_from_edges(src, tgt, N_BA)
+    par.initialize(f'tcp://localhost:{free_port()}', 1, 0)
+    backend = torch.distributed.get_backend()
+    if backend != 'nccl':
+        raise AssertionError(f'path L: a {backend} group, not NCCL')
+    mesh = par.make_mesh(1, 1)
+    x = seeded_normal((N_BA, N_SIGNALS), 0)
+    c = heat_coeff(torch.tensor(SCALES, device='cuda'), lmax)
+
+    # L1: the 1-D engine
+    t0 = time.time()
+    sg = par.partition_graph(W, 1)
+    t1 = time.time()
+    split = par.shard_local_windowed(sg, split_boundary=True)
+    l1 = {'partition_s': t1 - t0, 'layout_s': time.time() - t1,
+          'n_local': sg.n_local, 'halo_total': sg.halo_total,
+          'path_a_ms_per_bank': ms_a}
+    xp, perm = sg.pad_signal(x), sg.perm.long()
+    for name, ell, want in (
+            ('windowed_split', split, dict(windowed_fold=ORDER,
+                                           window_strip=ORDER)),
+            ('coo', None, dict(csr_spmm=ORDER))):
+        def bank(ell=ell):
+            return par.sharded_cheby_op(sg, lmax, c, xp, mesh, ell=ell)
+        reset_counts()
+        out, launches, per_bank = run_bank(bank)
+        require_launches(f'L1 ({name})', per_bank, cheby_step=ORDER - 1,
+                         cheby_acc_group=1, **want)
+        if ell is not None:
+            require_tail('L1', per_bank)
+            if per_bank['csr_spmm']:
+                raise AssertionError('the CSR kernel ran in L1\'s windowed '
+                                     'bank')
+        rel = validate_path(f'L1 ({name})', ref, out[:, perm])
+        del out
+        ms = time_ms(bank, 3)
+        log(f'  L1 ({name}): {ms:.3f} ms per bank (path A {ms_a:.3f})')
+        l1[name] = {'ms_per_bank': ms, 'rel_err': rel, 'per_bank': per_bank}
+        other[f'L1_{name}'] = launches
+    # one fixed-graph VJP step: c̄'s dots all_reduced over 'graph' and
+    # 'batch' (on the one-rank NCCL groups)
+    reduces = []
+    all_reduce = torch.distributed.all_reduce
+
+    def spy(t, *args, **kw):
+        reduces.append(tuple(t.shape))
+        return all_reduce(t, *args, **kw)
+
+    cg = c.detach().clone().requires_grad_()
+    xg = xp.detach().clone().requires_grad_()
+    gbar = seeded_normal((len(SCALES),) + tuple(xp.shape), 71)
+    reset_counts()
+    torch.distributed.all_reduce = spy
+    try:
+        t0 = time.time()
+        out = par.sharded_cheby_op_fixed_graph(sg, lmax, cg, xg, mesh,
+                                               ell=split)
+        c_bar, x_bar = torch.autograd.grad(out, (cg, xg), gbar)
+        torch.cuda.synchronize()
+        step_s = time.time() - t0
+    finally:
+        torch.distributed.all_reduce = all_reduce
+    launches = counts()
+    other['L1_vjp'] = launches
+    if (launches['cheby_dot_group'] < 1 or launches['cheby_acc_contract']
+            != ORDER - 1 or launches['window_strip'] != 3 * ORDER):
+        raise AssertionError(f'L1 VJP: launches {launches}')
+    if reduces != [tuple(c_bar.T.shape)] * 2:
+        raise AssertionError(f'L1 VJP: all_reduce of {reduces}')
+    prod = c_bar.double() * c.double()
+    g_out = dot64(gbar, out.detach())
+    errs = {'c_bar': abs(float(prod.sum()) - g_out)
+            / float(prod.abs().sum()),
+            'x_bar': abs(dot64(x_bar[None], xp[None]) - g_out)
+            / dot64(x_bar[None], xp[None], absolute=True)}
+    log(f'  L1 VJP: adjoint identities rel err {json.dumps(errs)}; '
+        f'all_reduce {reduces}; {step_s:.2f} s')
+    if not (errs['c_bar'] <= TOL_ADJOINT_C and errs['x_bar'] <= TOL_ADJOINT_X):
+        raise AssertionError(f'L1 VJP: adjoint identities off by {errs}')
+    # the step again, warm: forward and backward, CUDA events
+    step_ms = time_ms(lambda: torch.autograd.grad(
+        par.sharded_cheby_op_fixed_graph(sg, lmax, cg, xg, mesh, ell=split),
+        (cg, xg), gbar), 2)
+    log(f'  L1 VJP: a warm step {step_ms:.2f} ms')
+    l1['vjp'] = {'adjoint_rel_err': errs, 'all_reduce': reduces,
+                 'first_step_s': step_s, 'step_ms': step_ms,
+                 'launches': launches}
+    del out, c_bar, x_bar, gbar, cg, xg, xp, sg, split
+    torch.cuda.empty_cache()
+    path['L1'] = l1
+
+    # L2: the 2-D engine at 1 x 1, interleaved ring layout
+    t0 = time.time()
+    tg = par.partition_graph_2d(W, 1, 1)
+    t1 = time.time()
+    ell2 = par.twod_local_windowed(tg, ring=True, split_cols=True)
+    l2 = {'partition_s': t1 - t0, 'layout_s': time.time() - t1}
+    mesh2 = par.make_mesh_2d(1, 1)
+    xp2, perm2 = tg.pad_signal(x), tg.perm.long()
+
+    def bank2():
+        return par.cheby_op_2d(tg, lmax, c, xp2, mesh2, ell=ell2)
+
+    reset_counts()
+    out, launches, per_bank = run_bank(bank2)
+    require_launches('L2', per_bank, windowed_fold=ORDER, window_strip=ORDER,
+                     cheby_step=ORDER - 1, cheby_acc_group=1)
+    require_tail('L2', per_bank)
+    l2['rel_err'] = validate_path('L2', ref, out[:, perm2])
+    del out
+    l2['ms_per_bank'] = time_ms(bank2, 3)
+    l2['per_bank'] = per_bank
+    other['L2'] = launches
+    log(f'  L2: {l2["ms_per_bank"]:.3f} ms per bank')
+    del tg, ell2, xp2
+    torch.cuda.empty_cache()
+    path['L2'] = l2
+
+    # L3: the fused fold, through the entry point, then measured
+    t0 = time.time()
+    tg4 = par.partition_graph_2d(W, L_RING, L_RING)
+    ell4 = par.twod_local_windowed(tg4, ring=True)
+    mats = [shard_slice(e, 0).local_matrix() for e in ell4]
+    l3 = {'build_s': time.time() - t0}
+    del tg4, ell4
+    xs = [seeded_normal((m.n_cols, N_SIGNALS), 80 + k)
+          for k, m in enumerate(mats)]
+    reset_counts()
+    y = wd.windowed_spmm_chunks_multi(mats, [(v,) for v in xs])
+    torch.cuda.synchronize()
+    launches = counts()
+    other['L3'] = launches
+    if (launches['windowed_fold_multi'] != 1 or launches['window_strip'] != 1
+            or launches['windowed_fold']):
+        raise AssertionError(f'L3: launches {launches}')
+    y_sep = sum(wd.spmm_internal(m, v) for m, v in zip(mats, xs))
+    l3['rel_err_vs_separate'] = check('L3 fused SpMM (entry point)',
+                                      torch.cat(y), y_sep, TOL_MULTI)
+    del y, y_sep
+    multi = measure_multi(mats, xs)
+    del mats, xs
+    torch.cuda.empty_cache()
+    path['L3'] = l3
+
+    # the sharded checkpoint, and the two-rank probe
+    s_src, s_tgt = gsp.graphs.ba_edges_fast(L_SMALL_N, m0=M_ATTACH,
+                                            m=M_ATTACH, seed=42)
+    sg4 = par.partition_graph(symmetric_from_edges(s_src, s_tgt, L_SMALL_N),
+                              4)
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_sharded(os.path.join(d, 'sg'), sg4)
+        back = checkpoint.load_sharded(os.path.join(d, 'sg'))
+    for name in ('rows', 'cols', 'vals', 'diag', 'perm'):
+        require_same(f'load_sharded {name}', getattr(back, name),
+                      getattr(sg4, name))
+    for a, b in zip(back.send_idx, sg4.send_idx):
+        require_same('load_sharded send_idx', a, b)
+    if (back.halo_dists, back.halo_sizes) != (sg4.halo_dists, sg4.halo_sizes):
+        raise AssertionError('load_sharded: the halo buckets differ')
+    log(f'  sharded checkpoint of BA({L_SMALL_N}) at 4 shards: round trip '
+        'equal')
+    path['nccl_two_ranks_one_card'] = nccl_two_ranks_one_card()
+    log(f'  NCCL, two ranks on one card: '
+        f'{json.dumps(path["nccl_two_ranks_one_card"])}')
+    torch.distributed.destroy_process_group()
+    return path, other, multi
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -4499,6 +4878,14 @@ def main():
     path_j, other['J'], held_j, held_jb = phase_path_j()
     path_j['phase_s'] = time.time() - t0
     torch.cuda.empty_cache()
+    t0 = time.time()
+    path_l, other_l, multi = phase_path_l(
+        path_a['lmax'], REFERENCES[('bench', N_BA, path_a['lmax'])],
+        path_a['ms_per_bank'])
+    path_l['phase_s'] = time.time() - t0
+    other.update(other_l)
+    REFERENCES.clear()
+    torch.cuda.empty_cache()
     paths = {'A': path_a, 'B': path_b, 'C': path_c, 'D': path_d}
     step, group, one, contract, kb_bank, dot = phase_kernel_b_times(
         {p: path['acc_group'] for p, path in paths.items()})
@@ -4506,7 +4893,7 @@ def main():
         path['kernel_b_per_bank'] = kb_bank[p]
     sddmm = path_k.pop('sddmm')
     paths.update(E=path_e, F=path_f, G=path_g, H=path_h, I=path_i,
-                 J=path_j, K=path_k)
+                 J=path_j, K=path_k, L=path_l)
     log(f'paths: {json.dumps(paths)}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')
@@ -4653,6 +5040,15 @@ def main():
                  'and segment_sum, XLA, no Pallas kernel), in one pass',
         at_shapes={k: v for k, v in fused.items() if k != head},
         launches_per_backward=path_k['backward_launches']['csr_spmm_sddmm'])
+    # the fused fold: its headline at L3's 128 f32 columns (four ring
+    # matrices of device (0, 0) of the 4 x 4 partition of path A's graph)
+    kernel_multi = dict(
+        multi, name='windowed_fold_multi', route='cuda',
+        source='pygsp_tpu_torch/csrc/windowed_fold.cu',
+        replaces='pygsp_tpu/core/windowed.py:201-418 '
+                 '(windowed_spmm_chunks_multi: XLA gathers, one-hot '
+                 'einsums summed per out chunk, one strip; no Pallas '
+                 'kernel), called by pygsp_tpu/parallel/twod.py:659-673')
     by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d,
                'H': counts_h, 'I': counts_i}
     for kernel, served in ((csr, 'A'), (csr_narrow, None), (banded, 'B'),
@@ -4662,7 +5058,7 @@ def main():
                            (kb_dot, None), (kb_contract, None),
                            (ell, 'H'), (chunked_k, 'I'), (ell_narrow, 'H'),
                            (chunked_narrow, 'I'), (kernel_sddmm, None),
-                           (kernel_fused, None)):
+                           (kernel_fused, None), (kernel_multi, None)):
         name = kernel['name']
         served = list(served or by_path)
         launches = {**{p: by_path[p][0][name] for p in by_path},
@@ -4680,7 +5076,7 @@ def main():
                                   kb_step, kb_group, kb_contract, kb_dot,
                                   ell, chunked_k, ell_narrow,
                                   chunked_narrow, kernel_sddmm,
-                                  kernel_fused]}),
+                                  kernel_fused, kernel_multi]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ package's keys (``rows``, ``cols``, ``vals``, ``n_vertices``, ``lap_type``,
 ``coords``, ``lmax``, ``lmax_method``, ``U``, ``e``, ``signal__<name>``),
 so that a file written by either package loads in the other. Tensors on the
 card are copied to the host before saving. ``save_sharded`` and
-``load_sharded`` come with the multi-device engines' ``ShardedGraph``.
+``load_sharded`` do the same for the multi-device engines' partition
+(:class:`~pygsp_tpu_torch.parallel.partition.ShardedGraph`): a metadata
+file and one file per shard, the JAX package's names and keys.
 """
 
 from __future__ import annotations
@@ -84,3 +86,64 @@ def load_graph(path: str, *, device='cuda', dtype=torch.float32):
             if key.startswith('signal__'):
                 G.signals[key[len('signal__'):]] = d[key]
     return G
+
+
+def save_sharded(path_prefix: str, sg) -> None:
+    """Persist a ShardedGraph partition: ``<prefix>.meta.npz`` and one
+    ``<prefix>.shard<s>.npz`` per shard, the JAX package's names and keys.
+    ``sg`` must hold every shard (as :func:`~pygsp_tpu_torch.parallel.
+    partition.partition_graph` makes it, not one rank's
+    ``put_sharded_graph``)."""
+    if sg.rows.shape[0] != sg.n_shards:
+        raise ValueError(f'save_sharded needs all {sg.n_shards} shards, got '
+                         f'{sg.rows.shape[0]} (one rank\'s put_sharded_graph'
+                         f'?)')
+    np.savez_compressed(
+        f'{path_prefix}.meta.npz',
+        n_shards=np.array(sg.n_shards), n_local=np.array(sg.n_local),
+        halo_dists=np.asarray(sg.halo_dists, dtype=np.int64),
+        halo_sizes=np.asarray(sg.halo_sizes, dtype=np.int64),
+        n_vertices=np.array(sg.n_vertices),
+        lap_type=np.array(sg.lap_type), perm=_host(sg.perm))
+    for s in range(sg.n_shards):
+        send = {f'send_idx{k}': _host(a[s])
+                for k, a in enumerate(sg.send_idx)}
+        np.savez_compressed(
+            f'{path_prefix}.shard{s}.npz',
+            rows=_host(sg.rows[s]), cols=_host(sg.cols[s]),
+            vals=_host(sg.vals[s]), diag=_host(sg.diag[s]), **send)
+
+
+def load_sharded(path_prefix: str, *, device='cuda'):
+    """Rebuild a ShardedGraph from :func:`save_sharded` files (or the JAX
+    package's), its tensors on ``device`` in the files' dtypes."""
+    from pygsp_tpu_torch.parallel.partition import ShardedGraph
+    from pygsp_tpu_torch.utils import check_device
+
+    device = check_device(device, 'load_sharded')
+    with np.load(f'{path_prefix}.meta.npz') as m:
+        n_shards = int(m['n_shards'])
+        halo_dists = tuple(int(d) for d in m['halo_dists'])
+        meta = dict(n_shards=n_shards, n_local=int(m['n_local']),
+                    halo_dists=halo_dists,
+                    halo_sizes=tuple(int(h) for h in m['halo_sizes']),
+                    n_vertices=int(m['n_vertices']),
+                    lap_type=str(m['lap_type']))
+        perm = torch.as_tensor(m['perm'], device=device)
+    keys = ['rows', 'cols', 'vals', 'diag'] + [
+        f'send_idx{k}' for k in range(len(halo_dists))]
+    parts = {k: [] for k in keys}
+    for s in range(n_shards):
+        with np.load(f'{path_prefix}.shard{s}.npz') as d:
+            for k in parts:
+                parts[k].append(d[k])
+
+    def stack(k):
+        return torch.as_tensor(np.stack(parts[k]), device=device)
+
+    return ShardedGraph(
+        rows=stack('rows'), cols=stack('cols'), vals=stack('vals'),
+        diag=stack('diag'),
+        send_idx=tuple(stack(f'send_idx{k}')
+                       for k in range(len(halo_dists))),
+        perm=perm, **meta)

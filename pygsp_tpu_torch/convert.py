@@ -5,8 +5,10 @@ JAX package as pytrees of arrays plus static ints. These functions take
 those leaves as numpy arrays (``np.asarray`` of each JAX leaf) and the
 ints, and build the port's :class:`CSRMatrix`, :class:`ELLMatrix`,
 :class:`BandedMatrix`, :class:`ChunkedELLMatrix`,
-:class:`WindowedELLMatrix` and :class:`LaplacianOp` on ``device``, and a
-graph's difference operator (``G.D``) from its edge arrays. Nothing
+:class:`WindowedELLMatrix` and :class:`LaplacianOp` on ``device``, a
+graph's difference operator (``G.D``) from its edge arrays, and the
+multi-device engines' partitions and local layouts (``ShardedGraph``,
+``ShardedELL``, ``ShardedWindowed``, ``TwoDGraph``) from theirs. Nothing
 here imports JAX. The kernels read without bounds checks, so leaves from
 outside are checked first.
 
@@ -289,3 +291,180 @@ def difference_from_numpy(leaves: dict, device='cuda'):
             raise ValueError(f'edge ends out of range for {n} vertices')
     return _DifferenceOp(n, sources, targets, v_src, v_tgt, device=device,
                          dtype=torch.from_numpy(v_src[:0]).dtype)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device engines' partitions and local layouts
+# ---------------------------------------------------------------------------
+
+def _ints(leaves, names):
+    return {k: int(leaves[k]) for k in names}
+
+
+def _check_edges(rows, cols, vals, n_rows, n_cols, lead, what):
+    """Stacked padded edges ``(lead, E)``: rows in ``[0, n_rows]``
+    (``n_rows`` is padding), real edges' cols in ``[0, n_cols)``."""
+    if (rows.ndim != 2 or rows.shape[0] != lead or cols.shape != rows.shape
+            or vals.shape != rows.shape):
+        raise ValueError(f'{what} rows, cols and vals must be ({lead}, E) of '
+                         f'one shape')
+    if rows.size and (rows.min() < 0 or rows.max() > n_rows):
+        raise ValueError(f'{what} rows must lie in [0, {n_rows}]')
+    real = rows < n_rows
+    if np.any(real & ((cols < 0) | (cols >= n_cols))):
+        raise ValueError(f'{what} cols out of range for {n_cols} columns')
+
+
+def _check_vertex_perm(perm, n, n_padded):
+    perm = np.asarray(perm)
+    if (perm.shape != (n,) or (perm.size and (perm.min() < 0
+                                              or perm.max() >= n_padded))
+            or np.unique(perm).size != n):
+        raise ValueError(f'perm must send the {n} vertices to distinct '
+                         f'places of the {n_padded} padded ones')
+
+
+def sharded_graph_from_numpy(leaves: dict, device='cuda'):
+    """ShardedGraph leaves ``rows, cols, vals, diag`` ((S, E), (S, E),
+    (S, E), (S, n_local)), ``send_idx`` (a list of (S, H_d)), ``perm`` and
+    the ints ``n_shards, n_local, n_vertices``, the tuples ``halo_dists,
+    halo_sizes`` and ``lap_type``."""
+    from pygsp_tpu_torch.parallel.partition import ShardedGraph
+    meta = _ints(leaves, ('n_shards', 'n_local', 'n_vertices'))
+    S, n = meta['n_shards'], meta['n_local']
+    dists = tuple(int(d) for d in leaves['halo_dists'])
+    sizes = tuple(int(h) for h in leaves['halo_sizes'])
+    rows, cols, vals = (np.asarray(leaves[k]) for k in ('rows', 'cols',
+                                                        'vals'))
+    _check_edges(rows, cols, vals, n, n + sum(sizes), S, 'ShardedGraph')
+    if np.shape(leaves['diag']) != (S, n):
+        raise ValueError(f'diag must be ({S}, {n})')
+    send = [np.asarray(a) for a in leaves['send_idx']]
+    if len(send) != len(dists) or len(sizes) != len(dists) or any(
+            not 0 < d < S for d in dists):
+        raise ValueError('send_idx, halo_dists and halo_sizes must pair up, '
+                         'each distance in [1, n_shards)')
+    for a, h in zip(send, sizes):
+        if a.shape != (S, h) or (a.size and (a.min() < 0 or a.max() > n)):
+            raise ValueError(f'each send_idx must be ({S}, H_d) local ids in '
+                             f'[0, n_local = {n}]')
+    _check_vertex_perm(leaves['perm'], meta['n_vertices'], S * n)
+    return ShardedGraph(
+        rows=_tensor(rows, device, np.int32),
+        cols=_tensor(cols, device, np.int32), vals=_tensor(vals, device),
+        diag=_tensor(leaves['diag'], device),
+        send_idx=tuple(_tensor(a, device, np.int32) for a in send),
+        perm=_tensor(leaves['perm'], device, np.int32), halo_dists=dists,
+        halo_sizes=sizes, lap_type=str(leaves['lap_type']), **meta)
+
+
+def sharded_ell_from_numpy(leaves: dict, n_cols: int, device='cuda'):
+    """ShardedELL leaves ``ell_cols, ell_vals`` ((S, n_local, w0)),
+    ``lvl_rows, lvl_cols, lvl_vals`` (lists of (S, R), (S, R, w)) and the
+    int ``ell_width``, for the extended space of ``n_cols`` columns (the
+    partition's ``n_local + halo_total``; ``n_cols`` is the sentinel)."""
+    from pygsp_tpu_torch.parallel.partition import ShardedELL
+    c0 = np.asarray(leaves['ell_cols'])
+    width = int(leaves['ell_width'])
+    if (c0.ndim != 3 or c0.shape[2] != width
+            or np.shape(leaves['ell_vals']) != c0.shape):
+        raise ValueError(f'ell_cols and ell_vals must be (S, n_local, '
+                         f'{width}) of one shape')
+    S, n = c0.shape[:2]
+    parts = [[np.asarray(a) for a in leaves[k]]
+             for k in ('lvl_rows', 'lvl_cols', 'lvl_vals')]
+    for cols in [c0] + parts[1]:
+        if cols.size and (cols.min() < 0 or cols.max() > n_cols):
+            raise ValueError(f'ELL cols must lie in [0, n_cols = {n_cols}]')
+    for r, c, v in zip(*parts):
+        if (r.ndim != 2 or r.shape[0] != S or c.shape[:2] != r.shape
+                or v.shape != c.shape):
+            raise ValueError('each level needs (S, R) rows and (S, R, w) '
+                             'cols and vals')
+        if r.size and (r.min() < 0 or r.max() > n):
+            raise ValueError(f'level rows must lie in [0, n_local = {n}]')
+    return ShardedELL(
+        ell_cols=_tensor(c0, device, np.int32),
+        ell_vals=_tensor(leaves['ell_vals'], device),
+        lvl_rows=tuple(_tensor(a, device, np.int32) for a in parts[0]),
+        lvl_cols=tuple(_tensor(a, device, np.int32) for a in parts[1]),
+        lvl_vals=tuple(_tensor(a, device) for a in parts[2]),
+        ell_width=width)
+
+
+_SHARDED_WINDOWED_INTS = ('n_local', 'n_ext', 'nnz', 'chunk_rows',
+                          'window_rows', 'borrow_span')
+
+
+def sharded_windowed_from_numpy(leaves: dict, device='cuda'):
+    """ShardedWindowed leaves ``cols, vals, rowid`` ((S, n_out, NW, n_src,
+    L)), ``lvl_cols, lvl_vals`` (lists of (S, m, w)), ``level_rows`` ((S,
+    M), the sentinel ``n_out·NW·P`` for padding), ``lvl_src`` and the ints
+    ``n_local, n_ext, nnz, chunk_rows, window_rows, borrow_span``; each
+    shard is checked as :func:`windowed_from_numpy` checks a matrix."""
+    from pygsp_tpu_torch.parallel.windowed_shards import ShardedWindowed
+    meta = _ints(leaves, _SHARDED_WINDOWED_INTS)
+    cols = np.asarray(leaves['cols'])
+    if cols.ndim != 5:
+        raise ValueError('cols, vals and rowid must be (S, n_out, NW, n_src, '
+                         'L) slabs')
+    src = tuple(int(c) for c in leaves['lvl_src'])
+    lc = [np.asarray(a) for a in leaves['lvl_cols']]
+    lv = [np.asarray(a) for a in leaves['lvl_vals']]
+    level_rows = np.asarray(leaves['level_rows'])
+    n_out, nw = cols.shape[1:3]
+    sentinel = n_out * nw * meta['window_rows']
+    if len(lc) != len(src) or len(lv) != len(src):
+        raise ValueError('lvl_cols, lvl_vals and lvl_src must pair up')
+    for s in range(cols.shape[0]):
+        rows_s = level_rows[s] if level_rows.ndim == 2 else level_rows
+        keep = rows_s < sentinel
+        off, levels = 0, []
+        for c, v, k in zip(lc, lv, src):
+            m = c.shape[1]
+            levels.append(ChunkLevel(cols=c[s], vals=v[s], src_chunk=k))
+            off += m
+        if level_rows.shape != (cols.shape[0], off):
+            raise ValueError('level_rows must hold one row per tier entry '
+                             'of each shard')
+        one = {'cols': cols[s], 'vals': np.asarray(leaves['vals'])[s],
+               'rowid': np.asarray(leaves['rowid'])[s],
+               'level_rows': np.where(keep, rows_s, 0),
+               'rowptr': np.zeros(meta['n_local'] + 1),
+               'n_rows': meta['n_local'], 'n_cols': meta['n_ext'],
+               'nnz': meta['nnz'], 'chunk_rows': meta['chunk_rows'],
+               'window_rows': meta['window_rows'],
+               'borrow_span': meta['borrow_span']}
+        _check_windowed(one, levels)
+    rowid = np.asarray(leaves['rowid'])
+    return ShardedWindowed(
+        cols=_tensor(cols, device, np.int32),
+        vals=chunked._tensor(leaves['vals'], device),
+        rowid=_tensor(rowid, device,
+                      np.uint8 if rowid.dtype == np.uint8 else np.int32),
+        lvl_cols=tuple(_tensor(a, device, np.int32) for a in lc),
+        lvl_vals=tuple(chunked._tensor(a, device) for a in lv),
+        level_rows=_tensor(level_rows, device, np.int32), lvl_src=src,
+        **meta)
+
+
+def twod_graph_from_numpy(leaves: dict, device='cuda'):
+    """TwoDGraph leaves ``rows, cols, vals`` ((P, E)), ``diag`` ((P,
+    n_local)), ``perm`` and the ints ``pr, pc, n_local, n_vertices`` and
+    ``lap_type``."""
+    from pygsp_tpu_torch.parallel.twod import TwoDGraph
+    meta = _ints(leaves, ('pr', 'pc', 'n_local', 'n_vertices'))
+    p, n = meta['pr'] * meta['pc'], meta['n_local']
+    rows, cols, vals = (np.asarray(leaves[k]) for k in ('rows', 'cols',
+                                                        'vals'))
+    _check_edges(rows, cols, vals, meta['pc'] * n, meta['pr'] * n, p,
+                 'TwoDGraph')
+    if np.shape(leaves['diag']) != (p, n):
+        raise ValueError(f'diag must be ({p}, {n})')
+    _check_vertex_perm(leaves['perm'], meta['n_vertices'], p * n)
+    return TwoDGraph(
+        rows=_tensor(rows, device, np.int32),
+        cols=_tensor(cols, device, np.int32), vals=_tensor(vals, device),
+        diag=_tensor(leaves['diag'], device),
+        perm=_tensor(leaves['perm'], device, np.int32),
+        lap_type=str(leaves['lap_type']), **meta)

@@ -213,6 +213,73 @@ def windowed_spmm_chunks(mat: WindowedELLMatrix, x_chunks,
                         mat.chunk_rows)
 
 
+def _check_multi(mats):
+    m0 = mats[0]
+    for m in mats[1:]:
+        if (m.chunk_rows != m0.chunk_rows or m.window_rows != m0.window_rows
+                or m.borrow_span != m0.borrow_span
+                or m.cols.shape[:2] != m0.cols.shape[:2]
+                or m.n_rows != m0.n_rows):
+            raise ValueError('fused SpMM requires matching chunk_rows/'
+                             'window_rows/borrow_span/out chunking')
+
+
+def spmm_multi_internal(mats, xs, residue,
+                        out_dtype=None) -> torch.Tensor:
+    """``y = Σ_m A_m @ x_m`` in the matrices' internal order, for x_m
+    (n_cols_m, S): one launch of the multi-matrix fold
+    (:func:`~.windowed_kernel.windowed_fold_multi`: every matrix's slabs
+    into one window tensor) and one of the tail over every matrix's
+    residue list (:func:`~.windowed_kernel.window_strip`). ``residue``:
+    the matrices' residue lists merged by
+    :func:`~.windowed_kernel.merge_residues`, which a caller that applies
+    the same matrices again makes once. The matrices
+    share ``chunk_rows``, ``window_rows``, ``borrow_span`` and the output
+    chunking (the JAX package's ``ValueError`` otherwise); their slab
+    widths and source-chunk counts may differ. Dtypes: as
+    :func:`spmm_internal`, over all the matrices (the operands promoted to
+    one pair of :data:`~.windowed_kernel.FOLD_OPERANDS` where they differ)."""
+    _check_multi(mats)
+    m0 = mats[0]
+    R, P, K = m0.chunk_rows, m0.window_rows, m0.borrow_span
+    pdts = [torch.promote_types(x.dtype, m.dtype) for m, x in zip(mats, xs)]
+    pdt = pdts[0]
+    for d in pdts[1:]:
+        pdt = torch.promote_types(pdt, d)
+    dt = out_dtype or pdt
+    pairs = {(x.dtype, m.dtype) for m, x in zip(mats, xs)}
+    if (len(pairs) > 1 or next(iter(pairs))
+            not in windowed_kernel.FOLD_OPERANDS or dt != xs[0].dtype):
+        mats = [m if m.dtype == pdt else m.astype(pdt) for m in mats]
+        xs = [x.to(pdt) for x in xs]
+        if residue is not None:
+            residue = residue._replace(vals=residue.vals.to(pdt))
+    xs = [x.contiguous() for x in xs]
+    t = windowed_kernel.windowed_fold_multi(
+        [(m.cols, m.vals, m.rowid) for m in mats], xs, R, K * P)
+    y = windowed_kernel.window_strip(t, m0.n_rows, P, residue,
+                                     None if residue is None else xs)
+    return y.to(dt)
+
+
+def windowed_spmm_chunks_multi(mats, x_chunks_list, out_dtype=None):
+    """``y_chunks = Σ_m A_m @ x_chunks_m``, the fused multi-matrix SpMM
+    (:func:`spmm_multi_internal`), with tuple-of-chunk inputs and output
+    in the internal order (API parity with the JAX package; each x is
+    joined into one tensor for the kernels)."""
+    xs = [unchunk_signal(tuple(torch.as_tensor(xk) for xk in xc))
+          for xc in x_chunks_list]
+    trailing = tuple(xs[0].shape[1:])
+    mats = list(mats)
+    _check_multi(mats)
+    residue = windowed_kernel.merge_residues([m.residue for m in mats],
+                                             mats[0].n_rows)
+    y = spmm_multi_internal(mats, [x.reshape(x.shape[0], -1) for x in xs],
+                            residue, out_dtype=out_dtype)
+    return chunk_signal(y.reshape((mats[0].n_rows,) + trailing),
+                        mats[0].chunk_rows)
+
+
 def windowed_spmm(mat: WindowedELLMatrix, x, *,
                   out_dtype=None) -> torch.Tensor:
     """``y = A @ x`` for x of shape (n_cols,) or (n_cols, ...), in the

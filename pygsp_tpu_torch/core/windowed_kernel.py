@@ -15,6 +15,11 @@ design):
   into ``y (n_rows, S)`` (``pygsp_tpu/core/windowed.py:336-345``) with the
   residue tiers folded in (``:406-414``: one row-sorted list,
   :class:`Residue`), bf16 included;
+- :func:`windowed_fold_multi`: the fold of several matrices' slabs, each
+  against its own x, into one window tensor, the fused multi-matrix SpMM of
+  ``pygsp_tpu/core/windowed.py:windowed_spmm_chunks_multi`` (``:201-418``);
+  its tail is one :func:`window_strip` over every matrix's residue list
+  (:func:`merge_residues`);
 - :func:`fold_products`: #2's function as it stands, ``rid (NW, Lt)`` and
   products ``p (NW, Lt, S)`` in, ``(NW, KP, S)`` float32 out; at NW = 1 it
   is TPU kernel #3 (``benchmarks/pallas_smoke.py`` ``fold_kernel``);
@@ -28,6 +33,7 @@ other. Each counts its launches in ``.launches``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -108,7 +114,8 @@ def _s_tile(kp: int, s: int, itemsize: int) -> int:
 
 
 def fold_layout(kp: int, s: int, itemsize: int,
-                ring_itemsize: int | None = None) -> FoldLayout:
+                ring_itemsize: int | None = None,
+                multi: bool = False) -> FoldLayout:
     """The :func:`windowed_fold` block layout for ``kp`` accumulator rows
     of ``itemsize``-byte sums, S = ``s`` and x rows of
     ``ring_itemsize``-byte values (by default ``itemsize``; 2 for a bf16 x
@@ -116,8 +123,9 @@ def fold_layout(kp: int, s: int, itemsize: int,
     64 KB of x rows in flight per SM (two blocks share an SM when the
     accumulator takes at most half of ``ACC_BYTES``), and a queue of live
     slots, whose values are held in the sums' type, that outlasts the ring
-    plus one staging round. Raises if not even one column of the
-    accumulator fits."""
+    plus one staging round (with ``multi``, :func:`windowed_fold_multi`'s,
+    whose queue entries also hold their matrix, 4 bytes). Raises if not
+    even one column of the accumulator fits."""
     ring_itemsize = ring_itemsize or itemsize
     tile = _s_tile(kp, s, itemsize)
     acc = kp * tile * itemsize
@@ -127,7 +135,7 @@ def fold_layout(kp: int, s: int, itemsize: int,
                _RING_ROWS[1])
     queue = 1 << (ring + STAGE_ROUND - 1).bit_length()
     smem = (_PART_BYTES * RING_GROUPS + acc + ring * tile * ring_itemsize
-            + queue * (2 * itemsize + 4))
+            + queue * (2 * itemsize + 4 + (4 if multi else 0)))
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f'a fold over {kp} rows needs {smem} bytes of '
                          f'shared memory, more than {SMEM_PER_BLOCK}')
@@ -159,6 +167,12 @@ def windowed_fold_plain(cols, vals, rowid, x, chunk_rows: int, kp: int):
     and an ``index_add_`` of them, in float32 or wider, onto their window
     rows. Dead slots (sentinel column, row id out of range) add nothing and
     x is not read for them."""
+    return _fold_sums(cols, vals, rowid, x, chunk_rows, kp).to(x.dtype)
+
+
+def _fold_sums(cols, vals, rowid, x, chunk_rows: int, kp: int):
+    """:func:`windowed_fold_plain` before its window tensor is rounded to
+    x's dtype: the sums, float32 or wider."""
     n_out, nw, n_src, _ = cols.shape
     n_cols, s = x.shape
     dev = x.device
@@ -175,7 +189,7 @@ def windowed_fold_plain(cols, vals, rowid, x, chunk_rows: int, kp: int):
                                                         device=dev))
         t[i].index_add_(0, (win + torch.where(live, rid, 0)).reshape(-1),
                         p.reshape(-1, s))
-    return t.reshape(n_out, nw, kp, s).to(x.dtype)
+    return t.reshape(n_out, nw, kp, s)
 
 
 def _check_fold(cols, vals, rowid, x, chunk_rows, kp):
@@ -236,6 +250,80 @@ def windowed_fold(cols, vals, rowid, x, chunk_rows: int, kp: int):
 windowed_fold.launches = 0
 
 
+# The most matrices one multi-matrix fold takes (kMaxMats in
+# csrc/windowed_fold.cu: the kernel's parameter table).
+MAX_MATS = 16
+
+
+def windowed_fold_multi_plain(slabs, xs, chunk_rows: int, kp: int):
+    """Plain version of :func:`windowed_fold_multi`: the sum over the
+    matrices of :func:`windowed_fold_plain`'s sums, in float32 or wider,
+    rounded once to x's dtype."""
+    t = None
+    for (cols, vals, rowid), x in zip(slabs, xs):
+        tm = _fold_sums(cols, vals, rowid, x, chunk_rows, kp)
+        t = tm if t is None else t + tm
+    return t.to(xs[0].dtype)
+
+
+def _check_fold_multi(slabs, xs, chunk_rows, kp):
+    if not 0 < len(slabs) == len(xs) <= MAX_MATS:
+        raise ValueError(f'windowed_fold_multi takes 1 to {MAX_MATS} '
+                         f'matrices, each with its x, got {len(slabs)} and '
+                         f'{len(xs)}')
+    (c0, v0, r0), x0 = slabs[0], xs[0]
+    for (cols, vals, rowid), x in zip(slabs, xs):
+        _check_fold(cols, vals, rowid, x, chunk_rows, kp)
+        if ((x.dtype, vals.dtype, rowid.dtype)
+                != (x0.dtype, v0.dtype, r0.dtype)
+                or cols.shape[:2] != c0.shape[:2]
+                or x.shape[1] != x0.shape[1] or x.device != x0.device):
+            raise ValueError('windowed_fold_multi: the matrices must share '
+                             'their operand dtypes, their out chunking '
+                             '(n_out, NW), S and the device')
+
+
+def windowed_fold_multi(slabs, xs, chunk_rows: int, kp: int):
+    """The window tensor ``t (n_out, NW, kp, S)`` of several matrices,
+    ``t = Σ_m windowed_fold(*slabs[m], xs[m], ...)``, in one launch:
+    ``slabs`` a sequence of ``(cols, vals, rowid)`` (n_out, NW, n_src_m,
+    L_m), each matrix with its own x ``xs[m]`` (n_cols_m, S). The matrices
+    share ``chunk_rows``, ``kp`` and (n_out, NW) and the operand dtypes (one
+    pair of :data:`FOLD_OPERANDS`); their slab widths and source-chunk
+    counts may differ. Each window's slots are folded matrix by matrix into
+    one accumulator, in float32 (float64 for float64), and t is written
+    once, in x's dtype: two launches are bit-equal."""
+    slabs, xs = list(slabs), list(xs)
+    _check_fold_multi(slabs, xs, chunk_rows, kp)
+    x0 = xs[0]
+    if x0.device.type == 'cpu':
+        return windowed_fold_multi_plain(slabs, xs, chunk_rows, kp)
+    _cuda.refuse_autograd('windowed_fold_multi', *xs,
+                          *(v for _, v, _ in slabs))
+    n_out, nw = slabs[0][0].shape[:2]
+    s = x0.shape[1]
+    t = torch.empty((n_out, nw, kp, s), dtype=x0.dtype, device=x0.device)
+    if t.numel() == 0:
+        return t
+    lay = fold_layout(kp, s, torch.finfo(_sum_dtype(x0.dtype)).bits // 8,
+                      x0.element_size(), multi=True)
+    table = (ctypes.c_longlong * (7 * len(xs)))(*[
+        v for (cols, vals, rowid), x in zip(slabs, xs)
+        for v in (cols.data_ptr(), vals.data_ptr(), rowid.data_ptr(),
+                  x.data_ptr(), cols.shape[2], cols.shape[3], x.shape[0])])
+    cols0, vals0, rowid0 = slabs[0]
+    symbol = (f'windowed_fold_multi_{_FOLD_TYPES[x0.dtype, vals0.dtype]}_'
+              f'{_ROWIDS[rowid0.dtype]}')
+    _cuda.launch(_SOURCE, symbol, 2, 8, x0.get_device(),
+                 ctypes.addressof(table), t.data_ptr(), len(xs), n_out * nw,
+                 chunk_rows, kp, s, lay.s_tile, lay.ring, lay.queue)
+    windowed_fold_multi.launches += 1
+    return t
+
+
+windowed_fold_multi.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # (b) window_strip: the windowed SpMM's tail
 # ---------------------------------------------------------------------------
@@ -267,6 +355,9 @@ class Residue(NamedTuple):
     cols: torch.Tensor      # (n_live,) int32
     vals: torch.Tensor      # (n_live,) the matrix's value dtype
     heavy: torch.Tensor     # (n_heavy,) int32
+    # the strip of a multi-matrix fold: each entry's matrix (int32), whose
+    # x its slots read (:func:`merge_residues`); None for one matrix
+    emat: torch.Tensor | None = None
 
 
 def _strip_plain(t, n_rows: int, window_rows: int):
@@ -308,13 +399,26 @@ def tail_plain(y, residue: Residue, x):
     the values' dtypes, widened to float32 or wider), slot by slot; then,
     row by row, ``y = y + s_e`` in y's dtype, entry by entry. No index is
     repeated inside one step, so the result does not depend on the device.
-    Counts its calls in ``.calls``."""
+    With ``residue.emat`` (a multi-matrix strip) ``x`` is the matrices'
+    sequence of x's, each slot reading its entry's. Counts its calls in
+    ``.calls``."""
     tail_plain.calls += 1
     acc = _sum_dtype(y.dtype)
     n_ent = residue.entptr.numel() - 1
     if n_ent == 0 or y.numel() == 0:
         return y
-    p = (residue.vals[:, None] * x[residue.cols.long()]).to(acc)
+    cols = residue.cols.long()
+    if residue.emat is None:
+        p = (residue.vals[:, None] * x[cols]).to(acc)
+    else:
+        slot_mat = torch.repeat_interleave(
+            residue.emat.long(), (residue.entptr[1:] - residue.entptr[:-1])
+            .long(), output_size=cols.numel())
+        p = torch.empty((cols.numel(), y.shape[1]), dtype=acc,
+                        device=y.device)
+        for m, xm in enumerate(x):
+            sel = slot_mat == m
+            p[sel] = (residue.vals[sel, None] * xm[cols[sel]]).to(acc)
     ent, slot_ranks = _by_rank(residue.entptr)
     sums = torch.zeros((n_ent, y.shape[1]), dtype=acc, device=y.device)
     for q in slot_ranks:
@@ -341,22 +445,30 @@ def window_strip_plain(t, n_rows: int, window_rows: int,
 
 
 def _check_residue(residue, x, t, n_rows):
-    if x is None or x.ndim != 2 or x.shape[1] != t.shape[3]:
-        raise ValueError(f'window_strip takes the residue with x (n_cols, '
-                         f'{t.shape[3]}), got '
-                         f'{None if x is None else tuple(x.shape)}')
-    if x.dtype != t.dtype or (x.dtype, residue.vals.dtype) not in _FOLD_TYPES:
-        raise ValueError(f'window_strip takes x in the window tensor\'s '
-                         f'dtype {t.dtype} and residue values that the fold '
-                         f'pairs with it, got {x.dtype} and '
-                         f'{residue.vals.dtype}')
-    index = (residue.rowptr, residue.entptr, residue.cols, residue.heavy)
+    xs = (x,) if residue.emat is None else tuple(x)
+    if residue.emat is not None and not 0 < len(xs) <= MAX_MATS:
+        raise ValueError(f'a multi-matrix strip takes 1 to {MAX_MATS} x\'s, '
+                         f'got {len(xs)}')
+    for x in xs:
+        if x is None or x.ndim != 2 or x.shape[1] != t.shape[3]:
+            raise ValueError(f'window_strip takes the residue with x (n_cols, '
+                             f'{t.shape[3]}), got '
+                             f'{None if x is None else tuple(x.shape)}')
+        if (x.dtype != t.dtype
+                or (x.dtype, residue.vals.dtype) not in _FOLD_TYPES):
+            raise ValueError(f'window_strip takes x in the window tensor\'s '
+                             f'dtype {t.dtype} and residue values that the '
+                             f'fold pairs with it, got {x.dtype} and '
+                             f'{residue.vals.dtype}')
+        _check_operands('window_strip', (x, t), x)
+    index = (residue.rowptr, residue.entptr, residue.cols, residue.heavy) + (
+        () if residue.emat is None else (residue.emat,))
     if any(a.dtype != torch.int32 or a.ndim != 1 for a in index):
         raise ValueError('the residue list takes 1-D int32 index vectors')
     if (residue.rowptr.numel() != n_rows + 1
             or residue.vals.shape != residue.cols.shape):
         raise ValueError(f'the residue list does not fit {n_rows} rows')
-    _check_operands('window_strip', index + (residue.vals, t, x), x)
+    _check_operands('window_strip', index + (residue.vals, t), t)
 
 
 def window_strip(t, n_rows: int, window_rows: int,
@@ -373,8 +485,11 @@ def window_strip(t, n_rows: int, window_rows: int,
     in order, each entry's sum of ``vals[q] · x[cols[q]]`` taken in float32
     or wider and rounded to t's dtype, and every add rounded to it: the
     order of the JAX package's ``index_add`` of the tiers
-    (``pygsp_tpu/core/windowed.py:406-414``). Each row of y is written
-    once, by one owner: two launches are bit-equal. A bfloat16 ``t`` with
+    (``pygsp_tpu/core/windowed.py:406-414``). A merged list of several
+    matrices (:func:`merge_residues`, the tail of
+    :func:`windowed_fold_multi`) takes ``x`` as their sequence of x's, each
+    entry reading its matrix's. Each row of y is written once, by one
+    owner: two launches are bit-equal. A bfloat16 ``t`` with
     K = 2 sums as the JAX package's bfloat16 add of the two addends; for
     K > 2 the JAX package rounds after each add, the kernel only at the
     end."""
@@ -392,9 +507,23 @@ def window_strip(t, n_rows: int, window_rows: int,
     if t.device.type == 'cpu':
         return window_strip_plain(t, n_rows, window_rows, residue, x)
     _cuda.refuse_autograd('window_strip', t, *(
-        () if residue is None else (residue.vals, x)))
+        () if residue is None else (residue.vals,)
+        + ((x,) if residue.emat is None else tuple(x))))
     y = torch.empty((n_rows, s), dtype=t.dtype, device=t.device)
     if y.numel() == 0:
+        return y
+    if residue is not None and residue.emat is not None:
+        xs = tuple(x)
+        table = (ctypes.c_longlong * len(xs))(*[v.data_ptr() for v in xs])
+        _cuda.launch(_SOURCE, 'window_strip_multi_'
+                     + _FOLD_TYPES[xs[0].dtype, residue.vals.dtype], 9, 7,
+                     t.get_device(), t.data_ptr(), y.data_ptr(),
+                     residue.rowptr.data_ptr(), residue.entptr.data_ptr(),
+                     residue.cols.data_ptr(), residue.vals.data_ptr(),
+                     residue.emat.data_ptr(), ctypes.addressof(table),
+                     residue.heavy.data_ptr(), len(xs), n_rows, s, nw,
+                     window_rows, kp // window_rows, residue.heavy.numel())
+        window_strip.launches += 1
         return y
     if residue is None:
         symbol = f'window_strip_{_DTYPES[t.dtype]}'
@@ -413,6 +542,55 @@ def window_strip(t, n_rows: int, window_rows: int,
 
 
 window_strip.launches = 0
+
+
+def merge_residues(residues, n_rows: int):
+    """One row-sorted residue list of several matrices' (each a
+    :class:`Residue` over the same ``n_rows`` output rows, or None), for
+    the strip of :func:`windowed_fold_multi`: a row's entries of matrix 0
+    first, then matrix 1's, ... (the order in which the JAX package adds
+    each matrix's tiers), ``emat`` naming each entry's matrix (its index in
+    ``residues``) and ``heavy`` recounted over the merged rows. None if no
+    matrix has a residue."""
+    present = [(m, r) for m, r in enumerate(residues) if r is not None]
+    if not present:
+        return None
+    dev = present[0][1].rowptr.device
+    counts = [(r.rowptr[1:] - r.rowptr[:-1]).long() for _, r in present]
+    total = torch.stack(counts).sum(0)
+    rowptr = torch.cat([total.new_zeros(1), total.cumsum(0)])
+    before = torch.zeros_like(total)          # entries of earlier matrices
+    n_ent = int(total.sum())
+    ent_len = torch.zeros(n_ent, dtype=torch.long, device=dev)
+    pos, lens, emat = [], [], torch.empty(n_ent, dtype=torch.int32,
+                                          device=dev)
+    for (m, r), cnt in zip(present, counts):
+        n_m = r.entptr.numel() - 1
+        row = torch.repeat_interleave(torch.arange(n_rows, device=dev), cnt,
+                                      output_size=n_m)
+        rank = torch.arange(n_m, device=dev) - r.rowptr[:-1].long()[row]
+        p = rowptr[row] + before[row] + rank
+        ln = (r.entptr[1:] - r.entptr[:-1]).long()
+        ent_len[p] = ln
+        emat[p] = m
+        pos.append(p)
+        lens.append(ln)
+        before += cnt
+    entptr = torch.cat([ent_len.new_zeros(1), ent_len.cumsum(0)])
+    n_slots = int(entptr[-1])
+    cols = torch.empty(n_slots, dtype=torch.int32, device=dev)
+    vals = torch.empty(n_slots, dtype=present[0][1].vals.dtype, device=dev)
+    for (m, r), p, ln in zip(present, pos, lens):
+        start = torch.repeat_interleave(entptr[p] - r.entptr[:-1].long(), ln,
+                                        output_size=r.cols.numel())
+        dst = start + torch.arange(r.cols.numel(), device=dev)
+        cols[dst] = r.cols
+        vals[dst] = r.vals
+    heavy = torch.nonzero(total >= TAIL_HEAVY_ENTRIES).flatten()
+    heavy = heavy[torch.argsort(-total[heavy], stable=True)]
+    return Residue(rowptr=rowptr.to(torch.int32),
+                   entptr=entptr.to(torch.int32), cols=cols, vals=vals,
+                   heavy=heavy.to(torch.int32), emat=emat)
 
 
 # ---------------------------------------------------------------------------
@@ -536,4 +714,5 @@ def double(x):
 double.launches = 0
 
 
-KERNELS = (windowed_fold, window_strip, fold_products, double)
+KERNELS = (windowed_fold, windowed_fold_multi, window_strip, fold_products,
+           double)

@@ -76,8 +76,23 @@
 // two. What binds now is the producers' TMA issue and the folding threads'
 // shared-memory traffic, about equally. At the bench path: 4.56 ms on an
 // NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), against 7.31 ms for the
-// first port. Registers (nvcc -Xptxas -v, sm_90a): 56 in f32 with 8 bytes
-// of spill, 80 in f64 with none.
+// first port.
+// The fold of several matrices into one window tensor (windowed_fold_multi,
+// y = sum_m A_m @ x_m, the 2-D engine's ring fold) is the same kernel's
+// kMulti instance: the matrices' slabs and x's come in a table in the
+// kernel's parameters, warp 0 queues every matrix's live slots of the window
+// one matrix after another, and each queued slot carries its matrix, whose
+// x the copy reads. The single-matrix fold is the instance with a table of
+// one and no matrix index in the queue; warp 0 reads the staged matrix's
+// fields from the table at each round, so that without kMulti they are
+// plain kernel parameters. Against a single-matrix kernel of its own, that
+// instance gives bit-equal window tensors at path C, in the same time in
+// f32 and in bf16 (within 1 %), and 3 % more in the bf16-carry pair (3.31
+// against 3.21 ms), on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/fold_instances.py); a build that kept the matrix's fields in
+// registers lost 4 % in f32. Registers (nvcc -Xptxas -v, sm_90a), no
+// spill: 64 in f32, 62 in bf16, 56 and 64 in the mixed pairs, 80 in f64;
+// the kMulti instances 56, and 80 in f64.
 //
 // (c) is TPU kernel #2's own design carried to this card's tensor cores:
 // per window, the one-hot (KP, Lt) times the products (Lt, S), bf16
@@ -300,26 +315,53 @@ __device__ __forceinline__ void producers_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(32 * kProducers) : "memory");
 }
 
+// The matrices of a fold: per matrix its slabs (cols, values, row ids), its
+// x, its source chunks and slab width, and x's rows. The table rides in the
+// kernel's parameters (__grid_constant__, read from the constant bank),
+// filled by the launcher at each launch: no device copy, no allocation. The
+// single-matrix fold passes a table of one.
+constexpr int kMaxMats = 16;
+struct FoldMat {
+  const int* cols;
+  const void* vals;
+  const void* rowid;
+  const void* x;
+  int n_src, L, n_cols, pad;
+};
+struct FoldMats {
+  FoldMat m[kMaxMats];
+  int n;
+};
+
 // Shared-memory bytes of a fold block: the full and empty mbarriers and the
 // count of each ring part (20 bytes a part), the accumulator of sums A, the
 // ring of x rows X and the queue (a Slot of 2 * sizeof(A) and its x row, an
-// int, per entry). fold_layout in the wrapper budgets the same sum.
-template <typename X>
+// int, per entry; kMulti: and its matrix, an int). fold_layout in the
+// wrapper budgets the same sum.
+template <bool kMulti, typename X>
 size_t fold_smem_bytes(int kp, int s_tile, int ring, int queue) {
   using A = typename SumOf<X>::type;
   return 2 * kGroups * sizeof(unsigned long long) + kGroups * sizeof(int) +
          static_cast<size_t>(kp) * s_tile * sizeof(A) +
          static_cast<size_t>(ring) * s_tile * sizeof(X) +
-         static_cast<size_t>(queue) * (sizeof(Slot<A>) + sizeof(int));
+         static_cast<size_t>(queue) *
+             (sizeof(Slot<A>) + (kMulti ? 2 : 1) * sizeof(int));
 }
 
-// X: x's type (and t's); V: the values' type.
-template <typename X, typename V, typename RowId>
+// X: x's type (and t's); V: the values' type. kMulti: the fold of several
+// matrices into one window tensor (windowed_fold_multi). Warp 0 stages
+// matrix 0's slots of the window, then matrix 1's, ..., into the one queue,
+// each live slot with its matrix (q_mat), so that its x row is read from
+// that matrix's x; the folding threads add every slot into the one
+// accumulator in queue order (matrix by matrix, each in slot order), so two
+// launches are bit-equal and t is written once. The matrices share R, K*P,
+// (n_out, NW) and the operand types; their slab width L and source-chunk
+// count may differ. Without kMulti the table holds one matrix, and the
+// queue no matrix index.
+template <bool kMulti, typename X, typename V, typename RowId>
 __global__ void __launch_bounds__(128 + 32 * kProducers)
-windowed_fold_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
-                     const RowId* __restrict__ rowid, const X* __restrict__ x,
-                     X* __restrict__ t, int n_src, int L, int R, int kp,
-                     int n_cols, int s, int s_tile, int ring, int queue,
+windowed_fold_kernel(const __grid_constant__ FoldMats mats, X* __restrict__ t,
+                     int R, int kp, int s, int s_tile, int ring, int queue,
                      int bulk) {
   using A = typename SumOf<X>::type;
   constexpr bool kBf16Product = sizeof(X) == 2 && sizeof(V) == 2;
@@ -333,6 +375,11 @@ windowed_fold_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
   auto* q_slot = reinterpret_cast<Slot<A>*>(rows + static_cast<size_t>(ring) *
                                                        s_tile);
   int* q_row = reinterpret_cast<int*>(q_slot + queue);  // x row of the slot
+  int* q_mat = q_row + queue;                           // its matrix (kMulti)
+  // the x that queue entry e's row is read from
+  auto x_of = [&](int e) {
+    return static_cast<const X*>(mats.m[kMulti ? q_mat[e] : 0].x);
+  };
 
   const int consumers = blockDim.x - 32 * kProducers;
   const int tid = threadIdx.x, lane = tid & 31;
@@ -355,28 +402,37 @@ windowed_fold_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
 
   if (tid >= consumers) {
     // Producers. Warp 0 stages the window's live slots into the queue in
-    // slot order and publishes them a part at a time, kGroups parts ahead
-    // of the fold: the part's slot count, and on the bulk route its x rows,
-    // which both producer warps copy into the ring, alternating rows.
+    // slot order, matrix by matrix, and publishes them a part at a time,
+    // kGroups parts ahead of the fold: the part's slot count, and on the
+    // bulk route its x rows, which both producer warps copy into the ring,
+    // alternating rows.
     const int w = (tid - consumers) >> 5;
     const unsigned row_bytes = min(s_tile, s - s0) * sizeof(X);
-    const int n_slots = n_src * L;
-    const size_t base = static_cast<size_t>(blockIdx.x) * n_slots;
+    // the matrix warp 0 stages, mi (its slabs for this window are read
+    // from the table at each round; without kMulti, matrix 0's fields are
+    // plain kernel parameters)
+    int mi = 0, staged = 0, queued = 0;  // mi's raw slots examined; queued
+    auto mat = [&]() -> const FoldMat& { return mats.m[kMulti ? mi : 0]; };
+    auto n_slots = [&]() { return mat().n_src * mat().L; };
     int pre_col[kStageK], pre_rid[kStageK];
     V pre_val[kStageK];
     auto load_round = [&](int j0) {  // raw slots of a round, one round ahead
+      const FoldMat& fm = mat();
+      const int ns = fm.n_src * fm.L;
+      const size_t base = static_cast<size_t>(blockIdx.x) * ns;
+      const V* vals = static_cast<const V*>(fm.vals);
+      const RowId* rowid = static_cast<const RowId*>(fm.rowid);
 #pragma unroll
       for (int k = 0; k < kStageK; ++k) {
         const int j = j0 + k * 32 + lane;
         pre_col[k] = -1;
-        if (j < n_slots) {
-          pre_col[k] = cols[base + j];
+        if (j < ns) {
+          pre_col[k] = fm.cols[base + j];
           pre_rid[k] = static_cast<int>(rowid[base + j]);
           pre_val[k] = vals[base + j];
         }
       }
     };
-    int staged = 0, queued = 0;  // raw slots examined, live slots queued
     // Append the live slots of the round loaded last, in slot order, to
     // the queue (a warp ballot compacts them), and load the next round.
     auto stage = [&]() {
@@ -389,18 +445,20 @@ windowed_fold_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
         v_[k] = pre_val[k];
       }
       const int j0 = staged;
-      if (j0 + kRound < n_slots) load_round(j0 + kRound);
+      const int ns = n_slots(), L = mat().L, n_cols = mat().n_cols;
+      if (j0 + kRound < ns) load_round(j0 + kRound);
 #pragma unroll
       for (int k = 0; k < kStageK; ++k) {
         const int j = j0 + k * 32 + lane;
         const int g = (j / L) * R + c_[k];  // c_ == R: sentinel
-        const bool live = j < n_slots && c_[k] >= 0 && c_[k] < R &&
+        const bool live = j < ns && c_[k] >= 0 && c_[k] < R &&
                           g < n_cols && r_[k] >= 0 && r_[k] < kp;
         const unsigned m = __ballot_sync(0xffffffffu, live);
         if (live) {
           const int e = (queued + __popc(m & ((1u << lane) - 1u))) & q_mask;
           q_slot[e] = Slot<A>{r_[k] * s_tile, widen(v_[k])};
           q_row[e] = g;
+          if constexpr (kMulti) q_mat[e] = mi;
         }
         queued += __popc(m);
       }
@@ -413,7 +471,14 @@ windowed_fold_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
       if (w == 0) {
         if (q >= kGroups) mbar_wait(&empty[k], (q / kGroups - 1) & 1);
         const int end = (q + 1) * part;
-        while (queued < end && staged < n_slots) stage();
+        while (queued < end && mi < mats.n) {
+          if (staged < n_slots()) {
+            stage();
+          } else if (++mi < mats.n) {  // on to the next matrix's slots
+            staged = 0;
+            load_round(0);
+          }
+        }
         const int n = min(end, queued) - q * part;
         if (lane == 0) {
           count[k] = n > 0 ? n : -1;  // -1: the window is done
@@ -424,17 +489,18 @@ windowed_fold_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
       const int n = count[k];
       if (n < 0) break;
       if (bulk)
-        for (int i = kProducers * lane + w; i < n; i += 32 * kProducers)
+        for (int i = kProducers * lane + w; i < n; i += 32 * kProducers) {
+          const int e = (q * part + i) & q_mask;
           bulk_copy(rows + static_cast<size_t>(k * part + i) * s_tile,
-                    x + static_cast<size_t>(q_row[(q * part + i) & q_mask]) *
-                            s + s0,
+                    x_of(e) + static_cast<size_t>(q_row[e]) * s + s0,
                     row_bytes, &full[k]);
+        }
     }
     return;
   }
 
   // Consumers: thread tid folds column s0 + tid of every published part in
-  // slot order, reading the rows from the ring (bulk) or from x.
+  // queue order, reading the rows from the ring (bulk) or from x.
   for (int q = 0;; ++q) {
     const int k = q % kGroups;
     mbar_wait(&full[k], (q / kGroups) & 1);
@@ -454,7 +520,8 @@ windowed_fold_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
             off[u] = slot.off;
             v[u] = slot.val;
             p[u] = widen(bulk ? src[(g + u) * s_tile]
-                              : x[static_cast<size_t>(q_row[e]) * s + col]);
+                              : x_of(e)[static_cast<size_t>(q_row[e]) * s +
+                                        col]);
           }
         }
 #pragma unroll
@@ -887,17 +954,35 @@ struct TailArgs {
   const V* vals;       // per slot: its value
   const T* x;          // (n_cols, s)
   const int* heavy;    // the rows with at least kHeavyMin entries
+  const int* emat;     // per entry: its matrix, whose x it reads (multi)
   int n_rows, s, nw, p, k, n_heavy;
   int group;           // lanes per row (a power of two up to 32)
   int tile;            // columns per pass of a heavy row's block
 };
 
+// The x of each matrix of a multi-matrix strip, in the kernel's parameters.
+template <typename T>
+struct XTable {
+  const T* p[kMaxMats];
+};
+
+// The x that entry e's slots read: the one x, or (kMulti) its matrix's.
+template <bool kMulti, typename T, typename V>
+__device__ __forceinline__ const T* entry_x(const TailArgs<T, V>& a,
+                                            const XTable<T>& xs, int e) {
+  if constexpr (kMulti)
+    return xs.p[__ldg(a.emat + e)];
+  else
+    return a.x;
+}
+
 // The sum over an entry's live slots [q0, q1), in slot order, of the E
-// columns of piece v (columns v * E ..) of their x rows: kTailSlots rows in
-// flight.
+// columns of piece v (columns v * E ..) of their rows of x: kTailSlots rows
+// in flight.
 template <typename T, typename V, int E, typename A>
-__device__ __forceinline__ void entry_sum(const TailArgs<T, V>& a, int q0,
-                                          int q1, int v, A (&sum)[E]) {
+__device__ __forceinline__ void entry_sum(const TailArgs<T, V>& a,
+                                          const T* x, int q0, int q1, int v,
+                                          A (&sum)[E]) {
   using B = typename Bits<T, E>::type;
 #pragma unroll
   for (int m = 0; m < E; ++m) sum[m] = A(0);
@@ -914,7 +999,7 @@ __device__ __forceinline__ void entry_sum(const TailArgs<T, V>& a, int q0,
 #pragma unroll
     for (int j = 0; j < kTailSlots; ++j)
       if (q + j < q1)
-        xb[j] = load_bits<false, B>(a.x + static_cast<size_t>(c[j]) * a.s +
+        xb[j] = load_bits<false, B>(x + static_cast<size_t>(c[j]) * a.s +
                                     static_cast<size_t>(v) * E);
 #pragma unroll
     for (int j = 0; j < kTailSlots; ++j) {
@@ -952,9 +1037,9 @@ __device__ __forceinline__ const T* strip_base(const TailArgs<T, V>& a,
 // order d = 0..K-1 and rounded once to T, the row's residue entries added
 // in order (each sum rounded to T, and each add too), and the row stored
 // once. Rows with kHeavyMin entries or more are left to the heavy blocks.
-template <typename T, typename V, int E>
+template <bool kMulti, typename T, typename V, int E>
 __device__ __forceinline__ void tail_rows(const TailArgs<T, V>& a,
-                                          int block) {
+                                          const XTable<T>& xs, int block) {
   using A = typename SumOf<T>::type;
   using B = typename Bits<T, E>::type;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1012,11 +1097,12 @@ __device__ __forceinline__ void tail_rows(const TailArgs<T, V>& a,
       for (int m = 0; m < E; ++m) acc[m] = round_to<T>(acc[m]);
       for (int e = e0[it]; e < e1[it]; ++e) {
         A sum[E];
+        const T* x = entry_x<kMulti>(a, xs, e);
         if (e == e0[it])
-          entry_sum<T, V, E>(a, q0[it], q1[it], v, sum);
+          entry_sum<T, V, E>(a, x, q0[it], q1[it], v, sum);
         else
-          entry_sum<T, V, E>(a, __ldg(a.entptr + e), __ldg(a.entptr + e + 1),
-                             v, sum);
+          entry_sum<T, V, E>(a, x, __ldg(a.entptr + e),
+                             __ldg(a.entptr + e + 1), v, sum);
 #pragma unroll
         for (int m = 0; m < E; ++m)
           acc[m] = round_to<T>(add_rn(acc[m], round_to<T>(sum[m])));
@@ -1033,7 +1119,8 @@ __device__ __forceinline__ void tail_rows(const TailArgs<T, V>& a,
 // that only the x rows are loaded per slot, kHeavySlots at a time.
 template <typename T, typename V, int E, typename A>
 __device__ __forceinline__ void warp_entry_sum(const TailArgs<T, V>& a,
-                                               int q0, int q1, int v,
+                                               const T* x, int q0, int q1,
+                                               int v,
                                                bool active, int lane,
                                                A (&sum)[E]) {
   using B = typename Bits<T, E>::type;
@@ -1055,7 +1142,7 @@ __device__ __forceinline__ void warp_entry_sum(const TailArgs<T, V>& a,
         const int c = __shfl_sync(0xffffffffu, col, (j0 + j) & 31);
         vv[j] = __shfl_sync(0xffffffffu, val, (j0 + j) & 31);
         if (active && j0 + j < nq)
-          xb[j] = load_bits<false, B>(a.x + static_cast<size_t>(c) * a.s +
+          xb[j] = load_bits<false, B>(x + static_cast<size_t>(c) * a.s +
                                       static_cast<size_t>(v) * E);
       }
       if (!active) continue;
@@ -1078,9 +1165,9 @@ __device__ __forceinline__ void warp_entry_sum(const TailArgs<T, V>& a,
 // lane), kHeavyRound / kTailWarps a warp, each entry's sum put in shared
 // memory; after a barrier the thread that owns a column adds them to the
 // row in entry order.
-template <typename T, typename V, int E>
+template <bool kMulti, typename T, typename V, int E>
 __device__ __forceinline__ void tail_heavy(const TailArgs<T, V>& a,
-                                           int row) {
+                                           const XTable<T>& xs, int row) {
   using A = typename SumOf<T>::type;
   using B1 = typename Bits<T, 1>::type;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1114,10 +1201,12 @@ __device__ __forceinline__ void tail_heavy(const TailArgs<T, V>& a,
       for (int j = warp; j < n; j += kTailWarps) {
         const int q0 = __shfl_sync(0xffffffffu, lo, j);
         const int q1 = __shfl_sync(0xffffffffu, hi, j);
+        const T* x = entry_x<kMulti>(a, xs, eb + j);
         for (int vb = 0; vb < nv; vb += 32) {
           const int v = vb + lane;
           A sum[E];
-          warp_entry_sum<T, V, E>(a, q0, q1, c0 / E + v, v < nv, lane, sum);
+          warp_entry_sum<T, V, E>(a, x, q0, q1, c0 / E + v, v < nv, lane,
+                                  sum);
           if (v < nv) {
 #pragma unroll
             for (int m = 0; m < E; ++m) part[j * a.tile + v * E + m] = sum[m];
@@ -1145,22 +1234,25 @@ __device__ __forceinline__ void tail_heavy(const TailArgs<T, V>& a,
 // Blocks [0, n_heavy) take one heavy row each, the longest rows first, so
 // that they start first; the others kTailIters * kTailWarps row groups
 // each; `vec`: 16-byte pieces (every row of t, y and x 16-byte aligned),
-// else one value a lane.
-template <typename T, typename V>
+// else one value a lane. kMulti: the strip of a multi-matrix fold, whose
+// residue list is every matrix's, each entry reading its matrix's x (xs,
+// by a.emat).
+template <bool kMulti, typename T, typename V>
 __global__ void __launch_bounds__(32 * kTailWarps, 2)
-window_strip_kernel(const TailArgs<T, V> a, int vec) {
+window_strip_kernel(const TailArgs<T, V> a, int vec,
+                    const __grid_constant__ XTable<T> xs) {
   constexpr int kVec = 16 / sizeof(T);
   const int b = static_cast<int>(blockIdx.x);
   if (b < a.n_heavy) {
     const int row = __ldg(a.heavy + b);
     if (vec)
-      tail_heavy<T, V, kVec>(a, row);
+      tail_heavy<kMulti, T, V, kVec>(a, xs, row);
     else
-      tail_heavy<T, V, 1>(a, row);
+      tail_heavy<kMulti, T, V, 1>(a, xs, row);
   } else if (vec) {
-    tail_rows<T, V, kVec>(a, b - a.n_heavy);
+    tail_rows<kMulti, T, V, kVec>(a, xs, b - a.n_heavy);
   } else {
-    tail_rows<T, V, 1>(a, b - a.n_heavy);
+    tail_rows<kMulti, T, V, 1>(a, xs, b - a.n_heavy);
   }
 }
 
@@ -1187,33 +1279,72 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 int threads_for(int s_tile) { return 32 * ((s_tile + 31) / 32); }
 
-template <typename X, typename V, typename RowId>
-int launch_fold(const void* cols, const void* vals, const void* rowid,
-                const void* x, void* t, int n_windows, int n_src, int L,
-                int R, int kp, int n_cols, int s, int s_tile, int ring,
-                int queue, void* stream) {
+// The launch of a fold of mats.n matrices; the caller fills the table.
+template <bool kMulti, typename X, typename V, typename RowId>
+int launch_fold(const FoldMats& mats, void* t, int n_windows, int R, int kp,
+                int s, int s_tile, int ring, int queue, void* stream) {
   // the kernel's contract with fold_layout: at most 128 folding threads,
   // whole ring parts, and a queue that outlasts the ring plus one staging
   // round; a block that asks for more shared memory than the card has
   // fails in allow_smem
-  if (s_tile < 1 || s_tile > 128 || ring < kGroups || ring % kGroups ||
-      queue < ring + kRound || (queue & (queue - 1)))
+  if (mats.n < 1 || mats.n > kMaxMats || s_tile < 1 || s_tile > 128 ||
+      ring < kGroups || ring % kGroups || queue < ring + kRound ||
+      (queue & (queue - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fold_smem_bytes<X>(kp, s_tile, ring, queue);
+  const size_t smem = fold_smem_bytes<kMulti, X>(kp, s_tile, ring, queue);
   // bulk copies need 16-byte-aligned rows of whole 16-byte units
-  const int bulk = reinterpret_cast<size_t>(x) % 16 == 0 &&
-                   s * sizeof(X) % 16 == 0 && s_tile * sizeof(X) % 16 == 0;
-  auto kernel = windowed_fold_kernel<X, V, RowId>;
+  bool aligned = true;
+  for (int m = 0; m < mats.n; ++m)
+    aligned = aligned && reinterpret_cast<size_t>(mats.m[m].x) % 16 == 0;
+  const int bulk = aligned && s * sizeof(X) % 16 == 0 &&
+                   s_tile * sizeof(X) % 16 == 0;
+  auto kernel = windowed_fold_kernel<kMulti, X, V, RowId>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n_windows, (s + s_tile - 1) / s_tile);
   kernel<<<grid, threads_for(s_tile) + 32 * kProducers, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cols), static_cast<const V*>(vals),
-      static_cast<const RowId*>(rowid), static_cast<const X*>(x),
-      static_cast<X*>(t), n_src, L, R, kp, n_cols, s, s_tile, ring, queue,
-      bulk);
+           static_cast<cudaStream_t>(stream)>>>(mats, static_cast<X*>(t), R,
+                                                kp, s, s_tile, ring, queue,
+                                                bulk);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The single-matrix fold: a table of one.
+template <typename X, typename V, typename RowId>
+int launch_fold_one(const void* cols, const void* vals, const void* rowid,
+                    const void* x, void* t, int n_windows, int n_src, int L,
+                    int R, int kp, int n_cols, int s, int s_tile, int ring,
+                    int queue, void* stream) {
+  FoldMats mats{};
+  mats.n = 1;
+  mats.m[0] = FoldMat{static_cast<const int*>(cols), vals, rowid, x,
+                      n_src, L, n_cols, 0};
+  return launch_fold<false, X, V, RowId>(mats, t, n_windows, R, kp, s, s_tile,
+                                         ring, queue, stream);
+}
+
+// The multi-matrix fold: the table holds, per matrix, 7 int64 (cols, vals,
+// rowid and x as addresses, n_src, L, n_cols), copied into the kernel's
+// parameters here.
+template <typename X, typename V, typename RowId>
+int launch_fold_multi(const long long* table, void* t, int n_mats,
+                      int n_windows, int R, int kp, int s, int s_tile,
+                      int ring, int queue, void* stream) {
+  if (n_mats < 1 || n_mats > kMaxMats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FoldMats mats{};
+  mats.n = n_mats;
+  for (int m = 0; m < n_mats; ++m) {
+    const long long* e = table + 7 * m;
+    mats.m[m] = FoldMat{reinterpret_cast<const int*>(e[0]),
+                        reinterpret_cast<const void*>(e[1]),
+                        reinterpret_cast<const void*>(e[2]),
+                        reinterpret_cast<const void*>(e[3]),
+                        static_cast<int>(e[4]), static_cast<int>(e[5]),
+                        static_cast<int>(e[6]), 0};
+  }
+  return launch_fold<true, X, V, RowId>(mats, t, n_windows, R, kp, s, s_tile,
+                                        ring, queue, stream);
 }
 
 template <typename P>
@@ -1240,11 +1371,12 @@ int launch_products(const void* rid, const void* p, void* out, int nw,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename V>
+template <bool kMulti, typename T, typename V>
 int launch_strip(const void* t, void* y, const void* rowptr,
                  const void* entptr, const void* cols, const void* vals,
-                 const void* x, const void* heavy, int n_rows, int s, int nw,
-                 int p, int k, int n_heavy, void* stream) {
+                 const void* x, const void* heavy, const void* emat,
+                 const long long* x_table, int n_x, int n_rows, int s,
+                 int nw, int p, int k, int n_heavy, void* stream) {
   using A = typename SumOf<T>::type;
   constexpr int kVec = 16 / sizeof(T);
   if (n_rows < 1 || s < 1 || n_heavy < 0 ||
@@ -1253,8 +1385,16 @@ int launch_strip(const void* t, void* y, const void* rowptr,
   auto aligned = [](const void* q) {
     return reinterpret_cast<size_t>(q) % 16 == 0;
   };
-  const int vec = s % kVec == 0 && aligned(t) && aligned(y) &&
-                  (x == nullptr || aligned(x));
+  XTable<T> xs{};
+  if (kMulti) {
+    if (n_x < 1 || n_x > kMaxMats || emat == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int m = 0; m < n_x; ++m)
+      xs.p[m] = reinterpret_cast<const T*>(x_table[m]);
+  }
+  bool x_aligned = x == nullptr || aligned(x);
+  for (int m = 0; kMulti && m < n_x; ++m) x_aligned &= aligned(xs.p[m]);
+  const int vec = s % kVec == 0 && aligned(t) && aligned(y) && x_aligned;
   const int nvec = vec ? s / kVec : s;
   int group = 1;
   while (group < 32 && group < nvec) group *= 2;
@@ -1273,10 +1413,11 @@ int launch_strip(const void* t, void* y, const void* rowptr,
       static_cast<const int*>(rowptr), static_cast<const int*>(entptr),
       static_cast<const int*>(cols), static_cast<const V*>(vals),
       static_cast<const T*>(x),      static_cast<const int*>(heavy),
+      static_cast<const int*>(emat),
       n_rows, s, nw, p, k, n_heavy, group, tile};
-  window_strip_kernel<T, V><<<static_cast<unsigned>(blocks), 32 * kTailWarps,
-                              smem, static_cast<cudaStream_t>(stream)>>>(
-      a, vec);
+  window_strip_kernel<kMulti, T, V>
+      <<<static_cast<unsigned>(blocks), 32 * kTailWarps, smem,
+         static_cast<cudaStream_t>(stream)>>>(a, vec, xs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1290,13 +1431,14 @@ int launch_strip(const void* t, void* y, const void* rowptr,
                       const void* x, void* t, int n_windows, int n_src,      \
                       int L, int R, int kp, int n_cols, int s, int s_tile,   \
                       int ring, int queue, void* stream) {                   \
-    return launch_fold<X, V, ROWID>(cols, vals, rowid, x, t, n_windows,      \
-                                    n_src, L, R, kp, n_cols, s, s_tile,      \
-                                    ring, queue, stream);                    \
+    return launch_fold_one<X, V, ROWID>(cols, vals, rowid, x, t, n_windows,  \
+                                        n_src, L, R, kp, n_cols, s, s_tile,  \
+                                        ring, queue, stream);                \
   }
 #define FOLD_SMEM_BYTES(NAME, X)                                             \
   extern "C" int NAME(int kp, int s_tile, int ring, int queue) {             \
-    return static_cast<int>(fold_smem_bytes<X>(kp, s_tile, ring, queue));   \
+    return static_cast<int>(                                                 \
+        fold_smem_bytes<false, X>(kp, s_tile, ring, queue));                 \
   }
 
 WINDOWED_FOLD(windowed_fold_f32_u8, float, float, unsigned char)
@@ -1314,6 +1456,43 @@ WINDOWED_FOLD(windowed_fold_f32_bf16_i32, float, __nv_bfloat16, int)
 FOLD_SMEM_BYTES(windowed_fold_smem_bytes_f32, float)
 FOLD_SMEM_BYTES(windowed_fold_smem_bytes_f64, double)
 FOLD_SMEM_BYTES(windowed_fold_smem_bytes_bf16, __nv_bfloat16)
+
+// The multi-matrix fold, for the same (x type, values type) pairs.
+#define WINDOWED_FOLD_MULTI(NAME, X, V, ROWID)                               \
+  extern "C" int NAME(const void* table, void* t, int n_mats,                \
+                      int n_windows, int R, int kp, int s, int s_tile,       \
+                      int ring, int queue, void* stream) {                   \
+    return launch_fold_multi<X, V, ROWID>(                                   \
+        static_cast<const long long*>(table), t, n_mats, n_windows, R, kp,   \
+        s, s_tile, ring, queue, stream);                                     \
+  }
+#define FOLD_MULTI_SMEM_BYTES(NAME, X)                                       \
+  extern "C" int NAME(int kp, int s_tile, int ring, int queue) {             \
+    return static_cast<int>(                                                 \
+        fold_smem_bytes<true, X>(kp, s_tile, ring, queue));                  \
+  }
+
+WINDOWED_FOLD_MULTI(windowed_fold_multi_f32_u8, float, float, unsigned char)
+WINDOWED_FOLD_MULTI(windowed_fold_multi_f32_i32, float, float, int)
+WINDOWED_FOLD_MULTI(windowed_fold_multi_f64_u8, double, double,
+                    unsigned char)
+WINDOWED_FOLD_MULTI(windowed_fold_multi_f64_i32, double, double, int)
+WINDOWED_FOLD_MULTI(windowed_fold_multi_bf16_f32_u8, __nv_bfloat16, float,
+                    unsigned char)
+WINDOWED_FOLD_MULTI(windowed_fold_multi_bf16_f32_i32, __nv_bfloat16, float,
+                    int)
+WINDOWED_FOLD_MULTI(windowed_fold_multi_bf16_u8, __nv_bfloat16,
+                    __nv_bfloat16, unsigned char)
+WINDOWED_FOLD_MULTI(windowed_fold_multi_bf16_i32, __nv_bfloat16,
+                    __nv_bfloat16, int)
+WINDOWED_FOLD_MULTI(windowed_fold_multi_f32_bf16_u8, float, __nv_bfloat16,
+                    unsigned char)
+WINDOWED_FOLD_MULTI(windowed_fold_multi_f32_bf16_i32, float, __nv_bfloat16,
+                    int)
+
+FOLD_MULTI_SMEM_BYTES(windowed_fold_multi_smem_bytes_f32, float)
+FOLD_MULTI_SMEM_BYTES(windowed_fold_multi_smem_bytes_f64, double)
+FOLD_MULTI_SMEM_BYTES(windowed_fold_multi_smem_bytes_bf16, __nv_bfloat16)
 
 extern "C" int fold_products_bf16(const void* rid, const void* p, void* out,
                                   int nw, int lt, int kp, int s, int block_m,
@@ -1345,8 +1524,9 @@ extern "C" int fold_products_smem_bytes_f32() {
                       const void* vals, const void* x, const void* heavy,    \
                       int n_rows, int s, int nw, int p, int k, int n_heavy,  \
                       void* stream) {                                        \
-    return launch_strip<T, V>(t, y, rowptr, entptr, cols, vals, x, heavy,    \
-                              n_rows, s, nw, p, k, n_heavy, stream);         \
+    return launch_strip<false, T, V>(t, y, rowptr, entptr, cols, vals, x,    \
+                                     heavy, nullptr, nullptr, 0, n_rows, s,  \
+                                     nw, p, k, n_heavy, stream);             \
   }
 
 WINDOW_STRIP(window_strip_f32, float, float)
@@ -1354,6 +1534,28 @@ WINDOW_STRIP(window_strip_f64, double, double)
 WINDOW_STRIP(window_strip_bf16, __nv_bfloat16, __nv_bfloat16)
 WINDOW_STRIP(window_strip_bf16_f32, __nv_bfloat16, float)
 WINDOW_STRIP(window_strip_f32_bf16, float, __nv_bfloat16)
+
+// The strip of a multi-matrix fold: the residue list of every matrix
+// (emat: each entry's matrix) and the table of their x's (x_table: n_x
+// addresses).
+#define WINDOW_STRIP_MULTI(NAME, T, V)                                       \
+  extern "C" int NAME(const void* t, void* y, const void* rowptr,            \
+                      const void* entptr, const void* cols,                  \
+                      const void* vals, const void* emat,                    \
+                      const void* x_table, const void* heavy, int n_x,       \
+                      int n_rows, int s, int nw, int p, int k, int n_heavy,  \
+                      void* stream) {                                        \
+    return launch_strip<true, T, V>(                                         \
+        t, y, rowptr, entptr, cols, vals, nullptr, heavy, emat,              \
+        static_cast<const long long*>(x_table), n_x, n_rows, s, nw, p, k,    \
+        n_heavy, stream);                                                    \
+  }
+
+WINDOW_STRIP_MULTI(window_strip_multi_f32, float, float)
+WINDOW_STRIP_MULTI(window_strip_multi_f64, double, double)
+WINDOW_STRIP_MULTI(window_strip_multi_bf16, __nv_bfloat16, __nv_bfloat16)
+WINDOW_STRIP_MULTI(window_strip_multi_bf16_f32, __nv_bfloat16, float)
+WINDOW_STRIP_MULTI(window_strip_multi_f32_bf16, float, __nv_bfloat16)
 
 extern "C" int double_f32(const void* x, void* y, int n, void* stream) {
   double_kernel<<<(n + 255) / 256, 256, 0,

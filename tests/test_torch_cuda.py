@@ -1586,3 +1586,120 @@ def test_nn_graphs_and_eigenmap_on_the_card(cuda):
     assert torch.allclose(Gc.e.cpu(), Gh.e, rtol=0, atol=1e-10)
     align = np.abs(np.sum(Gc.coords * Gh.coords, axis=0))
     assert np.abs(align - 1).max() <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the fused multi-matrix fold and the multi-device engines at one rank
+# ---------------------------------------------------------------------------
+
+def _ring_mats(dtype, device, **kw):
+    """Device (0, 0)'s pr = 4 ring matrices of the 4 × 4 edge partition of
+    ``_ba_windowed``'s graph: slab widths and source-chunk counts that
+    differ, residue tiers (the graph's hubs)."""
+    from pygsp_tpu_torch import parallel as par
+    from pygsp_tpu_torch.parallel.partition import shard_slice
+    W, _ = _ba_windowed(torch.float64, 'cpu')
+    tg = par.partition_graph_2d(W, 4, 4, dtype=dtype, device=device)
+    ell = par.twod_local_windowed(tg, ring=True, **kw)
+    return [shard_slice(e, 0).local_matrix() for e in ell]
+
+
+MULTI_CASES = {'default': dict(chunk_rows=512),
+               'P8': dict(chunk_rows=64, window_rows=8)}
+
+
+@pytest.mark.parametrize('pair', sorted(wk.FOLD_OPERANDS, key=str))
+@pytest.mark.parametrize('s', [1, 5, 128, 136])
+@pytest.mark.parametrize('case', list(MULTI_CASES))
+def test_windowed_fold_multi_matches_plain(cuda, pair, s, case):
+    """One launch over four matrices against the plain sum of their folds
+    (float32 or float64 sums, rounded once): within the sums' tolerance,
+    1 bf16 ulp where bf16 is written; two launches bit-equal; the strip
+    over the merged residue lists bit-equal to its plain version."""
+    xd, vd = pair
+    mats = [m.astype(vd) for m in _ring_mats(
+        torch.float64 if xd == torch.float64 else torch.float32, cuda,
+        **MULTI_CASES[case])]
+    xs = [_signal((m.n_cols, s), torch.float64, 20 + i, cuda).to(xd)
+          for i, m in enumerate(mats)]
+    R, P, K = mats[0].chunk_rows, mats[0].window_rows, mats[0].borrow_span
+    slabs = [(m.cols, m.vals, m.rowid) for m in mats]
+    before = wk.windowed_fold_multi.launches
+    t = wk.windowed_fold_multi(slabs, xs, R, K * P)
+    assert wk.windowed_fold_multi.launches == before + 1 and t.dtype == xd
+    want = wk.windowed_fold_multi_plain(slabs, xs, R, K * P)
+    if xd == torch.bfloat16:
+        assert _ulps(t, want) <= 1.0
+    else:
+        assert _rel_err(t, want) <= TOL[xd]
+    assert torch.equal(t, wk.windowed_fold_multi(slabs, xs, R, K * P))
+    merged = wk.merge_residues([m.residue for m in mats], mats[0].n_rows)
+    assert merged is not None and merged.emat is not None
+    y = wk.window_strip(t, mats[0].n_rows, P, merged, xs)
+    assert torch.equal(y, wk.window_strip_plain(t, mats[0].n_rows, P,
+                                                merged, xs))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize('kp,s', [(128, 128), (256, 5), (512, 300)])
+def test_fold_multi_layout_bytes_are_the_kernels(cuda, dtype, kp, s):
+    item = torch.finfo(wk._sum_dtype(dtype)).bits // 8
+    lay = wk.fold_layout(kp, s, item, torch.finfo(dtype).bits // 8,
+                         multi=True)
+    fn = getattr(_cuda.library('windowed_fold'),
+                 f'windowed_fold_multi_smem_bytes_{wk._DTYPES[dtype]}')
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    assert fn(kp, lay.s_tile, lay.ring, lay.queue) == lay.smem_bytes
+
+
+def test_fused_spmm_on_the_card_matches_the_cpu(cuda):
+    """``windowed_spmm_chunks_multi`` (fold and strip) in float64 on the
+    card against the CPU's plain version, and the single matrix's SpMM
+    where one matrix is given."""
+    out = []
+    for device in (cuda, 'cpu'):
+        mats = _ring_mats(torch.float64, device, chunk_rows=512)
+        xs = [_signal((m.n_cols, 7), torch.float64, 30 + i, device)
+              for i, m in enumerate(mats)]
+        merged = wk.merge_residues([m.residue for m in mats],
+                                   mats[0].n_rows)
+        out.append(twd.spmm_multi_internal(mats, xs, merged).cpu())
+    assert torch.allclose(out[0], out[1], rtol=0, atol=1e-12)
+
+
+def test_engines_at_one_rank_on_the_card_match_the_cpu(cuda):
+    """The 1-D engine (windowed split and COO layouts) and the 2-D engine
+    (interleaved ring) on a one-rank mesh with no process group, f64 on
+    the card against the CPU, and the fixed-graph VJP's c̄ and x̄."""
+    from pygsp_tpu_torch import parallel as par
+    W, _ = _ba_windowed(torch.float64, 'cpu')
+    x = np.random.default_rng(5).normal(size=(W.shape[0], 6))
+    c = np.random.default_rng(6).normal(size=(2, 12)) * 0.6 ** np.arange(12)
+    lmax = 2.0 * float(W.sum(axis=1).max())
+    res = {}
+    for device in (cuda, 'cpu'):
+        sg = par.partition_graph(W, 1, dtype=torch.float64, device=device)
+        mesh = par.make_mesh(1, 1, devices=device)
+        xp = sg.pad_signal(torch.from_numpy(x).to(device))
+        cd = torch.from_numpy(c).to(device)
+        for name, ell in (('win', par.shard_local_windowed(
+                sg, split_boundary=True)), ('coo', None)):
+            res[device, name] = par.sharded_cheby_op(sg, lmax, cd, xp, mesh,
+                                                     ell=ell).cpu()
+        cg, xg = cd.clone().requires_grad_(), xp.clone().requires_grad_()
+        par.sharded_cheby_op_fixed_graph(sg, lmax, cg, xg, mesh,
+                                         ell=ell).sum().backward()
+        res[device, 'grads'] = (cg.grad.cpu(), xg.grad.cpu())
+        tg = par.partition_graph_2d(W, 1, 1, dtype=torch.float64,
+                                    device=device)
+        ell2 = par.twod_local_windowed(tg, ring=True, split_cols=True)
+        res[device, '2d'] = par.cheby_op_2d(
+            tg, lmax, cd, tg.pad_signal(torch.from_numpy(x).to(device)),
+            par.make_mesh_2d(1, 1, devices=device), ell=ell2).cpu()
+    for key in ('win', 'coo', '2d'):
+        assert torch.allclose(res[cuda, key], res['cpu', key], rtol=0,
+                              atol=1e-10 * float(res['cpu', key].abs().max()))
+    for a, b in zip(res[cuda, 'grads'], res['cpu', 'grads']):
+        assert torch.allclose(a, b, rtol=0, atol=1e-10 * float(b.abs().max()))

@@ -60,6 +60,10 @@ load('fold_instances', 'tools/fold_instances.py')
 report('fold_tool')
 load('slot_variants', 'tools/slot_variants.py')
 report('slot_tool')
+load('engines_multicard', 'tools/engines_multicard.py')
+report('engines_tool')
+load('engines_scaling', 'tools/engines_scaling.py')
+report('scaling_tool')
 try:
     import pygsp_tpu
 except ImportError as err:
@@ -79,7 +83,8 @@ def isolated_run():
 
 
 @pytest.mark.parametrize('part', ['package', 'chip_smoke', 'profile_tool',
-                                  'bench_torch', 'fold_tool', 'slot_tool'])
+                                  'bench_torch', 'fold_tool', 'slot_tool',
+                                  'engines_tool', 'scaling_tool'])
 def test_imports_neither_jax_nor_pygsp_tpu(isolated_run, part):
     parts, stderr = isolated_run
     assert part in parts, stderr

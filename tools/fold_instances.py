@@ -6,8 +6,8 @@ path C (the bench graph in the windowed format, x (N, 128)), in the
 matrix's internal order: ms per launch (CUDA events, 20 launches) of the
 fold with x and values in bf16 (path D's instance), with a bf16 x and f32
 values, and in f32; the bf16 instance's largest distance from its plain
-version in bf16 ulps and a hash of its window tensor (two copies that
-round alike give the same hash); and ms per bank of path D. Prints one
+version in bf16 ulps; a hash of each instance's window tensor (two copies
+that round alike give the same hashes); and ms per bank of path D. Prints one
 JSON line.
 
 Run: ``PYTHONPATH=<copy> python3 tools/fold_instances.py`` on a machine
@@ -42,13 +42,14 @@ def main():
                          ('f32', torch.float32, torch.float32)):
         args = (M.cols, M.vals.to(vd), M.rowid, xp.to(xd).contiguous(),
                 M.chunk_rows, M.borrow_span * M.window_rows)
+        t = wk.windowed_fold(*args)
+        key = 'sha' if name == 'both' else f'{name}_sha'
+        out[key] = hashlib.sha256(
+            t.cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
         if name == 'both':
-            t = wk.windowed_fold(*args)
-            out['sha'] = hashlib.sha256(
-                t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
             out['ulps_vs_plain'] = chip_smoke.ulps(
                 t, wk.windowed_fold_plain(*args))
-            del t
+        del t
         out[f'{name}_ms'] = chip_smoke.time_ms(
             lambda: wk.windowed_fold(*args), 20)
     out['bank_D_ms'] = chip_smoke.time_ms(chip_smoke.fast_bank(g, x), 3)
