@@ -225,16 +225,21 @@ L. path L, the multi-device engines (``pygsp_tpu_torch.parallel``) at one
    calls ('graph', 'batch') counted and the adjoint identities held; L2,
    the 2-D engine at 1 × 1 (``partition_graph_2d``,
    ``twod_local_windowed(ring=True, split_cols=True)``, ``cheby_op_2d``),
-   checked the same way; L3, the fused multi-matrix fold
-   (``windowed_fold_multi``) on device (0, 0)'s four ring matrices of
-   ``partition_graph_2d(W, 4, 4)`` through
-   ``windowed_spmm_chunks_multi`` (one fold and one strip launch), held
-   against its plain version in f64 and in the bf16 carry (ulps), two
-   launches bit-equal, its strip over the merged residue lists bit-equal
-   to its plain version and timed alone, timed beside the four matrices'
+   checked the same way; L3, the fused multi-matrix SpMM on device (0,
+   0)'s four ring matrices of ``partition_graph_2d(W, 4, 4)``, and L4 on
+   both fold positions' groups of device (0, 0) of the 2 × 2 interleaved
+   ring: through ``windowed_spmm_chunks_multi`` (one ``fold_strip_multi``
+   launch, no fold and no strip), then the former fold
+   ``windowed_fold_multi`` held against its plain version in f64 and in
+   the bf16 carry (ulps), two launches bit-equal, its strip over the
+   merged residue lists bit-equal to its plain version and timed alone,
+   and ``fold_strip_multi`` bit-equal to the two (f32 and bf16 carry),
+   against its f64 plain version, timed beside them, the matrices'
    separate fold and strip launches, ``torch.sparse.mm`` of the stacked
-   matrices and its bound; a ``save_sharded``/``load_sharded`` round trip (BA(2^16), 4
-   shards); and one log line saying whether NCCL takes two ranks on one
+   matrices (CUDA events and device time) and its bound and gather model
+   (path C also times it at one matrix, bit-equal to its fold and tail);
+   a ``save_sharded``/``load_sharded`` round trip (BA(2^16), 4 shards);
+   and one log line saying whether NCCL takes two ranks on one
    card (two processes, each killed at 90 s; the run does not depend on
    it). Paths A, C, H, I and L share one SciPy reference of the bench
    bank (computed once per N and λmax);
@@ -242,7 +247,9 @@ L. path L, the multi-device engines (``pygsp_tpu_torch.parallel``) at one
    ``div``, its narrow entry with the width sweep and the narrow shapes of
    paths G and J, ``csr_sddmm`` at path K's 128 columns and at one, the
    fused entry ``csr_spmm_sddmm`` at 128 with 200 f32 and 64 f64 beside,
-   the fused multi-matrix fold ``windowed_fold_multi`` at L3's shape,
+   the fused multi-matrix fold ``windowed_fold_multi`` and the fused SpMM
+   ``fold_strip_multi`` at L3's shape (L4's groups and path C's one
+   matrix beside),
    kernel B's group with Nf = 6, ``ell_spmm`` and
    ``chunked_spmm`` with the shapes paths H and I held them at under
    ``at_paths``, their narrow entries ``ell_spmm_narrow`` and
@@ -555,12 +562,14 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, key='device_ms', tries=3):
+def device_ms(fn, iters, key='device_ms', tries=3, per_call=False):
     """Device time of one launch of ``fn``, which launches one kernel per
     call, as ``{key: ms, key + '_by': how}``: the mean time on the card of
     the kernels that torch.profiler records over ``iters`` calls (after one
     warm-up call). The mean is taken over the kernels recorded, so a record
-    the profiler drops does not count as a launch that took no time. CUPTI
+    the profiler drops does not count as a launch that took no time. With
+    ``per_call`` (``fn`` may launch several kernels, as a library call
+    does) it is the device time of all records over ``iters`` instead. CUPTI
     may deliver no record at all for a whole profile; after ``tries`` such
     profiles each launch is timed between two CUDA events instead, and
     ``how`` says so."""
@@ -574,7 +583,7 @@ def device_ms(fn, iters, key='device_ms', tries=3):
         us = [ev.time_range.end - ev.time_range.start
               for ev in prof.events() if ev.device_type == DeviceType.CUDA]
         if us and sum(us) > 0:
-            return {key: sum(us) / len(us) / 1e3,
+            return {key: sum(us) / (iters if per_call else len(us)) / 1e3,
                     key + '_by': 'torch.profiler'}
     log(f'  torch.profiler recorded no device time in {tries} profiles; '
         'timing each launch between two CUDA events')
@@ -1692,6 +1701,7 @@ def measure_windowed(G, x):
     fold_ms = time_ms(lambda: wk.windowed_fold(*args), 10)
     fold_plain_ms = time_ms(lambda: wk.windowed_fold_plain(*args), 2)
     spmm_ms = time_ms(lambda: wd.spmm_internal(M, xp), 10)
+    one = measure_fold_strip_one(M, xp, t)
 
     # the same matrix in CSR, in the same shuffled order
     coo = G.W.tocoo()
@@ -1719,7 +1729,9 @@ def measure_windowed(G, x):
                                 + slot_bytes + level_bytes)
             / HBM_BYTES_PER_S * 1e3,
             'library_ms': library_ms,
-            'csr_spmm_same_matrix_ms': csr_ms}
+            'csr_spmm_same_matrix_ms': csr_ms,
+            'fold_strip_one_matrix': dict(one, fold_and_strip_ms=spmm_ms,
+                                          library_ms=library_ms)}
     t_rows = t.numel() // s               # the window tensor's rows
 
     def fold_work(s):
@@ -1753,6 +1765,25 @@ def measure_windowed(G, x):
                                         M.residue, xw[:, c].contiguous()),
         0.0, bound(*tail_work(M, tw, WIDE)))
     return fold, strip, spmm
+
+
+def measure_fold_strip_one(M, xp, t):
+    """``fold_strip_multi`` at one matrix, path C's (not its route, which
+    keeps the fold and the tail): bit-equal to the fold's ``t`` through the
+    tail, two launches bit-equal, and timed (CUDA events, as the fold and
+    the whole SpMM beside it)."""
+    R, P, K, n = M.chunk_rows, M.window_rows, M.borrow_span, M.n_rows
+    args = ([(M.cols, M.vals, M.rowid)], [xp], R, P, K, n,
+            wk.merge_residues([M.residue], n))
+    y = wk.fold_strip_multi(*args)
+    require_same('fold_strip_multi at path C (one matrix) vs the fold and '
+                 'the tail', y, wk.window_strip(t, n, P, M.residue, xp))
+    require_same('fold_strip_multi at path C, two launches',
+                 wk.fold_strip_multi(*args), y)
+    out = {'ms': time_ms(lambda: wk.fold_strip_multi(*args), 10),
+           **fold_strip_work([M], [xp], y, args[-1])}
+    log(f'  fold_strip_multi at path C (one matrix): {json.dumps(out)}')
+    return out
 
 
 def former_tiers(M, x, y):
@@ -4460,7 +4491,7 @@ def phase_path_j():
 
 
 # ---------------------------------------------------------------------------
-# path L: the multi-device engines at one rank, and the fused fold
+# path L: the multi-device engines at one rank, and the fused SpMM
 # ---------------------------------------------------------------------------
 
 # L3: device (0, 0)'s ring matrices of the L_RING × L_RING edge partition
@@ -4525,30 +4556,134 @@ def require_same(name, got, want):
     log(f'  {name}: bit-equal')
 
 
+def live_slots(mats):
+    """The slab slots of the matrices that hold an edge (this run's)."""
+    return sum(int(((m.cols < m.chunk_rows)
+                    & (m.cols + torch.arange(m.cols.shape[2], device='cuda')[
+                        :, None] * m.chunk_rows < m.n_cols)).sum())
+               for m in mats)
+
+
+def slab_bytes(mats):
+    return sum(m.cols.numel() * (4 + m.vals.element_size()
+                                 + m.rowid.element_size()) for m in mats)
+
+
 def multi_work(mats, xs, t):
     """The fused fold's bound: every slab (column, value, row id) and every
     x read once, the window tensor written once; two operations a live
     slot and column (this run's live slots)."""
-    live = sum(int(((m.cols < m.chunk_rows)
-                    & (m.cols + torch.arange(m.cols.shape[2], device='cuda')[
-                        :, None] * m.chunk_rows < m.n_cols)).sum())
-               for m in mats)
-    slab = sum(m.cols.numel() * (4 + m.vals.element_size()
-                                 + m.rowid.element_size()) for m in mats)
+    live = live_slots(mats)
     s = xs[0].shape[1]
-    moved = slab + sum(x.numel() * x.element_size() for x in xs) + \
-        t.numel() * t.element_size()
+    moved = slab_bytes(mats) + sum(x.numel() * x.element_size()
+                                   for x in xs) + t.numel() * t.element_size()
     return live, bound(moved, 2.0 * live * s)
 
 
-def measure_multi(mats, xs):
-    """The fused fold (``windowed_fold_multi``) at L3's shape: against its
-    plain version in f64 (f32 x), in ulps (bf16 carry), two launches
-    bit-equal; the strip over the merged residue list bit-equal to its
-    plain version; the fold's device time beside its plain version's, its
-    bound, the strip's, the whole fused SpMM (fold and strip), the four
-    matrices' separate fold and strip launches, and ``torch.sparse.mm`` of
-    the stacked matrices against the stacked x's."""
+def fold_strip_work(mats, xs, y, merged):
+    """The fused SpMM's bound (``fold_strip_multi``): every slab, every x
+    and the merged residue list read once (the residue slots' x rows are
+    rows of those x's, already counted), y written once; two operations a
+    live slot (slab or residue) and column. Beside it the gather model: one
+    x row per live slot, slab or residue, from wherever it lies."""
+    live = live_slots(mats)
+    s, item = xs[0].shape[1], xs[0].element_size()
+    res = 0 if merged is None else merged.cols.numel()
+    lists = 0 if merged is None else sum(
+        a.numel() * a.element_size() for a in (
+            merged.rowptr, merged.entptr, merged.cols, merged.vals,
+            merged.emat, merged.heavy))
+    moved = (slab_bytes(mats) + sum(x.numel() * x.element_size() for x in xs)
+             + y.numel() * y.element_size() + lists)
+    return {**bound(moved, 2.0 * (live + res) * s), 'bytes': moved,
+            'gather_model_ms': (live + res) * s * item / HBM_BYTES_PER_S
+            * 1e3, 'live_slots': live, 'live_residue_slots': res}
+
+
+def fold_strip_plain64(slabs, xs, R, P, K, n, merged, absolute=False):
+    """``fold_strip_multi``'s plain version in float64 on the same values
+    (of |values| and |x| with ``absolute``: the scale of the sums)."""
+    f = torch.abs if absolute else (lambda v: v)
+    return wk.fold_strip_multi_plain(
+        [(c, f(v.double()), r) for c, v, r in slabs],
+        [f(x.double()) for x in xs], R, P, K, n,
+        None if merged is None else merged._replace(
+            vals=f(merged.vals.double())))
+
+
+def measure_fold_strip(name, mats, xs, xb, merged, t, tb):
+    """The fused SpMM in one launch (``fold_strip_multi``) at a group's
+    shape: bit-equal to the two launches it replaces (the fold's ``t``,
+    ``tb`` and the strip) in f32 and in the bf16 carry, two launches
+    bit-equal; against its f64 plain version within TOL_MULTI (f32), and
+    the bf16 carry within its roundings to bf16 (the K parts, y, each
+    residue entry's sum and add) of the f64 sum of |terms|; its device
+    time, the entry point's, the two launches' and its plain version's,
+    beside its bound and gather model."""
+    m0 = mats[0]
+    R, P, K, n = m0.chunk_rows, m0.window_rows, m0.borrow_span, m0.n_rows
+    slabs = [(m.cols, m.vals, m.rowid) for m in mats]
+    args = (slabs, xs, R, P, K, n, merged)
+    y = wk.fold_strip_multi(*args)
+    require_same(f'{name} fold_strip_multi vs the fold and the strip', y,
+                 wk.window_strip(t, n, P, merged, xs))
+    require_same(f'{name} fold_strip_multi, two launches',
+                 wk.fold_strip_multi(*args), y)
+    want = fold_strip_plain64(*args)
+    err = check(f'{name} fold_strip_multi vs its plain version (f64)',
+                y.double(), want, TOL_MULTI)
+    max_abs = float((y.double() - want).abs().max())
+    del want
+    argsb = (slabs, xb, R, P, K, n, merged)
+    yb = wk.fold_strip_multi(*argsb)
+    require_same(f'{name} fold_strip_multi (bf16 carry) vs the fold and the '
+                 'strip', yb, wk.window_strip(tb, n, P, merged, xb))
+    require_same(f'{name} fold_strip_multi (bf16 carry), two launches',
+                 wk.fold_strip_multi(*argsb), yb)
+    errb = float((yb.double() - fold_strip_plain64(*argsb)).abs().max())
+    scale = float(fold_strip_plain64(*argsb, absolute=True).max())
+    entries = 0 if merged is None else int(
+        (merged.rowptr[1:] - merged.rowptr[:-1]).max())
+    limit = (K + 3 + 2 * entries) * 2.0**-9 * scale
+    log(f'  {name} fold_strip_multi (bf16 carry): {errb:.3e} from its f64 '
+        f'plain version (limit {limit:.3e}: the roundings to bf16)')
+    if not errb <= limit:
+        raise AssertionError(f'{name} fold_strip_multi (bf16 carry): '
+                             f'{errb} > {limit}')
+    del y, yb
+    y = wk.fold_strip_multi(*args)
+    out = {'ms': device_ms(lambda: wk.fold_strip_multi(*args),
+                           10)['device_ms'],
+           'events_ms': time_ms(lambda: wk.fold_strip_multi(*args), 10),
+           'entry_point_ms': time_ms(
+               lambda: wd.spmm_multi_internal(mats, xs, merged), 10),
+           'two_launch_ms': time_ms(lambda: wk.window_strip(
+               wk.windowed_fold_multi(slabs, xs, R, K * P), n, P, merged,
+               xs), 10),
+           'plain_ms': time_ms(lambda: wk.fold_strip_multi_plain(*args), 3),
+           'bf16_carry_ms': device_ms(lambda: wk.fold_strip_multi(*argsb),
+                                      10)['device_ms'],
+           'max_abs_err': max_abs, 'rel_err_f64': err,
+           'bf16_carry_abs_err': errb, 'bf16_carry_limit': limit,
+           'borrow_span': K, 'window_rows': P, 'n_rows': n,
+           'heavy_rows': 0 if merged is None else merged.heavy.numel(),
+           'residue_entries_max': entries,
+           **fold_strip_work(mats, xs, y, merged)}
+    log(f'  {name} fold_strip_multi: {json.dumps(out)}')
+    return out
+
+
+def measure_multi(name, mats, xs):
+    """The fused SpMM at a group's shape, both routes. The fold
+    (``windowed_fold_multi``): against its plain version in f64 (f32 x), in
+    ulps (bf16 carry), two launches bit-equal; the strip over the merged
+    residue list bit-equal to its plain version; the fold's device time
+    beside its plain version's, its bound, the strip's, the two launches
+    together, the matrices' separate fold and strip launches, and
+    ``torch.sparse.mm`` of the stacked matrices against the stacked x's
+    (CUDA events, and the device time of all its kernels a call).
+    Then the one launch that replaces the two (:func:`measure_fold_strip`).
+    Returns the two routes' numbers."""
     m0 = mats[0]
     R, KP = m0.chunk_rows, m0.borrow_span * m0.window_rows
     slabs = [(m.cols, m.vals, m.rowid) for m in mats]
@@ -4556,30 +4691,31 @@ def measure_multi(mats, xs):
     want = wk.windowed_fold_multi_plain(
         [(c_, v.double(), r) for c_, v, r in slabs],
         [x.double() for x in xs], R, KP)
-    err = check('fused fold vs its plain version (f64)', t.double(), want,
-                TOL_MULTI)
+    err = check(f'{name} fused fold vs its plain version (f64)', t.double(),
+                want, TOL_MULTI)
     max_abs = float((t.double() - want).abs().max())
-    require_same('fused fold, two launches',
-                  wk.windowed_fold_multi(slabs, xs, R, KP), t)
+    del want
+    require_same(f'{name} fused fold, two launches',
+                 wk.windowed_fold_multi(slabs, xs, R, KP), t)
     xb = [x.to(torch.bfloat16) for x in xs]
     tb = wk.windowed_fold_multi(slabs, xb, R, KP)
     u = ulps(tb, wk.windowed_fold_multi_plain(slabs, xb, R, KP))
-    log(f'  fused fold, bf16 carry: {u:.2f} ulps from its plain version')
+    log(f'  {name} fused fold, bf16 carry: {u:.2f} ulps from its plain '
+        'version')
     if u > 1.0:
-        raise AssertionError(f'fused fold (bf16 carry): {u} ulps')
-    require_same('fused fold (bf16 carry), two launches',
-                  wk.windowed_fold_multi(slabs, xb, R, KP), tb)
+        raise AssertionError(f'{name} fused fold (bf16 carry): {u} ulps')
+    require_same(f'{name} fused fold (bf16 carry), two launches',
+                 wk.windowed_fold_multi(slabs, xb, R, KP), tb)
     merged = wk.merge_residues([m.residue for m in mats], m0.n_rows)
     P = m0.window_rows
     y = wk.window_strip(t, m0.n_rows, P, merged, xs)
-    require_same('merged strip vs its plain version', y,
+    require_same(f'{name} merged strip vs its plain version', y,
                  wk.window_strip_plain(t, m0.n_rows, P, merged, xs))
-    require_same('merged strip (bf16 carry) vs its plain version',
+    require_same(f'{name} merged strip (bf16 carry) vs its plain version',
                  wk.window_strip(tb, m0.n_rows, P, merged, xb),
                  wk.window_strip_plain(tb, m0.n_rows, P, merged, xb))
-    y = wd.spmm_multi_internal(mats, xs, merged)
     y_sep = sum(wd.spmm_internal(m, x) for m, x in zip(mats, xs))
-    check('fused SpMM vs the four SpMMs', y, y_sep, TOL_MULTI)
+    check(f'{name} fused SpMM vs the separate SpMMs', y, y_sep, TOL_MULTI)
     live, work = multi_work(mats, xs, t)
     dense = sps.hstack([wd.windowed_to_scipy(m) for m in mats]).tocsr()
     A = torch.sparse_csr_tensor(
@@ -4587,20 +4723,27 @@ def measure_multi(mats, xs):
         torch.from_numpy(dense.indices).cuda(),
         torch.from_numpy(dense.data.astype(np.float32)).cuda(),
         size=dense.shape)
+    del dense
     X = torch.cat(xs)
-    check('torch.sparse.mm of the stacked matrices', torch.sparse.mm(A, X),
-          y_sep, TOL_MULTI)
+    check(f'{name} torch.sparse.mm of the stacked matrices',
+          torch.sparse.mm(A, X), y_sep, TOL_MULTI)
+    del y, y_sep
+    library_ms = time_ms(lambda: torch.sparse.mm(A, X), 10)
+    # on the clock of the kernels' device_ms too: all of its kernels a call
+    library_device = device_ms(lambda: torch.sparse.mm(A, X), 10,
+                               'library_device_ms', per_call=True)
     out = {'ms': device_ms(lambda: wk.windowed_fold_multi(slabs, xs, R, KP),
                            10)['device_ms'],
            'plain_ms': time_ms(lambda: wk.windowed_fold_multi_plain(
                slabs, xs, R, KP), 3),
            'strip_ms': device_ms(lambda: wk.window_strip(
                t, m0.n_rows, P, merged, xs), 10)['device_ms'],
-           'fused_spmm_ms': time_ms(
-               lambda: wd.spmm_multi_internal(mats, xs, merged), 10),
+           'fold_and_strip_ms': time_ms(lambda: wk.window_strip(
+               wk.windowed_fold_multi(slabs, xs, R, KP), m0.n_rows, P,
+               merged, xs), 10),
            'separate_fold_strip_ms': time_ms(
                lambda: [wd.spmm_internal(m, x) for m, x in zip(mats, xs)], 10),
-           'library_ms': time_ms(lambda: torch.sparse.mm(A, X), 10),
+           'library_ms': library_ms, **library_device,
            'bf16_carry_ms': device_ms(
                lambda: wk.windowed_fold_multi(slabs, xb, R, KP),
                10)['device_ms'],
@@ -4609,8 +4752,30 @@ def measure_multi(mats, xs):
            'slab_shapes': [list(m.cols.shape) for m in mats],
            'n_rows': m0.n_rows, 'n_cols': [m.n_cols for m in mats],
            'columns': xs[0].shape[1], **work}
-    log(f'  fused fold: {json.dumps(out)}')
-    return out
+    log(f'  {name} fused fold: {json.dumps(out)}')
+    fused = measure_fold_strip(name, mats, xs, xb, merged, t, tb)
+    fused.update(library_ms=library_ms, **library_device,
+                 library='torch.sparse.mm of the stacked matrices against '
+                         'the stacked x\'s (the whole SpMM)',
+                 fold_and_strip_ms=out['fold_and_strip_ms'])
+    return out, fused
+
+
+def fused_entry_point(name, mats, xs):
+    """``windowed_spmm_chunks_multi`` on a group, its launches counted from
+    0: one ``fold_strip_multi``, no fold and no strip; y against the
+    matrices' separate SpMMs."""
+    reset_counts()
+    y = wd.windowed_spmm_chunks_multi(mats, [(v,) for v in xs])
+    torch.cuda.synchronize()
+    launches = counts()
+    if (launches['fold_strip_multi'] != 1 or launches['windowed_fold_multi']
+            or launches['window_strip'] or launches['windowed_fold']):
+        raise AssertionError(f'{name}: launches {launches}')
+    y_sep = sum(wd.spmm_internal(m, v) for m, v in zip(mats, xs))
+    err = check(f'{name} fused SpMM (entry point)', torch.cat(y), y_sep,
+                TOL_MULTI)
+    return launches, err
 
 
 def phase_path_l(lmax, ref, ms_a):
@@ -4619,10 +4784,14 @@ def phase_path_l(lmax, ref, ms_a):
     (``launch.initialize``) with the production layout
     (``shard_local_windowed(split_boundary=True)``) and the COO one, and
     one fixed-graph VJP step with its c̄ all_reduce; L2, the 2-D engine at
-    1 × 1 (``ring=True, split_cols=True``); L3, the fused fold on device
-    (0, 0)'s ring matrices of the 4 × 4 partition; a sharded checkpoint
-    round trip; and whether NCCL takes two ranks on one card. Returns
-    ``(path, launches by part, fused fold's numbers)``."""
+    1 × 1 (``ring=True, split_cols=True``); L3, the fused SpMM on device
+    (0, 0)'s ring matrices of the 4 × 4 partition, and L4 on both fold
+    positions' groups of device (0, 0) of the 2 × 2 interleaved ring
+    (``split_cols=True``), each through the entry point (one
+    ``fold_strip_multi`` launch) and then both routes measured
+    (:func:`measure_multi`); a sharded checkpoint round trip; and whether NCCL takes two ranks on one card. Returns
+    ``(path, launches by part, the two-launch route's numbers and
+    fold_strip_multi's, each by group)``."""
     import tempfile
     from pygsp_tpu_torch import checkpoint, parallel as par
     from pygsp_tpu_torch.parallel.partition import shard_slice
@@ -4749,31 +4918,31 @@ def phase_path_l(lmax, ref, ms_a):
     torch.cuda.empty_cache()
     path['L2'] = l2
 
-    # L3: the fused fold, through the entry point, then measured
-    t0 = time.time()
-    tg4 = par.partition_graph_2d(W, L_RING, L_RING)
-    ell4 = par.twod_local_windowed(tg4, ring=True)
-    mats = [shard_slice(e, 0).local_matrix() for e in ell4]
-    l3 = {'build_s': time.time() - t0}
-    del tg4, ell4
-    xs = [seeded_normal((m.n_cols, N_SIGNALS), 80 + k)
-          for k, m in enumerate(mats)]
-    reset_counts()
-    y = wd.windowed_spmm_chunks_multi(mats, [(v,) for v in xs])
-    torch.cuda.synchronize()
-    launches = counts()
-    other['L3'] = launches
-    if (launches['windowed_fold_multi'] != 1 or launches['window_strip'] != 1
-            or launches['windowed_fold']):
-        raise AssertionError(f'L3: launches {launches}')
-    y_sep = sum(wd.spmm_internal(m, v) for m, v in zip(mats, xs))
-    l3['rel_err_vs_separate'] = check('L3 fused SpMM (entry point)',
-                                      torch.cat(y), y_sep, TOL_MULTI)
-    del y, y_sep
-    multi = measure_multi(mats, xs)
-    del mats, xs
-    torch.cuda.empty_cache()
-    path['L3'] = l3
+    # L3: the fused SpMM on device (0, 0)'s ring matrices of the 4 x 4
+    # partition, through the entry point, then both routes measured; L4:
+    # the same on both fold positions' groups of device (0, 0) of the 2 x 2
+    # interleaved ring (the 4-card 2-D engine's matrices)
+    multi, fused = {}, {}
+    for part, shape, kw in (('L3', (L_RING, L_RING), {}),
+                            ('L4', (2, 2), dict(split_cols=True))):
+        t0 = time.time()
+        tgp = par.partition_graph_2d(W, *shape)
+        ell = par.twod_local_windowed(tgp, ring=True, **kw)
+        groups = ([[shard_slice(row[s], 0).local_matrix() for row in ell]
+                   for s in range(shape[1])] if kw else
+                  [[shard_slice(e, 0).local_matrix() for e in ell]])
+        path[part] = {'build_s': time.time() - t0}
+        del tgp, ell
+        for s, mats in enumerate(groups):
+            key = part if len(groups) == 1 else f'{part}_pos{s}'
+            xs = [seeded_normal((m.n_cols, N_SIGNALS), 80 + 10 * s + k)
+                  for k, m in enumerate(mats)]
+            other[key], err = fused_entry_point(key, mats, xs)
+            path[part][f'rel_err_vs_separate_{key}'] = err
+            multi[key], fused[key] = measure_multi(key, mats, xs)
+            del xs
+        del groups, mats
+        torch.cuda.empty_cache()
 
     # the sharded checkpoint, and the two-rank probe
     s_src, s_tgt = gsp.graphs.ba_edges_fast(L_SMALL_N, m0=M_ATTACH,
@@ -4796,7 +4965,7 @@ def phase_path_l(lmax, ref, ms_a):
     log(f'  NCCL, two ranks on one card: '
         f'{json.dumps(path["nccl_two_ranks_one_card"])}')
     torch.distributed.destroy_process_group()
-    return path, other, multi
+    return path, other, multi, fused
 
 
 def main():
@@ -4879,7 +5048,7 @@ def main():
     path_j['phase_s'] = time.time() - t0
     torch.cuda.empty_cache()
     t0 = time.time()
-    path_l, other_l, multi = phase_path_l(
+    path_l, other_l, multi, fused_l = phase_path_l(
         path_a['lmax'], REFERENCES[('bench', N_BA, path_a['lmax'])],
         path_a['ms_per_bank'])
     path_l['phase_s'] = time.time() - t0
@@ -5041,14 +5210,26 @@ def main():
         at_shapes={k: v for k, v in fused.items() if k != head},
         launches_per_backward=path_k['backward_launches']['csr_spmm_sddmm'])
     # the fused fold: its headline at L3's 128 f32 columns (four ring
-    # matrices of device (0, 0) of the 4 x 4 partition of path A's graph)
+    # matrices of device (0, 0) of the 4 x 4 partition of path A's graph),
+    # L4's groups beside; since fold_strip_multi took its place on the
+    # path, it runs in the measurements alone
+    replaces = ('pygsp_tpu/core/windowed.py:201-418 '
+                '(windowed_spmm_chunks_multi: XLA gathers, one-hot einsums '
+                'summed per out chunk, one strip; no Pallas kernel), called '
+                'by pygsp_tpu/parallel/twod.py:659-673')
     kernel_multi = dict(
-        multi, name='windowed_fold_multi', route='cuda',
+        multi.pop('L3'), name='windowed_fold_multi', route='cuda',
+        source='pygsp_tpu_torch/csrc/windowed_fold.cu', at_shapes=multi,
+        replaces=replaces + ' (the fold, into a window tensor)')
+    # the fused SpMM in one launch: its headline at L3, L4's two groups
+    # and path C's one matrix beside
+    kernel_fold_strip = dict(
+        fused_l.pop('L3'), name='fold_strip_multi', route='cuda',
         source='pygsp_tpu_torch/csrc/windowed_fold.cu',
-        replaces='pygsp_tpu/core/windowed.py:201-418 '
-                 '(windowed_spmm_chunks_multi: XLA gathers, one-hot '
-                 'einsums summed per out chunk, one strip; no Pallas '
-                 'kernel), called by pygsp_tpu/parallel/twod.py:659-673')
+        at_shapes={**fused_l, 'C_one_matrix': path_c['spmm'].pop(
+            'fold_strip_one_matrix')},
+        replaces=replaces + ' (fold, overlap-add and residue tiers in one '
+                            'launch, no window tensor)')
     by_path = {'A': counts_a, 'B': counts_b, 'C': counts_c, 'D': counts_d,
                'H': counts_h, 'I': counts_i}
     for kernel, served in ((csr, 'A'), (csr_narrow, None), (banded, 'B'),
@@ -5058,7 +5239,8 @@ def main():
                            (kb_dot, None), (kb_contract, None),
                            (ell, 'H'), (chunked_k, 'I'), (ell_narrow, 'H'),
                            (chunked_narrow, 'I'), (kernel_sddmm, None),
-                           (kernel_fused, None), (kernel_multi, None)):
+                           (kernel_fused, None), (kernel_multi, None),
+                           (kernel_fold_strip, None)):
         name = kernel['name']
         served = list(served or by_path)
         launches = {**{p: by_path[p][0][name] for p in by_path},
@@ -5076,7 +5258,8 @@ def main():
                                   kb_step, kb_group, kb_contract, kb_dot,
                                   ell, chunked_k, ell_narrow,
                                   chunked_narrow, kernel_sddmm,
-                                  kernel_fused, kernel_multi]}),
+                                  kernel_fused, kernel_multi,
+                                  kernel_fold_strip]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -26,7 +26,10 @@ On the card the SpMM is two CUDA kernels (:mod:`.windowed_kernel`):
 ``windowed_fold`` gathers, multiplies and folds every window into the
 ``(n_out, NW, K·P, S)`` window tensor in one pass, and ``window_strip``,
 the tail, overlap-adds it into ``y`` and adds the residue list, writing
-each row of ``y`` once. The signal stays one contiguous ``(N, S)``
+each row of ``y`` once. The fused SpMM of several matrices (the 2-D
+engine's ring fold, :func:`spmm_multi_internal`) is one kernel,
+``fold_strip_multi``, that folds each window's rows from the slabs and
+writes ``y`` with no window tensor. The signal stays one contiguous ``(N, S)``
 tensor: the kernel adds ``c·R`` to a slot's local column. The JAX package
 carries it as a tuple of chunks only to stay under a TPU gather cliff, so
 :func:`windowed_spmm_chunks` is a thin wrapper kept for API parity. Not
@@ -227,10 +230,14 @@ def _check_multi(mats):
 def spmm_multi_internal(mats, xs, residue,
                         out_dtype=None) -> torch.Tensor:
     """``y = Σ_m A_m @ x_m`` in the matrices' internal order, for x_m
-    (n_cols_m, S): one launch of the multi-matrix fold
-    (:func:`~.windowed_kernel.windowed_fold_multi`: every matrix's slabs
-    into one window tensor) and one of the tail over every matrix's
-    residue list (:func:`~.windowed_kernel.window_strip`). ``residue``:
+    (n_cols_m, S): one launch of the fused SpMM
+    (:func:`~.windowed_kernel.fold_strip_multi`: every matrix's slabs
+    folded window by window, the overlap-add and every matrix's residue
+    list, y written once and no window tensor; bit-equal to the multi-matrix
+    fold :func:`~.windowed_kernel.windowed_fold_multi` followed by the tail
+    :func:`~.windowed_kernel.window_strip`, which take windows of more raw
+    slots than one block of it stages, :func:`~.windowed_kernel.
+    fold_strip_fits`). ``residue``:
     the matrices' residue lists merged by
     :func:`~.windowed_kernel.merge_residues`, which a caller that applies
     the same matrices again makes once. The matrices
@@ -255,10 +262,16 @@ def spmm_multi_internal(mats, xs, residue,
         if residue is not None:
             residue = residue._replace(vals=residue.vals.to(pdt))
     xs = [x.contiguous() for x in xs]
-    t = windowed_kernel.windowed_fold_multi(
-        [(m.cols, m.vals, m.rowid) for m in mats], xs, R, K * P)
-    y = windowed_kernel.window_strip(t, m0.n_rows, P, residue,
-                                     None if residue is None else xs)
+    slabs = [(m.cols, m.vals, m.rowid) for m in mats]
+    if windowed_kernel.fold_strip_fits(slabs, xs, K, P):
+        y = windowed_kernel.fold_strip_multi(slabs, xs, R, P, K, m0.n_rows,
+                                             residue)
+    else:
+        # windows of more raw slots than a block stages: the fold into a
+        # window tensor, then the strip (the same bits)
+        t = windowed_kernel.windowed_fold_multi(slabs, xs, R, K * P)
+        y = windowed_kernel.window_strip(t, m0.n_rows, P, residue,
+                                         None if residue is None else xs)
     return y.to(dt)
 
 

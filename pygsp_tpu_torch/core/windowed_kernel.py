@@ -1,7 +1,7 @@
 """The windowed-compact SpMM kernels and the one-hot fold, with their plain
 versions.
 
-Four CUDA kernels live in ``csrc/windowed_fold.cu`` (see its note for the
+The CUDA kernels live in ``csrc/windowed_fold.cu`` (see its note for the
 design):
 
 - :func:`windowed_fold`: gather, product and one-hot fold of every window
@@ -20,6 +20,10 @@ design):
   ``pygsp_tpu/core/windowed.py:windowed_spmm_chunks_multi`` (``:201-418``);
   its tail is one :func:`window_strip` over every matrix's residue list
   (:func:`merge_residues`);
+- :func:`fold_strip_multi`: that fused SpMM in one launch, fold and strip
+  together, writing ``y`` and no window tensor (bit-equal to the two
+  launches); the route of
+  :func:`~pygsp_tpu_torch.core.windowed.spmm_multi_internal`;
 - :func:`fold_products`: #2's function as it stands, ``rid (NW, Lt)`` and
   products ``p (NW, Lt, S)`` in, ``(NW, KP, S)`` float32 out; at NW = 1 it
   is TPU kernel #3 (``benchmarks/pallas_smoke.py`` ``fold_kernel``);
@@ -444,23 +448,27 @@ def window_strip_plain(t, n_rows: int, window_rows: int,
     return y
 
 
-def _check_residue(residue, x, t, n_rows):
+def _check_residue(residue, x, t, n_rows, name='window_strip'):
+    """Raise unless ``residue`` and x (a sequence of x's for a merged list)
+    fit a strip of ``n_rows`` rows of ``t``'s columns, dtype and device
+    (``t``: the window tensor, or any tensor of those)."""
+    s = t.shape[-1]
     xs = (x,) if residue.emat is None else tuple(x)
     if residue.emat is not None and not 0 < len(xs) <= MAX_MATS:
         raise ValueError(f'a multi-matrix strip takes 1 to {MAX_MATS} x\'s, '
                          f'got {len(xs)}')
     for x in xs:
-        if x is None or x.ndim != 2 or x.shape[1] != t.shape[3]:
-            raise ValueError(f'window_strip takes the residue with x (n_cols, '
-                             f'{t.shape[3]}), got '
+        if x is None or x.ndim != 2 or x.shape[1] != s:
+            raise ValueError(f'{name} takes the residue with x (n_cols, '
+                             f'{s}), got '
                              f'{None if x is None else tuple(x.shape)}')
         if (x.dtype != t.dtype
                 or (x.dtype, residue.vals.dtype) not in _FOLD_TYPES):
-            raise ValueError(f'window_strip takes x in the window tensor\'s '
+            raise ValueError(f'{name} takes x in the window tensor\'s '
                              f'dtype {t.dtype} and residue values that the '
                              f'fold pairs with it, got {x.dtype} and '
                              f'{residue.vals.dtype}')
-        _check_operands('window_strip', (x, t), x)
+        _check_operands(name, (x, t), x)
     index = (residue.rowptr, residue.entptr, residue.cols, residue.heavy) + (
         () if residue.emat is None else (residue.emat,))
     if any(a.dtype != torch.int32 or a.ndim != 1 for a in index):
@@ -468,7 +476,7 @@ def _check_residue(residue, x, t, n_rows):
     if (residue.rowptr.numel() != n_rows + 1
             or residue.vals.shape != residue.cols.shape):
         raise ValueError(f'the residue list does not fit {n_rows} rows')
-    _check_operands('window_strip', index + (residue.vals, t), t)
+    _check_operands(name, index + (residue.vals, t), t)
 
 
 def window_strip(t, n_rows: int, window_rows: int,
@@ -594,6 +602,147 @@ def merge_residues(residues, n_rows: int):
 
 
 # ---------------------------------------------------------------------------
+# (e) fold_strip_multi: the fused multi-matrix SpMM in one launch
+# ---------------------------------------------------------------------------
+
+# fold_strip_multi's block: its warps, and the heavy row's entries it sums
+# per round into shared memory (kStripWarps and kEntryRound in
+# csrc/windowed_fold.cu); a staged slot keeps its x row below its matrix in
+# one int, so an x has fewer rows than this (kSrcBits)
+STRIP_WARPS = 8
+ENTRY_ROUND = 16
+_SRC_ROWS = 1 << 27
+
+
+class StripLayout(NamedTuple):
+    """Shared-memory layout of one :func:`fold_strip_multi` block."""
+    tile: int        # columns of S per block: 32 lanes of E values each
+    smem_bytes: int  # staged slots, heavy-row sums, row-id starts, counts
+
+
+def strip_piece(dtype) -> int:
+    """The values of x's dtype a lane of :func:`fold_strip_multi` loads at
+    once: 16 bytes (4 float32 or 2 float64 values), and in bfloat16 8
+    bytes, 4 values (kE in csrc/windowed_fold.cu)."""
+    return 16 // max(torch.finfo(dtype).bits // 8, 4)
+
+
+def strip_capacity(slabs, borrow_span: int) -> int:
+    """The most raw slots a window of :func:`fold_strip_multi` stages:
+    ``borrow_span`` windows of every matrix's slots."""
+    return borrow_span * sum(cols.shape[2] * cols.shape[3]
+                             for cols, _, _ in slabs)
+
+
+def fold_strip_layout(kp: int, n_cap: int, dtype,
+                      vec: bool = True) -> StripLayout:
+    """The :func:`fold_strip_multi` block layout for ``kp`` row ids a
+    window, windows of up to ``n_cap`` raw slots and x of ``dtype``: per
+    raw slot its staged value (in the sums' type) and three ints (row id,
+    x row, sorted place); :data:`ENTRY_ROUND` entry sums of the tile;
+    three ints a row id and two more (the row ids' starts and cursors, the
+    rows' first residue entries, a window holding at most ``kp`` rows), and
+    one a warp and one more."""
+    item = torch.finfo(_sum_dtype(dtype)).bits // 8
+    tile = 32 * (strip_piece(dtype) if vec else 1)
+    smem = ((n_cap + ENTRY_ROUND * tile) * item
+            + (3 * n_cap + 3 * kp + 2 + STRIP_WARPS + 1) * 4)
+    return StripLayout(tile, smem)
+
+
+def fold_strip_fits(slabs, xs, borrow_span: int, window_rows: int) -> bool:
+    """Whether :func:`fold_strip_multi` takes these matrices: a window's
+    raw slots staged in one block's shared memory, and each x of fewer
+    than 2^27 rows."""
+    n_cap = strip_capacity(slabs, borrow_span)
+    lay = fold_strip_layout(borrow_span * window_rows, n_cap, xs[0].dtype)
+    return (lay.smem_bytes <= SMEM_PER_BLOCK
+            and all(x.shape[0] <= _SRC_ROWS for x in xs))
+
+
+def fold_strip_multi_plain(slabs, xs, chunk_rows: int, window_rows: int,
+                           borrow_span: int, n_rows: int,
+                           residue: Residue | None = None):
+    """Plain version of :func:`fold_strip_multi`: the two-launch route's
+    plain versions, :func:`window_strip_plain` of
+    :func:`windowed_fold_multi_plain`."""
+    xs = list(xs)
+    t = windowed_fold_multi_plain(slabs, xs, chunk_rows,
+                                  borrow_span * window_rows)
+    return window_strip_plain(t, n_rows, window_rows, residue, xs)
+
+
+def fold_strip_multi(slabs, xs, chunk_rows: int, window_rows: int,
+                     borrow_span: int, n_rows: int,
+                     residue: Residue | None = None):
+    """``y (n_rows, S) = Σ_m A_m @ x_m`` of the matrices' slabs ``slabs``
+    (as :func:`windowed_fold_multi` takes them, with ``kp = borrow_span ·
+    window_rows``) and the merged residue list ``residue``
+    (:func:`merge_residues`, or None), in one launch that writes y and no
+    window tensor. The result is, bit for bit, ``window_strip(
+    windowed_fold_multi(slabs, xs, chunk_rows, kp), n_rows, window_rows,
+    residue, xs)``: every window's sums in float32 (float64 for float64)
+    rounded to x's dtype, the overlap-add rounded once, each residue
+    entry's sum and each add rounded. Two launches are bit-equal. Raises
+    ``ValueError`` where a window's raw slots do not fit a block
+    (:func:`fold_strip_fits`)."""
+    slabs, xs = list(slabs), list(xs)
+    kp = borrow_span * window_rows
+    _check_fold_multi(slabs, xs, chunk_rows, kp)
+    n_out, nw = slabs[0][0].shape[:2]
+    x0 = xs[0]
+    s = x0.shape[1]
+    if window_rows < 1 or not 0 <= n_rows <= n_out * nw * window_rows:
+        raise ValueError(f'{n_out} x {nw} windows of {window_rows} rows do '
+                         f'not hold {n_rows} rows')
+    if residue is not None:
+        if residue.emat is None:
+            raise ValueError('fold_strip_multi takes a merged residue list '
+                             '(merge_residues)')
+        _check_residue(residue, xs, x0, n_rows, 'fold_strip_multi')
+    if not fold_strip_fits(slabs, xs, borrow_span, window_rows):
+        raise ValueError(f'fold_strip_multi stages a window\'s raw slots in '
+                         f'one block: {strip_capacity(slabs, borrow_span)} '
+                         f'do not fit')
+    if x0.device.type == 'cpu':
+        return fold_strip_multi_plain(slabs, xs, chunk_rows, window_rows,
+                                      borrow_span, n_rows, residue)
+    _cuda.refuse_autograd('fold_strip_multi', *xs,
+                          *(v for _, v, _ in slabs),
+                          *(() if residue is None else (residue.vals,)))
+    y = torch.empty((n_rows, s), dtype=x0.dtype, device=x0.device)
+    if y.numel() == 0:
+        return y
+    piece = strip_piece(x0.dtype)
+    vec = s % piece == 0 and all(
+        x.data_ptr() % (piece * x.element_size()) == 0 for x in xs + [y])
+    n_cap = strip_capacity(slabs, borrow_span)
+    table = (ctypes.c_longlong * (7 * len(xs)))(*[
+        v for (cols, vals, rowid), x in zip(slabs, xs)
+        for v in (cols.data_ptr(), vals.data_ptr(), rowid.data_ptr(),
+                  x.data_ptr(), cols.shape[2], cols.shape[3], x.shape[0])])
+    if residue is None:
+        lists, n_heavy = (0,) * 6, 0
+    else:
+        lists = tuple(a.data_ptr() for a in (
+            residue.rowptr, residue.entptr, residue.cols, residue.vals,
+            residue.emat, residue.heavy))
+        n_heavy = residue.heavy.numel()
+    _, vals0, rowid0 = slabs[0]
+    symbol = (f'fold_strip_multi_{_FOLD_TYPES[x0.dtype, vals0.dtype]}_'
+              f'{_ROWIDS[rowid0.dtype]}')
+    _cuda.launch(_SOURCE, symbol, 8, 11, x0.get_device(),
+                 ctypes.addressof(table), y.data_ptr(), *lists, len(xs),
+                 n_heavy, n_out, nw, chunk_rows, window_rows, borrow_span,
+                 n_rows, s, int(vec), n_cap)
+    fold_strip_multi.launches += 1
+    return y
+
+
+fold_strip_multi.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # (c) fold_products
 # ---------------------------------------------------------------------------
 
@@ -714,5 +863,5 @@ def double(x):
 double.launches = 0
 
 
-KERNELS = (windowed_fold, windowed_fold_multi, window_strip, fold_products,
-           double)
+KERNELS = (windowed_fold, windowed_fold_multi, window_strip,
+           fold_strip_multi, fold_products, double)

@@ -177,6 +177,50 @@
 // every instance, 12 to 68 bytes of spill; a build held to 64 registers
 // spilled up to 964 bytes and took twice as long.
 //
+// (e) fold_strip_multi is the fused multi-matrix SpMM y = sum_m A_m @ x_m
+// (the 2-D engine's ring fold) in one launch that writes y and no window
+// tensor: what windowed_fold_multi and then window_strip compute, with the
+// same roundings, so the two routes give the same bits. It replaces the
+// XLA-composed pygsp_tpu/core/windowed.py:windowed_spmm_chunks_multi
+// (:201-418: the slot gathers, the one-hot fold of #2, the overlap-add
+// :336-345 and the residue tiers :406-414), no Pallas kernel of its own.
+// What bounds it: bytes, or the gathers. The two-launch route writes the
+// window tensor t (K*P rows a window, K = 2: twice y) and reads it back;
+// at the 2-D engine's fragmented density (about 250 live slots a window
+// over four matrices) that round trip cost as much as the whole SpMM of
+// torch.sparse.mm. Here each window's slabs are read K times (a few bytes a
+// slot) and t never leaves the block. What else bounds the fold's design at
+// this density: one TMA request per live slot (about 37 ns an SM on this
+// card, which sets the fold's time at path C and most of it at L3) and a
+// 64 KB shared accumulator, which leaves room for two blocks an SM. So this
+// kernel gathers with plain loads into registers and sums there. Design: a
+// block (8 warps) takes one window's P rows and a tile of 32 x E columns
+// (E values a lane: a 16-byte piece, 4 f32 or 2 f64 values; in bf16 an
+// 8-byte piece of 4 values, so a bf16 row takes as many loads as an f32
+// one). It stages the window's raw
+// slots, one stream over the segments (d, m), d-major: the slots of matrix
+// m in window w - d, in slot order, live where their row id lies in
+// [d P, d P + P) (part d of the window's rows). Each warp compacts a
+// contiguous range of the stream into shared memory (a ballot) and counts
+// the row ids; warp 0 sorts the staged slots by row id, stably (a scan of
+// the counts, then match_any ranks), so each row id's slots stand in
+// stream order, the order in which the fold sums them. Then a warp takes a
+// row: part d sums its slots in registers, each lane loading its piece of
+// the slot's x row, by the fold's own expression (acc += v * x, an FMA as
+// in the fold), and is rounded to x's type: the window tensor's value, bit
+// for bit. The parts are added in order d = 0..K-1 and rounded once, then
+// the row's residue entries (each entry's sum by the warp, in slot order,
+// rounded, and each add rounded), and the row is stored: the strip's
+// roundings. A heavy row (kHeavyMin entries or more) does not serialise a
+// warp: every warp of the block sums its entries, kEntryRound a round,
+// into shared memory, and warp 0 adds them in entry order. The windows
+// holding heavy rows lead the grid, most entries first (a block per heavy
+// row, the block of the window's leading heavy row folds it, the others
+// return). Each row of y has one writer: no atomics, two launches are
+// bit-equal. A window whose raw slots do not fit a block's shared memory
+// is refused (fold_strip_fits in the wrapper); spmm_multi_internal keeps
+// the two launches there.
+//
 // The bf16 instances of (a) and (b), for the recurrence's fast modes
 // (pygsp_tpu/ops/chebyshev.py:102-121, :223-236): x (the carried term) in
 // bf16 with f32 values, x and values both in bf16, and f32 x with bf16
@@ -1256,6 +1300,396 @@ window_strip_kernel(const TailArgs<T, V> a, int vec,
   }
 }
 
+// ---------------------------------------------------------------------------
+// (e) fold_strip_multi: the fused multi-matrix SpMM, fold and tail in one
+// ---------------------------------------------------------------------------
+
+// The leading heavy row of the window whose first row is row0: the row with
+// the most residue entries (kHeavyMin at least), the lower row of a tie, or
+// -1. The wrapper's heavy list (most entries first, ties by row) names each
+// window's leading row before its other heavy rows. By a whole warp.
+template <typename T, typename V>
+__device__ __forceinline__ int leading_heavy(const TailArgs<T, V>& a,
+                                             long long row0, int lane) {
+  long long best = -1;  // (entries << 32) | (INT_MAX - row)
+  for (int r = lane; r < a.p && row0 + r < a.n_rows; r += 32) {
+    const long long row = row0 + r;
+    const int n = __ldg(a.rowptr + row + 1) - __ldg(a.rowptr + row);
+    if (n >= kHeavyMin)
+      best = max(best, static_cast<long long>(n) << 32 |
+                           (0x7fffffff - static_cast<int>(row)));
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    best = max(best, __shfl_xor_sync(0xffffffffu, best, o));
+  return best < 0 ? -1 : 0x7fffffff - static_cast<int>(best & 0xffffffff);
+}
+
+constexpr int kStripWarps = 8;   // warps of a fold_strip block
+constexpr int kEntryRound = 16;  // a heavy row's entries summed per round
+constexpr int kSlotUnroll = 4;   // x pieces a lane loads together
+constexpr int kStageRounds = 4;  // raw slots a lane stages together
+constexpr int kSrcBits = 27;     // a staged slot's x row, below its matrix
+
+// The bits of kBytes bytes, loaded or stored in one access.
+template <int kBytes>
+struct Raw;
+template <>
+struct Raw<2> {
+  using type = unsigned short;
+};
+template <>
+struct Raw<4> {
+  using type = unsigned;
+};
+template <>
+struct Raw<8> {
+  using type = uint2;
+};
+template <>
+struct Raw<16> {
+  using type = uint4;
+};
+
+// The E values of T at p (E * sizeof(T) bytes, aligned to that), widened.
+template <typename T, int E, typename A>
+__device__ __forceinline__ void load_piece(const T* p, A (&v)[E]) {
+  using B = typename Raw<E * sizeof(T)>::type;
+  const B b = __ldg(reinterpret_cast<const B*>(p));
+  const T* t = reinterpret_cast<const T*>(&b);
+#pragma unroll
+  for (int m = 0; m < E; ++m) v[m] = widen(t[m]);
+}
+
+template <typename T, int E, typename A>
+__device__ __forceinline__ void store_piece(T* p, const A (&v)[E]) {
+  using B = typename Raw<E * sizeof(T)>::type;
+  B b;
+  T* t = reinterpret_cast<T*>(&b);
+#pragma unroll
+  for (int m = 0; m < E; ++m) t[m] = narrow<T>(v[m]);
+  *reinterpret_cast<B*>(p) = b;
+}
+
+// Shared-memory bytes of a fold_strip block: per raw slot of a window (up
+// to n_cap) its staged value (A) and row id, x row and sorted place (three
+// ints); a round of a heavy row's entry sums (kEntryRound rows of the
+// tile); the row ids' counts and starts and the scatter's cursors
+// (2 kp + 1 ints), each warp's staged count, a word for the leading heavy
+// row and the window's rows' first residue entries (P + 1 ints, P = kp / K
+// at most kp). fold_strip_layout in the wrapper budgets the same sum.
+template <typename X>
+size_t fold_strip_smem_bytes(int kp, int n_cap, int tile) {
+  using A = typename SumOf<X>::type;
+  return (static_cast<size_t>(n_cap) + static_cast<size_t>(kEntryRound) *
+                                           tile) * sizeof(A) +
+         (3 * static_cast<size_t>(n_cap) + 3 * kp + 2 + kStripWarps + 1) *
+             sizeof(int);
+}
+
+// One residue entry's sum over its slots, in slot order, of the lane's E
+// columns (x + c * s + col) of their rows of x, by a whole warp (lanes
+// past the columns idle but shuffle): each slot's (x row, value) loaded by
+// one lane and handed round, kSlotUnroll x pieces in flight.
+template <typename X, typename V, int E, typename A>
+__device__ __forceinline__ void strip_entry(const TailArgs<X, V>& a,
+                                            const X* x, int q0, int q1,
+                                            int col, bool active, int lane,
+                                            A (&sum)[E]) {
+#pragma unroll
+  for (int m = 0; m < E; ++m) sum[m] = A(0);
+  for (int qb = q0; qb < q1; qb += 32) {
+    const int nq = min(32, q1 - qb);
+    int c = 0;
+    A w = A(0);
+    if (lane < nq) {
+      c = __ldg(a.cols + qb + lane);
+      w = load_val<V, A>(a.vals + qb + lane);
+    }
+    for (int j0 = 0; j0 < nq; j0 += kSlotUnroll) {
+      A xp[kSlotUnroll][E], wv[kSlotUnroll];
+#pragma unroll
+      for (int j = 0; j < kSlotUnroll; ++j) {
+        const int cj = __shfl_sync(0xffffffffu, c, (j0 + j) & 31);
+        wv[j] = __shfl_sync(0xffffffffu, w, (j0 + j) & 31);
+        if (active && j0 + j < nq)
+          load_piece<X, E>(x + static_cast<size_t>(cj) * a.s + col, xp[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kSlotUnroll; ++j) {
+        if (j0 + j >= nq) break;
+#pragma unroll
+        for (int m = 0; m < E; ++m)
+          sum[m] = add_rn(sum[m], tail_product<X, V>(xp[j][m], wv[j]));
+      }
+    }
+  }
+}
+
+// y = sum_m A_m @ x_m for the P rows of one window and an S tile of 32 E
+// columns, written once: what window_strip(windowed_fold_multi) gives, bit
+// for bit (see the note at the head of this file). Blocks [0, n_heavy) take
+// the windows of the heavy rows, most entries first, each window by the
+// block of its leading heavy row (the others return); the rest take the
+// windows in order, skipping those. a: the merged residue list (rowptr
+// null: none), y, n_rows, S, NW, P and K (a.t, a.x, a.group and a.tile are
+// not read). n_cap: the most raw slots a window has (K times the matrices'
+// slots of one window), which sizes the staging in shared memory.
+template <typename X, typename V, typename RowId, int E>
+__global__ void __launch_bounds__(32 * kStripWarps, 4)
+fold_strip_kernel(const __grid_constant__ FoldMats mats,
+                  const __grid_constant__ TailArgs<X, V> a, int R,
+                  int n_cap) {
+  using A = typename SumOf<X>::type;
+  constexpr bool kBf16Product = sizeof(X) == 2 && sizeof(V) == 2;
+  constexpr int kTile = 32 * E;
+  constexpr int kSrcMask = (1 << kSrcBits) - 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = a.p, kp = a.k * a.p, s = a.s;
+  A* val = reinterpret_cast<A*>(smem);         // n_cap: staged values
+  A* sums = val + n_cap;                       // (kEntryRound, kTile)
+  int* key = reinterpret_cast<int*>(sums + kEntryRound * kTile);  // row ids
+  int* src = key + n_cap;                      // x row | matrix << kSrcBits
+  int* order = src + n_cap;                    // staged slots by row id
+  int* start = order + n_cap;                  // kp + 1: row ids' starts
+  int* cursor = start + kp + 1;                // kp: the scatter's cursors
+  int* staged = cursor + kp;                   // kStripWarps: staged counts
+  int* lead_word = staged + kStripWarps;
+  int* rp = lead_word + 1;                     // P + 1: the rows' entries
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.y * kTile;
+  const int col = s0 + E * lane;  // the lane's first column
+  const bool active = col < s;
+  const int b = static_cast<int>(blockIdx.x);
+  const int win = b < a.n_heavy ? __ldg(a.heavy + b) / P : b - a.n_heavy;
+  const long long row0 = static_cast<long long>(win) * P;
+  if (row0 >= a.n_rows) return;
+  const int n_here = static_cast<int>(min(static_cast<long long>(P),
+                                          a.n_rows - row0));
+  int e_lo = 0, e_hi = 0;  // the window's residue entries
+  if (a.rowptr != nullptr) {
+    e_lo = __ldg(a.rowptr + row0);
+    e_hi = __ldg(a.rowptr + row0 + n_here);
+  }
+  for (int i = tid; i <= kp; i += blockDim.x) start[i] = 0;
+  if (a.rowptr != nullptr)
+    for (int i = tid; i <= n_here; i += blockDim.x)
+      rp[i] = __ldg(a.rowptr + row0 + i);
+  // A window that holds a heavy row holds kHeavyMin entries at least, and
+  // is folded by the block of its leading heavy row, among the first
+  // n_heavy; the other blocks return.
+  const bool heavy_here = e_hi - e_lo >= kHeavyMin;
+  if (heavy_here && warp == 0) {
+    const int l = leading_heavy(a, row0, lane);
+    if (lane == 0) *lead_word = l;
+  }
+  __syncthreads();
+  if (heavy_here) {
+    const int lead = *lead_word;
+    if (b < a.n_heavy ? lead != __ldg(a.heavy + b) : lead >= 0) return;
+  }
+
+  // Staging. The window's raw slots are one stream: the segments (d, m),
+  // d-major, each the slots of matrix m in window w - d in slot order; a
+  // slot is live where its row id lies in [d P, d P + P) (the rows of part
+  // d of the window's sums). Warp w stages a contiguous range of it,
+  // compacting its live slots (a ballot) from the range's start, in stream
+  // order, and counts each row id.
+  const int nd = min(a.k, win % a.nw + 1);
+  int per_window = 0;  // raw slots of one window, over the matrices
+  for (int m = 0; m < mats.n; ++m) per_window += mats.m[m].n_src * mats.m[m].L;
+  const int n_raw = nd * per_window;
+  const int chunk = ((n_raw + kStripWarps - 1) / kStripWarps + 31) / 32 * 32;
+  const int t_lo = warp * chunk, t_hi = min(n_raw, t_lo + chunk);
+  int n_live = 0;
+  for (int t0 = t_lo; t0 < t_hi; t0 += 32 * kStageRounds) {
+    int c_[kStageRounds], r_[kStageRounds], g_[kStageRounds],
+        m_[kStageRounds], lo_[kStageRounds];
+    V v_[kStageRounds];
+#pragma unroll
+    for (int k = 0; k < kStageRounds; ++k) {
+      const int t = t0 + k * 32 + lane;
+      c_[k] = -1;
+      g_[k] = m_[k] = lo_[k] = 0;
+      if (t < t_hi) {
+        const int d = t / per_window;
+        int jj = t - d * per_window, m = 0;
+        while (jj >= mats.m[m].n_src * mats.m[m].L) {
+          jj -= mats.m[m].n_src * mats.m[m].L;
+          ++m;
+        }
+        const FoldMat& fm = mats.m[m];
+        const size_t at = static_cast<size_t>(win - d) * (fm.n_src * fm.L) + jj;
+        c_[k] = fm.cols[at];
+        r_[k] = static_cast<int>(static_cast<const RowId*>(fm.rowid)[at]);
+        v_[k] = static_cast<const V*>(fm.vals)[at];
+        g_[k] = (jj / fm.L) * R;
+        m_[k] = m;
+        lo_[k] = d * P;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kStageRounds; ++k) {
+      const int g = g_[k] + c_[k];  // c_ == R: sentinel
+      const bool live = c_[k] >= 0 && c_[k] < R &&
+                        g < mats.m[m_[k]].n_cols && r_[k] >= lo_[k] &&
+                        r_[k] < lo_[k] + P;
+      const unsigned bits = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        const int pos = t_lo + n_live + __popc(bits & ((1u << lane) - 1u));
+        val[pos] = widen(v_[k]);
+        key[pos] = r_[k];
+        src[pos] = g | m_[k] << kSrcBits;
+        atomicAdd(&start[r_[k]], 1);
+      }
+      n_live += __popc(bits);
+    }
+  }
+  if (lane == 0) staged[warp] = n_live;
+  __syncthreads();
+
+  // The stable counting sort by row id (warp 0): the counts' exclusive scan
+  // into start (start[kp]: the live slots), then the staged slots in
+  // stream order (warp by warp), each placed after the earlier slots of its
+  // row id (the lanes of one row id ranked by match_any).
+  if (warp == 0) {
+    const int per_lane = (kp + 32) / 32;  // kp + 1 entries
+    int sum = 0;
+    for (int i = lane * per_lane; i < min(kp + 1, (lane + 1) * per_lane); ++i)
+      sum += start[i];
+    int before = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, before, o);
+      if (lane >= o) before += n;
+    }
+    before -= sum;  // the lanes before this one
+    for (int i = lane * per_lane; i < min(kp + 1, (lane + 1) * per_lane); ++i) {
+      const int n = start[i];
+      start[i] = before;
+      if (i < kp) cursor[i] = before;
+      before += n;
+    }
+    __syncwarp();
+    for (int w = 0; w < kStripWarps; ++w) {
+      const int lo = w * chunk, hi = lo + staged[w];
+      for (int i0 = lo; i0 < hi; i0 += 32) {
+        const int i = i0 + lane;
+        const int k = i < hi ? key[i] : -1 - lane;  // distinct when idle
+        const unsigned peers = __match_any_sync(0xffffffffu, k);
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        int pos = 0;
+        if (i < hi) pos = cursor[k] + rank;
+        __syncwarp();
+        if (i < hi) {
+          order[pos] = i;
+          if (lane == 31 - __clz(peers)) cursor[k] = pos + 1;
+        }
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+
+  // A row's sum by one warp, each lane its E columns: part d sums the
+  // slots of row id d P + r in stream order, in registers, by the fold's
+  // own expression, and is rounded to X (the window tensor's value); the
+  // parts are added in order d = 0..nd-1 and rounded once.
+  auto fold_row = [&](int r, A (&v)[E]) {
+    for (int d = 0; d < nd; ++d) {
+      const int k0 = start[d * P + r], k1 = start[d * P + r + 1];
+      A acc[E];
+#pragma unroll
+      for (int m = 0; m < E; ++m) acc[m] = A(0);
+      for (int i = k0; i < k1; i += kSlotUnroll) {
+        A p[kSlotUnroll][E], w[kSlotUnroll];
+#pragma unroll
+        for (int u = 0; u < kSlotUnroll; ++u) {
+          if (i + u < k1) {
+            const int q = order[i + u];
+            const int g = src[q];
+            w[u] = val[q];
+            if (active)
+              load_piece<X, E>(static_cast<const X*>(mats.m[g >> kSrcBits].x) +
+                                   static_cast<size_t>(g & kSrcMask) * s + col,
+                               p[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSlotUnroll; ++u)
+          if (i + u < k1) {
+#pragma unroll
+            for (int m = 0; m < E; ++m)
+              acc[m] += product<kBf16Product>(w[u], p[u][m]);
+          }
+      }
+#pragma unroll
+      for (int m = 0; m < E; ++m) {
+        const A t = widen(narrow<X>(acc[m]));
+        v[m] = d == 0 ? t : add_rn(v[m], t);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < E; ++m) v[m] = round_to<X>(v[m]);
+  };
+  auto entry_x = [&](int e) {
+    return static_cast<const X*>(mats.m[__ldg(a.emat + e)].x);
+  };
+
+  // Rows with fewer than kHeavyMin residue entries: a warp a row, its
+  // entries added in order, each sum rounded and each add too.
+  for (int r = warp; r < n_here; r += kStripWarps) {
+    const long long row = row0 + r;
+    int e0 = 0, e1 = 0;
+    if (a.rowptr != nullptr) {
+      e0 = rp[r];
+      e1 = rp[r + 1];
+    }
+    if (e1 - e0 >= kHeavyMin) continue;
+    A v[E];
+    fold_row(r, v);
+    for (int e = e0; e < e1; ++e) {
+      A sum[E];
+      strip_entry<X, V, E>(a, entry_x(e), __ldg(a.entptr + e),
+                           __ldg(a.entptr + e + 1), col, active, lane, sum);
+#pragma unroll
+      for (int m = 0; m < E; ++m)
+        v[m] = round_to<X>(add_rn(v[m], round_to<X>(sum[m])));
+    }
+    if (active) store_piece<X, E>(a.y + row * s + col, v);
+  }
+  if (!heavy_here) return;
+  // Heavy rows, one at a time: warp 0 folds the row; every warp sums
+  // entries, kEntryRound a round, into shared memory; warp 0 adds them in
+  // entry order and writes the row.
+  for (int r = 0; r < n_here; ++r) {
+    const long long row = row0 + r;
+    const int e0 = rp[r], e1 = rp[r + 1];
+    if (e1 - e0 < kHeavyMin) continue;
+    A v[E];
+    if (warp == 0) fold_row(r, v);
+    for (int eb = e0; eb < e1; eb += kEntryRound) {
+      const int ne = min(kEntryRound, e1 - eb);
+      __syncthreads();  // the previous round's sums are added
+      for (int j = warp; j < ne; j += kStripWarps) {
+        A sum[E];
+        strip_entry<X, V, E>(a, entry_x(eb + j), __ldg(a.entptr + eb + j),
+                             __ldg(a.entptr + eb + j + 1), col, active, lane,
+                             sum);
+#pragma unroll
+        for (int m = 0; m < E; ++m) sums[j * kTile + E * lane + m] = sum[m];
+      }
+      __syncthreads();
+      if (warp == 0)
+        for (int j = 0; j < ne; ++j)
+#pragma unroll
+          for (int m = 0; m < E; ++m)
+            v[m] = round_to<X>(
+                add_rn(v[m], round_to<X>(sums[j * kTile + E * lane + m])));
+    }
+    if (warp == 0 && active) store_piece<X, E>(a.y + row * s + col, v);
+  }
+}
+
 // (d) y = 2 x.
 __global__ void double_kernel(const float* __restrict__ x,
                               float* __restrict__ y, int n) {
@@ -1323,15 +1757,10 @@ int launch_fold_one(const void* cols, const void* vals, const void* rowid,
                                          ring, queue, stream);
 }
 
-// The multi-matrix fold: the table holds, per matrix, 7 int64 (cols, vals,
-// rowid and x as addresses, n_src, L, n_cols), copied into the kernel's
-// parameters here.
-template <typename X, typename V, typename RowId>
-int launch_fold_multi(const long long* table, void* t, int n_mats,
-                      int n_windows, int R, int kp, int s, int s_tile,
-                      int ring, int queue, void* stream) {
-  if (n_mats < 1 || n_mats > kMaxMats)
-    return static_cast<int>(cudaErrorInvalidValue);
+// The kernel parameters' table of n_mats (1 to kMaxMats) matrices from the
+// wrapper's: per matrix, 7 int64 (cols, vals, rowid and x as addresses,
+// n_src, L, n_cols).
+FoldMats fold_mats(const long long* table, int n_mats) {
   FoldMats mats{};
   mats.n = n_mats;
   for (int m = 0; m < n_mats; ++m) {
@@ -1343,8 +1772,20 @@ int launch_fold_multi(const long long* table, void* t, int n_mats,
                         static_cast<int>(e[4]), static_cast<int>(e[5]),
                         static_cast<int>(e[6]), 0};
   }
-  return launch_fold<true, X, V, RowId>(mats, t, n_windows, R, kp, s, s_tile,
-                                        ring, queue, stream);
+  return mats;
+}
+
+// The multi-matrix fold: the wrapper's table copied into the kernel's
+// parameters.
+template <typename X, typename V, typename RowId>
+int launch_fold_multi(const long long* table, void* t, int n_mats,
+                      int n_windows, int R, int kp, int s, int s_tile,
+                      int ring, int queue, void* stream) {
+  if (n_mats < 1 || n_mats > kMaxMats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fold<true, X, V, RowId>(fold_mats(table, n_mats), t,
+                                        n_windows, R, kp, s, s_tile, ring,
+                                        queue, stream);
 }
 
 template <typename P>
@@ -1368,6 +1809,53 @@ int launch_products(const void* rid, const void* p, void* out, int nw,
   kernel<<<grid, 2 * block_m, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(rid), static_cast<const P*>(p),
       static_cast<float*>(out), lt, kp, s, m_tiles, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused multi-matrix SpMM: the table as launch_fold_multi's; the merged
+// residue list (rowptr null: none) and its heavy rows; vec: pieces of kE
+// values of x and y (16 bytes, 8 in bf16), whose rows are aligned to them; n_cap: the most
+// raw slots a window has, K times the matrices' slots of one window.
+template <typename X, typename V, typename RowId>
+int launch_fold_strip(const long long* table, void* y, const void* rowptr,
+                      const void* entptr, const void* cols, const void* vals,
+                      const void* emat, const void* heavy, int n_mats,
+                      int n_heavy, int n_out, int nw, int R, int P, int K,
+                      int n_rows, int s, int vec, int n_cap, void* stream) {
+  constexpr int kE = 16 / (sizeof(X) < 4 ? 4 : sizeof(X));
+  if (n_mats < 1 || n_mats > kMaxMats || P < 1 || K < 1 || n_rows < 1 ||
+      s < 1 || n_heavy < 0 || (rowptr == nullptr && n_heavy > 0) ||
+      (rowptr != nullptr && emat == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = n_heavy + static_cast<long long>(n_out) * nw;
+  if (items > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const FoldMats mats = fold_mats(table, n_mats);
+  long long per_window = 0;
+  bool aligned = reinterpret_cast<size_t>(y) % (kE * sizeof(X)) == 0;
+  for (int m = 0; m < n_mats; ++m) {
+    per_window += static_cast<long long>(mats.m[m].n_src) * mats.m[m].L;
+    aligned = aligned &&
+              reinterpret_cast<size_t>(mats.m[m].x) % (kE * sizeof(X)) == 0;
+    // a staged slot keeps its x row below its matrix in one int
+    if (mats.m[m].n_cols > (1 << kSrcBits))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (K * per_window > n_cap || (vec && (!aligned || s % kE)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = 32 * (vec ? kE : 1);
+  const TailArgs<X, V> a{
+      nullptr, static_cast<X*>(y), static_cast<const int*>(rowptr),
+      static_cast<const int*>(entptr), static_cast<const int*>(cols),
+      static_cast<const V*>(vals), nullptr, static_cast<const int*>(heavy),
+      static_cast<const int*>(emat), n_rows, s, nw, P, K, n_heavy, 0, 0};
+  const size_t smem = fold_strip_smem_bytes<X>(K * P, n_cap, tile);
+  auto kernel = vec ? fold_strip_kernel<X, V, RowId, kE>
+                    : fold_strip_kernel<X, V, RowId, 1>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(items), (s + tile - 1) / tile);
+  kernel<<<grid, 32 * kStripWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+      mats, a, R, n_cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1556,6 +2044,43 @@ WINDOW_STRIP_MULTI(window_strip_multi_f64, double, double)
 WINDOW_STRIP_MULTI(window_strip_multi_bf16, __nv_bfloat16, __nv_bfloat16)
 WINDOW_STRIP_MULTI(window_strip_multi_bf16_f32, __nv_bfloat16, float)
 WINDOW_STRIP_MULTI(window_strip_multi_f32_bf16, float, __nv_bfloat16)
+
+// The fused multi-matrix SpMM (fold and strip in one launch), for the fold's
+// (x type, values type) pairs and row ids, and its shared-memory count.
+#define FOLD_STRIP_MULTI(NAME, X, V, ROWID)                                  \
+  extern "C" int NAME(const void* table, void* y, const void* rowptr,        \
+                      const void* entptr, const void* cols,                  \
+                      const void* vals, const void* emat, const void* heavy, \
+                      int n_mats, int n_heavy, int n_out, int nw, int R,     \
+                      int P, int K, int n_rows, int s, int vec, int n_cap,   \
+                      void* stream) {                                        \
+    return launch_fold_strip<X, V, ROWID>(                                   \
+        static_cast<const long long*>(table), y, rowptr, entptr, cols, vals, \
+        emat, heavy, n_mats, n_heavy, n_out, nw, R, P, K, n_rows, s, vec,    \
+        n_cap, stream);                                                      \
+  }
+#define FOLD_STRIP_SMEM_BYTES(NAME, X)                                       \
+  extern "C" int NAME(int kp, int n_cap, int tile) {                         \
+    return static_cast<int>(fold_strip_smem_bytes<X>(kp, n_cap, tile));      \
+  }
+
+FOLD_STRIP_MULTI(fold_strip_multi_f32_u8, float, float, unsigned char)
+FOLD_STRIP_MULTI(fold_strip_multi_f32_i32, float, float, int)
+FOLD_STRIP_MULTI(fold_strip_multi_f64_u8, double, double, unsigned char)
+FOLD_STRIP_MULTI(fold_strip_multi_f64_i32, double, double, int)
+FOLD_STRIP_MULTI(fold_strip_multi_bf16_f32_u8, __nv_bfloat16, float,
+                 unsigned char)
+FOLD_STRIP_MULTI(fold_strip_multi_bf16_f32_i32, __nv_bfloat16, float, int)
+FOLD_STRIP_MULTI(fold_strip_multi_bf16_u8, __nv_bfloat16, __nv_bfloat16,
+                 unsigned char)
+FOLD_STRIP_MULTI(fold_strip_multi_bf16_i32, __nv_bfloat16, __nv_bfloat16, int)
+FOLD_STRIP_MULTI(fold_strip_multi_f32_bf16_u8, float, __nv_bfloat16,
+                 unsigned char)
+FOLD_STRIP_MULTI(fold_strip_multi_f32_bf16_i32, float, __nv_bfloat16, int)
+
+FOLD_STRIP_SMEM_BYTES(fold_strip_multi_smem_bytes_f32, float)
+FOLD_STRIP_SMEM_BYTES(fold_strip_multi_smem_bytes_f64, double)
+FOLD_STRIP_SMEM_BYTES(fold_strip_multi_smem_bytes_bf16, __nv_bfloat16)
 
 extern "C" int double_f32(const void* x, void* y, int n, void* stream) {
   double_kernel<<<(n + 255) / 256, 256, 0,

@@ -51,9 +51,10 @@ VJP = {'1d_coo', '1d_win_split', '1d_batch_win_split', '2d_ring_split',
 
 
 # the kernels whose launches each configuration's matvec records (one
-# product: on the card, the interleaved ring's fused fold at each of its pc
+# product: on the card, the interleaved ring's fused SpMM at each of its pc
 # positions; the plain ring's once)
-LAUNCHED = ('windowed_fold_multi', 'windowed_fold', 'window_strip')
+LAUNCHED = ('fold_strip_multi', 'windowed_fold_multi', 'windowed_fold',
+            'window_strip')
 
 
 def layout_1d(par, sg, name):

@@ -1592,14 +1592,14 @@ def test_nn_graphs_and_eigenmap_on_the_card(cuda):
 # the fused multi-matrix fold and the multi-device engines at one rank
 # ---------------------------------------------------------------------------
 
-def _ring_mats(dtype, device, **kw):
-    """Device (0, 0)'s pr = 4 ring matrices of the 4 × 4 edge partition of
-    ``_ba_windowed``'s graph: slab widths and source-chunk counts that
-    differ, residue tiers (the graph's hubs)."""
+def _ring_mats(dtype, device, shape=(4, 4), **kw):
+    """Device (0, 0)'s pr ring matrices of the ``shape`` (4 × 4 by default)
+    edge partition of ``_ba_windowed``'s graph: slab widths and
+    source-chunk counts that differ, residue tiers (the graph's hubs)."""
     from pygsp_tpu_torch import parallel as par
     from pygsp_tpu_torch.parallel.partition import shard_slice
     W, _ = _ba_windowed(torch.float64, 'cpu')
-    tg = par.partition_graph_2d(W, 4, 4, dtype=dtype, device=device)
+    tg = par.partition_graph_2d(W, *shape, dtype=dtype, device=device)
     ell = par.twod_local_windowed(tg, ring=True, **kw)
     return [shard_slice(e, 0).local_matrix() for e in ell]
 
@@ -1652,6 +1652,122 @@ def test_fold_multi_layout_bytes_are_the_kernels(cuda, dtype, kp, s):
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
     assert fn(kp, lay.s_tile, lay.ring, lay.queue) == lay.smem_bytes
+
+
+# the fused SpMM in one launch (fold_strip_multi): K = 2 and 4, windows of
+# 8 rows, and rows of more residue entries than the heavy-row bound (up to
+# 35, three rounds of ENTRY_ROUND), on the 4 x 4 and 2 x 2 partitions
+FOLD_STRIP_CASES = {
+    'K2': ((4, 4), dict(chunk_rows=512, borrow_span=2)),
+    'K4': ((4, 4), dict(chunk_rows=512, borrow_span=4)),
+    'P8': ((4, 4), dict(chunk_rows=64, window_rows=8)),
+    'heavyK2': ((2, 2), dict(chunk_rows=256, slab_width=4, borrow_span=2)),
+    'heavyK4': ((2, 2), dict(chunk_rows=256, slab_width=4, borrow_span=4)),
+}
+
+
+def _fold_strip_operands(case, pair, s, device):
+    xd, vd = pair
+    shape, kw = FOLD_STRIP_CASES[case]
+    mats = [m.astype(vd) for m in _ring_mats(
+        torch.float64 if xd == torch.float64 else torch.float32, device,
+        shape=shape, **kw)]
+    xs = [_signal((m.n_cols, s), torch.float64, 40 + i, device).to(xd)
+          for i, m in enumerate(mats)]
+    m0 = mats[0]
+    merged = wk.merge_residues([m.residue for m in mats], m0.n_rows)
+    return ([(m.cols, m.vals, m.rowid) for m in mats], xs, m0.chunk_rows,
+            m0.window_rows, m0.borrow_span, m0.n_rows, merged)
+
+
+@pytest.mark.parametrize('pair', sorted(wk.FOLD_OPERANDS, key=str))
+@pytest.mark.parametrize('s', [1, 5, 128, 136])
+@pytest.mark.parametrize('case', list(FOLD_STRIP_CASES))
+def test_fold_strip_multi_matches_plain(cuda, pair, s, case):
+    """One launch against the two launches it replaces (the multi-matrix
+    fold, then the strip of the merged residue lists), bit for bit; two
+    launches bit-equal; against its plain version within the sums'
+    tolerance (float32, float64 y), or within the roundings to bf16 of a
+    bf16 y (the K parts, y, and each residue entry's sum and add, and the
+    products of bf16 · bf16) of the float64 sum of |terms|."""
+    slabs, xs, R, P, K, n, merged = _fold_strip_operands(case, pair, s, cuda)
+    assert K == {'K2': 2, 'heavyK2': 2}.get(case, 4)
+    counts = merged.rowptr[1:] - merged.rowptr[:-1]
+    if case.startswith('heavy'):
+        assert int(counts.max()) > 2 * wk.ENTRY_ROUND
+    before = wk.fold_strip_multi.launches
+    y = wk.fold_strip_multi(slabs, xs, R, P, K, n, merged)
+    assert wk.fold_strip_multi.launches == before + 1
+    assert y.dtype == pair[0] and y.shape == (n, s)
+    t = wk.windowed_fold_multi(slabs, xs, R, K * P)
+    assert torch.equal(y, wk.window_strip(t, n, P, merged, xs))
+    assert torch.equal(y, wk.fold_strip_multi(slabs, xs, R, P, K, n, merged))
+    if pair[0] != torch.bfloat16:
+        want = wk.fold_strip_multi_plain(slabs, xs, R, P, K, n, merged)
+        assert _rel_err(y, want) <= TOL[pair[0]]
+        return
+    f64 = [(c, v.double(), r) for c, v, r in slabs]
+    want = wk.fold_strip_multi_plain(
+        f64, [x.double() for x in xs], R, P, K, n,
+        merged._replace(vals=merged.vals.double()))
+    scale = wk.fold_strip_multi_plain(
+        [(c, v.abs(), r) for c, v, r in f64],
+        [x.double().abs() for x in xs], R, P, K, n,
+        merged._replace(vals=merged.vals.double().abs())).max()
+    roundings = K + 3 + 2 * int(counts.max())
+    assert float((y.double() - want).abs().max()) <= \
+        roundings * 2.0**-9 * float(scale)
+
+
+@pytest.mark.parametrize('pair', [(torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.float32)])
+def test_fold_strip_multi_without_residue(cuda, pair):
+    slabs, xs, R, P, K, n, _ = _fold_strip_operands('K2', pair, 128, cuda)
+    y = wk.fold_strip_multi(slabs, xs, R, P, K, n)
+    assert torch.equal(y, wk.window_strip(
+        wk.windowed_fold_multi(slabs, xs, R, K * P), n, P))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('case', list(WINDOWED_CASES))
+def test_fold_strip_multi_at_one_matrix(cuda, dtype, case):
+    """At one matrix: bit-equal to the single-matrix fold and strip (the
+    windowed SpMM's two launches), heavy rows included; a matrix whose
+    windows a block cannot stage is refused."""
+    _, M = _ba_windowed(dtype, cuda, **WINDOWED_CASES[case])
+    x = _signal((M.n_cols, 128), dtype, 9, cuda)
+    R, P, K = M.chunk_rows, M.window_rows, M.borrow_span
+    slabs = [(M.cols, M.vals, M.rowid)]
+    args = (slabs, [x], R, P, K, M.n_rows,
+            wk.merge_residues([M.residue], M.n_rows))
+    if not wk.fold_strip_fits(slabs, [x], K, P):
+        with pytest.raises(ValueError, match='do not fit'):
+            wk.fold_strip_multi(*args)
+        return
+    y = wk.fold_strip_multi(*args)
+    t = wk.windowed_fold(M.cols, M.vals, M.rowid, x, R, K * P)
+    assert torch.equal(y, wk.window_strip(t, M.n_rows, P, M.residue, x))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize('kp,n_cap', [(128, 600), (256, 2304), (512, 40)])
+@pytest.mark.parametrize('vec', [True, False])
+def test_fold_strip_layout_bytes_are_the_kernels(cuda, dtype, kp, n_cap, vec):
+    lay = wk.fold_strip_layout(kp, n_cap, dtype, vec)
+    fn = getattr(_cuda.library('windowed_fold'),
+                 f'fold_strip_multi_smem_bytes_{wk._DTYPES[dtype]}')
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    assert fn(kp, n_cap, lay.tile) == lay.smem_bytes
+
+
+def test_fold_strip_multi_refuses_grad(cuda):
+    slabs, xs, R, P, K, n, merged = _fold_strip_operands(
+        'K2', (torch.float32, torch.float32), 8, cuda)
+    xs[1] = xs[1].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match='requires grad'):
+        wk.fold_strip_multi(slabs, xs, R, P, K, n, merged)
 
 
 def test_fused_spmm_on_the_card_matches_the_cpu(cuda):

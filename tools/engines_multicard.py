@@ -11,10 +11,10 @@ written to a work directory; each rank's slices are assembled and held,
 within 1e-12 of the largest value, to ``cheby_op``, ``cheby_synthesis``
 and the fixed-graph VJP on one device (the CPU), and the bf16 modes within
 twice ``carry_error_estimate``. On the cards, each 2-D ring layout's
-matvec must launch the fused multi-matrix fold (``windowed_fold_multi``)
-once per fold position (pc times interleaved, once otherwise), with one
-strip each and no single-matrix fold. One JSON line per configuration,
-then a summary line.
+matvec must launch the fused multi-matrix SpMM (``fold_strip_multi``)
+once per fold position (pc times interleaved, once otherwise), and no
+fold into a window tensor, no strip and no single-matrix fold. One JSON
+line per configuration, then a summary line.
 
 Run: ``python3 tools/engines_multicard.py [world]`` (default 4, one card a
 rank; ``--cpu`` for gloo on the CPU instead).
@@ -77,14 +77,16 @@ def reference(G, Ls, lmax, x, c, gout):
 
 def expected_launches(kind, shape, layout, device):
     """A rank's launches in one matvec of a 2-D ring layout on the cards
-    (pr > 1): the fused fold and its strip at each fold position, no
-    single-matrix fold; None where no count is required."""
+    (pr > 1): the fused SpMM at each fold position, and no fold into a
+    window tensor, strip or single-matrix fold; None where no count is
+    required."""
     pr, pc = shape
     if device != 'cuda' or kind != '2d' or not layout.startswith('ring') \
             or pr == 1:
         return None
     n = pc if layout.endswith('split') else 1
-    return dict(windowed_fold_multi=n, windowed_fold=0, window_strip=n)
+    return dict(fold_strip_multi=n, windowed_fold_multi=0, windowed_fold=0,
+                window_strip=0)
 
 
 def main():
