@@ -121,7 +121,9 @@ H. path H, the hybrid ELL format on its kernel ``ell_spmm``:
    against its plain version in f64 at the bank's shape (heavy rows in
    blocks of their own), two launches bit-equal, ``inf`` behind every dead
    slot adding nothing, timed beside its bound, its gather model, its
-   plain version and ``torch.sparse.mm``; its narrow entry held the same
+   plain version and ``torch.sparse.mm``, in f32 and in f64 (the layout
+   line: each row's positions and overflow slots, mean and largest, and
+   the live share of them); its narrow entry held the same
    way at 1 and 8 columns and in f64 at 5 (on BA(2^16) at 1 and 8), timed
    beside the wide entry in turns (each also by the device time of a CUDA
    graph of 20 calls), its bound and ``torch.sparse.mm``;
@@ -132,8 +134,11 @@ H. path H, the hybrid ELL format on its kernel ``ell_spmm``:
    SciPy f64, the narrow entry held and timed at 1 and 8 columns;
 I. path I, the chunked format on its kernel ``chunked_spmm``: path A's
    graph with ``fmt='chunked'``, the bank and its checks as on path H; the
-   kernel held as there at the bank's shape, in every bf16 operand pair
-   and at the x̄ synthesis's 512 columns, its narrow entry as on path H at
+   kernel held and timed as there at the bank's shape in every operand
+   pair (f32, f64 and the three bf16 pairs, each beside its bound and
+   gather model in its own element sizes and ``torch.sparse.mm`` where one
+   call computes it: none for the mixed pairs) and held at the x̄
+   synthesis's 512 columns, its narrow entry as on path H at
    1 and 8 columns, in f64 at 5 and in each bf16 pair at one; the fast mode
    (``carry_dtype`` and ``vals_dtype`` bf16, the ``chunked_spmm_bf16``
    symbol counted) within 1.5e-2 on the first filter and twice
@@ -3592,12 +3597,36 @@ def slot_csr(M, dtype):
 
 
 def slot_yardsticks(M, x, lib):
-    """The bound and gather model of ``M @ x`` on its slot kernel, and
-    ``torch.sparse.mm``'s time for it on ``lib`` (:func:`slot_csr`)."""
+    """The bound and gather model of ``M @ x`` on its slot kernel, in x's
+    and the values' element sizes, and ``torch.sparse.mm``'s time for it on
+    ``lib`` (:func:`slot_csr`); None where no single PyTorch call computes
+    it (x and values of two dtypes)."""
+    if lib is None:
+        return {**slot_work(M, x.shape[1], x.element_size()),
+                'library_ms': None,
+                'library': 'none: no single PyTorch call takes x and values '
+                           'of two dtypes'}
     return {**slot_work(M, x.shape[1], x.element_size()),
             'library_ms': time_ms(lambda: torch.sparse.mm(lib, x), 20),
             'library': 'torch.sparse.mm on a sparse CSR tensor of the same '
                        'off-diagonal'}
+
+
+def slot_layout(M):
+    """What the wide entry walks a row: its positions (dense slots, dead
+    padding included) and overflow slots, their mean and largest count a
+    row, and the share of them that are live (the stored entries)."""
+    _, (table, cols, _, res) = slot_operands(M)
+    rows = torch.arange(M.n_rows, device=cols.device) // table.chunk_rows
+    per_row = (table.chunk_ptr[rows + 1] - table.chunk_ptr[rows]).long()
+    if res is not None:
+        ent = res.entptr.long()
+        per_row = per_row + ent[res.rowptr[1:].long()] - ent[
+            res.rowptr[:-1].long()]
+    walked = int(per_row.sum())
+    return {'positions_per_row_mean': walked / M.n_rows,
+            'positions_per_row_max': int(per_row.max()),
+            'live_share': M.nnz / walked}
 
 
 def dead_to_inf(M):
@@ -3653,15 +3682,18 @@ def hold_slot(name, M, x, want_dtype=None):
 
 
 def measure_slot(name, M, x, lib):
-    """The SpMM kernel of ``M`` at the bank's shape: held against its plain
+    """The SpMM kernel of ``M`` at x's shape: held against its plain
     version (``hold_slot``), then timed beside it, its device time, its
     bound and gather model, and ``torch.sparse.mm`` on ``lib``, the same
-    off-diagonal in CSR (:func:`slot_yardsticks`)."""
+    off-diagonal in CSR, or None (:func:`slot_yardsticks`)."""
     kernel, args = slot_operands(M)
     out = hold_slot(name, M, x)
+    # the device time of a call (the heavy rows' kernel on the side stream
+    # runs beside the rows')
     out.update(
         ms=time_ms(lambda: kernel(*args, x, M.n_rows), 20),
-        **device_ms(lambda: kernel(*args, x, M.n_rows), 20),
+        device_ms=graph_ms(lambda: kernel(*args, x, M.n_rows), 20),
+        device_ms_by='a CUDA graph of 20 calls, replayed',
         plain_ms=time_ms(lambda: ell_kernel.slot_spmm_plain(
             *args, x, M.n_rows), 2),
         **slot_yardsticks(M, x, lib),
@@ -3870,17 +3902,20 @@ def phase_path_h():
         'slots': M.ell_cols.numel() + sum(lev.cols.numel()
                                           for lev in M.levels),
         'overflow_live_slots': M.residue.cols.numel(),
-        'heavy_rows': M.residue.heavy.numel()}
+        'heavy_rows': M.residue.heavy.numel(), **slot_layout(M)}
     log(f'  layout: {json.dumps(result["layout"])}')
     lib = slot_csr(M, x.dtype)
     kernel = measure_slot('ell_spmm at path H', M, x, lib)
     narrow['H'] = measure_narrow_widths('H', M, x, lib)
     del lib
     M64 = M.astype(torch.float64)
+    lib64 = slot_csr(M64, torch.float64)
+    # the wide entry's other operand pair at the bank's width
+    held['f64'] = measure_slot('ell_spmm f64 at path H', M64, x.double(),
+                               lib64)
     narrow['H'].update(measure_narrow_widths(
-        'H', M64, x[:, :5].double(), slot_csr(M64, torch.float64),
-        widths=(5,)))
-    del M64
+        'H', M64, x[:, :5].double(), lib64, widths=(5,)))
+    del M64, lib64
     ub = float(laplacian_upper_bound(G.L))
     ub_host = float(np.max(np.ravel(abs(G.L.to_scipy().astype(
         np.float64)).sum(axis=1))))
@@ -3952,26 +3987,30 @@ def phase_path_i():
         'tier_slots': sum(lev.cols.numel() for lev in M.levels),
         'tier_entries': M.level_rows.numel(),
         'overflow_live_slots': M.residue.cols.numel(),
-        'heavy_rows': M.residue.heavy.numel()}
+        'heavy_rows': M.residue.heavy.numel(), **slot_layout(M)}
     log(f'  layout: {json.dumps(result["layout"])}')
     lib = slot_csr(M, x.dtype)
     kernel = measure_slot('chunked_spmm at path I', M, x, lib)
     narrow = {'I': measure_narrow_widths('I', M, x, lib)}
     held = {}
     for combo, (xd, vd) in BF16_FOLDS.items():
-        held[f'bf16_{combo}'] = hold_slot(f'chunked_spmm bf16 {combo}',
-                                          M.astype(vd), x.to(xd))
-        # torch.sparse.mm takes bf16 x on bf16 values; no call takes the
-        # mixed pairs
+        # every wide operand pair at the bank's width, timed; torch.sparse.mm
+        # takes bf16 x on bf16 values, no call takes the mixed pairs
+        lib_pair = slot_csr(M, xd) if xd == vd else None
+        held[f'bf16_{combo}'] = measure_slot(f'chunked_spmm bf16 {combo}',
+                                             M.astype(vd), x.to(xd),
+                                             lib_pair)
         narrow['I'][f'bf16_{combo}_1'] = measure_narrow(
             f'I narrow bf16 {combo}', M.astype(vd),
-            x[:, :1].to(xd).contiguous(),
-            slot_csr(M, xd) if xd == vd else None)
+            x[:, :1].to(xd).contiguous(), lib_pair)
+        del lib_pair
     M64 = M.astype(torch.float64)
+    lib64 = slot_csr(M64, torch.float64)
+    held['f64'] = measure_slot('chunked_spmm f64 at path I', M64,
+                               x.double(), lib64)
     narrow['I'].update(measure_narrow_widths(
-        'I', M64, x[:, :5].double(), slot_csr(M64, torch.float64),
-        widths=(5,)))
-    del M64
+        'I', M64, x[:, :5].double(), lib64, widths=(5,)))
+    del M64, lib64
     xw = seeded_normal((M.n_cols, WIDE), 96)
     held['x_bar_width'] = hold_slot('chunked_spmm at the x_bar width', M, xw)
     held['x_bar_width'].update(slot_yardsticks(M, xw, lib))

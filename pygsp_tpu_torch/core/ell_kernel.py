@@ -40,8 +40,13 @@ formed in the promotion of x's and the values' dtypes, so a bfloat16 ·
 bfloat16 product rounds to bfloat16, as the JAX package forms it.
 
 Each kernel has two entries. The wide one (``ell_spmm_f32``, ...) gives
-each row a group of lanes that walks the row's slot positions through the
-slot table. The narrow one (``ell_spmm_narrow_f32``,
+each row a group of 8, 16 or 32 lanes (the fewest that cover its 16-byte
+pieces, so rows of 128 bf16 columns share a warp two by two) that reads
+the row's first 32 slot positions through the slot table and its first
+32 overflow slots at once, then gathers the live ones in rounds that run
+from the positions into the overflow slots; the heavy rows' blocks run on
+a side stream beside it (below 8 pieces a row they lead its grid). The
+narrow one (``ell_spmm_narrow_f32``,
 ``chunked_spmm_narrow_<pair>``) gives a warp a tile of consecutive rows
 of one out chunk, ``L`` lanes a row and ``P`` values a lane (the launcher
 in csrc/ell_spmm.cu chooses both and the tile): the warp reads the chunk's

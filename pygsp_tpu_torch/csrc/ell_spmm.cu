@@ -33,35 +33,58 @@
 // (16.8M rows, 8.6 GB), so a kernel that finds none of them in L2 takes
 // about 2.56 ms (the gather model).
 //
-// Design: each output row has one owner, which writes it once; there are
-// no atomics, and two launches are bit-equal.
-//   - Row blocks: a group of lanes per row, each lane owning 16-byte
-//     pieces of it (float4, double2, eight bf16) or one value where the
-//     row is not whole 16-byte pieces. From 8 pieces a row up (an f32 or
-//     bf16 row of 64 columns and more) the group is a whole warp, whose
-//     lanes read 32 of the row's positions at once (table entry, column,
-//     value: one a lane), keep the live ones by a ballot and hand them
-//     round by shuffles, loading kSlots x pieces at a time; then the
-//     row's overflow slots the same way. A chunked row walks about 190
-//     positions, mostly dead padding of its 16 blocks: read one at a time,
-//     each a column load before its x row, they held a first build at
-//     7.0 ms per SpMM on the bench graph. Narrower rows take fewer lanes,
-//     each of which walks the positions kSlots at a time. Either way the
-//     products are added in position order, then the overflow slots in
-//     order: the two paths give the same sums. The products are formed in
-//     the promotion of x's and the values' types (bf16 * bf16 rounds to
-//     bf16, __hmul) and summed in f32 (f64 for f64), each product and sum
-//     rounded once (__fmul_rn, __fadd_rn), the row rounded once to x's
-//     type at the store.
+// Design of the wide entry (slot_wide_kernel: ell_spmm_f32/_f64 and
+// chunked_spmm_<pair> above SLOT_NARROW_WIDTH), redesigned for Hopper
+// after its first build: each output row has one owner, which writes it
+// once; there are no atomics, and two launches are bit-equal.
+//   - Row groups: G = 8, 16 or 32 lanes a row, the fewest that cover the
+//     row's 16-byte pieces (float4, double2, eight bf16; G = 32 with one
+//     value a lane where S is not whole pieces or x or y is unaligned), so
+//     32 / G rows share a warp: at 128 bf16 columns two rows a warp, no
+//     lane idle in a gather (a whole warp a row idles half its lanes
+//     there). Past 32 pieces a group
+//     walks its row once for each 32 (512 f32 columns: four passes), the
+//     row's first slots kept in registers across the passes.
+//   - A group reads its row's first 32 positions (table entry, column,
+//     value, 32 / G a lane) and its first 32 overflow slots together,
+//     before any gather; ballots keep the live ones, shuffles hand them
+//     round, and a lane loads their x pieces in rounds of
+//     Wide<T, G>::kSlots. The products are added in position order, then
+//     the overflow slots in order. They are formed in the promotion of x's
+//     and the values' types (bf16 * bf16 rounds to bf16, __hmul) and summed
+//     in f32 (f64 for f64), each product and sum rounded once (__fmul_rn,
+//     __fadd_rn), the row rounded once to x's type at the store: the sums
+//     of the heavy blocks' and of the narrow entry's walks, in the same
+//     order.
+//   - What binds: the gathers. A build with the x loads taken out ran the
+//     metadata alone in 0.65 ms (ELL) and 0.70 (chunked) of 2.93 and 3.04
+//     at 128 f32 columns; the card gathers at about 3.0 TB/s (kernel A's
+//     wide entry 2.85 ms, a device copy 3.03 TB/s). So the kernel wants
+//     the most gathers in flight an SM without spill (Wide<T, G>): five
+//     blocks an SM of three slots a round with f32 x at 32 lanes a row,
+//     four of four otherwise, beat three blocks of eight (80 registers, up
+//     to 472 bytes of spill) by 4-20 %. Measured and dropped
+//     (tools/slot_variants.py, NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md):
+//     loading the next row's positions during this row's gathers (four
+//     and eight rows a warp were slower than one), rounds that run on from
+//     the positions into the overflow slots (more registers, slower in
+//     bf16), twelve or sixteen slots a round, and the narrow entry's walk
+//     at 128 columns (ELL 2.86 ms, chunked 4.17).
 //   - Heavy rows: a row with kHeavySlots (256) live overflow slots or
 //     more (the hub rows of a power-law graph: 6616 edges at most on the
-//     bench graph) is left by the row blocks to a block of its own, placed
-//     first in the grid, the longest rows first (the wrapper's heavy
-//     list). The block cuts the row's positions and overflow slots into
-//     units of kUnit slots; worker w (a group of lanes) sums units w, w +
-//     W, ... in order into its own sums, and after a barrier the thread
-//     that owns a column adds the W workers' sums in worker order. The
-//     order is fixed by the data and the block size alone.
+//     bench graph) is skipped by the row groups and summed by a block of
+//     its own (slot_heavy_kernel), launched on a side stream beside the
+//     row kernel, the longest rows first (the wrapper's heavy list), so
+//     the heavy code sets no register count of the row kernel. The block
+//     cuts the row's positions and overflow slots into units of kUnit
+//     slots; worker w (a group of lanes) sums units w, w + W, ... in order
+//     into its own sums, and after a barrier the thread that owns a column
+//     adds the W workers' sums in worker order. The order is fixed by the
+//     data and the block size alone (slot_args' lanes a row: a warp from 8
+//     pieces up, whatever G the row kernel takes).
+//   - Rows under 8 pieces (bf16 under 64 columns): slot_rows_kernel, each
+//     of the fewest lanes that cover a row walking the positions kSlots at
+//     a time, its grid led by the heavy rows' blocks.
 //
 // The narrow entry (slot_narrow_kernel: ell_spmm_narrow_f32/_f64 and
 // chunked_spmm_narrow_<pair>), which core/ell_kernel.py takes up to
@@ -89,7 +112,7 @@
 //     blocks; ELL's level 0 (whole, 16-byte aligned 4-slot groups) is read
 //     4 columns and 4 values a load. Each row sums its positions, then its
 //     overflow slots, in order: the wide entry's order, so the two entries
-//     give the same bits. The heavy rows keep the wide kernel's blocks: on
+//     give the same bits. The heavy rows keep the wide entry's blocks: on
 //     ELL at one column they lead this kernel's grid, else they are a
 //     launch on a side stream that runs beside the tiles (launched before
 //     the tiles on the same stream they cost the tiles' wait: path H's graph
@@ -375,103 +398,10 @@ __device__ __forceinline__ void add_overflow(const Args<T, V>& a, int q0,
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// sum += the products of the live slots whose (x row, value) lane j of the
-// warp holds for each set bit j of `live` (a warp-uniform mask), in
-// ascending j, kSlots x pieces in flight; piece v of each x row, read only
-// by the lanes with `act`.
-template <typename T, typename V, int E, typename A>
-__device__ __forceinline__ void add_warp_slots(const Args<T, V>& a,
-                                               unsigned live, long long xr,
-                                               A val, int v, bool act,
-                                               A (&sum)[E]) {
-  using B = typename Bits<T, E>::type;
-  while (live) {
-    long long r[kSlots];
-    A w[kSlots];
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      const int src = live ? __ffs(live) - 1 : 0;
-      if (live) {
-        live &= live - 1;
-        cnt = j + 1;
-      }
-      r[j] = __shfl_sync(kFull, xr, src);
-      w[j] = __shfl_sync(kFull, val, src);
-    }
-    if (!act) continue;
-    B xb[kSlots];
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j)
-      if (j < cnt)
-        xb[j] = __ldg(reinterpret_cast<const B*>(
-            a.x + r[j] * a.s + static_cast<size_t>(v) * E));
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      if (j >= cnt) break;
-      A xv[E];
-      unpack<T, E>(xb[j], xv);
-#pragma unroll
-      for (int m = 0; m < E; ++m)
-        sum[m] = add_rn(sum[m], product<T, V>(xv[m], w[j]));
-    }
-  }
-}
-
-// One row by a whole warp (a.group == 32), lane l owning pieces l, l + 32,
-// ...: 32 of the row's positions, then 32 of its overflow slots, are read at
-// once, one a lane (table entry, column, value); a ballot keeps the live
-// ones, whose x pieces are then loaded kSlots at a time and added in order.
-// The sums are the same, in the same order, as spmm_rows's; the row's
-// dependent loads come 32 slots at a time instead of kSlots.
-template <typename T, typename V, int E>
-__device__ __forceinline__ void spmm_row_warp(const Args<T, V>& a,
-                                              int row) {
-  using A = typename SumOf<T>::type;
-  using B = typename Bits<T, E>::type;
-  const int lane = threadIdx.x & 31;
-  const RowSpan r = row_span(a, row);
-  if (r.q1 - r.q0 >= kHeavySlots) return;
-  const int nvec = a.s / E;
-  for (int vb = 0; vb < nvec; vb += 32) {
-    const int v = vb + lane;
-    const bool act = v < nvec;
-    A sum[E];
-#pragma unroll
-    for (int m = 0; m < E; ++m) sum[m] = A(0);
-    for (int kb = r.k0; kb < r.k1; kb += 32) {
-      long long xr = 0;
-      A val = A(0);
-      bool live = false;
-      if (kb + lane < r.k1) {
-        const longlong2* p = reinterpret_cast<const longlong2*>(a.pos) +
-                             2 * static_cast<size_t>(kb + lane);
-        const longlong2 bs = __ldg(p), cl = __ldg(p + 1);
-        const long long q = bs.x + r.lr * bs.y;
-        const int c = __ldg(a.cols + q);
-        live = c < cl.y;
-        xr = cl.x + c;
-        val = load_val<V, A>(a.vals + q);
-      }
-      add_warp_slots<T, V, E>(a, __ballot_sync(kFull, live), xr, val, v,
-                              act, sum);
-    }
-    for (int qb = r.q0; qb < r.q1; qb += 32) {
-      const bool have = qb + lane < r.q1;
-      const long long xr = have ? __ldg(a.rcols + qb + lane) : 0;
-      const A val = have ? load_val<V, A>(a.rvals + qb + lane) : A(0);
-      add_warp_slots<T, V, E>(a, __ballot_sync(kFull, have), xr, val, v,
-                              act, sum);
-    }
-    if (act)
-      *reinterpret_cast<B*>(a.y + static_cast<size_t>(row) * a.s +
-                            static_cast<size_t>(v) * E) = pack<T, E>(sum);
-  }
-}
-
-// The rows of row block `block`, a group of a.group lanes per row (a warp
-// per row when a.group is 32); a row with kHeavySlots overflow slots or
-// more is left to its heavy block.
+// The rows of row block `block` when a row is under 8 pieces: a group of
+// a.group lanes a row (the fewest that cover it), each lane walking the
+// row's positions kSlots at a time, then its overflow slots; a row with
+// kHeavySlots overflow slots or more is left to its heavy block.
 template <typename T, typename V, int E>
 __device__ __forceinline__ void spmm_rows(const Args<T, V>& a, int block) {
   using A = typename SumOf<T>::type;
@@ -479,11 +409,7 @@ __device__ __forceinline__ void spmm_rows(const Args<T, V>& a, int block) {
   const int sub = threadIdx.x / a.group, gl = threadIdx.x - sub * a.group;
   const long long row =
       static_cast<long long>(block) * (kThreads / a.group) + sub;
-  if (row >= a.n_rows) return;   // warp-uniform when a.group is 32
-  if (a.group == 32) {
-    spmm_row_warp<T, V, E>(a, static_cast<int>(row));
-    return;
-  }
+  if (row >= a.n_rows) return;
   const RowSpan r = row_span(a, static_cast<int>(row));
   if (r.q1 - r.q0 >= kHeavySlots) return;
   const int nvec = a.s / E;
@@ -545,17 +471,25 @@ __device__ __forceinline__ void spmm_heavy(const Args<T, V>& a, int row) {
   }
 }
 
-// Blocks [0, n_heavy) take one heavy row each, the longest first; the
-// others kThreads / group rows each. `vec`: 16-byte pieces (s a multiple
-// of a piece, x and y 16-byte aligned), else one value a lane. Three blocks
-// an SM (80 registers, a few hundred bytes of spill): the gathers want
-// warps in flight. With two (128 registers, no spill) the f32 SpMM at the
-// bench graph took 3.254 ms (ELL) and 3.670 (chunked), with three 3.014
-// and 3.288, with four (64 registers, up to 948 bytes of spill) 4.434 and
-// 4.989 (NVIDIA H100 80GB HBM3 at 700 W, tools/slot_variants.py on copies).
+// A block a heavy row, the longest first (a.heavy); `vec`: 16-byte pieces.
+// Both entries launch it on the side stream, beside their row kernels.
 template <typename T, typename V>
 __global__ void __launch_bounds__(kThreads, 3)
-slot_spmm_kernel(const Args<T, V> a, int vec) {
+slot_heavy_kernel(const Args<T, V> a, int vec) {
+  const int row = __ldg(a.heavy + blockIdx.x);
+  if (vec)
+    spmm_heavy<T, V, 16 / sizeof(T)>(a, row);
+  else
+    spmm_heavy<T, V, 1>(a, row);
+}
+
+// Rows under 8 pieces: blocks [0, n_heavy) take a heavy row each, the
+// longest first, the others kThreads / a.group rows each (spmm_rows); at
+// these widths the heavy blocks on a side stream measured slower (PERF.md).
+// `vec`: 16-byte pieces, else one value a lane.
+template <typename T, typename V>
+__global__ void __launch_bounds__(kThreads, 3)
+slot_rows_kernel(const Args<T, V> a, int vec) {
   constexpr int kVec = 16 / sizeof(T);
   const int b = static_cast<int>(blockIdx.x);
   if (b < a.n_heavy) {
@@ -571,6 +505,179 @@ slot_spmm_kernel(const Args<T, V> a, int vec) {
   }
 }
 
+// The wide kernel's tuning by x's type and the lanes a row: live slots
+// whose x pieces a lane loads together (a round), and blocks an SM it is
+// compiled for (registers: 65536 / (blocks * kThreads)). The most gathers
+// in flight an SM without spill won the sweeps of tools/slot_variants.py
+// (PERF.md): with f32 x at 32 lanes a row three slots at five blocks (48
+// registers), else four at four (64; at five blocks the f32 rows of 16
+// lanes spilled and lost 4 %).
+template <typename T, int G>
+struct Wide {
+  static constexpr int kSlots = 4, kBlocks = 4;
+};
+template <>
+struct Wide<float, 32> {
+  static constexpr int kSlots = 3, kBlocks = 5;
+};
+
+// Positions kb + m * G + gl (m < NB) of row r, one a lane of the row's
+// group: the x row (-1 where dead or past the row's positions) and value.
+template <typename T, typename V, int G, int NB, typename A>
+__device__ __forceinline__ void load_positions(const Args<T, V>& a,
+                                               const RowSpan& r, int kb,
+                                               int gl, int* xr, A* val) {
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+    const int k = kb + m * G + gl;
+    xr[m] = -1;
+    val[m] = A(0);
+    if (k < r.k1) {
+      const longlong2* p = reinterpret_cast<const longlong2*>(a.pos) +
+                           2 * static_cast<size_t>(k);
+      const longlong2 bs = __ldg(p), cl = __ldg(p + 1);
+      const long long q = bs.x + r.lr * bs.y;
+      const int c = __ldg(a.cols + q);
+      val[m] = load_val<V, A>(a.vals + q);
+      if (c < cl.y) xr[m] = static_cast<int>(cl.x) + c;
+    }
+  }
+}
+
+// Overflow slots qb + m * G + gl (m < NB) below q1: x row and value, or -1.
+template <typename T, typename V, int G, int NB, typename A>
+__device__ __forceinline__ void load_overflow(const Args<T, V>& a, int qb,
+                                              int q1, int gl, int* xr,
+                                              A* val) {
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+    const int q = qb + m * G + gl;
+    xr[m] = -1;
+    val[m] = A(0);
+    if (q < q1) {
+      xr[m] = __ldg(a.rcols + q);
+      val[m] = load_val<V, A>(a.rvals + q);
+    }
+  }
+}
+
+// sum += the products of the slots that the lanes of `group` (a mask of
+// the warp's lanes, the caller's row group) hold, lane j an x row xr (-1
+// for none) and a value val, in ascending lane order: handed round by
+// shuffles in rounds of Wide<T, G>::kSlots x rows in flight a lane, of
+// which a lane reads the E values at column `col`, where `act`. The whole
+// warp calls it together.
+template <typename T, typename V, int E, int G, typename A>
+__device__ __forceinline__ void add_group_slots(const Args<T, V>& a,
+                                                unsigned group, int xr,
+                                                A val, size_t col, bool act,
+                                                A (&sum)[E]) {
+  using B = typename Bits<T, E>::type;
+  const int lane = threadIdx.x & 31;
+  unsigned live = __ballot_sync(kFull, xr >= 0) & group;
+  while (__any_sync(kFull, live != 0)) {
+    int r[Wide<T, G>::kSlots];
+    A w[Wide<T, G>::kSlots];
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < Wide<T, G>::kSlots; ++j) {
+      const int src = live ? __ffs(live) - 1 : lane;
+      if (live) {
+        live &= live - 1;
+        cnt = j + 1;
+      }
+      r[j] = __shfl_sync(kFull, xr, src);
+      w[j] = __shfl_sync(kFull, val, src);
+    }
+    if (!act) continue;
+    B xb[Wide<T, G>::kSlots];
+#pragma unroll
+    for (int j = 0; j < Wide<T, G>::kSlots; ++j)
+      if (j < cnt)
+        xb[j] = __ldg(reinterpret_cast<const B*>(
+            a.x + static_cast<size_t>(r[j]) * a.s + col));
+#pragma unroll
+    for (int j = 0; j < Wide<T, G>::kSlots; ++j) {
+      if (j >= cnt) break;
+      A xv[E];
+      unpack<T, E>(xb[j], xv);
+#pragma unroll
+      for (int m = 0; m < E; ++m)
+        sum[m] = add_rn(sum[m], product<T, V>(xv[m], w[j]));
+    }
+  }
+}
+
+// The wide entry's rows: a group of G lanes a row (G = 8, 16, 32: the
+// fewest that cover a row of 8 pieces or more, so 32 / G rows share a warp
+// and no lane idles for want of a piece), lane gl owning pieces gl, gl + G,
+// ... of E values, 32 / G consecutive rows a warp. A group reads its row's
+// first 32 positions (NB = 32 / G a lane: table entry, column, value) and
+// its first 32 overflow slots before any gather, keeps the live ones by
+// ballots and adds their x rows in rounds of Wide<T, G>::kSlots, the
+// positions in order, then the overflow slots in order: the sums of the
+// heavy blocks' add_positions and add_overflow, in the same order. A row
+// of more than 32 positions or overflow slots (the warp's longest, so that
+// every loop is warp-uniform) reads the rest 32 at a time. A heavy row
+// (kHeavySlots overflow slots or more) is skipped: its block on the side
+// stream writes it.
+template <typename T, typename V, int E, int G>
+__global__ void __launch_bounds__(kThreads, Wide<T, G>::kBlocks)
+slot_wide_kernel(const Args<T, V> a) {
+  using A = typename SumOf<T>::type;
+  using B = typename Bits<T, E>::type;
+  constexpr int NB = 32 / G;   // positions a lane reads a batch; rows a warp
+  const int lane = threadIdx.x & 31, gl = lane & (G - 1);
+  const unsigned group =
+      G == 32 ? kFull : ((1u << (G & 31)) - 1u) << (lane - gl);
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const long long row = warp * NB + lane / G;
+  if (__all_sync(kFull, row >= a.n_rows)) return;
+  RowSpan r = row < a.n_rows ? row_span(a, static_cast<int>(row)) : RowSpan{};
+  const bool adds = row < a.n_rows && r.q1 - r.q0 < kHeavySlots;
+  if (!adds) r.k1 = r.q1 = -1;   // loads nothing, adds nothing
+  int pxr[NB], oxr[NB];
+  A pval[NB], oval[NB];
+  load_positions<T, V, G, NB>(a, r, r.k0, gl, pxr, pval);
+  load_overflow<T, V, G, NB>(a, r.q0, r.q1, gl, oxr, oval);
+  const int k_len = __reduce_max_sync(kFull, adds ? r.k1 - r.k0 : 0);
+  const int q_len = __reduce_max_sync(kFull, adds ? r.q1 - r.q0 : 0);
+  const int nvec = a.s / E;
+  for (int vb = 0; vb < nvec; vb += G) {
+    const int v = vb + gl;
+    const bool act = adds && v < nvec;
+    const size_t col = static_cast<size_t>(v) * E;
+    A sum[E];
+#pragma unroll
+    for (int m = 0; m < E; ++m) sum[m] = A(0);
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+      add_group_slots<T, V, E, G>(a, group, pxr[m], pval[m], col, act, sum);
+    for (int kb = 32; kb < k_len; kb += 32) {
+      int bx[NB];
+      A bv[NB];
+      load_positions<T, V, G, NB>(a, r, r.k0 + kb, gl, bx, bv);
+#pragma unroll
+      for (int m = 0; m < NB; ++m)
+        add_group_slots<T, V, E, G>(a, group, bx[m], bv[m], col, act, sum);
+    }
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+      add_group_slots<T, V, E, G>(a, group, oxr[m], oval[m], col, act, sum);
+    for (int qb = 32; qb < q_len; qb += 32) {
+      int bx[NB];
+      A bv[NB];
+      load_overflow<T, V, G, NB>(a, r.q0 + qb, r.q1, gl, bx, bv);
+#pragma unroll
+      for (int m = 0; m < NB; ++m)
+        add_group_slots<T, V, E, G>(a, group, bx[m], bv[m], col, act, sum);
+    }
+    if (act)
+      *reinterpret_cast<B*>(a.y + row * a.s + col) = pack<T, E>(sum);
+  }
+}
+
 // Whether the wide kernel takes rows as 16-byte pieces: s a multiple of a
 // piece, x and y 16-byte aligned.
 template <typename T>
@@ -581,9 +688,10 @@ int wide_vec(const void* x, const void* y, int s) {
   return s % (16 / sizeof(T)) == 0 && aligned(x) && aligned(y);
 }
 
-// The kernels' operands, with the wide kernel's lanes a row: a warp per row
-// from 8 pieces a row up (the warp's lanes read the row's slots together),
-// else the fewest lanes that cover a row.
+// The kernels' operands, with the lanes a row of the heavy blocks and of
+// the rows under 8 pieces: a warp per row from 8 pieces a row up, else the
+// fewest lanes that cover a row. The heavy blocks' sums depend on it, so
+// both entries give their heavy rows the same.
 template <typename T, typename V>
 Args<T, V> slot_args(const void* chunk_ptr, const void* pos, const void* cols,
                      const void* vals, const void* rowptr, const void* entptr,
@@ -603,26 +711,118 @@ Args<T, V> slot_args(const void* chunk_ptr, const void* pos, const void* cols,
       static_cast<T*>(y), n_rows, s, chunk_rows, n_heavy, group};
 }
 
+// The stream and events on which both entries run the heavy rows' blocks
+// beside their row kernels: one set per device, made at the first call that
+// has heavy rows, at the highest priority, so that those blocks, the
+// longest first, take the SMs before the rows do. The lock keeps the fork,
+// the two launches and the join of one call together.
+struct SideStream {
+  std::mutex lock;
+  cudaStream_t stream = nullptr;
+  cudaEvent_t fork = nullptr, join = nullptr;
+};
+
+constexpr int kMaxDevices = 64;
+
+cudaError_t side_stream(SideStream** out) {
+  static SideStream sides[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  SideStream& side = sides[dev];
+  std::lock_guard<std::mutex> hold(side.lock);
+  if (side.join == nullptr) {
+    int least = 0, greatest = 0;
+    err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+    if (err == cudaSuccess && side.stream == nullptr)
+      err = cudaStreamCreateWithPriority(&side.stream, cudaStreamNonBlocking,
+                                         greatest);
+    if (err == cudaSuccess && side.fork == nullptr)
+      err = cudaEventCreateWithFlags(&side.fork, cudaEventDisableTiming);
+    if (err == cudaSuccess)
+      err = cudaEventCreateWithFlags(&side.join, cudaEventDisableTiming);
+    if (err != cudaSuccess) return err;
+  }
+  *out = &side;
+  return cudaSuccess;
+}
+
+// The heavy rows' blocks (slot_heavy_kernel) on the side stream after the
+// work queued on `st`; `hold` keeps the side stream until heavy_join.
+template <typename T, typename V>
+cudaError_t heavy_fork(const Args<T, V>& a, int vec, cudaStream_t st,
+                       SideStream** side,
+                       std::unique_lock<std::mutex>& hold) {
+  cudaError_t err = side_stream(side);
+  if (err != cudaSuccess) return err;
+  hold = std::unique_lock<std::mutex>((*side)->lock);
+  err = cudaEventRecord((*side)->fork, st);
+  if (err == cudaSuccess)
+    err = cudaStreamWaitEvent((*side)->stream, (*side)->fork);
+  if (err != cudaSuccess) return err;
+  slot_heavy_kernel<T, V><<<a.n_heavy, kThreads, 0, (*side)->stream>>>(
+      a, vec);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = cudaEventRecord((*side)->join, (*side)->stream);
+  return err;
+}
+
+// `st` waits for the heavy rows (if forked); the first error of the call.
+int heavy_join(SideStream* side, cudaStream_t st, cudaError_t err) {
+  if (side != nullptr) {
+    const cudaError_t joined = cudaStreamWaitEvent(st, side->join);
+    if (err == cudaSuccess) err = joined;
+  }
+  return static_cast<int>(err);
+}
+
 template <typename T, typename V>
 int launch_slot_spmm(const void* chunk_ptr, const void* pos, const void* cols,
                      const void* vals, const void* rowptr, const void* entptr,
                      const void* rcols, const void* rvals, const void* heavy,
                      const void* x, void* y, int n_rows, int s,
                      int chunk_rows, int n_heavy, void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
   if (n_rows < 1 || s < 1 || chunk_rows < 1 || n_heavy < 0 ||
       (n_heavy > 0 && rowptr == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args<T, V> a = slot_args<T, V>(chunk_ptr, pos, cols, vals, rowptr,
                                        entptr, rcols, rvals, heavy, x, y,
                                        n_rows, s, chunk_rows, n_heavy);
-  const long long rows_per_block = kThreads / a.group;
-  const long long blocks =
-      n_heavy + (n_rows + rows_per_block - 1) / rows_per_block;
+  const int vec = wide_vec<T>(x, y, s);
+  const int nvec = vec ? s / kVec : s;
+  // lanes a row: G of the wide kernel from 8 pieces up (32 with one value
+  // a lane), else a.group
+  const int g = nvec < 8 ? 0 : !vec || nvec > 16 ? 32 : nvec > 8 ? 16 : 8;
+  const long long rows_per_block =
+      g ? static_cast<long long>(kWarps) * (32 / g)
+        : kThreads / a.group;
+  // the heavy rows' blocks: leading the rows kernel's grid, else on the
+  // side stream
+  const long long blocks = (g ? 0 : n_heavy) +
+                           (n_rows + rows_per_block - 1) / rows_per_block;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  slot_spmm_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      a, wide_vec<T>(x, y, s));
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  SideStream* side = nullptr;
+  std::unique_lock<std::mutex> hold;
+  if (n_heavy > 0 && g) {
+    const cudaError_t err = heavy_fork(a, vec, st, &side, hold);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto nb = static_cast<unsigned>(blocks);
+  if (g == 0)
+    slot_rows_kernel<T, V><<<nb, kThreads, 0, st>>>(a, vec);
+  else if (!vec)
+    slot_wide_kernel<T, V, 1, 32><<<nb, kThreads, 0, st>>>(a);
+  else if (g == 8)
+    slot_wide_kernel<T, V, kVec, 8><<<nb, kThreads, 0, st>>>(a);
+  else if (g == 16)
+    slot_wide_kernel<T, V, kVec, 16><<<nb, kThreads, 0, st>>>(a);
+  else
+    slot_wide_kernel<T, V, kVec, 32><<<nb, kThreads, 0, st>>>(a);
+  return heavy_join(side, st, cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -775,12 +975,13 @@ struct BlockWindow {
 // chain runs on across block boundaries, and where a block starts whole
 // 4-slot groups, 16-byte aligned (ELL's level 0), a lane reads its columns
 // and values four at a time. A heavy row (kHeavySlots overflow slots or
-// more) belongs to a block of the wide kernel's heavy rows (spmm_heavy):
+// more) belongs to a block of the heavy rows (spmm_heavy), the wide
+// entry's:
 // the tile reads none of its slots and does not write it. With Lead (the
 // ELL instances at one column) those blocks lead this kernel's grid and
-// start before the tiles; else they are a launch of the wide kernel on a
-// side stream that runs beside this one (launch_slot_narrow), which keeps
-// the heavy code's registers out of this kernel.
+// start before the tiles; else they are a launch of slot_heavy_kernel on
+// the side stream that runs beside this one (heavy_fork), which keeps the
+// heavy code's registers out of this kernel.
 template <typename T, typename V, int P, int L, bool Lead>
 __device__ __forceinline__ void narrow_tile(const Args<T, V>& a,
                                             const int* block_ptr,
@@ -952,43 +1153,6 @@ int narrow_tile_rows(int n_rows, int chunk_rows, int lanes) {
   return tile;
 }
 
-// The stream and events on which the narrow entry runs the heavy rows'
-// blocks beside its tiles: one set per device, made at the first call that
-// has heavy rows, at the highest priority, so that those blocks, the
-// longest first, take the SMs before the tiles do. The lock keeps the
-// fork, the two launches and the join of one call together.
-struct SideStream {
-  std::mutex lock;
-  cudaStream_t stream = nullptr;
-  cudaEvent_t fork = nullptr, join = nullptr;
-};
-
-constexpr int kMaxDevices = 64;
-
-cudaError_t side_stream(SideStream** out) {
-  static SideStream sides[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  SideStream& side = sides[dev];
-  std::lock_guard<std::mutex> hold(side.lock);
-  if (side.join == nullptr) {
-    int least = 0, greatest = 0;
-    err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
-    if (err == cudaSuccess && side.stream == nullptr)
-      err = cudaStreamCreateWithPriority(&side.stream, cudaStreamNonBlocking,
-                                         greatest);
-    if (err == cudaSuccess && side.fork == nullptr)
-      err = cudaEventCreateWithFlags(&side.fork, cudaEventDisableTiming);
-    if (err == cudaSuccess)
-      err = cudaEventCreateWithFlags(&side.join, cudaEventDisableTiming);
-    if (err != cudaSuccess) return err;
-  }
-  *out = &side;
-  return cudaSuccess;
-}
-
 template <typename T, typename V, bool Ell>
 int launch_slot_narrow(const void* chunk_ptr, const void* pos,
                        const void* block_ptr, const void* block_table,
@@ -1026,17 +1190,8 @@ int launch_slot_narrow(const void* chunk_ptr, const void* pos,
   SideStream* side = nullptr;
   std::unique_lock<std::mutex> hold;
   if (n_heavy > 0 && !lead) {   // the heavy rows' blocks on the side stream
-    cudaError_t err = side_stream(&side);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    hold = std::unique_lock<std::mutex>(side->lock);
-    err = cudaEventRecord(side->fork, st);
-    if (err == cudaSuccess)
-      err = cudaStreamWaitEvent(side->stream, side->fork);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    slot_spmm_kernel<T, V><<<n_heavy, kThreads, 0, side->stream>>>(
-        a, wide_vec<T>(x, y, s));
-    err = cudaGetLastError();
-    if (err == cudaSuccess) err = cudaEventRecord(side->join, side->stream);
+    const cudaError_t err = heavy_fork(a, wide_vec<T>(x, y, s), st, &side,
+                                       hold);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const auto go = [&](auto launch) {
@@ -1066,12 +1221,7 @@ int launch_slot_narrow(const void* chunk_ptr, const void* pos,
   } else {
     go(launch_narrow_instance<T, V, kV, 32>);
   }
-  cudaError_t err = cudaGetLastError();
-  if (side != nullptr) {   // the caller's stream waits for the heavy rows
-    const cudaError_t joined = cudaStreamWaitEvent(st, side->join);
-    if (err == cudaSuccess) err = joined;
-  }
-  return static_cast<int>(err);
+  return heavy_join(side, st, cudaGetLastError());
 }
 
 }  // namespace

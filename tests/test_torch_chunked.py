@@ -4,11 +4,10 @@ the CPU.
 Sizes and graphs follow tests/test_chunked.py. The builder is the JAX
 package's own NumPy code, so the same input must pack to the same arrays:
 chunk sizes 64, 100 and 256 with a ragged last chunk, the degree
-permutation, and a hub block that spills into every tier. The SpMM, the
-recurrence, synthesis, Lanczos and the fixed-graph VJP must agree within
-1e-12, λmax pinned. The bf16 modes are held against the float64 recurrence
-within ``carry_error_estimate``, never against the JAX package's chunked
-bf16 output, which sums its rows in bf16 (ROADMAP.md §3, caveat 1).
+permutation, and a hub block that spills into every tier. The SpMM must
+agree within 1e-12. The recurrence, synthesis, Lanczos and the fixed-graph
+VJP are tests/test_torch_chunked_recurrence.py, the bf16 modes
+tests/test_torch_chunked_bf16.py.
 """
 
 import jax
@@ -21,7 +20,6 @@ import torch
 from pygsp_tpu.core import chunked as jck
 from pygsp_tpu.core import sparse as jsp
 from pygsp_tpu.core.operators import laplacian_op as j_laplacian_op
-from pygsp_tpu.ops import chebyshev as jcheby
 from pygsp_tpu.ops import eigen as jeigen
 from pygsp_tpu_torch import convert
 from pygsp_tpu_torch.core import _cuda, ell_kernel
@@ -30,9 +28,8 @@ from pygsp_tpu_torch.core import sparse as tsp
 from pygsp_tpu_torch.ops import chebyshev as tcheby
 from pygsp_tpu_torch.ops import eigen as teigen
 
-from test_torch_ell import (TOL, _close, _graphs, _heat, _powerlaw,
-                            _rectangular, _with_hubs, check_recurrence,
-                            check_residue_order)
+from test_torch_ell import (TOL, _close, _graphs, _powerlaw, _rectangular,
+                            _with_hubs, check_residue_order)
 
 
 def _hub_block(n=400, seed=8, hub=7):
@@ -239,16 +236,6 @@ def test_compute_laplacian_matches_jax(lap_type):
     _assert_same_arrays(T.L.offdiag, _leaves(J.L.offdiag), vals_tol=1e-14)
 
 
-@pytest.mark.parametrize('kw', [dict(chunk_rows=256),
-                                dict(chunk_rows=200, permute='degree')],
-                         ids=['R256-ragged', 'R200-degree'])
-@pytest.mark.parametrize('lap_type', ['combinatorial', 'normalized'])
-def test_recurrence_and_vjp_match_jax(lap_type, kw):
-    J, T = _graphs('chunked', lap_type, **kw)
-    assert (T.L.offdiag.perm is not None) == ('permute' in kw)
-    check_recurrence(J, T, seed=3)
-
-
 def test_to_chunked_and_hoisting():
     J, T = _graphs('chunked', chunk_rows=64, permute='degree')
     assert T.L.to_chunked() is T.L
@@ -277,33 +264,8 @@ def test_group_rule_counts_what_jax_counts():
 
 
 # ---------------------------------------------------------------------------
-# the bf16 modes, against the float64 recurrence
+# the kernel's operand pairs
 # ---------------------------------------------------------------------------
-
-MODES = {'carry': ('carry_dtype',), 'vals': ('vals_dtype',),
-         'both': ('carry_dtype', 'vals_dtype')}
-
-
-@pytest.mark.parametrize('mode', list(MODES))
-def test_bf16_modes_within_the_carry_estimate(mode):
-    """The port's chunked bf16 modes sum their rows in float32: held to the
-    float64 recurrence within carry_error_estimate, not to the JAX
-    package's chunked bf16 output (which sums in bf16)."""
-    J, T = _graphs('chunked', chunk_rows=128)
-    lmax = J.lmax
-    c = _heat(lmax, (5.0, 10.0, 25.0, 50.0))
-    x = np.random.default_rng(11).normal(size=(T.N, 4))
-    ref = np.asarray(jcheby.cheby_op(J.L, lmax, jnp.asarray(c),
-                                     jnp.asarray(x)))
-    got = tcheby.cheby_op(T.L.astype(torch.float32), lmax,
-                          torch.from_numpy(c).float(),
-                          torch.from_numpy(x).float(),
-                          **{k: torch.bfloat16 for k in MODES[mode]})
-    assert got.dtype == torch.float32 and got.shape == ref.shape
-    est = tcheby.carry_error_estimate(c, torch.bfloat16)
-    assert float(np.abs(got.double().numpy() - ref).max()) <= (
-        1.5 * est * float(np.abs(ref).max()))
-
 
 @pytest.mark.parametrize('pair', sorted(
     ell_kernel.CHUNKED_OPERANDS, key=str))
@@ -332,18 +294,6 @@ def test_narrow_spmm_sums_in_float32(pair):
     ulp = 2.0 ** -8 if xd == torch.bfloat16 else 2.0 ** -23
     nnz = np.diff(vals.indptr).max()
     assert np.all(err <= (ulp + nnz * 2.0 ** -24) * scale + 1e-12)
-
-
-def test_chunked_takes_the_modes_under_the_gate():
-    J, T = _graphs('chunked', chunk_rows=64)
-    c = torch.from_numpy(_heat(J.lmax, m=6))
-    x = torch.zeros(T.N, 2, dtype=torch.float64)
-    with pytest.raises(ValueError) as terr:
-        tcheby.cheby_op(T.L, J.lmax, c, x.float(), carry_dtype=torch.bfloat16,
-                        carry_tol=1e-9)
-    assert 'carry_dtype=bfloat16 refused' in str(terr.value)
-    out = tcheby.cheby_op(T.L, J.lmax, c, x, vals_dtype=torch.bfloat16)
-    assert out.dtype == torch.float64 and not out.abs().max()
 
 
 # ---------------------------------------------------------------------------

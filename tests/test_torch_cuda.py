@@ -1496,6 +1496,73 @@ def test_chunked_narrow_entry_takes_every_pair(cuda, pair, s):
         'chunked_spmm', ell_kernel.entry_for(s, xd), xd, vd)]
 
 
+# Widths both entries take (the narrow one up to 32 lanes of 16 bytes) by
+# x's dtype: the wide entry's row groups of 8, 16 and 32 lanes, one value a
+# lane where S is not whole 16-byte pieces, and its per-lane walk below 8
+# pieces a row.
+WIDE_AND_NARROW = {torch.float32: (33, 36, 64, 100, 128),
+                   torch.float64: (34, 64),
+                   torch.bfloat16: (2, 16, 64, 72, 128, 136, 256)}
+# and an ELL level 0 of 40 positions a row: the wide entry reads a row's
+# positions 32 at a time
+WIDE_FORMATS = {**SLOT_FORMATS,
+                'ell-width40': lambda W, device: tsp.ell_from_scipy(
+                    W, width=40, device=device)}
+
+
+@pytest.mark.parametrize('fmt', list(WIDE_FORMATS))
+def test_slot_wide_entry_agrees_with_the_narrow_one(cuda, fmt):
+    """The wide entry sums each row in the narrow entry's order, so the two
+    give the same bits wherever both take the width, in every operand pair
+    of the format, with x aligned and not; the heavy rows on the side
+    stream included."""
+    base = WIDE_FORMATS[fmt](_slot_hub_graph(), cuda)
+    kind = 'ell_spmm' if fmt.startswith('ell') else 'chunked_spmm'
+    pairs = (ell_kernel.ELL_OPERANDS if kind == 'ell_spmm'
+             else ell_kernel.CHUNKED_OPERANDS)
+    for xd, vd in sorted(pairs, key=str):
+        M = base.astype(vd)
+        _, ops = _slot_operands(M)
+        for s in WIDE_AND_NARROW[xd]:
+            assert ell_kernel.entry_for(s, xd) == 'wide'
+            for lead in (0, 1):
+                x = _signal((M.n_cols * s + lead,), torch.float32, s,
+                            cuda).to(xd)
+                x = x[lead:].reshape(M.n_cols, s)
+                narrow, wide = (ell_kernel.spmm_entry(kind, e, *ops, x,
+                                                      M.n_rows)
+                                for e in ('narrow', 'wide'))
+                assert torch.equal(narrow, wide), (xd, vd, s, lead)
+
+
+@pytest.mark.parametrize('s', [520, 1000])
+@pytest.mark.parametrize('fmt', list(WIDE_FORMATS))
+def test_slot_wide_entry_takes_many_passes(cuda, fmt, s):
+    """Past 32 pieces a row the wide entry's groups walk a row once for
+    each 32 pieces, the last in part: every operand pair against its plain
+    version (f32 and f64 against f64, bf16 y within one bf16 ulp of the
+    plain version in the same dtypes), two launches bit-equal."""
+    base = WIDE_FORMATS[fmt](_slot_hub_graph(), cuda)
+    kernel, _ = _slot_operands(base)
+    pairs = (ell_kernel.ELL_OPERANDS if kernel is ell_kernel.ell_spmm
+             else ell_kernel.CHUNKED_OPERANDS)
+    for xd, vd in sorted(pairs, key=str):
+        M = base.astype(vd)
+        _, (table, cols, vals, res) = _slot_operands(M)
+        x = _signal((M.n_cols, s), torch.float32, s, cuda).to(xd)
+        y = kernel(table, cols, vals, res, x, M.n_rows)
+        if xd == torch.bfloat16:
+            want = ell_kernel.slot_spmm_plain(table, cols, vals, res, x,
+                                              M.n_rows)
+            assert _ulps(y, want) <= 1.0, (xd, vd)
+        else:
+            want = ell_kernel.slot_spmm_plain(
+                table, cols, vals.double(),
+                res._replace(vals=res.vals.double()), x.double(), M.n_rows)
+            assert _rel_err(y.double(), want) <= TOL[xd], (xd, vd)
+        assert torch.equal(y, kernel(table, cols, vals, res, x, M.n_rows))
+
+
 @pytest.mark.parametrize('fmt', ['hybrid', 'chunked'])
 def test_estimate_lmax_takes_the_narrow_entry(cuda, fmt):
     """λmax's Lanczos products at one column launch only narrow symbols of
