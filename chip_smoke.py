@@ -230,11 +230,15 @@ L. path L, the multi-device engines (``pygsp_tpu_torch.parallel``) at one
    calls ('graph', 'batch') counted and the adjoint identities held; L2,
    the 2-D engine at 1 × 1 (``partition_graph_2d``,
    ``twod_local_windowed(ring=True, split_cols=True)``, ``cheby_op_2d``),
-   checked the same way; L3, the fused multi-matrix SpMM on device (0,
-   0)'s four ring matrices of ``partition_graph_2d(W, 4, 4)``, and L4 on
-   both fold positions' groups of device (0, 0) of the 2 × 2 interleaved
-   ring: through ``windowed_spmm_chunks_multi`` (one ``fold_strip_multi``
-   launch, no fold and no strip), then the former fold
+   checked the same way, its one fold a step one ``fold_strip_multi``
+   launch where a window fits a block; L3, the fused multi-matrix SpMM on
+   device (0, 0)'s four ring matrices of ``partition_graph_2d(W, 4, 4)``,
+   and L4 on both fold positions' groups of device (0, 0) of the 2 × 2
+   interleaved ring: through ``windowed_spmm_chunks_multi`` (one
+   ``fold_strip_multi`` launch, no fold and no strip), L4 also split as
+   the engine folds position 0 at pr > 1 (ring step 0 alone, the rest in
+   a second launch, the add; held against the group's f64 plain version
+   and timed beside the one launch), then the former fold
    ``windowed_fold_multi`` held against its plain version in f64 and in
    the bf16 carry (ulps), two launches bit-equal, its strip over the
    merged residue lists bit-equal to its plain version and timed alone,
@@ -4817,6 +4821,59 @@ def fused_entry_point(name, mats, xs):
     return launches, err
 
 
+def measure_split(name, mats, xs):
+    """A fold position's group split as the 2-D engine folds position 0
+    at pr > 1 (``twod._merged``, ``twod._fold``): ring step 0's matrix
+    alone, the fold that runs under the row shifts, then the other steps
+    in one launch, and the add. Its launches counted from 0 (two
+    ``fold_strip_multi``, no fold and no strip); y against the group's f64
+    plain version within TOL_MULTI; its device time (both launches and the
+    add, torch.profiler) and CUDA events beside the single launch's that
+    folds the whole group, and each launch's alone."""
+    from pygsp_tpu_torch.parallel import twod
+    dt = xs[0].dtype
+    first, rest, whole = (twod._merged(mats[:1]), twod._merged(mats[1:]),
+                          twod._merged(mats))
+
+    def step0():
+        return twod._fold(first, xs[:1], dt)
+
+    def others():
+        return twod._fold(rest, xs[1:], dt)
+
+    def split():
+        return step0() + others()
+
+    def single():
+        return twod._fold(whole, xs, dt)
+
+    reset_counts()
+    y = split()
+    torch.cuda.synchronize()
+    launches = counts()
+    if (launches['fold_strip_multi'] != 2 or launches['windowed_fold_multi']
+            or launches['window_strip'] or launches['windowed_fold']):
+        raise AssertionError(f'{name} split: launches {launches}')
+    m0 = mats[0]
+    want = fold_strip_plain64([(m.cols, m.vals, m.rowid) for m in mats], xs,
+                              m0.chunk_rows, m0.window_rows, m0.borrow_span,
+                              m0.n_rows, whole[1])
+    err = check(f'{name} split (step 0, the rest, the add) vs the f64 plain '
+                'version', y.double(), want, TOL_MULTI)
+    max_abs = float((y.double() - want).abs().max())
+    del y, want
+    out = {'device_ms': device_ms(split, 10, per_call=True)['device_ms'],
+           'events_ms': time_ms(split, 10),
+           'single_device_ms': device_ms(single, 10)['device_ms'],
+           'single_events_ms': time_ms(single, 10),
+           'step0_device_ms': device_ms(step0, 10)['device_ms'],
+           'rest_device_ms': device_ms(others, 10)['device_ms'],
+           'rel_err_f64': err, 'max_abs_err': max_abs,
+           'launches': launches['fold_strip_multi']}
+    log(f'  {name} split fold: {json.dumps(out)}')
+    return launches, out
+
+
 def phase_path_l(lmax, ref, ms_a):
     """Path L on path A's graph, signal and SciPy reference (``ref``, at
     path A's λmax ``lmax``): L1, the 1-D engine on a one-rank NCCL group
@@ -4942,18 +4999,29 @@ def phase_path_l(lmax, ref, ms_a):
     def bank2():
         return par.cheby_op_2d(tg, lmax, c, xp2, mesh2, ell=ell2)
 
+    # at pr = 1 the ring's one fold a step is one launch of the fused SpMM
+    # (its two launches, the fold into a window tensor and the strip, where
+    # a window does not fit a block)
+    m2 = shard_slice(ell2[0][0], 0).local_matrix()
+    fits = wk.fold_strip_fits([(m2.cols, m2.vals, m2.rowid)], [xp2],
+                              m2.borrow_span, m2.window_rows)
     reset_counts()
     out, launches, per_bank = run_bank(bank2)
-    require_launches('L2', per_bank, windowed_fold=ORDER, window_strip=ORDER,
-                     cheby_step=ORDER - 1, cheby_acc_group=1)
-    require_tail('L2', per_bank)
+    require_launches('L2', per_bank, cheby_step=ORDER - 1, cheby_acc_group=1,
+                     **(dict(fold_strip_multi=ORDER) if fits else
+                        dict(windowed_fold_multi=ORDER, window_strip=ORDER)))
+    if per_bank['windowed_fold'] or per_bank['tail_plain'] or (
+            fits and (per_bank['window_strip']
+                      or per_bank['windowed_fold_multi'])):
+        raise AssertionError(f'L2: launches {per_bank}')
+    l2['fold_strip_fits'] = fits
     l2['rel_err'] = validate_path('L2', ref, out[:, perm2])
     del out
     l2['ms_per_bank'] = time_ms(bank2, 3)
     l2['per_bank'] = per_bank
     other['L2'] = launches
     log(f'  L2: {l2["ms_per_bank"]:.3f} ms per bank')
-    del tg, ell2, xp2
+    del tg, ell2, xp2, m2
     torch.cuda.empty_cache()
     path['L2'] = l2
 
@@ -4979,6 +5047,9 @@ def phase_path_l(lmax, ref, ms_a):
             other[key], err = fused_entry_point(key, mats, xs)
             path[part][f'rel_err_vs_separate_{key}'] = err
             multi[key], fused[key] = measure_multi(key, mats, xs)
+            if part == 'L4':
+                other[f'{key}_split'], path[part][f'split_{key}'] = \
+                    measure_split(key, mats, xs)
             del xs
         del groups, mats
         torch.cuda.empty_cache()

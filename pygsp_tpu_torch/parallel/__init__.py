@@ -27,7 +27,8 @@ How ``shard_map`` translates to PyTorch:
   A (1, 1) mesh takes the whole padded signal.
 - **Collectives** (:mod:`.mesh`): ``lax.ppermute`` →
   ``dist.batch_isend_irecv``, one pair per ring distance, posted in
-  ``halo_dists`` order on every rank; ``psum`` → ``all_reduce``;
+  ``halo_dists`` order on every rank and waited for in a second step, so
+  that a fold runs under it; ``psum`` → ``all_reduce``;
   ``all_gather(tiled=True)`` → ``all_gather_into_tensor``;
   ``psum_scatter`` → ``reduce_scatter_tensor``. NCCL on the card, gloo on
   the CPU. gloo cannot send to its own rank, so an exchange whose peer is
@@ -39,9 +40,11 @@ How ``shard_map`` translates to PyTorch:
   recurrence on kernel B.
 - **What stays the JAX package's.** Its chunk-carried tuples
   (``_chunkcarried_scan``) are XLA's memory device; the port runs the
-  recurrence on whole tensors and sums the same terms. Its ring schedules
-  issue each shift before the fold that hides it; the port waits for its
-  exchanges (no overlap of communication and compute yet).
+  recurrence on whole tensors and sums the same terms.
+- **Its schedules are the port's.** Each exchange is posted before the
+  fold that does not read it and waited for after: the 1-D halo under the
+  interior fold of the split layouts, the 2-D ring's row shifts under
+  ring step 0's fold, each column hop under its position's fold.
 
 Layout choice (the JAX package's, measured on its TPU): the 1-D partition
 with ``shard_local_windowed(split_boundary=True)`` for mesh- or

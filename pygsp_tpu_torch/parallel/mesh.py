@@ -7,10 +7,16 @@ world's ranks in row-major order over the named axes (the JAX package's
 ``devices.reshape(...)``), one process group per line of each axis, and
 this rank's place in the grid. The collectives translate as:
 
-- ``lax.ppermute`` by a ring shift → :func:`ppermute`, one
+- ``lax.ppermute`` by a ring shift → :func:`ppermute_post`, one
   ``batch_isend_irecv`` for all the shifts of a step, posted in the same
   order on every rank (a shift whose peer is the rank itself, as on an
-  axis of size 1, is no exchange: gloo cannot send to its own rank);
+  axis of size 1, is no exchange: gloo cannot send to its own rank), and
+  :func:`ppermute_wait`, which hands out what was received. Work the
+  caller enqueues between the two runs under the transfer, as XLA
+  schedules the JAX package's folds under its ``ppermute``;
+  :func:`ppermute` is the two at once, and :func:`ppermute_chain_post` a
+  chain of single shifts, each sending what the one before received (the
+  2-D ring's all-gather along 'row');
 - ``psum`` → :func:`psum` (``all_reduce``);
 - ``all_gather(tiled=True)`` → :func:`all_gather`
   (``all_gather_into_tensor``);
@@ -26,10 +32,22 @@ NCCL on the card, gloo on the CPU
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
+
+
+def scope(name: str):
+    """A ``torch.profiler`` range of the name of the JAX package's
+    ``jax.named_scope``, entered only while a profiler records: with none,
+    the check costs the host a fraction of the microseconds that entering
+    an empty range does."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
 
 
 def _world():
@@ -75,6 +93,7 @@ class Mesh:
         self.coords = (self._coords(self.rank) if self.rank < self.size
                        else None)
         self.device = _default_device(self.rank, devices)
+        self._side = {}          # CUDA device index -> the chains' stream
         # with a process group, every axis gets its groups, one of a rank
         # too: psum then runs its all_reduce on every axis, as it does on
         # the card at one rank
@@ -121,34 +140,128 @@ class Mesh:
         c[a] = (c[a] + shift) % self.shape[name]
         return self._rank_of(c)
 
+    def side_stream(self, device: torch.device) -> torch.cuda.Stream:
+        """The stream on which this mesh posts its chains of shifts on
+        ``device`` (:func:`ppermute_chain_post`), made at first use."""
+        if device.index not in self._side:
+            self._side[device.index] = torch.cuda.Stream(device)
+        return self._side[device.index]
+
     def __repr__(self):
         return (f'Mesh({self.shape}, rank={self.rank}, coords={self.coords}, '
                 f'device={self.device})')
 
 
-def ppermute(mesh: Mesh, name: str, sends) -> list:
-    """``lax.ppermute`` by ring shifts along axis ``name``: for each
-    ``(shift, tensor)`` of ``sends``, the tensor goes to the rank ``shift``
-    ahead and the one ``shift`` behind sends this rank its own; returns the
-    received tensors in order. All the exchanges are posted at once, in
-    ``sends`` order; one whose peer is this rank returns its tensor."""
-    out, ops = [], []
-    for shift, t in sends:
+class Exchange:
+    """The exchanges that :func:`ppermute_post` or
+    :func:`ppermute_chain_post` posted, until :func:`ppermute_wait`: the
+    requests (``dist.Work``), the received tensors, and every tensor the
+    transfers use, kept alive until then. ``then``: what the wait runs
+    after the requests (the rest of a chain, a stream's wait)."""
+
+    def __init__(self, works, recvs, keep=(), then=None):
+        self.works, self.recvs, self.keep, self.then = works, recvs, keep, then
+
+
+def _post(mesh: Mesh, name: str, sends, recvs=None) -> Exchange:
+    out, ops, keep = [], [], []
+    for i, (shift, t) in enumerate(sends):
         if shift % mesh.shape[name] == 0:
             out.append(t)
             continue
         t = t.contiguous()
-        recv = torch.empty_like(t)
+        recv = torch.empty_like(t) if recvs is None else recvs[i]
         tag = shift % mesh.shape[name]
         ops.append(dist.P2POp(dist.isend, t, mesh.peer(name, shift),
                               tag=tag))
         ops.append(dist.P2POp(dist.irecv, recv, mesh.peer(name, -shift),
                               tag=tag))
+        keep.append(t)
         out.append(recv)
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return out
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return Exchange(works, out, keep)
+
+
+def _complete(works):
+    for w in works:
+        if w.wait() is False:
+            raise RuntimeError('ppermute: an exchange did not complete')
+
+
+def ppermute_post(mesh: Mesh, name: str, sends) -> Exchange:
+    """Post ``lax.ppermute`` by ring shifts along axis ``name``: for each
+    ``(shift, tensor)`` of ``sends`` the tensor goes to the rank ``shift``
+    ahead, and the one ``shift`` behind sends this rank its own. All the
+    exchanges are posted at once, in ``sends`` order; one whose peer is
+    this rank posts nothing. Returns the handle that
+    :func:`ppermute_wait` takes.
+
+    On NCCL the transfers run on NCCL's stream once the current stream's
+    work so far is done, so what the caller enqueues after the post and
+    before the wait runs under them. On gloo they run on gloo's threads."""
+    return _post(mesh, name, sends)
+
+
+def ppermute_chain_post(mesh: Mesh, name: str, t: torch.Tensor,
+                        links: int) -> Exchange:
+    """Post a chain of ``links`` single shifts along axis ``name``: link k
+    sends what link k − 1 received (link 0 sends ``t``), so after the
+    wait the k-th received tensor is ``t`` of the rank k + 1 behind (the
+    JAX package's ``collect_sources``). Returns the handle that
+    :func:`ppermute_wait` takes.
+
+    On a CUDA tensor the whole chain is posted now on the mesh's side
+    stream (:meth:`Mesh.side_stream`), which waits for the current
+    stream's work so far and, before each link, for the link before: so
+    work enqueued on the current stream after the post runs under the
+    whole chain, and no link waits for it. The wait makes the current
+    stream wait for the side stream. On the CPU (gloo, whose waits block
+    the host) link 0 is posted now and each later one at the wait, once
+    the buffer it sends has arrived."""
+    if links == 0 or mesh.shape[name] == 1:
+        return Exchange([], [t] * links)
+    recvs = [torch.empty_like(t) for _ in range(links)]
+    if t.device.type != 'cuda':
+        def rest():
+            for k in range(1, links):
+                _complete(_post(mesh, name, [(1, recvs[k - 1])],
+                                [recvs[k]]).works)
+        first = _post(mesh, name, [(1, t)], recvs[:1])
+        return Exchange(first.works, recvs, (t,), rest)
+    side = mesh.side_stream(t.device)
+    current = torch.cuda.current_stream(t.device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        src = t
+        for recv in recvs:
+            _complete(_post(mesh, name, [(1, src)], [recv]).works)
+            src = recv
+    return Exchange([], recvs, (t,),
+                    lambda: torch.cuda.current_stream(
+                        t.device).wait_stream(side))
+
+
+def ppermute_wait(handle: Exchange) -> list:
+    """Wait for what :func:`ppermute_post` or :func:`ppermute_chain_post`
+    posted and return the received tensors in order (a shift's own tensor
+    where its peer is this rank). On NCCL the current stream waits and the
+    host does not; on gloo the host blocks. A handle is waited for once;
+    an exchange that failed raises."""
+    if handle.recvs is None:
+        raise RuntimeError('ppermute_wait: this exchange was already '
+                           'waited for')
+    _complete(handle.works)
+    if handle.then is not None:
+        handle.then()
+    recvs = handle.recvs
+    handle.works = handle.recvs = handle.keep = handle.then = None
+    return recvs
+
+
+def ppermute(mesh: Mesh, name: str, sends) -> list:
+    """:func:`ppermute_post` and :func:`ppermute_wait` at once: the
+    received tensors, for a caller that needs them now."""
+    return ppermute_wait(ppermute_post(mesh, name, sends))
 
 
 def psum(mesh: Mesh, names, t: torch.Tensor) -> torch.Tensor:

@@ -4,15 +4,20 @@ Chebyshev recurrence on each rank's slice.
 Counterpart of :mod:`pygsp_tpu.parallel.sharded`. Per SpMM step each rank
 (its shard of the mesh axis ``'graph'``):
 
-1. gathers the rows its neighbours need (``send_idx``) and exchanges them,
-   one ring shift per distance with traffic, all posted at once
-   (:func:`_halo_exchange`, :func:`~.mesh.ppermute`);
+1. gathers the rows its neighbours need (``send_idx``) and posts their
+   exchange, one ring shift per distance with traffic, all at once
+   (:func:`_halo_post`, :func:`~.mesh.ppermute_post`);
 2. multiplies its local off-diagonal block by ``[x_local ‖ received]``:
    kernel A on a CSR of the shard's rows (the COO layout), the ELL kernel
    (:func:`~pygsp_tpu_torch.parallel.partition.shard_local_ell`, whole or
    split), or kernels D and E (the windowed layouts of
-   :mod:`.windowed_shards`; split: the interior on ``x_local``, the
-   boundary on the received block);
+   :mod:`.windowed_shards`). The split layouts fold the interior on
+   ``x_local`` between the post and the wait, so that it runs under the
+   exchange (the JAX package's ``_local_matvec``: that fold has no data
+   dependency on the collective), and the boundary, after the wait, on the
+   received block (windowed) or on ``[x_local ‖ received]`` (ELL); the
+   whole layouts have no fold that does not read the halo, and wait at
+   once;
 3. adds the diagonal term, in the fused step kernel (kernel B).
 
 The recurrence is the single-device one (:mod:`pygsp_tpu_torch.ops.
@@ -40,7 +45,8 @@ from pygsp_tpu_torch.core import cheby_kernel, windowed
 from pygsp_tpu_torch.core import sparse as sp
 from pygsp_tpu_torch.ops.chebyshev import (_MAX_GROUP, _check_carry_budget,
                                            _grouped_steps)
-from pygsp_tpu_torch.parallel.mesh import Mesh, ppermute, psum
+from pygsp_tpu_torch.parallel.mesh import (Mesh, ppermute_post,
+                                           ppermute_wait, psum, scope)
 from pygsp_tpu_torch.parallel.partition import (ShardedELL, ShardedGraph,
                                                 _cached, shard_slice)
 from pygsp_tpu_torch.parallel.windowed_shards import ShardedWindowed
@@ -59,19 +65,25 @@ def _leaf(t: torch.Tensor, s: int) -> torch.Tensor:
     return t[0] if t.shape[0] == 1 else t[s]
 
 
-def _halo_exchange(x_local, send_idx, dists, n_shards, mesh=None):
-    """Gather send rows and exchange them per ring distance: returns the
-    ``(Σ H_d, ...)`` received block in ``dists`` order. ``send_idx``: this
-    shard's (H_d,) int64 id maps, padding clamped into range (the padding
-    slots carry a copy of some row, which no edge references)."""
-    if not dists:
+def _halo_post(x_local, send_idx, dists, mesh):
+    """Gather send rows and post their exchange per ring distance (the
+    ``halo_exchange`` range, as the JAX package's scope): returns the
+    handle that :func:`_halo_join` takes. ``send_idx``: this shard's
+    (H_d,) int64 id maps, padding clamped into range (the padding slots
+    carry a copy of some row, which no edge references). On one shard
+    nothing is posted."""
+    with scope('halo_exchange'):
+        return ppermute_post(mesh, 'graph', [
+            (d, x_local.index_select(0, sidx))
+            for d, sidx in zip(dists, send_idx)])
+
+
+def _halo_join(x_local, handle):
+    """Wait for the halo that :func:`_halo_post` posted: the ``(Σ H_d,
+    ...)`` received block in ``dists`` order."""
+    blocks = ppermute_wait(handle)
+    if not blocks:
         return x_local.new_zeros((0,) + tuple(x_local.shape[1:]))
-    sends = [(d, x_local.index_select(0, sidx))
-             for d, sidx in zip(dists, send_idx)]
-    if n_shards > 1:
-        blocks = ppermute(mesh, 'graph', sends)
-    else:
-        blocks = [t for _, t in sends]
     return torch.cat(blocks) if len(blocks) > 1 else blocks[0]
 
 
@@ -143,25 +155,27 @@ class _Shard:
         else:
             raise TypeError(f'unknown local layout {type(ell).__name__}')
 
-    def recv(self, t):
-        sg = self.sg
-        return _halo_exchange(t, self.send, sg.halo_dists, sg.n_shards,
-                              self.mesh)
+    def post(self, t):
+        return _halo_post(t, self.send, self.sg.halo_dists, self.mesh)
 
     def product(self, t, out_dtype):
         """The off-diagonal of this rank's rows times the distributed
-        ``t`` (its local slice), in ``out_dtype``."""
+        ``t`` (its local slice), in ``out_dtype``: the halo posted, the
+        split layouts' interior folded under it, then what reads the
+        halo."""
         shape = t.shape
         t2 = t.reshape(shape[0], -1)
-        recv = self.recv(t2)
+        handle = self.post(t2)
         if isinstance(self.ell, tuple):
             interior, boundary = self.mats
             y = _product(interior, t2, out_dtype)
+            recv = _halo_join(t2, handle)
             if boundary is not None:
                 if isinstance(self.ell[0], ShardedELL):
                     recv = torch.cat([t2, recv])
                 y = y + _product(boundary, recv, out_dtype)
         else:
+            recv = _halo_join(t2, handle)
             y = _product(self.mats[0], torch.cat([t2, recv]), out_dtype)
         return y.reshape(shape)
 

@@ -14,19 +14,31 @@ column group ``C_j`` is ``{(i', j) : i'}``. One matvec is then
    landing on the owning slices.
 
 The ring layouts (``twod_local_windowed(ring=True)``, the JAX package's
-deployed layout) replace the all-gather by ``pr − 1`` ring shifts along
-'row' (:func:`~.mesh.ppermute`), one matrix per source slice, and fold
-them all at once, the fused multi-matrix fold
-(:func:`~pygsp_tpu_torch.core.windowed.spmm_multi_internal`); with
-``split_cols`` the reduce-scatter becomes a ring along 'col' too.
+deployed layout) replace the all-gather by a chain of ``pr − 1`` ring
+shifts along 'row', one matrix per source slice; with ``split_cols`` the
+reduce-scatter becomes a ring along 'col' too. Their schedule is the JAX
+package's ``_cheby_op_2d_ring``:
+
+- the whole chain of row shifts is posted first
+  (:func:`~.mesh.ppermute_chain_post`: on the card on a side stream, so
+  that no link waits for the folds enqueued after it);
+- ring step 0's matrix, which reads this rank's own slice, is folded
+  under the chain, then, after the wait, steps 1..pr−1 in one launch of
+  the fused SpMM, and the two are added (``first_separate``);
+- each column hop is posted before the fold of its position and its
+  partial added after that fold.
+
+Every ring fold, a single matrix's too, is one launch of the fused SpMM
+(:func:`~pygsp_tpu_torch.core.windowed.spmm_multi_internal`, two where a
+window does not fit a block). The named ranges (``ring_shift``,
+``ring_fold0``, ``ring_fold_fused``, ``col_ring_hop``, ``ring_fold_s<s>``,
+``mono_fold*``) are the JAX package's scopes.
 
 Signals are the calling rank's slice, ``n_local`` rows (the slice ``i·pc +
 j`` of the padded signal); so are the results.
 
-Departures by design: the JAX package issues each ring shift before the
-fold that hides it and folds ring step 0 on its own for that; the port
-waits for its shifts (``batch_isend_irecv``) and folds all the steps in one
-launch. It carries whole tensors, not tuples of chunks.
+Departure by design: the port carries whole tensors, not tuples of
+chunks.
 """
 
 from __future__ import annotations
@@ -42,8 +54,10 @@ from pygsp_tpu_torch.core.windowed import WINDOW_ROWS, spmm_multi_internal
 from pygsp_tpu_torch.core.windowed_kernel import merge_residues
 from pygsp_tpu_torch.core import sparse as sp
 from pygsp_tpu_torch.core.chunked import _tensor
-from pygsp_tpu_torch.parallel.mesh import (Mesh, all_gather, ppermute, psum,
-                                           psum_scatter)
+from pygsp_tpu_torch.parallel.mesh import (Mesh, all_gather,
+                                           ppermute_chain_post,
+                                           ppermute_post, ppermute_wait,
+                                           psum, psum_scatter, scope)
 from pygsp_tpu_torch.parallel.partition import (_cached, _host,
                                                 _laplacian_entries,
                                                 _np_dtype, _round_up,
@@ -395,13 +409,21 @@ class _Device2D:
             self.mats = tuple(_local_windowed(e, d) for e in ell)
         if self.mono:
             return
-        # the fused folds' matrices, one group a fold position, each with
-        # its residue lists merged once for the strip
+        # the ring folds, one group of matrices a fold position, each with
+        # its residue lists merged for the fused SpMM once a layout and
+        # device; at pr > 1 position 0's as ring step 0 alone and steps
+        # 1..pr-1, folded apart
         groups = ([[row[s] for row in self.mats] for s in range(tg.pc)]
                   if self.interleave else [list(self.mats)])
-        self.groups = [
-            (g, None if len(g) == 1 else merge_residues(
-                [m.residue for m in g], g[0].n_rows)) for g in groups]
+        layout = ell[0][0] if self.interleave else ell[0]
+
+        def merged(key, mats):
+            return _cached(layout, ('merged', d, key), lambda: _merged(mats))
+
+        self.first = ((merged('step0', groups[0][:1]),
+                       merged('rest', groups[0][1:])) if tg.pr > 1 else None)
+        self.groups = [None if s == 0 and self.first else merged(s, g)
+                       for s, g in enumerate(groups)]
 
     def product(self, t, out_dtype):
         """The off-diagonal of this rank's slice times the distributed
@@ -417,35 +439,20 @@ class _Device2D:
             y = psum_scatter(self.mesh, 'col', part)
         return y.to(out_dtype).reshape(shape)
 
-    def _collect_sources(self, t2):
-        """(pr − 1) single shifts along 'row': every source slice, step k
-        holding slice ``(i − k) mod pr``."""
-        buf, srcs = t2, []
-        for k in range(self.tg.pr):
-            srcs.append(buf)
-            if k < self.tg.pr - 1:
-                buf = ppermute(self.mesh, 'row', [(1, buf)])[0]
-        return srcs
-
-    def _fused_fold(self, group, srcs, dt):
-        """``Σ_k mlist[k] @ srcs[k]`` for the ``(mlist, merged residue)``
-        of :attr:`groups`: one matrix's SpMM, or the fused multi-matrix
-        fold of them all."""
-        mlist, residue = group
-        if len(mlist) == 1:
-            return _product(mlist[0], srcs[0], dt)
-        return spmm_multi_internal(mlist, srcs, residue, out_dtype=dt)
-
-    def _col_ring(self, fold_at, odt):
-        """The ring reduce-scatter along 'col': position 0's partial, then
-        for each later position the partial received from the rank ahead
-        added to this rank's fold of it."""
+    def _col_ring(self, r, fold_at, odt, name):
+        """The ring reduce-scatter along 'col': ``r`` is position 0's
+        partial; for each later position ``s`` the partial so far is
+        posted to the rank ahead, this rank's fold of position ``s`` runs
+        under the hop (range ``name + s``), and the partial received from
+        the rank behind is added to it."""
         sdt = self.sdt
-        r = fold_at(0)
         for s in range(1, self.tg.pc):
             send = r if sdt is None else r.to(sdt)
-            recv = ppermute(self.mesh, 'col', [(1, send)])[0]
-            r = fold_at(s) + recv.to(odt)
+            with scope('col_ring_hop'):
+                hop = ppermute_post(self.mesh, 'col', [(1, send)])
+            with scope(f'{name}{s}'):
+                r = fold_at(s)
+            r = r + ppermute_wait(hop)[0].to(odt)
         return r
 
     def _scatter(self, y, odt):
@@ -456,18 +463,53 @@ class _Device2D:
         return psum_scatter(self.mesh, 'col', y)
 
     def _ring(self, t2, odt):
+        """The ring's off-diagonal product: every source slice collected
+        by the row shifts (step k holds slice ``(i − k) mod pr``), folded
+        as the JAX package's ``offdiag_apply`` schedules it."""
         dt = t2.dtype
-        srcs = self._collect_sources(t2)
+        with scope('ring_shift'):
+            chain = ppermute_chain_post(self.mesh, 'row', t2,
+                                        self.tg.pr - 1)
         if self.mono:
-            xcat = torch.cat(srcs)
-            if self.interleave:
-                return self._col_ring(
-                    lambda s: _product(self.mats[s], xcat, dt), odt)
-            return self._scatter(_product(self.mats[0], xcat, dt), odt)
+            xcat = torch.cat([t2] + ppermute_wait(chain))
+            if not self.interleave:
+                with scope('mono_fold'):
+                    y = _product(self.mats[0], xcat, dt)
+                return self._scatter(y, odt)
+            with scope('mono_fold_s0'):
+                y = _product(self.mats[0], xcat, dt)
+            return self._col_ring(
+                y, lambda s: _product(self.mats[s], xcat, dt), odt,
+                'mono_fold_s')
+        if self.first is None:                   # pr = 1: no shift to hide
+            srcs = [t2] + ppermute_wait(chain)
+            with scope('ring_fold_fused'):
+                y = _fold(self.groups[0], srcs, dt)
+        else:
+            step0, rest = self.first
+            with scope('ring_fold0'):
+                y0 = _fold(step0, [t2], dt)
+            srcs = [t2] + ppermute_wait(chain)
+            with scope('ring_fold_fused'):
+                y = y0 + _fold(rest, srcs[1:], dt)
         if self.interleave:
-            return self._col_ring(lambda s: self._fused_fold(
-                self.groups[s], srcs, dt), odt)
-        return self._scatter(self._fused_fold(self.groups[0], srcs, dt), odt)
+            return self._col_ring(
+                y, lambda s: _fold(self.groups[s], srcs, dt), odt,
+                'ring_fold_s')
+        return self._scatter(y, odt)
+
+
+def _merged(mats):
+    """``(mats, their residue lists merged)``: a fold of the ring."""
+    return mats, merge_residues([m.residue for m in mats], mats[0].n_rows)
+
+
+def _fold(group, srcs, dt):
+    """``Σ_k mats[k] @ srcs[k]`` of a :func:`_merged` group, in ``dt``:
+    one launch of the fused SpMM (two where a window does not fit a
+    block)."""
+    mats, residue = group
+    return spmm_multi_internal(mats, srcs, residue, out_dtype=dt)
 
 
 def matvec_2d(tg: TwoDGraph, x, mesh: Mesh, ell=None):

@@ -51,8 +51,9 @@ VJP = {'1d_coo', '1d_win_split', '1d_batch_win_split', '2d_ring_split',
 
 
 # the kernels whose launches each configuration's matvec records (one
-# product: on the card, the interleaved ring's fused SpMM at each of its pc
-# positions; the plain ring's once)
+# product: on the card at pr > 1, the fused SpMM twice at fold position 0,
+# ring step 0 alone under the row shifts and steps 1..pr-1 after them, and
+# once at each of the interleaved ring's pc - 1 other positions)
 LAUNCHED = ('fold_strip_multi', 'windowed_fold_multi', 'windowed_fold',
             'window_strip')
 

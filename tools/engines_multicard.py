@@ -12,9 +12,11 @@ within 1e-12 of the largest value, to ``cheby_op``, ``cheby_synthesis``
 and the fixed-graph VJP on one device (the CPU), and the bf16 modes within
 twice ``carry_error_estimate``. On the cards, each 2-D ring layout's
 matvec must launch the fused multi-matrix SpMM (``fold_strip_multi``)
-once per fold position (pc times interleaved, once otherwise), and no
-fold into a window tensor, no strip and no single-matrix fold. One JSON
-line per configuration, then a summary line.
+twice at fold position 0 (ring step 0 alone, under the row shifts, then
+steps 1..pr−1) and once at each later position of the interleaved ring
+(pc + 1 in all; 2 on the plain ring), and no fold into a window tensor,
+no strip and no single-matrix fold. One JSON line per configuration, then
+a summary line.
 
 Run: ``python3 tools/engines_multicard.py [world]`` (default 4, one card a
 rank; ``--cpu`` for gloo on the CPU instead).
@@ -77,14 +79,15 @@ def reference(G, Ls, lmax, x, c, gout):
 
 def expected_launches(kind, shape, layout, device):
     """A rank's launches in one matvec of a 2-D ring layout on the cards
-    (pr > 1): the fused SpMM at each fold position, and no fold into a
-    window tensor, strip or single-matrix fold; None where no count is
+    (pr > 1): the fused SpMM twice at fold position 0 (step 0 alone, then
+    the rest) and once at each later one, and no fold into a window
+    tensor, strip or single-matrix fold; None where no count is
     required."""
     pr, pc = shape
     if device != 'cuda' or kind != '2d' or not layout.startswith('ring') \
             or pr == 1:
         return None
-    n = pc if layout.endswith('split') else 1
+    n = 1 + (pc if layout.endswith('split') else 1)
     return dict(fold_strip_multi=n, windowed_fold_multi=0, windowed_fold=0,
                 window_strip=0)
 
