@@ -89,9 +89,8 @@ F. path F, the other filter methods: ``method='lanczos'`` (order 30) of
    operator, which now differentiates on the card: its x̄ against the
    fixed-graph VJP's within 1e-5, no SDDMM launched (x alone requires
    grad); the grid with its Fourier basis through ``save_graph`` and
-   ``load_graph``, back on the card bit for bit. The refusal of a
-   grad-requiring ``g.filter(x)`` (naming ``cheby_op_fixed_graph``) is
-   checked on path C's windowed operator, after path E on C;
+   ``load_graph``, back on the card bit for bit. A grad-requiring
+   ``g.filter(x)`` on path C's windowed operator is path M's first check;
 G. path G, the filter zoo and the rest of the spectral and graph side:
    on path A's graph and signal a ``MexicanHat`` bank of 6 (CSR kernel,
    kernel B's groups at the g its rule gives, the group at Nf = 6 timed
@@ -211,6 +210,26 @@ K. path K, gradients through the graph's weights, on path A's graph
    around each of three banks of path A within 2 % of the CUDA events
    around the same bank, and ``trace`` over one bank, whose file must
    name the CSR kernel (``csr_spmm_segment_kernel``);
+M. path M, gradients through the operator on the other formats: on path
+   C's windowed operator (after path E on C), path H's ``'hybrid'`` one,
+   path I's chunked one (each at the end of its path) and path B's banded
+   one (after path G on B), the bank (ḡ on 8 columns, as path K)
+   differentiated through the format's value leaves (``leaves()``,
+   replaced by ``with_leaves``), diagonal, λmax as a tensor, c and x:
+   the format's SpMM 30 times forward; the backward 30 launches of kernel
+   A's fused entry on the CSR view of the live slots (``grad_edges``), or
+   30 of kernel C on the transposed tiles, and no other SpMM or SDDMM; no
+   plain version; the padding slots' cotangent exactly 0; every cotangent
+   (the leaves mapped to their edges, diag̅, λ̄, c̄, x̄) against the CSR
+   route's (``_ChebyOp`` on a CSR with the same values and diagonal)
+   within 1e-4 of the largest; the forward and the backward timed, the
+   peak in (N, S) units. On C first ``g.filter(x)`` with x requiring grad
+   (its x̄ against the fixed-graph VJP's within 1e-5: kernel A on the
+   transpose, no SDDMM), then three Adam steps on the windowed leaves
+   (the loss falls; the CSR view built once on C in all). On B also
+   ``Grid2d(64, 64)`` in f64, every tile entry's cotangent (those off the
+   grid's edges included), diag̅, λ̄, c̄ and x̄, card against CPU within
+   1e-10;
 7. kernel B's entry points at each path's shape and at path E's (the step
    at 512 columns, the contraction at (N, 128, 4), ``cheby_dot_group`` at
    paths A's and B's N), held bit for bit against
@@ -273,6 +292,7 @@ Run: ``python3 chip_smoke.py``. It needs one CUDA device and exits
 non-zero without one.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -297,7 +317,8 @@ from pygsp_tpu_torch.ops.eigen import (estimate_lmax_lanczos,
                                        laplacian_upper_bound,
                                        partial_fourier_basis,
                                        power_iteration_lmax)
-from pygsp_tpu_torch.ops.chebyshev import (_bank, _fixed_graph_grads,
+from pygsp_tpu_torch.ops.chebyshev import (_adjoint, _bank,
+                                           _fixed_graph_grads, _internal,
                                            _operator_bytes, acc_group,
                                            carry_error_estimate, cheby_coeff,
                                            cheby_op, cheby_op_fixed_graph,
@@ -431,6 +452,10 @@ K_TEACHER = (0.9, 1.1)
 TOL_K_F64 = 1e-10
 TOL_K_LMAX_FD = 1e-7
 TOL_F_XBAR = 1e-5
+# path M: the formats' gradients through the operator; Adam on the windowed
+# leaves
+M_TRAIN_STEPS = 3
+M_TRAIN_LR = 0.005
 # the fixed-graph VJP's adjoint identities at full width, each relative to
 # the magnitude of its own terms (f32 terms summed in f64): ⟨ḡ, out⟩ =
 # Σ c̄ ⊙ c to Σ |c̄ ⊙ c|, read 6.0e-9 to 4.2e-8 on paths A-C on an H100;
@@ -2078,6 +2103,22 @@ def measure_fast_fold(G, x):
             'bound_gather_ms': (live * s * 2 + slot_bytes + t.numel() * 2)
             / HBM_BYTES_PER_S * 1e3}
     del t
+    # the one PyTorch call that computes the same function: torch.sparse.mm
+    # of bf16 values on a bf16 x, the same shuffled matrix in CSR (the
+    # whole SpMM); the mixed pairs below have none
+    coo = G.W.tocoo()
+    iperm = M.iperm.cpu().numpy()
+    A = gsp.core.from_coo(iperm[coo.row], iperm[coo.col], -coo.data, n,
+                          device='cuda')
+    lib = torch.sparse_csr_tensor(A.rowptr, A.cols[:A.nnz],
+                                  A.vals[:A.nnz].to(torch.bfloat16),
+                                  size=A.shape)
+    del A
+    fold['library_ms'] = time_ms(lambda: torch.sparse.mm(lib, xp), 10)
+    fold['library'] = ('torch.sparse.mm, bf16 values on a bf16 x, on the '
+                       'CSR of the same shuffled matrix (the whole SpMM: '
+                       'fold + strip + levels); the mixed pairs: none')
+    del lib
     # the other two instances at this shape: a bf16 x with f32 values (no
     # product rounding) and f32 x with bf16 values
     M32 = G.L.offdiag
@@ -2529,22 +2570,32 @@ def phase_path_f_exact():
             'x_bar_vs_fixed_graph': xbar_err, 'lmax': G.lmax}, launches
 
 
-def refusal_on_windowed(G, x):
-    """``g.filter(x)`` with x requiring grad on the windowed operator, which
-    has no backward of its own, raises on the card, naming
-    ``cheby_op_fixed_graph``."""
+def xbar_on_windowed(G, x):
+    """``g.filter(x)`` with x requiring grad on the windowed operator (the
+    bank's own backward, on the CSR view of its slots): its x̄ against the
+    fixed-graph VJP's, and the launches of the first (kernel A on the
+    transpose, no SDDMM: only x requires grad)."""
     g = gsp.filters.Heat(G, scale=SCALES)
-    xr = x[:, :N_CHECK_COLS].clone().requires_grad_()
-    try:
-        g.filter(xr, order=ORDER)
-    except RuntimeError as exc:
-        if 'cheby_op_fixed_graph' not in str(exc):
-            raise
-        log(f'  a grad-requiring g.filter(x) on the windowed operator '
-            f'raises: {exc}')
-    else:
-        raise AssertionError('g.filter(x) with x requiring grad ran on the '
-                             'windowed operator on the card')
+    x8 = x[:, :N_CHECK_COLS].contiguous()
+    gbar = seeded_normal((G.N, N_CHECK_COLS, len(SCALES)), 74)
+    x_bars = []
+    reset_counts()
+    for fixed in (False, True):
+        xr = x8.clone().requires_grad_()
+        g.filter(xr, order=ORDER, fixed_graph=fixed).backward(gbar)
+        torch.cuda.synchronize()
+        if not fixed:
+            launches = counts()
+        x_bars.append(xr.grad)
+    if (launches['csr_sddmm'] or launches['csr_spmm_sddmm']
+            or launches['csr_spmm'] != ORDER
+            or launches['windowed_fold'] != ORDER):
+        raise AssertionError(f'path M: a grad-requiring g.filter(x) on the '
+                             f'windowed operator launched {launches}')
+    err = check('path M: x̄ of a grad-requiring g.filter on the windowed '
+                'operator vs the fixed-graph VJP', x_bars[0], x_bars[1],
+                TOL_F_XBAR)
+    return {'rel_err': err}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3127,6 +3178,276 @@ def weights_small_f64():
     return {'rel_err': errs, 'lmax_bar': got, 'lmax_fd': fd,
             'lmax_fd_rel_err': fd_err, 'nnz': M.nnz, 's': K_SMALL_S,
             'seconds': t}
+
+
+# ---------------------------------------------------------------------------
+# path M: gradients through the operator on the ELL, chunked, windowed and
+# banded formats
+# ---------------------------------------------------------------------------
+
+def edge_csr(L):
+    """The off-diagonal of ``L`` (ELL, chunked, windowed or banded) as a
+    CSR on the card with the same stored values, in the original vertex
+    order, sorted by row, padded as ``from_coo`` pads; and each entry's
+    index in the concatenated flat leaves (a slot format's live slots,
+    the banded tiles' nonzero entries)."""
+    off = L.offdiag
+    if isinstance(off, gsp.core.sparse.BandedMatrix):
+        nb, nd, tile, _ = off.tiles.shape
+        index = torch.nonzero(off.tiles.reshape(-1)).flatten()
+        i, d = index // (nd * tile * tile), (index // (tile * tile)) % nd
+        rows = i * tile + (index // tile) % tile
+        cols = (i + d - off.half_bw) * tile + index % tile
+    else:
+        rows, cols, index = _internal(off).live_slots()
+        perm = getattr(off, 'perm', None)
+        if perm is not None:
+            rows, cols = perm[rows], perm[cols]
+    n = off.n_rows
+    order = torch.argsort(rows * n + cols)
+    rows, cols, index = rows[order], cols[order], index[order]
+    flat = torch.cat([v.reshape(-1) for v in off.leaves()])
+    nnz = int(rows.numel())
+    pad = -nnz % gsp.core.sparse.EDGE_BLOCK or gsp.core.sparse.EDGE_BLOCK
+
+    def padded(t, fill):
+        return torch.cat([t, t.new_full((pad,), fill)])
+
+    counts_ = torch.bincount(rows, minlength=n)
+    rowptr = torch.cat([counts_.new_zeros(1), counts_.cumsum(0)])
+    M = gsp.core.sparse.CSRMatrix(
+        rows=padded(rows, n).int(), cols=padded(cols, n).int(),
+        vals=padded(flat[index], 0), rowptr=rowptr.int(), n_rows=n,
+        n_cols=n, nnz=nnz)
+    return M, index
+
+
+def bank_grads(L, lmax, c, x, gbar):
+    """One forward and backward of the heat bank on ``L`` through its value
+    leaves, diagonal, λmax (a tensor), c and x: the cotangents (leaves
+    joined flat, diag̅, λ̄, c̄, x̄), the launches of the forward and of the
+    backward, the peak above what is held in (N, S) units, and the
+    forward's and the backward's ms (CUDA events, mean of 2 after the
+    counted run)."""
+    n, s = x.shape
+    unit = n * s * x.element_size()
+    leaves = [v.detach().clone().requires_grad_() for v in L.offdiag.leaves()]
+    diag = L.diag.detach().clone().requires_grad_()
+    lt = torch.tensor(lmax, device='cuda', requires_grad=True)
+    ct = c.detach().clone().requires_grad_()
+    xr = x.detach().clone().requires_grad_()
+    inputs = (*leaves, diag, lt, ct, xr)
+    Lg = gsp.core.operators.LaplacianOp(
+        offdiag=L.offdiag.with_leaves(leaves), diag=diag, lap_type=L.lap_type)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    PLAIN_CALLS.clear()
+    out = cheby_op(Lg, lt, ct, xr)
+    torch.cuda.synchronize()
+    fwd = counts()
+    grads = torch.autograd.grad(out, inputs, gbar, retain_graph=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = counts()
+    bwd = {k: launches[k] - fwd[k] for k in launches}
+    if PLAIN_CALLS or launches['slot_plain'] or launches['tail_plain']:
+        raise AssertionError(f'path M: plain versions ran: {PLAIN_CALLS}, '
+                             f'{launches}')
+    ms = {'backward': time_ms(lambda: torch.autograd.grad(
+        out, inputs, gbar, retain_graph=True), 2)}
+    del out
+    torch.cuda.empty_cache()
+    ms['forward'] = time_ms(lambda: cheby_op(Lg, lt, ct, xr), 2)
+    flat = torch.cat([v.reshape(-1) for v in grads[:len(leaves)]])
+    return ((flat,) + tuple(grads[len(leaves):]), fwd, bwd, peak / unit, ms)
+
+
+def format_parts(L, lmax, x):
+    """The backward's parts that depend on the format, each timed alone at
+    the bank's shape (CUDA events): ``setup_ms``, what a backward makes
+    before its first step (the leaves gathered into the CSR view's
+    transpose; the transposed tiles and the tiles' accumulator);
+    ``adjoint_step_ms``, one step of the adjoint (kernel A's fused entry
+    with its SDDMM share, or kernel C on the transposed tiles) and kernel
+    B's step; on banded ``tiles_product_ms``, a step's share of the tiles'
+    cotangent (the FP32 ``baddbmm``); ``finish_ms``, the cotangent taken
+    to the leaves (one scatter; on banded the tiles' layout); off banded
+    ``view_build_ms``, the CSR view's build (host clock around a
+    synchronised call)."""
+    op = L.hoisted()[0]
+    n, s = x.shape
+    a1 = lmax / 2
+    slab = seeded_normal((2, n, s), 87)
+    u, out = seeded_normal((n, s), 88), torch.empty_like(x)
+    parts = {'setup_ms': time_ms(lambda: _adjoint(op, slab, x.shape, x.dtype,
+                                                  True, a1), 3)}
+    adj = _adjoint(op, slab, x.shape, x.dtype, True, a1)
+    step = adj.step(2.0 / a1, a1)
+    parts['adjoint_step_ms'] = time_ms(lambda: step(u, u, out, 1), 5)
+    if isinstance(L.offdiag, gsp.core.sparse.BandedMatrix):
+        parts['tiles_product_ms'] = time_ms(lambda: adj.share(u, 1), 5)
+    parts['finish_ms'] = time_ms(adj.finish, 3)
+    del adj, step, slab
+    if not isinstance(L.offdiag, gsp.core.sparse.BandedMatrix):
+        # the CSR view's build, once a structure: on a copy of the index
+        # tensor that holds it, so that this build is not the path's
+        off = dataclasses.replace(op.offdiag, **{
+            k: getattr(op.offdiag, k).clone() for k in (
+                'ell_cols', 'slot_cols', 'cols') if hasattr(op.offdiag, k)})
+        torch.cuda.synchronize()
+        t0 = time.time()
+        gsp.core.sparse.grad_edges(off)
+        torch.cuda.synchronize()
+        parts['view_build_ms'] = (time.time() - t0) * 1e3
+        gsp.core.sparse.grad_edges.builds -= 1
+        del off
+    torch.cuda.empty_cache()
+    return parts
+
+
+def phase_path_m(path, L, lmax, x):
+    """Path M on ``path``'s operator ``L`` (the bench graph's windowed,
+    hybrid or chunked one, or path B's banded one): the bank
+    differentiated through the format's leaves, diagonal, λmax, c and x
+    (ḡ on N_CHECK_COLS columns, as path K), its launches (the format's
+    SpMM 30 times forward; the backward 30 of kernel A's fused entry on
+    the CSR view, or 30 of kernel C on the transposed tiles), no plain
+    version, the padding slots' cotangent exactly 0; every cotangent
+    against the CSR route's on a CSR with the same values and diagonal
+    (leaves mapped to its entries) within TOL_PATH; the forward's and the
+    backward's ms and the peak in (N, S) units."""
+    log(f'phase M: path M on path {path}\'s {type(L.offdiag).__name__}')
+    n, s = x.shape
+    nf = len(SCALES)
+    c = heat_coeff(torch.tensor(SCALES, device='cuda'), lmax).detach()
+    gbar = torch.zeros((nf, n, s), device='cuda')
+    gbar[:, :, :N_CHECK_COLS] = seeded_normal((nf, n, N_CHECK_COLS), 85)
+    builds = gsp.core.sparse.grad_edges.builds
+    got, fwd, bwd, peak, ms = bank_grads(L, lmax, c, x, gbar)
+    builds = gsp.core.sparse.grad_edges.builds - builds
+    banded = isinstance(L.offdiag, gsp.core.sparse.BandedMatrix)
+    kernel = {'WindowedELLMatrix': 'windowed_fold', 'ELLMatrix': 'ell_spmm',
+              'ChunkedELLMatrix': 'chunked_spmm',
+              'BandedMatrix': 'banded_spmm'}[type(L.offdiag).__name__]
+    want_bwd = ({'banded_spmm': ORDER, 'csr_spmm_sddmm': 0} if banded
+                else {'csr_spmm_sddmm': ORDER, 'banded_spmm': 0})
+    seen = {k: bwd[k] for k in want_bwd}
+    if (fwd[kernel] != ORDER or seen != want_bwd or bwd['csr_sddmm']
+            or bwd['csr_spmm'] or bwd[kernel] != (ORDER if banded else 0)):
+        raise AssertionError(f'path M on {path}: forward launches {fwd}, '
+                             f'backward {bwd}')
+    log(f'  launches: forward {kernel} {fwd[kernel]}, backward '
+        f'{json.dumps({k: v for k, v in bwd.items() if v})}; CSR views '
+        f'built {builds}')
+    C, index = edge_csr(L)
+    LC = gsp.core.operators.LaplacianOp(offdiag=C, diag=L.diag,
+                                        lap_type=L.lap_type)
+    want = bank_grads(LC, lmax, c, x, gbar)[0]
+    dead = torch.ones_like(got[0], dtype=torch.bool)
+    dead[index] = False
+    n_dead = int(dead.sum())
+    if not banded and bool(got[0][dead].any()):
+        raise AssertionError(f'path M on {path}: a padding slot\'s '
+                             f'cotangent is not 0')
+    rel = {'leaves_on_edges': check(
+        f'path M {path}: the leaves\' cotangents on the edges vs the CSR '
+        f'route', got[0][index], want[0][:C.nnz], TOL_PATH)}
+    for name, a, b in zip(('diag', 'lmax', 'c', 'x'), got[1:], want[1:]):
+        rel[name] = check(f'path M {path}: {name} cotangent vs the CSR '
+                          f'route', a.reshape(-1), b.reshape(-1), TOL_PATH)
+    result = {'rel_err': rel, 'ms': ms, 'peak_units': peak,
+              'forward_launches': {k: v for k, v in fwd.items() if v},
+              'backward_launches': {k: v for k, v in bwd.items() if v},
+              'csr_views_built': builds, 'edges': C.nnz,
+              'padding_slots': 0 if banded else n_dead,
+              'leaves': [tuple(v.shape) for v in L.offdiag.leaves()]}
+    del got, want, C, LC
+    torch.cuda.empty_cache()
+    result['parts'] = format_parts(L, lmax, x)
+    log(f'  path M on {path} ({card()}): {json.dumps(result)}')
+    return result, {k: fwd[k] + bwd[k] for k in fwd}
+
+
+def train_leaves(L, lmax, x):
+    """M_TRAIN_STEPS Adam steps on the windowed operator's value leaves
+    towards the bank of its own values, from values scaled by 0.9: the loss
+    must fall, and the CSR view of the slots is built at most once over the
+    steps (none where an earlier backward built it). Returns the losses,
+    each step's ms (CUDA events: forward, loss, backward, update) and the
+    views built."""
+    c = heat_coeff(torch.tensor(SCALES, device='cuda'), lmax).detach()
+    with torch.no_grad():
+        y = cheby_op(L, lmax, c, x)
+    leaves = [(0.9 * v.detach()).requires_grad_()
+              for v in L.offdiag.leaves()]
+    opt = torch.optim.Adam(leaves, lr=M_TRAIN_LR)
+    builds = gsp.core.sparse.grad_edges.builds
+    losses, ms = [], []
+    for _ in range(M_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.zero_grad(set_to_none=True)
+        Lg = gsp.core.operators.LaplacianOp(
+            offdiag=L.offdiag.with_leaves(leaves), diag=L.diag,
+            lap_type=L.lap_type)
+        loss = torch.mean((cheby_op(Lg, lmax, c, x) - y) ** 2)
+        loss.backward()
+        opt.step()
+        end.record()
+        end.synchronize()
+        losses.append(float(loss.detach()))
+        ms.append(start.elapsed_time(end))
+    builds = gsp.core.sparse.grad_edges.builds - builds
+    result = {'losses': losses, 'ms_per_step': ms, 'lr': M_TRAIN_LR,
+              'csr_views_built': builds}
+    log(f'  {M_TRAIN_STEPS} Adam steps on the windowed leaves: '
+        f'{json.dumps(result)}')
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'path M: Adam on the leaves, losses {losses}')
+    if builds:
+        raise AssertionError(f'path M: the CSR view was built {builds} '
+                             f'times over the Adam steps')
+    return result
+
+
+def banded_small_f64():
+    """Grid2d(64, 64)'s banded operator in f64: the tiles' cotangent (every
+    entry, those outside the grid's edges included), diag̅, λ̄, c̄ and x̄
+    on the card against the port on the CPU (its plain versions) within
+    TOL_K_F64."""
+    G = gsp.graphs.Grid2d(EXACT_SIDE, EXACT_SIDE, device='cpu',
+                          dtype=torch.float64)
+    Lb = G.L.to_banded()
+    f64 = torch.float64
+    rng = np.random.default_rng(86)
+    c0 = rng.normal(size=(len(SCALES), ORDER + 1)) / (ORDER + 1)
+    x0 = rng.normal(size=(G.N, K_SMALL_S))
+    g0 = rng.normal(size=(len(SCALES), G.N, K_SMALL_S))
+    grads = {}
+    for device in ('cuda', 'cpu'):
+        tiles = Lb.offdiag.tiles.to(device, copy=True).requires_grad_()
+        diag = Lb.diag.to(device, copy=True).requires_grad_()
+        lt = torch.tensor(8.0, dtype=f64, device=device, requires_grad=True)
+        c = torch.tensor(c0, device=device, requires_grad=True)
+        x = torch.tensor(x0, device=device, requires_grad=True)
+        L = gsp.core.operators.LaplacianOp(
+            offdiag=Lb.offdiag.with_leaves((tiles,)), diag=diag,
+            lap_type=Lb.lap_type)
+        cheby_op(L, lt, c, x).backward(torch.tensor(g0, device=device))
+        grads[device] = [v.grad.cpu() for v in (tiles, diag, lt, c, x)]
+    off_edges = Lb.offdiag.tiles == 0
+    errs = {name: check(f'path M banded f64 {name} card vs CPU', a, b,
+                        TOL_K_F64)
+            for name, a, b in zip(('tiles', 'diag', 'lmax', 'c', 'x'),
+                                  grads['cuda'], grads['cpu'])}
+    errs['tiles_off_edges'] = check(
+        'path M banded f64 tiles off the edges card vs CPU',
+        grads['cuda'][0][off_edges], grads['cpu'][0][off_edges], TOL_K_F64)
+    return {'rel_err': errs, 'tiles': tuple(Lb.offdiag.tiles.shape),
+            'entries_off_edges': int(off_edges.sum())}
 
 
 # ---------------------------------------------------------------------------
@@ -3926,7 +4247,10 @@ def phase_path_h():
     if abs(ub - ub_host) > 1e-6 * ub_host:
         raise AssertionError(f'laplacian_upper_bound {ub} != {ub_host}')
     result['upper_bound'] = ub
-    del G, x, M
+    del M
+    torch.cuda.empty_cache()
+    result['M'], counts_h['M_H'] = phase_path_m('H', G.L, G.lmax, x)
+    del G, x
     torch.cuda.empty_cache()
 
     # the zoo's launches: each graph's λmax and bank, without the holds and
@@ -4067,9 +4391,12 @@ def phase_path_i():
     if counts_e['csr_spmm'] or counts_e['slot_plain']:
         raise AssertionError(f'path E on I ran csr_spmm or the plain SpMM: '
                              f'{counts_e}')
+    torch.cuda.empty_cache()
+    result['M'], counts_m = phase_path_m('I', G.L, G.lmax, x)
     kernel['at_paths'] = held
     return kernel, narrow, result, bank_counts, {'I_fast': fast_launches,
-                                                 'E_I': counts_e}
+                                                 'E_I': counts_e,
+                                                 'M_I': counts_m}
 
 
 # ---------------------------------------------------------------------------
@@ -5093,7 +5420,7 @@ def main():
     double = phase_build()
     fold3 = phase_kernels()
     phase_kernel_b()
-    path_e, path_f, path_g, other = {}, {}, {}, {}
+    path_e, path_f, path_g, path_m, other = {}, {}, {}, {}, {}
     csr, path_a, counts_a, (G, x) = phase_path_a()
     path_e['A'], other['E_A'] = phase_path_e('A', G, None, x, TRAIN_STEPS,
                                              G.L.to_scipy())
@@ -5117,6 +5444,8 @@ def main():
     require_launches('E on B', other['E_B'], banded_spmm=3 * ORDER,
                      **train_kernels(1))
     path_g['B'], other['G_B'] = timed(phase_path_g_b, G, Lb, x)
+    path_m['B'], other['M_B'] = phase_path_m('B', Lb, G.lmax, x)
+    path_m['B']['small_f64'] = banded_small_f64()
     del G, Lb, x
     torch.cuda.empty_cache()
     fold, strip, fold2, path_c, counts_c, shared = phase_path_c()
@@ -5133,7 +5462,17 @@ def main():
                      **train_kernels(TRAIN_STEPS))
     if other['E_C']['csr_spmm']:
         raise AssertionError('the CSR kernel ran in path E on C')
-    refusal_on_windowed(G, x)
+    # the windowed slots' CSR view: built by the first backward (x̄'s), then
+    # shared by every later one, the Adam steps' included
+    builds = gsp.core.sparse.grad_edges.builds
+    path_m['xbar_windowed'], other['M_xbar'] = xbar_on_windowed(G, x)
+    path_m['C'], other['M_C'] = phase_path_m('C', G.L, G.lmax, x)
+    path_m['C']['train'] = train_leaves(G.L, G.lmax, x)
+    builds = gsp.core.sparse.grad_edges.builds - builds
+    path_m['C']['csr_views_built_on_c'] = builds
+    if builds != 1:
+        raise AssertionError(f'path M on C: the CSR view built {builds} '
+                             f'times, not once')
     path_g['C'], other['G_C'] = timed(phase_path_g_bank, 'C', G, x, 'Meyer',
                                       sps.diags(G.dw) - G.W)
     del G, x
@@ -5146,11 +5485,13 @@ def main():
     t0 = time.time()
     ell, narrow_h, path_h, counts_h, other_h = phase_path_h()
     path_h['phase_s'] = time.time() - t0
+    path_m['H'] = path_h.pop('M')
     other.update(other_h)
     torch.cuda.empty_cache()
     t0 = time.time()
     chunked_k, narrow_i, path_i, counts_i, other_i = phase_path_i()
     path_i['phase_s'] = time.time() - t0
+    path_m['I'] = path_i.pop('M')
     other.update(other_i)
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -5172,7 +5513,7 @@ def main():
         path['kernel_b_per_bank'] = kb_bank[p]
     sddmm = path_k.pop('sddmm')
     paths.update(E=path_e, F=path_f, G=path_g, H=path_h, I=path_i,
-                 J=path_j, K=path_k, L=path_l)
+                 J=path_j, K=path_k, L=path_l, M=path_m)
     log(f'paths: {json.dumps(paths)}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')

@@ -142,6 +142,41 @@ class ChunkedELLMatrix:
             residue=None if self.residue is None else self.residue._replace(
                 vals=fn(self.residue.vals)))
 
+    def leaves(self) -> tuple:
+        """The float leaves of the JAX package's pytree, in its order:
+        every block's ``vals``, then every tier's."""
+        return (tuple(b.vals for b in self.blocks)
+                + tuple(lev.vals for lev in self.levels))
+
+    def with_leaves(self, leaves) -> 'ChunkedELLMatrix':
+        """The matrix with :meth:`leaves` replaced (the same shapes): the
+        flat slot buffer is the blocks' values laid end to end (the blocks
+        become views of it) and the residue list's values are gathered
+        from the tiers' by its map (:func:`level_values`), on the device,
+        so that what the kernel reads is the new leaves."""
+        nb = len(self.blocks)
+        blocks, tiers = leaves[:nb], leaves[nb:]
+        slot_vals = (torch.cat([v.reshape(-1) for v in blocks]) if nb
+                     else self.slot_vals)
+        levels = tuple(dataclasses.replace(lev, vals=v)
+                       for lev, v in zip(self.levels, tiers))
+        return dataclasses.replace(
+            self, slot_vals=slot_vals, levels=levels,
+            blocks=_block_views(self.slot_cols, slot_vals, self.table.blocks,
+                                self),
+            residue=level_values(self.residue, levels))
+
+    def live_slots(self):
+        """``(rows, cols, index)`` (int64) of every stored slot that holds
+        an edge, in the matrix's internal order, ``index`` counting the
+        concatenated flat :meth:`leaves`."""
+        R = self.chunk_rows
+        parts = [(torch.arange(i * R, i * R + self.out_chunk_size(i),
+                               device=self.device), b.cols, c * R,
+                  self.src_chunk_size(c))
+                 for (i, c), b in zip(self.block_keys, self.blocks)]
+        return _live(parts + _tier_parts(self), self.device)
+
     def astype(self, dtype) -> 'ChunkedELLMatrix':
         return self._map_vals(lambda v: v.to(dtype))
 
@@ -186,6 +221,51 @@ def _block_views(slot_cols, slot_vals, blocks, mat) -> tuple:
             vals=slot_vals[off:off + n].view(-1, width) if width
             else slot_vals[:0].view(mat.out_chunk_size(i), 0)))
     return tuple(out)
+
+
+def level_values(residue, levels):
+    """``residue`` (a :class:`~.windowed_kernel.Residue` or None) with its
+    values gathered from the tiers' ``vals`` by its map ``src`` (each live
+    slot's index in the tiers' concatenated flat values): how a replaced
+    tier reaches the tail, on the device."""
+    if residue is None:
+        return None
+    flat = torch.cat([lev.vals.reshape(-1) for lev in levels])
+    return residue._replace(vals=flat[residue.src])
+
+
+def _tier_parts(mat):
+    """The tiers of a chunked or windowed matrix as :func:`_live`'s parts:
+    each entry's row from ``level_rows``, its columns in its source
+    chunk."""
+    R, out, e = mat.chunk_rows, [], 0
+    for lev in mat.levels:
+        m = lev.cols.shape[0]
+        out.append((mat.level_rows[e:e + m], lev.cols, lev.src_chunk * R,
+                    mat.src_chunk_size(lev.src_chunk)))
+        e += m
+    return out
+
+
+def _live(parts, device):
+    """``(rows, cols, index)`` (int64) of the live slots of slot blocks,
+    ``parts`` a sequence of ``(rows (m,), cols (m, w), col_base, limit)``
+    whose values lie end to end in one flat buffer: slot ``q`` of a block
+    is live where its column is below ``limit``, its matrix column is
+    ``col_base + cols``, its index the block's offset plus ``q``."""
+    rows, cols, index = [], [], []
+    base = 0
+    for r, c, col_base, limit in parts:
+        m, w = c.shape
+        q = torch.nonzero(c.reshape(-1) < limit).flatten()
+        rows.append(r.long()[q // max(w, 1)])
+        cols.append(c.reshape(-1)[q].long() + col_base)
+        index.append(q + base)
+        base += m * w
+    if not rows:
+        return tuple(torch.zeros(0, dtype=torch.long, device=device)
+                     for _ in range(3))
+    return torch.cat(rows), torch.cat(cols), torch.cat(index)
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +589,8 @@ def _flat_residue(levels, level_rows, n_rows, n_cols, R):
     longest first, so that their blocks start first."""
     if not len(levels):
         return None
-    counts, cols, vals = [], [], []
+    counts, cols, vals, src = [], [], [], []
+    base = 0
     for lev in levels:
         c = int(lev.src_chunk)
         lc, lv = np.asarray(lev.cols), np.asarray(lev.vals)
@@ -517,6 +598,8 @@ def _flat_residue(levels, level_rows, n_rows, n_cols, R):
         counts.append(live.sum(axis=1))
         cols.append(lc[live].astype(np.int64) + c * R)
         vals.append(lv[live])
+        src.append(base + np.flatnonzero(live))
+        base += lc.size
     counts = np.concatenate(counts)
     rows = np.asarray(level_rows, dtype=np.int64)
     order = np.argsort(rows, kind='stable')
@@ -533,6 +616,7 @@ def _flat_residue(levels, level_rows, n_rows, n_cols, R):
     return dict(rowptr=rowptr, entptr=entptr,
                 cols=np.concatenate(cols)[slot],
                 vals=np.concatenate(vals)[slot],
+                src=np.concatenate(src)[slot],
                 heavy=heavy[np.argsort(-per_row[heavy], kind='stable')])
 
 
@@ -550,7 +634,8 @@ def upload_residue(levels, level_rows, n_rows, n_cols, R, device):
         cols=_tensor(host['cols'], device, np.int32),
         vals=_tensor(host['vals'], device),
         heavy=_tensor(ell_kernel.heavy_rows(host['rowptr'], host['entptr']),
-                      device, np.int32))
+                      device, np.int32),
+        src=_tensor(host['src'], device, np.int64))
 
 
 def upload(host: dict, device) -> ChunkedELLMatrix:

@@ -18,6 +18,7 @@ dispatch to them too.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import scipy.sparse as sps
@@ -104,6 +105,13 @@ class CSRMatrix:
     def with_vals(self, vals: torch.Tensor) -> 'CSRMatrix':
         """Same sparsity pattern, new values (shape (E_pad,))."""
         return dataclasses.replace(self, vals=vals)
+
+    def leaves(self) -> tuple:
+        """The float leaves of the JAX package's pytree: ``(vals,)``."""
+        return (self.vals,)
+
+    def with_leaves(self, leaves) -> 'CSRMatrix':
+        return self.with_vals(leaves[0])
 
     def scale_vals(self, scale) -> 'CSRMatrix':
         return dataclasses.replace(self, vals=self.vals * scale)
@@ -392,6 +400,64 @@ class _CSRSddmm(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# The slot formats' stored edges as a CSR, for the bank's backward
+# ---------------------------------------------------------------------------
+
+class GradEdges(NamedTuple):
+    """The live slots of an ELL, chunked or windowed matrix as a CSR in the
+    matrix's internal order, for the backward of the bank through its
+    values (:func:`~pygsp_tpu_torch.ops.chebyshev._operator_grads`): the
+    adjoint runs the CSR kernel on ``csr_t``, the transpose, and the
+    values' cotangent comes from the SDDMM on ``csr``'s entries or in the
+    transpose's SpMM. Both matrices hold, as their values, each entry's
+    index in the concatenated flat leaves (:meth:`leaves`; int64, and
+    ``n_flat`` on padding), so that the transpose's values are one
+    gather of the leaves and a cotangent in either order reaches them by
+    one scatter. Made once per structure by :func:`grad_edges`."""
+    csr: CSRMatrix
+    csr_t: CSRMatrix
+    n_flat: int
+
+
+def grad_edges(mat) -> GradEdges:
+    """:class:`GradEdges` of ``mat`` (an ELL, chunked or windowed matrix,
+    in its internal order), built on its device at the first call and kept
+    on the structure's index tensor, so that matrices that share the
+    structure (:meth:`with_leaves`, :meth:`astype`) share it: a loop that
+    replaces the values builds nothing. Counts its builds in
+    ``grad_edges.builds``."""
+    key = {ELLMatrix: 'ell_cols', ChunkedELLMatrix: 'slot_cols',
+           WindowedELLMatrix: 'cols'}[type(mat)]
+    holder = getattr(mat, key)
+    edges = getattr(holder, '_grad_edges', None)
+    if edges is not None:
+        return edges
+    grad_edges.builds += 1
+    rows, cols, index = mat.live_slots()
+    n, nnz = mat.n_rows, int(rows.numel())
+    n_flat = sum(v.numel() for v in mat.leaves())
+    order = torch.argsort(rows * max(mat.n_cols, 1) + cols, stable=True)
+    pad = max(_round_up(nnz, EDGE_BLOCK), EDGE_BLOCK) - nnz
+
+    def padded(t, fill):
+        return torch.cat([t[order], t.new_full((pad,), fill)])
+
+    counts = torch.bincount(rows, minlength=n)
+    rowptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    csr = CSRMatrix(rows=padded(rows, n).to(torch.int32),
+                    cols=padded(cols, mat.n_cols).to(torch.int32),
+                    vals=padded(index, n_flat),
+                    rowptr=rowptr.to(torch.int32), n_rows=n,
+                    n_cols=mat.n_cols, nnz=nnz)
+    edges = GradEdges(csr=csr, csr_t=_transpose(csr)[0], n_flat=n_flat)
+    holder._grad_edges = edges
+    return edges
+
+
+grad_edges.builds = 0
+
+
+# ---------------------------------------------------------------------------
 # Multi-level ELL format ('hybrid')
 # ---------------------------------------------------------------------------
 
@@ -449,14 +515,33 @@ class ELLMatrix:
         return self.ell_vals.device
 
     def _map_vals(self, fn) -> 'ELLMatrix':
-        """The matrix with ``fn`` applied to every value: level 0's, the
-        levels' and the residue list's, so that the three stay in step."""
+        """The matrix with the elementwise ``fn`` applied to every value."""
+        return self.with_leaves(tuple(fn(v) for v in self.leaves()))
+
+    def leaves(self) -> tuple:
+        """The float leaves of the JAX package's pytree, in its order:
+        ``ell_vals``, then every level's ``vals``."""
+        return (self.ell_vals,) + tuple(lev.vals for lev in self.levels)
+
+    def with_leaves(self, leaves) -> 'ELLMatrix':
+        """The matrix with :meth:`leaves` replaced (the same shapes), the
+        residue list's values gathered from the new levels by its map
+        (:func:`~.chunked.level_values`), on the device."""
+        levels = tuple(dataclasses.replace(lev, vals=v)
+                       for lev, v in zip(self.levels, leaves[1:]))
         return dataclasses.replace(
-            self, ell_vals=fn(self.ell_vals),
-            levels=tuple(dataclasses.replace(lev, vals=fn(lev.vals))
-                         for lev in self.levels),
-            residue=None if self.residue is None else self.residue._replace(
-                vals=fn(self.residue.vals)))
+            self, ell_vals=leaves[0], levels=levels,
+            residue=chunked.level_values(self.residue, levels))
+
+    def live_slots(self):
+        """``(rows, cols, index)`` (int64) of every stored slot that holds
+        an edge (its column below ``n_cols``), ``index`` counting the
+        concatenated flat :meth:`leaves`."""
+        dev = self.device
+        parts = [(torch.arange(self.ell_cols.shape[0], device=dev),
+                  self.ell_cols, 0, self.n_cols)]
+        parts += [(lev.rows, lev.cols, 0, self.n_cols) for lev in self.levels]
+        return chunked._live(parts, dev)
 
     def astype(self, dtype) -> 'ELLMatrix':
         return self._map_vals(lambda v: v.to(dtype))
@@ -659,6 +744,13 @@ class BandedMatrix:
     @property
     def device(self):
         return self.tiles.device
+
+    def leaves(self) -> tuple:
+        """The float leaves of the JAX package's pytree: ``(tiles,)``."""
+        return (self.tiles,)
+
+    def with_leaves(self, leaves) -> 'BandedMatrix':
+        return dataclasses.replace(self, tiles=leaves[0])
 
     def astype(self, dtype) -> 'BandedMatrix':
         return dataclasses.replace(self, tiles=self.tiles.to(dtype))

@@ -54,9 +54,11 @@ import torch
 
 from pygsp_tpu_torch.core import windowed_kernel
 from pygsp_tpu_torch.core.chunked import (CHUNK_ROWS, ChunkLevel,
-                                          _flat_residue, _host, _numpy_dtype,
-                                          _tensor, chunk_signal, permute_in,
-                                          permute_out, unchunk_signal)
+                                          _flat_residue, _host, _live,
+                                          _numpy_dtype, _tensor, _tier_parts,
+                                          chunk_signal, level_values,
+                                          permute_in, permute_out,
+                                          unchunk_signal)
 
 # Output rows per window (the JAX package's default).
 WINDOW_ROWS = 64
@@ -127,14 +129,47 @@ class WindowedELLMatrix:
         return min(self.chunk_rows, self.n_cols - c * self.chunk_rows)
 
     def _map_vals(self, fn) -> 'WindowedELLMatrix':
-        """The matrix with ``fn`` applied to every value: the slabs', the
-        tiers' and the residue list's, so that the three stay in step."""
-        return dataclasses.replace(
-            self, vals=fn(self.vals),
-            levels=tuple(dataclasses.replace(lev, vals=fn(lev.vals))
-                         for lev in self.levels),
-            residue=None if self.residue is None else self.residue._replace(
-                vals=fn(self.residue.vals)))
+        """The matrix with the elementwise ``fn`` applied to every value."""
+        return self.with_leaves(tuple(fn(v) for v in self.leaves()))
+
+    def leaves(self) -> tuple:
+        """The float leaves of the JAX package's pytree, in its order: the
+        slabs' ``vals``, then every tier's."""
+        return (self.vals,) + tuple(lev.vals for lev in self.levels)
+
+    def with_leaves(self, leaves) -> 'WindowedELLMatrix':
+        """The matrix with :meth:`leaves` replaced (the same shapes), the
+        residue list's values gathered from the new tiers by its map
+        (:func:`~.chunked.level_values`), on the device."""
+        levels = tuple(dataclasses.replace(lev, vals=v)
+                       for lev, v in zip(self.levels, leaves[1:]))
+        return dataclasses.replace(self, vals=leaves[0], levels=levels,
+                                   residue=level_values(self.residue, levels))
+
+    def live_slots(self):
+        """``(rows, cols, index)`` (int64) of every stored slot that holds
+        an edge, in the matrix's internal order, ``index`` counting the
+        concatenated flat :meth:`leaves`. A slab slot of out chunk i,
+        window w and source chunk c is live where its column lies in the
+        chunk; its row is ``i·R + w·P + rowid`` (a row id in
+        ``[d·P, (d+1)·P)`` addresses window w + d) and its column
+        ``c·R + cols``, as the JAX package's fold places it
+        (``pygsp_tpu/core/windowed.py:294-345``)."""
+        R, P = self.chunk_rows, self.window_rows
+        dev = self.device
+        i, w, c, _ = torch.meshgrid(*(torch.arange(k, device=dev)
+                                      for k in self.cols.shape),
+                                    indexing='ij')
+        cols = self.cols.long() + c * R
+        q = torch.nonzero(((self.cols < R) & (cols < self.n_cols))
+                          .reshape(-1)).flatten()
+        rows = ((i * R + w * P).reshape(-1)[q]
+                + self.rowid.reshape(-1)[q].long())
+        tiers = _live(_tier_parts(self), dev)
+        base = self.n_slots
+        return (torch.cat([rows, tiers[0]]),
+                torch.cat([cols.reshape(-1)[q], tiers[1]]),
+                torch.cat([q, tiers[2] + base]))
 
     def astype(self, dtype) -> 'WindowedELLMatrix':
         return self._map_vals(lambda v: v.to(dtype))
@@ -691,7 +726,8 @@ def upload(host: dict, device) -> WindowedELLMatrix:
         residue = windowed_kernel.Residue(
             **{k: _tensor(residue[k], device, np.int32)
                for k in ('rowptr', 'entptr', 'cols', 'heavy')},
-            vals=_tensor(residue['vals'], device))
+            vals=_tensor(residue['vals'], device),
+            src=_tensor(residue['src'], device, np.int64))
     rid_dt = np.uint8 if rowid.dtype == np.uint8 else np.int32
     # the index vectors of index_add_ and index_select, int64 once here
     # rather than at every product

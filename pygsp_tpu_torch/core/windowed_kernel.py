@@ -362,6 +362,10 @@ class Residue(NamedTuple):
     # the strip of a multi-matrix fold: each entry's matrix (int32), whose
     # x its slots read (:func:`merge_residues`); None for one matrix
     emat: torch.Tensor | None = None
+    # each slot's index in the matrix's tiers' concatenated flat values
+    # (int64), by which a replaced tier's values are gathered
+    # (:func:`~.chunked.level_values`); None for a merged list
+    src: torch.Tensor | None = None
 
 
 def _strip_plain(t, n_rows: int, window_rows: int):

@@ -32,8 +32,10 @@ gated by :func:`carry_error_estimate`.
 :func:`cheby_op_fixed_graph` is the training path: ``cheby_op`` under a
 ``torch.autograd.Function`` whose backward runs two fresh recurrences, the
 JAX package's constant-memory custom VJP. Through the graph's weights,
-:func:`cheby_op` itself differentiates on a CSR operator (:class:`_ChebyOp`:
-the terms kept, a Clenshaw adjoint, one SDDMM a step).
+:func:`cheby_op` itself differentiates on every format (:class:`_ChebyOp`:
+the terms kept, a Clenshaw adjoint on the transpose, the values'
+cotangent by the SDDMM a step on a CSR or the CSR view of a slot format's
+live slots, by batched tile products on a banded matrix).
 
 Signal convention: ``x`` has shape ``(N, ...)``; ``cheby_op`` returns
 ``(Nf, N, ...)``.
@@ -41,7 +43,9 @@ Signal convention: ``x`` has shape ``(N, ...)``; ``cheby_op`` returns
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -49,7 +53,9 @@ import torch
 
 from pygsp_tpu_torch.core import cheby_kernel, csr_kernel
 from pygsp_tpu_torch.core.operators import SCALED_OUTPUT, LaplacianOp, matvec
-from pygsp_tpu_torch.core.sparse import CSRMatrix, _transpose, spmm
+from pygsp_tpu_torch.core.banded_kernel import BAND_TILE
+from pygsp_tpu_torch.core.sparse import (BandedMatrix, CSRMatrix, _transpose,
+                                         grad_edges, spmm)
 from pygsp_tpu_torch.utils import check_device
 
 _FORMAT_ONLY = ('{} is only supported on chunked/windowed operator formats '
@@ -235,19 +241,11 @@ def _records(L: LaplacianOp, c, x, lmax) -> bool:
             or _operator_records(L, lmax))
 
 
-def _refuse_operator_grad(L: LaplacianOp, lmax, name: str):
-    """Raise where a bank off the CSR format would be differentiated
-    through the operator (its values, its diagonal or λmax): its in-place
-    recurrence cannot be recorded, and only the CSR format has the SpMM's
-    backward. ``c`` and ``x`` alone go on to the plain recurrence."""
-    if _operator_records(L, lmax):
-        raise ValueError(
-            f'{name}: a gradient through the graph\'s weights or λmax is '
-            f'taken on the CSR operator only (compute_laplacian(fmt=\'coo\'), '
-            f'or laplacian_op of a CSR adjacency: from_scipy, with_vals, '
-            f'laplacian_op, cheby_op); the {type(L.offdiag).__name__} '
-            f'format has no such backward yet (ROADMAP.md §1, the other '
-            f'formats\' weight gradients)')
+# the bf16 modes under autograd on the card: ROADMAP.md §1 item 6
+_BF16_GRAD = ('{}: the bf16 modes (carry_dtype, vals_dtype) are not '
+              'differentiated: the backward runs in the signal\'s dtype '
+              '(ROADMAP.md §1 item 6, the bf16 modes under autograd); call '
+              'it without them, or under torch.no_grad()')
 
 
 # ---------------------------------------------------------------------------
@@ -373,26 +371,32 @@ def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
     windowed only) casts the stored edge values. On the CSR, ELL and banded
     formats both raise the JAX package's ``ValueError``.
 
-    Under autograd on a CSR operator the bank differentiates with respect
-    to the operator's values and diagonal (and so, through
-    :func:`~pygsp_tpu_torch.core.operators.laplacian_op`, W's values), a
-    tensor ``lmax``, ``c`` and ``x``, on both devices (:class:`_ChebyOp`:
-    the terms kept, m+1 (N, ...) units, and a Clenshaw adjoint with one
-    SDDMM a step); it differentiates once. On the CPU a gradient through
-    ``x`` alone runs the plain recurrence under autograd, which
-    differentiates again (``create_graph=True``). On the other formats a
-    gradient through the operator or λmax raises ``ValueError``; one
-    through ``c`` and ``x`` alone runs the plain recurrence on the CPU and
-    is refused on the card, where :func:`cheby_op_fixed_graph` serves.
+    Under autograd the bank differentiates with respect to the operator's
+    value leaves (:meth:`leaves`: a CSR's ``vals``, and so, through
+    :func:`~pygsp_tpu_torch.core.operators.laplacian_op`, W's values; an
+    ELL's ``ell_vals`` and levels' ``vals``; a chunked matrix's blocks' and
+    tiers' ``vals``; a windowed matrix's slab ``vals`` and tiers' ``vals``;
+    a banded matrix's ``tiles``), its diagonal, a tensor ``lmax``, ``c``
+    and ``x``, on every format and both devices (:class:`_ChebyOp`: the
+    terms kept, m+1 (N, ...) units, and a Clenshaw adjoint). A caller
+    replaces a format's leaves with ``with_leaves``, as the JAX caller
+    replaces its pytree's. The stored padding slots get a cotangent of 0:
+    the kernels never read them. The bank differentiates once. On the CPU
+    a gradient through ``x`` alone runs the plain recurrence under
+    autograd, which differentiates again (``create_graph=True``). The bf16
+    modes are not differentiated: under autograd's route they raise
+    ``ValueError``.
     """
     L, c, x, cdt = _prepare(L, c, x, carry_dtype, carry_tol, vals_dtype)
-    if _records(L, c, x, lmax):
-        if isinstance(L.offdiag, CSRMatrix) and (
-                x.device.type != 'cpu' or c.requires_grad
-                or _operator_records(L, lmax)):
-            return _ChebyOp.apply(L, L.offdiag.vals, L.diag, lmax, c, x)
-        _refuse_operator_grad(L, lmax, 'cheby_op')
     op, pin, pout = L.hoisted()
+    if _records(L, c, x, lmax) and (x.device.type != 'cpu' or c.requires_grad
+                                    or _operator_records(L, lmax)):
+        if cdt is not None or (vals_dtype is not None
+                               and L.offdiag.dtype != x.dtype):
+            raise ValueError(_BF16_GRAD.format('cheby_op'))
+        vals, *more = L.offdiag.leaves()
+        return pout(_ChebyOp.apply(L, vals, op.diag, lmax, c, pin(x), *more),
+                    axis=1)
     return pout(_bank(op, L, float(lmax), c, pin(x), cdt)[0], axis=1)
 
 
@@ -427,50 +431,73 @@ def _bank(op: LaplacianOp, L: LaplacianOp, lmax: float, c, xin,
     return acc, slab
 
 
-class _ChebyOp(torch.autograd.Function):
-    """:func:`cheby_op` on a CSR operator under autograd: the bank's
-    gradients with respect to the operator's values and diagonal, λmax (a
-    tensor), ``c`` and ``x``, on both devices. The operator's tensors are
-    inputs of their own (``vals``, ``diag``), so that autograd carries
-    their cotangents back through :func:`laplacian_op` to W's values.
+def _internal(off):
+    """The off-diagonal in its internal order: a relabeled chunked or
+    windowed matrix without its permutes (as :meth:`LaplacianOp.hoisted`
+    gives it)."""
+    if isinstance(off, SCALED_OUTPUT) and off.perm is not None:
+        return dataclasses.replace(off, perm=None, iperm=None)
+    return off
 
-    The forward is :func:`cheby_op`'s recurrence with every term kept in
-    one (m+1, N, ...) slab where the values, the diagonal, λmax or ``c``
-    require grad (the same steps and groups, so the same bits), and the
-    ring of terms where ``x`` alone does: x̄ reads no term. The backward is
+
+class _ChebyOp(torch.autograd.Function):
+    """:func:`cheby_op` under autograd, on every format: the bank's
+    gradients with respect to the off-diagonal's value leaves (``vals``,
+    the first, and ``*more``: :meth:`leaves`), the diagonal, λmax (a
+    tensor), ``c`` and ``x``, on both devices. ``diag`` and ``x`` come in
+    the operator's internal order (:meth:`LaplacianOp.hoisted`), and the
+    result goes out in it; ``L`` is the operator as the caller gave it,
+    which the group rule reads (:func:`_operator_bytes`). The leaves are
+    inputs of their own, so that autograd carries their cotangents back to
+    the caller's tensors (through :func:`laplacian_op` to W's values on a
+    CSR).
+
+    The forward is :func:`cheby_op`'s recurrence on the operator rebuilt
+    from the leaves (``with_leaves``: what the kernels read is the leaves),
+    with every term kept in one (m+1, N, ...) slab where the leaves, the
+    diagonal, λmax or ``c`` require grad (the same steps and groups, so
+    the same bits as the bank autograd does not record), and the ring of
+    terms where ``x`` alone does: x̄ reads no term. The backward is
     :func:`_operator_grads`."""
 
     @staticmethod
-    def forward(ctx, L, vals, diag, lmax, c, x):
+    def forward(ctx, L, vals, diag, lmax, c, x, *more):
         ctx.L, ctx.lmax = L, float(lmax)
         ctx.lmax_like = lmax if isinstance(lmax, torch.Tensor) else None
-        acc, slab = _bank(L, L, ctx.lmax, c, x,
-                          keep_terms=any(ctx.needs_input_grad[1:5]))
-        ctx.save_for_backward(vals, diag, c, slab)
+        op = LaplacianOp(offdiag=_internal(L.offdiag).with_leaves(
+            (vals,) + more), diag=diag, lap_type=L.lap_type)
+        need = ctx.needs_input_grad
+        acc, slab = _bank(op, L, ctx.lmax, c, x,
+                          keep_terms=any(need[1:5]) or any(need[6:]))
+        ctx.save_for_backward(vals, diag, c, slab, *more)
         return acc
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
-        vals, diag, c, slab = ctx.saved_tensors
-        L = LaplacianOp(offdiag=ctx.L.offdiag.with_vals(vals), diag=diag,
-                        lap_type=ctx.L.lap_type)
+        vals, diag, c, slab, *more = ctx.saved_tensors
+        L = LaplacianOp(offdiag=_internal(ctx.L.offdiag).with_leaves(
+            (vals, *more)), diag=diag, lap_type=ctx.L.lap_type)
+        need = ctx.needs_input_grad
         grads = _operator_grads(L, ctx.lmax, c, slab, gout,
-                                *ctx.needs_input_grad[1:])
+                                need[1] or any(need[6:]), *need[2:6])
+        leaves_bar = grads[0] or (None,) * (1 + len(more))
         lmax_bar = grads[2]
         if lmax_bar is not None:
             lmax_bar = lmax_bar.to(ctx.lmax_like).reshape(
                 ctx.lmax_like.shape)
-        return (None, grads[0], grads[1], lmax_bar, grads[3], grads[4])
+        return (None, leaves_bar[0], grads[1], lmax_bar, grads[3], grads[4],
+                *leaves_bar[1:])
 
 
 def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
                     need_vals: bool, need_diag: bool, need_lmax: bool,
                     need_c: bool, need_x: bool):
-    """``(vals̄, diag̅, λ̄, c̄, x̄)`` of the bank ``cheby_op(L, lmax, c, x)``
-    on a CSR ``L`` for its cotangent ``gout`` (Nf, N, ...), each None where
-    it is not needed, from the forward's terms ``slab[k] = T̃_k x`` (None
-    where x̄ alone is needed).
+    """``(leaves̄, diag̅, λ̄, c̄, x̄)`` of the bank ``cheby_op(L, lmax, c, x)``
+    on ``L`` (in its internal order) for its cotangent ``gout`` (Nf, N,
+    ...), each None where it is not needed, ``leaves̄`` a tuple with a
+    cotangent for each of the off-diagonal's :meth:`leaves`, from the
+    forward's terms ``slab[k] = T̃_k x`` (None where x̄ alone is needed).
 
     With L̃ = (L − a2)/a1, a1 = a2 = λmax/2, and c' = c with 0.5 at k = 0:
 
@@ -482,19 +509,13 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
       ``u_k = G_k + 2 L̃ᵀ u_{k+1} − u_{k+2}`` for k = m .. 1 with
       ``u_{m+1} = u_{m+2} = 0``, three buffers;
     - step k's share of the off-diagonal's cotangent,
-      ``α·⟨u_{k+1}[i], t_k[j]⟩``, and in the same launch the diagonal's:
-      α = 2/a1 for k ≥ 1, 1/a1 for k = 0 (the cotangent of the unscaled
-      values, though the step multiplies a scaled copy). Above
-      :data:`~pygsp_tpu_torch.core.csr_kernel.NARROW_WIDTH` columns
-      (:func:`~pygsp_tpu_torch.core.csr_kernel.fused_width`) it rides in
-      the transpose's SpMM that forms ``u_k`` from ``u_{k+1}``, one launch
-      of :func:`~pygsp_tpu_torch.core.csr_kernel.csr_spmm_sddmm` (the
-      cotangent taken in the transpose's edge order and scattered back
-      once at the end), and ``u_1``'s share rides in x̄'s step, or is one
-      :func:`~pygsp_tpu_torch.core.csr_kernel.csr_sddmm` where x̄ is not
-      needed; below, each share is one ``csr_sddmm`` after ``u_{k+1}``
-      is formed. Either way m launches add the shares in the order k =
-      m−1 .. 0, so the bits are the same;
+      ``α·⟨u_{k+1}[i], t_k[j]⟩`` for its entry (i, j), and the
+      diagonal's: α = 2/a1 for k ≥ 1, 1/a1 for k = 0 (the cotangent of
+      the unscaled values, though the step multiplies a scaled copy). How
+      depends on the format (:func:`_adjoint`): on a CSR, and on the CSR
+      view of an ELL, chunked or windowed matrix's live slots, the SDDMM
+      or kernel A's fused entry; on a banded matrix, one batched product
+      of the tile pairs;
     - ``x̄ = G_0 + L̃ᵀ u_1 − u_2``;
     - ``c̄[f, k] = ⟨t_k, ḡ_f⟩`` with 0.5 at k = 0, one
       :func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_dot_group` over the
@@ -505,15 +526,14 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
       ``cheby_dot_group`` with u as a one-filter ḡ.
 
     Memory beside the slab and ḡ: ḡ's copy for c̄ (Nf units of (N, ...)),
-    then the three adjoint terms (x̄ takes the first one freed) and the
-    step's SpMM output."""
+    then the three adjoint terms (x̄ takes the first one freed), the
+    step's SpMM output, and the format's transpose."""
     nf, m1 = c.shape
     m = m1 - 1
     a1 = a2 = lmax / 2
     gout = gout.contiguous()                             # (Nf, N, ...)
     dt, dev = gout.dtype, gout.device
     shape = gout.shape[1:]
-    n = shape[0]
     cp = c.to(dt).clone()
     cp[:, 0] *= 0.5
     cpT = cp.T.contiguous()                              # row k: c'[:, k]
@@ -532,60 +552,21 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
         """u += G_k: ḡ's filters as one group of Nf terms."""
         cheby_kernel.cheby_acc_group(u[None], gout, cpT[k].reshape(nf, 1))
 
-    off = L.offdiag
-    # the adjoint steps apply L̃ᵀ: the transpose's own CSR, so that the
-    # gradient is exact for weights that are not symmetric (as after an
-    # optimizer's step on them)
-    off_t, order = _transpose(off)
-    Lt = LaplacianOp(offdiag=off_t, diag=L.diag, lap_type=L.lap_type)
-    fused = need_w and csr_kernel.fused_width(gout[0].numel() // max(n, 1),
-                                              dt)
-    # the off-diagonal's cotangent, in the transpose's edge order if fused
-    vals_bar = torch.zeros_like(off.vals) if need_w else None
-    diag_bar = torch.zeros_like(L.diag) if need_w else None
-    alphas = (torch.full((), 1.0 / a1, dtype=dt, device=dev),
-              torch.full((), 2.0 / a1, dtype=dt, device=dev))
+    adj = _adjoint(L, slab, shape, dt, need_w, a1)
     # ⟨u_{k+1}, t_{k-1}⟩, ⟨u_{k+1}, t_k⟩, ⟨u_{k+1}, t_{k+1}⟩ for step k
     lam = torch.zeros((m, 3, 1), dtype=dt, device=dev) if need_lmax else None
-
-    def sddmm(u, k):
-        """Step k's share of the cotangents, u = u_{k+1}, in off's order."""
-        csr_kernel.csr_sddmm(off.rows, off.cols, u.reshape(n, -1),
-                             slab[k].reshape(n, -1), vals_bar,
-                             alphas[k > 0], diag_bar)
 
     def step_cotangent(u, k):
         """What step k (t_{k+1} from t_k) gives once u = u_{k+1} is
         formed, its share of the cotangents unless the step that reads u
         takes it."""
-        if need_w and not fused:
-            sddmm(u, k)
+        if need_w and not adj.fused:
+            adj.share(u, k)
         if need_lmax:                   # k = 0: ⟨u_1, t_0⟩, ⟨u_1, t_1⟩
             cheby_kernel.cheby_dot_group(lam[k] if k else lam[0, 1:],
                                          u[..., None], slab, max(k - 1, 0))
 
-    def adjoint_step(scale):
-        """``step(u, u_old, out, k)``: ``scale·(Lᵀ − a2)·u − u_old`` into
-        out in :meth:`LaplacianOp.shifted_step`'s arithmetic, and where
-        fused step k's share of the cotangents for u = u_{k+1} in the same
-        SpMM."""
-        if not fused:
-            plain = Lt.shifted_step(scale, a2)
-            return lambda u, u_old, out, k: plain(u, u_old, out)
-        factor = Lt.shifted(scale, a2)
-        f_off = factor.offdiag
-        one = torch.ones((), dtype=factor.diag.dtype, device=dev)
-
-        def step(u, u_old, out, k):
-            y = csr_kernel.csr_spmm_sddmm(
-                f_off.rowptr, f_off.cols, f_off.vals, u.reshape(n, -1),
-                slab[k].reshape(n, -1), vals_bar, alphas[k > 0], diag_bar)
-            return cheby_kernel.cheby_step(y.reshape(shape), u, u_old,
-                                           factor.diag, one, out)
-
-        return step
-
-    step2 = adjoint_step(2.0 / a1)             # 2 L̃ᵀ u − u_old
+    step2 = adj.step(2.0 / a1, a2)             # 2 L̃ᵀ u − u_old
     u_next2 = torch.zeros(shape, dtype=dt, device=dev)         # u_{m+1}
     u_next = torch.zeros(shape, dtype=dt, device=dev)
     add_g(u_next, m)                                           # u_m = G_m
@@ -598,23 +579,215 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
         step_cotangent(u, k - 1)
         free, u_next2, u_next = u_next2, u_next, u
 
+    del step2                           # and its scaled copy of Lᵀ
     x_bar = None
     if need_x:
         x_bar = torch.empty(shape, dtype=dt, device=dev) if free is None \
             else free
-        adjoint_step(1.0 / a1)(u_next, u_next2, x_bar, 0)     # L̃ᵀu_1 − u_2
+        adj.step(1.0 / a1, a2)(u_next, u_next2, x_bar, 0)     # L̃ᵀu_1 − u_2
         add_g(x_bar, 0)
-    if fused:                       # back to off's order, then u_1's share
-        vals_bar = torch.empty_like(vals_bar).index_copy_(0, order, vals_bar)
-        if not need_x:
-            sddmm(u_next, 0)
+    elif adj.fused:                     # u_1's share, which x̄'s step took
+        adj.share_t(u_next)
+    leaves_bar = diag_bar = None
+    if need_w:
+        leaves_bar, diag_bar = adj.finish()
     lmax_bar = None
     if need_lmax:
         weights = torch.tensor([[0.0, 1.0, 1.0]] + [[1.0, 2.0, 1.0]] * (m - 1),
                                dtype=dt, device=dev)
         lmax_bar = -(lam[..., 0] * weights).sum() / lmax
-    return (vals_bar if need_vals else None,
+    return (leaves_bar if need_vals else None,
             diag_bar if need_diag else None, lmax_bar, c_bar, x_bar)
+
+
+def _adjoint(L: LaplacianOp, slab, shape, dt, need_w: bool, a1: float):
+    """The off-diagonal's part of :func:`_operator_grads` for ``L``'s
+    format: a :class:`_BandedAdjoint` for a banded matrix, else a
+    :class:`_CSRAdjoint` on the CSR itself or on the CSR view of an ELL,
+    chunked or windowed matrix's live slots
+    (:func:`~pygsp_tpu_torch.core.sparse.grad_edges`)."""
+    off = L.offdiag
+    if isinstance(off, BandedMatrix):
+        return _BandedAdjoint(L, slab, shape, dt, need_w, a1)
+    if isinstance(off, CSRMatrix):
+        off_t, order = _transpose(off)
+        return _CSRAdjoint(L, off, off_t, slab, shape, dt, need_w, a1,
+                           lambda v: torch.empty_like(v).index_copy_(
+                               0, order, v))
+    edges = grad_edges(off)
+    leaves = off.leaves()
+    # the leaves end to end and a zero, which the padding's index reads
+    flat = torch.cat([v.reshape(-1).to(dt) for v in leaves]
+                     + [torch.zeros(1, dtype=dt, device=L.device)])
+    off_t = edges.csr_t.with_vals(flat[edges.csr_t.vals])
+
+    def place(index):
+        """A cotangent in the order of ``index``'s entries, scattered to
+        the leaves (padding to the zero past them, which is dropped)."""
+        def to_leaves(v):
+            out = torch.zeros_like(flat).index_copy_(0, index, v)
+            parts = torch.split(out[:-1], [t.numel() for t in leaves])
+            return tuple(p.reshape(t.shape).to(t.dtype)
+                         for p, t in zip(parts, leaves))
+        return to_leaves
+
+    return _CSRAdjoint(L, edges.csr, off_t, slab, shape, dt, need_w, a1,
+                       place(edges.csr_t.vals), place(edges.csr.vals))
+
+
+class _CSRAdjoint:
+    """The adjoint steps and the values' cotangent on a CSR ``off``
+    (``off_t``, its transpose, with values). The values' cotangent is
+    taken in ``off``'s entry order by :func:`~pygsp_tpu_torch.core.
+    csr_kernel.csr_sddmm` a step, or, above
+    :data:`~pygsp_tpu_torch.core.csr_kernel.NARROW_WIDTH` columns
+    (:func:`~pygsp_tpu_torch.core.csr_kernel.fused_width`), in the
+    transpose's entry order by the transpose's SpMM that forms ``u_k``
+    from ``u_{k+1}`` (one launch of :func:`~pygsp_tpu_torch.core.
+    csr_kernel.csr_spmm_sddmm`), u_1's share riding in x̄'s step or taken
+    by one ``csr_sddmm`` on the transpose where x̄ is not needed (the same
+    products, so the same bits as in ``off``'s order). Either way m
+    launches add the shares in the order k = m−1 .. 0. ``place_t`` and
+    ``place`` take a cotangent in the transpose's order and in ``off``'s
+    to the leaves, by one scatter."""
+
+    def __init__(self, L, off, off_t, slab, shape, dt, need_w, a1,
+                 place_t, place=None):
+        self.off, self.slab, self.shape = off, slab, shape
+        self.place_t, self.place = place_t, place
+        self.n = shape[0]
+        dev = L.device
+        self.Lt = LaplacianOp(offdiag=off_t, diag=L.diag, lap_type=L.lap_type)
+        self.fused = need_w and csr_kernel.fused_width(math.prod(shape[1:]),
+                                                       dt)
+        self.vals_bar = torch.zeros(off.rows.shape, dtype=dt, device=dev) \
+            if need_w else None
+        self.diag_bar = torch.zeros_like(L.diag) if need_w else None
+        self.alphas = (torch.full((), 1.0 / a1, dtype=dt, device=dev),
+                       torch.full((), 2.0 / a1, dtype=dt, device=dev))
+
+    def share(self, u, k):
+        """Step k's share of the cotangents, u = u_{k+1}, in off's order."""
+        n = self.n
+        csr_kernel.csr_sddmm(self.off.rows, self.off.cols, u.reshape(n, -1),
+                             self.slab[k].reshape(n, -1), self.vals_bar,
+                             self.alphas[k > 0], self.diag_bar)
+
+    def share_t(self, u):
+        """u_1's share in the transpose's order (the fused route)."""
+        n, off_t = self.n, self.Lt.offdiag
+        csr_kernel.csr_sddmm(off_t.rows, off_t.cols,
+                             self.slab[0].reshape(n, -1), u.reshape(n, -1),
+                             self.vals_bar, self.alphas[0], self.diag_bar)
+
+    def step(self, scale, a2):
+        """``step(u, u_old, out, k)``: ``scale·(Lᵀ − a2)·u − u_old`` into
+        out in :meth:`LaplacianOp.shifted_step`'s arithmetic, and where
+        fused step k's share of the cotangents for u = u_{k+1} in the same
+        SpMM."""
+        if not self.fused:
+            plain = self.Lt.shifted_step(scale, a2)
+            return lambda u, u_old, out, k: plain(u, u_old, out)
+        factor = self.Lt.shifted(scale, a2)
+        f_off, n, slab = factor.offdiag, self.n, self.slab
+        one = torch.ones((), dtype=factor.diag.dtype, device=f_off.device)
+
+        def step(u, u_old, out, k):
+            y = csr_kernel.csr_spmm_sddmm(
+                f_off.rowptr, f_off.cols, f_off.vals, u.reshape(n, -1),
+                slab[k].reshape(n, -1), self.vals_bar, self.alphas[k > 0],
+                self.diag_bar)
+            return cheby_kernel.cheby_step(y.reshape(self.shape), u, u_old,
+                                           factor.diag, one, out)
+
+        return step
+
+    def finish(self):
+        """``(leaves̄, diag̅)``."""
+        if self.fused:
+            vals_bar = self.place_t(self.vals_bar)
+        else:
+            vals_bar = (self.vals_bar if self.place is None
+                        else self.place(self.vals_bar))
+        return (vals_bar if isinstance(vals_bar, tuple) else (vals_bar,),
+                self.diag_bar)
+
+
+@contextlib.contextmanager
+def _fp32_matmul():
+    """float32 products in float32 (not TF32) on the card, whatever the
+    caller's setting."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _BandedAdjoint:
+    """The adjoint steps and the tiles' cotangent on a banded matrix of
+    half bandwidth b. The adjoint runs the banded kernel on the
+    transposed tiles, ``tilesᵀ[n, d] = tiles[n + d − b, 2b − d]ᵀ`` (zero
+    where that tile row is out of range), made once a backward. Step k's
+    share of the tiles' cotangent is
+    ``α·u_{k+1}[block n]·t_k[block n + d − b]ᵀ`` for every tile (n, d):
+    one ``torch.baddbmm`` over the nb tile rows, tile row n multiplying
+    u's block by t's 2b + 1 blocks around it, which lie end to end in a
+    zero-padded copy of t (a strided view, no copy per tile). It runs in
+    float32, not TF32 (:func:`_fp32_matmul`). The JAX package computes
+    this product as the transpose of its XLA einsum
+    (``pygsp_tpu/core/sparse.py:565-587``), outside any Pallas kernel.
+    The diagonal's cotangent is the diagonal of the d = b tiles'. Every
+    tile entry gets its cotangent, as in the JAX package: the tiles hold
+    no padding of their own."""
+
+    fused = False
+
+    def __init__(self, L, slab, shape, dt, need_w, a1):
+        off = L.offdiag
+        tiles = off.tiles.to(dt)
+        nb, nd = tiles.shape[:2]
+        b = off.half_bw
+        tiles_t = torch.zeros_like(tiles)
+        for d in range(nd):
+            lo, hi = max(0, b - d), min(nb, nb + b - d)
+            tiles_t[lo:hi, d] = tiles[lo + d - b:hi + d - b,
+                                      2 * b - d].transpose(-1, -2)
+        self.Lt = LaplacianOp(offdiag=dataclasses.replace(off, tiles=tiles_t),
+                              diag=L.diag, lap_type=L.lap_type)
+        self.slab, self.n, self.b, self.nb = slab, shape[0], b, nb
+        self.alphas = (1.0 / a1, 2.0 / a1)
+        self.acc = (torch.zeros((nb, BAND_TILE, nd * BAND_TILE), dtype=dt,
+                                device=L.device) if need_w else None)
+
+    def step(self, scale, a2):
+        plain = self.Lt.shifted_step(scale, a2)
+        return lambda u, u_old, out, k: plain(u, u_old, out)
+
+    def share(self, u, k):
+        """Step k's share of the tiles' cotangent, u = u_{k+1}."""
+        n, b, nb = self.n, self.b, self.nb
+        s = u.numel() // max(n, 1)
+        ub = torch.zeros((nb * BAND_TILE, s), dtype=u.dtype, device=u.device)
+        ub[:n] = u.reshape(n, s)
+        tp = torch.zeros(((nb + 2 * b) * BAND_TILE, s), dtype=u.dtype,
+                         device=u.device)
+        tp[b * BAND_TILE:b * BAND_TILE + n] = self.slab[k].reshape(n, s)
+        # tile row n: t's blocks n - b .. n + b, rows n·128 .. of tp
+        win = tp.as_strided((nb, (2 * b + 1) * BAND_TILE, s),
+                            (BAND_TILE * s, s, 1))
+        with _fp32_matmul():
+            self.acc.baddbmm_(ub.view(nb, BAND_TILE, s), win.transpose(1, 2),
+                              alpha=self.alphas[k > 0])
+
+    def finish(self):
+        nb, b = self.nb, self.b
+        tiles_bar = self.acc.view(nb, BAND_TILE, 2 * b + 1, BAND_TILE) \
+            .permute(0, 2, 1, 3).contiguous()
+        diag_bar = tiles_bar[:, b].diagonal(dim1=-2, dim2=-1).reshape(-1)
+        return ((tiles_bar.to(self.Lt.offdiag.tiles.dtype),),
+                diag_bar[:self.n].contiguous())
 
 
 def cheby_op_intermediates(L: LaplacianOp, lmax, c, x: torch.Tensor):
@@ -641,8 +814,9 @@ def cheby_synthesis(L: LaplacianOp, lmax, c, x: torch.Tensor,
     :func:`cheby_op`. Through the graph's weights (a CSR operator whose
     values or diagonal require grad, or a tensor λmax) it differentiates
     on the CPU only, by the plain recurrence under autograd; on the card
-    that raises ``ValueError`` naming :func:`cheby_op`, and the other
-    formats raise as in :func:`cheby_op`."""
+    that raises ``ValueError`` naming :func:`cheby_op`, and so does a
+    gradient through the operator or λmax on the other formats, on both
+    devices (ROADMAP.md §1 item 3)."""
     c = torch.atleast_2d(torch.as_tensor(c))
     nf = c.shape[0]
     if x.shape[-1] != nf:
@@ -650,8 +824,13 @@ def cheby_synthesis(L: LaplacianOp, lmax, c, x: torch.Tensor,
                          f'number of filters ({nf})')
     L, c, x, cdt = _prepare(L, c, x, carry_dtype, carry_tol, vals_dtype)
     recorded = _records(L, c, x, lmax)
-    if recorded and not isinstance(L.offdiag, CSRMatrix):
-        _refuse_operator_grad(L, lmax, 'cheby_synthesis')
+    if not isinstance(L.offdiag, CSRMatrix) and _operator_records(L, lmax):
+        raise ValueError(
+            f'cheby_synthesis: a gradient through the graph\'s weights or '
+            f'λmax is taken on the CSR operator only (on the CPU, by the '
+            f'plain recurrence); the {type(L.offdiag).__name__} format has '
+            f'none yet (ROADMAP.md §1 item 3, the synthesis through the '
+            f'weights). cheby_op differentiates through every format')
     if x.device.type != 'cpu' and _operator_records(L, lmax):
         raise ValueError(
             'cheby_synthesis: a gradient through the graph\'s weights or '

@@ -1130,10 +1130,11 @@ def test_every_kernel_route_refuses_autograd(cuda):
 
 
 def test_filter_refuses_autograd_and_fixed_graph_trains_on_the_card(cuda):
-    """``g.filter(x)`` with x requiring grad raises on the card on the
-    windowed format (only CSR has the bank's own backward); with
-    ``fixed_graph=True`` its gradients (to x and to a kernel parameter)
-    match the CPU's, on the windowed format."""
+    """``g.filter(x)`` with x requiring grad runs on the card on the
+    windowed format (the bank's own backward, on the CSR view of its
+    slots), its x̄ and the kernel parameter's cotangent equal to
+    ``fixed_graph=True``'s within 1e-10; with ``fixed_graph=True`` the
+    gradients match the CPU's."""
     W, _ = _ba_windowed(torch.float64, 'cpu')
     x0 = np.random.default_rng(5).normal(size=(W.shape[0], 3))
     w = np.random.default_rng(6).normal(size=(W.shape[0], 3, 2))
@@ -1149,8 +1150,14 @@ def test_filter_refuses_autograd_and_fixed_graph_trains_on_the_card(cuda):
             for i in range(2)])
         x = torch.tensor(x0, device=device, requires_grad=True)
         if device != 'cpu':
-            with pytest.raises(RuntimeError, match='fixed_graph'):
-                g.filter(x, order=20)
+            wt = torch.tensor(w, device=device)
+            bank = torch.autograd.grad((g.filter(x, order=20) * wt).sum(),
+                                       (tau, x))
+            fixed = torch.autograd.grad(
+                (g.filter(x, order=20, fixed_graph=True) * wt).sum(),
+                (tau, x))
+            for got, want in zip(bank, fixed):
+                assert torch.allclose(got, want, rtol=0, atol=1e-10)
         out = g.filter(x, order=20, fixed_graph=True)
         (out * torch.tensor(w, device=device)).sum().backward()
         grads.append((tau.grad.cpu(), x.grad.cpu()))

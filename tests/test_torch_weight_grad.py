@@ -11,8 +11,9 @@ stored entry, with the padding's cotangent exactly 0 in both. Also here:
 directional difference along a seeded δw (no JAX), the SpMM's own backward
 against ``jax.grad`` of ``pygsp_tpu.core.sparse.spmm``, the SDDMM's plain
 version against a numpy loop, the forward bit-equal with and without
-grad, the synthesis on CSR through the weights, the ``ValueError`` of
-the other formats, second derivatives (``create_graph=True``) through
+grad, the synthesis on CSR through the weights (and its ``ValueError``
+on the other formats, where ``cheby_op`` matches the CSR route), second
+derivatives (``create_graph=True``) through
 ``L @ x`` against ``jax.hessian`` and through a bank in ``x`` alone, and
 ``_ChebyOp`` keeping no slab where ``x`` alone requires grad."""
 
@@ -366,8 +367,11 @@ def test_synthesis_through_the_weights_matches_jax(lap_type):
 
 @pytest.mark.parametrize('fmt', ['hybrid', 'chunked', 'windowed', 'banded'])
 def test_other_formats_refuse_a_gradient_through_the_operator(fmt):
-    """No format but CSR has the SpMM's backward: a grad-requiring operator
-    or λmax raises a ValueError that names the CSR route; ``x`` alone still
+    """``cheby_op`` differentiates through the operator on every format: a
+    grad-requiring diagonal, value leaves or λmax give the cotangents of a
+    CSR operator with the same entries (within 1e-12 of the largest);
+    ``cheby_synthesis`` still refuses them with a ValueError that names
+    the CSR route and ROADMAP.md §1 item 3; ``x`` alone still
     differentiates by the plain recurrence on the CPU."""
     import pygsp_tpu_torch as tgsp
     G = tgsp.graphs.Grid2d(12, 10, **CPU64)
@@ -377,21 +381,50 @@ def test_other_formats_refuse_a_gradient_through_the_operator(fmt):
          'banded': lambda: G.L.to_banded()}[fmt]()
     c = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 6)))
     x = torch.from_numpy(np.random.default_rng(1).normal(size=(G.N, 2)))
+    g = torch.from_numpy(np.random.default_rng(2).normal(size=(2, G.N, 2)))
+
+    def grads(off):
+        diag = L.diag.clone().requires_grad_()
+        leaves = [v.clone().requires_grad_() for v in off.leaves()]
+        lt = torch.tensor(8.0, dtype=torch.float64, requires_grad=True)
+        Lg = tops.LaplacianOp(offdiag=off.with_leaves(leaves), diag=diag,
+                              lap_type=L.lap_type)
+        (tcheby.cheby_op(Lg, lt, c, x) * g).sum().backward()
+        return diag.grad.numpy(), lt.grad.numpy(), leaves
+
+    C = tsp.from_scipy(tsp.to_scipy(L.offdiag), **CPU64)
+    want = grads(C)
+    got = grads(L.offdiag)
+    _close(got[0], want[0])
+    assert abs(float(got[1]) - float(want[1])) <= 1e-10 * abs(float(want[1]))
+    entries = sps.csr_matrix((want[2][0].grad[:C.nnz].numpy(),
+                              (C.rows[:C.nnz].numpy(),
+                               C.cols[:C.nnz].numpy())), shape=C.shape)
+    if fmt == 'banded':          # the tiles' cotangent at the edges' places
+        tiles = got[2][0].grad.numpy()
+        i, d, a, b = np.nonzero(L.offdiag.tiles.numpy())
+        rows, cols = i * 128 + a, (i + d - L.offdiag.half_bw) * 128 + b
+        _close(tiles[i, d, a, b], np.asarray(entries[rows, cols]).ravel())
+    else:
+        off = tcheby._internal(L.offdiag)
+        rows, cols, index = off.live_slots()
+        perm = getattr(L.offdiag, 'perm', None)
+        if perm is not None:
+            rows, cols = perm[rows], perm[cols]
+        flat = torch.cat([v.grad.reshape(-1) for v in got[2]])
+        _close(flat[index].numpy(),
+               np.asarray(entries[np.array(rows), np.array(cols)]).ravel())
     diag = L.diag.clone().requires_grad_()
     Lg = tops.LaplacianOp(offdiag=L.offdiag, diag=diag, lap_type=L.lap_type)
-    for call in (lambda: tcheby.cheby_op(Lg, 8.0, c, x),
-                 lambda: tcheby.cheby_synthesis(Lg, 8.0, c, x[..., None]
-                                                .expand(G.N, 2, 2)
-                                                .contiguous()),
-                 lambda: tcheby.cheby_op(L, torch.tensor(
-                     8.0, dtype=torch.float64, requires_grad=True), c, x)):
-        with pytest.raises(ValueError, match='CSR operator only'):
-            call()
+    with pytest.raises(ValueError, match=r'CSR operator only.*§1 item 3'):
+        tcheby.cheby_synthesis(Lg, 8.0, c, x[..., None].expand(G.N, 2, 2)
+                               .contiguous())
     xt = x.clone().requires_grad_()
     tcheby.cheby_op(L, 8.0, c, xt).sum().backward()
     assert torch.isfinite(xt.grad).all()
     with torch.no_grad():                       # no record, no refusal
-        tcheby.cheby_op(Lg, 8.0, c, x)
+        tcheby.cheby_synthesis(Lg, 8.0, c, x[..., None].expand(G.N, 2, 2)
+                               .contiguous())
 
 
 def _hvp_case(lap_type):
