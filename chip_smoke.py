@@ -230,6 +230,29 @@ M. path M, gradients through the operator on the other formats: on path
    ``Grid2d(64, 64)`` in f64, every tile entry's cotangent (those off the
    grid's edges included), diag̅, λ̄, c̄ and x̄, card against CPU within
    1e-10;
+N. path N, first-order gradients of ``L @ x``, the synthesis and
+   ``cheby_rect`` on every format, each after path M on the same operator
+   (path A's after path K's auxiliaries): N1, ``L @ x`` with x (N, 128)
+   f32 on path C's windowed, H's hybrid, I's chunked and B's banded
+   operators through the leaves, the diagonal and x: one launch of the
+   format's SpMM forward, backward one of kernel A's fused entry on the
+   CSR view's transpose or kernel C on the transposed tiles (and the
+   tiles' FP32 product); N2, ``cheby_synthesis`` of x (N, 128, 4) f32,
+   ȳ on 8 columns, on those four operators through the leaves, the
+   diagonal, λmax (a tensor), c and x, and on path A through W's values
+   by ``laplacian_op``: 30 SpMMs forward at 512 columns, backward the bank
+   of ȳ on the transpose (30 SpMMs at 128 columns: kernel A on the
+   transpose or the CSR view's, kernel C on the transposed tiles), then
+   29 of kernel A's fused entry and one ``csr_sddmm``, or 29 of kernel C;
+   x̄ against ``cheby_op(L, λmax, c, ȳ)`` without autograd within 1e-5;
+   BA(2^16) in f64, w̄, c̄, x̄, λ̄ card against CPU within 1e-10 and λ̄
+   against a central difference within 1e-7; N3, ``cheby_rect`` of x
+   requiring grad on path C's operator, x̄ against ``cheby_rect`` of ȳ
+   within 1e-5. Each with no plain version, the padding slots' cotangent
+   exactly 0, every cotangent against the CSR route's (the same values
+   as a CSR, ``edge_csr``) within 1e-4, the forward's and the backward's
+   ms, N2's peak in (N, S) units, and path N's line with the card's name
+   and power limit;
 7. kernel B's entry points at each path's shape and at path E's (the step
    at 512 columns, the contraction at (N, 128, 4), ``cheby_dot_group`` at
    paths A's and B's N), held bit for bit against
@@ -293,6 +316,7 @@ non-zero without one.
 """
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -2248,6 +2272,21 @@ def scipy_vjp(L, lmax, c, x, gbar, cols):
     return cbar, x_bar
 
 
+def fingerprint(L_host, *arrays):
+    """A digest of a host Laplacian (its canonical f64 CSR) and arrays (or
+    floats): paths share a host reference only where its inputs are the
+    same bits."""
+    digest = hashlib.sha256()
+    L = sps.csr_matrix(L_host, dtype=np.float64)
+    L.sum_duplicates()
+    L.sort_indices()
+    for a in (L.indptr, L.indices, L.data) + arrays:
+        a = np.ascontiguousarray(a)
+        digest.update(str((a.dtype, a.shape)).encode())
+        digest.update(a.tobytes())
+    return digest.hexdigest()
+
+
 def dot64(a, b, absolute=False):
     """⟨a, b⟩ (with ``absolute``, Σ |a ⊙ b|) in float64 on the card, a
     filter at a time."""
@@ -2335,12 +2374,19 @@ def check_vjp(name, L, lmax, x, L_host=None):
         if bool((x_bar8[:, N_CHECK_COLS:] != 0).any()):
             raise AssertionError(f'{name}: x_bar is not 0 where gbar is')
         t0 = time.time()
-        cbar_ref, xbar_ref = scipy_vjp(
-            L_host, lmax, c.detach().double().cpu().numpy(),
-            x[:, :N_CHECK_COLS].double().cpu().numpy(),
-            gbar[:, :, :N_CHECK_COLS].double().cpu().numpy(), N_CHECK_XBAR)
-        log(f'  scipy f64 VJP (c_bar on {N_CHECK_COLS} columns, x_bar on '
-            f'{N_CHECK_XBAR}): {time.time() - t0:.1f} s')
+        args = (L_host, lmax, c.detach().double().cpu().numpy(),
+                x[:, :N_CHECK_COLS].double().cpu().numpy(),
+                gbar[:, :, :N_CHECK_COLS].double().cpu().numpy())
+        key = ('vjp', fingerprint(*args))
+        if key not in REFERENCES:
+            REFERENCES[key] = scipy_vjp(*args, N_CHECK_XBAR)
+            log(f'  scipy f64 VJP (c_bar on {N_CHECK_COLS} columns, x_bar '
+                f'on {N_CHECK_XBAR}): {time.time() - t0:.1f} s')
+        else:
+            log(f'  scipy f64 VJP: the one of the same inputs (paths A, C '
+                f'and I share the graph, the signal and ḡ), matched in '
+                f'{time.time() - t0:.1f} s')
+        cbar_ref, xbar_ref = REFERENCES[key]
         result['scipy_rel_err'] = {
             'c_bar': check(f'{name} c_bar vs scipy f64', c_bar8.cpu(),
                            torch.from_numpy(cbar_ref), TOL_PATH),
@@ -3227,41 +3273,17 @@ def bank_grads(L, lmax, c, x, gbar):
     leaves, diagonal, λmax (a tensor), c and x: the cotangents (leaves
     joined flat, diag̅, λ̄, c̄, x̄), the launches of the forward and of the
     backward, the peak above what is held in (N, S) units, and the
-    forward's and the backward's ms (CUDA events, mean of 2 after the
-    counted run)."""
+    forward's and the backward's ms (:func:`counted_grads`)."""
     n, s = x.shape
-    unit = n * s * x.element_size()
-    leaves = [v.detach().clone().requires_grad_() for v in L.offdiag.leaves()]
-    diag = L.diag.detach().clone().requires_grad_()
+    leaves, diag, Lg = leaf_inputs(L)
     lt = torch.tensor(lmax, device='cuda', requires_grad=True)
     ct = c.detach().clone().requires_grad_()
     xr = x.detach().clone().requires_grad_()
-    inputs = (*leaves, diag, lt, ct, xr)
-    Lg = gsp.core.operators.LaplacianOp(
-        offdiag=L.offdiag.with_leaves(leaves), diag=diag, lap_type=L.lap_type)
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    PLAIN_CALLS.clear()
-    out = cheby_op(Lg, lt, ct, xr)
-    torch.cuda.synchronize()
-    fwd = counts()
-    grads = torch.autograd.grad(out, inputs, gbar, retain_graph=True)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - held
-    launches = counts()
-    bwd = {k: launches[k] - fwd[k] for k in launches}
-    if PLAIN_CALLS or launches['slot_plain'] or launches['tail_plain']:
-        raise AssertionError(f'path M: plain versions ran: {PLAIN_CALLS}, '
-                             f'{launches}')
-    ms = {'backward': time_ms(lambda: torch.autograd.grad(
-        out, inputs, gbar, retain_graph=True), 2)}
-    del out
-    torch.cuda.empty_cache()
-    ms['forward'] = time_ms(lambda: cheby_op(Lg, lt, ct, xr), 2)
+    grads, fwd, bwd, peak, ms = counted_grads(
+        'path M', lambda: cheby_op(Lg, lt, ct, xr),
+        (*leaves, diag, lt, ct, xr), gbar, n * s * x.element_size())
     flat = torch.cat([v.reshape(-1) for v in grads[:len(leaves)]])
-    return ((flat,) + tuple(grads[len(leaves):]), fwd, bwd, peak / unit, ms)
+    return ((flat,) + tuple(grads[len(leaves):]), fwd, bwd, peak, ms)
 
 
 def format_parts(L, lmax, x):
@@ -3341,27 +3363,20 @@ def phase_path_m(path, L, lmax, x):
     log(f'  launches: forward {kernel} {fwd[kernel]}, backward '
         f'{json.dumps({k: v for k, v in bwd.items() if v})}; CSR views '
         f'built {builds}')
-    C, index = edge_csr(L)
-    LC = gsp.core.operators.LaplacianOp(offdiag=C, diag=L.diag,
-                                        lap_type=L.lap_type)
+    LC, index = csr_route(L)
+    C = LC.offdiag
     want = bank_grads(LC, lmax, c, x, gbar)[0]
-    dead = torch.ones_like(got[0], dtype=torch.bool)
-    dead[index] = False
-    n_dead = int(dead.sum())
-    if not banded and bool(got[0][dead].any()):
-        raise AssertionError(f'path M on {path}: a padding slot\'s '
-                             f'cotangent is not 0')
-    rel = {'leaves_on_edges': check(
-        f'path M {path}: the leaves\' cotangents on the edges vs the CSR '
-        f'route', got[0][index], want[0][:C.nnz], TOL_PATH)}
+    rel = {}
+    rel['leaves_on_edges'], n_dead = leaves_against(
+        f'path M {path}', got[:1], want[0], C, index, banded)
     for name, a, b in zip(('diag', 'lmax', 'c', 'x'), got[1:], want[1:]):
         rel[name] = check(f'path M {path}: {name} cotangent vs the CSR '
                           f'route', a.reshape(-1), b.reshape(-1), TOL_PATH)
     result = {'rel_err': rel, 'ms': ms, 'peak_units': peak,
-              'forward_launches': {k: v for k, v in fwd.items() if v},
-              'backward_launches': {k: v for k, v in bwd.items() if v},
+              'forward_launches': launched(fwd),
+              'backward_launches': launched(bwd),
               'csr_views_built': builds, 'edges': C.nnz,
-              'padding_slots': 0 if banded else n_dead,
+              'padding_slots': n_dead,
               'leaves': [tuple(v.shape) for v in L.offdiag.leaves()]}
     del got, want, C, LC
     torch.cuda.empty_cache()
@@ -3448,6 +3463,327 @@ def banded_small_f64():
         grads['cuda'][0][off_edges], grads['cpu'][0][off_edges], TOL_K_F64)
     return {'rel_err': errs, 'tiles': tuple(Lb.offdiag.tiles.shape),
             'entries_off_edges': int(off_edges.sum())}
+
+
+# ---------------------------------------------------------------------------
+# path N: L @ x, the synthesis and cheby_rect differentiated on every format
+# ---------------------------------------------------------------------------
+
+N_RECT_BOUNDS = (0.2, 0.6)     # cheby_rect's band, in units of λmax
+
+
+def format_kernel(L):
+    """The counter of the wrapper that ``L``'s off-diagonal launches for
+    its SpMM."""
+    return {'CSRMatrix': 'csr_spmm', 'WindowedELLMatrix': 'windowed_fold',
+            'ELLMatrix': 'ell_spmm', 'ChunkedELLMatrix': 'chunked_spmm',
+            'BandedMatrix': 'banded_spmm'}[type(L.offdiag).__name__]
+
+
+def leaf_inputs(L):
+    """Grad-requiring copies of ``L``'s value leaves and diagonal, and the
+    operator made of them (``with_leaves``)."""
+    leaves = [v.detach().clone().requires_grad_() for v in L.offdiag.leaves()]
+    diag = L.diag.detach().clone().requires_grad_()
+    return leaves, diag, gsp.core.operators.LaplacianOp(
+        offdiag=L.offdiag.with_leaves(leaves), diag=diag, lap_type=L.lap_type)
+
+
+def counted_grads(name, fn, inputs, cot, unit):
+    """One forward ``fn()`` and its backward for the cotangent ``cot``
+    with respect to ``inputs``, counted: ``(grads, forward launches,
+    backward launches, peak above what is held in units of ``unit``
+    bytes, ms)``, the ms from CUDA events (mean of 2 after a warm-up
+    call). Raises where a plain version ran."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    PLAIN_CALLS.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    fwd = counts()
+    grads = torch.autograd.grad(out, inputs, cot, retain_graph=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    total = counts()
+    bwd = {k: total[k] - fwd[k] for k in total}
+    if PLAIN_CALLS or total['slot_plain'] or total['tail_plain']:
+        raise AssertionError(f'{name}: plain versions ran: {PLAIN_CALLS}, '
+                             f'{total}')
+    ms = {'backward': time_ms(lambda: torch.autograd.grad(
+        out, inputs, cot, retain_graph=True), 2)}
+    del out
+    torch.cuda.empty_cache()
+    ms['forward'] = time_ms(fn, 2)
+    return grads, fwd, bwd, peak / unit, ms
+
+
+def launched(c):
+    return {k: v for k, v in c.items() if v}
+
+
+def require_counts(name, got, want):
+    """Raise unless each kernel in ``want`` launched exactly its count."""
+    seen = {k: got[k] for k in want}
+    if seen != want:
+        raise AssertionError(f'{name}: launches {launched(got)}, not {want}')
+
+
+def csr_route(L):
+    """``L`` as a CSR operator on the card with the same stored values and
+    diagonal (:func:`edge_csr`), and each CSR entry's index in the flat
+    leaves."""
+    C, index = edge_csr(L)
+    return gsp.core.operators.LaplacianOp(offdiag=C, diag=L.diag,
+                                          lap_type=L.lap_type), index
+
+
+def leaves_against(name, got, want, C, index, banded):
+    """The leaves' cotangents (joined flat) against the CSR route's on its
+    entries, within TOL_PATH; the padding slots' exactly 0."""
+    flat = torch.cat([v.reshape(-1) for v in got])
+    dead = torch.ones_like(flat, dtype=torch.bool)
+    dead[index] = False
+    if not banded and bool(flat[dead].any()):
+        raise AssertionError(f'{name}: a padding slot\'s cotangent is not 0')
+    err = check(f'{name}: the leaves\' cotangents on the edges vs the CSR '
+                f'route', flat[index], want[:C.nnz], TOL_PATH)
+    return err, 0 if banded else int(dead.sum())
+
+
+def phase_path_n_spmm(path, L, x):
+    """N1 on ``path``'s operator: ``L @ x`` with x (N, 128) f32 through the
+    value leaves, the diagonal and x (``⟨ȳ, L @ x⟩``, ȳ seeded): one
+    launch of the format's SpMM forward; backward one of kernel A's fused
+    entry on the CSR view's transpose (x̄ and the leaves' SDDMM in one
+    walk), or kernel C on the transposed tiles and the tiles' FP32
+    product; no plain version; the padding slots' cotangent exactly 0;
+    each cotangent against the CSR route's within TOL_PATH; ms."""
+    name = f'path N1 on {path}'
+    n, s = x.shape
+    banded = isinstance(L.offdiag, gsp.core.sparse.BandedMatrix)
+    kernel = format_kernel(L)
+    ybar = seeded_normal((n, s), 101)
+    leaves, diag, Lg = leaf_inputs(L)
+    xr = x.detach().clone().requires_grad_()
+    got, fwd, bwd, _, ms = counted_grads(
+        name, lambda: Lg @ xr, (*leaves, diag, xr), ybar,
+        n * s * x.element_size())
+    require_counts(f'{name} forward', fwd, {kernel: 1})
+    require_counts(f'{name} backward', bwd, {
+        'csr_spmm_sddmm': 0 if banded else 1, 'csr_spmm': 0, 'csr_sddmm': 0,
+        'banded_spmm': 1 if banded else 0, **({} if banded else {kernel: 0})})
+    LC, index = csr_route(L)
+    cleaves, cdiag, LCg = leaf_inputs(LC)
+    xc = x.detach().clone().requires_grad_()
+    want = torch.autograd.grad(LCg @ xc, (*cleaves, cdiag, xc), ybar)
+    rel, n_dead = {}, 0
+    rel['leaves_on_edges'], n_dead = leaves_against(
+        name, got[:len(leaves)], want[0], LC.offdiag, index, banded)
+    for key, a, b in zip(('diag', 'x'), got[len(leaves):], want[1:]):
+        rel[key] = check(f'{name}: {key} cotangent vs the CSR route', a, b,
+                         TOL_PATH)
+    result = {'rel_err': rel, 'ms': ms, 'forward_launches': launched(fwd),
+              'backward_launches': launched(bwd), 'padding_slots': n_dead}
+    log(f'  {name}: {json.dumps(result)}')
+    return result, {k: fwd[k] + bwd[k] for k in fwd}
+
+
+def synthesis_inputs(n, s, lmax):
+    """The synthesis's signal x (N, S, Nf) and cotangent ȳ (N, S) nonzero on
+    N_CHECK_COLS columns, seeded, and the heat bank's coefficients."""
+    nf = len(SCALES)
+    xs = seeded_normal((n, s, nf), 102)
+    ybar = torch.zeros((n, s), device='cuda')
+    ybar[:, :N_CHECK_COLS] = seeded_normal((n, N_CHECK_COLS), 103)
+    c = heat_coeff(torch.tensor(SCALES, device='cuda'), lmax).detach()
+    return xs, ybar, c
+
+
+def phase_path_n_synthesis(path, L, lmax, x, W=None):
+    """N2 on ``path``'s operator: ``cheby_synthesis`` of x (N, 128, 4) f32
+    (:func:`synthesis_inputs`) differentiated through the value leaves,
+    the diagonal, λmax (a tensor), c and x; with ``W`` (path A) through
+    W's values by ``laplacian_op`` instead of the leaves. Forward the
+    format's SpMM 30 times at 512 columns; backward the bank of ȳ on Lᵀ
+    (30 SpMMs at 128 columns: kernel A on the transpose or on the CSR
+    view's, kernel C on the transposed tiles), then the adjoint on
+    (Lᵀ)ᵀ = L: 29 of kernel A's fused entry and one ``csr_sddmm`` (u_1's
+    share; no x̄ step), or 29 of kernel C; no plain version; the padding
+    slots' cotangent exactly 0; x̄ within TOL_F_XBAR of ``cheby_op(L, λmax,
+    c, ȳ)`` without autograd through the format's forward kernels (L is
+    symmetric); off CSR each cotangent against the CSR route's within
+    TOL_PATH; the ms and the peak in (N, S) units."""
+    name = f'path N2 on {path}'
+    n, s = x.shape
+    unit = n * s * x.element_size()
+    banded = isinstance(L.offdiag, gsp.core.sparse.BandedMatrix)
+    kernel = format_kernel(L)
+    xs, ybar, c = synthesis_inputs(n, s, lmax)
+
+    def inputs_of(L):
+        lt = torch.tensor(lmax, device='cuda', requires_grad=True)
+        ct = c.clone().requires_grad_()
+        xr = xs.clone().requires_grad_()
+        if W is not None:
+            w = W.vals.clone().requires_grad_()
+            return (w, lt, ct, xr), lambda: cheby_synthesis(
+                gsp.core.operators.laplacian_op(W.with_vals(w)), lt, ct, xr)
+        leaves, diag, Lg = leaf_inputs(L)
+        return (*leaves, diag, lt, ct, xr), lambda: cheby_synthesis(
+            Lg, lt, ct, xr)
+
+    inputs, fn = inputs_of(L)
+    got, fwd, bwd, peak, ms = counted_grads(name, fn, inputs, ybar, unit)
+    del inputs, fn
+    torch.cuda.empty_cache()
+    require_counts(f'{name} forward', fwd, {kernel: ORDER})
+    if banded:
+        require_counts(f'{name} backward', bwd, {
+            'banded_spmm': 2 * ORDER - 1, 'csr_spmm': 0,
+            'csr_spmm_sddmm': 0, 'csr_sddmm': 0})
+    else:
+        require_counts(f'{name} backward', bwd, {
+            'csr_spmm': ORDER, 'csr_spmm_sddmm': ORDER - 1, 'csr_sddmm': 1,
+            'banded_spmm': 0, **({} if kernel == 'csr_spmm'
+                                 else {kernel: 0})})
+    with torch.no_grad():
+        want_x = cheby_op(L if W is None else gsp.core.operators.laplacian_op(
+            W), lmax, c, ybar).movedim(0, -1)
+    rel = {'x_vs_bank_of_ybar': check(
+        f'{name}: x̄ vs cheby_op(L, λmax, c, ȳ) through the format\'s '
+        f'kernels', got[-1], want_x, TOL_F_XBAR)}
+    del want_x
+    n_dead = 0
+    if W is not None:
+        if bool(got[0][W.nnz:].any()):
+            raise AssertionError(f'{name}: the padding\'s w̄ is not 0')
+    else:
+        LC, index = csr_route(L)
+        cin, cfn = inputs_of(LC)
+        want = torch.autograd.grad(cfn(), cin, ybar)
+        del cin, cfn
+        k = len(L.offdiag.leaves())
+        rel['leaves_on_edges'], n_dead = leaves_against(
+            name, got[:k], want[0], LC.offdiag, index, banded)
+        for key, a, b in zip(('diag', 'lmax', 'c', 'x'), got[k:], want[1:]):
+            rel[key] = check(f'{name}: {key} cotangent vs the CSR route',
+                             a.reshape(-1), b.reshape(-1), TOL_PATH)
+        del want, LC, index
+    result = {'rel_err': rel, 'ms': ms, 'peak_units': peak,
+              'forward_launches': launched(fwd),
+              'backward_launches': launched(bwd), 'padding_slots': n_dead}
+    del got
+    torch.cuda.empty_cache()
+    log(f'  {name} ({card()}): {json.dumps(result)}')
+    return result, {k: fwd[k] + bwd[k] for k in fwd}
+
+
+def synthesis_small_f64():
+    """N2 on BA(2^16) in f64 with the normalized Laplacian, x (N, 4, Nf): the
+    synthesis's w̄, c̄, x̄ and λ̄ on the card against the port on the CPU
+    (TOL_K_F64), and λ̄ against a central difference of the loss on the
+    card."""
+    n = K_SMALL_N
+    src, tgt = gsp.graphs.ba_edges_fast(n, m0=M_ATTACH, m=M_ATTACH, seed=42)
+    W = symmetric_from_edges(src, tgt, n)
+    lmax = 2.0
+    f64 = torch.float64
+    nf = len(SCALES)
+    c0 = cheby_coeff(lambda lam: torch.exp(-torch.tensor(
+        SCALES, dtype=f64)[:, None] * lam[None, :] / lmax), lmax, m=ORDER,
+        dtype=f64, device='cpu').numpy()
+    # x (N, S/Nf, Nf): the recurrence is as wide as path K's bank's
+    s = K_SMALL_S // nf
+    rng = np.random.default_rng(104)
+    x0 = rng.normal(size=(n, s, nf))
+    g0 = rng.normal(size=(n, s))
+    grads, t = {}, {}
+    for device in ('cuda', 'cpu'):
+        t0 = time.time()
+        M = gsp.core.sparse.from_scipy(W, dtype=f64, device=device)
+        w = M.vals.clone().requires_grad_()
+        c = torch.tensor(c0, device=device, requires_grad=True)
+        x = torch.tensor(x0, device=device, requires_grad=True)
+        lt = torch.tensor(lmax, dtype=f64, device=device, requires_grad=True)
+        L = gsp.core.operators.laplacian_op(M.with_vals(w), 'normalized')
+        cheby_synthesis(L, lt, c, x).backward(torch.tensor(g0, device=device))
+        grads[device] = [v.grad.cpu() for v in (w, c, x, lt)]
+        t[device] = time.time() - t0
+    errs = {name: check(f'path N2 f64 {name} card vs CPU', a, b, TOL_K_F64)
+            for name, a, b in zip(('w_bar', 'c_bar', 'x_bar', 'lmax_bar'),
+                                  grads['cuda'], grads['cpu'])}
+    M = gsp.core.sparse.from_scipy(W, dtype=f64)
+    L = gsp.core.operators.laplacian_op(M, 'normalized')
+    c, x, g = (torch.tensor(a, device='cuda') for a in (c0, x0, g0))
+    h = 1e-6 * lmax
+    with torch.no_grad():
+        fd = float(((cheby_synthesis(L, lmax + h, c, x)
+                     - cheby_synthesis(L, lmax - h, c, x)) * g).sum()
+                   / (2 * h))
+    got = float(grads['cuda'][3])
+    fd_err = abs(got - fd) / abs(fd)
+    log(f'  synthesis λ̄ {got:.12e} against the central difference '
+        f'{fd:.12e}: rel err {fd_err:.3e} (tol {TOL_K_LMAX_FD})')
+    if not fd_err <= TOL_K_LMAX_FD:
+        raise AssertionError(f'path N2: λ̄ off its central difference by '
+                             f'{fd_err}')
+    return {'rel_err': errs, 'lmax_bar': got, 'lmax_fd': fd,
+            'lmax_fd_rel_err': fd_err, 'nnz': M.nnz, 's': s, 'nf': nf,
+            'seconds': t}
+
+
+def phase_path_n_rect(L, lmax, x):
+    """N3 on path C's windowed operator: ``cheby_rect`` (order 30, the band
+    N_RECT_BOUNDS) of x (N, 128) requiring grad, routed through
+    ``cheby_op``: its x̄ for a seeded ȳ within TOL_F_XBAR of ``cheby_rect``
+    of ȳ without autograd (L is symmetric); launches and ms."""
+    name = 'path N3 on C'
+    n, s = x.shape
+    bounds = [b * lmax for b in N_RECT_BOUNDS]
+    ybar = seeded_normal((n, s), 105)
+    xr = x.detach().clone().requires_grad_()
+    (got,), fwd, bwd, _, ms = counted_grads(
+        name, lambda: gsp.ops.cheby_rect(L, lmax, bounds, xr, order=ORDER),
+        (xr,), ybar, n * s * x.element_size())
+    kernel = format_kernel(L)
+    require_counts(f'{name} forward', fwd, {kernel: ORDER})
+    require_counts(f'{name} backward', bwd, {'csr_spmm': ORDER, kernel: 0,
+                                             'csr_spmm_sddmm': 0,
+                                             'csr_sddmm': 0})
+    with torch.no_grad():
+        want = gsp.ops.cheby_rect(L, lmax, bounds, ybar, order=ORDER)
+    result = {'rel_err': check(f'{name}: x̄ vs cheby_rect of ȳ', got, want,
+                               TOL_F_XBAR),
+              'ms': ms, 'forward_launches': launched(fwd),
+              'backward_launches': launched(bwd)}
+    log(f'  {name}: {json.dumps(result)}')
+    return result, {k: fwd[k] + bwd[k] for k in fwd}
+
+
+def phase_path_n(path, L, lmax, x, W=None):
+    """Path N on ``path``'s operator: N1 and N2 (N2 alone through W on
+    path A), and N3 on path C; each part's launches as counted in its own
+    run. Returns the results and the launches summed over the parts."""
+    log(f'phase N: path N on path {path}\'s {type(L.offdiag).__name__}')
+    t0 = time.time()
+    result, total = {}, {}
+    parts = [('synthesis', lambda: phase_path_n_synthesis(path, L, lmax, x,
+                                                          W))]
+    if W is None:
+        parts.insert(0, ('spmm', lambda: phase_path_n_spmm(path, L, x)))
+    if path == 'C':
+        parts.append(('cheby_rect', lambda: phase_path_n_rect(L, lmax, x)))
+    for key, part in parts:
+        result[key], c = part()
+        total = {k: total.get(k, 0) + v for k, v in c.items()}
+        torch.cuda.empty_cache()
+    if W is not None:
+        result['small_f64'] = synthesis_small_f64()
+    result['phase_s'] = time.time() - t0
+    log(f'path N on {path} ({card()}): {json.dumps(result)}')
+    return result, total
 
 
 # ---------------------------------------------------------------------------
@@ -4250,6 +4586,7 @@ def phase_path_h():
     del M
     torch.cuda.empty_cache()
     result['M'], counts_h['M_H'] = phase_path_m('H', G.L, G.lmax, x)
+    result['N'], counts_h['N_H'] = phase_path_n('H', G.L, G.lmax, x)
     del G, x
     torch.cuda.empty_cache()
 
@@ -4393,10 +4730,12 @@ def phase_path_i():
                              f'{counts_e}')
     torch.cuda.empty_cache()
     result['M'], counts_m = phase_path_m('I', G.L, G.lmax, x)
+    result['N'], counts_n = phase_path_n('I', G.L, G.lmax, x)
     kernel['at_paths'] = held
     return kernel, narrow, result, bank_counts, {'I_fast': fast_launches,
                                                  'E_I': counts_e,
-                                                 'M_I': counts_m}
+                                                 'M_I': counts_m,
+                                                 'N_I': counts_n}
 
 
 # ---------------------------------------------------------------------------
@@ -5420,7 +5759,7 @@ def main():
     double = phase_build()
     fold3 = phase_kernels()
     phase_kernel_b()
-    path_e, path_f, path_g, path_m, other = {}, {}, {}, {}, {}
+    path_e, path_f, path_g, path_m, path_n, other = {}, {}, {}, {}, {}, {}
     csr, path_a, counts_a, (G, x) = phase_path_a()
     path_e['A'], other['E_A'] = phase_path_e('A', G, None, x, TRAIN_STEPS,
                                              G.L.to_scipy())
@@ -5434,6 +5773,10 @@ def main():
     path_k['phase_s'] = time.time() - t0
     torch.cuda.empty_cache()
     path_k['auxiliaries'] = phase_auxiliaries(G, x)
+    torch.cuda.empty_cache()
+    path_n['A'], other['N_A'] = phase_path_n(
+        'A', G.L, G.lmax, x, W=gsp.core.sparse.from_scipy(G.W))
+    torch.cuda.empty_cache()
     path_g['A'], other_g = timed(phase_path_g_a, G, x)
     other.update(other_g)
     del G, x
@@ -5446,6 +5789,8 @@ def main():
     path_g['B'], other['G_B'] = timed(phase_path_g_b, G, Lb, x)
     path_m['B'], other['M_B'] = phase_path_m('B', Lb, G.lmax, x)
     path_m['B']['small_f64'] = banded_small_f64()
+    torch.cuda.empty_cache()
+    path_n['B'], other['N_B'] = phase_path_n('B', Lb, G.lmax, x)
     del G, Lb, x
     torch.cuda.empty_cache()
     fold, strip, fold2, path_c, counts_c, shared = phase_path_c()
@@ -5473,6 +5818,8 @@ def main():
     if builds != 1:
         raise AssertionError(f'path M on C: the CSR view built {builds} '
                              f'times, not once')
+    torch.cuda.empty_cache()
+    path_n['C'], other['N_C'] = phase_path_n('C', G.L, G.lmax, x)
     path_g['C'], other['G_C'] = timed(phase_path_g_bank, 'C', G, x, 'Meyer',
                                       sps.diags(G.dw) - G.W)
     del G, x
@@ -5486,12 +5833,14 @@ def main():
     ell, narrow_h, path_h, counts_h, other_h = phase_path_h()
     path_h['phase_s'] = time.time() - t0
     path_m['H'] = path_h.pop('M')
+    path_n['H'] = path_h.pop('N')
     other.update(other_h)
     torch.cuda.empty_cache()
     t0 = time.time()
     chunked_k, narrow_i, path_i, counts_i, other_i = phase_path_i()
     path_i['phase_s'] = time.time() - t0
     path_m['I'] = path_i.pop('M')
+    path_n['I'] = path_i.pop('N')
     other.update(other_i)
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -5513,7 +5862,7 @@ def main():
         path['kernel_b_per_bank'] = kb_bank[p]
     sddmm = path_k.pop('sddmm')
     paths.update(E=path_e, F=path_f, G=path_g, H=path_h, I=path_i,
-                 J=path_j, K=path_k, L=path_l, M=path_m)
+                 J=path_j, K=path_k, L=path_l, M=path_m, N=path_n)
     log(f'paths: {json.dumps(paths)}')
     log(f'peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} '
         f'GiB; total {time.time() - t_start:.1f} s')

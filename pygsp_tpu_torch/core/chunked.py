@@ -155,11 +155,24 @@ class ChunkedELLMatrix:
         from the tiers' by its map (:func:`level_values`), on the device,
         so that what the kernel reads is the new leaves."""
         nb = len(self.blocks)
-        blocks, tiers = leaves[:nb], leaves[nb:]
-        slot_vals = (torch.cat([v.reshape(-1) for v in blocks]) if nb
-                     else self.slot_vals)
+        return self.with_buffers(
+            (torch.cat([v.reshape(-1) for v in leaves[:nb]]) if nb
+             else self.slot_vals,) + tuple(leaves[nb:]))
+
+    def buffers(self) -> tuple:
+        """The tensors that hold the values the kernel reads, in the flat
+        order of :meth:`leaves`: the flat slot buffer (the blocks' values
+        end to end, the blocks views of it) and every tier's ``vals``.
+        Autograd's Functions take these as their inputs, so that the
+        blocks' cotangent arrives as one tensor (a Function's input that
+        is a view of a buffer gets a full-size copy of its cotangent)."""
+        return (self.slot_vals,) + tuple(lev.vals for lev in self.levels)
+
+    def with_buffers(self, buffers) -> 'ChunkedELLMatrix':
+        """The matrix with :meth:`buffers` replaced (the same shapes)."""
+        slot_vals = buffers[0]
         levels = tuple(dataclasses.replace(lev, vals=v)
-                       for lev, v in zip(self.levels, tiers))
+                       for lev, v in zip(self.levels, buffers[1:]))
         return dataclasses.replace(
             self, slot_vals=slot_vals, levels=levels,
             blocks=_block_views(self.slot_cols, slot_vals, self.table.blocks,
@@ -206,7 +219,8 @@ class ChunkedELLMatrix:
                       if p is not None))
 
     def __matmul__(self, x):
-        return chunked_spmm(self, x)
+        from pygsp_tpu_torch.core.sparse import spmm   # imports this module
+        return spmm(self, x)
 
 
 def _block_views(slot_cols, slot_vals, blocks, mat) -> tuple:

@@ -17,6 +17,7 @@ dispatch to them too.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -112,6 +113,11 @@ class CSRMatrix:
 
     def with_leaves(self, leaves) -> 'CSRMatrix':
         return self.with_vals(leaves[0])
+
+    # the tensors the kernels read are the leaves themselves (the chunked
+    # format's differ: :meth:`ChunkedELLMatrix.buffers`)
+    buffers = leaves
+    with_buffers = with_leaves
 
     def scale_vals(self, scale) -> 'CSRMatrix':
         return dataclasses.replace(self, vals=self.vals * scale)
@@ -292,12 +298,18 @@ def spmm(mat, x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     the windowed fold and strip kernels. Each wrapper launches its CUDA
     kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
     tensor. Operands of mixed dtypes are promoted, as in the JAX package.
-    On a CSR it differentiates with respect to the values and ``x`` on both
-    devices (:class:`_CSRSpmm`); the other formats' kernels refuse an
-    operand that requires grad on the card. ``out_dtype``: the dtype of
-    ``y`` (the chunked and windowed formats' bf16 modes emit the product
-    narrow; the others cast it). Any other operand raises ``TypeError``.
+    It differentiates with respect to the value leaves (:meth:`leaves`) and
+    ``x`` on every format and both devices, twice over: a CSR by
+    :class:`_CSRSpmm`, an ELL, chunked or windowed matrix by
+    :class:`_SlotSpmm`, a banded one by :class:`_BandedSpmm`. ``out_dtype``:
+    the dtype of ``y`` (the chunked and windowed formats' bf16 modes emit
+    the product narrow; the others cast it); under autograd a bf16 or
+    float16 operand or ``out_dtype`` raises ``ValueError``. Any other
+    operand raises ``TypeError``.
     """
+    if isinstance(mat, (ELLMatrix, BandedMatrix, ChunkedELLMatrix,
+                        WindowedELLMatrix)) and _spmm_records(mat, x):
+        return _format_spmm(mat, torch.as_tensor(x), out_dtype)
     if isinstance(mat, WindowedELLMatrix):
         return windowed.windowed_spmm(mat, x, out_dtype=out_dtype)
     if isinstance(mat, ChunkedELLMatrix):
@@ -397,6 +409,271 @@ class _CSRSddmm(torch.autograd.Function):
             At = mat.T
             t_bar = _CSRSpmm.apply(At, At.vals, u)
         return None, u_bar, t_bar
+
+
+# ---------------------------------------------------------------------------
+# The other formats' SpMM under autograd
+# ---------------------------------------------------------------------------
+
+# the bf16 modes under autograd: ROADMAP.md §1 item 6
+BF16_GRAD = ('{}: the bf16 modes (carry_dtype, vals_dtype, a bf16 operand '
+             'or out_dtype) are not differentiated: the backward runs in the '
+             'signal\'s dtype (ROADMAP.md §1 item 6, the bf16 modes under '
+             'autograd); call it without them, or under torch.no_grad()')
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def _spmm_records(mat, x) -> bool:
+    """Whether autograd would record ``mat @ x``: grad mode is on and x or
+    one of the matrix's value leaves requires grad."""
+    return torch.is_grad_enabled() and (
+        getattr(x, 'requires_grad', False)
+        or any(v.requires_grad for v in mat.leaves()))
+
+
+def _format_spmm(mat, x, out_dtype):
+    """:func:`spmm` on an ELL, chunked, windowed or banded matrix where
+    autograd records it: the operands promoted to one float32 or float64
+    dtype (a recorded cast), the relabeling's permutes outside the
+    Function, so that it works in the matrix's internal order, as
+    :func:`grad_edges` does."""
+    if x.ndim == 0 or x.shape[0] != mat.n_cols:
+        raise ValueError(f'x must have {mat.n_cols} rows, got shape '
+                         f'{tuple(x.shape)}')
+    if x.dtype in _NARROW or mat.dtype in _NARROW or out_dtype in _NARROW:
+        raise ValueError(BF16_GRAD.format('spmm'))
+    pdt = torch.promote_types(x.dtype, mat.dtype)
+    if mat.dtype != pdt:
+        mat = mat.astype(pdt)
+    x2 = x.to(pdt).reshape(mat.n_cols, -1)
+    if isinstance(mat, BandedMatrix):
+        y = _BandedSpmm.apply(mat, x2.contiguous(), mat.tiles)
+    else:
+        if getattr(mat, 'perm', None) is None:
+            y = _SlotSpmm.apply(mat, x2.contiguous(), *mat.buffers())
+        else:
+            inner = dataclasses.replace(mat, perm=None, iperm=None)
+            y = chunked.permute_out(mat, _SlotSpmm.apply(
+                inner, chunked.permute_in(mat, x2).contiguous(),
+                *inner.buffers()))
+    return y.reshape((mat.n_rows,) + x.shape[1:]).to(out_dtype or pdt)
+
+
+def _slot_spmm_internal(mat, x):
+    """The format's own kernel for ``y = A @ x`` in its internal order, x
+    (n_cols, S) in the matrix's dtype: what :func:`spmm` launches."""
+    if isinstance(mat, WindowedELLMatrix):
+        return windowed.spmm_internal(mat, x)
+    if isinstance(mat, ChunkedELLMatrix):
+        return chunked.spmm_internal(mat, x)
+    return ell_spmm(mat, x)
+
+
+class _SlotSpmm(torch.autograd.Function):
+    """``A @ x`` on an ELL, chunked or windowed matrix in its internal
+    order, with its own backward on the CSR view of the live slots
+    (:func:`entry_pair`), on both devices: the format's kernel forward
+    (bit-equal to the unrecorded call), and for the cotangent ȳ
+
+    - ``x̄ = Aᵀ ȳ``, :class:`_CSRSpmm` on the transpose, its values
+      gathered from the leaves;
+    - the leaves' cotangent ``⟨ȳ[i], x[j]⟩`` for the slot of entry (i, j),
+      :class:`_CSRSddmm` on the entries, scattered to the leaves; a padding
+      slot gets exactly 0 (the kernels never read it).
+
+    Where both are needed and the backward is not recorded, at the widths
+    of :func:`~pygsp_tpu_torch.core.csr_kernel.fused_width`, one walk of
+    the transpose gives both (kernel A's fused entry, as in
+    :class:`_CSRSpmm`). The backward is made of those Functions and
+    recorded torch ops, so it differentiates again. ``*buffers`` are
+    ``mat``'s ``buffers()`` (its leaves, or the chunked format's flat slot
+    buffer and tiers), inputs of their own so that autograd carries their
+    cotangents back; ``x`` is kept only where they require grad."""
+
+    @staticmethod
+    def forward(ctx, mat, x, *buffers):
+        ctx.mat = mat
+        ctx.save_for_backward(x if any(ctx.needs_input_grad[2:]) else None,
+                              *buffers)
+        return _slot_spmm_internal(mat, x)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        x, *buffers = ctx.saved_tensors
+        need_x, need_v = ctx.needs_input_grad[1], any(ctx.needs_input_grad[2:])
+        ybar = ybar.contiguous()
+        pair = entry_pair(ctx.mat, ybar.dtype, buffers)
+        if (need_v and need_x and not torch.is_grad_enabled()
+                and csr_kernel.fused_width(ybar.shape[1], ybar.dtype)):
+            At = pair.bwd
+            out_t = torch.zeros(At.rows.shape, dtype=ybar.dtype,
+                                device=ybar.device)
+            x_bar = csr_kernel.csr_spmm_sddmm(At.rowptr, At.cols, At.vals,
+                                              ybar, x, out_t, 1.0)
+            return (None, x_bar) + pair.to_leaves_t(out_t)
+        x_bar, buffers_bar = None, (None,) * len(buffers)
+        if need_v:
+            buffers_bar = pair.to_leaves(_CSRSddmm.apply(pair.fwd, ybar, x))
+        if need_x:
+            x_bar = _CSRSpmm.apply(pair.bwd, pair.bwd.vals, ybar)
+        return (None, x_bar) + buffers_bar
+
+
+class _BandedSpmm(torch.autograd.Function):
+    """``A @ x`` on a banded matrix with its own backward, on both
+    devices: the banded kernel forward, and for the cotangent ȳ
+
+    - ``x̄ = Aᵀ ȳ``, the same kernel on the transposed tiles
+      (:attr:`BandedMatrix.T`);
+    - ``tiles̄[n, d] = ȳ[block n]·x[block n + d − b]ᵀ``, one batched
+      product over the tile rows (:func:`band_operands`, float32 not TF32).
+
+    Both are recorded ops and Functions, so the backward differentiates
+    again."""
+
+    @staticmethod
+    def forward(ctx, mat, x, tiles):
+        ctx.mat = mat
+        ctx.save_for_backward(x if ctx.needs_input_grad[2] else None, tiles)
+        return banded_kernel.banded_spmm(tiles, x, mat.n_rows)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        x, tiles = ctx.saved_tensors
+        mat = ctx.mat.with_leaves((tiles,))
+        ybar = ybar.contiguous()
+        x_bar = tiles_bar = None
+        if ctx.needs_input_grad[1]:
+            At = mat.T
+            x_bar = _BandedSpmm.apply(At, ybar, At.tiles)
+        if ctx.needs_input_grad[2]:
+            nb, b = mat.tiles.shape[0], mat.half_bw
+            u, win = band_operands(ybar, x, b, nb)
+            with fp32_matmul():
+                acc = torch.bmm(u, win.transpose(1, 2))
+            tiles_bar = band_tiles(acc, b)
+        return None, x_bar, tiles_bar
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """float32 products in float32 (not TF32) on the card, whatever the
+    caller's setting."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def band_operands(u, t, half_bw: int, nb: int):
+    """``(ub, win)`` for the tiles' cotangent ``Σ_s u[row]·t[col]`` of a
+    banded matrix of ``nb`` tile rows and half bandwidth b: ``ub`` (nb,
+    128, S), u's tile rows, zero past its n rows; ``win`` (nb, (2b+1)·128,
+    S), tile row n's 2b + 1 blocks of t around it, n − b .. n + b, which
+    lie end to end in a zero-padded copy of t (a strided view, no copy per
+    tile). ``ub[n] @ win[n]ᵀ`` is tile row n's (128, (2b+1)·128) product
+    (:func:`band_tiles` lays it out as tiles)."""
+    n, s = u.shape[0], u.numel() // max(u.shape[0], 1)
+    ub = torch.zeros((nb * BAND_TILE, s), dtype=u.dtype, device=u.device)
+    ub[:n] = u.reshape(n, s)
+    tp = torch.zeros(((nb + 2 * half_bw) * BAND_TILE, s), dtype=u.dtype,
+                     device=u.device)
+    tp[half_bw * BAND_TILE:half_bw * BAND_TILE + n] = t.reshape(n, s)
+    win = tp.as_strided((nb, (2 * half_bw + 1) * BAND_TILE, s),
+                        (BAND_TILE * s, s, 1))
+    return ub.view(nb, BAND_TILE, s), win
+
+
+def band_tiles(acc, half_bw: int):
+    """(nb, 128, (2b+1)·128) tile-row products → (nb, 2b+1, 128, 128)
+    tiles."""
+    nb = acc.shape[0]
+    return acc.view(nb, BAND_TILE, 2 * half_bw + 1, BAND_TILE) \
+        .permute(0, 2, 1, 3).contiguous()
+
+
+def transpose_tiles(tiles, half_bw: int):
+    """The tiles of the transposed banded matrix, ``out[n, d] = tiles[n + d
+    − b, 2b − d]ᵀ`` (zero where that tile row is out of range). The map is
+    its own inverse and its own adjoint, so a cotangent of the transposed
+    tiles goes back to the tiles by it too. Recorded by autograd."""
+    nb, nd = tiles.shape[:2]
+    out = torch.zeros_like(tiles)
+    for d in range(nd):
+        lo, hi = max(0, half_bw - d), min(nb, nb + half_bw - d)
+        out[lo:hi, d] = tiles[lo + d - half_bw:hi + d - half_bw,
+                              2 * half_bw - d].transpose(-1, -2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# A matrix's entries and its transpose as CSRs, for the backwards
+# ---------------------------------------------------------------------------
+
+class EntryPair(NamedTuple):
+    """A matrix ``A`` as two matrices of one format, both with values:
+    ``fwd``, A's stored entries, and ``bwd``, Aᵀ, and how a cotangent on
+    either's entries (or tiles) reaches A's :meth:`leaves`:
+    ``to_leaves(v)`` from fwd's order, ``to_leaves_t(v)`` from bwd's, each
+    a tuple with one tensor a leaf. On a banded matrix both are
+    :class:`BandedMatrix`. :meth:`swapped` is the same pair for Aᵀ, whose
+    entries are A's: the synthesis's backward, the analysis bank on the
+    transpose, takes it."""
+    fwd: object
+    bwd: object
+    to_leaves: object
+    to_leaves_t: object
+
+    def swapped(self) -> 'EntryPair':
+        return EntryPair(self.bwd, self.fwd, self.to_leaves_t,
+                         self.to_leaves)
+
+
+def entry_pair(mat, dt=None, leaves=None) -> EntryPair:
+    """:class:`EntryPair` of ``mat`` (in its internal order) with values in
+    ``dt`` (default the matrix's dtype), read from ``leaves`` (default
+    ``mat.buffers()``: the leaves, or the chunked format's flat slot buffer
+    and tiers, the same values in the same flat order), to whose tensors
+    the pair's cotangents go: a CSR and :func:`_transpose`; an ELL,
+    chunked or windowed matrix's live slots as the CSR view
+    :func:`grad_edges` keeps (built once per structure), both matrices'
+    values gathered from the leaves end to end; a banded matrix and
+    :attr:`BandedMatrix.T`. The gathers and the transposes are recorded
+    by autograd where it is on."""
+    leaves = mat.buffers() if leaves is None else tuple(leaves)
+    dt = dt or leaves[0].dtype
+    if isinstance(mat, CSRMatrix):
+        A = mat.with_vals(leaves[0].to(dt))
+        At, order = _transpose(A)
+        return EntryPair(A, At, lambda v: (v.to(leaves[0].dtype),),
+                         lambda v: (torch.empty_like(v).index_copy_(
+                             0, order, v).to(leaves[0].dtype),))
+    if isinstance(mat, BandedMatrix):
+        A = mat.with_leaves((leaves[0].to(dt),))
+        b = mat.half_bw
+        return EntryPair(A, A.T, lambda v: (v.to(leaves[0].dtype),),
+                         lambda v: (transpose_tiles(v, b)
+                                    .to(leaves[0].dtype),))
+    edges = grad_edges(mat)
+    # the leaves end to end and a zero, which the padding's index reads
+    flat = torch.cat([v.reshape(-1).to(dt) for v in leaves]
+                     + [torch.zeros(1, dtype=dt, device=leaves[0].device)])
+
+    def place(index):
+        """A cotangent in the order of ``index``'s entries, scattered to
+        the leaves (padding to the zero past them, which is dropped)."""
+        def to_leaves(v):
+            out = torch.zeros_like(flat).index_copy(0, index, v)
+            parts = torch.split(out[:-1], [t.numel() for t in leaves])
+            return tuple(p.reshape(t.shape).to(t.dtype)
+                         for p, t in zip(parts, leaves))
+        return to_leaves
+
+    return EntryPair(edges.csr.with_vals(flat[edges.csr.vals]),
+                     edges.csr_t.with_vals(flat[edges.csr_t.vals]),
+                     place(edges.csr.vals), place(edges.csr_t.vals))
 
 
 # ---------------------------------------------------------------------------
@@ -533,6 +810,11 @@ class ELLMatrix:
             self, ell_vals=leaves[0], levels=levels,
             residue=chunked.level_values(self.residue, levels))
 
+    # the tensors the kernels read are the leaves themselves (the chunked
+    # format's differ: :meth:`ChunkedELLMatrix.buffers`)
+    buffers = leaves
+    with_buffers = with_leaves
+
     def live_slots(self):
         """``(rows, cols, index)`` (int64) of every stored slot that holds
         an edge (its column below ``n_cols``), ``index`` counting the
@@ -553,7 +835,7 @@ class ELLMatrix:
         return self._map_vals(torch.abs)
 
     def __matmul__(self, x):
-        return ell_spmm(self, x)
+        return spmm(self, x)
 
 
 def ell_spmm(mat: ELLMatrix, x, *, out_dtype=None) -> torch.Tensor:
@@ -752,11 +1034,24 @@ class BandedMatrix:
     def with_leaves(self, leaves) -> 'BandedMatrix':
         return dataclasses.replace(self, tiles=leaves[0])
 
+    # the tensors the kernels read are the leaves themselves (the chunked
+    # format's differ: :meth:`ChunkedELLMatrix.buffers`)
+    buffers = leaves
+    with_buffers = with_leaves
+
     def astype(self, dtype) -> 'BandedMatrix':
         return dataclasses.replace(self, tiles=self.tiles.to(dtype))
 
     def scale_vals(self, scale) -> 'BandedMatrix':
         return dataclasses.replace(self, tiles=self.tiles * scale)
+
+    @property
+    def T(self) -> 'BandedMatrix':
+        """The transpose, on the matrix's device: the same band, its tiles
+        by :func:`transpose_tiles`."""
+        return dataclasses.replace(
+            self, tiles=transpose_tiles(self.tiles, self.half_bw),
+            n_rows=self.n_cols, n_cols=self.n_rows)
 
     def __matmul__(self, x):
         return spmm(self, x)

@@ -146,6 +146,11 @@ class WindowedELLMatrix:
         return dataclasses.replace(self, vals=leaves[0], levels=levels,
                                    residue=level_values(self.residue, levels))
 
+    # the tensors the kernels read are the leaves themselves (the chunked
+    # format's differ: :meth:`ChunkedELLMatrix.buffers`)
+    buffers = leaves
+    with_buffers = with_leaves
+
     def live_slots(self):
         """``(rows, cols, index)`` (int64) of every stored slot that holds
         an edge, in the matrix's internal order, ``index`` counting the
@@ -201,7 +206,8 @@ class WindowedELLMatrix:
                       if p is not None))
 
     def __matmul__(self, x):
-        return windowed_spmm(self, x)
+        from pygsp_tpu_torch.core.sparse import spmm   # imports this module
+        return spmm(self, x)
 
 
 # ---------------------------------------------------------------------------

@@ -130,9 +130,14 @@ class Filter:
         backward is two fresh recurrences instead of 3K stored terms.
         Gradients flow to the signal and, through the coefficients, to any
         parameter the kernels close over; the graph gets none. Without it,
-        a signal or kernel that requires grad raises on the card (the
-        kernels are invisible to autograd) and is differentiated by plain
-        autograd on the CPU.
+        the chebyshev method differentiates through its own Functions, in
+        both directions, on every format and both devices: the analysis by
+        :func:`~pygsp_tpu_torch.ops.chebyshev.cheby_op` (its m+1 terms
+        kept), the synthesis by
+        :func:`~pygsp_tpu_torch.ops.chebyshev.cheby_synthesis` (no term
+        kept; its backward the analysis bank of the cotangent on the
+        transpose); with ``carry_dtype`` or ``vals_dtype`` they raise
+        ``ValueError`` there.
         """
         if fixed_graph and (carry_dtype is not None
                             or vals_dtype is not None):

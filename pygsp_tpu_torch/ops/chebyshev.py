@@ -43,7 +43,6 @@ Signal convention: ``x`` has shape ``(N, ...)``; ``cheby_op`` returns
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import os
@@ -54,8 +53,10 @@ import torch
 from pygsp_tpu_torch.core import cheby_kernel, csr_kernel
 from pygsp_tpu_torch.core.operators import SCALED_OUTPUT, LaplacianOp, matvec
 from pygsp_tpu_torch.core.banded_kernel import BAND_TILE
-from pygsp_tpu_torch.core.sparse import (BandedMatrix, CSRMatrix, _transpose,
-                                         grad_edges, spmm)
+from pygsp_tpu_torch.core.sparse import (BF16_GRAD as _BF16_GRAD,
+                                         BandedMatrix, band_operands,
+                                         band_tiles, entry_pair, fp32_matmul,
+                                         spmm)
 from pygsp_tpu_torch.utils import check_device
 
 _FORMAT_ONLY = ('{} is only supported on chunked/windowed operator formats '
@@ -241,13 +242,6 @@ def _records(L: LaplacianOp, c, x, lmax) -> bool:
             or _operator_records(L, lmax))
 
 
-# the bf16 modes under autograd on the card: ROADMAP.md §1 item 6
-_BF16_GRAD = ('{}: the bf16 modes (carry_dtype, vals_dtype) are not '
-              'differentiated: the backward runs in the signal\'s dtype '
-              '(ROADMAP.md §1 item 6, the bf16 modes under autograd); call '
-              'it without them, or under torch.no_grad()')
-
-
 # ---------------------------------------------------------------------------
 # the recurrence
 # ---------------------------------------------------------------------------
@@ -394,7 +388,7 @@ def cheby_op(L: LaplacianOp, lmax, c, x: torch.Tensor,
         if cdt is not None or (vals_dtype is not None
                                and L.offdiag.dtype != x.dtype):
             raise ValueError(_BF16_GRAD.format('cheby_op'))
-        vals, *more = L.offdiag.leaves()
+        vals, *more = L.offdiag.buffers()
         return pout(_ChebyOp.apply(L, vals, op.diag, lmax, c, pin(x), *more),
                     axis=1)
     return pout(_bank(op, L, float(lmax), c, pin(x), cdt)[0], axis=1)
@@ -443,8 +437,9 @@ def _internal(off):
 class _ChebyOp(torch.autograd.Function):
     """:func:`cheby_op` under autograd, on every format: the bank's
     gradients with respect to the off-diagonal's value leaves (``vals``,
-    the first, and ``*more``: :meth:`leaves`), the diagonal, λmax (a
-    tensor), ``c`` and ``x``, on both devices. ``diag`` and ``x`` come in
+    the first, and ``*more``: its ``buffers()``, the leaves or the chunked
+    format's flat slot buffer and tiers), the diagonal, λmax (a tensor),
+    ``c`` and ``x``, on both devices. ``diag`` and ``x`` come in
     the operator's internal order (:meth:`LaplacianOp.hoisted`), and the
     result goes out in it; ``L`` is the operator as the caller gave it,
     which the group rule reads (:func:`_operator_bytes`). The leaves are
@@ -464,7 +459,7 @@ class _ChebyOp(torch.autograd.Function):
     def forward(ctx, L, vals, diag, lmax, c, x, *more):
         ctx.L, ctx.lmax = L, float(lmax)
         ctx.lmax_like = lmax if isinstance(lmax, torch.Tensor) else None
-        op = LaplacianOp(offdiag=_internal(L.offdiag).with_leaves(
+        op = LaplacianOp(offdiag=_internal(L.offdiag).with_buffers(
             (vals,) + more), diag=diag, lap_type=L.lap_type)
         need = ctx.needs_input_grad
         acc, slab = _bank(op, L, ctx.lmax, c, x,
@@ -476,7 +471,7 @@ class _ChebyOp(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
         vals, diag, c, slab, *more = ctx.saved_tensors
-        L = LaplacianOp(offdiag=_internal(ctx.L.offdiag).with_leaves(
+        L = LaplacianOp(offdiag=_internal(ctx.L.offdiag).with_buffers(
             (vals, *more)), diag=diag, lap_type=ctx.L.lap_type)
         need = ctx.needs_input_grad
         grads = _operator_grads(L, ctx.lmax, c, slab, gout,
@@ -492,12 +487,17 @@ class _ChebyOp(torch.autograd.Function):
 
 def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
                     need_vals: bool, need_diag: bool, need_lmax: bool,
-                    need_c: bool, need_x: bool):
+                    need_c: bool, need_x: bool, pair=None, gout_last=None):
     """``(leaves̄, diag̅, λ̄, c̄, x̄)`` of the bank ``cheby_op(L, lmax, c, x)``
     on ``L`` (in its internal order) for its cotangent ``gout`` (Nf, N,
     ...), each None where it is not needed, ``leaves̄`` a tuple with a
     cotangent for each of the off-diagonal's :meth:`leaves`, from the
     forward's terms ``slab[k] = T̃_k x`` (None where x̄ alone is needed).
+    ``pair``: L's off-diagonal and its transpose
+    (:func:`~pygsp_tpu_torch.core.sparse.entry_pair`, made here by
+    default), whose ``to_leaves`` say which leaves the cotangents reach;
+    ``gout_last``: ``gout`` with its filter axis last, contiguous, where
+    the caller holds it (else c̄ takes a copy).
 
     With L̃ = (L − a2)/a1, a1 = a2 = λmax/2, and c' = c with 0.5 at k = 0:
 
@@ -519,8 +519,8 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
     - ``x̄ = G_0 + L̃ᵀ u_1 − u_2``;
     - ``c̄[f, k] = ⟨t_k, ḡ_f⟩`` with 0.5 at k = 0, one
       :func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_dot_group` over the
-      slab, on a copy of ḡ with its filter axis last that is freed before
-      the adjoint;
+      slab, on ``gout_last`` or a copy of ḡ with its filter axis last that
+      is freed before the adjoint;
     - ``λ̄ = −(1/λmax)·[⟨u_1, t_1 + t_0⟩ + Σ_{k=1}^{m−1} ⟨u_{k+1},
       t_{k+1} + 2 t_k + t_{k−1}⟩]`` (∂L̃/∂λmax = −(L̃ + 1)/λmax), from
       ``cheby_dot_group`` with u as a one-filter ḡ.
@@ -540,8 +540,9 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
     c_bar = None
     if need_c:
         c_bar = torch.empty((m1, nf), dtype=dt, device=dev)
-        cheby_kernel.cheby_dot_group(c_bar, gout.movedim(0, -1).contiguous(),
-                                     slab)
+        cheby_kernel.cheby_dot_group(
+            c_bar, gout.movedim(0, -1).contiguous() if gout_last is None
+            else gout_last, slab)
         c_bar[0] *= 0.5
         c_bar = c_bar.T.to(c.dtype)
     need_w = need_vals or need_diag
@@ -552,7 +553,7 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
         """u += G_k: ḡ's filters as one group of Nf terms."""
         cheby_kernel.cheby_acc_group(u[None], gout, cpT[k].reshape(nf, 1))
 
-    adj = _adjoint(L, slab, shape, dt, need_w, a1)
+    adj = _adjoint(L, slab, shape, dt, need_w, a1, pair)
     # ⟨u_{k+1}, t_{k-1}⟩, ⟨u_{k+1}, t_k⟩, ⟨u_{k+1}, t_{k+1}⟩ for step k
     lam = torch.zeros((m, 3, 1), dtype=dt, device=dev) if need_lmax else None
 
@@ -600,44 +601,26 @@ def _operator_grads(L: LaplacianOp, lmax: float, c, slab, gout,
             diag_bar if need_diag else None, lmax_bar, c_bar, x_bar)
 
 
-def _adjoint(L: LaplacianOp, slab, shape, dt, need_w: bool, a1: float):
+def _adjoint(L: LaplacianOp, slab, shape, dt, need_w: bool, a1: float,
+             pair=None):
     """The off-diagonal's part of :func:`_operator_grads` for ``L``'s
-    format: a :class:`_BandedAdjoint` for a banded matrix, else a
+    format, on ``pair`` (by default
+    :func:`~pygsp_tpu_torch.core.sparse.entry_pair` of L's off-diagonal):
+    a :class:`_BandedAdjoint` for banded matrices, else a
     :class:`_CSRAdjoint` on the CSR itself or on the CSR view of an ELL,
     chunked or windowed matrix's live slots
     (:func:`~pygsp_tpu_torch.core.sparse.grad_edges`)."""
-    off = L.offdiag
-    if isinstance(off, BandedMatrix):
-        return _BandedAdjoint(L, slab, shape, dt, need_w, a1)
-    if isinstance(off, CSRMatrix):
-        off_t, order = _transpose(off)
-        return _CSRAdjoint(L, off, off_t, slab, shape, dt, need_w, a1,
-                           lambda v: torch.empty_like(v).index_copy_(
-                               0, order, v))
-    edges = grad_edges(off)
-    leaves = off.leaves()
-    # the leaves end to end and a zero, which the padding's index reads
-    flat = torch.cat([v.reshape(-1).to(dt) for v in leaves]
-                     + [torch.zeros(1, dtype=dt, device=L.device)])
-    off_t = edges.csr_t.with_vals(flat[edges.csr_t.vals])
-
-    def place(index):
-        """A cotangent in the order of ``index``'s entries, scattered to
-        the leaves (padding to the zero past them, which is dropped)."""
-        def to_leaves(v):
-            out = torch.zeros_like(flat).index_copy_(0, index, v)
-            parts = torch.split(out[:-1], [t.numel() for t in leaves])
-            return tuple(p.reshape(t.shape).to(t.dtype)
-                         for p, t in zip(parts, leaves))
-        return to_leaves
-
-    return _CSRAdjoint(L, edges.csr, off_t, slab, shape, dt, need_w, a1,
-                       place(edges.csr_t.vals), place(edges.csr.vals))
+    if pair is None:
+        pair = entry_pair(L.offdiag, dt)
+    if isinstance(pair.fwd, BandedMatrix):
+        return _BandedAdjoint(L, pair, slab, shape, dt, need_w, a1)
+    return _CSRAdjoint(L, pair, slab, shape, dt, need_w, a1)
 
 
 class _CSRAdjoint:
     """The adjoint steps and the values' cotangent on a CSR ``off``
-    (``off_t``, its transpose, with values). The values' cotangent is
+    (``pair.fwd``; ``pair.bwd``, its transpose, with values). The values'
+    cotangent is
     taken in ``off``'s entry order by :func:`~pygsp_tpu_torch.core.
     csr_kernel.csr_sddmm` a step, or, above
     :data:`~pygsp_tpu_torch.core.csr_kernel.NARROW_WIDTH` columns
@@ -647,17 +630,18 @@ class _CSRAdjoint:
     csr_kernel.csr_spmm_sddmm`), u_1's share riding in x̄'s step or taken
     by one ``csr_sddmm`` on the transpose where x̄ is not needed (the same
     products, so the same bits as in ``off``'s order). Either way m
-    launches add the shares in the order k = m−1 .. 0. ``place_t`` and
-    ``place`` take a cotangent in the transpose's order and in ``off``'s
-    to the leaves, by one scatter."""
+    launches add the shares in the order k = m−1 .. 0. The pair's
+    ``to_leaves_t`` and ``to_leaves`` take a cotangent in the transpose's
+    order and in ``off``'s to the leaves."""
 
-    def __init__(self, L, off, off_t, slab, shape, dt, need_w, a1,
-                 place_t, place=None):
+    def __init__(self, L, pair, slab, shape, dt, need_w, a1):
+        off = pair.fwd
         self.off, self.slab, self.shape = off, slab, shape
-        self.place_t, self.place = place_t, place
+        self.place_t, self.place = pair.to_leaves_t, pair.to_leaves
         self.n = shape[0]
         dev = L.device
-        self.Lt = LaplacianOp(offdiag=off_t, diag=L.diag, lap_type=L.lap_type)
+        self.Lt = LaplacianOp(offdiag=pair.bwd, diag=L.diag,
+                              lap_type=L.lap_type)
         self.fused = need_w and csr_kernel.fused_width(math.prod(shape[1:]),
                                                        dt)
         self.vals_bar = torch.zeros(off.rows.shape, dtype=dt, device=dev) \
@@ -704,59 +688,36 @@ class _CSRAdjoint:
 
     def finish(self):
         """``(leaves̄, diag̅)``."""
-        if self.fused:
-            vals_bar = self.place_t(self.vals_bar)
-        else:
-            vals_bar = (self.vals_bar if self.place is None
-                        else self.place(self.vals_bar))
-        return (vals_bar if isinstance(vals_bar, tuple) else (vals_bar,),
-                self.diag_bar)
-
-
-@contextlib.contextmanager
-def _fp32_matmul():
-    """float32 products in float32 (not TF32) on the card, whatever the
-    caller's setting."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        place = self.place_t if self.fused else self.place
+        return place(self.vals_bar), self.diag_bar
 
 
 class _BandedAdjoint:
     """The adjoint steps and the tiles' cotangent on a banded matrix of
     half bandwidth b. The adjoint runs the banded kernel on the
-    transposed tiles, ``tilesᵀ[n, d] = tiles[n + d − b, 2b − d]ᵀ`` (zero
-    where that tile row is out of range), made once a backward. Step k's
-    share of the tiles' cotangent is
+    transposed tiles (``pair.bwd``,
+    :func:`~pygsp_tpu_torch.core.sparse.transpose_tiles`), made once a
+    backward. Step k's share of the tiles' cotangent is
     ``α·u_{k+1}[block n]·t_k[block n + d − b]ᵀ`` for every tile (n, d):
-    one ``torch.baddbmm`` over the nb tile rows, tile row n multiplying
-    u's block by t's 2b + 1 blocks around it, which lie end to end in a
-    zero-padded copy of t (a strided view, no copy per tile). It runs in
-    float32, not TF32 (:func:`_fp32_matmul`). The JAX package computes
-    this product as the transpose of its XLA einsum
-    (``pygsp_tpu/core/sparse.py:565-587``), outside any Pallas kernel.
-    The diagonal's cotangent is the diagonal of the d = b tiles'. Every
-    tile entry gets its cotangent, as in the JAX package: the tiles hold
-    no padding of their own."""
+    one ``torch.baddbmm`` over the nb tile rows
+    (:func:`~pygsp_tpu_torch.core.sparse.band_operands`: tile row n
+    multiplies u's block by t's 2b + 1 blocks around it). It runs in
+    float32, not TF32 (:func:`~pygsp_tpu_torch.core.sparse.fp32_matmul`).
+    The JAX package computes this product as the transpose of its XLA
+    einsum (``pygsp_tpu/core/sparse.py:565-587``), outside any Pallas
+    kernel. The diagonal's cotangent is the diagonal of the d = b tiles'.
+    Every tile entry gets its cotangent, as in the JAX package: the tiles
+    hold no padding of their own."""
 
     fused = False
 
-    def __init__(self, L, slab, shape, dt, need_w, a1):
-        off = L.offdiag
-        tiles = off.tiles.to(dt)
-        nb, nd = tiles.shape[:2]
-        b = off.half_bw
-        tiles_t = torch.zeros_like(tiles)
-        for d in range(nd):
-            lo, hi = max(0, b - d), min(nb, nb + b - d)
-            tiles_t[lo:hi, d] = tiles[lo + d - b:hi + d - b,
-                                      2 * b - d].transpose(-1, -2)
-        self.Lt = LaplacianOp(offdiag=dataclasses.replace(off, tiles=tiles_t),
-                              diag=L.diag, lap_type=L.lap_type)
-        self.slab, self.n, self.b, self.nb = slab, shape[0], b, nb
+    def __init__(self, L, pair, slab, shape, dt, need_w, a1):
+        nb, nd = pair.fwd.tiles.shape[:2]
+        self.Lt = LaplacianOp(offdiag=pair.bwd, diag=L.diag,
+                              lap_type=L.lap_type)
+        self.to_leaves = pair.to_leaves
+        self.slab, self.n, self.nb = slab, shape[0], nb
+        self.b = pair.fwd.half_bw
         self.alphas = (1.0 / a1, 2.0 / a1)
         self.acc = (torch.zeros((nb, BAND_TILE, nd * BAND_TILE), dtype=dt,
                                 device=L.device) if need_w else None)
@@ -767,27 +728,15 @@ class _BandedAdjoint:
 
     def share(self, u, k):
         """Step k's share of the tiles' cotangent, u = u_{k+1}."""
-        n, b, nb = self.n, self.b, self.nb
-        s = u.numel() // max(n, 1)
-        ub = torch.zeros((nb * BAND_TILE, s), dtype=u.dtype, device=u.device)
-        ub[:n] = u.reshape(n, s)
-        tp = torch.zeros(((nb + 2 * b) * BAND_TILE, s), dtype=u.dtype,
-                         device=u.device)
-        tp[b * BAND_TILE:b * BAND_TILE + n] = self.slab[k].reshape(n, s)
-        # tile row n: t's blocks n - b .. n + b, rows n·128 .. of tp
-        win = tp.as_strided((nb, (2 * b + 1) * BAND_TILE, s),
-                            (BAND_TILE * s, s, 1))
-        with _fp32_matmul():
-            self.acc.baddbmm_(ub.view(nb, BAND_TILE, s), win.transpose(1, 2),
+        ub, win = band_operands(u, self.slab[k], self.b, self.nb)
+        with fp32_matmul():
+            self.acc.baddbmm_(ub, win.transpose(1, 2),
                               alpha=self.alphas[k > 0])
 
     def finish(self):
-        nb, b = self.nb, self.b
-        tiles_bar = self.acc.view(nb, BAND_TILE, 2 * b + 1, BAND_TILE) \
-            .permute(0, 2, 1, 3).contiguous()
-        diag_bar = tiles_bar[:, b].diagonal(dim1=-2, dim2=-1).reshape(-1)
-        return ((tiles_bar.to(self.Lt.offdiag.tiles.dtype),),
-                diag_bar[:self.n].contiguous())
+        tiles_bar = band_tiles(self.acc, self.b)
+        diag_bar = tiles_bar[:, self.b].diagonal(dim1=-2, dim2=-1).reshape(-1)
+        return self.to_leaves(tiles_bar), diag_bar[:self.n].contiguous()
 
 
 def cheby_op_intermediates(L: LaplacianOp, lmax, c, x: torch.Tensor):
@@ -811,35 +760,96 @@ def cheby_synthesis(L: LaplacianOp, lmax, c, x: torch.Tensor,
     term contracted over the filter axis into the accumulator in one pass
     (:func:`~pygsp_tpu_torch.core.cheby_kernel.cheby_acc_contract`).
     ``carry_dtype``, ``carry_tol``, ``vals_dtype``: as in
-    :func:`cheby_op`. Through the graph's weights (a CSR operator whose
-    values or diagonal require grad, or a tensor λmax) it differentiates
-    on the CPU only, by the plain recurrence under autograd; on the card
-    that raises ``ValueError`` naming :func:`cheby_op`, and so does a
-    gradient through the operator or λmax on the other formats, on both
-    devices (ROADMAP.md §1 item 3)."""
+    :func:`cheby_op`.
+
+    Under autograd it differentiates with respect to the operator's value
+    leaves, its diagonal, a tensor ``lmax``, ``c`` and ``x``, on every
+    format and both devices (:class:`_ChebySynthesis`: no term kept
+    forward; backward the analysis bank of the cotangent on the
+    transpose). On the CPU a gradient through ``x`` alone runs the plain
+    recurrence under autograd, which differentiates again. The bf16 modes
+    are not differentiated: under the Function's route they raise
+    ``ValueError``."""
     c = torch.atleast_2d(torch.as_tensor(c))
     nf = c.shape[0]
     if x.shape[-1] != nf:
         raise ValueError(f'last axis of x ({x.shape[-1]}) must equal the '
                          f'number of filters ({nf})')
     L, c, x, cdt = _prepare(L, c, x, carry_dtype, carry_tol, vals_dtype)
-    recorded = _records(L, c, x, lmax)
-    if not isinstance(L.offdiag, CSRMatrix) and _operator_records(L, lmax):
-        raise ValueError(
-            f'cheby_synthesis: a gradient through the graph\'s weights or '
-            f'λmax is taken on the CSR operator only (on the CPU, by the '
-            f'plain recurrence); the {type(L.offdiag).__name__} format has '
-            f'none yet (ROADMAP.md §1 item 3, the synthesis through the '
-            f'weights). cheby_op differentiates through every format')
-    if x.device.type != 'cpu' and _operator_records(L, lmax):
-        raise ValueError(
-            'cheby_synthesis: a gradient through the graph\'s weights or '
-            'λmax is taken on the CPU only (the plain recurrence under '
-            'autograd); on the card, differentiate the analysis bank '
-            'through cheby_op on the CSR operator, whose backward has the '
-            'SDDMM')
     op, pin, pout = L.hoisted()
+    recorded = _records(L, c, x, lmax)
+    if recorded and (x.device.type != 'cpu' or c.requires_grad
+                     or _operator_records(L, lmax)):
+        if cdt is not None or (vals_dtype is not None
+                               and L.offdiag.dtype != x.dtype):
+            raise ValueError(_BF16_GRAD.format('cheby_synthesis'))
+        vals, *more = L.offdiag.buffers()
+        return pout(_ChebySynthesis.apply(L, vals, op.diag, lmax, c, pin(x),
+                                          *more))
     return pout(_synthesis(op, lmax, c, pin(x), cdt, reuse=not recorded))
+
+
+class _ChebySynthesis(torch.autograd.Function):
+    """:func:`cheby_synthesis` under autograd, on every format and both
+    devices, with the inputs of :class:`_ChebyOp` (``x`` (N, ..., Nf) in
+    the internal order). The forward is :func:`_synthesis` on the operator
+    rebuilt from the leaves, so the same bits as the unrecorded call; it
+    keeps no term, only ``x`` where the operator, λmax or ``c`` need it.
+
+    The synthesis ``y = Σ_f Σ_k c'[f, k] T̃_k(L) x_f`` has, for the
+    cotangent ȳ, the analysis bank on the transpose as its adjoint:
+    ``⟨ȳ, y⟩ = Σ_f ⟨x_f, Σ_k c'[f, k] T̃_k(Lᵀ) ȳ⟩``. So the backward is
+
+    - ``x̄ = cheby_op(Lᵀ, λmax, c, ȳ)`` with the filter axis moved last
+      (:func:`_bank` on Lᵀ, its terms kept in one (m+1, N, ...) slab where
+      anything but x̄ is needed);
+    - c̄, diag̅, λ̄ and the off-diagonal's cotangent: that bank's own
+      (:func:`_operator_grads` on Lᵀ with ``x`` as the cotangent), an entry
+      (i, j) of Lᵀ's being entry (j, i) of L's, so the pair of matrices
+      (:func:`~pygsp_tpu_torch.core.sparse.entry_pair`) is taken swapped
+      and nothing new is built.
+
+    Lᵀ is the CSR transpose on a CSR, the CSR view of the live slots'
+    transpose on an ELL, chunked or windowed matrix, the transposed tiles
+    on a banded one. The backward holds the slab, x̄ and the adjoint's
+    buffers; the direct route would keep m+1 terms of (N, ..., Nf)."""
+
+    @staticmethod
+    def forward(ctx, L, vals, diag, lmax, c, x, *more):
+        ctx.L, ctx.lmax = L, float(lmax)
+        ctx.lmax_like = lmax if isinstance(lmax, torch.Tensor) else None
+        op = LaplacianOp(offdiag=_internal(L.offdiag).with_buffers(
+            (vals,) + more), diag=diag, lap_type=L.lap_type)
+        need = ctx.needs_input_grad
+        ctx.save_for_backward(vals, diag, c, x if any(need[1:5])
+                              or any(need[6:]) else None, *more)
+        return _synthesis(op, ctx.lmax, c, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ybar):
+        vals, diag, c, x, *more = ctx.saved_tensors
+        off = _internal(ctx.L.offdiag).with_buffers((vals, *more))
+        need = ctx.needs_input_grad
+        need_vals = need[1] or any(need[6:])
+        ybar = ybar.contiguous()
+        pair = entry_pair(off, ybar.dtype).swapped()
+        Lt = LaplacianOp(offdiag=pair.fwd, diag=diag, lap_type=ctx.L.lap_type)
+        keep = need_vals or any(need[2:5])
+        acc, slab = _bank(Lt, Lt, ctx.lmax, c, ybar, keep_terms=keep)
+        x_bar = acc.movedim(0, -1) if need[5] else None
+        grads = (None,) * 4
+        if keep:
+            grads = _operator_grads(Lt, ctx.lmax, c, slab, x.movedim(-1, 0),
+                                    need_vals, need[2], need[3], need[4],
+                                    False, pair, x)
+        leaves_bar = grads[0] or (None,) * (1 + len(more))
+        lmax_bar = grads[2]
+        if lmax_bar is not None:
+            lmax_bar = lmax_bar.to(ctx.lmax_like).reshape(
+                ctx.lmax_like.shape)
+        return (None, leaves_bar[0], grads[1], lmax_bar, grads[3], x_bar,
+                *leaves_bar[1:])
 
 
 def _synthesis(op: LaplacianOp, lmax, c, xin, carry_dtype=None,
@@ -967,7 +977,15 @@ def cheby_rect(L: LaplacianOp, lmax, bounds, x: torch.Tensor,
     the analytic Chebyshev series of the indicator of ``bounds = [b1, b2]``
     ⊂ [0, lmax]. On the chunked and windowed formats the recurrence is the
     hot path's (internal order, scale on the SpMM output); on the others
-    the reference's arithmetic order, ``sc·(L t − a2·t) − t_old``."""
+    the reference's arithmetic order, ``sc·(L t − a2·t) − t_old``.
+
+    Under autograd it differentiates with respect to ``x``, the operator's
+    leaves and diagonal, and tensors ``lmax`` and ``bounds``: on the
+    chunked and windowed formats through :func:`cheby_op` with the
+    coefficients ``[2·c0, c1, ...]`` (so that their cotangent reaches
+    ``bounds`` and λmax through the closed form; other summation orders
+    than the unrecorded call's), on the others through :func:`matvec`'s
+    SpMM."""
     L, x = _promote(L, torch.as_tensor(x))
     lmax_t = torch.as_tensor(lmax, dtype=x.dtype, device=x.device)
     bounds = torch.as_tensor(bounds, dtype=x.dtype, device=x.device)
@@ -978,6 +996,9 @@ def cheby_rect(L: LaplacianOp, lmax, bounds, x: torch.Tensor,
     coeffs = 2.0 / (ks * torch.pi) * (torch.sin(ks * b1) - torch.sin(ks * b2))
 
     if isinstance(L.offdiag, SCALED_OUTPUT):
+        c = torch.cat([(2.0 * c0)[None], c1[None], coeffs])[None]
+        if _records(L, c, x, lmax):
+            return cheby_op(L, lmax, c, x)[0]
         op, pin, pout = L.hoisted()
         terms = _terms(op, float(lmax), pin(x), order + 1)
         acc = c0 * next(terms) + c1 * next(terms)

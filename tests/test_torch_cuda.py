@@ -32,7 +32,9 @@ version (1 to 600 columns, a star row, the padding untouched, two launches
 bit-equal), kernel A's fused entry ``csr_spmm_sddmm`` bit-equal to its wide
 entry plus ``csr_sddmm`` (33 to 512 columns, duplicates, padding, a star
 row, empty rows) and its refusals, and the gradients through W's values on
-the card against the CPU's, on both routes; the guard that makes every kernel wrapper
+the card against the CPU's, on both routes, and through each format's
+SpMM and synthesis Functions (a Hessian-vector product of ``L @ x``); the
+guard that makes every kernel wrapper
 refuse an operand that requires grad, and the fixed-graph training path's
 gradients against the CPU's; the ELL and chunked SpMMs against their plain
 version (heavy rows, ragged chunks, the degree relabeling, S of 1 to 512,
@@ -46,6 +48,7 @@ spectrogram, a nearest-neighbour graph and its LOBPCG eigenmap).
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -391,7 +394,8 @@ def test_weight_grads_on_the_card_match_the_cpu(cuda):
 def test_weight_second_order_and_synthesis_refusal_on_the_card(cuda):
     """A Hessian-vector product through ``L @ x`` (W's values and x,
     ``create_graph=True``) on the card against the CPU's in float64; a
-    synthesis through W's values raises on the card, naming ``cheby_op``."""
+    synthesis through W's values differentiates on the card, its w̄
+    against the CPU's in float64."""
     W = tgsp.graphs.BarabasiAlbert(2000, seed=3, device='cpu').W
     rng = np.random.default_rng(67)
     x0, dx0 = rng.normal(size=(2000, 3)), rng.normal(size=(2000, 3))
@@ -412,13 +416,95 @@ def test_weight_second_order_and_synthesis_refusal_on_the_card(cuda):
     for got, want in zip(*hvps):
         assert float((got - want).abs().max()) <= 1e-10 * float(
             want.abs().max())
-    M = tsp.from_scipy(W, dtype=torch.float64, device=cuda)
-    L = tgsp.core.operators.laplacian_op(
-        M.with_vals(M.vals.clone().requires_grad_()))
-    c = torch.ones((2, 5), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match='cheby_op'):
-        tgsp.ops.cheby_synthesis(L, 8.0, c, torch.ones(
-            (2000, 2), dtype=torch.float64, device=cuda))
+    w_bars = []
+    for device in (cuda, 'cpu'):
+        M = tsp.from_scipy(W, dtype=torch.float64, device=device)
+        v = M.vals.clone().requires_grad_()
+        L = tgsp.core.operators.laplacian_op(M.with_vals(v))
+        c = torch.tensor(np.random.default_rng(68).normal(size=(2, 5)),
+                         device=device)
+        xs = torch.tensor(np.random.default_rng(69).normal(size=(2000, 3, 2)),
+                          device=device)
+        tgsp.ops.cheby_synthesis(L, 8.0, c, xs).backward(
+            torch.tensor(dx0, device=device))
+        w_bars.append(v.grad.cpu())
+    assert float((w_bars[0] - w_bars[1]).abs().max()) <= 1e-10 * float(
+        w_bars[1].abs().max())
+
+
+@pytest.mark.parametrize('fmt', ['hybrid', 'chunked', 'windowed', 'banded'])
+def test_format_spmm_and_synthesis_grads_on_the_card(cuda, fmt):
+    """``L @ x`` (the leaves and x, a Hessian-vector product) and
+    ``cheby_synthesis`` (the leaves, the diagonal, λmax, c and x) through
+    each format's Functions on the card against the CPU's, in float64,
+    within 1e-10 of the largest; the padding slots' cotangent exactly 0."""
+    if fmt == 'banded':
+        G = tgsp.graphs.Grid2d(40, 30, device='cpu', dtype=torch.float64)
+        base = G.L.to_banded()
+    else:
+        G = tgsp.graphs.BarabasiAlbert(3000, seed=5, device='cpu',
+                                       dtype=torch.float64)
+        base = {'hybrid': G.L.to_hybrid, 'windowed': G.L.to_windowed,
+                'chunked': lambda: G.L.to_chunked(permute='degree')}[fmt]()
+    rng = np.random.default_rng(70)
+    n = G.N
+    x0, y0, d0 = (rng.normal(size=(n, 40)) for _ in range(3))
+    xs0, ys0 = rng.normal(size=(n, 3, 2)), rng.normal(size=(n, 3))
+    c0 = rng.normal(size=(2, 8))
+    runs = []
+    for device in (cuda, 'cpu'):
+        off = _moved(base, device)
+        leaves = [v.clone().requires_grad_() for v in off.offdiag.leaves()]
+        diag = off.diag.clone().requires_grad_()
+        L = tgsp.core.operators.LaplacianOp(
+            offdiag=off.offdiag.with_leaves(leaves), diag=diag,
+            lap_type=off.lap_type)
+        x, y, d = (torch.tensor(a, device=device) for a in (x0, y0, d0))
+        x.requires_grad_()
+        first = torch.autograd.grad(((L @ x) ** 2 * y).sum(), leaves + [x],
+                                    create_graph=True)
+        hvp = torch.autograd.grad((first[-1] * d).sum(), leaves + [x])
+        lt = torch.tensor(9.0, dtype=torch.float64, device=device,
+                          requires_grad=True)
+        c = torch.tensor(c0, device=device, requires_grad=True)
+        xs = torch.tensor(xs0, device=device, requires_grad=True)
+        syn = torch.autograd.grad(
+            (tgsp.ops.cheby_synthesis(L, lt, c, xs)
+             * torch.tensor(ys0, device=device)).sum(),
+            leaves + [diag, lt, c, xs])
+        runs.append([torch.cat([g.reshape(-1) for g in part]).cpu()
+                     for part in (first, hvp, syn)])
+    for got, want in zip(*runs):
+        assert float((got - want).abs().max()) <= 1e-10 * float(
+            want.abs().max())
+    if fmt != 'banded':
+        rows, cols, index = _internal_live(base.offdiag)
+        k = sum(v.numel() for v in base.offdiag.leaves())
+        dead = torch.ones(k, dtype=torch.bool)
+        dead[index] = False
+        assert not runs[0][0][:k][dead].any()
+        assert not runs[0][2][:k][dead].any()
+
+
+def _internal_live(off):
+    if getattr(off, 'perm', None) is not None:
+        off = dataclasses.replace(off, perm=None, iperm=None)
+    return off.live_slots()
+
+
+def _moved(v, device):
+    """An operator (or any of its parts) with every tensor copied to
+    ``device``: the same arrays, so the same matrix in the same layout."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return dataclasses.replace(v, **{
+            f.name: _moved(getattr(v, f.name), device)
+            for f in dataclasses.fields(v) if f.init})
+    if isinstance(v, tuple):
+        parts = [_moved(w, device) for w in v]
+        return type(v)(*parts) if hasattr(v, '_fields') else tuple(parts)
+    return v
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])

@@ -370,9 +370,9 @@ def test_other_formats_refuse_a_gradient_through_the_operator(fmt):
     """``cheby_op`` differentiates through the operator on every format: a
     grad-requiring diagonal, value leaves or λmax give the cotangents of a
     CSR operator with the same entries (within 1e-12 of the largest);
-    ``cheby_synthesis`` still refuses them with a ValueError that names
-    the CSR route and ROADMAP.md §1 item 3; ``x`` alone still
-    differentiates by the plain recurrence on the CPU."""
+    so does ``cheby_synthesis`` through a grad-requiring diagonal (its
+    diag̅ against the CSR route's); ``x`` alone still differentiates by
+    the plain recurrence on the CPU."""
     import pygsp_tpu_torch as tgsp
     G = tgsp.graphs.Grid2d(12, 10, **CPU64)
     L = {'hybrid': lambda: G.L.to_hybrid(),
@@ -414,15 +414,21 @@ def test_other_formats_refuse_a_gradient_through_the_operator(fmt):
         flat = torch.cat([v.grad.reshape(-1) for v in got[2]])
         _close(flat[index].numpy(),
                np.asarray(entries[np.array(rows), np.array(cols)]).ravel())
-    diag = L.diag.clone().requires_grad_()
-    Lg = tops.LaplacianOp(offdiag=L.offdiag, diag=diag, lap_type=L.lap_type)
-    with pytest.raises(ValueError, match=r'CSR operator only.*§1 item 3'):
-        tcheby.cheby_synthesis(Lg, 8.0, c, x[..., None].expand(G.N, 2, 2)
-                               .contiguous())
+    xs = x[..., None].expand(G.N, 2, 2).contiguous()
+    ys = g[0]
+
+    def synthesis_diag_bar(off):
+        diag = L.diag.clone().requires_grad_()
+        Lg = tops.LaplacianOp(offdiag=off, diag=diag, lap_type=L.lap_type)
+        (tcheby.cheby_synthesis(Lg, 8.0, c, xs) * ys).sum().backward()
+        return diag.grad.numpy()
+
+    _close(synthesis_diag_bar(L.offdiag), synthesis_diag_bar(C))
+    Lg = tops.LaplacianOp(offdiag=L.offdiag, diag=L.diag, lap_type=L.lap_type)
     xt = x.clone().requires_grad_()
     tcheby.cheby_op(L, 8.0, c, xt).sum().backward()
     assert torch.isfinite(xt.grad).all()
-    with torch.no_grad():                       # no record, no refusal
+    with torch.no_grad():                       # unrecorded
         tcheby.cheby_synthesis(Lg, 8.0, c, x[..., None].expand(G.N, 2, 2)
                                .contiguous())
 
