@@ -289,6 +289,18 @@ L. path L, the multi-device engines (``pygsp_tpu_torch.parallel``) at one
    separate fold and strip launches, ``torch.sparse.mm`` of the stacked
    matrices (CUDA events and device time) and its bound and gather model
    (path C also times it at one matrix, bit-equal to its fold and tail);
+   L5, the engines under autograd on L1's and L2's partitions: the
+   backward with ``c`` and the signal requiring grad through
+   ``sharded_cheby_op`` (production layout and COO), ``cheby_op_2d`` at
+   1 × 1 on the ring layout, ``sharded_cheby_synthesis`` of y (N, 128, 4)
+   and ``sharded_matvec`` on COO, each forward's and backward's launches
+   counted exactly (kernel B's four entries, the fold and the tail, the
+   fused SpMM, kernel A; no plain version), x̄, ȳ and c̄ within 1e-5 of
+   the single-device route's on the CSR (``cheby_op``, ``cheby_synthesis``,
+   ``L @ x`` under autograd) in the engine's vertex order, the padding
+   rows' cotangents exactly 0, the forward and the backward timed, the
+   backward's peak in (N, S) units; then, with no process group, the same
+   calls in f64 on BA(2^16) on the card against the CPU within 1e-12;
    a ``save_sharded``/``load_sharded`` round trip (BA(2^16), 4 shards);
    and one log line saying whether NCCL takes two ranks on one
    card (two processes, each killed at 90 s; the run does not depend on
@@ -3489,12 +3501,15 @@ def leaf_inputs(L):
         offdiag=L.offdiag.with_leaves(leaves), diag=diag, lap_type=L.lap_type)
 
 
-def counted_grads(name, fn, inputs, cot, unit):
+def counted_grads(name, fn, inputs, cot, unit, backward_peak=False):
     """One forward ``fn()`` and its backward for the cotangent ``cot``
     with respect to ``inputs``, counted: ``(grads, forward launches,
     backward launches, peak above what is held in units of ``unit``
     bytes, ms)``, the ms from CUDA events (mean of 2 after a warm-up
-    call). Raises where a plain version ran."""
+    call). The peak is the forward's and the backward's above what was
+    held before the forward, or with ``backward_peak`` the backward's
+    alone above what was held when it started (the forward's output and
+    what it saved included). Raises where a plain version ran."""
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3503,6 +3518,9 @@ def counted_grads(name, fn, inputs, cot, unit):
     out = fn()
     torch.cuda.synchronize()
     fwd = counts()
+    if backward_peak:
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     grads = torch.autograd.grad(out, inputs, cot, retain_graph=True)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - held
@@ -5540,6 +5558,227 @@ def measure_split(name, mats, xs):
     return launches, out
 
 
+def padding_zero(name, grad, perm):
+    """Raise unless the padding rows (those no vertex maps to) of an
+    engine's cotangent are exactly 0."""
+    dead = torch.ones(grad.shape[0], dtype=torch.bool, device=grad.device)
+    dead[perm] = False
+    if bool(grad[dead].any()):
+        raise AssertionError(f'{name}: a padding row\'s cotangent is not 0')
+    return int(dead.sum())
+
+
+def l5_part(name, fn, inputs, cot, unit, want, perms, fwd_want, bwd_want):
+    """One L5 part: the engine's forward ``fn()`` and backward for ``cot``
+    with respect to ``inputs`` (``c`` and the signal), counted and timed
+    (:func:`counted_grads`, the backward's own peak); each gradient
+    against ``want`` (the single-device route's, in the original vertex
+    order) within TOL_F_XBAR, the signal's taken there by ``perms`` (None
+    for c̄), its padding rows exactly 0; the launches exactly
+    ``fwd_want`` and ``bwd_want``, with every kernel there launched at
+    least once (the counts that are 0 are kernels that must not run)."""
+    got, fwd, bwd, peak, ms = counted_grads(name, fn, inputs, cot, unit,
+                                            backward_peak=True)
+    require_counts(f'{name} forward', fwd, fwd_want)
+    require_counts(f'{name} backward', bwd, bwd_want)
+    rel, pad = {}, 0
+    for key, g, w, perm in zip(('c_bar', 'x_bar'), got, want, perms):
+        if perm is not None:
+            pad = padding_zero(f'{name} {key}', g, perm)
+            g = g[perm]
+        rel[key] = check(f'{name}: {key} vs the single-device route', g, w,
+                         TOL_F_XBAR)
+    result = {'rel_err': rel, 'ms': ms, 'backward_peak_units': peak,
+              'padding_rows': pad, 'forward_launches': launched(fwd),
+              'backward_launches': launched(bwd)}
+    log(f'  {name} ({card()}): {json.dumps(result)}')
+    return result, {k: fwd[k] + bwd[k] for k in fwd}
+
+
+def phase_path_l5(W, lmax, c, x, sg, split, mesh, tg, ell2, mesh2, fits):
+    """L5, the engines under autograd at one rank on path A's graph (x (N,
+    128) f32, the heat bank, K = 30): the backward with ``c`` and the
+    signal requiring grad through ``sharded_cheby_op`` on the production
+    layout and on COO, ``cheby_op_2d`` at 1 × 1 on ``ring=True,
+    split_cols=True`` (one fused SpMM a product where ``fits``),
+    ``sharded_cheby_synthesis`` of y (N, 128, 4) on the production layout
+    and ``sharded_matvec`` on COO. Each forward and backward runs the
+    engine's kernels (their launches exactly counted, at least one each,
+    no plain version) and its gradients agree with the single-device
+    route's on the CSR (``cheby_op``'s ``_ChebyOp``, ``cheby_synthesis``'s
+    ``_ChebySynthesis``, ``L @ x``), taken to the engine's vertex order by
+    ``perm``, within TOL_F_XBAR of the largest value; the forward and the
+    backward timed (CUDA events), the backward's peak in (N, S) units.
+    Returns ``(results, launches by part)``."""
+    from pygsp_tpu_torch import parallel as par
+    n, s = x.shape
+    nf = c.shape[0]
+    unit = n * s * x.element_size()
+    L = gsp.core.operators.laplacian_op(gsp.core.sparse.from_scipy(W))
+    c = c.detach()
+    gbar = seeded_normal((nf, n, s), 111)
+    y = seeded_normal((n, s, nf), 112)
+    sbar = seeded_normal((n, s), 113)
+    mbar = seeded_normal((n, s), 114)
+
+    def ref(fn, *args, cot):
+        inputs = [a.detach().clone().requires_grad_() for a in args]
+        return torch.autograd.grad(fn(*inputs), inputs, cot)
+
+    want_bank = ref(lambda c_, x_: cheby_op(L, lmax, c_, x_), c, x,
+                    cot=gbar)
+    want_syn = ref(lambda c_, y_: cheby_synthesis(L, lmax, c_, y_), c, y,
+                   cot=sbar)
+    want_mv = ref(lambda x_: L @ x_, x, cot=mbar)
+    del L
+    torch.cuda.empty_cache()
+
+    def pad(sig, part):
+        return part.pad_signal(sig)
+
+    def padded_bank_cot(part):
+        return part.pad_signal(gbar.movedim(0, -1)).movedim(-1, 0)
+
+    steps, products = ORDER - 1, ORDER
+    win = dict(windowed_fold=products, window_strip=products, csr_spmm=0)
+    win2 = dict(windowed_fold=2 * products, window_strip=2 * products,
+                csr_spmm=0)
+    coo = dict(csr_spmm=products, windowed_fold=0)
+    coo2 = dict(csr_spmm=2 * products, windowed_fold=0)
+    ring = (dict(fold_strip_multi=products, windowed_fold_multi=0)
+            if fits else dict(windowed_fold_multi=products,
+                              window_strip=products))
+    ring2 = {k: 2 * v for k, v in ring.items()}
+    bank_bwd = dict(cheby_step=2 * steps, cheby_acc_contract=steps,
+                    cheby_acc_group=0)
+    result, parts = {}, {}
+    for key, part, ell, fwd_k, bwd_k, engine in (
+            ('bank_windowed_split', sg, split, win, win2,
+             lambda p, c_, x_: par.sharded_cheby_op(
+                 p, lmax, c_, x_, mesh, ell=split)),
+            ('bank_coo', sg, None, coo, coo2,
+             lambda p, c_, x_: par.sharded_cheby_op(p, lmax, c_, x_, mesh)),
+            ('bank_2d_ring', tg, ell2, ring, ring2,
+             lambda p, c_, x_: par.cheby_op_2d(p, lmax, c_, x_, mesh2,
+                                               ell=ell2))):
+        cg = c.clone().requires_grad_()
+        xg = pad(x, part).requires_grad_()
+        gl = padded_bank_cot(part)
+        result[key], parts[key] = l5_part(
+            f'L5 {key}', lambda: engine(part, cg, xg), (cg, xg), gl, unit,
+            want_bank, (None, part.perm.long()),
+            dict(cheby_step=steps, **fwd_k),
+            dict(bank_bwd, cheby_dot_group=dot_groups(
+                 acc_group_of(xg, ell, 2 * nf + 1)), **bwd_k))
+        del cg, xg, gl
+        torch.cuda.empty_cache()
+    cg = c.clone().requires_grad_()
+    yg = pad(y, sg).requires_grad_()
+    g = acc_group_of(pad(sbar, sg), split, 2 * nf + 1)
+    result['synthesis_windowed_split'], parts['synthesis_windowed_split'] = \
+        l5_part('L5 synthesis_windowed_split',
+                lambda: par.sharded_cheby_synthesis(sg, lmax, cg, yg, mesh,
+                                                    ell=split),
+                (cg, yg), pad(sbar, sg), unit, want_syn,
+                (None, sg.perm.long()),
+                dict(cheby_step=steps, cheby_acc_contract=steps, **win),
+                dict(cheby_step=2 * steps, cheby_acc_contract=0,
+                     cheby_acc_group=group_launches(g),
+                     cheby_dot_group=dot_groups(g), **win2))
+    del cg, yg
+    torch.cuda.empty_cache()
+    xg = pad(x, sg).requires_grad_()
+    (mv_bar,), fwd, bwd, peak, ms = counted_grads(
+        'L5 matvec_coo', lambda: par.sharded_matvec(sg, xg, mesh), (xg,),
+        pad(mbar, sg), unit, backward_peak=True)
+    require_counts('L5 matvec_coo forward', fwd, dict(csr_spmm=1))
+    require_counts('L5 matvec_coo backward', bwd, dict(csr_spmm=1))
+    perm = sg.perm.long()
+    result['matvec_coo'] = {
+        'rel_err': {'x_bar': check('L5 matvec_coo: x̄ vs L @ x\'s',
+                                   mv_bar[perm], want_mv[0], TOL_F_XBAR)},
+        'padding_rows': padding_zero('L5 matvec_coo', mv_bar, perm),
+        'ms': ms, 'backward_peak_units': peak,
+        'forward_launches': launched(fwd),
+        'backward_launches': launched(bwd)}
+    parts['matvec_coo'] = {k: fwd[k] + bwd[k] for k in fwd}
+    log(f'  L5 matvec_coo ({card()}): {json.dumps(result["matvec_coo"])}')
+    return result, parts
+
+
+def acc_group_of(t, ell, held):
+    """The engines' accumulator group for a recurrence on ``t`` (a rank's
+    padded signal) with ``held`` blocks of its size beside its terms (the
+    rule of ``parallel/sharded.py:_sharded_acc_group``)."""
+    from pygsp_tpu_torch.parallel.sharded import _sharded_acc_group
+    return _sharded_acc_group(t, held, ell, None, 1)
+
+
+def engines_small_f64():
+    """L5 in f64 on BA(2^16) (x (N, 2), the heat bank of order 30): the
+    bank's c̄ and x̄ on the production layout, on COO and on the 1 × 1
+    ring, the synthesis's c̄ and ȳ on the production layout and the
+    matvec's x̄ on COO, on the card against the same calls on the CPU,
+    within TOL_F64 of the largest value. One rank and no process group
+    (the CPU's engines issue no collective then)."""
+    from pygsp_tpu_torch import parallel as par
+    n = K_SMALL_N
+    src, tgt = gsp.graphs.ba_edges_fast(n, m0=M_ATTACH, m=M_ATTACH, seed=42)
+    W = symmetric_from_edges(src, tgt, n)
+    f64 = torch.float64
+    lmax = 2.0 * float(W.sum(axis=1).max())       # Gershgorin's bound
+    c0 = cheby_coeff(lambda lam: torch.exp(-torch.tensor(
+        SCALES, dtype=f64)[:, None] * lam[None, :] / lmax), lmax, m=ORDER,
+        dtype=f64, device='cpu').numpy()
+    nf, s = len(SCALES), 2     # the CPU side's plain SpMMs set the time
+    rng = np.random.default_rng(115)
+    x0, y0 = rng.normal(size=(n, s)), rng.normal(size=(n, s, nf))
+    g0, s0 = rng.normal(size=(nf, n, s)), rng.normal(size=(n, s))
+    grads, t = {}, {}
+    for device in ('cuda', 'cpu'):
+        t0 = time.time()
+        sg = par.partition_graph(W, 1, dtype=np.float64, device=device)
+        split = par.shard_local_windowed(sg, split_boundary=True)
+        tg = par.partition_graph_2d(W, 1, 1, dtype=np.float64, device=device)
+        ring = par.twod_local_windowed(tg, ring=True, split_cols=True)
+        mesh = par.make_mesh(1, 1, devices=device)
+        mesh2 = par.make_mesh_2d(1, 1, devices=device)
+
+        def run(part, fn, sig, cot, with_c=True):
+            cg = torch.tensor(c0, device=device, requires_grad=True)
+            xg = part.pad_signal(torch.tensor(sig, device=device))
+            xg.requires_grad_()
+            out = fn(cg, xg)
+            inputs = (cg, xg) if with_c else (xg,)
+            cot = torch.as_tensor(cot, device=device)
+            cot = (part.pad_signal(cot.movedim(0, -1)).movedim(-1, 0)
+                   if out.ndim == 3 else part.pad_signal(cot))
+            got = torch.autograd.grad(out, inputs, cot)
+            perm = part.perm.long()
+            return [v.cpu() for v in got[:-1]] + [got[-1][perm].cpu()]
+
+        grads[device] = {
+            'bank_windowed_split': run(sg, lambda c_, x_: par.sharded_cheby_op(
+                sg, lmax, c_, x_, mesh, ell=split), x0, g0),
+            'bank_coo': run(sg, lambda c_, x_: par.sharded_cheby_op(
+                sg, lmax, c_, x_, mesh), x0, g0),
+            'bank_2d_ring': run(tg, lambda c_, x_: par.cheby_op_2d(
+                tg, lmax, c_, x_, mesh2, ell=ring), x0, g0),
+            'synthesis_windowed_split': run(
+                sg, lambda c_, y_: par.sharded_cheby_synthesis(
+                    sg, lmax, c_, y_, mesh, ell=split), y0, s0),
+            'matvec_coo': run(sg, lambda c_, x_: par.sharded_matvec(
+                sg, x_, mesh), x0, s0, with_c=False)}
+        t[device] = time.time() - t0
+    errs = {}
+    for key, got in grads['cuda'].items():
+        names = ('c_bar', 'x_bar') if len(got) == 2 else ('x_bar',)
+        for name, a, b in zip(names, got, grads['cpu'][key]):
+            errs[f'{key}_{name}'] = check(f'L5 f64 {key} {name} card vs CPU',
+                                          a, b, TOL_F64)
+    return {'rel_err': errs, 'n': n, 's': s, 'nf': nf, 'seconds': t}
+
+
 def phase_path_l(lmax, ref, ms_a):
     """Path L on path A's graph, signal and SciPy reference (``ref``, at
     path A's λmax ``lmax``): L1, the 1-D engine on a one-rank NCCL group
@@ -5649,7 +5888,7 @@ def phase_path_l(lmax, ref, ms_a):
     l1['vjp'] = {'adjoint_rel_err': errs, 'all_reduce': reduces,
                  'first_step_s': step_s, 'step_ms': step_ms,
                  'launches': launches}
-    del out, c_bar, x_bar, gbar, cg, xg, xp, sg, split
+    del out, c_bar, x_bar, gbar, cg, xg, xp
     torch.cuda.empty_cache()
     path['L1'] = l1
 
@@ -5687,9 +5926,18 @@ def phase_path_l(lmax, ref, ms_a):
     l2['per_bank'] = per_bank
     other['L2'] = launches
     log(f'  L2: {l2["ms_per_bank"]:.3f} ms per bank')
-    del tg, ell2, xp2, m2
+    del xp2, m2
     torch.cuda.empty_cache()
     path['L2'] = l2
+
+    # L5: the engines under autograd on L1's and L2's partitions
+    t0_l5 = time.time()
+    path['L5'], l5 = phase_path_l5(W, lmax, c, x, sg, split, mesh, tg, ell2,
+                                   mesh2, fits)
+    path['L5']['phase_s'] = time.time() - t0_l5
+    other.update({f'L5_{k}': v for k, v in l5.items()})
+    del sg, split, tg, ell2
+    torch.cuda.empty_cache()
 
     # L3: the fused SpMM on device (0, 0)'s ring matrices of the 4 x 4
     # partition, through the entry point, then both routes measured; L4:
@@ -5741,6 +5989,11 @@ def phase_path_l(lmax, ref, ms_a):
     log(f'  NCCL, two ranks on one card: '
         f'{json.dumps(path["nccl_two_ranks_one_card"])}')
     torch.distributed.destroy_process_group()
+    # L5 in f64, card against CPU: one rank without a process group
+    t0_l5 = time.time()
+    path['L5']['small_f64'] = engines_small_f64()
+    path['L5']['phase_s'] += time.time() - t0_l5
+    log(f'path L5 ({card()}): {json.dumps(path["L5"])}')
     return path, other, multi, fused
 
 

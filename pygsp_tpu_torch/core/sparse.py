@@ -416,10 +416,11 @@ class _CSRSddmm(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 # the bf16 modes under autograd: ROADMAP.md §1 item 6
-BF16_GRAD = ('{}: the bf16 modes (carry_dtype, vals_dtype, a bf16 operand '
-             'or out_dtype) are not differentiated: the backward runs in the '
-             'signal\'s dtype (ROADMAP.md §1 item 6, the bf16 modes under '
-             'autograd); call it without them, or under torch.no_grad()')
+BF16_GRAD = ('{}: the bf16 modes (carry_dtype, vals_dtype, scatter_dtype, a '
+             'bf16 operand or out_dtype) are not differentiated: the '
+             'backward runs in the signal\'s dtype (ROADMAP.md §1 item 6, '
+             'the bf16 modes under autograd); call it without them, or '
+             'under torch.no_grad()')
 _NARROW = (torch.bfloat16, torch.float16)
 
 

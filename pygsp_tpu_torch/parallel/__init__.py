@@ -41,6 +41,15 @@ How ``shard_map`` translates to PyTorch:
 - **What stays the JAX package's.** Its chunk-carried tuples
   (``_chunkcarried_scan``) are XLA's memory device; the port runs the
   recurrence on whole tensors and sums the same terms.
+- **Under autograd** the bank, the synthesis and the matvec of both
+  engines are autograd Functions: the forward is the engine's own, the
+  backward runs engine calls of its own through the same exchanges
+  (x̄ the synthesis of the cotangent, ȳ the bank of it, c̄ one more
+  recurrence summed over the mesh, so every rank holds the whole c̄, as
+  ``jax.grad`` gives a replicated ``c``). λ̄ and the partition's
+  cotangents are not taken: a λmax or partition tensor that requires
+  grad raises, as do the bf16 modes and an exchange given a tensor that
+  requires grad.
 - **Its schedules are the port's.** Each exchange is posted before the
   fold that does not read it and waited for after: the 1-D halo under the
   interior fold of the split layouts, the 2-D ring's row shifts under

@@ -23,6 +23,13 @@ this rank's place in the grid. The collectives translate as:
 - ``psum_scatter(tiled=True)`` → :func:`psum_scatter`
   (``reduce_scatter_tensor``).
 
+The exchanges are invisible to autograd: a received tensor has no history,
+so a cotangent would never return to the rank that sent it. Under grad
+mode :func:`ppermute_post`, :func:`ppermute_chain_post`, :func:`all_gather`
+and :func:`psum_scatter` refuse a tensor that requires grad; the engines
+differentiate through autograd Functions whose forward and backward run
+their exchanges with grad mode off.
+
 Without a process group a mesh (of one rank) issues no collective, as the
 JAX package skips its ``ppermute`` when there is one shard; with one,
 :func:`psum` runs its ``all_reduce`` on an axis of one rank too. Backends:
@@ -163,6 +170,18 @@ class Exchange:
         self.works, self.recvs, self.keep, self.then = works, recvs, keep, then
 
 
+def _refuse_grad(name: str, *tensors):
+    """Raise where grad mode is on and a tensor to send requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f'{name}: a tensor it sends requires grad, and the exchange is '
+            f'invisible to autograd (its cotangent would not return to this '
+            f'rank). Differentiate through the engines (sharded_cheby_op, '
+            f'sharded_cheby_synthesis, sharded_matvec, cheby_op_2d, '
+            f'cheby_synthesis_2d, matvec_2d), whose backward runs exchanges '
+            f'of its own, or call it under torch.no_grad()')
+
+
 def _post(mesh: Mesh, name: str, sends, recvs=None) -> Exchange:
     out, ops, keep = [], [], []
     for i, (shift, t) in enumerate(sends):
@@ -194,11 +213,13 @@ def ppermute_post(mesh: Mesh, name: str, sends) -> Exchange:
     ahead, and the one ``shift`` behind sends this rank its own. All the
     exchanges are posted at once, in ``sends`` order; one whose peer is
     this rank posts nothing. Returns the handle that
-    :func:`ppermute_wait` takes.
+    :func:`ppermute_wait` takes. Under grad mode a tensor that requires
+    grad raises ``RuntimeError``.
 
     On NCCL the transfers run on NCCL's stream once the current stream's
     work so far is done, so what the caller enqueues after the post and
     before the wait runs under them. On gloo they run on gloo's threads."""
+    _refuse_grad('ppermute_post', *(t for _, t in sends))
     return _post(mesh, name, sends)
 
 
@@ -217,7 +238,9 @@ def ppermute_chain_post(mesh: Mesh, name: str, t: torch.Tensor,
     whole chain, and no link waits for it. The wait makes the current
     stream wait for the side stream. On the CPU (gloo, whose waits block
     the host) link 0 is posted now and each later one at the wait, once
-    the buffer it sends has arrived."""
+    the buffer it sends has arrived. Under grad mode a ``t`` that requires
+    grad raises ``RuntimeError``."""
+    _refuse_grad('ppermute_chain_post', t)
     if links == 0 or mesh.shape[name] == 1:
         return Exchange([], [t] * links)
     recvs = [torch.empty_like(t) for _ in range(links)]
@@ -276,7 +299,9 @@ def psum(mesh: Mesh, names, t: torch.Tensor) -> torch.Tensor:
 
 def all_gather(mesh: Mesh, name: str, t: torch.Tensor) -> torch.Tensor:
     """``all_gather(tiled=True)`` along axis ``name``: the ranks' tensors
-    concatenated along dim 0 in axis order."""
+    concatenated along dim 0 in axis order. Under grad mode a ``t`` that
+    requires grad raises ``RuntimeError``."""
+    _refuse_grad('all_gather', t)
     n = mesh.shape[name]
     if n == 1:
         return t
@@ -291,7 +316,9 @@ def all_gather(mesh: Mesh, name: str, t: torch.Tensor) -> torch.Tensor:
 
 def psum_scatter(mesh: Mesh, name: str, t: torch.Tensor) -> torch.Tensor:
     """``psum_scatter(scatter_dimension=0, tiled=True)`` along axis
-    ``name``: the sum over the axis, this rank's dim-0 block of it."""
+    ``name``: the sum over the axis, this rank's dim-0 block of it. Under
+    grad mode a ``t`` that requires grad raises ``RuntimeError``."""
+    _refuse_grad('psum_scatter', t)
     n = mesh.shape[name]
     if n == 1:
         return t

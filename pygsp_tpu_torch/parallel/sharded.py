@@ -20,6 +20,20 @@ Counterpart of :mod:`pygsp_tpu.parallel.sharded`. Per SpMM step each rank
    once;
 3. adds the diagonal term, in the fused step kernel (kernel B).
 
+Under autograd (grad mode on, ``c`` or the signal requiring grad) the bank,
+the synthesis and the matvec go through autograd Functions (:class:`_Bank`,
+:class:`_Synthesis`, :class:`_Matvec`, which the 2-D engine shares): the
+forward is the engine's own, unrecorded, so that on the card the kernels
+launch as they do without autograd; the backward runs fresh engine calls
+of its own, through the same exchanges: the bank's x̄ is the synthesis of
+its cotangent and the synthesis's ȳ the bank of its cotangent (the shifted
+operator is symmetric), and c̄ is one more recurrence whose dots are summed
+over the mesh (``psum``), so that every rank holds the whole c̄, as
+``jax.grad`` gives each device of a ``shard_map`` with ``c`` replicated.
+What autograd cannot reach raises ``ValueError``: a bf16 mode (ROADMAP.md
+§1 item 6), a λmax tensor or a partition tensor that requires grad (§1
+item 7).
+
 The recurrence is the single-device one (:mod:`pygsp_tpu_torch.ops.
 chebyshev`): kernel B's ``cheby_step`` a step and ``cheby_acc_group``
 once per group of terms, the group chosen by the JAX package's sharded
@@ -43,6 +57,7 @@ import torch
 
 from pygsp_tpu_torch.core import cheby_kernel, windowed
 from pygsp_tpu_torch.core import sparse as sp
+from pygsp_tpu_torch.core.sparse import BF16_GRAD
 from pygsp_tpu_torch.ops.chebyshev import (_MAX_GROUP, _check_carry_budget,
                                            _grouped_steps)
 from pygsp_tpu_torch.parallel.mesh import (Mesh, ppermute_post,
@@ -58,6 +73,48 @@ def make_mesh(n_graph: int, n_batch: int = 1, devices=None) -> Mesh:
     one for this rank; by default the card ``rank % device_count``. With
     no process group, ``make_mesh(1, 1)`` is a one-rank mesh."""
     return Mesh({'graph': n_graph, 'batch': n_batch}, devices)
+
+
+# what the engines do not differentiate: ROADMAP.md §1 item 7
+ENGINE_GRAD = ('{}: {} requires grad, and the engines differentiate with '
+               'respect to c and the signal only (ROADMAP.md §1 item 7, λ̄ '
+               'and the partition\'s cotangents on the engines); detach it, '
+               'or call the engine under torch.no_grad()')
+
+
+def _tensors(obj):
+    """Every tensor of a partition or a layout: a tensor, a tuple's items
+    and a dataclass's fields, recursively."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, tuple):
+        for item in obj:
+            yield from _tensors(item)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+
+
+def _records(name: str, inputs, lmax=None, parts=(),
+             narrow: bool = False) -> bool:
+    """Whether autograd records the engine call ``name``: grad mode is on
+    and one of ``inputs`` (``c``, the signal) requires grad. Where grad
+    mode is on it raises ``ValueError`` for what the engines' Functions
+    would leave out: a λmax tensor or a tensor of the partition or its
+    layout (``parts``) that requires grad (ROADMAP.md §1 item 7), and,
+    where it records, a bf16 mode (``narrow``; §1 item 6)."""
+    if not torch.is_grad_enabled():
+        return False
+    if getattr(lmax, 'requires_grad', False):
+        raise ValueError(ENGINE_GRAD.format(name, 'λmax'))
+    if any(t.requires_grad for t in _tensors(parts)):
+        raise ValueError(ENGINE_GRAD.format(
+            name, 'a tensor of the partition or its layout'))
+    if not any(t.requires_grad for t in inputs):
+        return False
+    if narrow:
+        raise ValueError(BF16_GRAD.format(name))
+    return True
 
 
 def _leaf(t: torch.Tensor, s: int) -> torch.Tensor:
@@ -120,7 +177,21 @@ def _product(mat, x, out_dtype):
     return sp.spmm(mat, x, out_dtype=out_dtype)
 
 
-class _Shard:
+class _Side:
+    """One rank's side of an engine's operator: ``diag`` (its slice of the
+    diagonal), ``product(t, out_dtype)`` (the off-diagonal times the
+    distributed ``t``, exchanges included), ``mesh``, ``ell`` (the local
+    layout) and ``n_devices``; what the recurrence and the Functions
+    take."""
+
+    def group(self, x, nf: int, cdt=None) -> int:
+        """The accumulator group of a recurrence on ``x`` with ``nf``
+        (n, ...) blocks held beside its terms
+        (:func:`_sharded_acc_group`)."""
+        return _sharded_acc_group(x, nf, self.ell, cdt, self.n_devices)
+
+
+class _Shard(_Side):
     """One rank's side of the 1-D operator (the JAX package's
     ``_local_matvec``): its diagonal, and the off-diagonal product of its
     rows with the halo exchange, in the four branches of the local
@@ -132,6 +203,7 @@ class _Shard:
                              f") must equal the partition's shards "
                              f'({sg.n_shards})')
         self.sg, self.mesh, self.ell = sg, mesh, ell
+        self.n_devices = sg.n_shards
         s = self.s = mesh.index('graph')
         self.diag = _leaf(sg.diag, s)
         self.send = _cached(sg, ('send', s), lambda: [
@@ -180,17 +252,25 @@ class _Shard:
         return y.reshape(shape)
 
 
+def _matvec(side: _Side, x):
+    """``L @ x`` on a rank's side of an engine, ``x`` in the promoted
+    dtype."""
+    d = side.diag.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+    return d * x + side.product(x, x.dtype)
+
+
 def sharded_matvec(sg: ShardedGraph, x, mesh: Mesh, ell=None):
     """``L @ x`` for this rank's slice ``x`` (``n_local`` rows, its column
     block on a batch-sharded mesh). Pass ``ell = shard_local_ell(sg)`` or
     a windowed layout to take their kernels; without, kernel A runs on the
-    shard's CSR."""
+    shard's CSR. Under autograd x̄ is the matvec of the cotangent
+    (:class:`_Matvec`)."""
     x = torch.as_tensor(x)
     sh = _Shard(sg, mesh, ell)
-    pdt = torch.promote_types(x.dtype, sg.dtype)
-    x = x.to(pdt)
-    d = sh.diag.to(pdt).reshape((-1,) + (1,) * (x.ndim - 1))
-    return d * x + sh.product(x, pdt)
+    x = x.to(torch.promote_types(x.dtype, sg.dtype))
+    if _records('sharded_matvec', (x,), parts=(sg, ell)):
+        return _Matvec.apply(sh, x)
+    return _matvec(sh, x)
 
 
 # ---------------------------------------------------------------------------
@@ -200,14 +280,8 @@ def sharded_matvec(sg: ShardedGraph, x, mesh: Mesh, ell=None):
 def _layout_bytes(ell) -> int:
     """Bytes of one shard of a layout (its stacked tensors over their
     shard axis)."""
-    if isinstance(ell, tuple):
-        return sum(_layout_bytes(e) for e in ell)
-    if isinstance(ell, torch.Tensor):
-        return ell.nbytes // max(ell.shape[0], 1) if ell.ndim else 0
-    if dataclasses.is_dataclass(ell):
-        return sum(_layout_bytes(getattr(ell, f.name))
-                   for f in dataclasses.fields(ell))
-    return 0
+    return sum(t.nbytes // max(t.shape[0], 1) for t in _tensors(ell)
+               if t.ndim)
 
 
 def _sharded_acc_group(x, nf, ell, cdt, n_shards):
@@ -329,11 +403,18 @@ def sharded_cheby_op(sg: ShardedGraph, lmax, c, x, mesh: Mesh, ell=None,
     term and the accumulators stay in the signal's dtype. Gated by
     :func:`~pygsp_tpu_torch.ops.chebyshev.carry_error_estimate` against
     ``carry_tol``.
+
+    Under autograd the bank differentiates with respect to ``c`` and
+    ``x`` (:class:`_Bank`, a constant-memory backward); every rank gets
+    the whole c̄.
     """
     c, x, cdt = _prepare(c, x, sg.dtype, carry_dtype, carry_tol)
     sh = _Shard(sg, mesh, ell)
-    g = _sharded_acc_group(x, c.shape[0], ell, cdt, sg.n_shards)
-    return _analysis(sh.product, sh.diag, float(lmax), c, x, cdt, g)
+    if _records('sharded_cheby_op', (c, x), lmax, (sg, ell),
+                cdt is not None):
+        return _Bank.apply(sh, float(lmax), _axes_1d(x.ndim), c, x)
+    return _analysis(sh.product, sh.diag, float(lmax), c, x, cdt,
+                     sh.group(x, c.shape[0], cdt))
 
 
 def sharded_cheby_synthesis(sg: ShardedGraph, lmax, c, y, mesh: Mesh,
@@ -343,7 +424,9 @@ def sharded_cheby_synthesis(sg: ShardedGraph, lmax, c, y, mesh: Mesh,
     ``c``: (Nf, m+1); ``y``: this rank's slice (n_local, ..., Nf), feature
     axis last. Returns ``Σ_f Σ_k c[f,k] T̃_k(L) y[..., f]`` of shape
     (n_local, ...), the recurrence running Nf× wide through the halo
-    exchange. ``carry_dtype``: as in :func:`sharded_cheby_op`.
+    exchange. ``carry_dtype``: as in :func:`sharded_cheby_op`. Under
+    autograd it differentiates with respect to ``c`` and ``y``
+    (:class:`_Synthesis`).
     """
     y = torch.as_tensor(y)
     nf = torch.atleast_2d(torch.as_tensor(c)).shape[0]
@@ -352,52 +435,111 @@ def sharded_cheby_synthesis(sg: ShardedGraph, lmax, c, y, mesh: Mesh,
                          f'number of filters ({nf})')
     c, y, cdt = _prepare(c, y, sg.dtype, carry_dtype, carry_tol)
     sh = _Shard(sg, mesh, ell)
+    if _records('sharded_cheby_synthesis', (c, y), lmax, (sg, ell),
+                cdt is not None):
+        return _Synthesis.apply(sh, float(lmax), _axes_1d(y.ndim - 1), c, y)
     return _synthesis(sh.product, sh.diag, float(lmax), c, y, cdt)
 
 
 def sharded_cheby_op_fixed_graph(sg: ShardedGraph, lmax, c, x, mesh: Mesh,
                                  ell=None):
-    """:func:`sharded_cheby_op` with a constant-memory backward: the bank
-    is linear in ``c`` and ``x``, so the backward is two fresh sharded
-    recurrences, the adjoint synthesis for x̄ (the shifted operator is
-    symmetric) and a term-contraction pass for c̄, whose dots
-    (``cheby_dot_group``) are summed by an ``all_reduce`` over 'graph',
-    and over 'batch' when the batch is sharded. Gradients flow to ``c``
-    and ``x`` only."""
-    return _ShardedFixedGraph.apply(sg, mesh, ell, lmax,
-                                    torch.as_tensor(c), x)
+    """:func:`sharded_cheby_op` with a constant-memory backward, as the
+    bank itself differentiates (:class:`_Bank`): the adjoint synthesis for
+    x̄ (the shifted operator is symmetric) and a term-contraction pass for
+    c̄, whose dots (``cheby_dot_group``) are summed by an ``all_reduce``
+    over 'graph', and over 'batch' when the batch is sharded. Gradients
+    flow to ``c`` and ``x`` only."""
+    return sharded_cheby_op(sg, lmax, c, x, mesh, ell=ell)
 
 
-class _ShardedFixedGraph(torch.autograd.Function):
-    """The context keeps the partition, λmax, c and x, nothing of the
-    recurrence."""
+# ---------------------------------------------------------------------------
+# the engines under autograd (both engines: ``side`` is a rank's _Side)
+# ---------------------------------------------------------------------------
+
+def _axes_1d(ndim: int) -> tuple:
+    """The 1-D mesh's axes that c̄'s dots are summed over for a signal of
+    ``ndim`` dimensions (without the filter axis): 'batch' too where the
+    signal has columns to shard."""
+    return ('graph', 'batch') if ndim > 1 else ('graph',)
+
+
+def _cbar(side: _Side, lmax: float, axes, m1: int, t, gin):
+    """``c̄ (Nf, m1)``, ``c̄[f, k] = ⟨T̃_k t, gin[..., f]⟩`` (0.5 at k = 0)
+    summed over the mesh's ``axes``: one recurrence on ``t`` with the
+    (n, ..., Nf) block ``gin`` and the backward's cotangent held beside
+    its terms."""
+    nf = gin.shape[-1]
+    return _coeff_grads(side.product, side.diag, lmax, m1, t, gin,
+                        side.group(t, 2 * nf + 1),
+                        lambda v: psum(side.mesh, axes, v))
+
+
+class _Bank(torch.autograd.Function):
+    """The engines' bank under autograd, with respect to ``c`` (Nf, m+1)
+    and ``x`` (``sharded_cheby_op``, ``cheby_op_2d`` and their fixed-graph
+    VJPs). The context keeps the side, λmax, c and x, nothing of the
+    recurrence. Backward: x̄ the synthesis of the cotangent ḡ (moved to
+    the last axis), c̄ the dots of x's terms with ḡ summed over ``axes``."""
 
     @staticmethod
-    def forward(ctx, sg, mesh, ell, lmax, c, x):
-        ctx.sg, ctx.mesh, ctx.ell, ctx.lmax = sg, mesh, ell, lmax
+    def forward(ctx, side, lmax, axes, c, x):
+        ctx.side, ctx.lmax, ctx.axes = side, lmax, axes
         ctx.save_for_backward(c, x)
-        return sharded_cheby_op(sg, lmax, c, x, mesh, ell=ell)
+        return _analysis(side.product, side.diag, lmax, c, x, None,
+                         side.group(x, c.shape[0]))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
         c, x = ctx.saved_tensors
-        sg, mesh, ell = ctx.sg, ctx.mesh, ctx.ell
-        c2 = torch.atleast_2d(c)
-        pdt = torch.promote_types(x.dtype, sg.dtype)
-        gin = gout.to(pdt).movedim(0, -1).contiguous()
+        side, lmax = ctx.side, ctx.lmax
+        gin = gout.movedim(0, -1).contiguous()
         c_bar = x_bar = None
-        if ctx.needs_input_grad[5]:
-            x_bar = sharded_cheby_synthesis(sg, ctx.lmax, c2, gin, mesh,
-                                            ell=ell).to(x.dtype)
         if ctx.needs_input_grad[4]:
-            sh = _Shard(sg, mesh, ell)
-            xp = x.to(pdt).contiguous()
-            axes = ('graph', 'batch') if x.ndim > 1 else ('graph',)
-            c_bar = _coeff_grads(sh.product, sh.diag, float(ctx.lmax),
-                                 c2.shape[1], xp, gin,
-                                 _sharded_acc_group(xp, c2.shape[0], ell,
-                                                    None, sg.n_shards),
-                                 lambda t: psum(mesh, axes, t))
-            c_bar = c_bar.to(c).reshape(c.shape)
-        return None, None, None, None, c_bar, x_bar
+            x_bar = _synthesis(side.product, side.diag, lmax, c, gin, None)
+        if ctx.needs_input_grad[3]:
+            c_bar = _cbar(side, lmax, ctx.axes, c.shape[1], x, gin)
+        return None, None, None, c_bar, x_bar
+
+
+class _Synthesis(torch.autograd.Function):
+    """The engines' synthesis under autograd, with respect to ``c`` and
+    ``y`` (n, ..., Nf). The context keeps the side, λmax, c and y.
+    Backward: ȳ the bank of the cotangent s̄ (filter axis moved last), c̄
+    the dots of s̄'s terms with y summed over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, side, lmax, axes, c, y):
+        ctx.side, ctx.lmax, ctx.axes = side, lmax, axes
+        ctx.save_for_backward(c, y)
+        return _synthesis(side.product, side.diag, lmax, c, y, None)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        c, y = ctx.saved_tensors
+        side, lmax = ctx.side, ctx.lmax
+        sbar = gout.contiguous()
+        c_bar = y_bar = None
+        if ctx.needs_input_grad[3]:
+            c_bar = _cbar(side, lmax, ctx.axes, c.shape[1], sbar, y)
+        if ctx.needs_input_grad[4]:
+            nf = c.shape[0]
+            y_bar = _analysis(side.product, side.diag, lmax, c, sbar, None,
+                              side.group(sbar, 2 * nf + 1)).movedim(0, -1)
+        return None, None, None, c_bar, y_bar
+
+
+class _Matvec(torch.autograd.Function):
+    """The engines' ``L @ x`` under autograd: x̄ is the matvec of the
+    cotangent (L is symmetric)."""
+
+    @staticmethod
+    def forward(ctx, side, x):
+        ctx.side = side
+        return _matvec(side, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        return None, _matvec(ctx.side, gout.contiguous())

@@ -57,15 +57,16 @@ from pygsp_tpu_torch.core.chunked import _tensor
 from pygsp_tpu_torch.parallel.mesh import (Mesh, all_gather,
                                            ppermute_chain_post,
                                            ppermute_post, ppermute_wait,
-                                           psum, psum_scatter, scope)
+                                           psum_scatter, scope)
 from pygsp_tpu_torch.parallel.partition import (_cached, _host,
                                                 _laplacian_entries,
                                                 _np_dtype, _round_up,
                                                 cluster_shards)
-from pygsp_tpu_torch.parallel.sharded import (_analysis, _coeff_grads,
-                                              _leaf, _local_windowed,
-                                              _prepare, _product,
-                                              _sharded_acc_group, _synthesis)
+from pygsp_tpu_torch.parallel.sharded import (_Bank, _Matvec, _Side,
+                                              _Synthesis, _analysis, _leaf,
+                                              _local_windowed, _matvec,
+                                              _prepare, _product, _records,
+                                              _synthesis)
 from pygsp_tpu_torch.parallel.windowed_shards import _build
 from pygsp_tpu_torch.utils import check_device
 
@@ -377,7 +378,7 @@ def _csr_block(tg: TwoDGraph, d: int) -> sp.CSRMatrix:
     return _cached(tg, ('csr', d), build)
 
 
-class _Device2D:
+class _Device2D(_Side):
     """One rank's side of the 2-D operator: its diagonal and the
     off-diagonal product of its slice (the JAX package's ``_matvec_2d``,
     and with a ring layout ``_ring_body_setup``'s ``offdiag_apply``: the
@@ -388,7 +389,8 @@ class _Device2D:
         if (mesh.shape.get('row'), mesh.shape.get('col')) != (tg.pr, tg.pc):
             raise ValueError(f"the mesh's ('row', 'col') shape must be "
                              f'({tg.pr}, {tg.pc}), got {mesh.shape}')
-        self.tg, self.mesh, self.sdt = tg, mesh, sdt
+        self.tg, self.mesh, self.ell, self.sdt = tg, mesh, ell, sdt
+        self.n_devices = tg.n_devices
         d = self.d = mesh.index('row') * tg.pc + mesh.index('col')
         self.diag = _leaf(tg.diag, d)
         self.ring = isinstance(ell, tuple)
@@ -512,16 +514,21 @@ def _fold(group, srcs, dt):
     return spmm_multi_internal(mats, srcs, residue, out_dtype=dt)
 
 
+# the 2-D mesh's axes, over which c̄'s dots are summed
+AXES_2D = ('row', 'col')
+
+
 def matvec_2d(tg: TwoDGraph, x, mesh: Mesh, ell=None):
     """``L @ x`` for this rank's slice ``x`` (n_local, ...). Pass ``ell =
     twod_local_windowed(tg)`` (or a ring layout) to take kernels D and E;
-    without, kernel A runs on the block's CSR."""
+    without, kernel A runs on the block's CSR. Under autograd x̄ is the
+    matvec of the cotangent."""
     x = torch.as_tensor(x)
     dv = _Device2D(tg, mesh, ell)
-    pdt = torch.promote_types(x.dtype, tg.dtype)
-    x = x.to(pdt)
-    d = dv.diag.to(pdt).reshape((-1,) + (1,) * (x.ndim - 1))
-    return d * x + dv.product(x, pdt)
+    x = x.to(torch.promote_types(x.dtype, tg.dtype))
+    if _records('matvec_2d', (x,), parts=(tg, ell)):
+        return _Matvec.apply(dv, x)
+    return _matvec(dv, x)
 
 
 def cheby_op_2d(tg: TwoDGraph, lmax, c, x, mesh: Mesh, ell=None,
@@ -535,15 +542,20 @@ def cheby_op_2d(tg: TwoDGraph, lmax, c, x, mesh: Mesh, ell=None,
     by the single-device bound. ``scatter_dtype`` (ring layouts only): the
     dtype of the 'col' reduction's partial products on the wire; without
     it they move in the dtype the fold emits (the carry's, as in the JAX
-    package).
+    package). Under autograd the bank differentiates with respect to ``c``
+    and ``x`` on every layout (the engines' ``_Bank``, c̄ summed over both
+    mesh axes).
     """
     c, x, cdt = _prepare(c, x, tg.dtype, carry_dtype, carry_tol)
     if scatter_dtype is not None and not isinstance(ell, tuple):
         raise ValueError('scatter_dtype requires the ring layout '
                          '(twod_local_windowed(ring=True))')
     dv = _Device2D(tg, mesh, ell, scatter_dtype)
-    g = _sharded_acc_group(x, c.shape[0], ell, cdt, tg.n_devices)
-    return _analysis(dv.product, dv.diag, float(lmax), c, x, cdt, g)
+    if _records('cheby_op_2d', (c, x), lmax, (tg, ell),
+                cdt is not None or scatter_dtype is not None):
+        return _Bank.apply(dv, float(lmax), AXES_2D, c, x)
+    return _analysis(dv.product, dv.diag, float(lmax), c, x, cdt,
+                     dv.group(x, c.shape[0], cdt))
 
 
 def cheby_synthesis_2d(tg: TwoDGraph, lmax, c, y, mesh: Mesh, ell=None,
@@ -552,7 +564,8 @@ def cheby_synthesis_2d(tg: TwoDGraph, lmax, c, y, mesh: Mesh, ell=None,
     """Synthesis on the 2-D edge partition: ``c`` (Nf, m+1), ``y`` this
     rank's slice (n_local, ..., Nf); returns (n_local, ...). The adjoint of
     :func:`cheby_op_2d` (the shifted operator is symmetric). Requires a ring
-    layout (``twod_local_windowed(ring=True[, split_cols=True])``)."""
+    layout (``twod_local_windowed(ring=True[, split_cols=True])``). Under
+    autograd it differentiates with respect to ``c`` and ``y``."""
     y = torch.as_tensor(y)
     nf = torch.atleast_2d(torch.as_tensor(c)).shape[0]
     if y.shape[-1] != nf:
@@ -563,50 +576,20 @@ def cheby_synthesis_2d(tg: TwoDGraph, lmax, c, y, mesh: Mesh, ell=None,
                          '(twod_local_windowed(ring=True))')
     c, y, cdt = _prepare(c, y, tg.dtype, carry_dtype, carry_tol)
     dv = _Device2D(tg, mesh, ell, scatter_dtype)
+    if _records('cheby_synthesis_2d', (c, y), lmax, (tg, ell),
+                cdt is not None or scatter_dtype is not None):
+        return _Synthesis.apply(dv, float(lmax), AXES_2D, c, y)
     return _synthesis(dv.product, dv.diag, float(lmax), c, y, cdt)
 
 
 def cheby_op_2d_fixed_graph(tg: TwoDGraph, lmax, c, x, mesh: Mesh,
                             ell=None):
-    """:func:`cheby_op_2d` with a constant-memory backward: x̄ by
-    :func:`cheby_synthesis_2d` of the cotangent, c̄ by one ring recurrence
-    on x whose dots (``cheby_dot_group``) are summed by an ``all_reduce``
-    over both mesh axes. Gradients flow to ``c`` and ``x`` only. Requires
-    a ring layout."""
+    """:func:`cheby_op_2d` with a constant-memory backward, as the bank
+    itself differentiates: x̄ by the synthesis of the cotangent, c̄ by one
+    ring recurrence on x whose dots (``cheby_dot_group``) are summed by an
+    ``all_reduce`` over both mesh axes. Gradients flow to ``c`` and ``x``
+    only. Requires a ring layout, as the JAX package's does."""
     if not isinstance(ell, tuple):
         raise ValueError('cheby_op_2d_fixed_graph requires a ring layout '
                          '(twod_local_windowed(ring=True))')
-    return _FixedGraph2D.apply(tg, mesh, ell, lmax, torch.as_tensor(c), x)
-
-
-class _FixedGraph2D(torch.autograd.Function):
-
-    @staticmethod
-    def forward(ctx, tg, mesh, ell, lmax, c, x):
-        ctx.tg, ctx.mesh, ctx.ell, ctx.lmax = tg, mesh, ell, lmax
-        ctx.save_for_backward(c, x)
-        return cheby_op_2d(tg, lmax, c, x, mesh, ell=ell)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, gout):
-        c, x = ctx.saved_tensors
-        tg, mesh, ell = ctx.tg, ctx.mesh, ctx.ell
-        c2 = torch.atleast_2d(c)
-        pdt = torch.promote_types(x.dtype, tg.dtype)
-        gin = gout.to(pdt).movedim(0, -1).contiguous()
-        c_bar = x_bar = None
-        if ctx.needs_input_grad[5]:
-            x_bar = cheby_synthesis_2d(tg, ctx.lmax, c2, gin, mesh,
-                                       ell=ell).to(x.dtype)
-        if ctx.needs_input_grad[4]:
-            dv = _Device2D(tg, mesh, ell)
-            xp = x.to(pdt).contiguous()
-            c_bar = _coeff_grads(dv.product, dv.diag, float(ctx.lmax),
-                                 c2.shape[1], xp, gin,
-                                 _sharded_acc_group(xp, c2.shape[0], ell,
-                                                    None, tg.n_devices),
-                                 lambda t: psum(mesh, ('row', 'col'), t))
-            c_bar = c_bar.to(c).reshape(c.shape)
-        return None, None, None, None, c_bar, x_bar
-
+    return cheby_op_2d(tg, lmax, c, x, mesh, ell=ell)

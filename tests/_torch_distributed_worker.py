@@ -6,9 +6,12 @@ group through a file under the work dir, reads the problem the test wrote
 (``problem.npz``: the adjacency, x, c, λmax), runs every engine
 configuration of its world size on its slice of the signal, and writes its
 slices, with what places them, and the kernel launches of its matvec to
-``rank<r>.npz``. A fourth argument
-``cuda`` runs it on the rank's card with NCCL instead
-(``tools/engines_multicard.py``). It imports torch and the port only.
+``rank<r>.npz``. A further argument ``cuda`` runs it on the rank's card
+with NCCL instead (``tools/engines_multicard.py``); ``grad`` runs the
+engines under autograd instead (:func:`grad_results`, the problem then
+holding the coefficients of each of :data:`GRAD_ORDERS` and the
+cotangents; ``tests/test_torch_engine_grad.py``). It imports torch and
+the port only.
 """
 
 import os
@@ -50,6 +53,26 @@ VJP = {'1d_coo', '1d_win_split', '1d_batch_win_split', '2d_ring_split',
        '2d_ring_split_41', '2d_mono_split'}
 
 
+# the grad mode: the orders at which each configuration differentiates,
+# and the configurations of one rank (a (1, 1) mesh with no process group,
+# run in the test's own process)
+GRAD_ORDERS = (12, 30)
+GRAD_ONE = [('1d_coo', '1d', (1, 1), 'coo'),
+            ('1d_ell', '1d', (1, 1), 'ell'),
+            ('1d_ell_split', '1d', (1, 1), 'ell_split'),
+            ('1d_win', '1d', (1, 1), 'win'),
+            ('1d_win_split', '1d', (1, 1), 'win_split'),
+            ('2d_coo', '2d', (1, 1), 'coo'),
+            ('2d_win', '2d', (1, 1), 'win'),
+            ('2d_ring_split', '2d', (1, 1), 'ring_split')]
+
+
+def has_synthesis(kind, layout):
+    """Whether a configuration's engine has a public synthesis: the 1-D
+    engine, and the 2-D one on its ring layouts."""
+    return kind == '1d' or layout.startswith(('ring', 'mono'))
+
+
 # the kernels whose launches each configuration's matvec records (one
 # product: on the card at pr > 1, the fused SpMM twice at fold position 0,
 # ring step 0 alone under the row shifts and steps 1..pr-1 after them, and
@@ -83,10 +106,11 @@ def layout_2d(par, tg, name):
                                    split_cols=name.endswith('split'))
 
 
-def assemble(parts, name, key):
+def assemble(parts, name, key, padded=False):
     """The ranks' slices of ``key`` (from their ``rank<r>.npz``) placed in
     the padded signal and taken back to the original vertex order (vertex
-    axis 1 for a bank)."""
+    axis 1 for a bank); with ``padded`` the padded signal itself. Axes
+    after the columns (a synthesis's filter axis) come along."""
     bank = key in ('fwd', 'bf16')
     perm = parts[0][f'{name}__perm']
     first = parts[0][f'{name}__{key}']
@@ -94,7 +118,8 @@ def assemble(parts, name, key):
     n_parts = 1 + max(int(p[f'{name}__place'][0]) for p in parts)
     n_blocks = 1 + max(int(p[f'{name}__place'][1]) for p in parts)
     shape = (n_parts * n_local, n_blocks * cols)
-    out = np.zeros((first.shape[0],) + shape if bank else shape)
+    out = np.zeros((first.shape[0],) + shape if bank
+                   else shape + first.shape[2:])
     for p in parts:
         part, block = (int(v) for v in p[f'{name}__place'][:2])
         rows = slice(part * n_local, (part + 1) * n_local)
@@ -103,6 +128,8 @@ def assemble(parts, name, key):
             out[:, rows, cs] = p[f'{name}__{key}']
         else:
             out[rows, cs] = p[f'{name}__{key}']
+    if padded:
+        return out
     return out[:, perm] if bank else out[perm]
 
 
@@ -114,58 +141,65 @@ def launch_counts():
     return np.array([getattr(wk, k).launches for k in LAUNCHED])
 
 
-def run(rank, world, work, device='cpu'):
-    from pygsp_tpu_torch import parallel as par
-    from pygsp_tpu_torch.parallel.mesh import _default_device
+def configure(par, W, x, kind, shape, layout, dev):
+    """One configuration on this rank: ``(mesh, partition, layout,
+    engines, place, local)``; ``place`` is ``[part, block, n_local,
+    cols]`` (what :func:`assemble` reads) and ``local(a)`` this rank's
+    slice of a vertex-first array (N, S, ...) of the original order."""
+    a, b = shape
+    if kind == '1d':
+        mesh = par.make_mesh(a, b, devices=dev)
+        sg = par.partition_graph(W, a, dtype=np.float64, device=dev)
+        ell = layout_1d(par, sg, layout)
+        part, block = mesh.index('graph'), mesh.index('batch')
+        if b > 1:      # this rank's own shard only, as a launch keeps it
+            sg = par.put_sharded_graph(sg, mesh)
+        engines = dict(op=par.sharded_cheby_op,
+                       syn=par.sharded_cheby_synthesis,
+                       fg=par.sharded_cheby_op_fixed_graph,
+                       mv=par.sharded_matvec)
+    else:
+        mesh = par.make_mesh_2d(a, b, devices=dev)
+        sg = par.partition_graph_2d(W, a, b, dtype=np.float64, device=dev)
+        ell = layout_2d(par, sg, layout)
+        part, block = mesh.rank, 0
+        engines = dict(op=par.cheby_op_2d, syn=par.cheby_synthesis_2d,
+                       fg=par.cheby_op_2d_fixed_graph, mv=par.matvec_2d)
+    n_local = sg.n_local
+    cols = x.shape[1] // (b if kind == '1d' else 1)
+    rows = slice(part * n_local, (part + 1) * n_local)
+    cs = slice(block * cols, (block + 1) * cols)
 
-    par.initialize(f'file://{os.path.join(work, "rendezvous")}', world,
-                   rank, device=device)
-    prob = np.load(os.path.join(work, 'problem.npz'))
-    W = sps.csr_matrix((prob['w_data'], prob['w_indices'],
-                        prob['w_indptr']))
-    dev = _default_device(rank, device)          # this rank's device
+    def local(arr):
+        padded = sg.pad_signal(torch.as_tensor(arr, device=dev))
+        return padded[rows, cs].contiguous()
+
+    return (mesh, sg, ell, engines, np.array([part, block, n_local, cols]),
+            local)
+
+
+def engine_results(par, W, prob, configs, dev):
+    """Every configuration's bank, matvec (and its launches), synthesis,
+    bf16 modes and fixed-graph VJP on this rank."""
     x, c, lmax = prob['x'], torch.tensor(prob['c'], device=dev), \
         float(prob['lmax'])
-    nf, s_all = c.shape[0], x.shape[1]
+    nf = c.shape[0]
     out = {}
-    for name, kind, shape, layout in CONFIGS[world]:
+    for name, kind, shape, layout in configs:
         a, b = shape
-        if kind == '1d':
-            mesh = par.make_mesh(a, b, devices=dev)
-            sg = par.partition_graph(W, a, dtype=np.float64, device=dev)
-            ell = layout_1d(par, sg, layout)
-            g_idx, b_idx = mesh.index('graph'), mesh.index('batch')
-            if b > 1:      # this rank's own shard only, as a launch keeps it
-                sg = par.put_sharded_graph(sg, mesh)
-            part, block = g_idx, b_idx
-            n_local = sg.n_local
-            engines = dict(op=par.sharded_cheby_op,
-                           syn=par.sharded_cheby_synthesis,
-                           fg=par.sharded_cheby_op_fixed_graph,
-                           mv=par.sharded_matvec)
-        else:
-            mesh = par.make_mesh_2d(a, b, devices=dev)
-            sg = par.partition_graph_2d(W, a, b, dtype=np.float64,
-                                        device=dev)
-            ell = layout_2d(par, sg, layout)
-            part, block, n_local = mesh.rank, 0, sg.n_local
-            engines = dict(op=par.cheby_op_2d, syn=par.cheby_synthesis_2d,
-                           fg=par.cheby_op_2d_fixed_graph,
-                           mv=par.matvec_2d)
-        cols = s_all // (b if kind == '1d' else 1)
-        xp = sg.pad_signal(torch.tensor(x, device=dev))
-        xl = xp[part * n_local:(part + 1) * n_local,
-                block * cols:(block + 1) * cols].contiguous()
+        mesh, sg, ell, engines, place, local = configure(
+            par, W, x, kind, shape, layout, dev)
+        xl = local(x)
         key = f'{name}__'
         out[key + 'perm'] = sg.perm.cpu().numpy()
-        out[key + 'place'] = np.array([part, block, n_local, cols])
+        out[key + 'place'] = place
         out[key + 'fwd'] = engines['op'](sg, lmax, c, xl, mesh,
                                          ell=ell).cpu().numpy()
         before = launch_counts()
         out[key + 'mv'] = engines['mv'](sg, xl, mesh,
                                         ell=ell).cpu().numpy()
         out[key + 'launches'] = launch_counts() - before
-        if kind == '1d' or layout.startswith(('ring', 'mono')):
+        if has_synthesis(kind, layout):
             y = torch.stack([xl * (f + 1) for f in range(nf)], -1)
             out[key + 'syn'] = engines['syn'](sg, lmax, c, y, mesh,
                                               ell=ell).cpu().numpy()
@@ -188,18 +222,73 @@ def run(rank, world, work, device='cpu'):
             cg = c.clone().requires_grad_()
             xg = xl.clone().requires_grad_()
             bank = engines['fg'](sg, lmax, cg, xg, mesh, ell=ell)
-            gw = torch.tensor(prob['gout'], device=dev)
-            gl = sg.pad_signal(gw.movedim(0, 1)).movedim(1, 0)[
-                :, part * n_local:(part + 1) * n_local,
-                block * cols:(block + 1) * cols]
+            gl = local(np.moveaxis(prob['gout'], 0, -1)).movedim(-1, 0)
             (bank * gl).sum().backward()
             out[key + 'cbar'] = cg.grad.cpu().numpy()
             out[key + 'xbar'] = xg.grad.cpu().numpy()
+    return out
+
+
+def grad_results(par, W, prob, configs, dev):
+    """Every configuration's gradients on this rank, through the public
+    engines under autograd: at each order of :data:`GRAD_ORDERS` the
+    bank's c̄ and x̄ (``cbar<m>``, ``xbar<m>``) for the cotangent
+    ``gbank``, the synthesis's c̄ and ȳ (``syn_cbar<m>``, ``ybar<m>``) of
+    y = [x, 2x, ...] for ``gsyn``, and the matvec's x̄ (``mv_xbar``) for
+    ``gmv``. c̄ is this rank's, as autograd gives it (every rank the
+    whole c̄); x̄ and ȳ are its slices."""
+    x, lmax = prob['x'], float(prob['lmax'])
+    nf = prob[f'c{GRAD_ORDERS[0]}'].shape[0]
+    y = np.stack([x * (f + 1) for f in range(nf)], -1)
+    out = {}
+    for name, kind, shape, layout in configs:
+        mesh, sg, ell, engines, place, local = configure(
+            par, W, x, kind, shape, layout, dev)
+        key = f'{name}__'
+        out[key + 'perm'] = sg.perm.cpu().numpy()
+        out[key + 'place'] = place
+        xl, yl = local(x), local(y)
+        gbank = local(np.moveaxis(prob['gbank'], 0, -1)).movedim(-1, 0)
+        for m in GRAD_ORDERS:
+            c = torch.tensor(prob[f'c{m}'], device=dev)
+            cg, xg = c.clone().requires_grad_(), xl.clone().requires_grad_()
+            bank = engines['op'](sg, lmax, cg, xg, mesh, ell=ell)
+            grads = torch.autograd.grad(bank, (cg, xg), gbank)
+            out[f'{key}cbar{m}'], out[f'{key}xbar{m}'] = (
+                g.cpu().numpy() for g in grads)
+            if has_synthesis(kind, layout):
+                cg = c.clone().requires_grad_()
+                yg = yl.clone().requires_grad_()
+                s = engines['syn'](sg, lmax, cg, yg, mesh, ell=ell)
+                grads = torch.autograd.grad(s, (cg, yg), local(prob['gsyn']))
+                out[f'{key}syn_cbar{m}'], out[f'{key}ybar{m}'] = (
+                    g.cpu().numpy() for g in grads)
+        xg = xl.clone().requires_grad_()
+        (mv_xbar,) = torch.autograd.grad(engines['mv'](sg, xg, mesh, ell=ell),
+                                         (xg,), local(prob['gmv']))
+        out[key + 'mv_xbar'] = mv_xbar.cpu().numpy()
+    return out
+
+
+def run(rank, world, work, device='cpu', mode='engines'):
+    from pygsp_tpu_torch import parallel as par
+    from pygsp_tpu_torch.parallel.mesh import _default_device
+
+    par.initialize(f'file://{os.path.join(work, "rendezvous")}', world,
+                   rank, device=device)
+    prob = np.load(os.path.join(work, 'problem.npz'))
+    W = sps.csr_matrix((prob['w_data'], prob['w_indices'],
+                        prob['w_indptr']))
+    dev = _default_device(rank, device)          # this rank's device
+    results = grad_results if mode == 'grad' else engine_results
+    out = results(par, W, prob, CONFIGS[world], dev)
     np.savez(os.path.join(work, f'rank{rank}.npz'), **out)
     torch.distributed.destroy_process_group()
 
 
 if __name__ == '__main__':
     torch.set_num_threads(1)
+    flags = sys.argv[4:]
     run(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-        *sys.argv[4:5])
+        'cuda' if 'cuda' in flags else 'cpu',
+        'grad' if 'grad' in flags else 'engines')

@@ -64,6 +64,8 @@ load('engines_multicard', 'tools/engines_multicard.py')
 report('engines_tool')
 load('engines_scaling', 'tools/engines_scaling.py')
 report('scaling_tool')
+load('engines_grad_l5', 'tools/engines_grad_l5.py')
+report('engines_grad_tool')
 try:
     import pygsp_tpu
 except ImportError as err:
@@ -84,7 +86,8 @@ def isolated_run():
 
 @pytest.mark.parametrize('part', ['package', 'chip_smoke', 'profile_tool',
                                   'bench_torch', 'fold_tool', 'slot_tool',
-                                  'engines_tool', 'scaling_tool'])
+                                  'engines_tool', 'scaling_tool',
+                                  'engines_grad_tool'])
 def test_imports_neither_jax_nor_pygsp_tpu(isolated_run, part):
     parts, stderr = isolated_run
     assert part in parts, stderr
